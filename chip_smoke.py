@@ -11,17 +11,24 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
      plain PyTorch versions (on a CPU copy of the same inputs) at the shapes
      key generation gives them, with `torch.equal`;
   4. the main path: key generation from seed 0, 128 encryptions,
-     `tfhe_pbs_batch` with the identity LUT, decryption of all 128; the
-     kernels' launch counters are read around this run;
+     `tfhe_pbs_batch` with the identity LUT (its 1024 steps launched from
+     one C call, `tggsw.blind_rotate_steps`), decryption of all 128; the
+     kernels' launch counters are set to 0 just before this run and read
+     just after it;
   5. hold the step kernel against its plain version at batch 128 with the
-     real key, and the first 4 bootstraps against the whole plain path on
-     the CPU (bit-identical ciphertexts);
-  6. time the PBS and each kernel against its plain version with CUDA events.
+     real key (one step, and 4 steps through the C loop), and the first 4
+     bootstraps against the whole plain path on the CPU (bit-identical
+     ciphertexts);
+  6. time the PBS, the host enqueue of a batch, the blind rotation, the key
+     switch, the device's idle share (profiler), and each kernel against its
+     plain version and its bound with CUDA events.
 
-Every number is printed beside the card's name and power limit. The line
-before the last is {"kernels": [...]}; the last line is the contract line
-{"ok": true, "device": {...}}. Any failure exits non-zero without it, and so
-does a machine without a CUDA device.
+Every number is printed beside the card's name and power limit. Each
+kernel's bound is the larger of its bytes over the card's memory rate and
+its integer instructions over the SMs' issue rates (the cost model below).
+The line before the last is {"kernels": [...]}; the last line is the
+contract line {"ok": true, "device": {...}}. Any failure exits non-zero
+without it, and so does a machine without a CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -41,10 +48,37 @@ REFERENCE = dict(
 )
 BATCH = 128
 CPU_CHECK = 4  # bootstraps also run on the CPU's plain path and compared
+LOOP_CHECK = 4  # steps of the C loop held against the plain loop at batch 128
+
+# The bounds. H100 SXM: 3.35 TB/s of device memory (data sheet); 132 SMs at
+# the card's maximum SM clock, each issuing at most 128 lanes of
+# instructions per clock (4 warp schedulers). Integer instructions go to two
+# pipes of 64 lanes per SM per clock: the FMA pipe (IMAD, IMAD.HI) and the
+# ALU pipe (ISETP, SEL, LOP3, shifts); an add or subtract may go to either
+# (IADD3, or IMAD.IADD). The kernels' work is counted in integer
+# instructions of each class, as the compiled code has them (cuobjdump
+# -sass): (FMA pipe only, ALU pipe only, either pipe).
+HBM_BYTES_PER_S = 3.35e12
+SMS, PIPE_LANES = 132, 64
+SHOUP = np.array([3, 2, 1])  # a*w mod q, Shoup dual: mul hi, mul, mul-sub; compare, select; subtract q
+ADD_MOD = np.array([0, 2, 2])  # a + b mod q: add; compare, select; subtract q
+SUB_MOD = np.array([0, 2, 1])  # a - b mod q: compare, select; a - b + (q or 0)
+BUTTERFLY = SHOUP + ADD_MOD + SUB_MOD
+DIGIT = np.array([0, 6, 3])  # one gadget digit from a torus value's high word
+FOLD = np.array([0, 2, 1])  # a signed digit into [0, q)
+U64_ADD = np.array([0, 0, 2])
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout  # fmt: skip
+    return out.strip().splitlines()[0].strip()
 
 
 def card_line() -> str:
@@ -53,6 +87,37 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout  # fmt: skip
     return out.strip().splitlines()[0].strip()
+
+
+def garner_ops(k: int) -> np.ndarray:
+    """Per coefficient: the mixed-radix walk, the u64 recombination (4 FMA
+    instructions per multiply-add) and the centered lift's comparisons."""
+    return k * (k - 1) // 2 * (SUB_MOD + SHOUP + [0, 0, 2]) + k * np.array([4, 2, 0])
+
+
+def ntt_ops(rows: int, n: int) -> np.ndarray:
+    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY
+
+
+def step_ops(batch: int, n: int, k: int) -> np.ndarray:
+    """One blind-rotation step per ciphertext: digits, and per prime the
+    sign fold, 2 forward and 2 inverse NTTs with the 1/N scale, the key
+    contraction and the monomial; then Garner and the u64 add into acc."""
+    contraction = 4 * SHOUP + 2 * ADD_MOD
+    per_prime = 2 * n * FOLD + 4 * ntt_ops(1, n) + 2 * n * SHOUP + n * contraction + 2 * n * (SHOUP + SUB_MOD)
+    return batch * (2 * n * DIGIT + k * per_prime + 2 * n * (garner_ops(k) + U64_ADD))
+
+
+def issue_ms(ops: np.ndarray, pipe_per_s: float) -> float:
+    """The least time for the instructions (FMA only, ALU only, either):
+    each pipe takes pipe_per_s lanes, the SMs issue twice that."""
+    fma, alu, either = (float(v) for v in ops)
+    return max(fma, alu, (fma + alu + either) / 2) / pipe_per_s * 1e3
+
+
+def bound_ms(n_bytes: float, ops: np.ndarray, pipe_per_s: float) -> tuple[float, str]:
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, issue_ms(ops, pipe_per_s)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -68,9 +133,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernel_ms(fn) -> tuple[float, list[tuple[str, float]]]:
-    """Total device time of the kernels one call of fn runs (torch.profiler),
-    and the five largest by name."""
+def device_kernel_ms(fn) -> tuple[float, float, list[tuple[str, float, int]]]:
+    """For one call of fn (torch.profiler): the device's idle share over the
+    span from its first kernel's start to its last kernel's end (1 minus
+    the union of the kernels' intervals over that span; a kernel launched
+    early by programmatic dependent launch counts as busy from its start),
+    the kernels' summed time, and the five largest by name with their
+    launch counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,12 +148,26 @@ def device_kernel_ms(fn) -> tuple[float, list[tuple[str, float]]]:
         fn()
         torch.cuda.synchronize()
     rows = [
-        (e.key, e.self_device_time_total / 1e3)
+        (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     rows.sort(key=lambda r: -r[1])
-    return sum(t for _, t in rows), rows[:5]
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    busy, reach = 0.0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    idle = 1 - busy / (reach - spans[0][0]) if spans else float("nan")
+    return idle, sum(t for _, t, _ in rows), rows[:5]
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -113,6 +196,9 @@ def main() -> None:
     say(f"card: {card}")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     tag = f"[{card}]"
+    sm_mhz = float(smi("clocks.max.sm"))
+    pipe_per_s = SMS * PIPE_LANES * sm_mhz * 1e6
+    say(f"{tag} max SM clock {sm_mhz:.0f} MHz: {pipe_per_s / 1e12:.3f} T int32 instructions/s per pipe (FMA, ALU), issue {2 * pipe_per_s / 1e12:.3f} T/s; memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -157,11 +243,13 @@ def main() -> None:
     say(f"garner_to_u64 == plain on ({key_plan.k}, {rows}, {n_big}): ok")
 
     # -- 4. the main path ------------------------------------------------------
-    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, tcrt.garner_to_u64, tggsw.cmux_rotate)
+    counted = (
+        tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, tcrt.garner_to_u64, tggsw.cmux_rotate, tggsw.blind_rotate_steps,
+    )  # fmt: skip
+    rng = np.random.default_rng(0)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
     z = tlwe.sk_gen(params.tlwe, rng)
     key = tfhe.key_gen(params, z, rng, dev)
     torch.cuda.synchronize()
@@ -183,8 +271,9 @@ def main() -> None:
     if n_ok != BATCH:
         raise AssertionError("PBS output failed decryption")
     chunks = -(-BATCH // PBS_CHUNK)
-    if launches["cmux_rotate"] != params.tlwe.n * chunks:
-        raise AssertionError(f"step kernel launched {launches['cmux_rotate']} times, expected {params.tlwe.n * chunks}")
+    if launches["blind_rotate_steps"] != params.tlwe.n * chunks:
+        raise AssertionError(f"step kernel launched {launches['blind_rotate_steps']} times, expected {params.tlwe.n * chunks}")
+    launches["tfhe_step"] = launches["blind_rotate_steps"]
     for name in ("ntt32", "negacyclic_mul32", "garner_to_u64"):
         if launches[name] == 0:
             raise AssertionError(f"{name} kernel was not launched on the main path")
@@ -202,8 +291,18 @@ def main() -> None:
         params.tggsw, tggsw.TggswEval(*(t.cpu() for t in key0)), cpu(acc), exps0.cpu(), key.mon_v.cpu(), key.mon_d.cpu()
     )
     got_step = tggsw.cmux_rotate(params.tggsw, key0, tglwe.TglweCiphertext(acc.a.clone(), acc.b.clone()), exps0, key.mon_v, key.mon_d)
-    errs["cmux_rotate"] = max(max_abs_err(got_step.a, want.a), max_abs_err(got_step.b, want.b))
+    errs["tfhe_step"] = max(max_abs_err(got_step.a, want.a), max_abs_err(got_step.b, want.b))
     say(f"cmux_rotate == plain at batch {BATCH}, N={n_big}, real key: ok")
+    exps_all = a2n.t().contiguous()  # (n, B)
+    brk_l = tggsw.TggswEval(*(t[:LOOP_CHECK] for t in key.brk))
+    want = tggsw.blind_rotate_steps(
+        params.tggsw, tggsw.TggswEval(*(t.cpu() for t in brk_l)), cpu(acc), exps_all[:LOOP_CHECK].cpu(), key.mon_v.cpu(), key.mon_d.cpu()
+    )
+    got_l = tggsw.blind_rotate_steps(
+        params.tggsw, brk_l, tglwe.TglweCiphertext(acc.a.clone(), acc.b.clone()), exps_all[:LOOP_CHECK], key.mon_v, key.mon_d
+    )
+    errs["tfhe_step"] = max(errs["tfhe_step"], max_abs_err(got_l.a, want.a), max_abs_err(got_l.b, want.b))
+    say(f"blind_rotate_steps == the plain loop over {LOOP_CHECK} steps at batch {BATCH}, real key: ok")
 
     t0 = time.perf_counter()
     key_cpu = tfhe.BootstrapKey(
@@ -228,36 +327,42 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     say(f"{tag} PBS batch {BATCH}: {pbs_ms:.3f} ms per batch = {BATCH / pbs_ms * 1e3:.2f} PBS/s (CUDA events, {reps} reps)")
-    say(f"{tag} PBS batch {BATCH}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
+    say(f"{tag} PBS batch {BATCH}: host enqueue {host_s * 1e3:.3f} ms per batch (C loop of {params.tlwe.n} steps), wall with sync {wall_s * 1e3:.3f} ms")
     v_enc = tglwe.encode(params.tglwe, tab)
     br_ms = cuda_ms(lambda: tfhe.blind_rotate(params, key, v_enc, a2n, b2n), reps)
     ext = tglwe.sample_extract(params.tglwe, tfhe.blind_rotate(params, key, v_enc, a2n, b2n), 0)
     ks_ms = cuda_ms(lambda: tlwe.key_switch(params.tlwe, key.ksk, ext), 10)
     say(f"{tag} PBS batch {BATCH}: blind rotation {br_ms:.3f} ms, key switch {ks_ms:.3f} ms (CUDA events)")
-    kernel_ms, top = device_kernel_ms(lambda: tfhe_pbs_batch(params, key, tab, cts))
+    idle, kernel_ms, top = device_kernel_ms(lambda: tfhe_pbs_batch(params, key, tab, cts))
     if kernel_ms:
-        say(f"{tag} PBS batch {BATCH}: device kernel time {kernel_ms:.3f} ms (profiler) = {kernel_ms / pbs_ms:.4f} of the batch's {pbs_ms:.3f} ms")
-        for name, t in top:
-            say(f"  {t:10.3f} ms  {name[:100]}")
+        say(f"{tag} PBS batch {BATCH}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms, which counts a step kernel's wait for its predecessor")
+        for name, t, count in top:
+            say(f"  {t:10.3f} ms  {count:6d} x  {name[:100]}")
     else:
-        say(f"{tag} device kernel time: not measured (the profiler recorded no device activity)")
+        say(f"{tag} device kernel time and idle share: not measured (the profiler recorded no device activity)")
 
     scratch = tglwe.TglweCiphertext(acc.a.clone(), acc.b.clone())
     timings = {}
+    n_steps = params.tlwe.n
 
-    def step_kernel():
-        tggsw.cmux_rotate(params.tggsw, key0, scratch, exps0, key.mon_v, key.mon_d)
+    def steps_kernel():
+        tggsw.blind_rotate_steps(params.tggsw, key.brk, scratch, exps_all, key.mon_v, key.mon_d)
 
     def step_plain():
         tggsw.cmux_rotate_ref(params.tggsw, key0, scratch, exps0, key.mon_v, key.mon_d)
 
-    timings["cmux_rotate"] = (cuda_ms(step_kernel, 200), cuda_ms(step_plain, 5))
+    timings["tfhe_step"] = (cuda_ms(steps_kernel, reps) / n_steps, cuda_ms(step_plain, 5))
+    rows_read = float(np.mean([torch.unique(exps_all[i] % (2 * n_big)).numel() for i in range(n_steps)]))
+    k_s = step_plan.k
+    step_bytes = 2 * BATCH * 2 * n_big * 8 + BATCH * 8 + 4 * k_s * 2 * n_big * 4 + 2 * k_s * n_big * 4 * rows_read
+    st_ops = step_ops(BATCH, n_big, k_s)
+    bounds = {"tfhe_step": bound_ms(step_bytes, st_ops, pipe_per_s)}
     t0 = time.perf_counter()
-    for _ in range(params.tlwe.n):
-        step_kernel()
-    enqueue_us = (time.perf_counter() - t0) / params.tlwe.n * 1e6
+    steps_kernel()
+    enqueue_us = (time.perf_counter() - t0) / n_steps * 1e6
     torch.cuda.synchronize()
-    say(f"{tag} step: kernel {timings['cmux_rotate'][0] * 1e3:.2f} us, plain on CUDA tensors {timings['cmux_rotate'][1] * 1e3:.2f} us, host enqueue {enqueue_us:.2f} us per step")
+    st_ms, (st_b, st_by) = timings["tfhe_step"][0], bounds["tfhe_step"]
+    say(f"{tag} step kernel at batch {BATCH}: {st_ms * 1e3:.2f} us per step (CUDA events over {reps} x {n_steps} steps of the C loop), bound {st_b * 1e3:.2f} us by {st_by} (instructions {st_ops[0] / 1e6:.1f} M FMA, {st_ops[1] / 1e6:.1f} M ALU, {st_ops[2] / 1e6:.1f} M either; bytes {step_bytes / 1e6:.1f} MB) = {st_b / st_ms:.4f} of bound; host enqueue {enqueue_us:.2f} us per step; plain on CUDA tensors {timings['tfhe_step'][1] * 1e3:.2f} us")
 
     xd, ad, bd = x[0].to(dev), a[0].to(dev), b[0].to(dev)
     p0, k0 = step_plan.plans[0], key_plan.plans[0]
@@ -272,15 +377,21 @@ def main() -> None:
         cuda_ms(lambda: tcrt.garner_to_u64(ag, key_plan), 50),
         cuda_ms(lambda: tcrt.garner_to_u64_ref(ag, key_plan), 3),
     )
+    row_bytes = rows * n_big * 4
+    bounds["ntt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big), pipe_per_s)
+    bounds["intt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big) + rows * n_big * SHOUP, pipe_per_s)
+    bounds["negacyclic_mul32"] = bound_ms(3 * row_bytes, 3 * ntt_ops(rows, n_big) + 2 * rows * n_big * SHOUP, pipe_per_s)
+    bounds["garner_to_u64"] = bound_ms(key_plan.k * row_bytes + rows * n_big * 8, rows * n_big * garner_ops(key_plan.k), pipe_per_s)
     for name, (k_ms, p_ms) in timings.items():
-        say(f"{tag} {name}: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us per call")
+        b_ms, by = bounds[name]
+        say(f"{tag} {name}: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {by} = {b_ms / k_ms:.4f} of bound")
 
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
         ("ntt32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:166"),
         ("negacyclic_mul32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183"),
         ("garner_to_u64", "torus_crt.cu", "bench/pallas_step_experiment.py:202"),
-        ("cmux_rotate", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
+        ("tfhe_step", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
     ]
     say(
         json.dumps(
@@ -295,6 +406,9 @@ def main() -> None:
                         "max_abs_err": errs[name],
                         "ms": timings[name][0],
                         "plain_ms": timings[name][1],
+                        "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1],
+                        "library_ms": None,  # no PyTorch call computes any of these
                     }
                     for name, file, replaces in table
                 ]

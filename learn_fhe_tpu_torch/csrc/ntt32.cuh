@@ -8,8 +8,11 @@
 // are bit-identical to the JAX package's radix-8/4/2 passes, since every
 // operation is exact mod q.
 //
-// Each butterfly layer is one strided loop over all threads of the block
-// followed by __syncthreads(); the whole block must call these functions.
+// ntt_fwd_rows / ntt_inv_rows run each butterfly layer as one strided loop
+// over all threads of the block followed by __syncthreads(); the whole block
+// must call them (K-NTT, K-POLYMUL). The step kernel instead runs passes of
+// up to 3 layers on values held in registers (fwd_radix / inv_radix below),
+// with one barrier per pass.
 #pragma once
 
 #include <cstdint>
@@ -70,5 +73,82 @@ __device__ __forceinline__ void ntt_inv_rows(uint32_t* x, int rows, int log_n,
   }
   __syncthreads();
 }
+
+// ---------------------------------------------------------------------------
+// Register passes. A pass runs W <= 3 consecutive layers l0 .. l0+W-1 on the
+// 2^W values that those layers combine: with log_h = log_n - l0 - W, the
+// values of index (hi << (log_n - l0)) + (m << log_h) + lo for m < 2^W, one
+// (hi, lo) per thread. Within the pass, layer l0+t pairs m and m + 2^(W-1-t)
+// in group u = m >> (W-t) and takes twiddle (1 << (l0+t)) + (hi << t) + u of
+// the bit-reversed table; a pass's 2^W - 1 twiddles are loaded once, in the
+// order t = 0.., u = 0.., by pass_twiddles from a copy of the table in
+// shared memory.
+// ---------------------------------------------------------------------------
+
+template <int W>
+__device__ __forceinline__ void pass_twiddles(uint32_t (&w)[(1 << W) - 1],
+                                              uint32_t (&ws)[(1 << W) - 1],
+                                              const uint32_t* __restrict__ tab,
+                                              const uint32_t* __restrict__ tab_s, int l0, int hi) {
+#pragma unroll
+  for (int t = 0; t < W; ++t) {
+#pragma unroll
+    for (int u = 0; u < (1 << t); ++u) {
+      const int idx = (1 << (l0 + t)) + (hi << t) + u;
+      w[(1 << t) - 1 + u] = tab[idx];
+      ws[(1 << t) - 1 + u] = tab_s[idx];
+    }
+  }
+}
+
+// Forward (Cooley-Tukey) layers of one pass, in place on x.
+template <int W>
+__device__ __forceinline__ void fwd_radix(uint32_t (&x)[1 << W], const uint32_t (&w)[(1 << W) - 1],
+                                          const uint32_t (&ws)[(1 << W) - 1], uint32_t q) {
+#pragma unroll
+  for (int t = 0; t < W; ++t) {
+    const int half = 1 << (W - 1 - t);
+#pragma unroll
+    for (int u = 0; u < (1 << t); ++u) {
+      const int tw = (1 << t) - 1 + u;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const int a = 2 * half * u + j;
+        const uint32_t v = mul_shoup(x[a + half], w[tw], ws[tw], q);
+        x[a + half] = sub_mod(x[a], v, q);
+        x[a] = add_mod(x[a], v, q);
+      }
+    }
+  }
+}
+
+// Inverse (Gentleman-Sande) layers of one pass, last layer first, in place.
+template <int W>
+__device__ __forceinline__ void inv_radix(uint32_t (&x)[1 << W], const uint32_t (&w)[(1 << W) - 1],
+                                          const uint32_t (&ws)[(1 << W) - 1], uint32_t q) {
+#pragma unroll
+  for (int t = W - 1; t >= 0; --t) {
+    const int half = 1 << (W - 1 - t);
+#pragma unroll
+    for (int u = 0; u < (1 << t); ++u) {
+      const int tw = (1 << t) - 1 + u;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const int a = 2 * half * u + j;
+        const uint32_t x0 = x[a];
+        const uint32_t x1 = x[a + half];
+        x[a] = add_mod(x0, x1, q);
+        x[a + half] = mul_shoup(sub_mod(x0, x1, q), w[tw], ws[tw], q);
+      }
+    }
+  }
+}
+
+// Shared-memory slot of value i of a block's rows: bits 2-4 of i XORed with
+// bits 5-7. Every pass of the step kernel then reaches 32 distinct banks per
+// warp (for log_h = 2 the warp's 8 values of hi spread over bits 2-4), and
+// a run of 4 values starting at a multiple of 4 stays 4 contiguous, 16-byte
+// aligned slots. It is its own inverse on any multiple of 32 values.
+__device__ __forceinline__ int swizzle(int i) { return i ^ (((i >> 5) & 7) << 2); }
 
 }  // namespace lft

@@ -6,9 +6,9 @@
     then sample_extract(0) and key-switch back to the LWE key.
 
 The monomial is applied pointwise in the NTT domain from a public table of
-evaluation rows, so a step is one launch of the step kernel
-(`tggsw.cmux_rotate`). Only the default step order is ported; the JAX
-package's `parity=True` reference order is not.
+evaluation rows, so a step is one launch of the step kernel, and the whole
+chain is one C call (`tggsw.blind_rotate_steps`). Only the default step
+order is ported; the JAX package's `parity=True` reference order is not.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from torch import nn
 
 from ...ops.gadget import shr_u64
 from ...ops.torus_crt import monomial_eval_table, required_bound_bits
-from ...utils.interop import u32_to_torch, u64_to_torch
+from ...utils.interop import resolve_device, u32_to_torch, u64_to_torch
 from . import tggsw, tglwe, tlwe
 from .params import TggswParams, TglweParams, TlweParams
 from .tggsw import TggswEval
@@ -65,7 +65,11 @@ def key_gen(
 ) -> BootstrapKey:
     """brk_i = TGGSW(z_i as constant poly) under a fresh TGLWE key s; ksk from
     the flattened s back to z (`bootstrapping.rs:59-76`); plus the public
-    monomial evaluation table. Draws from rng exactly as the JAX key_gen."""
+    monomial evaluation table. Draws from rng exactly as the JAX key_gen.
+
+    The key goes to `device`, by default the current CUDA device; without
+    one this raises unless device="cpu" (see `resolve_device`)."""
+    device = resolve_device(device)
     s = tglwe.sk_gen(params.tglwe, rng)
     const = np.zeros((params.tlwe.n, params.big_n), dtype=np.uint64)
     const[:, 0] = np.asarray(z).astype(np.uint64)
@@ -95,9 +99,9 @@ def blind_rotate(
     """CMux chain (`bootstrapping.rs:84-96`) over a batch of ciphertexts.
 
     The JAX package runs the n steps as a `lax.scan` whose carry is a new
-    accumulator each step. Here the loop launches one step kernel per key
-    bit and each step adds its delta into the accumulator's storage in
-    place, which JAX could not do."""
+    accumulator each step. Here `tggsw.blind_rotate_steps` launches the n
+    step kernels from one C call and each step adds its delta into the
+    accumulator's storage in place, which JAX could not do."""
     k, n_big = params.tglwe.k, params.big_n
     batch = b2n.shape
     a2n = a2n.reshape(-1, a2n.shape[-1])
@@ -109,10 +113,7 @@ def blind_rotate(
     )
     acc = tglwe.rotate(acc0, (-b2n) % (2 * n_big))  # fresh contiguous storage
     exps = a2n.t().contiguous()  # (n, B): row i holds step i's exponents
-    brk = key.brk
-    for i in range(exps.shape[0]):
-        key_i = TggswEval(brk.av[i], brk.ad[i], brk.bv[i], brk.bd[i])
-        tggsw.cmux_rotate(params.tggsw, key_i, acc, exps[i], key.mon_v, key.mon_d)
+    tggsw.blind_rotate_steps(params.tggsw, key.brk, acc, exps, key.mon_v, key.mon_d)
     return TglweCiphertext(acc.a.reshape(*batch, k, n_big), acc.b.reshape(*batch, n_big))
 
 

@@ -10,9 +10,10 @@ The key lives in the multi-prime CRT NTT domain with Shoup duals
 the K primes on an axis just before the row axis, so the key of one
 blind-rotation step is one contiguous block.
 
-Kernel (`csrc/tfhe_step.cu`): `cmux_rotate` is the whole step in one launch,
-replacing the Pallas step kernel `bench/pallas_step_experiment.py:202`
-(`pallas_step`). `cmux_rotate_ref` is its plain version.
+Kernel (`csrc/tfhe_step.cu`), replacing the Pallas step kernel
+`bench/pallas_step_experiment.py:202` (`pallas_step`): `cmux_rotate` is one
+whole step in one launch, `blind_rotate_steps` all n steps of a blind
+rotation from one C call. `cmux_rotate_ref` is the plain version of both.
 """
 
 from __future__ import annotations
@@ -143,6 +144,46 @@ def cmux_rotate_ref(
     return acc
 
 
+def _step_kernel_args(
+    name: str,
+    params: TggswParams,
+    key: TggswEval,
+    acc: TglweCiphertext,
+    exps: torch.Tensor,
+    mon_v: torch.Tensor,
+    mon_d: torch.Tensor,
+    stacked: bool,
+) -> tuple:
+    """Check the operands of the step kernel, for one step or (stacked) for
+    all n steps of a rotation, with key and exps carrying a leading step
+    axis; return the C entry point's arguments after `exps`: the key, the
+    monomial table, the twiddles and the constants. The kernel takes k=1,
+    d=1, the u32 decomposition, N <= 2048 and at most 4 CRT primes, and
+    this raises on anything else."""
+    plan = _crt_plan(params)
+    g = params.gadget
+    n, kk = params.big_n, plan.k
+    if params.k != 1 or params.d != 1 or not decompose_t64_supports_u32(g):
+        raise ValueError(f"{name}: the step kernel takes k=1, d=1 and rounding_bits >= 33")
+    if n > 1 << kernels.MAX_LOG_N or kk > kernels.MAX_PRIMES:
+        raise ValueError(f"{name}: the step kernel takes N <= 2048 and <= 4 primes (N={n}, K={kk})")
+    batch = acc.b.shape[0]
+    steps = (exps.shape[0],) if stacked else ()
+    kernels.require(f"{name} acc.a", acc.a, torch.int64, (batch, 1, n))
+    kernels.require(f"{name} acc.b", acc.b, torch.int64, (batch, n))
+    kernels.require(f"{name} exps", exps, torch.int64, (*steps, batch))
+    for kname, t in zip(("av", "ad"), (key.av, key.ad)):
+        kernels.require(f"{name} key.{kname}", t, torch.int32, (*steps, kk, 2, 1, n))
+    for kname, t in zip(("bv", "bd"), (key.bv, key.bd)):
+        kernels.require(f"{name} key.{kname}", t, torch.int32, (*steps, kk, 2, n))
+    kernels.require(f"{name} mon_v", mon_v, torch.int32, (kk, 2 * n, n))
+    kernels.require(f"{name} mon_d", mon_d, torch.int32, (kk, 2 * n, n))
+    t = crt_tables(plan, acc.a.device)
+    return (
+        *key, mon_v, mon_d, *t, plan.plans[0].log_n, g.log_b, g.rounding_bits, plan.kernel_consts,
+    )  # fmt: skip
+
+
 def cmux_rotate(
     params: TggswParams,
     key: TggswEval,
@@ -151,39 +192,45 @@ def cmux_rotate(
     mon_v: torch.Tensor,
     mon_d: torch.Tensor,
 ) -> TglweCiphertext:
-    """One blind-rotation step, in place (see `cmux_rotate_ref`).
-
-    On the card it is one launch of the step kernel, one block per
-    ciphertext; the kernel takes k=1, d=1, the u32 decomposition, N <= 2048
-    and at most 4 CRT primes, and raises on anything else."""
+    """One blind-rotation step, in place (see `cmux_rotate_ref`): on the card
+    one launch of the step kernel (`lft_tfhe_step`)."""
     if acc.a.device.type == "cpu":
         return cmux_rotate_ref(params, key, acc, exps, mon_v, mon_d)
-    plan = _crt_plan(params)
-    g = params.gadget
-    n, kk = params.big_n, plan.k
-    if params.k != 1 or params.d != 1 or not decompose_t64_supports_u32(g):
-        raise ValueError("cmux_rotate: the step kernel takes k=1, d=1 and rounding_bits >= 33")
-    if n > 1 << kernels.MAX_LOG_N or kk > kernels.MAX_PRIMES:
-        raise ValueError(f"cmux_rotate: the step kernel takes N <= 2048 and <= 4 primes (N={n}, K={kk})")
+    args = _step_kernel_args("cmux_rotate", params, key, acc, exps, mon_v, mon_d, stacked=False)
     batch = acc.b.shape[0]
-    kernels.require("cmux_rotate acc.a", acc.a, torch.int64, (batch, 1, n))
-    kernels.require("cmux_rotate acc.b", acc.b, torch.int64, (batch, n))
-    kernels.require("cmux_rotate exps", exps, torch.int64, (batch,))
-    for name, t in zip(("av", "ad"), (key.av, key.ad)):
-        kernels.require(f"cmux_rotate key.{name}", t, torch.int32, (kk, 2, 1, n))
-    for name, t in zip(("bv", "bd"), (key.bv, key.bd)):
-        kernels.require(f"cmux_rotate key.{name}", t, torch.int32, (kk, 2, n))
-    kernels.require("cmux_rotate mon_v", mon_v, torch.int32, (kk, 2 * n, n))
-    kernels.require("cmux_rotate mon_d", mon_d, torch.int32, (kk, 2 * n, n))
-    t = crt_tables(plan, acc.a.device)
     if batch:
-        kernels.launch(
-            "lft_tfhe_step", acc.a, acc.b, exps, batch, key.av, key.ad, key.bv, key.bd,
-            mon_v, mon_d, t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, plan.plans[0].log_n,
-            g.log_b, g.rounding_bits, plan.kernel_consts,
-        )  # fmt: skip
+        kernels.launch("lft_tfhe_step", acc.a, acc.b, exps, batch, *args)
         cmux_rotate.launches += 1
     return acc
 
 
+def blind_rotate_steps(
+    params: TggswParams,
+    brk: TggswEval,
+    acc: TglweCiphertext,
+    exps: torch.Tensor,
+    mon_v: torch.Tensor,
+    mon_d: torch.Tensor,
+) -> TglweCiphertext:
+    """All n blind-rotation steps, in place: step i is `cmux_rotate` with
+    row i of the stacked key brk (n, K, 2, ...) and of exps (n, B).
+
+    On the card the operands are checked once and one C call
+    (`lft_tfhe_blind_rotate`) launches the step kernel n times on the
+    current stream, so no Python runs between steps. On the CPU it loops
+    `cmux_rotate_ref`, its plain version."""
+    if acc.a.device.type == "cpu":
+        for i in range(exps.shape[0]):
+            key_i = TggswEval(brk.av[i], brk.ad[i], brk.bv[i], brk.bd[i])
+            cmux_rotate_ref(params, key_i, acc, exps[i], mon_v, mon_d)
+        return acc
+    args = _step_kernel_args("blind_rotate_steps", params, brk, acc, exps, mon_v, mon_d, stacked=True)
+    steps, batch = exps.shape[0], acc.b.shape[0]
+    if batch and steps:
+        kernels.launch("lft_tfhe_blind_rotate", acc.a, acc.b, exps, steps, batch, *args)
+        blind_rotate_steps.launches += steps
+    return acc
+
+
 cmux_rotate.launches = 0
+blind_rotate_steps.launches = 0

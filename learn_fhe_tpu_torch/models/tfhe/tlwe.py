@@ -13,7 +13,7 @@ import torch
 
 from ...ops.gadget import decompose_t64, power_up_t64, shr_u64
 from ...utils.distributions import binary, tdg, uniform_t64
-from ...utils.interop import u64_to_torch
+from ...utils.interop import resolve_device, u64_to_torch
 from .params import TlweParams
 
 
@@ -70,8 +70,9 @@ def ksk_gen(
     rng: np.random.Generator,
     device: torch.device | str | None = None,
 ) -> TlweKeySwitchingKey:
-    """Encrypt power_up(-sk1) under sk0 (`tlwe.rs:100-111`)."""
-    neg_sk1 = torch.as_tensor(-np.asarray(sk1, dtype=np.int64), device=device)
+    """Encrypt power_up(-sk1) under sk0 (`tlwe.rs:100-111`), on `device`
+    (by default the current CUDA device; see `resolve_device`)."""
+    neg_sk1 = torch.as_tensor(-np.asarray(sk1, dtype=np.int64), device=resolve_device(device))
     pt = power_up_t64(neg_sk1, params.gadget)  # (d, n_from)
     ct = sk_encrypt(params, sk0, pt, rng)
     return TlweKeySwitchingKey(ct.a, ct.b)

@@ -26,9 +26,9 @@ def tfhe_pbs_batch_device(
 
 
 # Batches stream through chunks of this size. The JAX package tuned it on a
-# TPU. The step kernel runs one block per ciphertext, so a chunk of 128 puts
-# one block on each of 128 of an H100's 132 SMs; the card's best chunk size
-# is not measured yet.
+# TPU. The step kernel runs a cluster of 4 blocks per ciphertext and an H100
+# holds 124 such clusters at once, so a chunk of 128 ends in a short second
+# wave; the card's best chunk size is not measured yet.
 PBS_CHUNK = 128
 
 

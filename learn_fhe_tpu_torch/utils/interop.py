@@ -26,6 +26,20 @@ def u32_to_torch(x, device=None) -> torch.Tensor:
     return _to(np.ascontiguousarray(np.asarray(x, dtype=np.uint32)).view(np.int32), device)
 
 
+def resolve_device(device) -> torch.device:
+    """Where an entry point puts what it makes: the device the caller names,
+    else the current CUDA device. The port runs on a GPU; it never falls back
+    to the CPU unless the caller passes device="cpu"."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "learn_fhe_tpu_torch runs on a GPU and no CUDA device is present; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def torch_to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
 
@@ -40,11 +54,14 @@ def bootstrap_key_from_numpy(key, device=None):
 
     The JAX key keeps one array per CRT prime; the port stacks the primes on
     one axis just before the gadget-row axis: brk av/ad (n, K, R, k, N),
-    bv/bd (n, K, R, N), and mon_v/mon_d (K, 2N, N).
+    bv/bd (n, K, R, N), and mon_v/mon_d (K, 2N, N). The key goes to `device`,
+    by default the current CUDA device (see `resolve_device`).
     """
     from ..models.tfhe.bootstrapping import BootstrapKey
     from ..models.tfhe.tggsw import TggswEval
     from ..models.tfhe.tlwe import TlweKeySwitchingKey
+
+    device = resolve_device(device)
 
     def primes(leaves, axis):
         return u32_to_torch(np.stack([np.asarray(x) for x in leaves], axis=axis), device)

@@ -52,6 +52,10 @@ _SIGNATURES = {
     # acc_a, acc_b, exps, batch, av, ad, bv, bd, mon_v, mon_d, psi, psi_shoup,
     # psi_inv, psi_inv_shoup, log_n, log_b, rounding_bits, host consts, stream
     "lft_tfhe_step": (_P,) * 3 + (_I,) + (_P,) * 10 + (_I, _I, _I, _P, _P),
+    # acc_a, acc_b, exps (steps, batch), steps, batch, av, ad, bv, bd (steps, K,
+    # 2, N), mon_v, mon_d, psi, psi_shoup, psi_inv, psi_inv_shoup, log_n,
+    # log_b, rounding_bits, host consts, stream
+    "lft_tfhe_blind_rotate": (_P,) * 3 + (_LL, _I) + (_P,) * 10 + (_I, _I, _I, _P, _P),
 }
 
 

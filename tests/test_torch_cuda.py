@@ -62,7 +62,10 @@ def test_garner_kernel_matches_plain(dev, log_b, rows):
     _same(tcrt.garner_to_u64(res.to(dev), plan), tcrt.garner_to_u64_ref(res, plan))
 
 
-@pytest.mark.parametrize("n,batch", [(256, 5), (2048, 3)])
+# every width of the last radix-8 pass, alone and after full passes
+@pytest.mark.parametrize(
+    "n,batch", [(2, 3), (4, 3), (8, 3), (16, 3), (32, 3), (64, 3), (128, 3), (256, 5), (512, 3), (1024, 3), (2048, 3)]
+)
 def test_step_kernel_matches_plain(dev, n, batch):
     params = tfhe.TggswParams(
         tfhe.TglweParams(log_p=4, padding=1, big_n=n, k=1, std_dev=2.85e-15), log_b=23, d=1
@@ -90,6 +93,72 @@ def test_step_kernel_matches_plain(dev, n, batch):
     _same(out.b, want.b)
 
 
+def _real_key(n_lwe, big_n):
+    """A bootstrap key from key_gen (on the CPU) with n_lwe steps at ring big_n."""
+    params = tfhe.BootstrapParams(
+        tfhe.TlweParams(log_p=4, padding=1, n=n_lwe, std_dev=1.34e-7, log_b=4, d=5),
+        tfhe.TggswParams(
+            tfhe.TglweParams(log_p=4, padding=1, big_n=big_n, k=1, std_dev=2.85e-15), log_b=23, d=1
+        ),
+    )
+    rng = np.random.default_rng(big_n + n_lwe)
+    return params, tfhe.key_gen(params, tlwe.sk_gen(params.tlwe, rng), rng, "cpu")
+
+
+_REAL_KEYS = {}
+
+
+def _cached_real_key(n_lwe, big_n):
+    if (n_lwe, big_n) not in _REAL_KEYS:
+        _REAL_KEYS[n_lwe, big_n] = _real_key(n_lwe, big_n)
+    return _REAL_KEYS[n_lwe, big_n]
+
+
+def _acc_and_exps(rng, batch, n, steps):
+    a = u64_to_torch(rng.integers(0, 1 << 64, size=(batch, 1, n), dtype=np.uint64))
+    b = u64_to_torch(rng.integers(0, 1 << 64, size=(batch, n), dtype=np.uint64))
+    s = rng.integers(0, 2 * n + 1, size=(steps, batch))
+    edge = np.array([0, n, 2 * n - 1, 2 * n])  # mod_switch_2n can give 2N, which is X^0
+    s.reshape(-1)[: min(4, s.size)] = edge[: min(4, s.size)]
+    return a, b, torch.from_numpy(s)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 128])
+@pytest.mark.parametrize("n", [256, 2048])
+def test_cluster_step_kernel_matches_plain_with_real_key(dev, n, batch):
+    """One launch of the cluster step kernel at the given batch against
+    cmux_rotate_ref, with a key from key_gen and exponents 0, N, 2N-1, 2N."""
+    params, key = _cached_real_key(16, n)
+    rng = np.random.default_rng(n + batch)
+    a, b, s = _acc_and_exps(rng, batch, n, 1)
+    key0 = tggsw.TggswEval(*(t[3] for t in key.brk))
+    want = tggsw.cmux_rotate_ref(params.tggsw, key0, TglweCiphertext(a.clone(), b.clone()), s[0], key.mon_v, key.mon_d)
+    acc = TglweCiphertext(a.to(dev), b.to(dev))
+    out = tggsw.cmux_rotate(
+        params.tggsw, tggsw.TggswEval(*(t.to(dev) for t in key0)), acc, s[0].to(dev), key.mon_v.to(dev), key.mon_d.to(dev)
+    )
+    _same(out.a, want.a)
+    _same(out.b, want.b)
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_blind_rotate_steps_matches_cpu_loop(dev, n):
+    """16 steps from one C call on the card against the CPU loop of
+    cmux_rotate_ref, with a key from key_gen."""
+    params, key = _cached_real_key(16, n)
+    rng = np.random.default_rng(n)
+    a, b, s = _acc_and_exps(rng, 5, n, 16)
+    want = tggsw.blind_rotate_steps(params.tggsw, key.brk, TglweCiphertext(a.clone(), b.clone()), s, key.mon_v, key.mon_d)
+    acc = TglweCiphertext(a.to(dev), b.to(dev))
+    before = tggsw.blind_rotate_steps.launches
+    out = tggsw.blind_rotate_steps(
+        params.tggsw, tggsw.TggswEval(*(t.to(dev) for t in key.brk)), acc, s.to(dev), key.mon_v.to(dev), key.mon_d.to(dev)
+    )
+    assert tggsw.blind_rotate_steps.launches == before + 16 and out.a is acc.a
+    _same(out.a, want.a)
+    _same(out.b, want.b)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     plan = _step_plan(256).plans[0]
     x = torch.zeros((4, 256), dtype=torch.int32, device=dev)
@@ -109,6 +178,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     )
     with pytest.raises(ValueError):
         tggsw.cmux_rotate(params, None, acc, None, None, None)
+    with pytest.raises(ValueError):
+        tggsw.blind_rotate_steps(params, None, acc, None, None, None)
 
 
 def test_key_switch_int8_matmul_matches_cpu(dev):

@@ -18,7 +18,7 @@ import learn_fhe_tpu.models.tfhe as jtfhe  # noqa: E402
 from learn_fhe_tpu.models.tfhe import tlwe as jtlwe  # noqa: E402
 from learn_fhe_tpu.parallel.batch import tfhe_pbs_batch_device as jax_pbs_batch_device  # noqa: E402
 import learn_fhe_tpu_torch.models.tfhe as tfhe  # noqa: E402
-from learn_fhe_tpu_torch.models.tfhe import tlwe  # noqa: E402
+from learn_fhe_tpu_torch.models.tfhe import tggsw, tglwe, tlwe  # noqa: E402
 from learn_fhe_tpu_torch.parallel.batch import tfhe_pbs_batch  # noqa: E402
 from learn_fhe_tpu_torch.utils.interop import (  # noqa: E402
     bootstrap_key_from_numpy,
@@ -56,7 +56,7 @@ def _keys(cfg, seed):
     jz, z = jtlwe.sk_gen(jparams.tlwe, jrng), tlwe.sk_gen(params.tlwe, rng)
     np.testing.assert_array_equal(jz, z)
     jkey = jax.tree.map(np.asarray, jtfhe.key_gen(jparams, jz, jrng))
-    key = tfhe.key_gen(params, z, rng)
+    key = tfhe.key_gen(params, z, rng, "cpu")
     return jparams, params, z, jkey, key
 
 
@@ -82,7 +82,7 @@ def test_key_gen_bit_identical(env):
 
 def test_bootstrap_key_from_numpy_round_trip(env):
     _, params, _, jkey, key = env
-    carried = bootstrap_key_from_numpy(jkey)
+    carried = bootstrap_key_from_numpy(jkey, device="cpu")
     for got, want in zip(jax.tree.leaves(tuple(carried)), jax.tree.leaves(tuple(key))):
         assert torch.equal(got, want)
     _assert_keys_equal(carried, jkey)
@@ -116,6 +116,37 @@ def test_key_switch_matches_jax(log_b, d):
     )
     np.testing.assert_array_equal(torch_to_u64(got.a), np.asarray(want.a))
     np.testing.assert_array_equal(torch_to_u64(got.b), np.asarray(want.b))
+
+
+def test_blind_rotate_steps_matches_jax(env):
+    """The n steps of `blind_rotate_steps` (on CPU tensors, its plain loop)
+    against the JAX `blind_rotate`, with exponents 0, N, 2N-1 and 2N."""
+    jparams, params, _, jkey, key = env
+    n, big_n = params.tlwe.n, params.big_n
+    rng = np.random.default_rng(5)
+    a2n = rng.integers(0, 2 * big_n + 1, size=(3, n))
+    a2n[0, :4] = [0, big_n, 2 * big_n - 1, 2 * big_n]
+    b2n = rng.integers(0, 2 * big_n + 1, size=3)
+    tab = tfhe.lut_table(params.tlwe.log_p, big_n, lambda v: 3 * v + 1)
+    want = jtfhe.blind_rotate(
+        jparams,
+        jkey,
+        jtfhe.tglwe.encode(jparams.tglwe, jnp.asarray(tab)),
+        jnp.asarray(a2n),
+        jnp.asarray(b2n),
+    )
+
+    b = torch.from_numpy(b2n)
+    acc0 = tglwe.TglweCiphertext(
+        torch.zeros((3, 1, big_n), dtype=torch.int64),
+        tglwe.encode(params.tglwe, u64_to_torch(tab)).expand(3, big_n),
+    )
+    acc = tglwe.rotate(acc0, (-b) % (2 * big_n))
+    exps = torch.from_numpy(a2n).t().contiguous()
+    out = tggsw.blind_rotate_steps(params.tggsw, key.brk, acc, exps, key.mon_v, key.mon_d)
+    assert out.a is acc.a and out.b is acc.b  # updated in place
+    np.testing.assert_array_equal(torch_to_u64(out.a), np.asarray(want.a))
+    np.testing.assert_array_equal(torch_to_u64(out.b), np.asarray(want.b))
 
 
 def _pbs_check(jparams, params, z, jkey, key, batch, rng):
