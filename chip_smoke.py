@@ -6,10 +6,12 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
 `learn_fhe_tpu_torch`:
 
   1. require a CUDA device; print its name and power limit;
-  2. build the hand-written kernels from `learn_fhe_tpu_torch/csrc/` (nvcc, sm_90a);
+  2. build the hand-written kernels from `learn_fhe_tpu_torch/csrc/` (nvcc, sm_90a)
+     and print the registers and spills of their N=2048 instances (ptxas);
   3. hold the NTT, inverse NTT, polymul and Garner kernels against their
      plain PyTorch versions (on a CPU copy of the same inputs) at the shapes
-     key generation gives them, with `torch.equal`;
+     key generation gives them, and the first three on a ragged last block
+     too, with `torch.equal`;
   4. the main path: key generation from seed 0, 128 encryptions,
      `tfhe_pbs_batch` with the identity LUT (its 1024 steps launched from
      one C call, `tggsw.blind_rotate_steps`), decryption of all 128; the
@@ -21,7 +23,11 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
      ciphertexts);
   6. time the PBS, the host enqueue of a batch, the blind rotation, the key
      switch, the device's idle share (profiler), and each kernel against its
-     plain version and its bound with CUDA events.
+     plain version and its bound with CUDA events: K-STEP over the C loop,
+     the key generation kernels over 50 eager wrapper calls, as key
+     generation calls them (`ms`), and over the same 50 launches replayed
+     from a CUDA graph, which leaves the wrapper's host time out
+     (`graph_ms`).
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -133,6 +139,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of fn: reps calls captured in one CUDA
+    graph, which is replayed once to warm up and once between CUDA events,
+    so that no host time (the wrapper's checks, its allocation, the ctypes
+    call) falls between two launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_kernel_ms(fn) -> tuple[float, float, list[tuple[str, float, int]]]:
     """For one call of fn (torch.profiler): the device's idle share over the
     span from its first kernel's start to its last kernel's end (1 minus
@@ -204,9 +234,12 @@ def main() -> None:
     t0 = time.perf_counter()
     kernels.library()
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
-    for line in kernels.build_log().splitlines():
-        if "Function properties" in line or "Used" in line or "spill" in line:
-            say("  ptxas:", line.strip())
+    report = kernels.ptxas_report(kernels.build_log())
+    for name, (regs, st, ld) in sorted(report.items()):
+        if name.endswith("<11>") or "<" not in name:  # the N=2048 instances, and Garner
+            say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>"} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -227,18 +260,25 @@ def main() -> None:
     def residues(plan):
         return u32_to_torch(np.stack([rng.integers(0, q, size=(rows, n_big), dtype=np.uint32) for q in plan.primes]))
 
+    def check_ntt(x, y, plans):
+        for i, p in enumerate(plans):
+            for name, got, want in (
+                ("ntt32", tntt.ntt32(x[i].to(dev), p), lambda: tntt.ntt32_ref(x[i], p)),
+                ("intt32", tntt.intt32(x[i].to(dev), p), lambda: tntt.intt32_ref(x[i], p)),
+                ("negacyclic_mul32", tntt.negacyclic_mul32(x[i].to(dev), y[i].to(dev), p), lambda: tntt.negacyclic_mul32_ref(x[i], y[i], p)),
+            ):
+                errs[name] = max(errs.get(name, 0.0), max_abs_err(got, want()))
+
     x = residues(step_plan)
-    for i, p in enumerate(step_plan.plans):
-        e_f = max_abs_err(tntt.ntt32(x[i].to(dev), p), tntt.ntt32_ref(x[i], p))
-        e_i = max_abs_err(tntt.intt32(x[i].to(dev), p), tntt.intt32_ref(x[i], p))
-        errs["ntt32"] = max(errs.get("ntt32", 0.0), e_f)
-        errs["intt32"] = max(errs.get("intt32", 0.0), e_i)
-    say(f"ntt32 / intt32 == plain on ({rows}, {n_big}) under each of {step_plan.k} primes: ok")
     a, b = residues(key_plan), residues(key_plan)
-    for i, p in enumerate(key_plan.plans):
-        e = max_abs_err(tntt.negacyclic_mul32(a[i].to(dev), b[i].to(dev), p), tntt.negacyclic_mul32_ref(a[i], b[i], p))
-        errs["negacyclic_mul32"] = max(errs.get("negacyclic_mul32", 0.0), e)
-    say(f"negacyclic_mul32 == plain on ({rows}, {n_big}) under each of {key_plan.k} keygen primes: ok")
+    check_ntt(x, x.flip(1), step_plan.plans)
+    check_ntt(a, b, key_plan.plans)
+    say(f"ntt32 / intt32 / negacyclic_mul32 == plain on ({rows}, {n_big}) under each of the {step_plan.k} step and {key_plan.k} keygen primes: ok")
+    # a ragged last block: at N=256 a block holds 8 rows, and 19 rows leave 3 in the last
+    small_plan = tcrt.torus_crt_plan(256, tcrt.required_bound_bits(256, 23, 2))
+    xs = u32_to_torch(np.stack([rng.integers(0, q, size=(2, 19, 256), dtype=np.uint32) for q in small_plan.primes]))
+    check_ntt(xs[:, 0], xs[:, 1], [tntt.ntt32_plan(q, 256) for q in small_plan.primes])
+    say(f"ntt32 / intt32 / negacyclic_mul32 == plain on (19, 256), a ragged last block, under each of {small_plan.k} primes: ok")
     errs["garner_to_u64"] = max_abs_err(tcrt.garner_to_u64(a.to(dev), key_plan), tcrt.garner_to_u64_ref(a, key_plan))
     say(f"garner_to_u64 == plain on ({key_plan.k}, {rows}, {n_big}): ok")
 
@@ -263,7 +303,7 @@ def main() -> None:
     first_pbs_s = time.perf_counter() - t0
     got = tlwe.decode(params.tlwe, tlwe.decrypt(params.tlwe, z, out))
     launches = {fn.__name__: fn.launches for fn in counted}
-    say(f"{tag} keygen {keygen_s:.2f} s; first PBS batch of {BATCH} {first_pbs_s:.2f} s; launches {launches}")
+    say(f"{tag} keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync); first PBS batch of {BATCH} {first_pbs_s:.2f} s; launches {launches}")
     if out.a.shape != (BATCH, params.tlwe.n) or out.b.shape != (BATCH,):
         raise AssertionError(f"PBS output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
     n_ok = int((got == ms).sum())
@@ -366,17 +406,17 @@ def main() -> None:
 
     xd, ad, bd = x[0].to(dev), a[0].to(dev), b[0].to(dev)
     p0, k0 = step_plan.plans[0], key_plan.plans[0]
-    timings["ntt32"] = (cuda_ms(lambda: tntt.ntt32(xd, p0), 50), cuda_ms(lambda: tntt.ntt32_ref(xd, p0), 3))
-    timings["intt32"] = (cuda_ms(lambda: tntt.intt32(xd, p0), 50), cuda_ms(lambda: tntt.intt32_ref(xd, p0), 3))
-    timings["negacyclic_mul32"] = (
-        cuda_ms(lambda: tntt.negacyclic_mul32(ad, bd, k0), 50),
-        cuda_ms(lambda: tntt.negacyclic_mul32_ref(ad, bd, k0), 3),
-    )
     ag = a.to(dev)
-    timings["garner_to_u64"] = (
-        cuda_ms(lambda: tcrt.garner_to_u64(ag, key_plan), 50),
-        cuda_ms(lambda: tcrt.garner_to_u64_ref(ag, key_plan), 3),
-    )
+    keygen_kernels = {  # the kernel's wrapper and its plain version on the same inputs
+        "ntt32": (lambda: tntt.ntt32(xd, p0), lambda: tntt.ntt32_ref(xd, p0)),
+        "intt32": (lambda: tntt.intt32(xd, p0), lambda: tntt.intt32_ref(xd, p0)),
+        "negacyclic_mul32": (lambda: tntt.negacyclic_mul32(ad, bd, k0), lambda: tntt.negacyclic_mul32_ref(ad, bd, k0)),
+        "garner_to_u64": (lambda: tcrt.garner_to_u64(ag, key_plan), lambda: tcrt.garner_to_u64_ref(ag, key_plan)),
+    }
+    graphs = {}
+    for name, (kernel, plain) in keygen_kernels.items():
+        timings[name] = (cuda_ms(kernel, 50), cuda_ms(plain, 3))
+        graphs[name] = graph_ms(kernel, 50)
     row_bytes = rows * n_big * 4
     bounds["ntt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big), pipe_per_s)
     bounds["intt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big) + rows * n_big * SHOUP, pipe_per_s)
@@ -385,10 +425,14 @@ def main() -> None:
     for name, (k_ms, p_ms) in timings.items():
         b_ms, by = bounds[name]
         say(f"{tag} {name}: kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us by {by} = {b_ms / k_ms:.4f} of bound")
+        if name in graphs:
+            g_ms = graphs[name]
+            say(f"  {name}: the kernel's {k_ms * 1e3:.2f} us is per wrapper call (CUDA events over 50 eager calls, host time included); the same 50 launches replayed from a CUDA graph take {g_ms * 1e3:.2f} us each = {b_ms / g_ms:.4f} of bound")
 
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
         ("ntt32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:166"),
+        ("intt32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183"),  # the polymul's inverse half
         ("negacyclic_mul32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183"),
         ("garner_to_u64", "torus_crt.cu", "bench/pallas_step_experiment.py:202"),
         ("tfhe_step", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
@@ -405,6 +449,7 @@ def main() -> None:
                         "launches": launches[name],
                         "max_abs_err": errs[name],
                         "ms": timings[name][0],
+                        "graph_ms": graphs.get(name),  # the 50 launches replayed from a CUDA graph
                         "plain_ms": timings[name][1],
                         "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],

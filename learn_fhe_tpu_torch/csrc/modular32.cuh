@@ -24,9 +24,16 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w, uint32_t w
   return r >= q ? r - q : r;
 }
 
-// Variable x variable product; off the step kernel's path.
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b, uint32_t q) {
-  return static_cast<uint32_t>(static_cast<uint64_t>(a) * b % q);
+// Variable x variable product, with no division: a*b = hi * 2^32 + lo, and
+// 2^32 = r32 (mod q), so a*b = hi * r32 + lo (mod q), hi < 2^30. Takes r32 =
+// 2^32 mod q with its Shoup dual; exact for 2^30 < q < 2^31, where lo < 2^32
+// < 4q falls into [0, q) after at most two conditional subtracts.
+__device__ __forceinline__ uint32_t mul_fold(uint32_t a, uint32_t b, uint32_t r32, uint32_t r32_s,
+                                             uint32_t q) {
+  uint32_t lo = a * b;
+  lo = lo >= 2 * q ? lo - 2 * q : lo;
+  lo = lo >= q ? lo - q : lo;
+  return add_mod(mul_shoup(__umulhi(a, b), r32, r32_s, q), lo, q);
 }
 
 // Residue of a small two's-complement value (|x| < q), e.g. a gadget digit.

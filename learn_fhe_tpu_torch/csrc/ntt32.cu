@@ -1,81 +1,289 @@
 // K-NTT and K-POLYMUL: batched negacyclic NTT, inverse NTT and polynomial
-// product mod one prime q < 2^31, one thread block per row.
+// product mod one prime q < 2^31.
 //
 // Replaces the Pallas kernels of bench/pallas_ntt14_experiment.py:
 //   forward NTT   <- make_kernels.call_fwd      (pl.pallas_call at :166)
 //   polymul       <- make_kernels.call_polymul  (pl.pallas_call at :183),
 //                    whose inverse half is the inverse NTT here.
 // The Pallas kernels load a batch tile into VMEM once and run every layer
-// there, with dense per-position twiddle rows. Here a block loads its row
-// (8 KB at N=2048) into shared memory once, runs all log N layers there with
-// one __syncthreads() per layer, and reads each layer's twiddles from the
-// plan's bit-reversed table (L1/L2-resident, 16 KB per prime with duals).
+// there, with dense per-position twiddle rows, and form the pointwise
+// product as mulhi / lo with 2^32 mod q folded in, never dividing.
 //
-// What bounds it on an H100: a transform moves 2 x 4 B per coefficient
-// through device memory and does log N Shoup butterflies per pair, so at
-// N=2048 it is about 22 integer multiplies per byte; with one row per block
-// the layers' barriers and the narrow block (256 threads for 1024
-// butterflies) leave the SM mostly waiting. Warp-shuffle layers, several
-// rows per block and vectorised loads are later work; this version is the
-// simple, exact one.
+// What bounds them on an H100: a transform moves 2 x 4 B per coefficient
+// through device memory and does log N Shoup butterflies per pair; at
+// (2048, 2048) the bytes take 10.0 us and the instructions' issue 9.0 us,
+// so loads have to overlap arithmetic. The design:
+//   - a 256-thread block owns max(1, 2048 / N) rows (2048 values, 8 per
+//     thread at every N); the grid is ceil(rows / rows per block), and the
+//     ragged last block masks its missing rows;
+//   - the layers run in passes of up to 3 on values held in registers
+//     (lft::fwd_radix / inv_radix, shared with the step kernel), [3, 3, 3, 2]
+//     at N=2048, with one barrier between passes and the values waiting in
+//     a swizzled shared buffer (8 KB per operand) in between;
+//   - the first forward pass reads device memory straight into registers,
+//     neighbouring threads on neighbouring values; the last (log_h = 0)
+//     holds runs of contiguous outputs and writes them with 16-byte stores.
+//     The inverse mirrors it: 16-byte loads into its first pass, the 1/N
+//     scale in its last, a coalesced store;
+//   - twiddles come per pass through the read-only cache: the 16 KB table
+//     of a prime is shared by all blocks on an SM, and a block holds no
+//     wait to hide staging behind;
+//   - K-POLYMUL holds a and b in one block: at the last forward pass a
+//     thread has the same coefficients of both, multiplies them without a
+//     division (lft::mul_fold) and runs the first inverse pass before its
+//     values leave registers;
+//   - one instance per ring size 2^LOG_N, so every pass's index arithmetic
+//     is constant; 8 or 16 KB of shared memory and at most 64 registers a
+//     thread let 4 blocks share an SM.
+// On an H100 neither more resident blocks nor a persistent grid that brings
+// the next rows in with bulk copies ran faster (PERF.md): the SMs' issue of
+// the compiled integer instructions sets the time, and most of the ALU's
+// share is the compare and select of the conditional subtracts.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 #include "ntt32.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxLogN = 11;
+constexpr int kValues = 8 * kThreads;  // values of a block's rows, per operand
 
-__global__ void __launch_bounds__(kThreads)
+// What a block works on: its shared buffer, the prime's tables and constants,
+// and how many values of its rows exist.
+struct Rows {
+  uint32_t* buf;  // kValues per operand, at lft::swizzle(i) for value i of the rows
+  const uint32_t* __restrict__ psi;
+  const uint32_t* __restrict__ psi_s;
+  const uint32_t* __restrict__ psi_inv;
+  const uint32_t* __restrict__ psi_inv_s;
+  uint32_t q, n_inv, n_inv_s, r32, r32_s;
+  int limit;  // kValues, or fewer in the ragged last block
+};
+
+// Item t of a block's pass over layers L0 .. L0+W-1: its rows hold
+// kValues >> W items, and item t's value m is value at + (m << kLogH) of
+// the block's rows, with at = row * N + (hi << (LOG_N - L0)) + lo.
+template <int LOG_N, int L0, int W>
+struct Item {
+  static constexpr int kLogH = LOG_N - L0 - W;
+  static constexpr int kPerThread = (kValues >> W) / kThreads;
+  int hi, at;
+  __device__ __forceinline__ explicit Item(int t)
+      : hi((t & ((1 << (LOG_N - W)) - 1)) >> kLogH),
+        at(((t >> (LOG_N - W)) << LOG_N) + (hi << (LOG_N - L0)) + (t & ((1 << kLogH) - 1))) {}
+};
+
+// An item's values from device memory; zeros past the rows that exist.
+template <int W, int LOG_H>
+__device__ __forceinline__ void load_item(uint32_t (&x)[1 << W], const uint32_t* __restrict__ p,
+                                          int at, int limit) {
+  if (at >= limit) {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) x[m] = 0;
+  } else if constexpr (LOG_H == 0) {
+    lft::load_global<1 << W>(x, p + at);
+  } else {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) x[m] = __ldg(p + at + (m << LOG_H));
+  }
+}
+
+// An item's values to device memory, if its row exists.
+template <int W, int LOG_H>
+__device__ __forceinline__ void store_item(const uint32_t (&x)[1 << W], uint32_t* __restrict__ p,
+                                           int at, int limit) {
+  if (at >= limit) return;
+  if constexpr ((1 << W) >= 4 && LOG_H == 0) {
+#pragma unroll
+    for (int c = 0; c < (1 << W); c += 4) {
+      *reinterpret_cast<uint4*>(p + at + c) = make_uint4(x[c], x[c + 1], x[c + 2], x[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) p[at + (m << LOG_H)] = x[m];
+  }
+}
+
+// The inverse of the layers L0 .. L0+W-1 on one item, with the 1/N scale
+// when they end at layer 0.
+template <int W, int L0>
+__device__ __forceinline__ void inverse_layers(const Rows& k, uint32_t (&x)[1 << W], int hi) {
+  uint32_t w[(1 << W) - 1], ws[(1 << W) - 1];
+  lft::pass_twiddles<W, true>(w, ws, k.psi_inv, k.psi_inv_s, L0, hi);
+  lft::inv_radix<W>(x, w, ws, k.q);
+  if constexpr (L0 == 0) {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) x[m] = lft::mul_shoup(x[m], k.n_inv, k.n_inv_s, k.q);
+  }
+}
+
+// Forward pass P, then the ones after it, on the block's K operands (K-NTT:
+// the row; K-POLYMUL: a and b, operand o in buffer slice o). Pass 0 reads
+// `in` (device memory, at the block's first value), the others the buffer.
+// The last pass (log_h = 0) holds runs of 2^W outputs: with K = 1 it writes
+// them to `out`; with K = 2 it multiplies a's by b's and runs the inverse of
+// its own layers on the product, which then goes to `out` if that was layer
+// 0 and to the buffer otherwise.
+template <int LOG_N, int P, int K>
+__device__ __forceinline__ void forward_pass(const Rows& k, const uint32_t* const (&in)[K],
+                                             uint32_t* __restrict__ out) {
+  constexpr int L0 = 3 * P, W = lft::pass_width(LOG_N, P), R = 1 << W;
+  constexpr bool kLast = P == lft::pass_count(LOG_N) - 1;
+  using It = Item<LOG_N, L0, W>;
+#pragma unroll
+  for (int i = 0; i < It::kPerThread; ++i) {
+    const It it(threadIdx.x + i * kThreads);
+    uint32_t x[K][R];
+#pragma unroll
+    for (int o = 0; o < K; ++o) {
+      if constexpr (P == 0) {
+        load_item<W, It::kLogH>(x[o], in[o], it.at, k.limit);
+      } else {
+        lft::load_row<W, It::kLogH>(x[o], k.buf + o * kValues, it.at);
+      }
+    }
+    {
+      uint32_t w[R - 1], ws[R - 1];
+      lft::pass_twiddles<W, true>(w, ws, k.psi, k.psi_s, L0, it.hi);
+#pragma unroll
+      for (int o = 0; o < K; ++o) lft::fwd_radix<W>(x[o], w, ws, k.q);
+    }
+    if constexpr (!kLast) {
+#pragma unroll
+      for (int o = 0; o < K; ++o) lft::store_row<W, It::kLogH>(x[o], k.buf + o * kValues, it.at);
+    } else if constexpr (K == 1) {
+      store_item<W, 0>(x[0], out, it.at, k.limit);
+    } else {
+#pragma unroll
+      for (int m = 0; m < R; ++m) x[0][m] = lft::mul_fold(x[0][m], x[1][m], k.r32, k.r32_s, k.q);
+      inverse_layers<W, L0>(k, x[0], it.hi);
+      if constexpr (L0 == 0) {
+        store_item<W, 0>(x[0], out, it.at, k.limit);
+      } else {
+        lft::store_row<W, 0>(x[0], k.buf, it.at);
+      }
+    }
+  }
+  if constexpr (!kLast) {
+    __syncthreads();
+    forward_pass<LOG_N, P + 1, K>(k, in, out);
+  }
+}
+
+// The inverse of forward pass P, then of P-1 .. 0, on the row in buffer
+// slice 0. kFromGlobal: P is the last forward pass (log_h = 0), and its
+// input runs are read from `in` (device memory) instead of the buffer.
+// Pass 0 scales by 1/N and writes `out`.
+template <int LOG_N, int P, bool kFromGlobal>
+__device__ __forceinline__ void inverse_pass(const Rows& k, const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out) {
+  constexpr int L0 = 3 * P, W = lft::pass_width(LOG_N, P), R = 1 << W;
+  using It = Item<LOG_N, L0, W>;
+#pragma unroll
+  for (int i = 0; i < It::kPerThread; ++i) {
+    const It it(threadIdx.x + i * kThreads);
+    uint32_t x[R];
+    if constexpr (kFromGlobal) {
+      load_item<W, It::kLogH>(x, in, it.at, k.limit);
+    } else {
+      lft::load_row<W, It::kLogH>(x, k.buf, it.at);
+    }
+    inverse_layers<W, L0>(k, x, it.hi);
+    if constexpr (P == 0) {
+      store_item<W, It::kLogH>(x, out, it.at, k.limit);
+    } else {
+      lft::store_row<W, It::kLogH>(x, k.buf, it.at);
+    }
+  }
+  if constexpr (P > 0) {
+    __syncthreads();
+    inverse_pass<LOG_N, P - 1, false>(k, in, out);
+  }
+}
+
+// Values of the block's rows that exist, of `values` in all.
+__device__ __forceinline__ int block_limit(long long values) {
+  const long long left = values - static_cast<long long>(blockIdx.x) * kValues;
+  return left < kValues ? static_cast<int>(left) : kValues;
+}
+
+template <int LOG_N>
+__global__ void __launch_bounds__(kThreads, 4)
     ntt32_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                      const uint32_t* __restrict__ psi, const uint32_t* __restrict__ psi_s,
-                     int log_n, uint32_t q) {
-  extern __shared__ uint32_t sh[];
-  const int n = 1 << log_n;
-  const size_t base = static_cast<size_t>(blockIdx.x) << log_n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) sh[j] = x[base + j];
-  __syncthreads();
-  lft::ntt_fwd_rows(sh, 1, log_n, psi, psi_s, q);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) y[base + j] = sh[j];
+                     long long values, uint32_t q) {
+  __shared__ uint4 sh4[kValues / 4];  // 16-byte aligned for the vector accesses
+  const size_t first = static_cast<size_t>(blockIdx.x) * kValues;
+  const Rows k{reinterpret_cast<uint32_t*>(sh4), psi, psi_s, nullptr, nullptr, q, 0, 0, 0, 0,
+               block_limit(values)};
+  const uint32_t* const in[1] = {x + first};
+  forward_pass<LOG_N, 0, 1>(k, in, y + first);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int LOG_N>
+__global__ void __launch_bounds__(kThreads, 4)
     ntt32_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                      const uint32_t* __restrict__ psi_inv, const uint32_t* __restrict__ psi_inv_s,
-                     int log_n, uint32_t q, uint32_t n_inv, uint32_t n_inv_s) {
-  extern __shared__ uint32_t sh[];
-  const int n = 1 << log_n;
-  const size_t base = static_cast<size_t>(blockIdx.x) << log_n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) sh[j] = x[base + j];
-  __syncthreads();
-  lft::ntt_inv_rows(sh, 1, log_n, psi_inv, psi_inv_s, q, n_inv, n_inv_s);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) y[base + j] = sh[j];
+                     long long values, uint32_t q, uint32_t n_inv, uint32_t n_inv_s) {
+  __shared__ uint4 sh4[kValues / 4];
+  const size_t first = static_cast<size_t>(blockIdx.x) * kValues;
+  const Rows k{reinterpret_cast<uint32_t*>(sh4), nullptr, nullptr, psi_inv, psi_inv_s, q, n_inv,
+               n_inv_s, 0, 0, block_limit(values)};
+  inverse_pass<LOG_N, lft::pass_count(LOG_N) - 1, true>(k, x + first, y + first);
 }
 
-// y = INTT(NTT(a) * NTT(b)) for one row per block; both operands stay in
-// shared memory (2 x 8 KB at N=2048) from load to store.
-__global__ void __launch_bounds__(kThreads)
+// y = INTT(NTT(a) * NTT(b)) on the block's rows of a and b.
+template <int LOG_N>
+__global__ void __launch_bounds__(kThreads, 4)
     negacyclic_mul32_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                             uint32_t* __restrict__ y, const uint32_t* __restrict__ psi,
                             const uint32_t* __restrict__ psi_s,
                             const uint32_t* __restrict__ psi_inv,
-                            const uint32_t* __restrict__ psi_inv_s, int log_n, uint32_t q,
-                            uint32_t n_inv, uint32_t n_inv_s) {
-  extern __shared__ uint32_t sh[];
-  const int n = 1 << log_n;
-  const size_t base = static_cast<size_t>(blockIdx.x) << log_n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sh[j] = a[base + j];
-    sh[n + j] = b[base + j];
+                            const uint32_t* __restrict__ psi_inv_s, long long values, uint32_t q,
+                            uint32_t n_inv, uint32_t n_inv_s, uint32_t r32, uint32_t r32_s) {
+  __shared__ uint4 sh4[2 * kValues / 4];
+  const size_t first = static_cast<size_t>(blockIdx.x) * kValues;
+  const Rows k{reinterpret_cast<uint32_t*>(sh4), psi, psi_s, psi_inv, psi_inv_s, q, n_inv, n_inv_s,
+               r32, r32_s, block_limit(values)};
+  const uint32_t* const in[2] = {a + first, b + first};
+  forward_pass<LOG_N, 0, 2>(k, in, y + first);
+  constexpr int kLast = lft::pass_count(LOG_N) - 1;
+  if constexpr (kLast > 0) {
+    __syncthreads();
+    inverse_pass<LOG_N, kLast - 1, false>(k, nullptr, y + first);
   }
-  __syncthreads();
-  lft::ntt_fwd_rows(sh, 2, log_n, psi, psi_s, q);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) sh[j] = lft::mul_mod(sh[j], sh[n + j], q);
-  __syncthreads();
-  lft::ntt_inv_rows(sh, 1, log_n, psi_inv, psi_inv_s, q, n_inv, n_inv_s);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) y[base + j] = sh[j];
+}
+
+// Each kernel's instance for ring 2^log_n, 1 <= log_n <= kMaxLogN.
+template <int... L>
+auto fwd_kernel(int log_n, std::integer_sequence<int, L...>) {
+  static const decltype(&ntt32_fwd_kernel<1>) table[] = {ntt32_fwd_kernel<L + 1>...};
+  return table[log_n - 1];
+}
+
+template <int... L>
+auto inv_kernel(int log_n, std::integer_sequence<int, L...>) {
+  static const decltype(&ntt32_inv_kernel<1>) table[] = {ntt32_inv_kernel<L + 1>...};
+  return table[log_n - 1];
+}
+
+template <int... L>
+auto mul_kernel(int log_n, std::integer_sequence<int, L...>) {
+  static const decltype(&negacyclic_mul32_kernel<1>) table[] = {negacyclic_mul32_kernel<L + 1>...};
+  return table[log_n - 1];
+}
+
+constexpr auto kLogNs = std::make_integer_sequence<int, kMaxLogN>{};
+
+// Blocks for `rows` rows of 2^log_n, or 0 for a shape the kernels do not take.
+unsigned blocks(int rows, int log_n) {
+  if (rows < 1 || log_n < 1 || log_n > kMaxLogN) return 0;
+  const int per_block = kValues >> log_n;
+  return static_cast<unsigned>((rows + per_block - 1) / per_block);
 }
 
 }  // namespace
@@ -88,34 +296,42 @@ const char* lft_error_string(int status) {
 
 int lft_ntt32_fwd(const void* x, void* y, const void* psi, const void* psi_s, int rows, int log_n,
                   unsigned int q, void* stream) {
-  const size_t smem = sizeof(uint32_t) << log_n;
-  ntt32_fwd_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = blocks(rows, log_n);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = fwd_kernel(log_n, kLogNs);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_s), log_n, q);
+      static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_s),
+      static_cast<long long>(rows) << log_n, q);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lft_ntt32_inv(const void* x, void* y, const void* psi_inv, const void* psi_inv_s, int rows,
                   int log_n, unsigned int q, unsigned int n_inv, unsigned int n_inv_s,
                   void* stream) {
-  const size_t smem = sizeof(uint32_t) << log_n;
-  ntt32_inv_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned grid = blocks(rows, log_n);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = inv_kernel(log_n, kLogNs);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(y),
-      static_cast<const uint32_t*>(psi_inv), static_cast<const uint32_t*>(psi_inv_s), log_n, q,
-      n_inv, n_inv_s);
+      static_cast<const uint32_t*>(psi_inv), static_cast<const uint32_t*>(psi_inv_s),
+      static_cast<long long>(rows) << log_n, q, n_inv, n_inv_s);
   return static_cast<int>(cudaGetLastError());
 }
 
 int lft_negacyclic_mul32(const void* a, const void* b, void* y, const void* psi,
                          const void* psi_s, const void* psi_inv, const void* psi_inv_s, int rows,
                          int log_n, unsigned int q, unsigned int n_inv, unsigned int n_inv_s,
-                         void* stream) {
-  const size_t smem = (2 * sizeof(uint32_t)) << log_n;
-  negacyclic_mul32_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+                         unsigned int r32, unsigned int r32_s, void* stream) {
+  const unsigned grid = blocks(rows, log_n);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = mul_kernel(log_n, kLogNs);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(y), static_cast<const uint32_t*>(psi),
       static_cast<const uint32_t*>(psi_s), static_cast<const uint32_t*>(psi_inv),
-      static_cast<const uint32_t*>(psi_inv_s), log_n, q, n_inv, n_inv_s);
+      static_cast<const uint32_t*>(psi_inv_s), static_cast<long long>(rows) << log_n, q, n_inv,
+      n_inv_s, r32, r32_s);
   return static_cast<int>(cudaGetLastError());
 }
 

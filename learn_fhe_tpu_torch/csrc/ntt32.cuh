@@ -1,4 +1,4 @@
-// Negacyclic NTT of rows held in shared memory, for primes q < 2^31.
+// Negacyclic NTT passes on values held in registers, for primes q < 2^31.
 //
 // The merged-twist transform of learn_fhe_tpu/ops/ntt32.py: the forward
 // (Cooley-Tukey, layer 0 first) takes normal order to bit-reversed order, the
@@ -8,12 +8,13 @@
 // are bit-identical to the JAX package's radix-8/4/2 passes, since every
 // operation is exact mod q.
 //
-// ntt_fwd_rows / ntt_inv_rows run each butterfly layer as one strided loop
-// over all threads of the block followed by __syncthreads(); the whole block
-// must call them (K-NTT, K-POLYMUL). The step kernel instead runs passes of
-// up to 3 layers on values held in registers (fwd_radix / inv_radix below),
-// with one barrier per pass.
+// The kernels (K-NTT, K-POLYMUL, K-STEP) run the layers in passes of up to 3
+// on values held in registers, with one barrier per pass; between passes the
+// values wait in a swizzled buffer of shared memory. The schedule is the
+// JAX package's radix-8 one: [3, 3, 3, 2] layers at N=2048.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -21,57 +22,11 @@
 
 namespace lft {
 
-// In place on `rows` consecutive rows of n = 2^log_n values; ends synchronised.
-__device__ __forceinline__ void ntt_fwd_rows(uint32_t* x, int rows, int log_n,
-                                             const uint32_t* __restrict__ psi,
-                                             const uint32_t* __restrict__ psi_s, uint32_t q) {
-  const int half_n = 1 << (log_n - 1);
-  const int total = rows * half_n;
-  for (int layer = 0; layer < log_n; ++layer) {
-    const int shift = log_n - 1 - layer;  // half = 1 << shift
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int j = t & (half_n - 1);
-      const int g = j >> shift;
-      uint32_t* row = x + ((t >> (log_n - 1)) << log_n);
-      const int iu = (g << (shift + 1)) + (j & ((1 << shift) - 1));
-      const int iv = iu + (1 << shift);
-      const int w = (1 << layer) + g;
-      const uint32_t u = row[iu];
-      const uint32_t tv = mul_shoup(row[iv], psi[w], psi_s[w], q);
-      row[iu] = add_mod(u, tv, q);
-      row[iv] = sub_mod(u, tv, q);
-    }
-    __syncthreads();
-  }
-}
-
-// In place, including the scale by n^-1; ends synchronised.
-__device__ __forceinline__ void ntt_inv_rows(uint32_t* x, int rows, int log_n,
-                                             const uint32_t* __restrict__ psi_inv,
-                                             const uint32_t* __restrict__ psi_inv_s, uint32_t q,
-                                             uint32_t n_inv, uint32_t n_inv_s) {
-  const int half_n = 1 << (log_n - 1);
-  const int total = rows * half_n;
-  for (int layer = log_n - 1; layer >= 0; --layer) {
-    const int shift = log_n - 1 - layer;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int j = t & (half_n - 1);
-      const int g = j >> shift;
-      uint32_t* row = x + ((t >> (log_n - 1)) << log_n);
-      const int iu = (g << (shift + 1)) + (j & ((1 << shift) - 1));
-      const int iv = iu + (1 << shift);
-      const int w = (1 << layer) + g;
-      const uint32_t u = row[iu];
-      const uint32_t v = row[iv];
-      row[iu] = add_mod(u, v, q);
-      row[iv] = mul_shoup(sub_mod(u, v, q), psi_inv[w], psi_inv_s[w], q);
-    }
-    __syncthreads();
-  }
-  for (int t = threadIdx.x; t < (rows << log_n); t += blockDim.x) {
-    x[t] = mul_shoup(x[t], n_inv, n_inv_s, q);
-  }
-  __syncthreads();
+// Passes of the forward schedule for ring 2^log_n: pass p runs layers 3p ..
+// 3p+2, the last pass the remaining 1 to 3.
+__host__ __device__ constexpr int pass_count(int log_n) { return (log_n + 2) / 3; }
+__host__ __device__ constexpr int pass_width(int log_n, int p) {
+  return p == pass_count(log_n) - 1 ? log_n - 3 * p : 3;
 }
 
 // ---------------------------------------------------------------------------
@@ -81,11 +36,11 @@ __device__ __forceinline__ void ntt_inv_rows(uint32_t* x, int rows, int log_n,
 // (hi, lo) per thread. Within the pass, layer l0+t pairs m and m + 2^(W-1-t)
 // in group u = m >> (W-t) and takes twiddle (1 << (l0+t)) + (hi << t) + u of
 // the bit-reversed table; a pass's 2^W - 1 twiddles are loaded once, in the
-// order t = 0.., u = 0.., by pass_twiddles from a copy of the table in
-// shared memory.
+// order t = 0.., u = 0.., by pass_twiddles: from device memory through the
+// read-only cache (kGlobal), or from a copy of the table in shared memory.
 // ---------------------------------------------------------------------------
 
-template <int W>
+template <int W, bool kGlobal = false>
 __device__ __forceinline__ void pass_twiddles(uint32_t (&w)[(1 << W) - 1],
                                               uint32_t (&ws)[(1 << W) - 1],
                                               const uint32_t* __restrict__ tab,
@@ -95,8 +50,13 @@ __device__ __forceinline__ void pass_twiddles(uint32_t (&w)[(1 << W) - 1],
 #pragma unroll
     for (int u = 0; u < (1 << t); ++u) {
       const int idx = (1 << (l0 + t)) + (hi << t) + u;
-      w[(1 << t) - 1 + u] = tab[idx];
-      ws[(1 << t) - 1 + u] = tab_s[idx];
+      if constexpr (kGlobal) {
+        w[(1 << t) - 1 + u] = __ldg(tab + idx);
+        ws[(1 << t) - 1 + u] = __ldg(tab_s + idx);
+      } else {
+        w[(1 << t) - 1 + u] = tab[idx];
+        ws[(1 << t) - 1 + u] = tab_s[idx];
+      }
     }
   }
 }
@@ -145,10 +105,56 @@ __device__ __forceinline__ void inv_radix(uint32_t (&x)[1 << W], const uint32_t 
 }
 
 // Shared-memory slot of value i of a block's rows: bits 2-4 of i XORed with
-// bits 5-7. Every pass of the step kernel then reaches 32 distinct banks per
-// warp (for log_h = 2 the warp's 8 values of hi spread over bits 2-4), and
-// a run of 4 values starting at a multiple of 4 stays 4 contiguous, 16-byte
-// aligned slots. It is its own inverse on any multiple of 32 values.
+// bits 5-7. Every pass then reaches 32 distinct banks per warp (for log_h =
+// 2 the warp's 8 values of hi spread over bits 2-4), and a run of 4 values
+// starting at a multiple of 4 stays 4 contiguous, 16-byte aligned slots. It
+// is its own inverse on any multiple of 32 values.
 __device__ __forceinline__ int swizzle(int i) { return i ^ (((i >> 5) & 7) << 2); }
+
+// R contiguous values from device memory through the read-only cache,
+// 16-byte aligned when R >= 4.
+template <int R>
+__device__ __forceinline__ void load_global(uint32_t (&x)[R], const uint32_t* __restrict__ p) {
+  if constexpr (R >= 4) {
+#pragma unroll
+    for (int c = 0; c < R; c += 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + c));
+      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = __ldg(p + m);
+  }
+}
+
+// The pass's values of one row from (store: to) the swizzled buffer.
+template <int W, int LOG_H>
+__device__ __forceinline__ void load_row(uint32_t (&x)[1 << W], const uint32_t* buf, int base) {
+  constexpr int R = 1 << W;
+  if constexpr (R >= 4 && LOG_H == 0) {  // R contiguous values: 16-byte loads
+#pragma unroll
+    for (int c = 0; c < R; c += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(buf + swizzle(base + c));
+      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = buf[swizzle(base + (m << LOG_H))];
+  }
+}
+
+template <int W, int LOG_H>
+__device__ __forceinline__ void store_row(const uint32_t (&x)[1 << W], uint32_t* buf, int base) {
+  constexpr int R = 1 << W;
+  if constexpr (R >= 4 && LOG_H == 0) {
+#pragma unroll
+    for (int c = 0; c < R; c += 4) {
+      *reinterpret_cast<uint4*>(buf + swizzle(base + c)) = make_uint4(x[c], x[c + 1], x[c + 2], x[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < R; ++m) buf[swizzle(base + (m << LOG_H))] = x[m];
+  }
+}
 
 }  // namespace lft

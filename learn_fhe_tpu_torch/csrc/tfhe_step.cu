@@ -97,52 +97,6 @@ struct Block {
   int log_b, rounding_bits;
 };
 
-// R contiguous values from global memory, 16-byte aligned when R >= 4.
-template <int R>
-__device__ __forceinline__ void load_global(uint32_t (&x)[R], const uint32_t* __restrict__ p) {
-  if constexpr (R >= 4) {
-#pragma unroll
-    for (int c = 0; c < R; c += 4) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + c));
-      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < R; ++m) x[m] = __ldg(p + m);
-  }
-}
-
-// The pass's values of one row from (store: to) the swizzled buffer.
-template <int W, int LOG_H>
-__device__ __forceinline__ void load_row(uint32_t (&x)[1 << W], const uint32_t* buf, int base) {
-  constexpr int R = 1 << W;
-  if constexpr (R >= 4 && LOG_H == 0) {  // R contiguous values: 16-byte loads
-#pragma unroll
-    for (int c = 0; c < R; c += 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(buf + lft::swizzle(base + c));
-      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < R; ++m) x[m] = buf[lft::swizzle(base + (m << LOG_H))];
-  }
-}
-
-template <int W, int LOG_H>
-__device__ __forceinline__ void store_row(const uint32_t (&x)[1 << W], uint32_t* buf, int base) {
-  constexpr int R = 1 << W;
-  if constexpr (R >= 4 && LOG_H == 0) {
-#pragma unroll
-    for (int c = 0; c < R; c += 4) {
-      *reinterpret_cast<uint4*>(buf + lft::swizzle(base + c)) =
-          make_uint4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < R; ++m) buf[lft::swizzle(base + (m << LOG_H))] = x[m];
-  }
-}
-
 // The inverse layers of a pass on both rows, with the 1/N scale when the
 // pass ends at layer 0.
 template <int W, int L0>
@@ -184,8 +138,8 @@ __device__ __forceinline__ void forward_pass(const Block& k) {
         x1[m] = lft::sign_fold(gadget_digit(k.acc_b[i], k.log_b, k.rounding_bits), k.q);
       }
     } else {
-      load_row<W, log_h>(x0, k.buf, base);
-      load_row<W, log_h>(x1, k.buf, n + base);
+      lft::load_row<W, log_h>(x0, k.buf, base);
+      lft::load_row<W, log_h>(x1, k.buf, n + base);
     }
     {
       uint32_t w[R - 1], ws[R - 1];
@@ -202,26 +156,26 @@ __device__ __forceinline__ void forward_pass(const Block& k) {
       for (int c = 0; c < R; c += C) {
         const int j = base + c;
         uint32_t v0[C], d0[C], v1[C], d1[C], ea[C], eb[C];
-        load_global<C>(v0, k.kav + j);
-        load_global<C>(d0, k.kad + j);
-        load_global<C>(v1, k.kav + n + j);
-        load_global<C>(d1, k.kad + n + j);
+        lft::load_global<C>(v0, k.kav + j);
+        lft::load_global<C>(d0, k.kad + j);
+        lft::load_global<C>(v1, k.kav + n + j);
+        lft::load_global<C>(d1, k.kad + n + j);
 #pragma unroll
         for (int m = 0; m < C; ++m) {
           ea[m] = lft::add_mod(lft::mul_shoup(x0[c + m], v0[m], d0[m], k.q),
                                lft::mul_shoup(x1[c + m], v1[m], d1[m], k.q), k.q);
         }
-        load_global<C>(v0, k.kbv + j);
-        load_global<C>(d0, k.kbd + j);
-        load_global<C>(v1, k.kbv + n + j);
-        load_global<C>(d1, k.kbd + n + j);
+        lft::load_global<C>(v0, k.kbv + j);
+        lft::load_global<C>(d0, k.kbd + j);
+        lft::load_global<C>(v1, k.kbv + n + j);
+        lft::load_global<C>(d1, k.kbd + n + j);
 #pragma unroll
         for (int m = 0; m < C; ++m) {
           eb[m] = lft::add_mod(lft::mul_shoup(x0[c + m], v0[m], d0[m], k.q),
                                lft::mul_shoup(x1[c + m], v1[m], d1[m], k.q), k.q);
         }
-        load_global<C>(v0, k.mv + j);
-        load_global<C>(d0, k.md + j);
+        lft::load_global<C>(v0, k.mv + j);
+        lft::load_global<C>(d0, k.md + j);
 #pragma unroll
         for (int m = 0; m < C; ++m) {
           x0[c + m] = lft::sub_mod(lft::mul_shoup(ea[m], v0[m], d0[m], k.q), ea[m], k.q);
@@ -230,8 +184,8 @@ __device__ __forceinline__ void forward_pass(const Block& k) {
       }
       inverse_layers<W, L0>(k, x0, x1, hi);
     }
-    store_row<W, log_h>(x0, k.buf, base);
-    store_row<W, log_h>(x1, k.buf, n + base);
+    lft::store_row<W, log_h>(x0, k.buf, base);
+    lft::store_row<W, log_h>(x1, k.buf, n + base);
   }
 }
 
@@ -249,11 +203,11 @@ __device__ __forceinline__ void inverse_pass(const Block& k) {
     const int hi = t >> log_h;
     const int base = (hi << (LOG_N - L0)) + lo;
     uint32_t x0[R], x1[R];
-    load_row<W, log_h>(x0, k.buf, base);
-    load_row<W, log_h>(x1, k.buf, n + base);
+    lft::load_row<W, log_h>(x0, k.buf, base);
+    lft::load_row<W, log_h>(x1, k.buf, n + base);
     inverse_layers<W, L0>(k, x0, x1, hi);
-    store_row<W, log_h>(x0, k.buf, base);
-    store_row<W, log_h>(x1, k.buf, n + base);
+    lft::store_row<W, log_h>(x0, k.buf, base);
+    lft::store_row<W, log_h>(x1, k.buf, n + base);
   }
 }
 
@@ -262,9 +216,8 @@ __device__ __forceinline__ void inverse_pass(const Block& k) {
 // barrier; the last one also runs the inverse of its own layers.
 template <int LOG_N, int P>
 __device__ __forceinline__ void forward_passes(const Block& k) {
-  constexpr int kPasses = (LOG_N + 2) / 3;
-  constexpr bool kLast = P == kPasses - 1;
-  forward_pass<LOG_N, 3 * P, kLast ? LOG_N - 3 * P : 3, P == 0, kLast>(k);
+  constexpr bool kLast = P == lft::pass_count(LOG_N) - 1;
+  forward_pass<LOG_N, 3 * P, lft::pass_width(LOG_N, P), P == 0, kLast>(k);
   __syncthreads();
   if constexpr (!kLast) forward_passes<LOG_N, P + 1>(k);
 }
@@ -341,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 4)
                 av + key, ad + key, bv + key, bd + key, mon_v + mon, mon_d + mon,
                 g.q[r], g.n_inv[r], g.n_inv_s[r], log_b, rounding_bits};
   forward_passes<LOG_N, 0>(k);
-  inverse_passes<LOG_N, (LOG_N + 2) / 3 - 2>(k);
+  inverse_passes<LOG_N, lft::pass_count(LOG_N) - 2>(k);
 
   // Garner across the cluster: coefficient j's K residues are at slot
   // swizzle(j) of the K blocks' buffers. A thread owns every (K * 256)-th

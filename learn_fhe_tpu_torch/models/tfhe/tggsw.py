@@ -180,7 +180,8 @@ def _step_kernel_args(
     kernels.require(f"{name} mon_d", mon_d, torch.int32, (kk, 2 * n, n))
     t = crt_tables(plan, acc.a.device)
     return (
-        *key, mon_v, mon_d, *t, plan.plans[0].log_n, g.log_b, g.rounding_bits, plan.kernel_consts,
+        *(x.data_ptr() for x in (*key, mon_v, mon_d, *t)), plan.plans[0].log_n, g.log_b, g.rounding_bits,
+        plan.kernel_consts.ctypes.data,
     )  # fmt: skip
 
 
@@ -199,7 +200,7 @@ def cmux_rotate(
     args = _step_kernel_args("cmux_rotate", params, key, acc, exps, mon_v, mon_d, stacked=False)
     batch = acc.b.shape[0]
     if batch:
-        kernels.launch("lft_tfhe_step", acc.a, acc.b, exps, batch, *args)
+        kernels.launch("lft_tfhe_step", acc.a.data_ptr(), acc.b.data_ptr(), exps.data_ptr(), batch, *args)
         cmux_rotate.launches += 1
     return acc
 
@@ -227,7 +228,7 @@ def blind_rotate_steps(
     args = _step_kernel_args("blind_rotate_steps", params, brk, acc, exps, mon_v, mon_d, stacked=True)
     steps, batch = exps.shape[0], acc.b.shape[0]
     if batch and steps:
-        kernels.launch("lft_tfhe_blind_rotate", acc.a, acc.b, exps, steps, batch, *args)
+        kernels.launch("lft_tfhe_blind_rotate", acc.a.data_ptr(), acc.b.data_ptr(), exps.data_ptr(), steps, batch, *args)
         blind_rotate_steps.launches += steps
     return acc
 

@@ -8,10 +8,14 @@ element with the JAX package.
 Kernels (`csrc/ntt32.cu`), each beside its plain radix-2 version:
 - `ntt32` / `intt32` replace the Pallas forward kernel
   `bench/pallas_ntt14_experiment.py:166` (`call_fwd`) and the inverse half
-  of its polymul kernel (:183): one block per row, the whole row in shared
-  memory, `__syncthreads()` between butterfly layers.
+  of its polymul kernel (:183): a block owns max(1, 2048 / n) rows and runs
+  the layers in passes of up to 3 on values held in registers (radix 8,
+  [3, 3, 3, 2] at n=2048), one barrier between passes.
 - `negacyclic_mul32` replaces the Pallas polymul kernel (:183, `call_polymul`):
-  two forward transforms, the pointwise product and the inverse in one launch.
+  the forward passes of a and b, the pointwise product without a division
+  (2^32 mod q folded into the high word, `Ntt32Plan.r32`) and the inverse
+  passes in one launch. It takes primes 2^30 < q < 2^31, as every prime of
+  the torus CRT plans is.
 
 Each wrapper runs the plain version only for CPU tensors. A CUDA tensor goes
 to the kernel, or the wrapper raises; there is no fallback.
@@ -47,6 +51,8 @@ class Ntt32Plan:
     psi_inv_br_shoup: np.ndarray
     n_inv: int
     n_inv_shoup: int
+    r32: int  # 2^32 mod q, for the polymul kernel's product
+    r32_shoup: int
 
 
 @lru_cache(maxsize=None)
@@ -77,6 +83,8 @@ def ntt32_plan(q: int, n: int) -> Ntt32Plan:
         psi_inv_br_shoup=shoup32(psi_inv_br, q),
         n_inv=n_inv,
         n_inv_shoup=int(shoup32(n_inv, q)[()]),
+        r32=(1 << 32) % q,
+        r32_shoup=int(shoup32((1 << 32) % q, q)[()]),
     )
 
 
@@ -157,32 +165,42 @@ def _check(name: str, x: torch.Tensor, plan: Ntt32Plan) -> int:
     kernels.require(name, x, torch.int32)
     if x.dim() == 0 or x.shape[-1] != plan.n:
         raise ValueError(f"{name}: last axis must be n={plan.n}, got {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads and writes rows with 16-byte accesses; x is not 16-byte aligned")
     return x.numel() // plan.n
+
+
+@lru_cache(maxsize=None)
+def _table_pointers(plan: Ntt32Plan, device: int) -> tuple[int, int, int, int]:
+    """Device pointers of the plan's tables on CUDA device `device`, which
+    `plan_tables`' cache keeps alive: a wrapper call reads them here rather
+    than from four tensors."""
+    return tuple(t.data_ptr() for t in plan_tables(plan, torch.device("cuda", device)))
 
 
 def ntt32(x: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
     """Forward NTT of every row of x (int32 residues in [0, q))."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ntt32_ref(x, plan)
     rows = _check("ntt32", x, plan)
-    t = plan_tables(plan, x.device)
     y = torch.empty_like(x)
     if rows:
-        kernels.launch("lft_ntt32_fwd", x, y, t.psi, t.psi_s, rows, plan.log_n, plan.q)
+        psi, psi_s, _, _ = _table_pointers(plan, x.get_device())
+        kernels.launch("lft_ntt32_fwd", x.data_ptr(), y.data_ptr(), psi, psi_s, rows, plan.log_n, plan.q)
         ntt32.launches += 1
     return y
 
 
 def intt32(x: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
     """Inverse NTT of every row of x (int32 residues in [0, q))."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return intt32_ref(x, plan)
     rows = _check("intt32", x, plan)
-    t = plan_tables(plan, x.device)
     y = torch.empty_like(x)
     if rows:
+        _, _, psi_inv, psi_inv_s = _table_pointers(plan, x.get_device())
         kernels.launch(
-            "lft_ntt32_inv", x, y, t.psi_inv, t.psi_inv_s, rows, plan.log_n, plan.q,
+            "lft_ntt32_inv", x.data_ptr(), y.data_ptr(), psi_inv, psi_inv_s, rows, plan.log_n, plan.q,
             plan.n_inv, plan.n_inv_shoup,
         )  # fmt: skip
         intt32.launches += 1
@@ -191,16 +209,19 @@ def intt32(x: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
 
 def negacyclic_mul32(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
     """Row-wise negacyclic product mod q of two equal-shape residue tensors."""
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return negacyclic_mul32_ref(a, b, plan)
     rows = _check("negacyclic_mul32", a, plan)
+    _check("negacyclic_mul32", b, plan)
     kernels.require("negacyclic_mul32", b, torch.int32, a.shape)
-    t = plan_tables(plan, a.device)
+    if plan.q < 1 << 30:
+        raise ValueError(f"negacyclic_mul32: the kernel's product takes 2^30 < q < 2^31, got q={plan.q}")
     y = torch.empty_like(a)
     if rows:
         kernels.launch(
-            "lft_negacyclic_mul32", a, b, y, t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, rows,
-            plan.log_n, plan.q, plan.n_inv, plan.n_inv_shoup,
+            "lft_negacyclic_mul32", a.data_ptr(), b.data_ptr(), y.data_ptr(),
+            *_table_pointers(plan, a.get_device()), rows, plan.log_n, plan.q, plan.n_inv, plan.n_inv_shoup,
+            plan.r32, plan.r32_shoup,
         )  # fmt: skip
         negacyclic_mul32.launches += 1
     return y

@@ -187,15 +187,15 @@ def garner_to_u64_ref(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
 
 def garner_to_u64(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
     """Garner reconstruction of coefficient residues (K, ...) int32 -> int64."""
-    if coeffs.device.type == "cpu":
+    if coeffs.is_cpu:
         return garner_to_u64_ref(coeffs, plan)
     consts = plan.kernel_consts
     kernels.require("garner_to_u64", coeffs, torch.int32)
     if coeffs.dim() == 0 or coeffs.shape[0] != plan.k:
         raise ValueError(f"garner_to_u64: expected {plan.k} residue planes, got {tuple(coeffs.shape)}")
-    out = torch.empty(coeffs.shape[1:], dtype=torch.int64, device=coeffs.device)
+    out = coeffs.new_empty(coeffs.shape[1:], dtype=torch.int64)
     if out.numel():
-        kernels.launch("lft_garner_to_u64", coeffs, out, out.numel(), consts)
+        kernels.launch("lft_garner_to_u64", coeffs.data_ptr(), out.data_ptr(), out.numel(), consts.ctypes.data)
         garner_to_u64.launches += 1
     return out
 

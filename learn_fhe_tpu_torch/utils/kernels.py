@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface, loaded with ctypes. The library is
+The sources are compiled at first use with `nvcc` for `sm_90a`, one `nvcc`
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes. The library is
 cached in `build/learn_fhe_tpu_torch/` beside the package, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 loaded again. Nothing here is imported or built until a wrapper is handed a
@@ -17,12 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
 
-import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -31,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
 SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )  # fmt: skip
 
 # Largest ring the kernels take: one N=2048 row of u32 is 8 KB of shared memory.
@@ -45,8 +46,8 @@ _SIGNATURES = {
     # x, y, psi_inv, psi_inv_shoup, rows, log_n, q, n_inv, n_inv_shoup, stream
     "lft_ntt32_inv": (_P, _P, _P, _P, _I, _I, _U, _U, _U, _P),
     # a, b, y, psi, psi_shoup, psi_inv, psi_inv_shoup, rows, log_n, q, n_inv,
-    # n_inv_shoup, stream
-    "lft_negacyclic_mul32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _P),
+    # n_inv_shoup, 2^32 mod q, its shoup, stream
+    "lft_negacyclic_mul32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _U, _P),
     # residues (K, count), out (count,), count, host consts, stream
     "lft_garner_to_u64": (_P, _P, _LL, _P, _P),
     # acc_a, acc_b, exps, batch, av, ad, bv, bd, mon_v, mon_d, psi, psi_shoup,
@@ -86,13 +87,23 @@ def library() -> ctypes.CDLL:
     so = _library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        nvcc, tmp = _nvcc(), so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        codes = [p.returncode for p in procs]
+        if not any(codes):
+            cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            outs.append(link.stdout)
+            codes.append(link.returncode)
+        log = "".join(f"$ {' '.join(c)}\n{out}" for c, out in zip(cmds, outs))
         (BUILD_DIR / "build.log").write_text(log)
-        if proc.returncode != 0:
-            raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{log[-8000:]}")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if any(codes):
+            raise KernelBuildError(f"nvcc failed ({max(codes)}):\n{log[-8000:]}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -111,10 +122,38 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
+# The kernels of the library by the name in their source; a mangled name
+# holds it after an anonymous-namespace prefix whose hash depends on the
+# source's path, and a template instance adds ILi<LOG_N>E after it.
+_KERNEL_NAME = re.compile(r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step)_kernel(?:ILi(\d+)E)?")
+
+
+def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
+    """Per kernel instance in a build log (`build_log()`): registers, bytes
+    of spill stores and bytes of spill loads, keyed as in the source with
+    the ring's LOG_N for a template instance (`ntt32_fwd_kernel<11>`,
+    `garner_kernel`)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = _KERNEL_NAME.search(line)
+            name = None if m is None else f"{m[1]}_kernel<{m[2]}>" if m[2] else f"{m[1]}_kernel"
+            continue
+        if name is None:
+            continue
+        regs, st, ld = out.get(name, (0, 0, 0))
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            st, ld = int(m[1]), int(m[2])
+        if m := re.search(r"Used (\d+) registers", line):
+            regs = int(m[1])
+        out[name] = (regs, st, ld)
+    return out
+
+
 def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:
     """Raise unless t is a contiguous CUDA tensor on the current device of
     the given dtype (and shape)."""
-    if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
+    if not t.is_cuda or t.get_device() != torch.cuda.current_device():
         raise ValueError(f"{name}: expected a tensor on the current CUDA device, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -124,19 +163,14 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None 
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def launch(entry: str, *args) -> None:
-    """Call C entry point `entry` on the current stream; tensors go by device
-    pointer, numpy arrays (host constants) by host pointer."""
-    lib = library()
-    conv = []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            conv.append(a.data_ptr())
-        elif isinstance(a, np.ndarray):
-            conv.append(a.ctypes.data)
-        else:
-            conv.append(a)
-    status = getattr(lib, entry)(*conv, torch.cuda.current_stream().cuda_stream)
+def launch(entry: str, *args: int) -> None:
+    """Call C entry point `entry` on the current stream. The caller passes
+    device tensors as `Tensor.data_ptr()` and host constants as
+    `ndarray.ctypes.data`, and the stream goes as its raw handle
+    (`torch.cuda.current_stream()` would build a Python object): an eager
+    caller such as key generation pays this host time on every launch, and
+    for the NTT kernels it is of the order of the kernel's own time."""
+    status = getattr(library(), entry)(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if status != 0:
-        msg = lib.lft_error_string(status).decode()
+        msg = library().lft_error_string(status).decode()
         raise RuntimeError(f"{entry}: CUDA error {status} ({msg})")

@@ -43,15 +43,30 @@ def _same(got: torch.Tensor, want: torch.Tensor) -> None:
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("n", [2, 64, 256, 2048])
+def _key_plan(n):
+    return tcrt.torus_crt_plan(n, tcrt.required_bound_bits(n, 2, 1))
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 12)])
 def test_ntt_kernels_match_plain(dev, n):
+    """K-NTT, its inverse and K-POLYMUL at every ring, on 1 row, 3 rows and
+    (below N=2048, where a block holds 2048 / N rows) a row count that
+    leaves the last block ragged, with inputs holding 0 and q - 1, under
+    every prime of the step plan (B=2^23, R=2) and of key generation's
+    (B=2, R=1)."""
     rng = np.random.default_rng(n)
-    for q, plan in zip(_step_plan(n).primes, _step_plan(n).plans):
-        a = u32_to_torch(rng.integers(0, q, size=(5, n), dtype=np.uint32))
-        b = u32_to_torch(rng.integers(0, q, size=(5, n), dtype=np.uint32))
-        _same(tntt.ntt32(a.to(dev), plan), tntt.ntt32_ref(a, plan))
-        _same(tntt.intt32(a.to(dev), plan), tntt.intt32_ref(a, plan))
-        _same(tntt.negacyclic_mul32(a.to(dev), b.to(dev), plan), tntt.negacyclic_mul32_ref(a, b, plan))
+    counts = [1, 3] + ([2 * (2048 // n) + 3] if n < 2048 else [])
+    primes = dict.fromkeys(_step_plan(n).primes + _key_plan(n).primes)
+    for q in primes:
+        plan = tntt.ntt32_plan(q, n)
+        for rows in counts:
+            a = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+            b = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+            a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, q - 1, q - 1, 0
+            a, b = u32_to_torch(a), u32_to_torch(b)
+            _same(tntt.ntt32(a.to(dev), plan), tntt.ntt32_ref(a, plan))
+            _same(tntt.intt32(a.to(dev), plan), tntt.intt32_ref(a, plan))
+            _same(tntt.negacyclic_mul32(a.to(dev), b.to(dev), plan), tntt.negacyclic_mul32_ref(a, b, plan))
 
 
 @pytest.mark.parametrize("log_b,rows", [(23, 2), (2, 1)])
@@ -169,6 +184,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     big = tntt.ntt32_plan(_step_plan(4096).primes[0], 4096)
     with pytest.raises(ValueError):
         tntt.ntt32(torch.zeros((1, 4096), dtype=torch.int32, device=dev), big)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        tntt.ntt32(torch.zeros(2 * 256 + 1, dtype=torch.int32, device=dev)[1:].view(2, 256), plan)
+    small_q = tntt.ntt32_plan(7681, 256)  # below 2^30: the product's reduction needs q > 2^30
+    with pytest.raises(ValueError):
+        tntt.negacyclic_mul32(x, x, small_q)
     params = tfhe.TggswParams(
         tfhe.TglweParams(log_p=4, padding=1, big_n=64, k=2, std_dev=1e-11), log_b=12, d=2
     )

@@ -56,6 +56,177 @@ def test_ntt32_intt32_polymul_match_jax(n):
         np.testing.assert_array_equal(torch_to_u32(tntt.negacyclic_mul32(ta, tb, tp)), want)
 
 
+# ---------------------------------------------------------------------------
+# A model of the kernels' schedule (csrc/ntt32.cu): blocks of 2048 values,
+# passes of up to 3 layers on items of 2^W values, the swizzled buffer
+# between passes, the ragged last block's masked loads and stores, and
+# K-POLYMUL's product and first inverse pass in registers. Plain int64
+# arithmetic mod q stands in for the Shoup butterflies (both are exact); the
+# product is the kernels' division-free one.
+# ---------------------------------------------------------------------------
+
+_BLOCK_VALUES = 2048  # a block's rows hold 8 values per thread of 256
+
+
+def _pass_widths(log_n: int) -> list[int]:
+    passes = (log_n + 2) // 3
+    return [3] * (passes - 1) + [log_n - 3 * (passes - 1)]
+
+
+def _swizzle(i: torch.Tensor) -> torch.Tensor:
+    return i ^ (((i >> 5) & 7) << 2)
+
+
+def _pass_items(log_n: int, l0: int, w: int):
+    """Item t of a block's pass: hi, and the (items, 2^w) indices of its
+    values in the block's rows, base + (m << log_h)."""
+    log_h = log_n - l0 - w
+    t = torch.arange(_BLOCK_VALUES >> w)
+    hi = (t & ((1 << (log_n - w)) - 1)) >> log_h
+    base = ((t >> (log_n - w)) << log_n) + (hi << (log_n - l0)) + (t & ((1 << log_h) - 1))
+    return hi, base[:, None] + (torch.arange(1 << w) << log_h)
+
+
+def _pass_twiddles(tab: torch.Tensor, l0: int, w: int, hi: torch.Tensor) -> torch.Tensor:
+    """(items, 2^w - 1): twiddle (1 << (l0+t)) + (hi << t) + u, in the order t, u."""
+    return tab[torch.stack([(1 << (l0 + t)) + (hi << t) + u for t in range(w) for u in range(1 << t)], -1)]
+
+
+def _fwd_radix(x: torch.Tensor, tw: torch.Tensor, q: int) -> None:
+    w = x.shape[-1].bit_length() - 1
+    for t in range(w):
+        half = 1 << (w - 1 - t)
+        for u in range(1 << t):
+            for j in range(half):
+                a = 2 * half * u + j
+                v = x[..., a + half] * tw[:, (1 << t) - 1 + u] % q
+                x[..., a], x[..., a + half] = (x[..., a] + v) % q, (x[..., a] - v) % q
+
+
+def _inv_radix(x: torch.Tensor, tw: torch.Tensor, q: int) -> None:
+    w = x.shape[-1].bit_length() - 1
+    for t in reversed(range(w)):
+        half = 1 << (w - 1 - t)
+        for u in range(1 << t):
+            for j in range(half):
+                a = 2 * half * u + j
+                x0, x1 = x[..., a].clone(), x[..., a + half].clone()
+                x[..., a] = (x0 + x1) % q
+                x[..., a + half] = (x0 - x1) % q * tw[:, (1 << t) - 1 + u] % q
+
+
+def _mul_fold(a: torch.Tensor, b: torch.Tensor, q: int, r32: int, r32_shoup: int) -> torch.Tensor:
+    """lft::mul_fold on u32 values held in int64: hi * (2^32 mod q) by Shoup,
+    plus lo reduced by two conditional subtracts; no division."""
+    m32 = (1 << 32) - 1
+    hi, lo = (a * b) >> 32, (a * b) & m32  # a, b < 2^31: the product fits int64
+    lo = torch.where(lo >= 2 * q, lo - 2 * q, lo)
+    lo = torch.where(lo >= q, lo - q, lo)
+    r = (hi * r32 - ((hi * r32_shoup) >> 32) * q) & m32
+    r = torch.where(r >= q, r - q, r)
+    s = r + lo
+    return torch.where(s >= q, s - q, s)
+
+
+def _kernel_model(kind: str, plan, x: np.ndarray, b: np.ndarray | None = None) -> np.ndarray:
+    """The kernels' schedule over all blocks at once: kind 'fwd' (K-NTT),
+    'inv' (its inverse) or 'mul' (K-POLYMUL)."""
+    n, log_n, q = plan.n, plan.log_n, plan.q
+    rows = x.shape[0]
+    blocks = -(-rows * n // _BLOCK_VALUES)
+    limit = torch.clamp(rows * n - torch.arange(blocks) * _BLOCK_VALUES, max=_BLOCK_VALUES)
+
+    def rows_of(v):  # device memory: the blocks' values, zeros past the last row
+        flat = torch.zeros(blocks * _BLOCK_VALUES, dtype=torch.int64)
+        flat[: rows * n] = torch.from_numpy(v.astype(np.int64)).reshape(-1)
+        return flat.reshape(blocks, _BLOCK_VALUES)
+
+    ins = [rows_of(x)] + ([rows_of(b)] if kind == "mul" else [])
+    bufs = [torch.full((blocks, _BLOCK_VALUES), -1, dtype=torch.int64) for _ in ins]
+    out = torch.full((blocks, _BLOCK_VALUES), -1, dtype=torch.int64)
+    tab = {f: torch.from_numpy(getattr(plan, f).astype(np.int64)) for f in ("psi_br", "psi_inv_br")}
+    widths = _pass_widths(log_n)
+    l0s = [3 * p for p in range(len(widths))]
+
+    def load(src, idx, from_global):
+        if from_global:  # masked: zeros past the rows that exist
+            return src[:, idx] * (idx[None, :, :1] < limit[:, None, None])
+        return src[:, _swizzle(idx)]
+
+    def store(v, dst, idx, to_global):
+        if to_global:  # masked: no store past the rows that exist
+            keep = (idx[None, :, :1] < limit[:, None, None]).expand_as(v)
+            dst[:, idx] = torch.where(keep, v, dst[:, idx])
+        else:
+            dst[:, _swizzle(idx)] = v
+
+    def inverse_layers(v, l0, w, hi):
+        _inv_radix(v, _pass_twiddles(tab["psi_inv_br"], l0, w, hi), q)
+        return v * plan.n_inv % q if l0 == 0 else v
+
+    if kind in ("fwd", "mul"):
+        for p, (l0, w) in enumerate(zip(l0s, widths)):
+            hi, idx = _pass_items(log_n, l0, w)
+            vs = [load(ins[o] if p == 0 else bufs[o], idx, p == 0) for o in range(len(ins))]
+            for v in vs:
+                _fwd_radix(v, _pass_twiddles(tab["psi_br"], l0, w, hi), q)
+            if p < len(widths) - 1:
+                for v, buf in zip(vs, bufs):
+                    store(v, buf, idx, False)
+            elif kind == "fwd":
+                store(vs[0], out, idx, True)
+            else:  # the product and the inverse of the same layers, in registers
+                prod = _mul_fold(vs[0], vs[1], q, plan.r32, plan.r32_shoup)
+                store(inverse_layers(prod, l0, w, hi), out if l0 == 0 else bufs[0], idx, l0 == 0)
+        first_inverse = len(widths) - 2 if kind == "mul" else -1
+    else:
+        first_inverse = len(widths) - 1
+    for p in range(first_inverse, -1, -1):
+        hi, idx = _pass_items(log_n, l0s[p], widths[p])
+        v = load(ins[0] if kind == "inv" and p == len(widths) - 1 else bufs[0], idx, kind == "inv" and p == len(widths) - 1)
+        store(inverse_layers(v, l0s[p], widths[p], hi), out if p == 0 else bufs[0], idx, p == 0)
+    got = out.reshape(-1)[: rows * n].reshape(rows, n)
+    assert (got >= 0).all(), "a value of the rows was never written"
+    return got.numpy().astype(np.uint32)
+
+
+@pytest.mark.parametrize("log_n", range(1, 12))
+def test_kernel_schedule_model_matches_jax(log_n):
+    """The kernels' pass schedule, bit for bit against the JAX package, at
+    every n = 2..2048, with a ragged last block (rows per block + 1 rows)
+    and inputs holding 0 and q - 1."""
+    n = 1 << log_n
+    rows = (_BLOCK_VALUES >> log_n) + 1
+    rng = np.random.default_rng(log_n)
+    for q in _step_primes(n):
+        jp, tp = jntt.ntt32_plan(q, n), tntt.ntt32_plan(q, n)
+        a = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+        b = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+        a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, q - 1, q - 1, 0
+        np.testing.assert_array_equal(_kernel_model("fwd", tp, a), np.asarray(jntt.ntt32(jnp.asarray(a), jp)))
+        np.testing.assert_array_equal(_kernel_model("inv", tp, a), np.asarray(jntt.intt32(jnp.asarray(a), jp)))
+        want = np.asarray(jntt.negacyclic_mul32(jnp.asarray(a), jnp.asarray(b), jp))
+        np.testing.assert_array_equal(_kernel_model("mul", tp, a, b), want)
+
+
+@pytest.mark.parametrize("plan_of", ["step", "keygen"])
+def test_division_free_product_is_exact(plan_of):
+    """K-POLYMUL's product, hi * (2^32 mod q) + lo reduced as the kernel
+    reduces it, equals a * b mod q under every prime of the step (B=2^23,
+    R=2) and key generation (B=2, R=1) plans at N=2048."""
+    bits = required_bound_bits(2048, 23, 2) if plan_of == "step" else required_bound_bits(2048, 2, 1)
+    rng = np.random.default_rng(len(plan_of))
+    for q in torus_crt_plan(2048, bits).primes:
+        tp = tntt.ntt32_plan(q, 2048)
+        assert tp.r32 == (1 << 32) % q and 1 << 30 < q < 1 << 31
+        edge = np.array([0, 1, q - 1], dtype=np.int64)
+        a = np.concatenate([np.repeat(edge, 3), rng.integers(0, q, size=4096)])
+        b = np.concatenate([np.tile(edge, 3), rng.integers(0, q, size=4096)])
+        got = _mul_fold(torch.from_numpy(a), torch.from_numpy(b), q, tp.r32, tp.r32_shoup)
+        want = [int(x) * int(y) % q for x, y in zip(a, b)]
+        assert got.tolist() == want
+
+
 def _pallas_ntt_experiment():
     path = Path(__file__).resolve().parents[1] / "bench" / "pallas_ntt14_experiment.py"
     spec = importlib.util.spec_from_file_location("pallas_ntt14_experiment", path)
