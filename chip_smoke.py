@@ -29,6 +29,26 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
      from a CUDA graph, which leaves the wrapper's host time out
      (`graph_ms`).
 
+Then the FHEW gate bootstrap at the reference fixture (q = 268409857, N=512,
+B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
+
+  F1. hold K-NTT and intt32 against their plain versions at the FHEW
+      primes: q=268409857 at N=512 on key generation's (800, 512) rows and a
+      ragged (19, 512), and the test prime 268432897 at N=128;
+  F2. the FHEW main path: key generation from seed 0 on the card, 128 NAND
+      gates through `fhew_gate_batch` on random bits (the launch counters
+      set to 0 just before and read just after: K-FHEW-BR must launch once),
+      all 128 decrypted against the truth table; then one `gate_batch` of
+      all 7 gates (majority with 3 inputs), decrypted;
+  F3. K-FHEW-BR's whole walk at batch 128 with the real key and schedule
+      against `blind_rotate_core_fused_ref` on the card, the first 4 gate
+      outputs against the whole plain path on the CPU, and the C schedule
+      against the Python one on the same mask, all bit for bit;
+  F4. NAND gates/s at batch 128 (and, for information, 1024) over whole
+      `fhew_gate_batch` calls, the preamble, host schedule and walk times,
+      the device's idle share, and K-FHEW-BR against its plain version and
+      its bound, with its registers and spills.
+
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
 its integer instructions over the SMs' issue rates (the cost model below).
@@ -112,6 +132,23 @@ def step_ops(batch: int, n: int, k: int) -> np.ndarray:
     contraction = 4 * SHOUP + 2 * ADD_MOD
     per_prime = 2 * n * FOLD + 4 * ntt_ops(1, n) + 2 * n * SHOUP + n * contraction + 2 * n * (SHOUP + SUB_MOD)
     return batch * (2 * n * DIGIT + k * per_prime + 2 * n * (garner_ops(k) + U64_ADD))
+
+
+ZQ_DIGIT = np.array([1, 4, 2])  # one Zq gadget digit: and, carry compare/select, shift, mask, limb + carry * (q - B)
+NEG_MOD = np.array([0, 2, 1])  # q - a where a != 0
+
+
+def fhew_walk_ops(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: int) -> np.ndarray:
+    """K-FHEW-BR over a batch's schedules, counted from the steps that this
+    run's schedules hold (summed over the ciphertexts). An external product:
+    2d digit rows, their forward NTTs, the Shoup contraction of a and b over
+    2d rows, 2 inverse NTTs with the 1/N scale. An automorphism: the signed
+    gather of a and b, d digit rows, their forward NTTs, the contraction
+    over d rows, 2 inverse NTTs with the scale, and b + the gathered b."""
+    inverse = ntt_ops(2, n) + 2 * n * SHOUP
+    ext = 2 * n * d_g * ZQ_DIGIT + ntt_ops(2 * d_g, n) + 2 * d_g * n * 2 * (SHOUP + ADD_MOD) + inverse
+    auto = 2 * n * NEG_MOD + n * d_k * ZQ_DIGIT + ntt_ops(d_k, n) + d_k * n * 2 * (SHOUP + ADD_MOD) + inverse + n * ADD_MOD
+    return ext_steps * ext + auto_steps * auto
 
 
 def issue_ms(ops: np.ndarray, pipe_per_s: float) -> float:
@@ -210,6 +247,182 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+FHEW_BATCH = 128  # `bench.py:302`
+FHEW_INFO_BATCH = 1024  # gates/s for information: batch 128 puts one block on each of 128 SMs
+FHEW_CPU_CHECK = 4
+
+
+def fhew_reference_params():
+    """`bench.py:289-295` (= `tests/test_fhew.py::reference_boot_params`)."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    q = next(two_adic_primes(28, 10))
+    return fhew.BootstrapParams(
+        fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=9, log_b=7, d=4), log_b=7, d=4),
+        fhew.LweParams(q=1 << 16, p=4, n=100, log_b=4, d=4),
+        w=10,
+    )
+
+
+def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
+    """F1-F4 (see the module's docstring); adds K-FHEW-BR's entries to the
+    kernels line's dicts, and K-NTT's and intt32's errors at FHEW's primes."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops import ntt32 as tntt
+    from learn_fhe_tpu_torch.parallel import batch as pbatch
+    from learn_fhe_tpu_torch.utils import kernels
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch
+
+    # -- F1. K-NTT and intt32 at the FHEW primes --------------------------------
+    rng = np.random.default_rng(2)
+    for q, n, shapes in ((268409857, 512, (800, 19)), (268432897, 128, (800, 19))):
+        plan = tntt.ntt32_plan(q, n)
+        for rows in shapes:
+            x = u32_to_torch(rng.integers(0, q, size=(rows, n), dtype=np.uint32))
+            errs["ntt32"] = max(errs["ntt32"], max_abs_err(tntt.ntt32(x.to(dev), plan), tntt.ntt32_ref(x, plan)))
+            errs["intt32"] = max(errs["intt32"], max_abs_err(tntt.intt32(x.to(dev), plan), tntt.intt32_ref(x, plan)))
+        say(f"F1 ntt32 / intt32 == plain at q={q}, N={n} on {shapes[0]} and {shapes[1]} rows: ok")
+
+    # -- F2. the FHEW main path ------------------------------------------------
+    params = fhew_reference_params()
+    lz, B = params.lwe_z, FHEW_BATCH
+    rng = np.random.default_rng(0)
+    z = fhew.rlwe.sk_gen(params.rlwe, rng)
+    for fn in (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    key = fhew.key_gen(params, z, rng, dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    keygen_launches = {fn.__name__: fn.launches for fn in (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32)}
+    m0 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
+    m1 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
+    c0 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m0), rng)
+    c1 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m1), rng)
+    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fhew_launches = {fn.__name__: fn.launches for fn in counted}
+    say(f"{tag} F2 FHEW keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync; launches {keygen_launches}); first NAND batch of {B} {first_s * 1e3:.1f} ms; launches {fhew_launches}")
+    if out.a.shape != (B, params.n) or out.b.shape != (B,):
+        raise AssertionError(f"gate output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
+    if fhew_launches["blind_rotate_core_fused"] != 1:
+        raise AssertionError(f"K-FHEW-BR launched {fhew_launches['blind_rotate_core_fused']} times in one fhew_gate_batch, expected 1")
+    if keygen_launches["ntt32"] == 0 or keygen_launches["intt32"] == 0:
+        raise AssertionError("FHEW key generation did not launch K-NTT and intt32")
+    launches["fhew_blind_rotate"] = fhew_launches["blind_rotate_core_fused"]
+    got = gates.decode_bool(params, lwe.decrypt(lz, z, out))
+    n_ok = int((got == ~(m0.bool() & m1.bool())).sum())
+    say(f"F2 NAND: {n_ok}/{B} gates decrypt to the truth table")
+    if n_ok != B:
+        raise AssertionError("NAND outputs failed decryption")
+    names = ["and", "nand", "or", "nor", "xor", "xnor", "majority"]
+    bits = rng.integers(0, 2, size=(len(names), 3))
+    specs, want_bits = [], []
+    for name, (x, y, c) in zip(names, bits):
+        cts = [lwe.sk_encrypt(lz, z, gates.encode_bool(params, torch.tensor(int(v), device=dev)), rng) for v in (x, y, c)]
+        truth = {"and": x & y, "nand": 1 - (x & y), "or": x | y, "nor": 1 - (x | y), "xor": x ^ y, "xnor": 1 - (x ^ y)}
+        specs.append((name, *cts) if name == "majority" else (name, *cts[:2]))
+        want_bits.append(int(x + y + c >= 2) if name == "majority" else int(truth[name]))
+    mixed = gates.gate_batch(params, key, specs)
+    got_bits = [int(gates.decode_bool(params, lwe.decrypt(lz, z, ct))) for ct in mixed]
+    say(f"F2 gate_batch of {names}: decrypts {got_bits}, truth {want_bits}")
+    if got_bits != want_bits:
+        raise AssertionError("mixed gate batch failed decryption")
+
+    # -- F3. the walk against its plain version; the CPU path; the C schedule --
+    lin = gates._lin2(params, "nand", c0, c1)
+    f = gates.lut_poly(params, gates.GATE_TABLES["nand"], dev)
+    ct_a, f_prime = pbatch._fhew_preamble(params, key, f, lin)
+    e_idx, a_idx = boot.schedule(params, ct_a)
+    mask = ct_a.cpu().numpy()
+    py_e, py_a = boot.fuse_schedule(*boot.build_schedule(params, mask))
+    c_e, c_a = boot.schedule_native(params, mask)
+    if not (np.array_equal(py_e, c_e) and np.array_equal(py_a, c_a)):
+        raise AssertionError("the C schedule differs from the Python one")
+    if not (np.array_equal(e_idx.cpu().numpy(), c_e) and np.array_equal(a_idx.cpu().numpy(), c_a)):
+        raise AssertionError("schedule() on a CUDA mask differs from the C schedule")
+    steps = e_idx.shape[1]
+    ext_steps, auto_steps = int((e_idx >= 0).sum()), int((a_idx >= 0).sum())
+    say(f"F3 C schedule == Python schedule on the batch's mask: ok (fused length {steps}, schedule_len {params.schedule_len}; {ext_steps} external products and {auto_steps} automorphisms over {B} ciphertexts)")
+    acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
+    walk = boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc)
+    plain = boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc)
+    errs["fhew_blind_rotate"] = max(max_abs_err(walk.a, plain.a.cpu()), max_abs_err(walk.b, plain.b.cpu()))
+    say(f"F3 K-FHEW-BR == blind_rotate_core_fused_ref at batch {B}, N={params.n}, real key and schedule: ok")
+    t0 = time.perf_counter()
+    key_cpu = boot.BootstrapKey(*(t.cpu() for t in key))
+    k = FHEW_CPU_CHECK
+    sub = [lwe.LweCiphertext(c.a[:k].cpu(), c.b[:k].cpu()) for c in (c0, c1)]
+    ref_out = pbatch.fhew_gate_batch(params, key_cpu, "nand", *sub)
+    if not (torch.equal(ref_out.a, out.a[:k].cpu()) and torch.equal(ref_out.b, out.b[:k].cpu())):
+        raise AssertionError("FHEW gates on the card differ from the plain path on the CPU")
+    say(f"F3 first {k} NAND outputs == the plain path on the CPU, bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    # -- F4. timing --------------------------------------------------------------
+    reps = 3
+
+    def gate_call():
+        pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
+
+    gate_ms = cuda_ms(gate_call, reps)
+    say(f"{tag} F4 NAND batch {B}: {gate_ms:.3f} ms per fhew_gate_batch call = {B / gate_ms * 1e3:.2f} gates/s (CUDA events around {reps} whole calls, host time included)")
+    pre, sch = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ct_a_r, _ = pbatch._fhew_preamble(params, key, f, lin)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        boot.schedule(params, ct_a_r)
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        sch.append(time.perf_counter() - t1)
+    walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), reps)
+    say(f"{tag} F4 NAND batch {B}: preamble {np.median(pre) * 1e3:.3f} ms, host schedule (C, with the mask's copy to the host and the indices' copy back) {np.median(sch) * 1e3:.3f} ms (host clock to a sync, median of {reps}); walk {walk_ms:.3f} ms (CUDA events)")
+    idle, kernel_ms, top = device_kernel_ms(gate_call)
+    if kernel_ms:
+        say(f"{tag} F4 NAND batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
+        for name, t, count in top:
+            say(f"  {t:10.3f} ms  {count:6d} x  {name[:100]}")
+    else:
+        say(f"{tag} F4 device kernel time and idle share: not measured (the profiler recorded no device activity)")
+    plain_ms = cuda_ms(lambda: boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc), 1)
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    ops = fhew_walk_ops(ext_steps, auto_steps, params.n, gg.d, gk.d)
+    n, row = params.n, params.n * 4
+    e_used = torch.unique(e_idx[e_idx >= 0]).numel()
+    a_used = torch.unique(a_idx[a_idx >= 0]).numel()
+    walk_bytes = (
+        4 * B * row  # acc a, b in; a, b out
+        + 2 * B * steps * 4  # the schedules
+        + e_used * 4 * 2 * gg.d * row  # brk rows used: values and duals of a and b
+        + a_used * (4 * gk.d * row + n * 5)  # ak rows used, their gather maps and signs
+        + 4 * row  # twiddle tables
+    )
+    b_ms, by = bound_ms(walk_bytes, ops, pipe_per_s)
+    timings["fhew_blind_rotate"] = (walk_ms, plain_ms)
+    bounds["fhew_blind_rotate"] = (b_ms, by)
+    regs, st, ld = kernels.ptxas_report(kernels.build_log()).get("fhew_blind_rotate_kernel<9>", (0, 0, 0))
+    say(f"{tag} F4 K-FHEW-BR at batch {B}: {walk_ms:.3f} ms per launch (CUDA events, {reps} reps), bound {b_ms:.4f} ms by {by} (instructions {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either; bytes {walk_bytes / 1e6:.2f} MB) = {b_ms / walk_ms:.4f} of bound; plain version on CUDA tensors {plain_ms:.1f} ms; {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+
+    rng = np.random.default_rng(3)
+    big = [
+        lwe.sk_encrypt(lz, z, gates.encode_bool(params, torch.from_numpy(rng.integers(0, 2, size=FHEW_INFO_BATCH)).to(dev)), rng)
+        for _ in range(2)
+    ]
+    big_ms = cuda_ms(lambda: pbatch.fhew_gate_batch(params, key, "nand", *big), 2)
+    say(f"{tag} F4 NAND batch {FHEW_INFO_BATCH} (for information): {big_ms:.3f} ms per call = {FHEW_INFO_BATCH / big_ms * 1e3:.2f} gates/s (CUDA events, 2 reps)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on a GPU")
@@ -236,10 +449,10 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name:  # the N=2048 instances, and Garner
+        if name.endswith("<11>") or "<" not in name or name == "fhew_blind_rotate_kernel<9>":  # N=2048, Garner, FHEW's N=512
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>"} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", "fhew_blind_rotate_kernel<9>"} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, or no N=512 instance of K-FHEW-BR")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -429,6 +642,8 @@ def main() -> None:
             g_ms = graphs[name]
             say(f"  {name}: the kernel's {k_ms * 1e3:.2f} us is per wrapper call (CUDA events over 50 eager calls, host time included); the same 50 launches replayed from a CUDA graph take {g_ms * 1e3:.2f} us each = {b_ms / g_ms:.4f} of bound")
 
+    fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches)
+
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
         ("ntt32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:166"),
@@ -436,6 +651,7 @@ def main() -> None:
         ("negacyclic_mul32", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183"),
         ("garner_to_u64", "torus_crt.cu", "bench/pallas_step_experiment.py:202"),
         ("tfhe_step", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
+        ("fhew_blind_rotate", "fhew_blind_rotate.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:423 (XLA scan; no Pallas call)"),
     ]
     say(
         json.dumps(

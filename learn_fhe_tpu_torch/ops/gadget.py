@@ -1,6 +1,6 @@
-"""Signed base-2^B torus gadget decomposition and power-up.
+"""Signed base-2^B gadget decomposition and power-up, on the torus and mod q.
 
-Counterpart of the T64 functions of `learn_fhe_tpu/ops/gadget.py`, which
+Counterpart of the T64 and Zq functions of `learn_fhe_tpu/ops/gadget.py`, which
 reproduce the reference bit for bit (`util/src/misc/decompose.rs:115-135`):
 digits live in (-B/2, B/2], produced by the branch-free carry
 ((limb-1 | v) & limb) >> (log_b-1). Torus values are int64 bit patterns, so
@@ -111,3 +111,65 @@ def decompose_t64_u32(x_hi: torch.Tensor, gadget: Gadget) -> torch.Tensor:
 def power_up_t64(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
     """x * 2^(rounding_bits + i*log_b) wrapping mod 2^64; shape (d, *x.shape)."""
     return torch.stack([x * as_i64(int(b)) for b in gadget.bases], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Zq gadget (`learn_fhe_tpu/ops/gadget.py:65-137, 200`): digits as residues
+# in [0, q), limb + carry * (q - B), from the centered lift of the rounded
+# shift (`decompose.rs:91-112`). Values are int64 holding u64 values.
+# ---------------------------------------------------------------------------
+
+
+def rounding_shr_zq(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
+    """(x + 2^bits/2 mod q) >> bits on reduced values (`decompose.rs:92-95`)."""
+    bits = gadget.rounding_bits
+    if bits == 0:
+        return x
+    half = ((1 << bits) >> 1) % gadget.q
+    s = x + half
+    return torch.where(s >= gadget.q, s - gadget.q, s) >> bits
+
+
+def decompose_zq(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
+    """Signed digits of reduced x mod q as residues: (d, *x.shape) int64."""
+    q, log_b = gadget.q, gadget.log_b
+    mask, b_by_2, neg_b = (1 << log_b) - 1, 1 << (log_b - 1), q - (1 << log_b)
+    v = rounding_shr_zq(x, gadget)
+    v = torch.where(v < (q >> 1), v, v - q)  # two's-complement u64 lift
+    digits = []
+    for _ in range(gadget.d):
+        limb = v & mask
+        carry = ((limb + (v & 1)) > b_by_2).long()
+        v = shr_u64(v, log_b) + carry
+        digits.append(limb + carry * neg_b)
+    return torch.stack(digits, dim=0)
+
+
+def decompose_zq_supports_u32(gadget: Gadget) -> bool:
+    """The u32 walk gives the u64 walk's digits when q < 2^31 and the digit
+    span fits 31 bits."""
+    return 0 < gadget.q < (1 << 31) and gadget.log_b * gadget.d <= 31
+
+
+def decompose_zq32(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
+    """u32 form of `decompose_zq` for q < 2^31, log_b * d <= 31: the same
+    steps on values wrapped to 32 bits (int64 in [0, 2^32), so >> is the
+    logical shift). Returns (d, *x.shape) int32 residues."""
+    q, log_b = gadget.q, gadget.log_b
+    mask, b_by_2, neg_b = (1 << log_b) - 1, 1 << (log_b - 1), q - (1 << log_b)
+    x = rounding_shr_zq(x.long(), gadget)
+    v = torch.where(x < (q >> 1), x, x - q) & 0xFFFFFFFF
+    digits = []
+    for _ in range(gadget.d):
+        limb = v & mask
+        carry = ((limb + (v & 1)) > b_by_2).long()
+        v = (v >> log_b) + carry
+        digits.append(limb + carry * neg_b)
+    return torch.stack(digits, dim=0).to(torch.int32)
+
+
+def power_up_zq(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
+    """x * B^i * 2^rounding_bits mod q for i < d, x reduced, q < 2^31:
+    (d, *x.shape) int64."""
+    assert 0 < gadget.q < 1 << 31
+    return torch.stack([(x * int(b)) % gadget.q for b in gadget.bases], dim=0)

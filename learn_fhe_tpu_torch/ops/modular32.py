@@ -17,6 +17,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .modular import neg_mod as neg_mod32  # noqa: F401  (the same on int32 residues)
+
 
 @dataclass(frozen=True)
 class Zq32Params:
@@ -69,6 +71,18 @@ def mul_mod32(a: torch.Tensor, b, q: int) -> torch.Tensor:
     """a * b mod q: the value of both `mul_shoup32` (b a constant with its
     Shoup dual) and `mul_mod32` (Montgomery) in the JAX package."""
     return (a * b) % q
+
+
+def mul_shoup32(a: torch.Tensor, w: torch.Tensor, w_shoup: torch.Tensor, q: int) -> torch.Tensor:
+    """a * w mod q, w a constant with its Shoup dual; the dual only sets how
+    the kernels compute it."""
+    del w_shoup
+    return (a.long() * w.long()) % q
+
+
+def sum_mod32(x: torch.Tensor, q: int, axis: int = 0) -> torch.Tensor:
+    """Sum of reduced values mod q along an axis."""
+    return x.long().sum(axis) % q
 
 
 def small_u32_to_mod32(x: torch.Tensor, q: int) -> torch.Tensor:

@@ -15,7 +15,9 @@ Kernels (`csrc/ntt32.cu`), each beside its plain radix-2 version:
   the forward passes of a and b, the pointwise product without a division
   (2^32 mod q folded into the high word, `Ntt32Plan.r32`) and the inverse
   passes in one launch. It takes primes 2^30 < q < 2^31, as every prime of
-  the torus CRT plans is.
+  the torus CRT plans is; for a smaller prime (FHEW's 28-bit q) the wrapper
+  runs two K-NTT launches, the pointwise product in torch and one `intt32`
+  launch instead.
 
 Each wrapper runs the plain version only for CPU tensors. A CUDA tensor goes
 to the kernel, or the wrapper raises; there is no fallback.
@@ -214,8 +216,9 @@ def negacyclic_mul32(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> torch
     rows = _check("negacyclic_mul32", a, plan)
     _check("negacyclic_mul32", b, plan)
     kernels.require("negacyclic_mul32", b, torch.int32, a.shape)
-    if plan.q < 1 << 30:
-        raise ValueError(f"negacyclic_mul32: the kernel's product takes 2^30 < q < 2^31, got q={plan.q}")
+    if plan.q < 1 << 30:  # K-POLYMUL's product takes only 2^30 < q < 2^31
+        prod = mul_mod32(ntt32(a, plan).long(), ntt32(b, plan).long(), plan.q)
+        return intt32(prod.to(torch.int32), plan)
     y = torch.empty_like(a)
     if rows:
         kernels.launch(

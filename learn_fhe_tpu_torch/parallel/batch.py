@@ -1,14 +1,22 @@
-"""Batched bootstrap pipelines (`learn_fhe_tpu/parallel/batch.py`, the TFHE
-part): the throughput surface of the port."""
+"""Batched bootstrap pipelines (`learn_fhe_tpu/parallel/batch.py`): the TFHE
+programmable bootstrap and the FHEW gate bootstrap, the throughput surface
+of the port."""
 
 from __future__ import annotations
 
 import torch
 
 from ..models import tfhe
+from ..models.fhew import bootstrapping as fhew_boot
+from ..models.fhew import gates as fhew_gates
+from ..models.fhew import lwe as fhew_lwe
+from ..models.fhew import rlwe as fhew_rlwe
+from ..models.fhew.bootstrapping import BootstrapKey as FhewKey, BootstrapParams as FhewParams
+from ..models.fhew.lwe import LweCiphertext as FhewLwe, LweKeySwitchingKey
 from ..models.tfhe import tglwe, tlwe
 from ..models.tfhe.bootstrapping import BootstrapKey as TfheKey, BootstrapParams as TfheParams
 from ..models.tfhe.tlwe import TlweCiphertext
+from ..ops.modular import add_mod
 
 
 @torch.no_grad()
@@ -53,3 +61,52 @@ def tfhe_pbs_batch(
     a = torch.cat([o.a for o in outs], dim=0)[:B]
     b = torch.cat([o.b for o in outs], dim=0)[:B]
     return TlweCiphertext(a, b)
+
+
+# -- FHEW batched gate bootstrap -------------------------------------------------
+
+
+@torch.no_grad()
+def fhew_blind_rotate_batch_device(
+    params: FhewParams,
+    key: FhewKey,
+    f_prime: torch.Tensor,  # (B, N) int32: the prepared LUTs, already rotated by X^{gb}
+    ext_idx: torch.Tensor,  # (B, L) int32 fused schedule: ext key index or -1
+    auto_idx: torch.Tensor,  # (B, L) int32 fused schedule: auto key index or -1
+) -> FhewLwe:
+    """The fused LMKCDEY walk of the whole batch (one launch of K-FHEW-BR on
+    the card), then sample_extract(0): (B, N) int64 LWE ciphertexts."""
+    acc = fhew_boot.blind_rotate_core_fused(
+        params, key, ext_idx, auto_idx, fhew_rlwe.RlweCiphertext(torch.zeros_like(f_prime), f_prime)
+    )
+    ext = fhew_rlwe.sample_extract(params.rlwe, acc, 0)
+    return FhewLwe(ext.a.long(), ext.b.long())
+
+
+@torch.no_grad()
+def _fhew_preamble(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe):
+    """Mod switch -> LWE key switch -> odd mod switch -> per-ciphertext
+    rotated LUT. Returns the Z_2N mask (B, n), from which the host builds the
+    schedule, and the prepared accumulators' b (B, N) int32. f is one LUT
+    (N,) for the batch or one per ciphertext (B, N)."""
+    ct = fhew_lwe.ct_mod_switch(cts, params.big_q, params.big_q_ks)
+    ct = fhew_lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
+    ct = fhew_lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)
+    return ct.a, fhew_boot.prepare_acc(params, f, ct.b).b
+
+
+def fhew_bootstrap_batch(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe) -> FhewLwe:
+    """Batched Figure-2 pipeline (`fhew/bootstrapping.rs:148-155`): the
+    preamble on the device, the schedule from the public mask on the host
+    (C on the card), the walk and the extraction on the device."""
+    ct_a, f_prime = _fhew_preamble(params, key, f, cts)
+    ext_idx, auto_idx = fhew_boot.schedule(params, ct_a)
+    return fhew_blind_rotate_batch_device(params, key, f_prime, ext_idx, auto_idx)
+
+
+def fhew_gate_batch(params: FhewParams, key: FhewKey, name: str, ct0s: FhewLwe, ct1s: FhewLwe) -> FhewLwe:
+    """Batched 2-input gate: linear combination + one batched LUT bootstrap."""
+    lin = fhew_gates._lin2(params, name, ct0s, ct1s)
+    f = fhew_gates.lut_poly(params, fhew_gates.GATE_TABLES[name], lin.a.device)
+    out = fhew_bootstrap_batch(params, key, f, lin)
+    return FhewLwe(out.a, add_mod(out.b, params.big_q_by_8, params.big_q))

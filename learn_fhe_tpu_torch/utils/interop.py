@@ -18,12 +18,12 @@ def _to(arr: np.ndarray, device) -> torch.Tensor:
 
 def u64_to_torch(x, device=None) -> torch.Tensor:
     """u64 array -> int64 tensor with the same bits."""
-    return _to(np.ascontiguousarray(np.asarray(x, dtype=np.uint64)).view(np.int64), device)
+    return _to(np.asarray(x, dtype=np.uint64, order="C").view(np.int64), device)
 
 
 def u32_to_torch(x, device=None) -> torch.Tensor:
     """u32 array -> int32 tensor with the same bits."""
-    return _to(np.ascontiguousarray(np.asarray(x, dtype=np.uint32)).view(np.int32), device)
+    return _to(np.asarray(x, dtype=np.uint32, order="C").view(np.int32), device)
 
 
 def resolve_device(device) -> torch.device:
@@ -74,3 +74,29 @@ def bootstrap_key_from_numpy(key, device=None):
     )
     ksk = TlweKeySwitchingKey(u64_to_torch(key.ksk.a, device), u64_to_torch(key.ksk.b, device))
     return BootstrapKey(brk, ksk, primes(key.mon_v, 0), primes(key.mon_d, 0))
+
+
+def fhew_bootstrap_key_from_numpy(key, device=None):
+    """The port's FHEW BootstrapKey from the JAX package's, given as numpy
+    leaves (`jax.tree.map(np.asarray, key)`) on the u32 engine: brk/ak
+    values and Shoup duals u32, the LWE key switch's rows u64, auto_src as
+    int32 and auto_sign as bool. The key goes to `device`, by default the
+    current CUDA device (see `resolve_device`)."""
+    from ..models.fhew.bootstrapping import BootstrapKey
+
+    device = resolve_device(device)
+    fields = {}
+    for f in BootstrapKey._fields:
+        x = getattr(key, f)
+        if x is None:
+            raise ValueError(f"fhew_bootstrap_key_from_numpy: {f} is None; the port takes the u32 engine's key")
+        x = np.asarray(x)
+        if f.startswith("ksk"):
+            fields[f] = u64_to_torch(x, device)
+        elif f == "auto_src":
+            fields[f] = _to(x.astype(np.int32), device)
+        elif f == "auto_sign":
+            fields[f] = _to(x.astype(bool), device)
+        else:
+            fields[f] = u32_to_torch(x, device)
+    return BootstrapKey(**fields)

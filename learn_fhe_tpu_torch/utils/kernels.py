@@ -8,9 +8,11 @@ the sources and flags, so an edited source rebuilds and an unchanged one is
 loaded again. Nothing here is imported or built until a wrapper is handed a
 CUDA tensor.
 
-Every C entry point takes tensors as raw device pointers and PyTorch's current
-stream, launches on that stream, allocates nothing, does not synchronise and
-returns `cudaGetLastError()`; `launch` raises on a non-zero status.
+Every C entry point of a kernel takes tensors as raw device pointers and
+PyTorch's current stream, launches on that stream, allocates nothing, does
+not synchronise and returns `cudaGetLastError()`; `launch` raises on a
+non-zero status. The library also holds host functions (the FHEW schedule),
+called through `call`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu")
+SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,6 +59,16 @@ _SIGNATURES = {
     # 2, N), mon_v, mon_d, psi, psi_shoup, psi_inv, psi_inv_shoup, log_n,
     # log_b, rounding_bits, host consts, stream
     "lft_tfhe_blind_rotate": (_P,) * 3 + (_LL, _I) + (_P,) * 10 + (_I, _I, _I, _P, _P),
+    # acc_a, acc_b, out_a, out_b, ext_idx, auto_idx, batch, steps, brk_a,
+    # brk_ad, brk_b, brk_bd, ak_a, ak_ad, ak_b, ak_bd, auto_src, auto_sign,
+    # psi, psi_shoup, psi_inv, psi_inv_shoup, log_n, q, n_inv, n_inv_shoup,
+    # RGSW gadget (log_b, d, rounding_bits, half), RLWE gadget (same), stream
+    "lft_fhew_blind_rotate": (_P,) * 6 + (_I, _I) + (_P,) * 14 + (_I, _U, _U, _U) + (_I, _I, _I, _U) * 2 + (_P,),
+    # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
+    # half, window, ops, idxs, sched_len
+    "lft_fhew_build_schedule": (_P, _LL, _LL, _P, _P, _LL, _I, _P, _P, _LL),
+    # ops, idxs, batch, sched_len, e_out, a_out
+    "lft_fhew_fuse_schedule": (_P, _P, _LL, _LL, _P, _P),
 }
 
 
@@ -125,7 +137,9 @@ def build_log() -> str:
 # The kernels of the library by the name in their source; a mangled name
 # holds it after an anonymous-namespace prefix whose hash depends on the
 # source's path, and a template instance adds ILi<LOG_N>E after it.
-_KERNEL_NAME = re.compile(r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step)_kernel(?:ILi(\d+)E)?")
+_KERNEL_NAME = re.compile(
+    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate)_kernel(?:ILi(\d+)E)?"
+)
 
 
 def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
@@ -174,3 +188,9 @@ def launch(entry: str, *args: int) -> None:
     if status != 0:
         msg = library().lft_error_string(status).decode()
         raise RuntimeError(f"{entry}: CUDA error {status} ({msg})")
+
+
+def call(entry: str, *args: int) -> int:
+    """Call host function `entry` of the library (no stream, no launch) and
+    return its int result; pointers go as `ndarray.ctypes.data`."""
+    return getattr(library(), entry)(*args)

@@ -186,9 +186,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tntt.ntt32(torch.zeros((1, 4096), dtype=torch.int32, device=dev), big)
     with pytest.raises(ValueError):  # not 16-byte aligned
         tntt.ntt32(torch.zeros(2 * 256 + 1, dtype=torch.int32, device=dev)[1:].view(2, 256), plan)
-    small_q = tntt.ntt32_plan(7681, 256)  # below 2^30: the product's reduction needs q > 2^30
-    with pytest.raises(ValueError):
-        tntt.negacyclic_mul32(x, x, small_q)
+    small_q = tntt.ntt32_plan(7681, 256)  # below 2^30: two K-NTT launches, the product in torch, intt32
+    before = tntt.negacyclic_mul32.launches
+    y = torch.from_numpy(np.random.default_rng(3).integers(0, 7681, size=(4, 256), dtype=np.int32))
+    _same(tntt.negacyclic_mul32(y.to(dev), y.flip(0).to(dev), small_q), tntt.negacyclic_mul32_ref(y, y.flip(0), small_q))
+    assert tntt.negacyclic_mul32.launches == before
     params = tfhe.TggswParams(
         tfhe.TglweParams(log_p=4, padding=1, big_n=64, k=2, std_dev=1e-11), log_b=12, d=2
     )
@@ -245,4 +247,107 @@ def test_pbs_batch_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     for got, want in zip(keys[1].brk + keys[1].ksk, keys[0].brk + keys[0].ksk):
         assert torch.equal(got.cpu(), want)
+    assert torch.equal(outs[1].a.cpu(), outs[0].a) and torch.equal(outs[1].b.cpu(), outs[0].b)
+
+
+# -- FHEW: K-FHEW-BR, the C schedule, K-NTT at the 28-bit primes -----------------
+
+_FHEW = {}
+
+
+def _fhew_env(log_n):
+    """FHEW params (B=2^7, d=4, LWE n=16 at N=128; the reference fixture's
+    n=100, w=10 at N=512) and a key from key_gen on the CPU."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    if log_n not in _FHEW:
+        q = next(two_adic_primes(28, log_n + 1))
+        n_lwe, w = (16, 5) if log_n == 7 else (100, 10)
+        params = fhew.BootstrapParams(
+            fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=7, d=4), log_b=7, d=4),
+            fhew.LweParams(q=1 << 16, p=4, n=n_lwe, log_b=4, d=4),
+            w=w,
+        )
+        rng = np.random.default_rng(log_n)
+        _FHEW[log_n] = params, fhew.key_gen(params, fhew.rlwe.sk_gen(params.rlwe, rng), rng, "cpu")
+    return _FHEW[log_n]
+
+
+@pytest.mark.parametrize("batch", [1, 5, 128])
+@pytest.mark.parametrize("log_n", [7, 9])
+def test_fhew_blind_rotate_kernel_matches_plain(dev, log_n, batch):
+    """One launch of K-FHEW-BR over a batch's whole fused schedule, from
+    random odd masks, against blind_rotate_core_fused_ref (on the CPU up to
+    batch 5; at batch 128 on CUDA tensors, where it runs on K-NTT)."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+
+    params, key = _fhew_env(log_n)
+    rng = np.random.default_rng(batch)
+    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1)
+    e_idx, a_idx = boot.schedule(params, a2n)
+    acc = RlweCiphertext(*(u32_to_torch(rng.integers(0, params.big_q, size=(batch, params.n), dtype=np.uint32)) for _ in "ab"))
+    ref_dev = "cpu" if batch <= 5 else dev
+    on = lambda t, d: boot.BootstrapKey(*(x.to(d) for x in t))  # noqa: E731
+    want = boot.blind_rotate_core_fused_ref(
+        params, on(key, ref_dev), e_idx.to(ref_dev), a_idx.to(ref_dev), RlweCiphertext(acc.a.to(ref_dev), acc.b.to(ref_dev))
+    )
+    before = boot.blind_rotate_core_fused.launches
+    got = boot.blind_rotate_core_fused(params, on(key, dev), e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))
+    assert boot.blind_rotate_core_fused.launches == before + 1
+    _same(got.a, want.a.cpu())
+    _same(got.b, want.b.cpu())
+
+
+@pytest.mark.parametrize("log_n", [7, 9])
+def test_fhew_schedule_c_matches_python(dev, log_n):
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, _ = _fhew_env(log_n)
+    a = 2 * np.random.default_rng(log_n).integers(0, params.n, size=(128, params.lwe_s.n)) + 1
+    want = boot.fuse_schedule(*boot.build_schedule(params, a))
+    got = boot.schedule_native(params, a)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    got_dev = boot.schedule(params, torch.from_numpy(a).to(dev))
+    for g, w in zip(got_dev, want):
+        assert g.device.type == "cuda" and np.array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.parametrize("q,n", [(268409857, 512), (268432897, 128)])
+def test_ntt_kernels_at_fhew_primes(dev, q, n):
+    """K-NTT and intt32 at FHEW's 28-bit primes, on key generation's row
+    count and a ragged last block, and the product routed through them."""
+    plan = tntt.ntt32_plan(q, n)
+    rng = np.random.default_rng(n)
+    for rows in (800, 19):
+        a = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+        a[0, 0], a[-1, -1] = 0, q - 1
+        a = u32_to_torch(a)
+        _same(tntt.ntt32(a.to(dev), plan), tntt.ntt32_ref(a, plan))
+        _same(tntt.intt32(a.to(dev), plan), tntt.intt32_ref(a, plan))
+        _same(tntt.negacyclic_mul32(a.to(dev), a.flip(0).to(dev), plan), tntt.negacyclic_mul32_ref(a, a.flip(0), plan))
+
+
+def test_fhew_gate_batch_on_card_matches_cpu(dev):
+    """Keys from one seed on the card and on the CPU, and a NAND batch of 8
+    through fhew_gate_batch: bit-identical, and right."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.parallel.batch import fhew_gate_batch
+
+    params, _ = _fhew_env(7)
+    outs = []
+    for device in ("cpu", dev):
+        rng = np.random.default_rng(5)
+        z = fhew.rlwe.sk_gen(params.rlwe, rng)
+        key = fhew.key_gen(params, z, rng, device)
+        m0, m1 = torch.tensor([0, 0, 1, 1] * 2, device=device), torch.tensor([0, 1, 0, 1] * 2, device=device)
+        c0 = lwe.sk_encrypt(params.lwe_z, z, gates.encode_bool(params, m0), rng)
+        c1 = lwe.sk_encrypt(params.lwe_z, z, gates.encode_bool(params, m1), rng)
+        out = fhew_gate_batch(params, key, "nand", c0, c1)
+        assert torch.equal(gates.decode_bool(params, lwe.decrypt(params.lwe_z, z, out)), ~(m0.bool() & m1.bool()))
+        outs.append(out)
+    torch.cuda.synchronize()
     assert torch.equal(outs[1].a.cpu(), outs[0].a) and torch.equal(outs[1].b.cpu(), outs[0].b)

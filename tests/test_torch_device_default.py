@@ -9,15 +9,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import learn_fhe_tpu_torch.models.fhew as fhew  # noqa: E402
 import learn_fhe_tpu_torch.models.tfhe as tfhe  # noqa: E402
 from learn_fhe_tpu_torch.models.tfhe import tlwe  # noqa: E402
-from learn_fhe_tpu_torch.utils.interop import bootstrap_key_from_numpy, resolve_device  # noqa: E402
+from learn_fhe_tpu_torch.utils.interop import (  # noqa: E402
+    bootstrap_key_from_numpy,
+    fhew_bootstrap_key_from_numpy,
+    resolve_device,
+)
+from learn_fhe_tpu_torch.utils.primes import two_adic_primes  # noqa: E402
 
 PARAMS = tfhe.BootstrapParams(
     tfhe.TlweParams(log_p=2, padding=1, n=8, std_dev=1.34e-7, log_b=4, d=5),
     tfhe.TggswParams(
         tfhe.TglweParams(log_p=2, padding=1, big_n=16, k=1, std_dev=2.85e-15), log_b=23, d=1
     ),
+)
+
+_FQ = next(two_adic_primes(28, 5))
+FHEW_PARAMS = fhew.BootstrapParams(
+    fhew.RgswParams(fhew.RlweParams(q=_FQ, p=4, log_n=4, log_b=7, d=4), log_b=7, d=4),
+    fhew.LweParams(q=1 << 16, p=4, n=4, log_b=4, d=4),
+    w=2,
 )
 
 
@@ -64,6 +77,34 @@ def test_bootstrap_key_from_numpy_raises_without_cuda(no_cuda):
         bootstrap_key_from_numpy(_numpy_key(key))
 
 
+def _fhew_key(device):
+    rng = np.random.default_rng(0)
+    return fhew.key_gen(FHEW_PARAMS, fhew.rlwe.sk_gen(FHEW_PARAMS.rlwe, rng), rng, device)
+
+
+def _fhew_numpy_key(key):
+    """The JAX package's FHEW key layout, as numpy leaves."""
+    def leaf(t):
+        x = t.numpy()
+        return x.view(np.uint32) if t.dtype == torch.int32 else x.view(np.uint64) if t.dtype == torch.int64 else x
+
+    return NS(**{f: leaf(getattr(key, f)) for f in fhew.BootstrapKey._fields})
+
+
+def test_fhew_key_gen_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="GPU"):
+        _fhew_key(None)
+
+
+def test_fhew_bootstrap_key_from_numpy_raises_without_cuda(no_cuda):
+    key = _fhew_key("cpu")
+    with pytest.raises(RuntimeError, match="GPU"):
+        fhew_bootstrap_key_from_numpy(_fhew_numpy_key(key))
+    carried = fhew_bootstrap_key_from_numpy(_fhew_numpy_key(key), device="cpu")
+    for f in fhew.BootstrapKey._fields:
+        assert getattr(carried, f).device.type == "cpu" and torch.equal(getattr(carried, f), getattr(key, f))
+
+
 def test_entry_points_on_cpu_when_asked():
     rng = np.random.default_rng(0)
     z = tlwe.sk_gen(PARAMS.tlwe, rng)
@@ -83,3 +124,11 @@ def test_key_gen_defaults_to_the_card():
     rng = np.random.default_rng(0)
     key = tfhe.key_gen(PARAMS, tlwe.sk_gen(PARAMS.tlwe, rng), rng)
     assert all(t.device.type == "cuda" for t in _all_leaves(key))
+
+
+@pytest.mark.cuda
+def test_fhew_key_gen_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    key = _fhew_key(None)
+    assert all(t.device.type == "cuda" for t in key)

@@ -18,6 +18,10 @@ _STEP = (
     "_ZN45_GLOBAL__N__cdbaa05f_12_tfhe_step_cu_d9a3cecf16tfhe_step_kernelILi11EEEvPlS1_PKlPKjS5_S5_S5_S5_S5_"
     "S5_S5_S5_S5_iiN3lft9CrtConstsE"
 )
+_FHEW = (
+    "_ZN53_GLOBAL__N__f1c25e59_20_fhew_blind_rotate_cu_23175c5024fhew_blind_rotate_kernelILi9EEEvPKjS2_PjS3_PKiS5_"
+    "iS2_S2_S2_S2_S2_S2_S2_S2_S5_PKhS2_S2_S2_S2_jjjNS_6GadgetES8_i"
+)
 
 
 def _entry(mangled: str, regs: int, spill: int) -> str:
@@ -38,6 +42,7 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_INV, "ntt32_inv_kernel<11>"),
         (_GARNER, "garner_kernel"),
         (_STEP, "tfhe_step_kernel<11>"),
+        (_FHEW, "fhew_blind_rotate_kernel<9>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
