@@ -40,14 +40,19 @@ B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
       set to 0 just before and read just after: K-FHEW-BR must launch once),
       all 128 decrypted against the truth table; then one `gate_batch` of
       all 7 gates (majority with 3 inputs), decrypted;
-  F3. K-FHEW-BR's whole walk at batch 128 with the real key and schedule
-      against `blind_rotate_core_fused_ref` on the card, the first 4 gate
-      outputs against the whole plain path on the CPU, and the C schedule
-      against the Python one on the same mask, all bit for bit;
-  F4. NAND gates/s at batch 128 (and, for information, 1024) over whole
-      `fhew_gate_batch` calls, the preamble, host schedule and walk times,
-      the device's idle share, and K-FHEW-BR against its plain version and
-      its bound, with its registers and spills.
+  F3. K-FHEW-BR's whole walk at batch 128 with the real key against
+      `blind_rotate_core_fused_ref` on the card, on the real schedule and on
+      two made from it (each row's external products alone, its
+      automorphisms alone), the first 4 gate outputs against the whole plain
+      path on the CPU, and the C schedule against the Python one on the same
+      mask, all bit for bit; the kernel's error word must read 0;
+  F4. NAND gates/s at batch 128 and 1024 over whole `fhew_gate_batch`
+      calls (median and spread of 5), the preamble, host schedule and walk
+      times, the device's idle share; K-FHEW-BR's device time (profiler)
+      beside its wrapper call's, on the ext-only and auto-only schedules and
+      at batch 1, 132, 264 and 1024; the bytes of key rows a launch copies;
+      K-FHEW-BR against its plain version and its bound, with its registers
+      and spills.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -138,16 +143,57 @@ ZQ_DIGIT = np.array([1, 4, 2])  # one Zq gadget digit: and, carry compare/select
 NEG_MOD = np.array([0, 2, 1])  # q - a where a != 0
 
 
-def fhew_walk_ops(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: int) -> np.ndarray:
-    """K-FHEW-BR over a batch's schedules, counted from the steps that this
-    run's schedules hold (summed over the ciphertexts). An external product:
-    2d digit rows, their forward NTTs, the Shoup contraction of a and b over
-    2d rows, 2 inverse NTTs with the 1/N scale. An automorphism: the signed
-    gather of a and b, d digit rows, their forward NTTs, the contraction
-    over d rows, 2 inverse NTTs with the scale, and b + the gathered b."""
+def fhew_walk_ops_shoup(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: int) -> np.ndarray:
+    """A walk over a batch's schedules as a kernel with Shoup contractions
+    (the key's duals) and compare-and-select subtracts would run it, counted
+    from the steps that this run's schedules hold (summed over the
+    ciphertexts): printed beside K-FHEW-BR's own count for comparison. An
+    external product: 2d digit rows, their forward NTTs, the Shoup
+    contraction of a and b over 2d rows, 2 inverse NTTs with the 1/N scale.
+    An automorphism: the signed gather of a and b, d digit rows, their
+    forward NTTs, the contraction over d rows, 2 inverse NTTs with the
+    scale, and b + the gathered b."""
     inverse = ntt_ops(2, n) + 2 * n * SHOUP
     ext = 2 * n * d_g * ZQ_DIGIT + ntt_ops(2 * d_g, n) + 2 * d_g * n * 2 * (SHOUP + ADD_MOD) + inverse
     auto = 2 * n * NEG_MOD + n * d_k * ZQ_DIGIT + ntt_ops(d_k, n) + d_k * n * 2 * (SHOUP + ADD_MOD) + inverse + n * ADD_MOD
+    return ext_steps * ext + auto_steps * auto
+
+
+# K-FHEW-BR's own arithmetic, as its SASS has it: each conditional subtract
+# is the unsigned minimum min(s, s - q), which Hopper fuses into one
+# VIADDMNMX (counted on the ALU pipe, as a minimum is).
+SHOUP_MIN = np.array([3, 1, 0])  # mul hi, mul, mul-sub; subtract-and-minimum
+ADD_MIN = np.array([0, 1, 1])  # add; subtract-and-minimum
+SUB_MIN = np.array([0, 1, 1])  # subtract; add-and-minimum
+BUTTERFLY_MIN = SHOUP_MIN + ADD_MIN + SUB_MIN
+MAD_WIDE = np.array([1, 0, 0])  # a row product added to a u64 sum (IMAD.WIDE.U32)
+REDUCE64 = 2 * SHOUP_MIN - [1, 0, 0] + ADD_MIN  # a u64 mod q: hi * (2^32 mod q) + lo (lo's product by 1 needs no multiply)
+ZQ_LIFT = np.array([0, 2, 2])  # per coefficient: the centered lift (compare, select, subtract), + the digits' offsets
+ZQ_FIELD = np.array([0, 3, 1])  # per digit: shift, mask, less the offset mod q
+
+
+def ntt_ops_min(rows: int, n: int) -> np.ndarray:
+    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY_MIN
+
+
+def fhew_walk_ops(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: int, chunk: int) -> np.ndarray:
+    """K-FHEW-BR over a batch's schedules, counted from the steps that this
+    run's schedules hold (summed over the ciphertexts), at the least each
+    operation of the kernel needs. An external product: the centered lift
+    of a and b and 2d digit rows from it, their forward NTTs, per output
+    coefficient 2d row products summed in u64 and reduced once per `chunk`
+    rows, 2 inverse NTTs with the 1/N scale. An automorphism: the signed
+    gather of a and b, the lift and d digit rows of the gathered a, their
+    forward NTTs, the contraction over d rows, 2 inverse NTTs with the
+    scale, and b + the gathered b."""
+
+    def contraction(rows: int) -> np.ndarray:
+        sums = -(-rows // min(rows, chunk))
+        return 2 * n * (rows * MAD_WIDE + sums * REDUCE64 + (sums - 1) * ADD_MIN)
+
+    inverse = ntt_ops_min(2, n) + 2 * n * SHOUP_MIN
+    ext = 2 * n * ZQ_LIFT + 2 * n * d_g * ZQ_FIELD + ntt_ops_min(2 * d_g, n) + contraction(2 * d_g) + inverse
+    auto = 2 * n * NEG_MOD + n * ZQ_LIFT + n * d_k * ZQ_FIELD + ntt_ops_min(d_k, n) + contraction(d_k) + inverse + n * ADD_MIN
     return ext_steps * ext + auto_steps * auto
 
 
@@ -247,9 +293,61 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def spread_ms(fn, calls: int) -> tuple[float, float, float]:
+    """Median, least and most milliseconds of `calls` single calls of fn,
+    each between CUDA events and synchronised, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
+
+
+def walk_device_ms(fn, reps: int) -> float:
+    """K-FHEW-BR's device milliseconds per launch over `reps` calls of fn
+    (torch.profiler, the kernel's own time only), after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [
+        (e.self_device_time_total, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "fhew_blind_rotate" in e.key
+    ]
+    total, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    if count != reps:
+        raise AssertionError(f"the profiler saw {count} K-FHEW-BR launches in {reps} calls")
+    return total / 1e3 / count
+
+
+def compact(idx: torch.Tensor) -> torch.Tensor:
+    """Each row's entries >= 0 moved to its front, in order, -1 after them."""
+    rows = []
+    for row in idx.cpu():
+        kept = row[row >= 0]
+        rows.append(torch.cat([kept, torch.full((row.numel() - kept.numel(),), -1, dtype=row.dtype)]))
+    return torch.stack(rows).to(idx.device)
+
+
 FHEW_BATCH = 128  # `bench.py:302`
-FHEW_INFO_BATCH = 1024  # gates/s for information: batch 128 puts one block on each of 128 SMs
+FHEW_INFO_BATCH = 1024  # gates/s for information beside batch 128
 FHEW_CPU_CHECK = 4
+GATE_CALLS = 5  # whole gate batches timed one by one: the host's time varies between calls
+WALK_REPS = 5
+WALK_SWEEP = (1, 132, 264, 1024)  # one ciphertext alone; one and two per SM; eight
+FHEW_INSTANCE = "fhew_blind_rotate_kernel<9>"  # N=512
 
 
 def fhew_reference_params():
@@ -304,6 +402,7 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
     c0 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m0), rng)
     c1 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m1), rng)
     counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused)
+    boot.walk_error(dev).zero_()
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -354,10 +453,16 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
     ext_steps, auto_steps = int((e_idx >= 0).sum()), int((a_idx >= 0).sum())
     say(f"F3 C schedule == Python schedule on the batch's mask: ok (fused length {steps}, schedule_len {params.schedule_len}; {ext_steps} external products and {auto_steps} automorphisms over {B} ciphertexts)")
     acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
-    walk = boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc)
-    plain = boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc)
-    errs["fhew_blind_rotate"] = max(max_abs_err(walk.a, plain.a.cpu()), max_abs_err(walk.b, plain.b.cpu()))
-    say(f"F3 K-FHEW-BR == blind_rotate_core_fused_ref at batch {B}, N={params.n}, real key and schedule: ok")
+    # the same phases split apart: each row's external products alone, then
+    # its automorphisms alone (a schedule ends at its first (-1, -1))
+    none = torch.full_like(e_idx, -1)
+    schedules = {"real": (e_idx, a_idx), "ext-only": (compact(e_idx), none), "auto-only": (none, compact(a_idx))}
+    errs["fhew_blind_rotate"] = 0.0
+    for name, (se, sa) in schedules.items():
+        walk = boot.blind_rotate_core_fused(params, key, se, sa, acc)
+        plain = boot.blind_rotate_core_fused_ref(params, key, se, sa, acc)
+        errs["fhew_blind_rotate"] = max(errs["fhew_blind_rotate"], max_abs_err(walk.a, plain.a.cpu()), max_abs_err(walk.b, plain.b.cpu()))
+        say(f"F3 K-FHEW-BR == blind_rotate_core_fused_ref at batch {B}, N={params.n}, real key, {name} schedule: ok")
     t0 = time.perf_counter()
     key_cpu = boot.BootstrapKey(*(t.cpu() for t in key))
     k = FHEW_CPU_CHECK
@@ -366,6 +471,11 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
     if not (torch.equal(ref_out.a, out.a[:k].cpu()) and torch.equal(ref_out.b, out.b[:k].cpu())):
         raise AssertionError("FHEW gates on the card differ from the plain path on the CPU")
     say(f"F3 first {k} NAND outputs == the plain path on the CPU, bit for bit ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.synchronize()
+    word = int(boot.walk_error(dev).item())
+    say(f"F3 K-FHEW-BR error word after F2 and F3: {word}")
+    if word:
+        raise AssertionError(f"K-FHEW-BR flagged a schedule index outside the key (error word {word})")
 
     # -- F4. timing --------------------------------------------------------------
     reps = 3
@@ -373,8 +483,8 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
     def gate_call():
         pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
 
-    gate_ms = cuda_ms(gate_call, reps)
-    say(f"{tag} F4 NAND batch {B}: {gate_ms:.3f} ms per fhew_gate_batch call = {B / gate_ms * 1e3:.2f} gates/s (CUDA events around {reps} whole calls, host time included)")
+    gate_ms = spread_ms(gate_call, GATE_CALLS)
+    say(f"{tag} F4 NAND batch {B}: {gate_ms[0]:.3f} ms per fhew_gate_batch call (median of {GATE_CALLS}; {gate_ms[1]:.3f}-{gate_ms[2]:.3f}) = {B / gate_ms[0] * 1e3:.2f} gates/s ({B / gate_ms[2] * 1e3:.2f}-{B / gate_ms[1] * 1e3:.2f}; CUDA events around each whole call, host time included)")
     pre, sch = [], []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -388,6 +498,21 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
         sch.append(time.perf_counter() - t1)
     walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), reps)
     say(f"{tag} F4 NAND batch {B}: preamble {np.median(pre) * 1e3:.3f} ms, host schedule (C, with the mask's copy to the host and the indices' copy back) {np.median(sch) * 1e3:.3f} ms (host clock to a sync, median of {reps}); walk {walk_ms:.3f} ms (CUDA events)")
+    # where the walk's time goes: the phases apart, and the batch size
+    walk_dev = walk_device_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), WALK_REPS)
+    say(f"{tag} F4 K-FHEW-BR at batch {B}: device {walk_dev:.4f} ms per launch (profiler, {WALK_REPS} launches), wrapper call {walk_ms:.4f} ms (CUDA events, {reps} calls)")
+    for name in ("ext-only", "auto-only"):
+        se, sa = schedules[name]
+        n_ext, n_auto = int((se >= 0).sum()), int((sa >= 0).sum())
+        t = walk_device_ms(lambda: boot.blind_rotate_core_fused(params, key, se, sa, acc), WALK_REPS)
+        per = t * 1e3 / (n_ext or n_auto) * B
+        say(f"{tag} F4 split, batch {B}, {name} schedule ({n_ext} external products, {n_auto} automorphisms): {t:.4f} ms per launch (device, profiler) = {per:.3f} us per phase and ciphertext")
+    for b in WALK_SWEEP:
+        rows = torch.arange(b, device=dev) % B
+        se, sa = e_idx[rows].contiguous(), a_idx[rows].contiguous()
+        acc_b = RlweCiphertext(acc.a[rows].contiguous(), acc.b[rows].contiguous())
+        t = walk_device_ms(lambda: boot.blind_rotate_core_fused(params, key, se, sa, acc_b), WALK_REPS)
+        say(f"{tag} F4 sweep, real schedule at batch {b} (rows of the batch-{B} schedule, repeated): {t:.4f} ms per launch (device, profiler) = {t * 1e3 / b:.3f} us per ciphertext")
     idle, kernel_ms, top = device_kernel_ms(gate_call)
     if kernel_ms:
         say(f"{tag} F4 NAND batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
@@ -397,30 +522,42 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
         say(f"{tag} F4 device kernel time and idle share: not measured (the profiler recorded no device activity)")
     plain_ms = cuda_ms(lambda: boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc), 1)
     gg, gk = params.rgsw.gadget, params.rlwe.gadget
-    ops = fhew_walk_ops(ext_steps, auto_steps, params.n, gg.d, gk.d)
+    chunk = boot.contraction_chunk(params.big_q, max(2 * gg.d, gk.d))
+    ops = fhew_walk_ops(ext_steps, auto_steps, params.n, gg.d, gk.d, chunk)
     n, row = params.n, params.n * 4
     e_used = torch.unique(e_idx[e_idx >= 0]).numel()
     a_used = torch.unique(a_idx[a_idx >= 0]).numel()
+    key_values = e_used * 2 * 2 * gg.d * row + a_used * 2 * gk.d * row  # the brk and ak rows used, a and b
     walk_bytes = (
         4 * B * row  # acc a, b in; a, b out
         + 2 * B * steps * 4  # the schedules
-        + e_used * 4 * 2 * gg.d * row  # brk rows used: values and duals of a and b
-        + a_used * (4 * gk.d * row + n * 5)  # ak rows used, their gather maps and signs
+        + key_values
+        + a_used * n * 5  # the gather maps and signs used
         + 4 * row  # twiddle tables
     )
+    key_rows = ext_steps * 2 * 2 * gg.d * n * 4 + auto_steps * (2 * gk.d * n * 4 + n * 5)
+    say(f"{tag} F4 K-FHEW-BR at batch {B}: the walk's key rows, one copy per phase (values of a and b; the automorphisms' gather maps and signs): {key_rows / 1e6:.2f} MB per launch ({key_rows / (ext_steps + auto_steps) / 1e3:.2f} KB per phase); with the Shoup duals {2 * key_rows / 1e6:.2f} MB")
     b_ms, by = bound_ms(walk_bytes, ops, pipe_per_s)
     timings["fhew_blind_rotate"] = (walk_ms, plain_ms)
     bounds["fhew_blind_rotate"] = (b_ms, by)
-    regs, st, ld = kernels.ptxas_report(kernels.build_log()).get("fhew_blind_rotate_kernel<9>", (0, 0, 0))
-    say(f"{tag} F4 K-FHEW-BR at batch {B}: {walk_ms:.3f} ms per launch (CUDA events, {reps} reps), bound {b_ms:.4f} ms by {by} (instructions {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either; bytes {walk_bytes / 1e6:.2f} MB) = {b_ms / walk_ms:.4f} of bound; plain version on CUDA tensors {plain_ms:.1f} ms; {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    regs, st, ld = kernels.ptxas_report(kernels.build_log()).get(FHEW_INSTANCE, (0, 0, 0))
+    say(f"{tag} F4 K-FHEW-BR at batch {B}: {walk_ms:.3f} ms per launch (CUDA events, {reps} reps), bound {b_ms:.4f} ms by {by} (instructions {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either, the contraction reduced every {chunk} rows; bytes {walk_bytes / 1e6:.2f} MB) = {b_ms / walk_ms:.4f} of bound, {b_ms / walk_dev:.4f} on the device; plain version on CUDA tensors {plain_ms:.1f} ms; {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    ops_s = fhew_walk_ops_shoup(ext_steps, auto_steps, params.n, gg.d, gk.d)
+    s_ms, s_by = bound_ms(walk_bytes + key_values, ops_s, pipe_per_s)
+    say(f"{tag} F4 K-FHEW-BR at batch {B}, for comparison: a walk with Shoup contractions (the key's duals read too) and compare-and-select subtracts counts {ops_s[0] / 1e6:.1f} M FMA, {ops_s[1] / 1e6:.1f} M ALU, {ops_s[2] / 1e6:.1f} M either: bound {s_ms:.4f} ms by {s_by} = {s_ms / walk_ms:.4f} of this kernel's wrapper call, {s_ms / walk_dev:.4f} on the device")
 
     rng = np.random.default_rng(3)
     big = [
         lwe.sk_encrypt(lz, z, gates.encode_bool(params, torch.from_numpy(rng.integers(0, 2, size=FHEW_INFO_BATCH)).to(dev)), rng)
         for _ in range(2)
     ]
-    big_ms = cuda_ms(lambda: pbatch.fhew_gate_batch(params, key, "nand", *big), 2)
-    say(f"{tag} F4 NAND batch {FHEW_INFO_BATCH} (for information): {big_ms:.3f} ms per call = {FHEW_INFO_BATCH / big_ms * 1e3:.2f} gates/s (CUDA events, 2 reps)")
+    big_ms = spread_ms(lambda: pbatch.fhew_gate_batch(params, key, "nand", *big), GATE_CALLS)
+    say(f"{tag} F4 NAND batch {FHEW_INFO_BATCH}: {big_ms[0]:.3f} ms per call (median of {GATE_CALLS}; {big_ms[1]:.3f}-{big_ms[2]:.3f}) = {FHEW_INFO_BATCH / big_ms[0] * 1e3:.2f} gates/s ({FHEW_INFO_BATCH / big_ms[2] * 1e3:.2f}-{FHEW_INFO_BATCH / big_ms[1] * 1e3:.2f}; CUDA events around each whole call)")
+    torch.cuda.synchronize()
+    word = int(boot.walk_error(dev).item())
+    say(f"F4 K-FHEW-BR error word after the timing, the split and the sweep: {word}")
+    if word:
+        raise AssertionError(f"K-FHEW-BR flagged a schedule index outside the key (error word {word})")
 
 
 def main() -> None:
@@ -449,9 +586,9 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == "fhew_blind_rotate_kernel<9>":  # N=2048, Garner, FHEW's N=512
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE:  # N=2048, Garner, FHEW's N=512
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", "fhew_blind_rotate_kernel<9>"} <= report.keys():
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE} <= report.keys():
         raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, or no N=512 instance of K-FHEW-BR")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----

@@ -285,10 +285,22 @@ def fuse_schedule(ops: np.ndarray, idxs: np.ndarray) -> tuple[np.ndarray, np.nda
     return e_out[:, :max_len].reshape(shape), a_out[:, :max_len].reshape(shape)
 
 
+def check_schedule(params: BootstrapParams, ext_idx: np.ndarray, auto_idx: np.ndarray) -> None:
+    """Raise unless every index of a fused schedule is -1 or names a key:
+    ext_idx < n (brk), auto_idx <= w (ak). The schedule is checked here, on
+    the host where it is built, so that the walk's wrapper reads nothing
+    back from the card; K-FHEW-BR itself ends a ciphertext's walk at an
+    index outside the key and flags it (`walk_error`)."""
+    for name, idx, bound in (("ext_idx", ext_idx, params.lwe_s.n), ("auto_idx", auto_idx, params.w + 1)):
+        if idx.size and (idx.min() < -1 or idx.max() >= bound):
+            raise ValueError(f"schedule: {name} out of range ({idx.min()}..{idx.max()}; keys 0..{bound - 1}, or -1)")
+
+
 def schedule_native(params: BootstrapParams, a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """`build_schedule` then `fuse_schedule` on a (B, n) host mask, by their C
     copy in the kernel library (`lft_fhew_build_schedule`,
-    `lft_fhew_fuse_schedule`); raises if the library cannot be built."""
+    `lft_fhew_fuse_schedule`), checked by `check_schedule`; raises if the
+    library cannot be built."""
     a = np.ascontiguousarray(a, dtype=np.int64)
     B, n_lwe = a.shape
     if a.size and (a.min() < 0 or a.max() >= params.q):
@@ -306,19 +318,23 @@ def schedule_native(params: BootstrapParams, a: np.ndarray) -> tuple[np.ndarray,
     e_out = np.empty((B, L), dtype=np.int32)
     a_out = np.empty((B, L), dtype=np.int32)
     max_len = max(1, kernels.call("lft_fhew_fuse_schedule", ops.ctypes.data, idxs.ctypes.data, B, L, e_out.ctypes.data, a_out.ctypes.data))
-    return e_out[:, :max_len], a_out[:, :max_len]
+    e_out, a_out = e_out[:, :max_len], a_out[:, :max_len]
+    check_schedule(params, e_out, a_out)
+    return e_out, a_out
 
 
 def schedule(params: BootstrapParams, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused schedule of each row of a (B, n) Z_2N mask, as (B, L) int32
     tensors on a's device: the Python transcription for a CPU tensor, the C
-    copy for a CUDA tensor."""
+    copy for a CUDA tensor, whose two index arrays go to the card in one
+    copy."""
     host = a.cpu().numpy()
     if a.is_cpu:
         e_idx, a_idx = fuse_schedule(*build_schedule(params, host))
-    else:
-        e_idx, a_idx = schedule_native(params, host)
-    return torch.from_numpy(e_idx).to(a.device), torch.from_numpy(a_idx).to(a.device)
+        check_schedule(params, e_idx, a_idx)
+        return torch.from_numpy(e_idx), torch.from_numpy(a_idx)
+    both = torch.from_numpy(np.stack(schedule_native(params, host))).to(a.device)
+    return both[0], both[1]
 
 
 # -- the blind rotation ----------------------------------------------------------
@@ -376,14 +392,21 @@ def blind_rotate_core_fused(
     acc: RlweCiphertext,  # a, b: (B, N) int32 residues
 ) -> RlweCiphertext:
     """The fused walk of a batch: K-FHEW-BR (`lft_fhew_blind_rotate`), one
-    launch for the whole batch and all its steps, one block per ciphertext.
-    On CPU tensors, its plain version. Returns a new (B, N) int32 pair."""
+    launch for the whole batch and all its steps, one block per ciphertext,
+    with no read back to the host. The schedule's indices are checked where
+    they are built (`schedule` runs `check_schedule`); the kernel ends a
+    ciphertext's walk at an index outside the key, leaves that output as
+    the walk stood, and flags it in `walk_error`, which nothing reads here.
+    A caller that builds the indices on the card some other way must check
+    them itself, or read `walk_error` after its own sync. On CPU tensors,
+    the plain version. Returns a new (B, N) int32 pair."""
     if acc.a.is_cpu:
         return blind_rotate_core_fused_ref(params, key, ext_idx, auto_idx, acc)
     name = "blind_rotate_core_fused"
     n, q = params.n, params.big_q
     gg, gk = params.rgsw.gadget, params.rlwe.gadget
-    if n > 1 << kernels.MAX_LOG_N or max(2 * gg.d, gk.d) > FHEW_MAX_ROWS:
+    rows = max(2 * gg.d, gk.d)
+    if n > 1 << kernels.MAX_LOG_N or rows > FHEW_MAX_ROWS:
         raise ValueError(f"{name}: the kernel takes N <= {1 << kernels.MAX_LOG_N} and at most {FHEW_MAX_ROWS} digit rows")
     B, L = ext_idx.shape
     kernels.require(f"{name} acc.a", acc.a, torch.int32, (B, n))
@@ -391,32 +414,54 @@ def blind_rotate_core_fused(
     kernels.require(f"{name} ext_idx", ext_idx, torch.int32, (B, L))
     kernels.require(f"{name} auto_idx", auto_idx, torch.int32, (B, L))
     n_keys, windows = key.brk_a.shape[0], key.ak_a.shape[0]
-    for f in ("brk_a", "brk_b", "brk_ad", "brk_bd"):
+    for f in ("brk_a", "brk_b"):
         kernels.require(f"{name} key.{f}", getattr(key, f), torch.int32, (n_keys, 2 * gg.d, n))
-    for f in ("ak_a", "ak_b", "ak_ad", "ak_bd"):
+    for f in ("ak_a", "ak_b"):
         kernels.require(f"{name} key.{f}", getattr(key, f), torch.int32, (windows, gk.d, n))
     kernels.require(f"{name} key.auto_src", key.auto_src, torch.int32, (windows, n))
     kernels.require(f"{name} key.auto_sign", key.auto_sign, torch.bool, (windows, n))
+    rows_of_key = [getattr(key, f) for f in ("brk_a", "brk_b", "ak_a", "ak_b", "auto_src", "auto_sign")]
+    if any(t.data_ptr() % 16 for t in rows_of_key):
+        raise ValueError(f"{name}: the kernel copies key rows with 16-byte accesses; a key tensor is not 16-byte aligned")
     out = RlweCiphertext(torch.empty_like(acc.a), torch.empty_like(acc.b))
-    if B and L:  # the kernel reads key rows by these indices: hold them in range (one sync)
-        e_lo, e_hi, a_lo, a_hi = torch.stack([*torch.aminmax(ext_idx), *torch.aminmax(auto_idx)]).tolist()
-        if min(e_lo, a_lo) < -1 or e_hi >= n_keys or a_hi >= windows:
-            raise ValueError(f"{name}: schedule indices out of range ({e_lo}..{e_hi} of {n_keys} keys, {a_lo}..{a_hi} of {windows})")
     if B:
         plan = params.rlwe.plan32
         psi, psi_s, psi_inv, psi_inv_s = _table_pointers(plan, acc.a.get_device())
         kernels.launch(
             "lft_fhew_blind_rotate", acc.a.data_ptr(), acc.b.data_ptr(), out.a.data_ptr(), out.b.data_ptr(),
-            ext_idx.data_ptr(), auto_idx.data_ptr(), B, L,
-            *(getattr(key, f).data_ptr() for f in ("brk_a", "brk_ad", "brk_b", "brk_bd", "ak_a", "ak_ad", "ak_b", "ak_bd")),
-            key.auto_src.data_ptr(), key.auto_sign.data_ptr(), psi, psi_s, psi_inv, psi_inv_s, plan.log_n, q,
-            plan.n_inv, plan.n_inv_shoup, *_gadget_args(gg), *_gadget_args(gk),
+            ext_idx.data_ptr(), auto_idx.data_ptr(), B, L, key.brk_a.data_ptr(), key.brk_b.data_ptr(), n_keys,
+            key.ak_a.data_ptr(), key.ak_b.data_ptr(), key.auto_src.data_ptr(), key.auto_sign.data_ptr(), windows,
+            psi, psi_s, psi_inv, psi_inv_s, plan.log_n, q, plan.n_inv, plan.n_inv_shoup,
+            *_gadget_args(gg), *_gadget_args(gk), contraction_chunk(q, rows), walk_error(acc.a.device).data_ptr(),
         )  # fmt: skip
         blind_rotate_core_fused.launches += 1
     return out
 
 
 blind_rotate_core_fused.launches = 0
+
+
+def contraction_chunk(q: int, rows: int) -> int:
+    """How many of a coefficient's `rows` products of two residues below q
+    K-FHEW-BR sums in a u64 before it reduces: the most whose sum fits 64
+    bits (chunk * (q-1)^2 < 2^64), at most `rows`. Every chunk gives the
+    same residues; at a 28-bit q it is every row, reduced once."""
+    return min(rows, ((1 << 64) - 1) // max(1, (q - 1) ** 2))
+
+
+_ERROR_WORDS: dict[int, torch.Tensor] = {}
+
+
+def walk_error(device: torch.device | str) -> torch.Tensor:
+    """K-FHEW-BR's error word on a CUDA device: one int32, OR-ed by every
+    launch with 1 where a schedule's ext index lay outside the key and 2
+    where an auto index did (that ciphertext's walk ended there). It stays
+    on the card: read it after a sync, and zero it with `.zero_()`."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _ERROR_WORDS:
+        _ERROR_WORDS[index] = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+    return _ERROR_WORDS[index]
 
 
 def prepare_acc(params: BootstrapParams, f: torch.Tensor, b2n: torch.Tensor) -> RlweCiphertext:

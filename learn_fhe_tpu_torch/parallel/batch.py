@@ -75,7 +75,10 @@ def fhew_blind_rotate_batch_device(
     auto_idx: torch.Tensor,  # (B, L) int32 fused schedule: auto key index or -1
 ) -> FhewLwe:
     """The fused LMKCDEY walk of the whole batch (one launch of K-FHEW-BR on
-    the card), then sample_extract(0): (B, N) int64 LWE ciphertexts."""
+    the card), then sample_extract(0): (B, N) int64 LWE ciphertexts. The
+    schedule is trusted: `fhew_boot.schedule` checks its indices on the
+    host; one built otherwise is the caller's to check, or to verify by
+    `fhew_boot.walk_error` after a sync (the walk reads back nothing)."""
     acc = fhew_boot.blind_rotate_core_fused(
         params, key, ext_idx, auto_idx, fhew_rlwe.RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     )

@@ -60,10 +60,14 @@ _SIGNATURES = {
     # log_b, rounding_bits, host consts, stream
     "lft_tfhe_blind_rotate": (_P,) * 3 + (_LL, _I) + (_P,) * 10 + (_I, _I, _I, _P, _P),
     # acc_a, acc_b, out_a, out_b, ext_idx, auto_idx, batch, steps, brk_a,
-    # brk_ad, brk_b, brk_bd, ak_a, ak_ad, ak_b, ak_bd, auto_src, auto_sign,
-    # psi, psi_shoup, psi_inv, psi_inv_shoup, log_n, q, n_inv, n_inv_shoup,
-    # RGSW gadget (log_b, d, rounding_bits, half), RLWE gadget (same), stream
-    "lft_fhew_blind_rotate": (_P,) * 6 + (_I, _I) + (_P,) * 14 + (_I, _U, _U, _U) + (_I, _I, _I, _U) * 2 + (_P,),
+    # brk_b, n_keys, ak_a, ak_b, auto_src, auto_sign, windows, psi,
+    # psi_shoup, psi_inv, psi_inv_shoup, log_n, q, n_inv, n_inv_shoup, RGSW
+    # gadget (log_b, d, rounding_bits, half), RLWE gadget (same), chunk,
+    # error, stream
+    "lft_fhew_blind_rotate": (
+        (_P,) * 6 + (_I, _I) + (_P, _P, _I) + (_P,) * 4 + (_I,) + (_P,) * 4 + (_I, _U, _U, _U)
+        + (_I, _I, _I, _U) * 2 + (_I, _P, _P)
+    ),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
     # half, window, ops, idxs, sched_len
     "lft_fhew_build_schedule": (_P, _LL, _LL, _P, _P, _LL, _I, _P, _P, _LL),

@@ -274,30 +274,144 @@ def _fhew_env(log_n):
     return _FHEW[log_n]
 
 
-@pytest.mark.parametrize("batch", [1, 5, 128])
-@pytest.mark.parametrize("log_n", [7, 9])
-def test_fhew_blind_rotate_kernel_matches_plain(dev, log_n, batch):
-    """One launch of K-FHEW-BR over a batch's whole fused schedule, from
-    random odd masks, against blind_rotate_core_fused_ref (on the CPU up to
-    batch 5; at batch 128 on CUDA tensors, where it runs on K-NTT)."""
+def _walk_against_plain(dev, params, key, e_idx, a_idx, rng, error=0):
+    """K-FHEW-BR over (e_idx, a_idx) from random accumulators, one launch,
+    against blind_rotate_core_fused_ref (on the CPU up to batch 5, else on
+    CUDA tensors, where it runs on K-NTT); the error word must read `error`."""
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
 
-    params, key = _fhew_env(log_n)
-    rng = np.random.default_rng(batch)
-    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1)
-    e_idx, a_idx = boot.schedule(params, a2n)
+    batch = e_idx.shape[0]
     acc = RlweCiphertext(*(u32_to_torch(rng.integers(0, params.big_q, size=(batch, params.n), dtype=np.uint32)) for _ in "ab"))
+    acc.a[0, :2], acc.b[0, -2:] = 0, params.big_q - 1
     ref_dev = "cpu" if batch <= 5 else dev
     on = lambda t, d: boot.BootstrapKey(*(x.to(d) for x in t))  # noqa: E731
+    valid_e = torch.where((e_idx < -1) | (e_idx >= key.brk_a.shape[0]), -1, e_idx)
+    valid_a = torch.where((a_idx < -1) | (a_idx >= key.ak_a.shape[0]), -1, a_idx)
+    cut = ((valid_e != e_idx) | (valid_a != a_idx)).long().cumsum(1) > 0  # a walk ends at its first bad index
     want = boot.blind_rotate_core_fused_ref(
-        params, on(key, ref_dev), e_idx.to(ref_dev), a_idx.to(ref_dev), RlweCiphertext(acc.a.to(ref_dev), acc.b.to(ref_dev))
-    )
+        params, on(key, ref_dev), valid_e.masked_fill(cut, -1).to(ref_dev), valid_a.masked_fill(cut, -1).to(ref_dev),
+        RlweCiphertext(acc.a.to(ref_dev), acc.b.to(ref_dev)),
+    )  # fmt: skip
+    word = boot.walk_error(dev)
+    word.zero_()
     before = boot.blind_rotate_core_fused.launches
     got = boot.blind_rotate_core_fused(params, on(key, dev), e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))
     assert boot.blind_rotate_core_fused.launches == before + 1
     _same(got.a, want.a.cpu())
     _same(got.b, want.b.cpu())
+    assert int(word.item()) == error
+    word.zero_()
+
+
+@pytest.mark.parametrize("batch", [1, 5, 128, 133, 1024])
+@pytest.mark.parametrize("log_n", [7, 9])
+def test_fhew_blind_rotate_kernel_matches_plain(dev, log_n, batch):
+    """One launch of K-FHEW-BR over a batch's whole fused schedule, from
+    random odd masks, against blind_rotate_core_fused_ref."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, key = _fhew_env(log_n)
+    rng = np.random.default_rng(batch)
+    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1)
+    _walk_against_plain(dev, params, key, *boot.schedule(params, a2n), rng)
+
+
+def _compact(idx: torch.Tensor) -> torch.Tensor:
+    """Each row's entries >= 0 moved to its front, -1 after them."""
+    out = torch.full_like(idx, -1)
+    for r, row in enumerate(idx):
+        kept = row[row >= 0]
+        out[r, : kept.numel()] = kept
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ext-only", "auto-only", "empty", "ragged"])
+@pytest.mark.parametrize("log_n", [7, 9])
+def test_fhew_blind_rotate_kernel_on_synthetic_schedules(dev, log_n, kind):
+    """Schedules the gates never make, at batch 133: every row's external
+    products alone, its automorphisms alone, no step at all, and each row
+    cut at its own length (some at 0 steps)."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, key = _fhew_env(log_n)
+    rng = np.random.default_rng(len(kind))
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(133, params.lwe_s.n)) + 1))
+    none = torch.full_like(e_idx, -1)
+    if kind == "ext-only":
+        e_idx, a_idx = _compact(e_idx), none
+    elif kind == "auto-only":
+        e_idx, a_idx = none, _compact(a_idx)
+    elif kind == "empty":
+        e_idx, a_idx = none, none.clone()
+    else:
+        ends = torch.from_numpy(rng.integers(0, e_idx.shape[1] + 1, size=(133, 1)))
+        ends[:3, 0] = torch.tensor([0, 1, e_idx.shape[1]])
+        past = torch.arange(e_idx.shape[1])[None] >= ends
+        e_idx, a_idx = e_idx.masked_fill(past, -1), a_idx.masked_fill(past, -1)
+    _walk_against_plain(dev, params, key, e_idx, a_idx, rng)
+
+
+@pytest.mark.parametrize("log_n", [3, 7, 11])
+def test_fhew_blind_rotate_kernel_per_row_reduction(dev, log_n):
+    """The largest q (31 bits) and digit-row count (2d = 16) the wrapper
+    takes, where rows * (q-1)^2 >= 2^64 and the kernel reduces its u64
+    sum every 4 rows: at N=8 and N=2048 the key rows are read from device
+    memory (too small to copy, or too large to fit beside the digit
+    buffer), at N=128 they are copied into shared memory."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    q = next(two_adic_primes(31, log_n + 1))
+    params = fhew.BootstrapParams(
+        fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=3, d=8), log_b=3, d=8),
+        fhew.LweParams(q=1 << 16, p=4, n=6, log_b=4, d=4),
+        w=3,
+    )
+    assert max(2 * 8, 8) == boot.FHEW_MAX_ROWS and boot.contraction_chunk(q, boot.FHEW_MAX_ROWS) == 4
+    rng = np.random.default_rng(log_n)
+    key = fhew.key_gen(params, fhew.rlwe.sk_gen(params.rlwe, rng), rng, "cpu")
+    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(5, params.lwe_s.n)) + 1)
+    _walk_against_plain(dev, params, key, *boot.schedule(params, a2n), rng)
+
+
+def test_fhew_blind_rotate_kernel_flags_an_index_outside_the_key(dev):
+    """Indices the host check would refuse, given to the wrapper directly:
+    each such walk ends before the bad step and sets its bit of the error
+    word (1: ext, 2: auto); the other ciphertexts walk on."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, key = _fhew_env(7)
+    rng = np.random.default_rng(21)
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(5, params.lwe_s.n)) + 1))
+    e_idx[1, 3], a_idx[2, 0], e_idx[3, 0], a_idx[3, 4] = params.lwe_s.n, params.w + 1, -7, -2
+    _walk_against_plain(dev, params, key, e_idx, a_idx, rng, error=3)
+
+
+def test_fhew_blind_rotate_makes_no_host_sync(dev):
+    """The walk's wrapper under torch.cuda.set_sync_debug_mode("error"): no
+    read back to the host, and the result still equals the plain version."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+
+    params, key = _fhew_env(9)
+    rng = np.random.default_rng(4)
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(4, params.lwe_s.n)) + 1))
+    acc = RlweCiphertext(*(u32_to_torch(rng.integers(0, params.big_q, size=(4, params.n), dtype=np.uint32)) for _ in "ab"))
+    want = boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc)
+    key_d = boot.BootstrapKey(*(x.to(dev) for x in key))
+    args = (params, key_d, e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))
+    boot.blind_rotate_core_fused(*args)  # builds the library, uploads the tables, makes the error word
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = boot.blind_rotate_core_fused(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    assert int(boot.walk_error(dev).item()) == 0
 
 
 @pytest.mark.parametrize("log_n", [7, 9])

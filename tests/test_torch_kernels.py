@@ -20,8 +20,9 @@ _STEP = (
 )
 _FHEW = (
     "_ZN53_GLOBAL__N__f1c25e59_20_fhew_blind_rotate_cu_23175c5024fhew_blind_rotate_kernelILi9EEEvPKjS2_PjS3_PKiS5_"
-    "iS2_S2_S2_S2_S2_S2_S2_S2_S5_PKhS2_S2_S2_S2_jjjNS_6GadgetES8_i"
+    "iS2_S2_iS2_S2_S5_PKhiS2_S2_S2_S2_NS_6ConstsENS_6GadgetES9_iiPi"
 )
+_FHEW_11 = _FHEW.replace("ILi9EE", "ILi11EE")
 
 
 def _entry(mangled: str, regs: int, spill: int) -> str:
@@ -43,6 +44,7 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_GARNER, "garner_kernel"),
         (_STEP, "tfhe_step_kernel<11>"),
         (_FHEW, "fhew_blind_rotate_kernel<9>"),
+        (_FHEW_11, "fhew_blind_rotate_kernel<11>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
