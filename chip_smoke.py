@@ -54,6 +54,29 @@ B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
       K-FHEW-BR against its plain version and its bound, with its registers
       and spills.
 
+Then multi-key FHEW with encrypted u8 on the u64 engine, the port of
+`examples/multi_key_uint8.py --full` (q = next(two_adic_primes(55, 12)),
+N=2048, B=2^11, d=5; LWE n=600, q_ks=2^20, B=2^5, d=4; window 10; 2
+parties):
+
+  M1. hold K-NTT64, intt64 and K-POLYMUL64 against their plain versions at
+      the 55-bit prime on (10, 2048) (one RGSW's rows), a ragged (19, 256)
+      and key generation's (6000, 2048); time them at (10, 2048) and
+      (6000, 2048) against their bounds;
+  M2. hold K-EXTPROD64 against its plain version at one merge chunk (60
+      keys, 600 products) and as a key switch; time it at the chunk;
+  M3. hold K-FHEW-BR64 against its plain version at the 54-bit multi-key
+      test fixture (N=128, 2d=18; batch 5 and 128) and at batch 2 of the
+      full set (random key rows); the error word must read 0;
+  M4. the main path, with the launch counters set to 0 just before and
+      read just after: crs and pk shares, each party's key share, the merge
+      (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
+      wrapping u8, gate round by gate round, and its threshold decryption,
+      which must give the expected value (wall time and rounds printed);
+      then a NAND batch of 128 at the full set: gates/s (median and spread
+      of 5 calls), K-FHEW-BR64's device time against its bound, and the
+      device's idle share.
+
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
 its integer instructions over the SMs' issue rates (the cost model below).
@@ -309,9 +332,46 @@ def spread_ms(fn, calls: int) -> tuple[float, float, float]:
     return float(np.median(times)), min(times), max(times)
 
 
+# The u64 engine's operations as 32-bit instructions (FMA pipe only, ALU
+# pipe only, either), the least each needs, counted from its 32-bit
+# expansion (a model: not read from the SASS): a 64 x 64 product's low word
+# is one IMAD.WIDE.U32 and two IMADs; its high word four wide products and
+# three carrying adds; a u64 add two adds; a u64 minimum two compares and
+# two selects.
+MUL64_LO = np.array([3, 0, 0])
+MULHI64 = np.array([4, 0, 3])
+ADD64 = np.array([0, 0, 2])
+MIN64 = np.array([0, 4, 0])
+CSUB64 = ADD64 + MIN64
+SHOUP64 = MULHI64 + 2 * MUL64_LO + ADD64 + CSUB64
+ADD_Q64 = ADD64 + CSUB64
+BUTTERFLY64 = SHOUP64 + 2 * ADD_Q64
+REDC64 = MUL64_LO + MULHI64 + 2 * ADD64 + CSUB64
+MAC128 = MUL64_LO + MULHI64 + 2 * ADD64  # a row product added to a 128-bit sum
+MULMOD64 = 2 * (MUL64_LO + MULHI64 + REDC64)
+DIGIT64 = np.array([0, 8, 4])  # the centered lift and one field of it, less the offset mod q
+
+
+def ntt64_ops(rows: int, n: int) -> np.ndarray:
+    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64
+
+
+def extprod64_ops(count: int, n: int, rows: int, key_switch: bool) -> np.ndarray:
+    """`count` external products (2d = rows digit rows of a and b) or key
+    switches (d = rows digit rows of a; b + the source's b): the digits,
+    their forward NTTs, per output coefficient `rows` 128-bit
+    multiply-adds and one REDC, two inverse NTTs with the 1/N scale."""
+    inverse = ntt64_ops(2, n) + 2 * n * SHOUP64
+    per = rows * n * DIGIT64 + ntt64_ops(rows, n) + 2 * n * (rows * MAC128 + REDC64) + inverse
+    return count * (per + (n * ADD_Q64 if key_switch else 0))
+
+
 def walk_device_ms(fn, reps: int) -> float:
     """K-FHEW-BR's device milliseconds per launch over `reps` calls of fn
-    (torch.profiler, the kernel's own time only), after one warm-up."""
+    (torch.profiler, the kernel's own time only), after one warm-up. The
+    mean is over the launches the profiler recorded: CUPTI can drop a
+    record, so a short count is printed, and where it recorded none the
+    time is taken by CUDA events around each whole call instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -327,8 +387,13 @@ def walk_device_ms(fn, reps: int) -> float:
         if e.device_type == DeviceType.CUDA and "fhew_blind_rotate" in e.key
     ]
     total, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
-    if count != reps:
+    if count > reps:
         raise AssertionError(f"the profiler saw {count} K-FHEW-BR launches in {reps} calls")
+    if count == 0:
+        say(f"  (the profiler recorded none of {reps} K-FHEW-BR launches: CUDA events around each whole call instead)")
+        return cuda_ms(fn, reps)
+    if count < reps:
+        say(f"  (the profiler recorded {count} of {reps} K-FHEW-BR launches: the mean is over those)")
     return total / 1e3 / count
 
 
@@ -560,6 +625,239 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
         raise AssertionError(f"K-FHEW-BR flagged a schedule index outside the key (error word {word})")
 
 
+MK_PARTIES = 2
+MK_A, MK_B = 177, 7  # `examples/multi_key_uint8.py`'s defaults
+MK_KEYGEN_ROWS = 6000  # one party's brk: 600 RGSW encryptions of 2d = 10 rows
+MK_INSTANCES = ("ntt64_kernel", "negacyclic_mul64_kernel", "external_product64_kernel", "fhew_blind_rotate64_kernel")
+
+
+def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+    """M1-M4 (see the module's docstring); adds the u64 kernels' entries to
+    the kernels line's dicts."""
+    from learn_fhe_tpu_torch.examples.multi_key_uint8 import example_params, wrapping_expression
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe, rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops import ntt as tntt
+    from learn_fhe_tpu_torch.ops.poly import automorphism_map
+    from learn_fhe_tpu_torch.parallel import batch as pbatch
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    params = example_params(full=True)
+    q, n, plan = params.big_q, params.n, params.rlwe.plan
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    rng = np.random.default_rng(7)
+
+    def residues(shape, modulus=q):
+        x = rng.integers(0, modulus, size=shape, dtype=np.uint64)
+        x.reshape(-1)[:2] = [0, modulus - 1]
+        return u64_to_torch(x)
+
+    def plain(fn, *args):
+        """A plain version on CUDA tensors, its result brought to the CPU."""
+        out = fn(*args)
+        return RlweCiphertext(out.a.cpu(), out.b.cpu()) if isinstance(out, tuple) else out.cpu()
+
+    # -- M1. K-NTT64, intt64, K-POLYMUL64 ----------------------------------------
+    for name in ("ntt64", "intt64", "negacyclic_mul64"):
+        errs[name] = 0.0
+    small = tntt.ntt_plan(q, min(256, n // 2))
+    for rows, p in ((10, plan), (19, small), (MK_KEYGEN_ROWS, plan)):
+        x, y = residues((rows, p.n)).to(dev), residues((rows, p.n)).to(dev)
+        check = (
+            ("ntt64", tntt.ntt64(x, p), lambda: plain(tntt.ntt64_ref, x, p)),
+            ("intt64", tntt.intt64(x, p), lambda: plain(tntt.intt64_ref, x, p)),
+            ("negacyclic_mul64", tntt.negacyclic_mul64(x, y, p), lambda: plain(tntt.negacyclic_mul64_ref, x, y, p)),
+        )
+        for name, got, want in check:
+            errs[name] = max(errs[name], max_abs_err(got, want()))
+        say(f"M1 ntt64 / intt64 / negacyclic_mul64 == plain at q={q} on ({rows}, {p.n}): ok")
+    for rows in (10, MK_KEYGEN_ROWS):
+        x, y = residues((rows, n)).to(dev), residues((rows, n)).to(dev)
+        row_bytes = rows * n * 8
+        for name, kernel, plain_fn, n_bytes, ops in (
+            ("ntt64", lambda: tntt.ntt64(x, plan), lambda: tntt.ntt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n)),
+            ("intt64", lambda: tntt.intt64(x, plan), lambda: tntt.intt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n) + rows * n * SHOUP64),
+            (
+                "negacyclic_mul64", lambda: tntt.negacyclic_mul64(x, y, plan), lambda: tntt.negacyclic_mul64_ref(x, y, plan),
+                3 * row_bytes, 3 * ntt64_ops(rows, n) + rows * n * (MULMOD64 + SHOUP64),
+            ),
+        ):  # fmt: skip
+            k_ms, g_ms, p_ms = cuda_ms(kernel, 50), graph_ms(kernel, 50), cuda_ms(plain_fn, 3)
+            b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+            say(f"{tag} M1 {name} at ({rows}, {n}): kernel {k_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch (CUDA graph of 50), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / k_ms:.4f} / {b_ms / g_ms:.4f} of bound")
+            if rows == MK_KEYGEN_ROWS:
+                timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+
+    # -- M2. K-EXTPROD64 at one merge chunk --------------------------------------
+    chunk = boot.merge_chunk_size(params.lwe_s.n)
+    rows_g = 2 * gg.d
+    ka, kb = residues((chunk, rows_g, n)).to(dev), residues((chunk, rows_g, n)).to(dev)
+    count = chunk * rows_g
+    ct = RlweCiphertext(residues((count, n)).to(dev), residues((count, n)).to(dev))
+    idx = torch.arange(chunk, dtype=torch.int32, device=dev).repeat_interleave(rows_g)
+    args = (gg, plan, ka, kb, idx, ct, False)
+    want = plain(rgsw.external_product64_ref, *args)
+    got = rgsw.external_product64(*args)
+    errs["external_product64"] = max(max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+    ks_args = (gk, plan, ka[:, : gk.d].contiguous(), kb[:, : gk.d].contiguous(), idx, ct, True)
+    want = plain(rgsw.external_product64_ref, *ks_args)
+    got = rgsw.external_product64(*ks_args)
+    errs["external_product64"] = max(errs["external_product64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+    say(f"M2 external_product64 == plain at one merge chunk ({chunk} keys, {count} products of {rows_g} rows) and as a key switch ({gk.d} rows): ok")
+    k_ms, p_ms = cuda_ms(lambda: rgsw.external_product64(*args), 5), cuda_ms(lambda: rgsw.external_product64_ref(*args), 1)
+    n_bytes = 4 * count * n * 8 + 2 * chunk * rows_g * n * 8 + count * 4
+    b_ms, by = bound_ms(n_bytes, extprod64_ops(count, n, rows_g, False), pipe_per_s)
+    timings["external_product64"], bounds["external_product64"] = (k_ms, p_ms), (b_ms, by)
+    regs, st, ld = kernels_report().get("external_product64_kernel", (0, 0, 0))
+    say(f"{tag} M2 external_product64 at one merge chunk: {k_ms:.4f} ms per call (CUDA events, 5 calls) = {k_ms * 1e3 / count:.3f} us per product; plain {p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} = {b_ms / k_ms:.4f} of bound; {regs} registers, {st} / {ld} bytes spilled")
+
+    # -- M3. K-FHEW-BR64 against the plain walk ------------------------------------
+    errs["fhew_blind_rotate64"] = 0.0
+    q54 = next(two_adic_primes(54, 8))
+    fixture = fhew.BootstrapParams(
+        fhew.RgswParams(fhew.RlweParams(q=q54, p=4, log_n=7, log_b=6, d=9), log_b=6, d=9),
+        fhew.LweParams(q=1 << 16, p=4, n=16, log_b=4, d=4),
+        w=5,
+    )
+    key54 = fhew.key_gen(fixture, fhew.rlwe.sk_gen(fixture.rlwe, rng), rng, dev)
+    maps = [automorphism_map(n, t) for t in params.ak_t]
+    key_rand = boot.BootstrapKey(
+        torch.zeros((4, n, params.lwe_s.n), dtype=torch.int64, device=dev), torch.zeros((4, n), dtype=torch.int64, device=dev),
+        residues((params.lwe_s.n, rows_g, n)).to(dev), residues((params.lwe_s.n, rows_g, n)).to(dev),
+        residues((params.w + 1, gk.d, n)).to(dev), residues((params.w + 1, gk.d, n)).to(dev),
+        torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)).to(dev), torch.from_numpy(np.stack([m[1] for m in maps])).to(dev),
+    )  # fmt: skip
+    boot.walk_error(dev).zero_()
+    for label, p, key, batch in (("54-bit fixture", fixture, key54, 5), ("54-bit fixture", fixture, key54, 128), ("full set, random key rows", params, key_rand, 2)):
+        a2n = torch.from_numpy(2 * rng.integers(0, p.n, size=(batch, p.lwe_s.n)) + 1).to(dev)
+        e_idx, a_idx = boot.schedule(p, a2n)
+        acc = RlweCiphertext(residues((batch, p.n), p.big_q).to(dev), residues((batch, p.n), p.big_q).to(dev))
+        t0 = time.perf_counter()
+        want = plain(boot.blind_rotate_core_fused_ref, p, key, e_idx, a_idx, acc)
+        plain_s = time.perf_counter() - t0
+        got = boot.blind_rotate_core_fused(p, key, e_idx, a_idx, acc)
+        errs["fhew_blind_rotate64"] = max(errs["fhew_blind_rotate64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+        say(f"M3 K-FHEW-BR64 == blind_rotate_core_fused_ref at the {label}, batch {batch} ({int((e_idx >= 0).sum())} external products, {int((a_idx >= 0).sum())} automorphisms; plain on CUDA tensors {plain_s:.1f} s): ok")
+    torch.cuda.synchronize()
+    word = int(boot.walk_error(dev).item())
+    say(f"M3 K-FHEW-BR64 error word: {word}")
+    if word:
+        raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
+
+    # -- M4. the main path -----------------------------------------------------------
+    counted = (tntt.ntt64, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
+    for fn in counted:
+        fn.launches = 0
+    rng = np.random.default_rng(0)
+    steps = []
+
+    def stamp(name, t0):
+        torch.cuda.synchronize()
+        steps.append((name, time.perf_counter() - t0))
+        return time.perf_counter()
+
+    t = time.perf_counter()
+    crs = fhew.crs_gen(params, rng, dev)
+    sks = [fhew.rlwe.sk_gen(params.rlwe, rng) for _ in range(MK_PARTIES)]
+    pk = fhew.rlwe.pk_share_merge(params.rlwe, crs.pk_a, [fhew.rlwe.pk_share_gen(params.rlwe, crs.pk_a, sk, rng) for sk in sks])
+    t = stamp("crs + pk shares merged", t)
+    shares = []
+    for i, sk in enumerate(sks):
+        shares.append(fhew.key_share_gen(params, crs, sk, pk, rng))
+        t = stamp(f"party {i} key share", t)
+    key = fhew.key_share_merge(params, crs, shares)
+    t = stamp("key merge", t)
+    ct_a = fhew.FhewU8.pk_encrypt(params, key, pk, MK_A, rng)
+    ct_b = fhew.FhewU8.pk_encrypt(params, key, pk, MK_B, rng)
+    t = stamp("two u8 pk-encrypted", t)
+    rounds0, t_expr = boot.blind_rotate_core_fused64.launches, t
+    r = ct_a.wrapping_add(ct_b).wrapping_mul(ct_a.wrapping_sub(ct_b)).wrapping_div(ct_a).wrapping_rem(ct_b)
+    t = stamp("((a+b)*(a-b)/a)%b", t)
+    rounds = boot.blind_rotate_core_fused64.launches - rounds0
+    got = r.decryption_share_merge([r.share_decrypt(sk, rng) for sk in sks])
+    t = stamp("threshold decryption", t)
+    mk_launches = {fn.__name__: fn.launches for fn in counted}
+    expr_s = steps[-2][1]
+    for name, secs in steps:
+        say(f"{tag} M4 {name}: {secs:.3f} s (host clock, to a sync)")
+    want = wrapping_expression(MK_A, MK_B)
+    say(f"{tag} M4 ((a+b)*(a-b)/a)%b for a={MK_A}, b={MK_B}: threshold-decrypted {got}, expected {want}; {rounds} gate rounds in {expr_s:.3f} s ({expr_s / max(rounds, 1) * 1e3:.2f} ms per round); launches {mk_launches}")
+    if got != want:
+        raise AssertionError("the u8 expression threshold-decrypted to the wrong value")
+    for name in ("ntt64", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64"):
+        counter = "blind_rotate_core_fused64" if name == "fhew_blind_rotate64" else name
+        if mk_launches[counter] == 0:
+            raise AssertionError(f"{name} was not launched on the multi-key main path")
+    launches.update({k: v for k, v in mk_launches.items() if k != "blind_rotate_core_fused64"})
+    launches["fhew_blind_rotate64"] = mk_launches["blind_rotate_core_fused64"]
+
+    # NAND gates/s at batch 128 under the merged key (encrypted under the sum
+    # of the parties' secrets, which the merged key switches from)
+    B = FHEW_BATCH
+    z_sum = sum(np.asarray(sk, dtype=np.int64) for sk in sks)
+    m0 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
+    m1 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
+    c0 = lwe.sk_encrypt(params.lwe_z, z_sum, gates.encode_bool(params, m0), rng)
+    c1 = lwe.sk_encrypt(params.lwe_z, z_sum, gates.encode_bool(params, m1), rng)
+    out = pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
+    n_ok = int((gates.decode_bool(params, lwe.decrypt(params.lwe_z, z_sum, out)) == ~(m0.bool() & m1.bool())).sum())
+    say(f"M4 NAND batch {B} at the full set: {n_ok}/{B} gates decrypt to the truth table")
+    if n_ok != B:
+        raise AssertionError("full-set NAND outputs failed decryption")
+
+    def gate_call():
+        pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
+
+    gate_ms = spread_ms(gate_call, GATE_CALLS)
+    say(f"{tag} M4 NAND batch {B} at the full set: {gate_ms[0]:.3f} ms per fhew_gate_batch call (median of {GATE_CALLS}; {gate_ms[1]:.3f}-{gate_ms[2]:.3f}) = {B / gate_ms[0] * 1e3:.2f} gates/s ({B / gate_ms[2] * 1e3:.2f}-{B / gate_ms[1] * 1e3:.2f}; CUDA events around each whole call)")
+    lin = gates._lin2(params, "nand", c0, c1)
+    f = gates.lut_poly(params, gates.GATE_TABLES["nand"], dev)
+    ct_a2n, f_prime = pbatch._fhew_preamble(params, key, f, lin)
+    e_idx, a_idx = boot.schedule(params, ct_a2n)
+    acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
+    walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), 3)
+    idle, kernel_ms, top = device_kernel_ms(gate_call)
+    walk_rows = [(t_k, cnt) for name, t_k, cnt in top if "fhew_blind_rotate64" in name]
+    if walk_rows:
+        walk_dev = walk_rows[0][0] / walk_rows[0][1]
+        say(f"{tag} M4 NAND batch {B} at the full set: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms, K-FHEW-BR64 {walk_dev:.3f} ms of it")
+        for name, t_k, cnt in top:
+            say(f"  {t_k:10.3f} ms  {cnt:6d} x  {name[:100]}")
+    else:
+        walk_dev = float("nan")
+        say(f"{tag} M4 device kernel time, K-FHEW-BR64's device time and the idle share: not measured (the profiler recorded no launch of K-FHEW-BR64: {[(k[:60], c) for k, _, c in top]})")
+    ext_steps, auto_steps = int((e_idx >= 0).sum()), int((a_idx >= 0).sum())
+    ops = extprod64_ops(ext_steps, n, rows_g, False) + extprod64_ops(auto_steps, n, gk.d, True) + auto_steps * 2 * n * CSUB64
+    e_used = torch.unique(e_idx[e_idx >= 0]).numel()
+    a_used = torch.unique(a_idx[a_idx >= 0]).numel()
+    walk_bytes = 4 * B * n * 8 + 2 * e_idx.numel() * 4 + e_used * 2 * rows_g * n * 8 + a_used * (2 * gk.d * n * 8 + 5 * n)
+    b_ms, by = bound_ms(walk_bytes, ops, pipe_per_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(boot.blind_rotate_core_fused_ref, params, key, e_idx, a_idx, acc)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc)
+    errs["fhew_blind_rotate64"] = max(errs["fhew_blind_rotate64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+    say(f"M4 K-FHEW-BR64 == blind_rotate_core_fused_ref at batch {B} of the full set with the merged key: ok")
+    timings["fhew_blind_rotate64"], bounds["fhew_blind_rotate64"] = (walk_ms, plain_ms), (b_ms, by)
+    regs, st, ld = kernels_report().get("fhew_blind_rotate64_kernel", (0, 0, 0))
+    say(f"{tag} M4 K-FHEW-BR64 at batch {B} ({ext_steps} external products, {auto_steps} automorphisms, fused length {e_idx.shape[1]}): {walk_ms:.3f} ms per wrapper call (CUDA events, 3 calls), device {walk_dev:.3f} ms (profiler, in the gate batch above); bound {b_ms:.4f} ms by {by} (instructions {ops[0] / 1e9:.2f} G FMA, {ops[1] / 1e9:.2f} G ALU, {ops[2] / 1e9:.2f} G either; bytes {walk_bytes / 1e6:.1f} MB) = {b_ms / walk_ms:.4f} of bound, {b_ms / walk_dev:.4f} on the device; plain version on CUDA tensors {plain_ms / 1e3:.1f} s (host clock, to a sync); {regs} registers, {st} / {ld} bytes spilled")
+    torch.cuda.synchronize()
+    word = int(boot.walk_error(dev).item())
+    say(f"M4 K-FHEW-BR64 error word after M4: {word}")
+    if word:
+        raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
+
+
+def kernels_report() -> dict:
+    from learn_fhe_tpu_torch.utils import kernels
+
+    return kernels.ptxas_report(kernels.build_log())
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run only on a GPU")
@@ -586,10 +884,10 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE:  # N=2048, Garner, FHEW's N=512
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE:  # N=2048, Garner, FHEW's N=512, the u64 kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, or no N=512 instance of K-FHEW-BR")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 kernel")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -780,6 +1078,7 @@ def main() -> None:
             say(f"  {name}: the kernel's {k_ms * 1e3:.2f} us is per wrapper call (CUDA events over 50 eager calls, host time included); the same 50 launches replayed from a CUDA graph take {g_ms * 1e3:.2f} us each = {b_ms / g_ms:.4f} of bound")
 
     fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches)
+    multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)
 
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
@@ -789,6 +1088,11 @@ def main() -> None:
         ("garner_to_u64", "torus_crt.cu", "bench/pallas_step_experiment.py:202"),
         ("tfhe_step", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
         ("fhew_blind_rotate", "fhew_blind_rotate.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:423 (XLA scan; no Pallas call)"),
+        ("ntt64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:135 (XLA fusion; no Pallas call)"),
+        ("intt64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:189 (XLA fusion; no Pallas call)"),
+        ("negacyclic_mul64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:261 (XLA fusion; no Pallas call)"),
+        ("external_product64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/rgsw.py:154 (u64 external product, XLA fusion; no Pallas call)"),
+        ("fhew_blind_rotate64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:436 (u64 branch of the XLA scan; no Pallas call)"),
     ]
     say(
         json.dumps(

@@ -14,9 +14,21 @@ comes from the C copy of that transcription in the kernel library
 of K-FHEW-BR (`blind_rotate_core_fused`), which replaces the JAX package's
 `lax.scan` (`blind_rotate_core_fused`, :423), vmapped over the batch.
 
+On the u64 engine (q >= 2^31, or a digit span over 31 bits: the multi-key
+parameter sets) the walk is one launch of K-FHEW-BR64
+(`blind_rotate_core_fused64`, `csrc/fhew_u64.cu`), the u64 branch of the
+same scan (`u32` false at :436).
+
 Each ciphertext walks its own schedule to its end, and a batch runs at its
 own size: the JAX package's `_trim_len` and the gates' padding exist only
 to keep its jit cache small, and are not carried over.
+
+Multi-key (`bootstrapping.rs:233-321`): `crs_gen` draws the common
+reference string, each party's `key_share_gen` its LWE key switching key
+share, its brk encrypted under the merged public key and its automorphism
+key shares, and `key_share_merge` sums the shares and folds the brk shares
+through RGSW internal products (K-EXTPROD64), chunk by chunk as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -28,10 +40,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...ops.modular32 import neg_mod32
+from ...ops.modular import neg_mod
+from ...ops.ntt import table_pointers
 from ...ops.ntt32 import _table_pointers
 from ...ops.poly import automorphism_map, automorphism_zq, monomial_mul_zq
 from ...utils import kernels
+from ...utils.distributions import uniform_zq
 from ...utils.interop import resolve_device, u64_to_torch
 from . import lwe, rgsw, rlwe
 from .lwe import LweCiphertext, LweKeySwitchingKey
@@ -131,8 +145,9 @@ class BootstrapParams:
 
 
 class BootstrapKey(NamedTuple):
-    """Key material in the evaluation basis: int32 values with Shoup duals;
-    the LWE key switch's rows as int64 values."""
+    """Key material in the evaluation basis: on the u32 engine int32 values
+    with Shoup duals, on the u64 engine int64 values in the Montgomery domain
+    with the dual fields None; the LWE key switch's rows as int64 values."""
 
     ksk_a: torch.Tensor  # (d_ks, N, n)
     ksk_b: torch.Tensor  # (d_ks, N)
@@ -142,10 +157,10 @@ class BootstrapKey(NamedTuple):
     ak_b: torch.Tensor
     auto_src: torch.Tensor  # (w+1, N) int32 gather maps of X -> X^t
     auto_sign: torch.Tensor  # (w+1, N) bool
-    brk_ad: torch.Tensor
-    brk_bd: torch.Tensor
-    ak_ad: torch.Tensor
-    ak_bd: torch.Tensor
+    brk_ad: torch.Tensor | None = None  # Shoup duals (u32 engine)
+    brk_bd: torch.Tensor | None = None
+    ak_ad: torch.Tensor | None = None
+    ak_bd: torch.Tensor | None = None
 
 
 def _monomial_poly(n: int, q: int, exps: np.ndarray) -> np.ndarray:
@@ -184,6 +199,7 @@ def _pack_key(
 ) -> BootstrapKey:
     device = brk_eval.a.device
     maps = [automorphism_map(params.n, t) for t in params.ak_t]
+    u32 = params.rgsw.use_u32 and brk_eval.a_dual is not None
     return BootstrapKey(
         ksk_a=ksk.a,
         ksk_b=ksk.b,
@@ -195,8 +211,8 @@ def _pack_key(
         auto_sign=torch.from_numpy(np.stack([m[1] for m in maps])).to(device),
         brk_ad=brk_eval.a_dual,
         brk_bd=brk_eval.b_dual,
-        ak_ad=torch.stack([k.a_dual for k in ak_ksks]),
-        ak_bd=torch.stack([k.b_dual for k in ak_ksks]),
+        ak_ad=torch.stack([k.a_dual for k in ak_ksks]) if u32 else None,
+        ak_bd=torch.stack([k.b_dual for k in ak_ksks]) if u32 else None,
     )
 
 
@@ -340,8 +356,9 @@ def schedule(params: BootstrapParams, a: torch.Tensor) -> tuple[torch.Tensor, to
 # -- the blind rotation ----------------------------------------------------------
 
 
-def _ksk_at(key: BootstrapKey, i: torch.Tensor) -> rlwe.RlweKeySwitchingKey:
-    return rlwe.RlweKeySwitchingKey(key.ak_a[i], key.ak_b[i], key.ak_ad[i], key.ak_bd[i])
+def _u32(params: BootstrapParams, key: BootstrapKey) -> bool:
+    """Whether the walk runs on the u32 engine (the JAX package's `u32`)."""
+    return params.rgsw.use_u32 and key.brk_ad is not None
 
 
 def blind_rotate_core_fused_ref(
@@ -351,37 +368,43 @@ def blind_rotate_core_fused_ref(
     auto_idx: torch.Tensor,
     acc: RlweCiphertext,
 ) -> RlweCiphertext:
-    """Plain version of `blind_rotate_core_fused`: the JAX package's scan
-    step, batched, in a loop over the steps. Step s runs, for each
-    ciphertext, the external product with brk[ext_idx[:, s]] where that is
-    >= 0, then the automorphism by ak_t[auto_idx[:, s]] with its key switch
-    where that is >= 0; the loop ends when every schedule has ended."""
-    q = params.big_q
-    a, b = acc.a.to(torch.int32), acc.b.to(torch.int32)
+    """Plain version of `blind_rotate_core_fused` (both engines): the JAX
+    package's scan step, batched, in a loop over the steps. Step s runs, for
+    each ciphertext, the external product with brk[ext_idx[:, s]] where that
+    is >= 0, then the automorphism by ak_t[auto_idx[:, s]] with its key
+    switch where that is >= 0; the loop ends when every schedule has ended.
+    The u64 branch runs `rgsw.external_product64_ref` for both phases."""
+    q, u32 = params.big_q, _u32(params, key)
+    gg, gk, plan = params.rgsw.gadget, params.rlwe.gadget, params.rlwe.plan
+
+    def ext(a, b, i):
+        if u32:
+            brk = RgswEval(key.brk_a[i], key.brk_b[i], key.brk_ad[i], key.brk_bd[i])
+            return rgsw.external_product(params.rgsw, brk, RlweCiphertext(a, b))
+        return rgsw.external_product64_ref(gg, plan, key.brk_a, key.brk_b, i.int(), RlweCiphertext(a, b), False)
+
+    def switch(a, b, i):
+        if u32:
+            ksk = rlwe.RlweKeySwitchingKey(key.ak_a[i], key.ak_b[i], key.ak_ad[i], key.ak_bd[i])
+            return rlwe.key_switch(params.rlwe, ksk, RlweCiphertext(a, b))
+        return rgsw.external_product64_ref(gk, plan, key.ak_a, key.ak_b, i.int(), RlweCiphertext(a, b), True)
+
+    a, b = (acc.a.to(torch.int32), acc.b.to(torch.int32)) if u32 else (acc.a.long(), acc.b.long())
     for s in range(ext_idx.shape[-1]):
         e, au = ext_idx[:, s].long(), auto_idx[:, s].long()
         keep_e, keep_a = (e >= 0)[:, None], (au >= 0)[:, None]
         if not bool((keep_e | keep_a).any()):
             break
         if bool(keep_e.any()):
-            i = e.clamp(min=0)
-            brk = RgswEval(key.brk_a[i], key.brk_b[i], key.brk_ad[i], key.brk_bd[i])
-            ext = rgsw.external_product(params.rgsw, brk, RlweCiphertext(a, b))
-            a, b = torch.where(keep_e, ext.a, a), torch.where(keep_e, ext.b, b)
+            out = ext(a, b, e.clamp(min=0))
+            a, b = torch.where(keep_e, out.a, a), torch.where(keep_e, out.b, b)
         if bool(keep_a.any()):
             i = au.clamp(min=0)
             src, sign = key.auto_src[i].long(), key.auto_sign[i]
             a_g, b_g = torch.gather(a, -1, src), torch.gather(b, -1, src)
-            auto_in = RlweCiphertext(
-                torch.where(sign, neg_mod32(a_g, q), a_g), torch.where(sign, neg_mod32(b_g, q), b_g)
-            )
-            out = rlwe.key_switch(params.rlwe, _ksk_at(key, i), auto_in)
+            out = switch(torch.where(sign, neg_mod(a_g, q), a_g), torch.where(sign, neg_mod(b_g, q), b_g), i)
             a, b = torch.where(keep_a, out.a, a), torch.where(keep_a, out.b, b)
     return RlweCiphertext(a, b)
-
-
-def _gadget_args(g) -> tuple[int, int, int, int]:
-    return g.log_b, g.d, g.rounding_bits, ((1 << g.rounding_bits) >> 1) % g.q
 
 
 def blind_rotate_core_fused(
@@ -389,17 +412,20 @@ def blind_rotate_core_fused(
     key: BootstrapKey,
     ext_idx: torch.Tensor,  # (B, L) int32, -1 = no external product this step
     auto_idx: torch.Tensor,  # (B, L) int32, -1 = no automorphism this step
-    acc: RlweCiphertext,  # a, b: (B, N) int32 residues
+    acc: RlweCiphertext,  # a, b: (B, N) int32 residues (u32 engine) or int64 (u64)
 ) -> RlweCiphertext:
     """The fused walk of a batch: K-FHEW-BR (`lft_fhew_blind_rotate`), one
     launch for the whole batch and all its steps, one block per ciphertext,
-    with no read back to the host. The schedule's indices are checked where
+    with no read back to the host; on the u64 engine K-FHEW-BR64
+    (`blind_rotate_core_fused64`). The schedule's indices are checked where
     they are built (`schedule` runs `check_schedule`); the kernel ends a
     ciphertext's walk at an index outside the key, leaves that output as
     the walk stood, and flags it in `walk_error`, which nothing reads here.
     A caller that builds the indices on the card some other way must check
     them itself, or read `walk_error` after its own sync. On CPU tensors,
-    the plain version. Returns a new (B, N) int32 pair."""
+    the plain version. Returns a new (B, N) pair of acc's dtype."""
+    if not _u32(params, key):
+        return blind_rotate_core_fused64(params, key, ext_idx, auto_idx, acc)
     if acc.a.is_cpu:
         return blind_rotate_core_fused_ref(params, key, ext_idx, auto_idx, acc)
     name = "blind_rotate_core_fused"
@@ -432,7 +458,7 @@ def blind_rotate_core_fused(
             ext_idx.data_ptr(), auto_idx.data_ptr(), B, L, key.brk_a.data_ptr(), key.brk_b.data_ptr(), n_keys,
             key.ak_a.data_ptr(), key.ak_b.data_ptr(), key.auto_src.data_ptr(), key.auto_sign.data_ptr(), windows,
             psi, psi_s, psi_inv, psi_inv_s, plan.log_n, q, plan.n_inv, plan.n_inv_shoup,
-            *_gadget_args(gg), *_gadget_args(gk), contraction_chunk(q, rows), walk_error(acc.a.device).data_ptr(),
+            *rgsw.gadget_args(gg), *rgsw.gadget_args(gk), contraction_chunk(q, rows), walk_error(acc.a.device).data_ptr(),
         )  # fmt: skip
         blind_rotate_core_fused.launches += 1
     return out
@@ -449,28 +475,73 @@ def contraction_chunk(q: int, rows: int) -> int:
     return min(rows, ((1 << 64) - 1) // max(1, (q - 1) ** 2))
 
 
-_ERROR_WORDS: dict[int, torch.Tensor] = {}
-
-
 def walk_error(device: torch.device | str) -> torch.Tensor:
-    """K-FHEW-BR's error word on a CUDA device: one int32, OR-ed by every
-    launch with 1 where a schedule's ext index lay outside the key and 2
-    where an auto index did (that ciphertext's walk ended there). It stays
-    on the card: read it after a sync, and zero it with `.zero_()`."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _ERROR_WORDS:
-        _ERROR_WORDS[index] = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
-    return _ERROR_WORDS[index]
+    """K-FHEW-BR's and K-FHEW-BR64's error word on a CUDA device
+    (`kernels.error_word`): one int32, OR-ed by every launch with 1 where a
+    schedule's ext index lay outside the key and 2 where an auto index did
+    (that ciphertext's walk ended there). It stays on the card: read it
+    after a sync, and zero it with `.zero_()`."""
+    return kernels.error_word(device)
+
+
+def blind_rotate_core_fused64(
+    params: BootstrapParams,
+    key: BootstrapKey,
+    ext_idx: torch.Tensor,  # (B, L) int32, -1 = no external product this step
+    auto_idx: torch.Tensor,  # (B, L) int32, -1 = no automorphism this step
+    acc: RlweCiphertext,  # a, b: (B, N) int64 residues
+) -> RlweCiphertext:
+    """The fused walk of a batch on the u64 engine: K-FHEW-BR64
+    (`lft_fhew_blind_rotate64`), one launch, one 512-thread block per
+    ciphertext, no read back to the host; an index outside the key is
+    flagged in `walk_error` as K-FHEW-BR flags it. The key's brk and ak rows
+    are int64 in the evaluation basis and the Montgomery domain. On CPU
+    tensors, the plain version. Returns a new (B, N) int64 pair."""
+    if acc.a.is_cpu:
+        return blind_rotate_core_fused_ref(params, key, ext_idx, auto_idx, acc)
+    name = "blind_rotate_core_fused64"
+    n, q, plan = params.n, params.big_q, params.rlwe.plan
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    if not 1 <= plan.log_n <= kernels.MAX_LOG_N:
+        raise ValueError(f"{name}: the kernel takes N <= {1 << kernels.MAX_LOG_N}")
+    for g, rows in ((gg, 2 * gg.d), (gk, gk.d)):
+        if rows * (q - 1) ** 2 >= q << 64 or g.log_b * g.d > 64:
+            raise ValueError(f"{name}: {rows} row products below q={q} overflow one REDC, or the digits span 64 bits")
+    B, L = ext_idx.shape
+    kernels.require(f"{name} acc.a", acc.a, torch.int64, (B, n))
+    kernels.require(f"{name} acc.b", acc.b, torch.int64, (B, n))
+    kernels.require(f"{name} ext_idx", ext_idx, torch.int32, (B, L))
+    kernels.require(f"{name} auto_idx", auto_idx, torch.int32, (B, L))
+    n_keys, windows = key.brk_a.shape[0], key.ak_a.shape[0]
+    for f in ("brk_a", "brk_b"):
+        kernels.require(f"{name} key.{f}", getattr(key, f), torch.int64, (n_keys, 2 * gg.d, n))
+    for f in ("ak_a", "ak_b"):
+        kernels.require(f"{name} key.{f}", getattr(key, f), torch.int64, (windows, gk.d, n))
+    kernels.require(f"{name} key.auto_src", key.auto_src, torch.int32, (windows, n))
+    kernels.require(f"{name} key.auto_sign", key.auto_sign, torch.bool, (windows, n))
+    out = RlweCiphertext(torch.empty_like(acc.a), torch.empty_like(acc.b))
+    if B:
+        kernels.launch(
+            "lft_fhew_blind_rotate64", acc.a.data_ptr(), acc.b.data_ptr(), out.a.data_ptr(), out.b.data_ptr(),
+            ext_idx.data_ptr(), auto_idx.data_ptr(), B, L, key.brk_a.data_ptr(), key.brk_b.data_ptr(), n_keys,
+            key.ak_a.data_ptr(), key.ak_b.data_ptr(), key.auto_src.data_ptr(), key.auto_sign.data_ptr(), windows,
+            *table_pointers(plan, acc.a.get_device()), plan.log_n, q, plan.zq.neg_q_inv, plan.n_inv, plan.n_inv_shoup,
+            *rgsw.gadget_args(gg), *rgsw.gadget_args(gk), walk_error(acc.a.device).data_ptr(),
+        )  # fmt: skip
+        blind_rotate_core_fused64.launches += 1
+    return out
+
+
+blind_rotate_core_fused64.launches = 0
 
 
 def prepare_acc(params: BootstrapParams, f: torch.Tensor, b2n: torch.Tensor) -> RlweCiphertext:
     """acc = (0, f o sigma_{-g} * X^{g*b}) for each b of a (B,) Z_2N vector,
-    f a LUT polynomial (N,) or one per ciphertext (B, N): int32 residues
-    (`bootstrapping.rs:157-168`)."""
+    f a LUT polynomial (N,) or one per ciphertext (B, N): int32 residues on
+    the u32 engine, int64 on the u64 (`bootstrapping.rs:157-168`)."""
     f_auto = automorphism_zq(f, -AUTO_G, params.big_q)
     f_prime = monomial_mul_zq(f_auto.expand(b2n.shape[0], params.n), (b2n * AUTO_G) % params.q, params.big_q)
-    f_prime = f_prime.to(torch.int32).contiguous()
+    f_prime = f_prime.to(torch.int32 if params.rgsw.use_u32 else torch.int64).contiguous()
     return RlweCiphertext(torch.zeros_like(f_prime), f_prime)
 
 
@@ -490,3 +561,85 @@ def bootstrap(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: L
     ct = lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
     ct = lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)
     return rlwe.sample_extract(params.rlwe, blind_rotate(params, key, f, ct), 0)
+
+
+# -- multi-key / threshold (`bootstrapping.rs:233-321`) ---------------------------
+
+
+class BootstrapCrs(NamedTuple):
+    pk_a: torch.Tensor  # (N,)
+    ksk_a: torch.Tensor  # (d_ks, N, n)
+    ak_a: torch.Tensor  # (w+1, d, N)
+
+
+class BootstrapKeyShare(NamedTuple):
+    ksk_b: torch.Tensor  # (d_ks, N)
+    brk: rgsw.RgswCiphertext  # (n, 2d, N), encrypted under the merged pk
+    ak_b: torch.Tensor  # (w+1, d, N)
+
+
+def crs_gen(params: BootstrapParams, rng: np.random.Generator, device: torch.device | str | None = None) -> BootstrapCrs:
+    """The common reference string: pk_a, the LWE key switch's a rows and
+    the automorphism keys' a rows, uniform, drawn in that order, on `device`
+    (by default the current CUDA device)."""
+    device = resolve_device(device)
+    pk_a = u64_to_torch(uniform_zq(params.big_q, rng, params.n), device)
+    ksk_a = u64_to_torch(uniform_zq(params.big_q_ks, rng, (params.lwe_s.gadget.d, params.n, params.lwe_s.n)), device)
+    ak_a = u64_to_torch(uniform_zq(params.big_q, rng, (len(params.ak_t), params.rlwe.gadget.d, params.n)), device)
+    return BootstrapCrs(pk_a, ksk_a, ak_a)
+
+
+def key_share_gen(
+    params: BootstrapParams, crs: BootstrapCrs, z: np.ndarray, pk: RlweCiphertext, rng: np.random.Generator
+) -> BootstrapKeyShare:
+    """Each party: its LWE key switching key share under the CRS, its brk
+    under the MERGED pk, its automorphism key shares (`bootstrapping.rs:271-293`)."""
+    s = lwe.sk_gen(params.lwe_s, rng)
+    ksk_b = lwe.ksk_share_gen(params.lwe_s, crs.ksk_a, s, z, rng)
+    brk_pt = u64_to_torch(_monomial_poly(params.n, params.big_q, s), crs.pk_a.device)
+    brk = rgsw.pk_encrypt_rgsw(params.rgsw, pk, brk_pt, rng)
+    ak_b = torch.stack([rlwe.ak_share_gen(params.rlwe, t, crs.ak_a[i], z, rng) for i, t in enumerate(params.ak_t)])
+    return BootstrapKeyShare(ksk_b, brk, ak_b)
+
+
+def merge_chunk_size(n_keys: int, target: int = 64) -> int:
+    """Keys per internal-product chunk of the merge, as the JAX package
+    chunks it: the largest divisor of n_keys up to target (600 -> 60),
+    else equal widths of at most target."""
+    if n_keys <= target:
+        return max(1, n_keys)
+    for c in range(target, max(1, target // 2) - 1, -1):
+        if n_keys % c == 0:
+            return c
+    n_chunks = -(-n_keys // target)
+    return -(-n_keys // n_chunks)
+
+
+def _merge_chunk(params: RgswParams, merged: rgsw.RgswCiphertext, share: rgsw.RgswCiphertext) -> rgsw.RgswCiphertext:
+    """One chunk of the fold: the merged keys into the evaluation basis, then
+    every row of the share through an external product with its key."""
+    return rgsw.internal_product(params, rgsw.to_eval(params, merged), share)
+
+
+def key_share_merge(params: BootstrapParams, crs: BootstrapCrs, shares: list[BootstrapKeyShare]) -> BootstrapKey:
+    """The ksk and ak shares sum; the brk shares fold through RGSW internal
+    products (`bootstrapping.rs:295-321`), `merge_chunk_size` keys at a time."""
+    ksk = lwe.ksk_share_merge(params.lwe_s, crs.ksk_a, (s.ksk_b for s in shares))
+    merged = shares[0].brk
+    for share in shares[1:]:
+        n_keys = merged.a.shape[0]
+        chunk = merge_chunk_size(n_keys)
+        outs = [
+            _merge_chunk(
+                params.rgsw,
+                rgsw.RgswCiphertext(merged.a[lo : lo + chunk], merged.b[lo : lo + chunk]),
+                rgsw.RgswCiphertext(share.brk.a[lo : lo + chunk], share.brk.b[lo : lo + chunk]),
+            )
+            for lo in range(0, n_keys, chunk)
+        ]
+        merged = rgsw.RgswCiphertext(torch.cat([o.a for o in outs]), torch.cat([o.b for o in outs]))
+    brk_eval = rgsw.to_eval(params.rgsw, merged)
+    ak_ksks = [
+        rlwe.ak_share_merge(params.rlwe, t, crs.ak_a[i], (s.ak_b[i] for s in shares)).ksk for i, t in enumerate(params.ak_t)
+    ]
+    return _pack_key(params, ksk, brk_eval, ak_ksks)

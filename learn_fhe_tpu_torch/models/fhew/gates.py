@@ -12,7 +12,7 @@ import torch
 
 from ...ops.modular import add_mod, neg_mod
 from . import lwe
-from .bootstrapping import BootstrapKey, BootstrapParams
+from .bootstrapping import BootstrapKey, BootstrapParams, bootstrap
 from .lwe import LweCiphertext
 
 # Table 1 in 2020/086 (`fhew.rs:59-67`)
@@ -49,6 +49,12 @@ def not_(params: BootstrapParams, ct: LweCiphertext) -> LweCiphertext:
     """NOT is linear: (-a, -b + Q/4), no bootstrap (`fhew.rs:27-29`)."""
     q = params.big_q
     return LweCiphertext(neg_mod(ct.a, q), add_mod(neg_mod(ct.b, q), params.big_q_by_4, q))
+
+
+def op(params: BootstrapParams, key: BootstrapKey, table, ct: LweCiphertext) -> LweCiphertext:
+    """One LUT bootstrap of ct by a 4-entry table, landing on {0, Q/4}."""
+    out = bootstrap(params, key, lut_poly(params, table, ct.a.device), ct)
+    return LweCiphertext(out.a, add_mod(out.b, params.big_q_by_8, params.big_q))
 
 
 def _lin2(params: BootstrapParams, name: str, ct0: LweCiphertext, ct1: LweCiphertext) -> LweCiphertext:

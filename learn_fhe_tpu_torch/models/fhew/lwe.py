@@ -2,13 +2,14 @@
 
 Ciphertext = (a: (..., n), b: (...,)) int64 holding values in [0, q). Secret
 keys are host numpy int64 vectors; sampling is host work and draws from the
-caller's generator in the JAX package's order. The threshold (share) API is
-not ported.
+caller's generator in the JAX package's order. The threshold (share) API
+mirrors `lwe.rs:163-238`: shares are functions of a common mask from the
+common reference string, and merging is addition.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ from ...ops.modular import (
     mod_switch,
     mod_switch_odd,
     modular_dot,
+    neg_mod,
     sub_mod,
     to_center_i64,
 )
@@ -49,6 +51,10 @@ def sub(params: LweParams, ct0: LweCiphertext, ct1: LweCiphertext) -> LweCiphert
 
 def double(params: LweParams, ct: LweCiphertext) -> LweCiphertext:
     return add(params, ct, ct)
+
+
+def neg(params: LweParams, ct: LweCiphertext) -> LweCiphertext:
+    return LweCiphertext(neg_mod(ct.a, params.q), neg_mod(ct.b, params.q))
 
 
 def ct_mod_switch(ct: LweCiphertext, q: int, q_prime: int) -> LweCiphertext:
@@ -125,3 +131,52 @@ def key_switch(params: LweParams, ksk: LweKeySwitchingKey, ct: LweCiphertext) ->
     key = torch.cat([ksk.a.reshape(k, n_to), ksk.b.reshape(k, 1)], dim=1).double()
     out = torch.matmul(flat, key).long() % params.q
     return LweCiphertext(out[..., :n_to], add_mod(out[..., n_to], ct.b, params.q))
+
+
+# -- threshold / multi-party API (`lwe.rs:163-238`) --------------------------
+
+
+def _dot_sk(params: LweParams, a: torch.Tensor, sk: np.ndarray) -> torch.Tensor:
+    return modular_dot(a, _sk_q(params, sk, a.device), params.q)
+
+
+def sk_share_encrypt(
+    params: LweParams, a: torch.Tensor, sk: np.ndarray, pt: torch.Tensor, rng: np.random.Generator
+) -> torch.Tensor:
+    """b-share <a, sk> + pt + e under the common mask a."""
+    e = from_i64(torch.as_tensor(dg(3.2, 6, rng, tuple(pt.shape)), device=pt.device), params.q)
+    return add_mod(add_mod(_dot_sk(params, a, sk), pt, params.q), e, params.q)
+
+
+def encryption_share_merge(params: LweParams, a: torch.Tensor, shares: Iterable[torch.Tensor]) -> LweCiphertext:
+    b = None
+    for s in shares:
+        b = s if b is None else add_mod(b, s, params.q)
+    return LweCiphertext(a, b)
+
+
+def share_decrypt(params: LweParams, sk: np.ndarray, a: torch.Tensor, rng: np.random.Generator) -> torch.Tensor:
+    """Noisy partial decryption <a, sk_i> + e (`lwe.rs:194-203`)."""
+    e = from_i64(torch.as_tensor(dg(3.2, 6, rng, tuple(a.shape[:-1])), device=a.device), params.q)
+    return add_mod(_dot_sk(params, a, sk), e, params.q)
+
+
+def decryption_share_merge(params: LweParams, b: torch.Tensor, shares: Iterable[torch.Tensor]) -> torch.Tensor:
+    acc = None
+    for s in shares:
+        acc = s if acc is None else add_mod(acc, s, params.q)
+    return sub_mod(b, acc, params.q)
+
+
+def ksk_share_gen(
+    params: LweParams, crs_a: torch.Tensor, sk0: np.ndarray, sk1: np.ndarray, rng: np.random.Generator
+) -> torch.Tensor:
+    """b-shares (d, n_from) of a key switching key under the common rows
+    crs_a (d, n_from, n) (`lwe.rs:214-226`)."""
+    neg_sk1 = from_i64(torch.as_tensor(-np.asarray(sk1, dtype=np.int64), device=crs_a.device), params.q)
+    return sk_share_encrypt(params, crs_a, sk0, power_up_zq(neg_sk1, params.gadget), rng)
+
+
+def ksk_share_merge(params: LweParams, crs_a: torch.Tensor, shares: Iterable[torch.Tensor]) -> LweKeySwitchingKey:
+    ct = encryption_share_merge(params, crs_a, shares)
+    return LweKeySwitchingKey(ct.a, ct.b)

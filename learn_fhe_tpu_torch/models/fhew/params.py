@@ -1,8 +1,10 @@
 """FHEW parameter sets (`learn_fhe_tpu/models/fhew/params.py`).
 
-The port runs FHEW on the u32 engine only: the ciphertext modulus and the
-whole gadget digit span must fit 31 bits (`use_u32`). A set with q >= 2^31
-raises NotImplementedError; the u64 engine comes with a later slice.
+Two engines, chosen as the JAX package chooses them: the u32 engine (int32
+residues with Shoup duals, K-NTT and K-FHEW-BR) where the ciphertext
+modulus and the whole gadget digit span fit 31 bits (`use_u32`), the u64
+engine (int64 residues, keys in the evaluation basis and the Montgomery
+domain, K-NTT64, K-EXTPROD64 and K-FHEW-BR64) for the rest, up to q < 2^63.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from dataclasses import dataclass
 from functools import cached_property
 
 from ...ops.gadget import Gadget, decompose_zq_supports_u32
+from ...ops.ntt import NttPlan, ntt_plan
 
 AUTO_G = 5  # generator of the automorphism group used by LMKCDEY (`rlwe.rs:92`)
 
@@ -48,12 +51,6 @@ class RlweParams:
     log_b: int | None = None
     d: int | None = None
 
-    def __post_init__(self):
-        if not self.use_u32:
-            raise NotImplementedError(
-                f"the port runs FHEW with q < 2^31 and log_b * d <= 31 only (q={self.q}, log_b={self.log_b}, d={self.d})"
-            )
-
     @property
     def n(self) -> int:
         return 1 << self.log_n
@@ -66,6 +63,10 @@ class RlweParams:
     def gadget(self) -> Gadget:
         assert self.log_b is not None and self.d is not None
         return Gadget(self.q, self.log_b, self.d)
+
+    @cached_property
+    def plan(self) -> NttPlan:
+        return ntt_plan(self.q, self.n)
 
     @property
     def use_u32(self) -> bool:
@@ -88,10 +89,6 @@ class RgswParams:
     log_b: int
     d: int
 
-    def __post_init__(self):
-        if not self.use_u32:
-            raise NotImplementedError(f"the port runs FHEW with log_b * d <= 31 only (log_b={self.log_b}, d={self.d})")
-
     @property
     def q(self) -> int:
         return self.rlwe.q
@@ -107,6 +104,10 @@ class RgswParams:
     @cached_property
     def gadget(self) -> Gadget:
         return Gadget(self.q, self.log_b, self.d)
+
+    @property
+    def plan(self) -> NttPlan:
+        return self.rlwe.plan
 
     @property
     def use_u32(self) -> bool:

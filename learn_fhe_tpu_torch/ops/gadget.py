@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .modular import as_i64, generic_mul_mod, shr_u64  # noqa: F401  (as_i64, shr_u64: re-exported)
+
 
 @dataclass(frozen=True)
 class Gadget:
@@ -46,19 +48,6 @@ class Gadget:
         if self.q:
             return np.array([pow(2, bits, self.q) for bits in self.log_bases], dtype=np.uint64)
         return np.array([(1 << bits) % (1 << 64) for bits in self.log_bases], dtype=np.uint64)
-
-
-def as_i64(v: int) -> int:
-    """A u64 constant as the int64 with the same bits."""
-    v %= 1 << 64
-    return v - (1 << 64) if v >= 1 << 63 else v
-
-
-def shr_u64(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int64-carried u64 values."""
-    if k == 0:
-        return x
-    return (x >> k) & ((1 << (64 - k)) - 1)
 
 
 def decompose_t64(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
@@ -169,7 +158,6 @@ def decompose_zq32(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
 
 
 def power_up_zq(x: torch.Tensor, gadget: Gadget) -> torch.Tensor:
-    """x * B^i * 2^rounding_bits mod q for i < d, x reduced, q < 2^31:
-    (d, *x.shape) int64."""
-    assert 0 < gadget.q < 1 << 31
-    return torch.stack([(x * int(b)) % gadget.q for b in gadget.bases], dim=0)
+    """x * B^i * 2^rounding_bits mod q for i < d, x reduced: (d, *x.shape)
+    int64."""
+    return torch.stack([generic_mul_mod(x, int(b), gadget.q) for b in gadget.bases], dim=0)

@@ -70,12 +70,13 @@ def tfhe_pbs_batch(
 def fhew_blind_rotate_batch_device(
     params: FhewParams,
     key: FhewKey,
-    f_prime: torch.Tensor,  # (B, N) int32: the prepared LUTs, already rotated by X^{gb}
+    f_prime: torch.Tensor,  # (B, N) int32 (u32 engine) or int64 (u64): the prepared LUTs, rotated by X^{gb}
     ext_idx: torch.Tensor,  # (B, L) int32 fused schedule: ext key index or -1
     auto_idx: torch.Tensor,  # (B, L) int32 fused schedule: auto key index or -1
 ) -> FhewLwe:
-    """The fused LMKCDEY walk of the whole batch (one launch of K-FHEW-BR on
-    the card), then sample_extract(0): (B, N) int64 LWE ciphertexts. The
+    """The fused LMKCDEY walk of the whole batch (one launch of K-FHEW-BR, or
+    of K-FHEW-BR64 on the u64 engine, on the card), then sample_extract(0):
+    (B, N) int64 LWE ciphertexts. The
     schedule is trusted: `fhew_boot.schedule` checks its indices on the
     host; one built otherwise is the caller's to check, or to verify by
     `fhew_boot.walk_error` after a sync (the walk reads back nothing)."""
@@ -90,8 +91,11 @@ def fhew_blind_rotate_batch_device(
 def _fhew_preamble(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe):
     """Mod switch -> LWE key switch -> odd mod switch -> per-ciphertext
     rotated LUT. Returns the Z_2N mask (B, n), from which the host builds the
-    schedule, and the prepared accumulators' b (B, N) int32. f is one LUT
-    (N,) for the batch or one per ciphertext (B, N)."""
+    schedule, and the prepared accumulators' b (B, N), int32 on the u32
+    engine and int64 on the u64. f is one LUT (N,) for the batch or one per
+    ciphertext (B, N). The LWE key switch is a float64 product, whose
+    exactness `lwe.key_switch` checks (at the full multi-key set it holds by
+    a margin of 2^34 - 2^13 below 2^53)."""
     ct = fhew_lwe.ct_mod_switch(cts, params.big_q, params.big_q_ks)
     ct = fhew_lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
     ct = fhew_lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)

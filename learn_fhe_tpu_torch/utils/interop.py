@@ -78,25 +78,53 @@ def bootstrap_key_from_numpy(key, device=None):
 
 def fhew_bootstrap_key_from_numpy(key, device=None):
     """The port's FHEW BootstrapKey from the JAX package's, given as numpy
-    leaves (`jax.tree.map(np.asarray, key)`) on the u32 engine: brk/ak
-    values and Shoup duals u32, the LWE key switch's rows u64, auto_src as
-    int32 and auto_sign as bool. The key goes to `device`, by default the
-    current CUDA device (see `resolve_device`)."""
+    leaves (`jax.tree.map(np.asarray, key)`), on either engine: u32 brk/ak
+    values with their Shoup duals, or u64 brk/ak values in the Montgomery
+    domain with the dual fields None, copied as they are; the LWE key
+    switch's rows u64, auto_src as int32 and auto_sign as bool. The key goes
+    to `device`, by default the current CUDA device (see `resolve_device`)."""
     from ..models.fhew.bootstrapping import BootstrapKey
 
     device = resolve_device(device)
+    u32 = key.brk_ad is not None
     fields = {}
     for f in BootstrapKey._fields:
         x = getattr(key, f)
         if x is None:
-            raise ValueError(f"fhew_bootstrap_key_from_numpy: {f} is None; the port takes the u32 engine's key")
+            if u32 or f not in ("brk_ad", "brk_bd", "ak_ad", "ak_bd"):
+                raise ValueError(f"fhew_bootstrap_key_from_numpy: {f} is None")
+            fields[f] = None
+            continue
         x = np.asarray(x)
-        if f.startswith("ksk"):
-            fields[f] = u64_to_torch(x, device)
-        elif f == "auto_src":
+        if f == "auto_src":
             fields[f] = _to(x.astype(np.int32), device)
         elif f == "auto_sign":
             fields[f] = _to(x.astype(bool), device)
-        else:
+        elif u32 and f.startswith(("brk", "ak")):
             fields[f] = u32_to_torch(x, device)
+        else:
+            fields[f] = u64_to_torch(x, device)
     return BootstrapKey(**fields)
+
+
+def fhew_crs_from_numpy(crs, device=None):
+    """The port's BootstrapCrs from the JAX package's, as numpy leaves: u64
+    values as int64, on `device` (see `resolve_device`)."""
+    from ..models.fhew.bootstrapping import BootstrapCrs
+
+    device = resolve_device(device)
+    return BootstrapCrs(*(u64_to_torch(np.asarray(getattr(crs, f)), device) for f in BootstrapCrs._fields))
+
+
+def fhew_key_share_from_numpy(share, device=None):
+    """The port's BootstrapKeyShare from the JAX package's, as numpy leaves
+    (the brk share in the coefficient basis), on `device`."""
+    from ..models.fhew.bootstrapping import BootstrapKeyShare
+    from ..models.fhew.rgsw import RgswCiphertext
+
+    device = resolve_device(device)
+    return BootstrapKeyShare(
+        u64_to_torch(np.asarray(share.ksk_b), device),
+        RgswCiphertext(u64_to_torch(np.asarray(share.brk.a), device), u64_to_torch(np.asarray(share.brk.b), device)),
+        u64_to_torch(np.asarray(share.ak_b), device),
+    )

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu")
+SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 MAX_LOG_N = 11
 MAX_PRIMES = 4
 
-_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+_P, _I, _LL, _U, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong
 _SIGNATURES = {
     # x, y, psi, psi_shoup, rows, log_n, q, stream
     "lft_ntt32_fwd": (_P, _P, _P, _P, _I, _I, _U, _P),
@@ -67,6 +67,27 @@ _SIGNATURES = {
     "lft_fhew_blind_rotate": (
         (_P,) * 6 + (_I, _I) + (_P, _P, _I) + (_P,) * 4 + (_I,) + (_P,) * 4 + (_I, _U, _U, _U)
         + (_I, _I, _I, _U) * 2 + (_I, _P, _P)
+    ),
+    # x, y, psi, psi_shoup, psi_inv, psi_inv_shoup, rows, log_n, q,
+    # -q^-1 mod 2^64, n_inv, n_inv_shoup, stream
+    "lft_ntt64_fwd": (_P,) * 6 + (_I, _I) + (_U64,) * 4 + (_P,),
+    "lft_ntt64_inv": (_P,) * 6 + (_I, _I) + (_U64,) * 4 + (_P,),
+    # a, b, y, the four tables, rows, log_n, q, -q^-1, n_inv, n_inv_shoup,
+    # 2^128 mod q, stream
+    "lft_negacyclic_mul64": (_P,) * 7 + (_I, _I) + (_U64,) * 5 + (_P,),
+    # ct_a, ct_b, out_a, out_b, key_idx, batch, key_a, key_b, n_keys, rows,
+    # key_switch, the four tables, log_n, q, -q^-1, n_inv, n_inv_shoup,
+    # gadget (log_b, d, rounding_bits, half), error, stream
+    "lft_external_product64": (
+        (_P,) * 5 + (_I, _P, _P, _I, _I, _I) + (_P,) * 4 + (_I,) + (_U64,) * 4 + (_I, _I, _I, _U64) + (_P, _P)
+    ),
+    # acc_a, acc_b, out_a, out_b, ext_idx, auto_idx, batch, steps, brk_a,
+    # brk_b, n_keys, ak_a, ak_b, auto_src, auto_sign, windows, the four
+    # tables, log_n, q, -q^-1, n_inv, n_inv_shoup, RGSW gadget (log_b, d,
+    # rounding_bits, half), RLWE gadget (same), error, stream
+    "lft_fhew_blind_rotate64": (
+        (_P,) * 6 + (_I, _I) + (_P, _P, _I) + (_P,) * 4 + (_I,) + (_P,) * 4 + (_I,) + (_U64,) * 4
+        + (_I, _I, _I, _U64) * 2 + (_P, _P)
     ),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
     # half, window, ops, idxs, sched_len
@@ -142,7 +163,8 @@ def build_log() -> str:
 # holds it after an anonymous-namespace prefix whose hash depends on the
 # source's path, and a template instance adds ILi<LOG_N>E after it.
 _KERNEL_NAME = re.compile(
-    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate)_kernel(?:ILi(\d+)E)?"
+    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64|negacyclic_mul64"
+    r"|external_product64|fhew_blind_rotate64)_kernel(?:ILi(\d+)E)?"
 )
 
 
@@ -179,6 +201,22 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None 
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+_ERROR_WORDS: dict[int, torch.Tensor] = {}
+
+
+def error_word(device: torch.device | str) -> torch.Tensor:
+    """The kernels' error word on a CUDA device: one int32 that a kernel ORs
+    with a bit where an index it was given lies outside its key (K-FHEW-BR,
+    K-FHEW-BR64: 1 an ext index, 2 an auto index; K-EXTPROD64: 1 a key
+    index). It stays on the card: read it after a sync, zero it with
+    `.zero_()`."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _ERROR_WORDS:
+        _ERROR_WORDS[index] = torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+    return _ERROR_WORDS[index]
 
 
 def launch(entry: str, *args: int) -> None:

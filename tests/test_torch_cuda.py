@@ -465,3 +465,219 @@ def test_fhew_gate_batch_on_card_matches_cpu(dev):
         outs.append(out)
     torch.cuda.synchronize()
     assert torch.equal(outs[1].a.cpu(), outs[0].a) and torch.equal(outs[1].b.cpu(), outs[0].b)
+
+
+# -- the u64 engine: K-NTT64, K-POLYMUL64, K-EXTPROD64, K-FHEW-BR64 -------------
+
+
+def _u64(rng, q, shape):
+    x = rng.integers(0, q, size=shape, dtype=np.uint64)
+    x.reshape(-1)[:2] = [0, q - 1]
+    return u64_to_torch(x)
+
+
+def _prime64(bits, log_n):
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    return next(two_adic_primes(bits, log_n + 1))
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 12)])
+def test_ntt64_kernels_match_plain(dev, n):
+    """K-NTT64, its inverse and K-POLYMUL64 at every ring, on 1 row, 3 rows
+    and (below N=2048, where a block holds 2048 / N rows) a row count that
+    leaves the last block ragged, at the full multi-key set's 55-bit prime
+    and at a 62-bit one."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    rng = np.random.default_rng(n)
+    counts = [1, 3] + ([2 * (2048 // n) + 3] if n < 2048 else [])
+    for bits in (55, 62):
+        plan = ntt64.ntt_plan(_prime64(bits, 11), n)
+        for rows in counts:
+            a, b = _u64(rng, plan.q, (rows, n)), _u64(rng, plan.q, (rows, n))
+            _same(ntt64.ntt64(a.to(dev), plan), ntt64.ntt64_ref(a, plan))
+            _same(ntt64.intt64(a.to(dev), plan), ntt64.intt64_ref(a, plan))
+            _same(ntt64.negacyclic_mul64(a.to(dev), b.to(dev), plan), ntt64.negacyclic_mul64_ref(a, b, plan))
+
+
+_FIXTURES64 = {  # (q bits, log N, log_b, d): the multi-key test fixture and the full set
+    "mk54": (54, 7, 6, 9),
+    "full": (55, 11, 11, 5),
+}
+
+
+@pytest.mark.parametrize("fixture", list(_FIXTURES64))
+@pytest.mark.parametrize("key_switch", [False, True])
+def test_external_product64_kernel_matches_plain(dev, fixture, key_switch):
+    """K-EXTPROD64 on 7 ciphertexts against 3 keys (an index per
+    ciphertext), as an external product (2d rows) and as a key switch (d
+    rows), at both multi-key fixtures' rows, and rgsw.internal_product on
+    the card against the CPU."""
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops.gadget import Gadget
+    from learn_fhe_tpu_torch.ops.ntt import ntt_plan
+
+    bits, log_n, log_b, d = _FIXTURES64[fixture]
+    n = 1 << log_n
+    q = _prime64(bits, log_n)
+    plan, gadget = ntt_plan(q, n), Gadget(q, log_b, d)
+    rows = d if key_switch else 2 * d
+    rng = np.random.default_rng(bits + key_switch)
+    ka, kb = _u64(rng, q, (3, rows, n)), _u64(rng, q, (3, rows, n))
+    ct = RlweCiphertext(_u64(rng, q, (7, n)), _u64(rng, q, (7, n)))
+    idx = torch.tensor([0, 2, 1, 1, 0, 2, 2], dtype=torch.int32)
+    want = rgsw.external_product64_ref(gadget, plan, ka, kb, idx, ct, key_switch)
+    before = rgsw.external_product64.launches
+    got = rgsw.external_product64(
+        gadget, plan, ka.to(dev), kb.to(dev), idx.to(dev), RlweCiphertext(ct.a.to(dev), ct.b.to(dev)), key_switch
+    )
+    assert rgsw.external_product64.launches == before + 1
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    if not key_switch:
+        from learn_fhe_tpu_torch.models import fhew
+
+        params = fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=log_b, d=d), log_b=log_b, d=d)
+        key = rgsw.RgswEval(ka[:2], kb[:2])
+        share = rgsw.RgswCiphertext(_u64(rng, q, (2, 2 * d, n)), _u64(rng, q, (2, 2 * d, n)))
+        want = rgsw.internal_product(params, key, share)
+        got = rgsw.internal_product(params, rgsw.RgswEval(key.a.to(dev), key.b.to(dev)), rgsw.RgswCiphertext(share.a.to(dev), share.b.to(dev)))
+        _same(got.a, want.a)
+        _same(got.b, want.b)
+
+
+_FHEW64 = {}
+
+
+def _fhew64_env(name):
+    """The multi-key test fixture (54-bit q, N=128, B=2^6, d=9; LWE n=16,
+    w=5) with a key from key_gen on the CPU, or the full multi-key set
+    (55-bit q, N=2048, B=2^11, d=5; LWE n=600, q_ks=2^20, w=10) with random
+    evaluation-basis key rows (the walk is arithmetic on whatever rows it is
+    given)."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.ops.poly import automorphism_map
+
+    if name not in _FHEW64:
+        bits, log_n, log_b, d = _FIXTURES64[name]
+        q = _prime64(bits, log_n)
+        full = name == "full"
+        params = fhew.BootstrapParams(
+            fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=log_b, d=d), log_b=log_b, d=d),
+            fhew.LweParams(q=1 << (20 if full else 16), p=4, n=600 if full else 16, log_b=5 if full else 4, d=4),
+            w=10 if full else 5,
+        )
+        rng = np.random.default_rng(log_n)
+        if full:
+            n, maps = params.n, [automorphism_map(params.n, t) for t in params.ak_t]
+            key = boot.BootstrapKey(
+                u64_to_torch(np.zeros((4, n, 600), dtype=np.uint64)), u64_to_torch(np.zeros((4, n), dtype=np.uint64)),
+                _u64(rng, q, (600, 2 * d, n)), _u64(rng, q, (600, 2 * d, n)),
+                _u64(rng, q, (params.w + 1, d, n)), _u64(rng, q, (params.w + 1, d, n)),
+                torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)), torch.from_numpy(np.stack([m[1] for m in maps])),
+            )  # fmt: skip
+        else:
+            key = fhew.key_gen(params, fhew.rlwe.sk_gen(params.rlwe, rng), rng, "cpu")
+        _FHEW64[name] = params, key
+    return _FHEW64[name]
+
+
+def _walk64_against_plain(dev, params, key, e_idx, a_idx, rng, error=0):
+    """K-FHEW-BR64 over (e_idx, a_idx) from random accumulators, one launch,
+    against blind_rotate_core_fused_ref's u64 branch (plain torch: on the
+    CPU up to batch 5 at N=128, else on CUDA tensors); the error word must
+    read `error`."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+
+    batch = e_idx.shape[0]
+    acc = RlweCiphertext(_u64(rng, params.big_q, (batch, params.n)), _u64(rng, params.big_q, (batch, params.n)))
+    ref_dev = "cpu" if batch <= 5 and params.n <= 128 else dev
+    on = lambda t, d: boot.BootstrapKey(*(None if x is None else x.to(d) for x in t))  # noqa: E731
+    valid_e = torch.where((e_idx < -1) | (e_idx >= key.brk_a.shape[0]), -1, e_idx)
+    valid_a = torch.where((a_idx < -1) | (a_idx >= key.ak_a.shape[0]), -1, a_idx)
+    cut = ((valid_e != e_idx) | (valid_a != a_idx)).long().cumsum(1) > 0
+    want = boot.blind_rotate_core_fused_ref(
+        params, on(key, ref_dev), valid_e.masked_fill(cut, -1).to(ref_dev), valid_a.masked_fill(cut, -1).to(ref_dev),
+        RlweCiphertext(acc.a.to(ref_dev), acc.b.to(ref_dev)),
+    )  # fmt: skip
+    word = boot.walk_error(dev)
+    word.zero_()
+    before = boot.blind_rotate_core_fused64.launches
+    got = boot.blind_rotate_core_fused(params, on(key, dev), e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))
+    assert boot.blind_rotate_core_fused64.launches == before + 1
+    _same(got.a, want.a.cpu())
+    _same(got.b, want.b.cpu())
+    assert int(word.item()) == error
+    word.zero_()
+
+
+@pytest.mark.parametrize("name,batch", [("mk54", 1), ("mk54", 5), ("mk54", 128), ("full", 2)])
+def test_fhew_blind_rotate64_kernel_matches_plain(dev, name, batch):
+    """One launch of K-FHEW-BR64 over a batch's whole fused schedule, from
+    random odd masks, against the plain walk: 2d = 18 rows at the 54-bit
+    fixture, 2d = 10 at the full set."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, key = _fhew64_env(name)
+    rng = np.random.default_rng(batch)
+    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1)
+    _walk64_against_plain(dev, params, key, *boot.schedule(params, a2n), rng)
+
+
+def test_fhew_blind_rotate64_kernel_flags_an_index_outside_the_key(dev):
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    params, key = _fhew64_env("mk54")
+    rng = np.random.default_rng(21)
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(5, params.lwe_s.n)) + 1))
+    e_idx[1, 3], a_idx[2, 0], e_idx[3, 0], a_idx[3, 4] = params.lwe_s.n, params.w + 1, -7, -2
+    _walk64_against_plain(dev, params, key, e_idx, a_idx, rng, error=3)
+
+
+def test_fhew_blind_rotate64_makes_no_host_sync(dev):
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+
+    params, key = _fhew64_env("mk54")
+    rng = np.random.default_rng(4)
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(4, params.lwe_s.n)) + 1))
+    acc = RlweCiphertext(_u64(rng, params.big_q, (4, params.n)), _u64(rng, params.big_q, (4, params.n)))
+    want = boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc)
+    key_d = boot.BootstrapKey(*(None if x is None else x.to(dev) for x in key))
+    args = (params, key_d, e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))
+    boot.blind_rotate_core_fused(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = boot.blind_rotate_core_fused(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    assert int(boot.walk_error(dev).item()) == 0
+
+
+def test_fhew_multikey_on_card_matches_cpu(dev):
+    """The multi-key path at the 54-bit fixture from one seed on the card and
+    on the CPU (crs, pk and key shares, the merge, two pk-encrypted bits, an
+    AND, the threshold decryption): bit-identical, and right."""
+    from learn_fhe_tpu_torch.models import fhew
+
+    params, _ = _fhew64_env("mk54")
+    outs = []
+    for device in ("cpu", dev):
+        rng = np.random.default_rng(5)
+        crs = fhew.crs_gen(params, rng, device)
+        sks = [fhew.rlwe.sk_gen(params.rlwe, rng) for _ in range(2)]
+        pk = fhew.rlwe.pk_share_merge(params.rlwe, crs.pk_a, [fhew.rlwe.pk_share_gen(params.rlwe, crs.pk_a, sk, rng) for sk in sks])
+        key = fhew.key_share_merge(params, crs, [fhew.key_share_gen(params, crs, sk, pk, rng) for sk in sks])
+        out = fhew.FhewBool.pk_encrypt(params, key, pk, True, rng) & fhew.FhewBool.pk_encrypt(params, key, pk, True, rng)
+        assert out.decryption_share_merge([out.share_decrypt(sk, rng) for sk in sks]) is True
+        outs.append((key.brk_a, out.ct.a, out.ct.b))
+    torch.cuda.synchronize()
+    for c, g in zip(*outs):
+        assert torch.equal(g.cpu(), c)

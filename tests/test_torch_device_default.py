@@ -105,6 +105,53 @@ def test_fhew_bootstrap_key_from_numpy_raises_without_cuda(no_cuda):
         assert getattr(carried, f).device.type == "cpu" and torch.equal(getattr(carried, f), getattr(key, f))
 
 
+_MQ = next(two_adic_primes(54, 5))
+MK_PARAMS = fhew.BootstrapParams(
+    fhew.RgswParams(fhew.RlweParams(q=_MQ, p=4, log_n=4, log_b=6, d=9), log_b=6, d=9),
+    fhew.LweParams(q=1 << 16, p=4, n=4, log_b=4, d=4),
+    w=2,
+)
+
+
+def test_crs_gen_and_pk_gen_raise_without_cuda(no_cuda):
+    """The multi-key entry points that make what the parties share."""
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="GPU"):
+        fhew.crs_gen(MK_PARAMS, rng)
+    with pytest.raises(RuntimeError, match="GPU"):
+        fhew.rlwe.pk_gen(MK_PARAMS.rlwe, fhew.rlwe.sk_gen(MK_PARAMS.rlwe, rng), rng)
+
+
+def test_fhew_crs_and_u64_key_from_numpy_raise_without_cuda(no_cuda):
+    """The u64 engine's carry-over (key with no duals, CRS, key share)."""
+    from learn_fhe_tpu_torch.utils.interop import fhew_crs_from_numpy, fhew_key_share_from_numpy
+
+    rng = np.random.default_rng(0)
+    crs = fhew.crs_gen(MK_PARAMS, rng, "cpu")
+    z = fhew.rlwe.sk_gen(MK_PARAMS.rlwe, rng)
+    pk = fhew.rlwe.pk_gen(MK_PARAMS.rlwe, z, rng, "cpu")
+    share = fhew.key_share_gen(MK_PARAMS, crs, z, pk, rng)
+    key = fhew.key_share_merge(MK_PARAMS, crs, [share])
+    np_crs = NS(**{f: getattr(crs, f).numpy().view(np.uint64) for f in crs._fields})
+    np_share = NS(ksk_b=share.ksk_b.numpy().view(np.uint64), brk=NS(a=share.brk.a.numpy().view(np.uint64), b=share.brk.b.numpy().view(np.uint64)), ak_b=share.ak_b.numpy().view(np.uint64))
+    np_key = NS(**{f: None if getattr(key, f) is None else _fhew_numpy_key_leaf(getattr(key, f)) for f in fhew.BootstrapKey._fields})
+    for fn, arg in ((fhew_crs_from_numpy, np_crs), (fhew_key_share_from_numpy, np_share), (fhew_bootstrap_key_from_numpy, np_key)):
+        with pytest.raises(RuntimeError, match="GPU"):
+            fn(arg)
+    assert all(torch.equal(x, y) for x, y in zip(fhew_crs_from_numpy(np_crs, device="cpu"), crs))
+    got = fhew_key_share_from_numpy(np_share, device="cpu")
+    assert torch.equal(got.brk.a, share.brk.a) and torch.equal(got.ak_b, share.ak_b)
+    carried = fhew_bootstrap_key_from_numpy(np_key, device="cpu")
+    for f in fhew.BootstrapKey._fields:
+        x, y = getattr(carried, f), getattr(key, f)
+        assert (x is None and y is None) or torch.equal(x, y), f
+
+
+def _fhew_numpy_key_leaf(t):
+    x = t.numpy()
+    return x.view(np.uint32) if t.dtype == torch.int32 else x.view(np.uint64) if t.dtype == torch.int64 else x
+
+
 def test_entry_points_on_cpu_when_asked():
     rng = np.random.default_rng(0)
     z = tlwe.sk_gen(PARAMS.tlwe, rng)

@@ -385,8 +385,16 @@ def test_bootstrap_matches_the_batch_pipeline(env):
 
 
 def test_unported_moduli_raise():
-    with pytest.raises(NotImplementedError):
-        fhew.RlweParams(q=next(two_adic_primes(45, 8)), p=4, log_n=7, log_b=7, d=4)
+    """The port takes every odd q < 2^63 with a 2N-th root of unity: above
+    2^31 on the u64 engine (a 45-bit prime here). The moduli it does not
+    take raise when their NTT plan is made: q >= 2^63, and a q with no
+    2N-th root of unity."""
+    q45 = next(two_adic_primes(45, 8))
+    params = fhew.RlweParams(q=q45, p=4, log_n=7, log_b=7, d=4)
+    assert not params.use_u32 and params.plan.q == q45
+    for q in (next(two_adic_primes(64, 8)), (1 << 31) - 1):
+        with pytest.raises(AssertionError):
+            fhew.RlweParams(q=q, p=4, log_n=7, log_b=7, d=4).plan
 
 
 @pytest.mark.slow
