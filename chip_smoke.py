@@ -66,16 +66,25 @@ parties):
   M2. hold K-EXTPROD64 against its plain version at one merge chunk (60
       keys, 600 products) and as a key switch; time it at the chunk;
   M3. hold K-FHEW-BR64 against its plain version at the 54-bit multi-key
-      test fixture (N=128, 2d=18; batch 5 and 128) and at batch 2 of the
-      full set (random key rows); the error word must read 0;
+      test fixture (N=128, 2d=18) at a batch that makes the wrapper pick
+      each cluster size it can (1-8 blocks per ciphertext) and at batch
+      128, at the full set (random key rows) at batches that pick 2-5 and
+      at batch 2, and at a 63-bit prime (the eager instance); the error
+      word must read 0;
   M4. the main path, with the launch counters set to 0 just before and
       read just after: crs and pk shares, each party's key share, the merge
       (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
       wrapping u8, gate round by gate round, and its threshold decryption,
-      which must give the expected value (wall time and rounds printed);
-      then a NAND batch of 128 at the full set: gates/s (median and spread
-      of 5 calls), K-FHEW-BR64's device time against its bound, and the
-      device's idle share.
+      which must give the expected value (wall time and rounds printed,
+      and the rounds by gates per round and by the cluster size they
+      took), and a NAND batch of 128 at the full set, which must decrypt
+      to the truth table; K-FHEW-BR64 counts its launches in clusters
+      (C > 1) and alone (C = 1) apart, and each must be launched. Then:
+      gates/s (median and spread of 5 calls), K-FHEW-BR64's time at batch
+      1, 2, 8, 36 and 128 of its schedule with the cluster size each took;
+      the clustered instance at batch 2 (a round of two gates) and the
+      single-block one at 128, each against its bound and its plain
+      version; the walk's device time at 128 and the device's idle share.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -93,6 +102,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -333,36 +343,42 @@ def spread_ms(fn, calls: int) -> tuple[float, float, float]:
 
 
 # The u64 engine's operations as 32-bit instructions (FMA pipe only, ALU
-# pipe only, either), the least each needs, counted from its 32-bit
-# expansion (a model: not read from the SASS): a 64 x 64 product's low word
-# is one IMAD.WIDE.U32 and two IMADs; its high word four wide products and
-# three carrying adds; a u64 add two adds; a u64 minimum two compares and
-# two selects.
-MUL64_LO = np.array([3, 0, 0])
-MULHI64 = np.array([4, 0, 3])
-ADD64 = np.array([0, 0, 2])
-MIN64 = np.array([0, 4, 0])
-CSUB64 = ADD64 + MIN64
-SHOUP64 = MULHI64 + 2 * MUL64_LO + ADD64 + CSUB64
-ADD_Q64 = ADD64 + CSUB64
-BUTTERFLY64 = SHOUP64 + 2 * ADD_Q64
-REDC64 = MUL64_LO + MULHI64 + 2 * ADD64 + CSUB64
-MAC128 = MUL64_LO + MULHI64 + 2 * ADD64  # a row product added to a 128-bit sum
-MULMOD64 = 2 * (MUL64_LO + MULHI64 + REDC64)
-DIGIT64 = np.array([0, 8, 4])  # the centered lift and one field of it, less the offset mod q
+# pipe only, either), counted from the SASS (cuobjdump -sass) of chains of
+# each operation from csrc/u64.cuh built with the library's flags for
+# sm_90a (learn_fhe_tpu_torch/tools/walk64_sass.py; an IMAD.MOV, IMAD.IADD,
+# IADD3 or MOV counts as either pipe). The eager butterfly ends each output
+# in an unsigned minimum (12 ALU instructions); the lazy one (Harvey's, for
+# q < 2^62) keeps one.
+CSUB64 = np.array([0, 4, 2])
+ADD_Q64 = np.array([1, 4, 3])
+SHOUP64 = np.array([10.625, 4, 8.375])
+BUTTERFLY64 = np.array([14, 12, 13])
+BUTTERFLY64_LAZY = np.array([11, 4, 12])
+REDC64 = np.array([8, 7, 7])
+MAC128 = np.array([6.125, 3, 4.875])  # a row product added to a 128-bit sum
+MULMOD64 = np.array([24.75, 14, 19.25])
+DIGIT64 = np.array([1, 10, 5])  # the centered lift and one field of it, less the offset mod q
 
 
-def ntt64_ops(rows: int, n: int) -> np.ndarray:
-    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64
+def ntt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
+    """Forward transforms of `rows` rows: the butterflies, and where lazy the
+    canonicalisation of each value (two minimums) at the end."""
+    if not lazy:
+        return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64
+    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64_LAZY + rows * n * 2 * CSUB64
 
 
-def extprod64_ops(count: int, n: int, rows: int, key_switch: bool) -> np.ndarray:
+def intt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
+    """Inverse transforms with the 1/N scale (a Shoup product, canonical)."""
+    return rows * (n // 2) * (n.bit_length() - 1) * (BUTTERFLY64_LAZY if lazy else BUTTERFLY64) + rows * n * SHOUP64
+
+
+def extprod64_ops(count: int, n: int, rows: int, key_switch: bool, lazy: bool = True) -> np.ndarray:
     """`count` external products (2d = rows digit rows of a and b) or key
     switches (d = rows digit rows of a; b + the source's b): the digits,
     their forward NTTs, per output coefficient `rows` 128-bit
     multiply-adds and one REDC, two inverse NTTs with the 1/N scale."""
-    inverse = ntt64_ops(2, n) + 2 * n * SHOUP64
-    per = rows * n * DIGIT64 + ntt64_ops(rows, n) + 2 * n * (rows * MAC128 + REDC64) + inverse
+    per = rows * n * DIGIT64 + ntt64_ops(rows, n, lazy) + 2 * n * (rows * MAC128 + REDC64) + intt64_ops(2, n, lazy)
     return count * (per + (n * ADD_Q64 if key_switch else 0))
 
 
@@ -628,7 +644,12 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
 MK_PARTIES = 2
 MK_A, MK_B = 177, 7  # `examples/multi_key_uint8.py`'s defaults
 MK_KEYGEN_ROWS = 6000  # one party's brk: 600 RGSW encryptions of 2d = 10 rows
-MK_INSTANCES = ("ntt64_kernel", "negacyclic_mul64_kernel", "external_product64_kernel", "fhew_blind_rotate64_kernel")
+MK_INSTANCES = (  # the lazy instances the 55-bit set runs; the walk alone (C = 1) and in clusters
+    "ntt64_kernel<true>", "negacyclic_mul64_kernel<true>", "external_product64_kernel<true>",
+    "fhew_blind_rotate64_kernel<true,false>", "fhew_blind_rotate64_kernel<true,true>",
+)  # fmt: skip
+WALK64_SWEEP = (1, 2, 8, 36, 128)
+ROUND_BATCH = 2  # the u8 expression's commonest round: a majority and a xor (`uint8.py`)
 
 
 def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
@@ -648,6 +669,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     params = example_params(full=True)
     q, n, plan = params.big_q, params.n, params.rlwe.plan
     gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    lazy = tntt.lazy_butterflies(q)
     rng = np.random.default_rng(7)
 
     def residues(shape, modulus=q):
@@ -678,11 +700,11 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         x, y = residues((rows, n)).to(dev), residues((rows, n)).to(dev)
         row_bytes = rows * n * 8
         for name, kernel, plain_fn, n_bytes, ops in (
-            ("ntt64", lambda: tntt.ntt64(x, plan), lambda: tntt.ntt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n)),
-            ("intt64", lambda: tntt.intt64(x, plan), lambda: tntt.intt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n) + rows * n * SHOUP64),
+            ("ntt64", lambda: tntt.ntt64(x, plan), lambda: tntt.ntt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n, lazy)),
+            ("intt64", lambda: tntt.intt64(x, plan), lambda: tntt.intt64_ref(x, plan), 2 * row_bytes, intt64_ops(rows, n, lazy)),
             (
                 "negacyclic_mul64", lambda: tntt.negacyclic_mul64(x, y, plan), lambda: tntt.negacyclic_mul64_ref(x, y, plan),
-                3 * row_bytes, 3 * ntt64_ops(rows, n) + rows * n * (MULMOD64 + SHOUP64),
+                3 * row_bytes, 2 * ntt64_ops(rows, n, lazy) + rows * n * MULMOD64 + intt64_ops(rows, n, lazy),
             ),
         ):  # fmt: skip
             k_ms, g_ms, p_ms = cuda_ms(kernel, 50), graph_ms(kernel, 50), cuda_ms(plain_fn, 3)
@@ -709,13 +731,13 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     say(f"M2 external_product64 == plain at one merge chunk ({chunk} keys, {count} products of {rows_g} rows) and as a key switch ({gk.d} rows): ok")
     k_ms, p_ms = cuda_ms(lambda: rgsw.external_product64(*args), 5), cuda_ms(lambda: rgsw.external_product64_ref(*args), 1)
     n_bytes = 4 * count * n * 8 + 2 * chunk * rows_g * n * 8 + count * 4
-    b_ms, by = bound_ms(n_bytes, extprod64_ops(count, n, rows_g, False), pipe_per_s)
+    b_ms, by = bound_ms(n_bytes, extprod64_ops(count, n, rows_g, False, lazy), pipe_per_s)
     timings["external_product64"], bounds["external_product64"] = (k_ms, p_ms), (b_ms, by)
-    regs, st, ld = kernels_report().get("external_product64_kernel", (0, 0, 0))
+    regs, st, ld = kernels_report().get("external_product64_kernel<true>", (0, 0, 0))
     say(f"{tag} M2 external_product64 at one merge chunk: {k_ms:.4f} ms per call (CUDA events, 5 calls) = {k_ms * 1e3 / count:.3f} us per product; plain {p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} = {b_ms / k_ms:.4f} of bound; {regs} registers, {st} / {ld} bytes spilled")
 
     # -- M3. K-FHEW-BR64 against the plain walk ------------------------------------
-    errs["fhew_blind_rotate64"] = 0.0
+    errs["fhew_blind_rotate64"] = errs["fhew_blind_rotate64_cluster"] = 0.0
     q54 = next(two_adic_primes(54, 8))
     fixture = fhew.BootstrapParams(
         fhew.RgswParams(fhew.RlweParams(q=q54, p=4, log_n=7, log_b=6, d=9), log_b=6, d=9),
@@ -723,24 +745,45 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         w=5,
     )
     key54 = fhew.key_gen(fixture, fhew.rlwe.sk_gen(fixture.rlwe, rng), rng, dev)
-    maps = [automorphism_map(n, t) for t in params.ak_t]
-    key_rand = boot.BootstrapKey(
-        torch.zeros((4, n, params.lwe_s.n), dtype=torch.int64, device=dev), torch.zeros((4, n), dtype=torch.int64, device=dev),
-        residues((params.lwe_s.n, rows_g, n)).to(dev), residues((params.lwe_s.n, rows_g, n)).to(dev),
-        residues((params.w + 1, gk.d, n)).to(dev), residues((params.w + 1, gk.d, n)).to(dev),
-        torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)).to(dev), torch.from_numpy(np.stack([m[1] for m in maps])).to(dev),
-    )  # fmt: skip
+
+    def random_key(p):
+        """Evaluation-basis key rows drawn at random (the walk is arithmetic on any rows)."""
+        maps = [automorphism_map(p.n, t) for t in p.ak_t]
+        rows = (p.lwe_s.n, 2 * p.rgsw.gadget.d, p.n), (p.w + 1, p.rlwe.gadget.d, p.n)
+        return boot.BootstrapKey(
+            None, None, *(residues(rows[i // 2], p.big_q).to(dev) for i in range(4)),
+            torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)).to(dev), torch.from_numpy(np.stack([m[1] for m in maps])).to(dev),
+        )  # fmt: skip
+
+    # a 63-bit prime, which takes the eager instance (d = 1: two rows below q 2^64)
+    q63 = next(two_adic_primes(63, 8))
+    eager = fhew.BootstrapParams(fhew.RgswParams(fhew.RlweParams(q=q63, p=4, log_n=7, log_b=20, d=1), log_b=20, d=1), fixture.lwe_s, w=fixture.w)
+    # per fixture, the batches that pick each cluster size; ciphertexts are
+    # independent, so one plain walk of the largest batch holds them all
+    cases = [
+        ("54-bit fixture", fixture, key54, [batch_for_cluster(boot, fixture, c, dev) for c in range(1, 9)] + [128]),
+        ("full set, random key rows", params, random_key(params), [batch_for_cluster(boot, params, c, dev) for c in range(2, 6)] + [2]),
+        ("63-bit prime (eager instance)", eager, random_key(eager), [2]),
+    ]
     boot.walk_error(dev).zero_()
-    for label, p, key, batch in (("54-bit fixture", fixture, key54, 5), ("54-bit fixture", fixture, key54, 128), ("full set, random key rows", params, key_rand, 2)):
-        a2n = torch.from_numpy(2 * rng.integers(0, p.n, size=(batch, p.lwe_s.n)) + 1).to(dev)
-        e_idx, a_idx = boot.schedule(p, a2n)
-        acc = RlweCiphertext(residues((batch, p.n), p.big_q).to(dev), residues((batch, p.n), p.big_q).to(dev))
+    for label, p, key, batches in cases:
+        batches = [b for b in batches if b is not None]  # None: no batch picks that cluster size on this card
+        top = max(batches)
+        a2n = torch.from_numpy(2 * rng.integers(0, p.n, size=(top, p.lwe_s.n)) + 1).to(dev)
+        e_all, a_all = boot.schedule(p, a2n)
+        acc_all = RlweCiphertext(residues((top, p.n), p.big_q).to(dev), residues((top, p.n), p.big_q).to(dev))
         t0 = time.perf_counter()
-        want = plain(boot.blind_rotate_core_fused_ref, p, key, e_idx, a_idx, acc)
+        want = plain(boot.blind_rotate_core_fused_ref, p, key, e_all, a_all, acc_all)
         plain_s = time.perf_counter() - t0
-        got = boot.blind_rotate_core_fused(p, key, e_idx, a_idx, acc)
-        errs["fhew_blind_rotate64"] = max(errs["fhew_blind_rotate64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
-        say(f"M3 K-FHEW-BR64 == blind_rotate_core_fused_ref at the {label}, batch {batch} ({int((e_idx >= 0).sum())} external products, {int((a_idx >= 0).sum())} automorphisms; plain on CUDA tensors {plain_s:.1f} s): ok")
+        for batch in batches:
+            e_idx, a_idx = e_all[:batch].contiguous(), a_all[:batch].contiguous()
+            acc = RlweCiphertext(acc_all.a[:batch].contiguous(), acc_all.b[:batch].contiguous())
+            got = boot.blind_rotate_core_fused(p, key, e_idx, a_idx, acc)
+            cluster = boot.walk64_cluster(batch, p, dev)
+            inst = "fhew_blind_rotate64_cluster" if cluster > 1 else "fhew_blind_rotate64"
+            errs[inst] = max(errs[inst], max_abs_err(got.a, want.a[:batch]), max_abs_err(got.b, want.b[:batch]))
+            say(f"M3 K-FHEW-BR64 == blind_rotate_core_fused_ref at the {label}, batch {batch}, cluster {cluster}, {'lazy' if tntt.lazy_butterflies(p.big_q) else 'eager'} instance ({int((e_idx >= 0).sum())} external products, {int((a_idx >= 0).sum())} automorphisms): ok")
+        say(f"M3 (the plain walk of batch {top} at the {label} on CUDA tensors: {plain_s:.1f} s)")
     torch.cuda.synchronize()
     word = int(boot.walk_error(dev).item())
     say(f"M3 K-FHEW-BR64 error word: {word}")
@@ -751,6 +794,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     counted = (tntt.ntt64, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
     for fn in counted:
         fn.launches = 0
+    boot.blind_rotate_core_fused64.cluster_launches = 0
     rng = np.random.default_rng(0)
     steps = []
 
@@ -774,28 +818,29 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     ct_b = fhew.FhewU8.pk_encrypt(params, key, pk, MK_B, rng)
     t = stamp("two u8 pk-encrypted", t)
     rounds0, t_expr = boot.blind_rotate_core_fused64.launches, t
-    r = ct_a.wrapping_add(ct_b).wrapping_mul(ct_a.wrapping_sub(ct_b)).wrapping_div(ct_a).wrapping_rem(ct_b)
+    picked, pick = [], boot.walk64_cluster  # each gate round's batch and the cluster size it took
+    boot.walk64_cluster = lambda batch, p, device: picked.append((batch, pick(batch, p, device))) or picked[-1][1]
+    try:
+        r = ct_a.wrapping_add(ct_b).wrapping_mul(ct_a.wrapping_sub(ct_b)).wrapping_div(ct_a).wrapping_rem(ct_b)
+    finally:
+        boot.walk64_cluster = pick
     t = stamp("((a+b)*(a-b)/a)%b", t)
     rounds = boot.blind_rotate_core_fused64.launches - rounds0
     got = r.decryption_share_merge([r.share_decrypt(sk, rng) for sk in sks])
     t = stamp("threshold decryption", t)
-    mk_launches = {fn.__name__: fn.launches for fn in counted}
     expr_s = steps[-2][1]
     for name, secs in steps:
         say(f"{tag} M4 {name}: {secs:.3f} s (host clock, to a sync)")
     want = wrapping_expression(MK_A, MK_B)
-    say(f"{tag} M4 ((a+b)*(a-b)/a)%b for a={MK_A}, b={MK_B}: threshold-decrypted {got}, expected {want}; {rounds} gate rounds in {expr_s:.3f} s ({expr_s / max(rounds, 1) * 1e3:.2f} ms per round); launches {mk_launches}")
+    say(f"{tag} M4 ((a+b)*(a-b)/a)%b for a={MK_A}, b={MK_B}: threshold-decrypted {got}, expected {want}; {rounds} gate rounds in {expr_s:.3f} s ({expr_s / max(rounds, 1) * 1e3:.2f} ms per round)")
     if got != want:
         raise AssertionError("the u8 expression threshold-decrypted to the wrong value")
-    for name in ("ntt64", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64"):
-        counter = "blind_rotate_core_fused64" if name == "fhew_blind_rotate64" else name
-        if mk_launches[counter] == 0:
-            raise AssertionError(f"{name} was not launched on the multi-key main path")
-    launches.update({k: v for k, v in mk_launches.items() if k != "blind_rotate_core_fused64"})
-    launches["fhew_blind_rotate64"] = mk_launches["blind_rotate_core_fused64"]
+    sizes, clusters = Counter(b for b, _ in picked), Counter(c for _, c in picked)
+    say(f"{tag} M4 the u8 expression's gate rounds by gates per round (gates: rounds): {dict(sorted(sizes.items()))}; by the cluster size K-FHEW-BR64 took (C: rounds): {dict(sorted(clusters.items()))}")
 
-    # NAND gates/s at batch 128 under the merged key (encrypted under the sum
-    # of the parties' secrets, which the merged key switches from)
+    # a NAND batch of 128 under the merged key (encrypted under the sum of
+    # the parties' secrets, which the merged key switches from), the last
+    # call of the main path; then its gates/s
     B = FHEW_BATCH
     z_sum = sum(np.asarray(sk, dtype=np.int64) for sk in sks)
     m0 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
@@ -807,6 +852,14 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     say(f"M4 NAND batch {B} at the full set: {n_ok}/{B} gates decrypt to the truth table")
     if n_ok != B:
         raise AssertionError("full-set NAND outputs failed decryption")
+    mk_launches = {fn.__name__: fn.launches for fn in counted}
+    walk_all, walk_clustered = mk_launches.pop("blind_rotate_core_fused64"), boot.blind_rotate_core_fused64.cluster_launches
+    mk_launches["fhew_blind_rotate64"], mk_launches["fhew_blind_rotate64_cluster"] = walk_all - walk_clustered, walk_clustered
+    say(f"{tag} M4 launches on the main path (the u8 expression, its decryption, one NAND batch of {B}): {mk_launches}")
+    for name in ("ntt64", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster"):
+        if mk_launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the multi-key main path")
+    launches.update(mk_launches)
 
     def gate_call():
         pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
@@ -819,6 +872,44 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     e_idx, a_idx = boot.schedule(params, ct_a2n)
     acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), 3)
+
+    def walk_work(e, a, lazy_bfly=lazy):
+        """A walk's external products and automorphisms, its instructions,
+        and its bytes: acc in and out, the schedule, and each key row it
+        uses once."""
+        ext, auto = int((e >= 0).sum()), int((a >= 0).sum())
+        ops = extprod64_ops(ext, n, rows_g, False, lazy_bfly) + extprod64_ops(auto, n, gk.d, True, lazy_bfly) + auto * 2 * n * CSUB64
+        e_used, a_used = torch.unique(e[e >= 0]).numel(), torch.unique(a[a >= 0]).numel()
+        n_bytes = 4 * e.shape[0] * n * 8 + 2 * e.numel() * 4 + e_used * 2 * rows_g * n * 8 + a_used * (2 * gk.d * n * 8 + 5 * n)
+        return ext, auto, ops, n_bytes
+
+    round_walk = None
+    for b in WALK64_SWEEP:  # rows of the batch-128 schedule: a gate round's size
+        rows = torch.arange(b, device=dev) % B
+        se, sa = e_idx[rows].contiguous(), a_idx[rows].contiguous()
+        acc_b = RlweCiphertext(acc.a[rows].contiguous(), acc.b[rows].contiguous())
+        t_b = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, se, sa, acc_b), 3)
+        cluster = boot.walk64_cluster(b, params, dev)
+        say(f"{tag} M4 K-FHEW-BR64 at batch {b} of the NAND schedule, cluster {cluster}: {t_b:.3f} ms per launch (CUDA events, 3 launches) = {t_b * 1e3 / b:.1f} us per ciphertext")
+        if b == ROUND_BATCH:
+            round_walk = (t_b, cluster, se, sa, acc_b)
+
+    # the clustered instance at a round of two gates, against its bound and its plain version
+    r_ms, r_cluster, se, sa, acc_r = round_walk
+    if r_cluster == 1:
+        raise AssertionError(f"K-FHEW-BR64 took one block per ciphertext at batch {ROUND_BATCH}")
+    r_ext, r_auto, r_ops, r_bytes = walk_work(se, sa)
+    r_bound, r_by = bound_ms(r_bytes, r_ops, pipe_per_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(boot.blind_rotate_core_fused_ref, params, key, se, sa, acc_r)
+    r_plain = (time.perf_counter() - t0) * 1e3
+    got = boot.blind_rotate_core_fused(params, key, se, sa, acc_r)
+    errs["fhew_blind_rotate64_cluster"] = max(errs["fhew_blind_rotate64_cluster"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+    timings["fhew_blind_rotate64_cluster"], bounds["fhew_blind_rotate64_cluster"] = (r_ms, r_plain), (r_bound, r_by)
+    regs_c, st_c, ld_c = kernels_report().get("fhew_blind_rotate64_kernel<true,true>", (0, 0, 0))
+    say(f"M4 K-FHEW-BR64 == blind_rotate_core_fused_ref at batch {ROUND_BATCH} of the full set with the merged key (cluster {r_cluster}): ok")
+    say(f"{tag} M4 K-FHEW-BR64 clustered at batch {ROUND_BATCH}, C = {r_cluster} ({r_ext} external products, {r_auto} automorphisms): {r_ms:.3f} ms per wrapper call (CUDA events, 3 calls); bound {r_bound:.4f} ms by {r_by} (instructions {r_ops[0] / 1e9:.3f} G FMA, {r_ops[1] / 1e9:.3f} G ALU, {r_ops[2] / 1e9:.3f} G either; bytes {r_bytes / 1e6:.1f} MB) = {r_bound / r_ms:.4f} of bound; plain version on CUDA tensors {r_plain / 1e3:.1f} s (host clock, to a sync); {regs_c} registers, {st_c} / {ld_c} bytes spilled")
     idle, kernel_ms, top = device_kernel_ms(gate_call)
     walk_rows = [(t_k, cnt) for name, t_k, cnt in top if "fhew_blind_rotate64" in name]
     if walk_rows:
@@ -829,11 +920,8 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     else:
         walk_dev = float("nan")
         say(f"{tag} M4 device kernel time, K-FHEW-BR64's device time and the idle share: not measured (the profiler recorded no launch of K-FHEW-BR64: {[(k[:60], c) for k, _, c in top]})")
-    ext_steps, auto_steps = int((e_idx >= 0).sum()), int((a_idx >= 0).sum())
-    ops = extprod64_ops(ext_steps, n, rows_g, False) + extprod64_ops(auto_steps, n, gk.d, True) + auto_steps * 2 * n * CSUB64
-    e_used = torch.unique(e_idx[e_idx >= 0]).numel()
-    a_used = torch.unique(a_idx[a_idx >= 0]).numel()
-    walk_bytes = 4 * B * n * 8 + 2 * e_idx.numel() * 4 + e_used * 2 * rows_g * n * 8 + a_used * (2 * gk.d * n * 8 + 5 * n)
+    ext_steps, auto_steps, ops, walk_bytes = walk_work(e_idx, a_idx)
+    eager_ops = walk_work(e_idx, a_idx, False)[2]
     b_ms, by = bound_ms(walk_bytes, ops, pipe_per_s)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -843,13 +931,24 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     errs["fhew_blind_rotate64"] = max(errs["fhew_blind_rotate64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
     say(f"M4 K-FHEW-BR64 == blind_rotate_core_fused_ref at batch {B} of the full set with the merged key: ok")
     timings["fhew_blind_rotate64"], bounds["fhew_blind_rotate64"] = (walk_ms, plain_ms), (b_ms, by)
-    regs, st, ld = kernels_report().get("fhew_blind_rotate64_kernel", (0, 0, 0))
-    say(f"{tag} M4 K-FHEW-BR64 at batch {B} ({ext_steps} external products, {auto_steps} automorphisms, fused length {e_idx.shape[1]}): {walk_ms:.3f} ms per wrapper call (CUDA events, 3 calls), device {walk_dev:.3f} ms (profiler, in the gate batch above); bound {b_ms:.4f} ms by {by} (instructions {ops[0] / 1e9:.2f} G FMA, {ops[1] / 1e9:.2f} G ALU, {ops[2] / 1e9:.2f} G either; bytes {walk_bytes / 1e6:.1f} MB) = {b_ms / walk_ms:.4f} of bound, {b_ms / walk_dev:.4f} on the device; plain version on CUDA tensors {plain_ms / 1e3:.1f} s (host clock, to a sync); {regs} registers, {st} / {ld} bytes spilled")
+    regs, st, ld = kernels_report().get("fhew_blind_rotate64_kernel<true,false>", (0, 0, 0))
+    e_ms, e_by = bound_ms(walk_bytes, eager_ops, pipe_per_s)
+    say(f"{tag} M4 K-FHEW-BR64 at batch {B} ({ext_steps} external products, {auto_steps} automorphisms, fused length {e_idx.shape[1]}): {walk_ms:.3f} ms per wrapper call (CUDA events, 3 calls), device {walk_dev:.3f} ms (profiler, in the gate batch above); bound {b_ms:.4f} ms by {by} (lazy butterflies; instructions {ops[0] / 1e9:.2f} G FMA, {ops[1] / 1e9:.2f} G ALU, {ops[2] / 1e9:.2f} G either; bytes {walk_bytes / 1e6:.1f} MB) = {b_ms / walk_ms:.4f} of bound, {b_ms / walk_dev:.4f} on the device; with eager butterflies the count gives {e_ms:.4f} ms by {e_by}; plain version on CUDA tensors {plain_ms / 1e3:.1f} s (host clock, to a sync); {regs} registers, {st} / {ld} bytes spilled")
     torch.cuda.synchronize()
     word = int(boot.walk_error(dev).item())
     say(f"M4 K-FHEW-BR64 error word after M4: {word}")
     if word:
         raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
+
+
+def batch_for_cluster(boot, params, cluster: int, dev) -> int | None:
+    """The smallest batch for which K-FHEW-BR64's wrapper picks `cluster`
+    blocks per ciphertext on this card, or None where no batch picks it."""
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    batch = 1
+    for c in range(cluster + 1, min(boot.WALK64_MAX_CLUSTER, 2 * gg.d, gk.d) + 1):
+        batch = max(batch, boot.walk64_resident(c, params, dev) + 1)
+    return batch if boot.walk64_cluster(batch, params, dev) == cluster else None
 
 
 def kernels_report() -> dict:
@@ -884,7 +983,7 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE:  # N=2048, Garner, FHEW's N=512, the u64 kernels
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name:  # N=2048, Garner, FHEW's N=512, the u64 kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES} <= report.keys():
         raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 kernel")
@@ -1093,6 +1192,7 @@ def main() -> None:
         ("negacyclic_mul64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:261 (XLA fusion; no Pallas call)"),
         ("external_product64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/rgsw.py:154 (u64 external product, XLA fusion; no Pallas call)"),
         ("fhew_blind_rotate64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:436 (u64 branch of the XLA scan; no Pallas call)"),
+        ("fhew_blind_rotate64_cluster", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:436 (u64 branch of the XLA scan; no Pallas call)"),
     ]
     say(
         json.dumps(

@@ -25,26 +25,47 @@
 //
 // What bounds them on an H100: at the full multi-key set (q ~ 2^55, N =
 // 2048, 2d = 10) an external product is 12 transforms of 2048 u64 points,
-// some 135,000 Shoup butterflies of some twenty 32-bit instructions each,
-// and its key rows are 320 KB; brk is 197 MB, far beyond the 50 MB L2, so a
-// batch of 128 walks streams some 25 GB of key rows from device memory.
-// Instructions and bytes come out of the same order. The design, simple
-// first: one 512-thread block per ciphertext (one block on an SM: the u64
-// passes take many registers), its accumulator (a, b) in shared memory for
-// the whole walk; the digit rows go through a buffer of `group` rows (all of
-// a phase's rows at both multi-key sets: 208 KB at N=2048), the passes of up
-// to 3 layers on values in registers with a barrier after each, the key rows
-// read from device memory once per phase, coalesced, into 128-bit sums held
-// in registers.
+// some 135,000 Shoup butterflies of 27 (lazy) to 39 (eager) 32-bit
+// instructions each (counted from the SASS), and its key rows are 320 KB;
+// brk is 197 MB, far beyond the 50 MB L2. A ciphertext's walk is a chain of
+// some 1,150 phases; with one block per ciphertext a phase took about 62 us
+// (external product) or 39 us (key switch), the 10 forward transforms 58%
+// of it, and a block took as long alone on the card as beside 127 others:
+// the chain's latency, not the card's issue, set a gate round's time, and a
+// round of 2 gates cost as much as one of 128.
+//
+// The design: acc (a, b) stays in shared memory for the whole walk; a
+// phase (lft64::phase) makes the digit rows, runs their forward passes (3
+// layers in registers each, twiddles loaded once per item and reused over
+// the rows, Harvey's lazy butterflies for q < 2^62), sums the row products
+// in 128 bits against the key rows (a row's key values for all of a
+// thread's coefficients loaded at once), REDCs once, and runs the two
+// inverse passes. K-FHEW-BR64 runs one cluster of C blocks per ciphertext:
+// block c takes the c-th share of each phase's digit rows (their digits,
+// forward transforms and contraction), block c adds slice c of the 2N
+// partial residues of all blocks and writes the sums into every block's
+// acc through distributed shared memory, and every block runs both inverse
+// transforms on its own copy of acc, so the next phase needs no second
+// exchange. (An L2 prefetch of a phase's key rows ahead of its digits was
+// measured and left out: with the contraction's loads overlapped it gained
+// nothing; PERF.md.) The host picks C from the batch
+// (bootstrapping.walk64_cluster_size): the largest C up to the rows of a
+// phase at which all clusters are resident at once, so a gate round of 2
+// ciphertexts runs 5 blocks each at the full set, and a batch of 128 one
+// block each (C = 1, no exchange).
 //
 // An index outside the key ends that ciphertext's walk (K-EXTPROD64: skips
 // that input) before any read by it and ORs a bit into *error (1: ext or
-// K-EXTPROD64's key index, 2: auto); that output then holds acc as it stood.
+// K-EXTPROD64's key index, 2: auto; a cluster's first block ORs it); that
+// output then holds acc as it stood.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "u64.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,15 +73,14 @@ using lft64::kThreads;
 constexpr int kBadExt = 1, kBadAuto = 2;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may take
 
-// Shared memory of a block, in u64: acc (a, b), the gathered b, the digit rows.
-__host__ __device__ constexpr size_t smem_values(int log_n, int group) {
-  return static_cast<size_t>(3 + group) << log_n;
-}
+// Shared memory of a block, in rows of 2^log_n u64: acc (a, b), the
+// gathered b, with a cluster the partial residues (2 rows), the digit rows.
+__host__ __device__ constexpr int fixed_rows(bool clustered) { return clustered ? 5 : 3; }
 
 __device__ __forceinline__ void load_acc(uint64_t* acc, const uint64_t* __restrict__ a,
-                                         const uint64_t* __restrict__ b, int log_n) {
+                                         const uint64_t* __restrict__ b, size_t ct, int log_n) {
   const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) << log_n;
+  const size_t row = ct << log_n;
   for (int j = threadIdx.x; j < n; j += kThreads) {
     acc[j] = __ldg(a + row + j);
     acc[n + j] = __ldg(b + row + j);
@@ -69,9 +89,9 @@ __device__ __forceinline__ void load_acc(uint64_t* acc, const uint64_t* __restri
 }
 
 __device__ __forceinline__ void store_acc(const uint64_t* acc, uint64_t* __restrict__ a, uint64_t* __restrict__ b,
-                                          int log_n) {
+                                          size_t ct, int log_n) {
   const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) << log_n;
+  const size_t row = ct << log_n;
   for (int j = threadIdx.x; j < n; j += kThreads) {
     a[row + j] = acc[j];
     b[row + j] = acc[n + j];
@@ -81,6 +101,7 @@ __device__ __forceinline__ void store_acc(const uint64_t* acc, uint64_t* __restr
 // Input i of the batch against key rows key_idx[i] (rows of 2^log_n each):
 // an external product (key_switch 0, rows = 2d) or a key switch of the
 // input (key_switch 1, rows = d).
+template <bool kLazy>
 __global__ void __launch_bounds__(kThreads, 1)
     external_product64_kernel(const uint64_t* __restrict__ ct_a, const uint64_t* __restrict__ ct_b,
                               uint64_t* __restrict__ out_a, uint64_t* __restrict__ out_b,
@@ -92,21 +113,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* acc = sh;
   uint64_t* gb = sh + 2 * n;
   uint64_t* buf = sh + 3 * n;
-  load_acc(acc, ct_a, ct_b, log_n);
+  const lft64::Share one{0, 1, nullptr};
+  load_acc(acc, ct_a, ct_b, blockIdx.x, log_n);
   const int e = key_idx[blockIdx.x];
   if (e < 0 || e >= n_keys) {
     if (threadIdx.x == 0) atomicOr(error, kBadExt);
   } else {
     const size_t key = static_cast<size_t>(e) * rows << log_n;
     if (key_switch) {
-      lft64::phase<true>(acc, buf, group, gb, log_n, t, g, rows, key_a + key, key_b + key, nullptr, nullptr);
+      lft64::phase<true, kLazy, false>(acc, buf, group, gb, one, log_n, t, g, rows, key_a + key, key_b + key,
+                                       nullptr, nullptr);
     } else {
-      lft64::phase<false>(acc, buf, group, gb, log_n, t, g, rows, key_a + key, key_b + key, nullptr, nullptr);
+      lft64::phase<false, kLazy, false>(acc, buf, group, gb, one, log_n, t, g, rows, key_a + key, key_b + key,
+                                        nullptr, nullptr);
     }
   }
-  store_acc(acc, out_a, out_b, log_n);
+  store_acc(acc, out_a, out_b, blockIdx.x, log_n);
 }
 
+// The walk; with kCluster, one cluster of blocks per ciphertext (the
+// launch's cluster size), else one block. A cluster needs d > 1, and the
+// REDC bound leaves d = 1 to an eager q (>= 2^62), so a cluster is lazy.
+template <bool kLazy, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
     fhew_blind_rotate64_kernel(const uint64_t* __restrict__ acc_a, const uint64_t* __restrict__ acc_b,
                                uint64_t* __restrict__ out_a, uint64_t* __restrict__ out_b,
@@ -116,44 +144,75 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const int32_t* __restrict__ auto_src, const uint8_t* __restrict__ auto_sign,
                                int windows, lft64::Tables t, lft64::Gadget gg, lft64::Gadget gk, int log_n,
                                int group, int* __restrict__ error) {
+  static_assert(kLazy || !kCluster, "a cluster runs only the lazy instance");
   extern __shared__ uint64_t sh[];
   const int n = 1 << log_n;
+  lft64::Share share{0, 1, nullptr};
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    share = lft64::Share{static_cast<int>(cluster.block_rank()), static_cast<int>(cluster.num_blocks()), sh + 3 * n};
+  }
   uint64_t* acc = sh;
   uint64_t* gb = sh + 2 * n;
-  uint64_t* buf = sh + 3 * n;
-  load_acc(acc, acc_a, acc_b, log_n);
-  const int32_t* e_row = ext_idx + static_cast<size_t>(blockIdx.x) * steps;
-  const int32_t* a_row = auto_idx + static_cast<size_t>(blockIdx.x) * steps;
+  uint64_t* buf = sh + (static_cast<size_t>(fixed_rows(kCluster)) << log_n);
+  const size_t ct = blockIdx.x / share.size;
+  load_acc(acc, acc_a, acc_b, ct, log_n);
+  const int32_t* e_row = ext_idx + ct * steps;
+  const int32_t* a_row = auto_idx + ct * steps;
   const int rows_g = 2 * gg.d;
   int bad = 0;
   for (int s = 0; s < steps; ++s) {
-    const int e = e_row[s], au = a_row[s];  // the same for every thread of the block
+    const int e = e_row[s], au = a_row[s];  // the same for every thread of the cluster
     if (e == -1 && au == -1) break;         // the end of this ciphertext's schedule
     if (e < -1 || e >= n_keys) bad |= kBadExt;
     if (au < -1 || au >= windows) bad |= kBadAuto;
     if (bad) break;
     if (e >= 0) {
       const size_t key = static_cast<size_t>(e) * rows_g << log_n;
-      lft64::phase<false>(acc, buf, group, gb, log_n, t, gg, rows_g, brk_a + key, brk_b + key, nullptr, nullptr);
+      lft64::phase<false, kLazy, kCluster>(acc, buf, group, gb, share, log_n, t, gg, rows_g, brk_a + key,
+                                           brk_b + key, nullptr, nullptr);
     }
     if (au >= 0) {
       const size_t key = static_cast<size_t>(au) * gk.d << log_n;
       const size_t map = static_cast<size_t>(au) << log_n;
-      lft64::phase<true>(acc, buf, group, gb, log_n, t, gk, gk.d, ak_a + key, ak_b + key, auto_src + map,
-                         auto_sign + map);
+      lft64::phase<true, kLazy, kCluster>(acc, buf, group, gb, share, log_n, t, gk, gk.d, ak_a + key, ak_b + key,
+                                          auto_src + map, auto_sign + map);
     }
   }
-  if (bad && threadIdx.x == 0) atomicOr(error, bad);
-  store_acc(acc, out_a, out_b, log_n);
+  if (share.rank == 0) {
+    if (bad && threadIdx.x == 0) atomicOr(error, bad);
+    store_acc(acc, out_a, out_b, ct, log_n);
+  }
 }
 
-// The digit rows a block's buffer holds at once: as many of `rows` as fit
-// in shared memory beside acc and the gathered b (all 10 of an external
-// product at N=2048: 208 KB). Fewer rows at a time (4, then 5) ran slower
-// on an H100: more barriers, fewer items per thread between them.
-int group_rows(int log_n, int rows) {
-  const int g = static_cast<int>(kMaxSmem / sizeof(uint64_t) >> log_n) - 3;
+using WalkKernel = decltype(&fhew_blind_rotate64_kernel<true, true>);
+
+// The walk's instance: lazy below 2^62 (lft64::lazy_ok), clustered where
+// the launch has more than one block per ciphertext.
+WalkKernel walk_kernel(uint64_t q, bool clustered) {
+  if (!lft64::lazy_ok(q)) return fhew_blind_rotate64_kernel<false, false>;
+  return clustered ? fhew_blind_rotate64_kernel<true, true> : fhew_blind_rotate64_kernel<true, false>;
+}
+
+// The digit rows a block's buffer holds at once: as many of the `rows` it
+// takes as fit in shared memory beside the fixed rows (all 10 of an
+// external product at N=2048 and C = 1: 208 KB). Fewer rows at a time (4,
+// then 5) ran slower on an H100: more barriers, fewer items per thread
+// between them.
+int group_rows(int log_n, int rows, bool clustered) {
+  const int g = static_cast<int>(kMaxSmem / sizeof(uint64_t) >> log_n) - fixed_rows(clustered);
   return g < rows ? g : rows;
+}
+
+size_t smem_bytes(int log_n, int group, bool clustered) {
+  return (static_cast<size_t>(fixed_rows(clustered) + group) << log_n) * sizeof(uint64_t);
+}
+
+// A walk of clusters of `cluster` blocks: the digit rows a block takes (the
+// most of either phase's share) and its shared memory.
+int walk_group(int log_n, int rows_g, int rows_k, int cluster) {
+  const int rows = rows_g > rows_k ? rows_g : rows_k;
+  return group_rows(log_n, (rows + cluster - 1) / cluster, cluster > 1);
 }
 
 // Whether `rows` products of two residues sum below q 2^64, the bound of one
@@ -183,6 +242,22 @@ lft64::Tables tables(const void* psi, const void* psi_s, const void* psi_inv, co
                        q, neg_q_inv, n_inv, n_inv_s};
 }
 
+// The walk's launch configuration: batch clusters of `cluster` blocks (a
+// cluster attribute only where cluster > 1).
+void walk_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int batch, int cluster, size_t smem,
+                 cudaStream_t stream) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(batch) * static_cast<unsigned>(cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -191,20 +266,22 @@ extern "C" {
 // int32; key_a, key_b: (n_keys, rows, 2^log_n) evaluation-basis Montgomery
 // rows; key_switch: 0 for an external product (rows = 2d), 1 for a key
 // switch (rows = d); the plan's tables and constants; the gadget (log_b, d,
-// rounding bits, 2^(bits-1) mod q); error: one int on the device.
+// rounding bits, 2^(bits-1) mod q); error: one int on the device. The
+// lazy instance runs for q < 2^62, the eager one above.
 int lft_external_product64(const void* ct_a, const void* ct_b, void* out_a, void* out_b, const void* key_idx,
                            int batch, const void* key_a, const void* key_b, int n_keys, int rows, int key_switch,
                            const void* psi, const void* psi_s, const void* psi_inv, const void* psi_inv_s,
                            int log_n, unsigned long long q, unsigned long long neg_q_inv, unsigned long long n_inv,
-                           unsigned long long n_inv_s, int log_b, int d, int rb, unsigned long long half,
-                           void* error, void* stream) {
+                           unsigned long long n_inv_s, int log_b, int d, int rb, unsigned long long half, void* error,
+                           void* stream) {
   if (batch < 1 || n_keys < 1 || bad_args(log_n, q, rows, log_b, d) || rows != (key_switch ? d : 2 * d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int group = group_rows(log_n, rows);
-  const size_t smem = smem_values(log_n, group) * sizeof(uint64_t);
-  if (const int err = prepare(external_product64_kernel, smem)) return err;
-  external_product64_kernel<<<static_cast<unsigned>(batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int group = group_rows(log_n, rows, false);
+  const size_t smem = smem_bytes(log_n, group, false);
+  const auto kernel = lft64::lazy_ok(q) ? external_product64_kernel<true> : external_product64_kernel<false>;
+  if (const int err = prepare(kernel, smem)) return err;
+  kernel<<<static_cast<unsigned>(batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(ct_a), static_cast<const uint64_t*>(ct_b), static_cast<uint64_t*>(out_a),
       static_cast<uint64_t*>(out_b), static_cast<const int32_t*>(key_idx), static_cast<const uint64_t*>(key_a),
       static_cast<const uint64_t*>(key_b), n_keys, rows, key_switch,
@@ -217,8 +294,10 @@ int lft_external_product64(const void* ct_a, const void* ct_b, void* out_a, void
 // and out (batch, 2^log_n) a and b; brk (n_keys, 2d, 2^log_n), ak (windows,
 // d_k, 2^log_n) evaluation-basis Montgomery rows; auto_src (windows, 2^log_n)
 // int32, auto_sign bytes; the plan's tables and constants; the RGSW and the
-// RLWE gadget; error: one int on the device, OR-ed with 1 (2) where an ext
-// (auto) index lies outside the key.
+// RLWE gadget; cluster: the blocks per ciphertext, 1..8, more than 1 only
+// for q < 2^62 (a launch the card refuses returns its error); error: one
+// int on the device, OR-ed with 1 (2) where an ext (auto) index lies
+// outside the key. The lazy instance runs for q < 2^62, the eager one above.
 int lft_fhew_blind_rotate64(const void* acc_a, const void* acc_b, void* out_a, void* out_b, const void* ext_idx,
                             const void* auto_idx, int batch, int steps, const void* brk_a, const void* brk_b,
                             int n_keys, const void* ak_a, const void* ak_b, const void* auto_src,
@@ -226,23 +305,49 @@ int lft_fhew_blind_rotate64(const void* acc_a, const void* acc_b, void* out_a, v
                             const void* psi_inv, const void* psi_inv_s, int log_n, unsigned long long q,
                             unsigned long long neg_q_inv, unsigned long long n_inv, unsigned long long n_inv_s,
                             int log_b_g, int d_g, int rb_g, unsigned long long half_g, int log_b_k, int d_k,
-                            int rb_k, unsigned long long half_k, void* error, void* stream) {
-  if (batch < 1 || steps < 0 || bad_args(log_n, q, 2 * d_g, log_b_g, d_g) || bad_args(log_n, q, d_k, log_b_k, d_k)) {
+                            int rb_k, unsigned long long half_k, int cluster, void* error, void* stream) {
+  if (batch < 1 || steps < 0 || cluster < 1 || cluster > lft64::kMaxCluster || (cluster > 1 && !lft64::lazy_ok(q)) ||
+      bad_args(log_n, q, 2 * d_g, log_b_g, d_g) || bad_args(log_n, q, d_k, log_b_k, d_k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int group = group_rows(log_n, 2 * d_g > d_k ? 2 * d_g : d_k);
-  const size_t smem = smem_values(log_n, group) * sizeof(uint64_t);
-  if (const int err = prepare(fhew_blind_rotate64_kernel, smem)) return err;
-  fhew_blind_rotate64_kernel<<<static_cast<unsigned>(batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(acc_a), static_cast<const uint64_t*>(acc_b), static_cast<uint64_t*>(out_a),
-      static_cast<uint64_t*>(out_b), static_cast<const int32_t*>(ext_idx), static_cast<const int32_t*>(auto_idx),
-      steps, static_cast<const uint64_t*>(brk_a), static_cast<const uint64_t*>(brk_b), n_keys,
-      static_cast<const uint64_t*>(ak_a), static_cast<const uint64_t*>(ak_b), static_cast<const int32_t*>(auto_src),
-      static_cast<const uint8_t*>(auto_sign), windows,
-      tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s),
+  const int group = walk_group(log_n, 2 * d_g, d_k, cluster);
+  const size_t smem = smem_bytes(log_n, group, cluster > 1);
+  const WalkKernel kernel = walk_kernel(q, cluster > 1);
+  if (const int err = prepare(kernel, smem)) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  walk_config(cfg, attr, batch, cluster, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const uint64_t*>(acc_a), static_cast<const uint64_t*>(acc_b),
+      static_cast<uint64_t*>(out_a), static_cast<uint64_t*>(out_b), static_cast<const int32_t*>(ext_idx),
+      static_cast<const int32_t*>(auto_idx), steps, static_cast<const uint64_t*>(brk_a),
+      static_cast<const uint64_t*>(brk_b), n_keys, static_cast<const uint64_t*>(ak_a),
+      static_cast<const uint64_t*>(ak_b), static_cast<const int32_t*>(auto_src),
+      static_cast<const uint8_t*>(auto_sign), windows, tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s),
       lft64::make_gadget(log_b_g, d_g, rb_g, half_g), lft64::make_gadget(log_b_k, d_k, rb_k, half_k), log_n, group,
       static_cast<int*>(error));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `cluster` blocks (2..8) of the walk the current
+// device holds at once (cudaOccupancyMaxActiveClusters), at ring 2^log_n
+// with phases of rows_g and rows_k digit rows; a negative CUDA error.
+int lft_fhew_walk64_clusters(int cluster, int log_n, int rows_g, int rows_k) {
+  if (cluster < 2 || cluster > lft64::kMaxCluster || log_n < 1 || log_n > lft64::kMaxLogN || rows_g < 1 ||
+      rows_k < 1) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int group = walk_group(log_n, rows_g, rows_k, cluster);
+  const size_t smem = smem_bytes(log_n, group, true);
+  const WalkKernel kernel = fhew_blind_rotate64_kernel<true, true>;
+  if (const int err = prepare(kernel, smem)) return -err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  walk_config(cfg, attr, 1, cluster, smem, nullptr);
+  int count = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  return err == cudaSuccess ? count : -static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -19,7 +19,9 @@
 // does not store them), loads them into shared memory, runs the layers in
 // passes of up to 3 on values held in registers with a barrier after each
 // pass (lft64::ntt_rows / intt_rows, the passes K-EXTPROD64 and K-FHEW-BR64
-// run), and stores them. Twiddles come through the read-only cache.
+// run), and stores them. Twiddles come through the read-only cache. Each
+// kernel has an eager and a lazy instance (u64.cuh); the lazy one runs for
+// q < 2^62 (lft64::lazy_ok).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,6 +58,7 @@ __device__ __forceinline__ void store(const uint64_t* buf, uint64_t* __restrict_
   for (int i = threadIdx.x; i < values; i += kThreads) dst[i] = buf[i];
 }
 
+template <bool kLazy>
 __global__ void __launch_bounds__(kThreads)
     ntt64_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n,
                  int inverse) {
@@ -64,14 +67,15 @@ __global__ void __launch_bounds__(kThreads)
   load(buf, x, s, log_n);
   __syncthreads();
   if (inverse) {
-    lft64::intt_rows(buf, s.per, log_n, t, nullptr);
+    lft64::intt_rows<kLazy>(buf, s.per, log_n, t, nullptr);
   } else {
-    lft64::ntt_rows(buf, s.per, log_n, t);
+    lft64::ntt_rows<kLazy>(buf, s.per, log_n, t);
   }
   store(buf, y, s, log_n);
 }
 
 // y = INTT(NTT(a) * NTT(b)), the product by two REDCs (lft64::mul_mod).
+template <bool kLazy>
 __global__ void __launch_bounds__(kThreads)
     negacyclic_mul64_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                             uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n, uint64_t r2) {
@@ -80,11 +84,11 @@ __global__ void __launch_bounds__(kThreads)
   load(buf, a, s, log_n);
   load(buf + kValues, b, s, log_n);
   __syncthreads();
-  lft64::ntt_rows(buf, 2 * s.per, log_n, t);  // a's rows, then b's
+  lft64::ntt_rows<kLazy>(buf, 2 * s.per, log_n, t);  // a's rows, then b's
   const lft64::Mod m{t.q, t.neg_q_inv};
   for (int i = threadIdx.x; i < kValues; i += kThreads) buf[i] = lft64::mul_mod(buf[i], buf[kValues + i], r2, m);
   __syncthreads();
-  lft64::intt_rows(buf, s.per, log_n, t, nullptr);
+  lft64::intt_rows<kLazy>(buf, s.per, log_n, t, nullptr);
   store(buf, y, s, log_n);
 }
 
@@ -106,7 +110,8 @@ lft64::Tables tables(const void* psi, const void* psi_s, const void* psi_inv, co
 
 int launch_ntt(const void* x, void* y, const lft64::Tables& t, int rows, int log_n, int inverse, void* stream) {
   if (bad_args(rows, log_n, t.q)) return static_cast<int>(cudaErrorInvalidValue);
-  ntt64_kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = lft64::lazy_ok(t.q) ? ntt64_kernel<true> : ntt64_kernel<false>;
+  kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), t, rows, log_n, inverse);
   return static_cast<int>(cudaGetLastError());
 }
@@ -137,7 +142,8 @@ int lft_negacyclic_mul64(const void* a, const void* b, void* y, const void* psi,
                          unsigned long long neg_q_inv, unsigned long long n_inv, unsigned long long n_inv_s,
                          unsigned long long r2, void* stream) {
   if (bad_args(rows, log_n, q)) return static_cast<int>(cudaErrorInvalidValue);
-  negacyclic_mul64_kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = lft64::lazy_ok(q) ? negacyclic_mul64_kernel<true> : negacyclic_mul64_kernel<false>;
+  kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b), static_cast<uint64_t*>(y),
       tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n, r2);
   return static_cast<int>(cudaGetLastError());

@@ -9,13 +9,25 @@
 // a product of two variables is summed as 128 bits (hi:lo, __umul64hi) and
 // brought back by Montgomery reduction (REDC). Every function returns the
 // canonical residue, so the results are the JAX package's exactly.
+//
+// The NTT passes come in two instances. The eager one (kLazy false) reduces
+// every butterfly's outputs to [0, q); it takes any q < 2^63. The lazy one
+// (kLazy true, Harvey's butterflies) keeps forward values in [0, 4q) and
+// inverse values in [0, 2q) and skips the Shoup products' last subtract; it
+// needs 4q < 2^64, so the host takes it only for q < 2^62 (lazy_ok). Both
+// make their values canonical once: at the end of the last forward pass,
+// and in the 1/N scale of the last inverse pass, so either instance returns
+// the same residues.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace lft64 {
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
 // Arithmetic. csub: s mod q for s < 2q, by the unsigned minimum (s - q wraps
@@ -33,11 +45,18 @@ __device__ __forceinline__ uint64_t sub_q(uint64_t a, uint64_t b, uint64_t q) {
   return umin(d, d + q);
 }
 
-// a * w mod q for a constant w < q with its Shoup dual ws: a w - floor(a ws /
-// 2^64) q lies in [0, 2q) for any a < 2^64 when q < 2^63.
-__device__ __forceinline__ uint64_t shoup_q(uint64_t a, uint64_t w, uint64_t ws, uint64_t q) {
-  return csub(a * w - __umul64hi(a, ws) * q, q);
+// a * w mod q, up to one q, for a constant w < q with its Shoup dual ws:
+// a w - floor(a ws / 2^64) q lies in [0, 2q) for any a < 2^64 when q < 2^63.
+__device__ __forceinline__ uint64_t shoup_lazy(uint64_t a, uint64_t w, uint64_t ws, uint64_t q) {
+  return a * w - __umul64hi(a, ws) * q;
 }
+
+__device__ __forceinline__ uint64_t shoup_q(uint64_t a, uint64_t w, uint64_t ws, uint64_t q) {
+  return csub(shoup_lazy(a, w, ws, q), q);
+}
+
+// s mod q for s < 4q (q < 2^62).
+__device__ __forceinline__ uint64_t reduce4(uint64_t s, uint64_t q) { return csub(csub(s, 2 * q), q); }
 
 // The prime with its REDC constant -q^-1 mod 2^64.
 struct Mod {
@@ -107,7 +126,13 @@ __device__ __forceinline__ void twiddles(uint64_t (&w)[(1 << W) - 1], uint64_t (
   }
 }
 
-template <int W>
+// The host's choice of instance: the lazy ranges need 4q < 2^64.
+__host__ __device__ constexpr bool lazy_ok(uint64_t q) { return q < (1ull << 62); }
+
+// The forward butterflies of W layers. Eager: inputs and outputs in [0, q).
+// Lazy: inputs and outputs in [0, 4q); x0 comes into [0, 2q), v = x1 w in
+// [0, 2q), and x0 + v, x0 - v + 2q stay below 4q.
+template <int W, bool kLazy>
 __device__ __forceinline__ void fwd_radix(uint64_t (&x)[1 << W], const uint64_t (&w)[(1 << W) - 1],
                                           const uint64_t (&ws)[(1 << W) - 1], uint64_t q) {
 #pragma unroll
@@ -118,15 +143,26 @@ __device__ __forceinline__ void fwd_radix(uint64_t (&x)[1 << W], const uint64_t 
 #pragma unroll
       for (int j = 0; j < half; ++j) {
         const int a = 2 * half * u + j;
-        const uint64_t v = shoup_q(x[a + half], w[(1 << t) - 1 + u], ws[(1 << t) - 1 + u], q);
-        x[a + half] = sub_q(x[a], v, q);
-        x[a] = add_q(x[a], v, q);
+        const uint64_t wt = w[(1 << t) - 1 + u], wst = ws[(1 << t) - 1 + u];
+        if constexpr (kLazy) {
+          const uint64_t x0 = csub(x[a], 2 * q);
+          const uint64_t v = shoup_lazy(x[a + half], wt, wst, q);
+          x[a + half] = x0 - v + 2 * q;
+          x[a] = x0 + v;
+        } else {
+          const uint64_t v = shoup_q(x[a + half], wt, wst, q);
+          x[a + half] = sub_q(x[a], v, q);
+          x[a] = add_q(x[a], v, q);
+        }
       }
     }
   }
 }
 
-template <int W>
+// The inverse butterflies. Eager: [0, q) in and out. Lazy: [0, 2q) in and
+// out; x0 + x1 is brought below 2q, (x0 - x1 + 2q) w below 2q by the lazy
+// Shoup product.
+template <int W, bool kLazy>
 __device__ __forceinline__ void inv_radix(uint64_t (&x)[1 << W], const uint64_t (&w)[(1 << W) - 1],
                                           const uint64_t (&ws)[(1 << W) - 1], uint64_t q) {
 #pragma unroll
@@ -138,76 +174,99 @@ __device__ __forceinline__ void inv_radix(uint64_t (&x)[1 << W], const uint64_t 
       for (int j = 0; j < half; ++j) {
         const int a = 2 * half * u + j;
         const uint64_t x0 = x[a], x1 = x[a + half];
-        x[a] = add_q(x0, x1, q);
-        x[a + half] = shoup_q(sub_q(x0, x1, q), w[(1 << t) - 1 + u], ws[(1 << t) - 1 + u], q);
+        const uint64_t wt = w[(1 << t) - 1 + u], wst = ws[(1 << t) - 1 + u];
+        if constexpr (kLazy) {
+          x[a] = csub(x0 + x1, 2 * q);
+          x[a + half] = shoup_lazy(x0 - x1 + 2 * q, wt, wst, q);
+        } else {
+          x[a] = add_q(x0, x1, q);
+          x[a + half] = shoup_q(sub_q(x0, x1, q), wt, wst, q);
+        }
       }
     }
   }
 }
 
 // One pass of W layers from l0 over `rows` rows of 2^log_n values at buf
-// (row r at buf + (r << log_n)), the items spread over the block's threads.
-// With kInv, the inverse layers; at l0 = 0 they end with the 1/N scale and,
-// where add is given, row 1 += add (the key switch's b). No barrier.
-template <int W, bool kInv>
+// (row r at buf + (r << log_n)). A thread takes item i of a row (its
+// twiddles, loaded once) in every row it covers: all `rows` where a row has
+// more items than the block has threads, else every (blockDim / items)-th.
+// Forward: the last pass (l0 + W = log_n) ends with the values made
+// canonical. With kInv, the inverse layers; at l0 = 0 they end with the 1/N
+// scale (canonical) and, where add is given, row 1 += add (the key switch's
+// b). No barrier.
+template <int W, bool kInv, bool kLazy>
 __device__ __forceinline__ void pass(uint64_t* buf, int rows, int log_n, int l0, const Tables& t,
                                      const uint64_t* add) {
   const int log_h = log_n - l0 - W, log_items = log_n - W;
-  const int items = rows << log_items;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int row = it >> log_items, i = it & ((1 << log_items) - 1);
+  const int items = 1 << log_items;  // per row; a power of 2, as blockDim is
+  const bool wide = static_cast<int>(blockDim.x) >= items;
+  const int row0 = wide ? threadIdx.x >> log_items : 0, row_step = wide ? blockDim.x >> log_items : 1;
+  for (int i = threadIdx.x & (items - 1); i < items; i += blockDim.x) {
     const int g = i >> log_h;
     const int col = (g << (log_n - l0)) + (i & ((1 << log_h) - 1));
-    uint64_t* p = buf + (static_cast<size_t>(row) << log_n) + col;
-    uint64_t x[1 << W], w[(1 << W) - 1], ws[(1 << W) - 1];
-#pragma unroll
-    for (int m = 0; m < (1 << W); ++m) x[m] = p[m << log_h];
+    uint64_t w[(1 << W) - 1], ws[(1 << W) - 1];
     if constexpr (kInv) {
       twiddles<W>(w, ws, t.psi_inv, t.psi_inv_s, l0, g);
-      inv_radix<W>(x, w, ws, t.q);
-      if (l0 == 0) {
-#pragma unroll
-        for (int m = 0; m < (1 << W); ++m) {
-          x[m] = shoup_q(x[m], t.n_inv, t.n_inv_s, t.q);
-          if (add != nullptr && row == 1) x[m] = add_q(x[m], add[col + (m << log_h)], t.q);
-        }
-      }
     } else {
       twiddles<W>(w, ws, t.psi, t.psi_s, l0, g);
-      fwd_radix<W>(x, w, ws, t.q);
     }
+    for (int row = row0; row < rows; row += row_step) {
+      uint64_t* p = buf + (static_cast<size_t>(row) << log_n) + col;
+      uint64_t x[1 << W];
 #pragma unroll
-    for (int m = 0; m < (1 << W); ++m) p[m << log_h] = x[m];
+      for (int m = 0; m < (1 << W); ++m) x[m] = p[m << log_h];
+      if constexpr (kInv) {
+        inv_radix<W, kLazy>(x, w, ws, t.q);
+        if (l0 == 0) {
+#pragma unroll
+          for (int m = 0; m < (1 << W); ++m) {
+            x[m] = shoup_q(x[m], t.n_inv, t.n_inv_s, t.q);
+            if (add != nullptr && row == 1) x[m] = add_q(x[m], add[col + (m << log_h)], t.q);
+          }
+        }
+      } else {
+        fwd_radix<W, kLazy>(x, w, ws, t.q);
+        if (kLazy && l0 + W == log_n) {
+#pragma unroll
+          for (int m = 0; m < (1 << W); ++m) x[m] = reduce4(x[m], t.q);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < (1 << W); ++m) p[m << log_h] = x[m];
+    }
   }
 }
 
-template <bool kInv>
+template <bool kInv, bool kLazy>
 __device__ __forceinline__ void run_pass(uint64_t* buf, int rows, int log_n, int p, const Tables& t,
                                          const uint64_t* add) {
   const int l0 = 3 * p, w = pass_width(log_n, p);
   if (w == 3) {
-    pass<3, kInv>(buf, rows, log_n, l0, t, add);
+    pass<3, kInv, kLazy>(buf, rows, log_n, l0, t, add);
   } else if (w == 2) {
-    pass<2, kInv>(buf, rows, log_n, l0, t, add);
+    pass<2, kInv, kLazy>(buf, rows, log_n, l0, t, add);
   } else {
-    pass<1, kInv>(buf, rows, log_n, l0, t, add);
+    pass<1, kInv, kLazy>(buf, rows, log_n, l0, t, add);
   }
 }
 
 // The forward NTT of `rows` rows in shared memory, in place; a barrier after
 // every pass. Every thread of the block calls it.
+template <bool kLazy>
 __device__ __forceinline__ void ntt_rows(uint64_t* buf, int rows, int log_n, const Tables& t) {
   for (int p = 0; p < pass_count(log_n); ++p) {
-    run_pass<false>(buf, rows, log_n, p, t, nullptr);
+    run_pass<false, kLazy>(buf, rows, log_n, p, t, nullptr);
     __syncthreads();
   }
 }
 
 // The inverse NTT (with 1/N; row 1 += add where add is given), likewise.
+template <bool kLazy>
 __device__ __forceinline__ void intt_rows(uint64_t* buf, int rows, int log_n, const Tables& t,
                                           const uint64_t* add) {
   for (int p = pass_count(log_n) - 1; p >= 0; --p) {
-    run_pass<true>(buf, rows, log_n, p, t, add);
+    run_pass<true, kLazy>(buf, rows, log_n, p, t, add);
     __syncthreads();
   }
 }
@@ -256,29 +315,46 @@ __device__ __forceinline__ uint64_t digit(uint64_t lifted, const Gadget& g, int 
 // the source is acc gathered by `map` and negated by `sign` (the
 // automorphism X -> X^t; map null: acc itself), and b += the source's b.
 //
-// The digit rows go through `buf` (`group` rows of shared memory) a group at
-// a time: the digits, their forward NTT, then the contraction, which adds
-// each row's products with the key rows into 128-bit sums held in registers
-// (a thread owns coefficients j = threadIdx.x + k blockDim.x of both
-// outputs). Below q 2^64 (the host checks rows (q-1)^2 < q 2^64), one REDC
-// per output coefficient then gives sum_r key_r digit_r mod q, the value of
-// the JAX package's Montgomery product per row and modular sum. Last, the
-// two inverse NTTs run in place on acc. Every thread of the block calls it;
-// it begins and ends at a barrier.
+// A block takes the rows of its Share: all of them, or with kCluster, the
+// rank-th of `size` near-equal runs, its cluster's blocks each holding the
+// same acc. The digit rows go through `buf` (`group` rows of shared memory)
+// a group at a time: the digits, their forward NTT, then the contraction,
+// which adds each row's products with the key rows into 128-bit sums held
+// in registers (a thread owns coefficients j = threadIdx.x + k blockDim.x
+// of both outputs; it loads a row's key values for all of them before
+// their products, so that their latencies overlap). Below q 2^64
+// (the host checks rows (q-1)^2 < q 2^64), one REDC per output coefficient
+// then gives sum_r key_r digit_r mod q, the value of the JAX package's
+// Montgomery product per row and modular sum. With kCluster each block
+// REDCs its own rows' sums into `part`; after a cluster barrier block c adds
+// the c-th slice of the 2N coefficients over every block's part mod q
+// (REDC(t1) + REDC(t2) = (t1 + t2) 2^-64 mod q) and writes the sums into
+// every block's acc, through distributed shared memory; a second barrier
+// ends the exchange. Last, the two inverse NTTs run in place on acc (in
+// every block of a cluster). Every thread of the block (the cluster) calls
+// it; it begins and ends at a barrier.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxLogN = 11;
 constexpr int kThreads = 512;
 constexpr int kPerThread = (1 << kMaxLogN) / kThreads;  // coefficients a thread owns
+constexpr int kMaxCluster = 8;                          // the portable cluster size
 
-template <bool kSwitch>
-__device__ __forceinline__ void phase(uint64_t* acc, uint64_t* buf, int group, uint64_t* gb, int log_n,
-                                      const Tables& t, const Gadget& g, int rows, const uint64_t* __restrict__ ka,
-                                      const uint64_t* __restrict__ kb, const int32_t* __restrict__ map,
-                                      const uint8_t* __restrict__ sign) {
+struct Share {
+  int rank, size;  // this block's rank in its cluster, the cluster's size
+  uint64_t* part;  // kCluster: 2 rows of partial residues in shared memory
+};
+
+template <bool kSwitch, bool kLazy, bool kCluster>
+__device__ __forceinline__ void phase(uint64_t* acc, uint64_t* buf, int group, uint64_t* gb, const Share& sh,
+                                      int log_n, const Tables& t, const Gadget& g, int rows,
+                                      const uint64_t* __restrict__ ka, const uint64_t* __restrict__ kb,
+                                      const int32_t* __restrict__ map, const uint8_t* __restrict__ sign) {
   const int n = 1 << log_n;
   const uint64_t q = t.q;
   const Mod mod{q, t.neg_q_inv};
+  const int first = kCluster ? sh.rank * rows / sh.size : 0;
+  const int last = kCluster ? (sh.rank + 1) * rows / sh.size : rows;
   uint64_t ha[kPerThread], la[kPerThread], hb[kPerThread], lb[kPerThread];
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) ha[k] = la[k] = hb[k] = lb[k] = 0;
@@ -289,8 +365,8 @@ __device__ __forceinline__ void phase(uint64_t* acc, uint64_t* buf, int group, u
       gb[j] = v;
     }
   }
-  for (int r0 = 0; r0 < rows; r0 += group) {
-    const int gr = min(group, rows - r0);
+  for (int r0 = first; r0 < last; r0 += group) {
+    const int gr = min(group, last - r0);
     for (int it = threadIdx.x; it < (gr << log_n); it += blockDim.x) {
       const int r = r0 + (it >> log_n), j = it & (n - 1);
       uint64_t v;
@@ -306,31 +382,67 @@ __device__ __forceinline__ void phase(uint64_t* acc, uint64_t* buf, int group, u
       buf[it] = digit(lift(v, g, q), g, i, q);
     }
     __syncthreads();
-    ntt_rows(buf, gr, log_n, t);
+    ntt_rows<kLazy>(buf, gr, log_n, t);
+#pragma unroll 2
+    for (int r = 0; r < gr; ++r) {
+      const size_t row = static_cast<size_t>(r0 + r) << log_n;
+      uint64_t x[kPerThread], ya[kPerThread], yb[kPerThread];
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int j = threadIdx.x + k * blockDim.x;
-      if (j < n) {
-        for (int r = 0; r < gr; ++r) {
-          const uint64_t x = buf[(r << log_n) + j];
-          const size_t at = (static_cast<size_t>(r0 + r) << log_n) + j;
-          mac128(ha[k], la[k], x, __ldg(ka + at));
-          mac128(hb[k], lb[k], x, __ldg(kb + at));
+      for (int k = 0; k < kPerThread; ++k) {
+        const int j = threadIdx.x + k * blockDim.x;
+        x[k] = ya[k] = yb[k] = 0;
+        if (j < n) {
+          x[k] = buf[(r << log_n) + j];
+          ya[k] = __ldg(ka + row + j);
+          yb[k] = __ldg(kb + row + j);
         }
+      }
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        mac128(ha[k], la[k], x[k], ya[k]);
+        mac128(hb[k], lb[k], x[k], yb[k]);
       }
     }
     __syncthreads();  // buf is read; and acc, after the last group
   }
+  if constexpr (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int j = threadIdx.x + k * blockDim.x;
-    if (j < n) {
-      acc[j] = redc(ha[k], la[k], mod);
-      acc[n + j] = redc(hb[k], lb[k], mod);
+    for (int k = 0; k < kPerThread; ++k) {
+      const int j = threadIdx.x + k * blockDim.x;
+      if (j < n) {
+        sh.part[j] = redc(ha[k], la[k], mod);
+        sh.part[n + j] = redc(hb[k], lb[k], mod);
+      }
+    }
+    cluster.sync();  // every block's part is written, and no block reads acc
+    // this block's slice of the 2N sums, written into every block's acc
+    const int end = (sh.rank + 1) * 2 * n / sh.size;
+    for (int j = sh.rank * 2 * n / sh.size + threadIdx.x; j < end; j += blockDim.x) {
+      uint64_t v[kMaxCluster];
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) v[c] = c < sh.size ? cluster.map_shared_rank(sh.part, c)[j] : 0;
+      uint64_t sum = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) sum = add_q(sum, v[c], q);
+#pragma unroll
+      for (int c = 0; c < kMaxCluster; ++c) {
+        if (c < sh.size) cluster.map_shared_rank(acc, c)[j] = sum;
+      }
+    }
+    cluster.sync();  // every acc holds the sums, and every part is read
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int j = threadIdx.x + k * blockDim.x;
+      if (j < n) {
+        acc[j] = redc(ha[k], la[k], mod);
+        acc[n + j] = redc(hb[k], lb[k], mod);
+      }
     }
   }
   __syncthreads();
-  intt_rows(acc, 2, log_n, t, kSwitch ? gb : nullptr);
+  intt_rows<kLazy>(acc, 2, log_n, t, kSwitch ? gb : nullptr);
 }
 
 }  // namespace lft64

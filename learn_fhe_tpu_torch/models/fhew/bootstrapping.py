@@ -17,7 +17,8 @@ of K-FHEW-BR (`blind_rotate_core_fused`), which replaces the JAX package's
 On the u64 engine (q >= 2^31, or a digit span over 31 bits: the multi-key
 parameter sets) the walk is one launch of K-FHEW-BR64
 (`blind_rotate_core_fused64`, `csrc/fhew_u64.cu`), the u64 branch of the
-same scan (`u32` false at :436).
+same scan (`u32` false at :436), with a cluster of blocks per ciphertext
+where the batch leaves the card's SMs idle (`walk64_cluster`).
 
 Each ciphertext walks its own schedule to its end, and a batch runs at its
 own size: the JAX package's `_trim_len` and the gates' padding exist only
@@ -34,7 +35,7 @@ package does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import cached_property
+from functools import cached_property, lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -492,11 +493,12 @@ def blind_rotate_core_fused64(
     acc: RlweCiphertext,  # a, b: (B, N) int64 residues
 ) -> RlweCiphertext:
     """The fused walk of a batch on the u64 engine: K-FHEW-BR64
-    (`lft_fhew_blind_rotate64`), one launch, one 512-thread block per
-    ciphertext, no read back to the host; an index outside the key is
-    flagged in `walk_error` as K-FHEW-BR flags it. The key's brk and ak rows
-    are int64 in the evaluation basis and the Montgomery domain. On CPU
-    tensors, the plain version. Returns a new (B, N) int64 pair."""
+    (`lft_fhew_blind_rotate64`), one launch, one cluster of C 512-thread
+    blocks per ciphertext (C from `walk64_cluster_size`; C = 1 at batch
+    128), no read back to the host; an index outside the key is flagged in
+    `walk_error` as K-FHEW-BR flags it. The key's brk and ak rows are int64
+    in the evaluation basis and the Montgomery domain. On CPU tensors, the
+    plain version. Returns a new (B, N) int64 pair."""
     if acc.a.is_cpu:
         return blind_rotate_core_fused_ref(params, key, ext_idx, auto_idx, acc)
     name = "blind_rotate_core_fused64"
@@ -521,18 +523,61 @@ def blind_rotate_core_fused64(
     kernels.require(f"{name} key.auto_sign", key.auto_sign, torch.bool, (windows, n))
     out = RlweCiphertext(torch.empty_like(acc.a), torch.empty_like(acc.b))
     if B:
+        cluster = walk64_cluster(B, params, acc.a.device)
         kernels.launch(
             "lft_fhew_blind_rotate64", acc.a.data_ptr(), acc.b.data_ptr(), out.a.data_ptr(), out.b.data_ptr(),
             ext_idx.data_ptr(), auto_idx.data_ptr(), B, L, key.brk_a.data_ptr(), key.brk_b.data_ptr(), n_keys,
             key.ak_a.data_ptr(), key.ak_b.data_ptr(), key.auto_src.data_ptr(), key.auto_sign.data_ptr(), windows,
             *table_pointers(plan, acc.a.get_device()), plan.log_n, q, plan.zq.neg_q_inv, plan.n_inv, plan.n_inv_shoup,
-            *rgsw.gadget_args(gg), *rgsw.gadget_args(gk), walk_error(acc.a.device).data_ptr(),
+            *rgsw.gadget_args(gg), *rgsw.gadget_args(gk), cluster, walk_error(acc.a.device).data_ptr(),
         )  # fmt: skip
         blind_rotate_core_fused64.launches += 1
+        blind_rotate_core_fused64.cluster_launches += cluster > 1
     return out
 
 
-blind_rotate_core_fused64.launches = 0
+# every launch, and those of the clustered instance (C > 1)
+blind_rotate_core_fused64.launches = blind_rotate_core_fused64.cluster_launches = 0
+
+WALK64_MAX_CLUSTER = 8  # the portable cluster size
+
+
+def walk64_cluster_size(batch: int, rows_g: int, rows_k: int, max_clusters) -> int:
+    """K-FHEW-BR64's blocks per ciphertext for a batch whose phases have
+    rows_g (external product) and rows_k (key switch) digit rows: the
+    largest C <= min(8, rows_g, rows_k) at which all `batch` clusters of C
+    blocks are resident at once, max_clusters(C) >= batch (the card's
+    count, `cudaOccupancyMaxActiveClusters`); 1 where none is. A small gate
+    round then spreads each ciphertext's phases over C SMs, and a batch
+    that fills the card keeps one block per ciphertext."""
+    for c in range(min(WALK64_MAX_CLUSTER, rows_g, rows_k), 1, -1):
+        if batch <= max_clusters(c):
+            return c
+    return 1
+
+
+@lru_cache(maxsize=None)
+def _max_clusters(device: int, cluster: int, log_n: int, rows_g: int, rows_k: int) -> int:
+    """The card's count of resident clusters of the walk (`lft_fhew_walk64_clusters`)."""
+    with torch.cuda.device(device):
+        got = kernels.call("lft_fhew_walk64_clusters", cluster, log_n, rows_g, rows_k)
+    if got < 0:
+        raise RuntimeError(f"lft_fhew_walk64_clusters: CUDA error {-got} ({kernels.library().lft_error_string(-got).decode()})")
+    return got
+
+
+def walk64_resident(cluster: int, params: BootstrapParams, device: torch.device) -> int:
+    """How many clusters of `cluster` blocks of K-FHEW-BR64 a CUDA device
+    holds at once at params' ring and rows."""
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    return _max_clusters(torch.device(device).index, cluster, params.rlwe.plan.log_n, 2 * gg.d, gk.d)
+
+
+def walk64_cluster(batch: int, params: BootstrapParams, device: torch.device) -> int:
+    """The cluster size K-FHEW-BR64 takes for `batch` ciphertexts on a
+    CUDA device (the one its tensors are on)."""
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    return walk64_cluster_size(batch, 2 * gg.d, gk.d, lambda c: walk64_resident(c, params, device))
 
 
 def prepare_acc(params: BootstrapParams, f: torch.Tensor, b2n: torch.Tensor) -> RlweCiphertext:

@@ -17,7 +17,9 @@ radix-2 version:
   transforms, the pointwise Montgomery product and the inverse in one
   launch.
 Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
-to the kernel, or the wrapper raises.
+to the kernel, or the wrapper raises. Below q < 2^62 the kernels run their
+lazy instance (`lazy_butterflies`), above it the eager one, as the C side
+chooses; both return the canonical residues.
 """
 
 from __future__ import annotations
@@ -173,6 +175,15 @@ def table_pointers(plan: NttPlan, device: int) -> tuple[int, int, int, int]:
 def _consts(plan: NttPlan) -> tuple[int, int, int, int]:
     """q, -q^-1 mod 2^64, 1/N and its Shoup dual, as the C entry points take them."""
     return plan.q, plan.zq.neg_q_inv, plan.n_inv, plan.n_inv_shoup
+
+
+def lazy_butterflies(q: int) -> bool:
+    """Whether the u64 kernels run their lazy instance at q, as
+    `lft64::lazy_ok` (`csrc/u64.cuh`) chooses it: Harvey's butterflies keep
+    forward values below 4q, which must stay below 2^64, so q < 2^62. A
+    prime in [2^62, 2^63) takes the eager instance. The cost model of the
+    bounds counts the instance's butterflies by it."""
+    return q < 1 << 62
 
 
 def ntt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:

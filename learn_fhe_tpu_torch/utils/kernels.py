@@ -84,11 +84,13 @@ _SIGNATURES = {
     # acc_a, acc_b, out_a, out_b, ext_idx, auto_idx, batch, steps, brk_a,
     # brk_b, n_keys, ak_a, ak_b, auto_src, auto_sign, windows, the four
     # tables, log_n, q, -q^-1, n_inv, n_inv_shoup, RGSW gadget (log_b, d,
-    # rounding_bits, half), RLWE gadget (same), error, stream
+    # rounding_bits, half), RLWE gadget (same), cluster, error, stream
     "lft_fhew_blind_rotate64": (
         (_P,) * 6 + (_I, _I) + (_P, _P, _I) + (_P,) * 4 + (_I,) + (_P,) * 4 + (_I,) + (_U64,) * 4
-        + (_I, _I, _I, _U64) * 2 + (_P, _P)
+        + (_I, _I, _I, _U64) * 2 + (_I, _P, _P)
     ),
+    # host function (no stream): cluster, log_n, rows_g, rows_k
+    "lft_fhew_walk64_clusters": (_I,) * 4,
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
     # half, window, ops, idxs, sched_len
     "lft_fhew_build_schedule": (_P, _LL, _LL, _P, _P, _LL, _I, _P, _P, _LL),
@@ -161,11 +163,20 @@ def build_log() -> str:
 
 # The kernels of the library by the name in their source; a mangled name
 # holds it after an anonymous-namespace prefix whose hash depends on the
-# source's path, and a template instance adds ILi<LOG_N>E after it.
+# source's path, and a template instance adds its arguments after it
+# (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64|negacyclic_mul64"
-    r"|external_product64|fhew_blind_rotate64)_kernel(?:ILi(\d+)E)?"
+    r"|external_product64|fhew_blind_rotate64)_kernel(I(?:L[ib]\d+E)+E)?"
 )
+
+
+def _template_args(mangled: str | None) -> str:
+    """`<11>` for I Li11E E, `<true,false>` for I Lb1E Lb0E E, '' for none."""
+    if not mangled:
+        return ""
+    args = re.findall(r"L([ib])(\d+)E", mangled)
+    return "<" + ",".join(v if t == "i" else ("true" if v == "1" else "false") for t, v in args) + ">"
 
 
 def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
@@ -177,7 +188,7 @@ def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
             m = _KERNEL_NAME.search(line)
-            name = None if m is None else f"{m[1]}_kernel<{m[2]}>" if m[2] else f"{m[1]}_kernel"
+            name = None if m is None else f"{m[1]}_kernel" + _template_args(m[2])
             continue
         if name is None:
             continue

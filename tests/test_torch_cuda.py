@@ -505,6 +505,9 @@ _FIXTURES64 = {  # (q bits, log N, log_b, d): the multi-key test fixture and the
     "mk54": (54, 7, 6, 9),
     "full": (55, 11, 11, 5),
 }
+# A prime in [2^62, 2^63), which the kernels run on their eager instance
+# (d = 1: two rows of products below q 2^64).
+_EAGER64 = (63, 7, 20, 1)
 
 
 @pytest.mark.parametrize("fixture", list(_FIXTURES64))
@@ -553,16 +556,17 @@ _FHEW64 = {}
 
 def _fhew64_env(name):
     """The multi-key test fixture (54-bit q, N=128, B=2^6, d=9; LWE n=16,
-    w=5) with a key from key_gen on the CPU, or the full multi-key set
-    (55-bit q, N=2048, B=2^11, d=5; LWE n=600, q_ks=2^20, w=10) with random
-    evaluation-basis key rows (the walk is arithmetic on whatever rows it is
-    given)."""
+    w=5) with a key from key_gen on the CPU, or with random evaluation-basis
+    key rows (the walk is arithmetic on whatever rows it is given) the full
+    multi-key set (55-bit q, N=2048, B=2^11, d=5; LWE n=600, q_ks=2^20,
+    w=10) or a 63-bit prime at N=128 (B=2^20, d=1; the LWE side of the test
+    fixture), which takes the kernels' eager instance."""
     from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.ops.poly import automorphism_map
 
     if name not in _FHEW64:
-        bits, log_n, log_b, d = _FIXTURES64[name]
+        bits, log_n, log_b, d = _EAGER64 if name == "eager" else _FIXTURES64[name]
         q = _prime64(bits, log_n)
         full = name == "full"
         params = fhew.BootstrapParams(
@@ -571,11 +575,11 @@ def _fhew64_env(name):
             w=10 if full else 5,
         )
         rng = np.random.default_rng(log_n)
-        if full:
-            n, maps = params.n, [automorphism_map(params.n, t) for t in params.ak_t]
+        if name != "mk54":
+            n, n_lwe, maps = params.n, params.lwe_s.n, [automorphism_map(params.n, t) for t in params.ak_t]
             key = boot.BootstrapKey(
-                u64_to_torch(np.zeros((4, n, 600), dtype=np.uint64)), u64_to_torch(np.zeros((4, n), dtype=np.uint64)),
-                _u64(rng, q, (600, 2 * d, n)), _u64(rng, q, (600, 2 * d, n)),
+                u64_to_torch(np.zeros((4, n, n_lwe), dtype=np.uint64)), u64_to_torch(np.zeros((4, n), dtype=np.uint64)),
+                _u64(rng, q, (n_lwe, 2 * d, n)), _u64(rng, q, (n_lwe, 2 * d, n)),
                 _u64(rng, q, (params.w + 1, d, n)), _u64(rng, q, (params.w + 1, d, n)),
                 torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)), torch.from_numpy(np.stack([m[1] for m in maps])),
             )  # fmt: skip
@@ -615,37 +619,70 @@ def _walk64_against_plain(dev, params, key, e_idx, a_idx, rng, error=0):
     word.zero_()
 
 
-@pytest.mark.parametrize("name,batch", [("mk54", 1), ("mk54", 5), ("mk54", 128), ("full", 2)])
-def test_fhew_blind_rotate64_kernel_matches_plain(dev, name, batch):
+def _batch_for_cluster(dev, params, cluster):
+    """The smallest batch for which K-FHEW-BR64's wrapper picks `cluster`
+    blocks per ciphertext on this card (1 where the cap picks it, else one
+    more than the largest batch that a larger cluster takes); the test
+    skips where no batch picks it."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    batch = 1
+    for c in range(cluster + 1, min(boot.WALK64_MAX_CLUSTER, 2 * params.rgsw.gadget.d, params.rlwe.gadget.d) + 1):
+        batch = max(batch, boot.walk64_resident(c, params, dev) + 1)
+    if boot.walk64_cluster(batch, params, dev) != cluster:
+        pytest.skip(f"no batch picks C={cluster} on this card")
+    return batch
+
+
+# Every cluster size the wrapper can pick: up to 8 at the 54-bit fixture
+# (2d = 18, d = 9), up to 5 at the full set (2d = 10, d = 5), 1 at the
+# 63-bit prime (2d = 2, d = 1); the batches that pick them depend on the card.
+_CLUSTER_CASES = [("mk54", c) for c in range(1, 9)] + [("full", c) for c in range(1, 6)] + [("eager", 1)]
+
+
+@pytest.mark.parametrize("name,cluster", _CLUSTER_CASES)
+def test_fhew_blind_rotate64_kernel_matches_plain(dev, name, cluster):
     """One launch of K-FHEW-BR64 over a batch's whole fused schedule, from
-    random odd masks, against the plain walk: 2d = 18 rows at the 54-bit
-    fixture, 2d = 10 at the full set."""
+    random odd masks, against the plain walk, at a batch that makes the
+    wrapper pick `cluster` blocks per ciphertext: 2d = 18 rows at the 54-bit
+    fixture, 2d = 10 at the full set, 2d = 2 at the 63-bit prime (eager
+    instance); and at batch 128 of the 54-bit fixture, where it picks 1."""
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
 
     params, key = _fhew64_env(name)
-    rng = np.random.default_rng(batch)
-    a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1)
-    _walk64_against_plain(dev, params, key, *boot.schedule(params, a2n), rng)
+    batch = _batch_for_cluster(dev, params, cluster)
+    batches = [batch] + ([128] if (name, cluster) == ("mk54", 1) else [])
+    for b in batches:
+        rng = np.random.default_rng(b)
+        a2n = torch.from_numpy(2 * rng.integers(0, params.n, size=(b, params.lwe_s.n)) + 1)
+        _walk64_against_plain(dev, params, key, *boot.schedule(params, a2n), rng)
 
 
-def test_fhew_blind_rotate64_kernel_flags_an_index_outside_the_key(dev):
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_fhew_blind_rotate64_kernel_flags_an_index_outside_the_key(dev, cluster):
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
 
     params, key = _fhew64_env("mk54")
+    batch = _batch_for_cluster(dev, params, cluster)
     rng = np.random.default_rng(21)
-    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(5, params.lwe_s.n)) + 1))
-    e_idx[1, 3], a_idx[2, 0], e_idx[3, 0], a_idx[3, 4] = params.lwe_s.n, params.w + 1, -7, -2
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1))
+    if batch >= 4:
+        e_idx[1, 3], a_idx[2, 0], e_idx[3, 0], a_idx[3, 4] = params.lwe_s.n, params.w + 1, -7, -2
+    else:  # both indices of one step outside the key
+        e_idx[0, 3], a_idx[0, 3] = params.lwe_s.n, params.w + 1
     _walk64_against_plain(dev, params, key, e_idx, a_idx, rng, error=3)
 
 
-def test_fhew_blind_rotate64_makes_no_host_sync(dev):
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_fhew_blind_rotate64_makes_no_host_sync(dev, cluster):
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
 
     params, key = _fhew64_env("mk54")
+    batch = _batch_for_cluster(dev, params, cluster)
     rng = np.random.default_rng(4)
-    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(4, params.lwe_s.n)) + 1))
-    acc = RlweCiphertext(_u64(rng, params.big_q, (4, params.n)), _u64(rng, params.big_q, (4, params.n)))
+    e_idx, a_idx = boot.schedule(params, torch.from_numpy(2 * rng.integers(0, params.n, size=(batch, params.lwe_s.n)) + 1))
+    acc = RlweCiphertext(_u64(rng, params.big_q, (batch, params.n)), _u64(rng, params.big_q, (batch, params.n)))
     want = boot.blind_rotate_core_fused_ref(params, key, e_idx, a_idx, acc)
     key_d = boot.BootstrapKey(*(None if x is None else x.to(dev) for x in key))
     args = (params, key_d, e_idx.to(dev), a_idx.to(dev), RlweCiphertext(acc.a.to(dev), acc.b.to(dev)))

@@ -23,6 +23,11 @@ _FHEW = (
     "iS2_S2_iS2_S2_S5_PKhiS2_S2_S2_S2_NS_6ConstsENS_6GadgetES9_iiPi"
 )
 _FHEW_11 = _FHEW.replace("ILi9EE", "ILi11EE")
+_NTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff12ntt64_kernelILb1EEEvPKmPmN5lft646TablesEiii"
+_WALK64 = (
+    "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
+    "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
+)
 
 
 def _entry(mangled: str, regs: int, spill: int) -> str:
@@ -45,6 +50,10 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_STEP, "tfhe_step_kernel<11>"),
         (_FHEW, "fhew_blind_rotate_kernel<9>"),
         (_FHEW_11, "fhew_blind_rotate_kernel<11>"),
+        (_NTT64, "ntt64_kernel<true>"),
+        (_NTT64.replace("ILb1EE", "ILb0EE"), "ntt64_kernel<false>"),
+        (_WALK64, "fhew_blind_rotate64_kernel<true,false>"),
+        (_WALK64.replace("ILb1ELb0EE", "ILb1ELb1EE"), "fhew_blind_rotate64_kernel<true,true>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
