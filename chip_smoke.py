@@ -61,10 +61,15 @@ parties):
 
   M1. hold K-NTT64, intt64 and K-POLYMUL64 against their plain versions at
       the 55-bit prime on (10, 2048) (one RGSW's rows), a ragged (19, 256)
-      and key generation's (6000, 2048); time them at (10, 2048) and
-      (6000, 2048) against their bounds;
+      and key generation's (6000, 2048), and K-POLYMUL64 at every row
+      count the multi-key path launches it at (1, 5, 8, 6000: its N=2048
+      instance; the ragged (19, 256) runs the one for any N); time each
+      kernel at the
+      shapes the path launches it at (K-POLYMUL64 at 1, 5, 8 and 6000
+      rows, K-NTT64 at 5, 600 and 6000, intt64 at 6000) against its bound;
   M2. hold K-EXTPROD64 against its plain version at one merge chunk (60
-      keys, 600 products) and as a key switch; time it at the chunk;
+      keys, 600 products), at 601 products and as a key switch; time it
+      at the chunk;
   M3. hold K-FHEW-BR64 against its plain version at the 54-bit multi-key
       test fixture (N=128, 2d=18) at a batch that makes the wrapper pick
       each cluster size it can (1-8 blocks per ciphertext) and at batch
@@ -72,8 +77,10 @@ parties):
       at batch 2, and at a 63-bit prime (the eager instance); the error
       word must read 0;
   M4. the main path, with the launch counters set to 0 just before and
-      read just after: crs and pk shares, each party's key share, the merge
-      (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
+      read just after (K-NTT64's, intt64's and K-POLYMUL64's also by row
+      count, K-EXTPROD64's by product count, each printed with its
+      launches x (time - bound) where M1 or M2 timed that shape): crs and
+      pk shares, each party's key share, the merge (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
       wrapping u8, gate round by gate round, and its threshold decryption,
       which must give the expected value (wall time and rounds printed,
       and the rounds by gates per round and by the cluster size they
@@ -360,12 +367,14 @@ MULMOD64 = np.array([24.75, 14, 19.25])
 DIGIT64 = np.array([1, 10, 5])  # the centered lift and one field of it, less the offset mod q
 
 
-def ntt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
-    """Forward transforms of `rows` rows: the butterflies, and where lazy the
-    canonicalisation of each value (two minimums) at the end."""
+def ntt64_ops(rows: int, n: int, lazy: bool = True, canonical: bool = True) -> np.ndarray:
+    """Forward transforms of `rows` rows: the butterflies, and where lazy and
+    canonical the canonicalisation of each value (two minimums) at the end.
+    A kernel that takes the lazy values into its products unreduced
+    (canonical False) does not do that work, and its bound does not count it."""
     if not lazy:
         return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64
-    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64_LAZY + rows * n * 2 * CSUB64
+    return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64_LAZY + (rows * n * 2 * CSUB64 if canonical else 0)
 
 
 def intt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
@@ -373,13 +382,86 @@ def intt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
     return rows * (n // 2) * (n.bit_length() - 1) * (BUTTERFLY64_LAZY if lazy else BUTTERFLY64) + rows * n * SHOUP64
 
 
-def extprod64_ops(count: int, n: int, rows: int, key_switch: bool, lazy: bool = True) -> np.ndarray:
+def polymul64_ops(rows: int, n: int, q: int) -> np.ndarray:
+    """K-POLYMUL64 on `rows` row pairs: both forward transforms, the
+    pointwise product (two REDCs), the inverse with the 1/N scale. Its lazy
+    values reach the product unreduced (a b < 16 q^2 < q 2^64) for q < 2^60,
+    and are made canonical first above it."""
+    lazy = q < 1 << 62
+    return 2 * ntt64_ops(rows, n, lazy, canonical=q >= 1 << 60) + rows * n * MULMOD64 + intt64_ops(rows, n, lazy)
+
+
+def extprod64_ops(count: int, n: int, rows: int, key_switch: bool, lazy: bool = True, canonical: bool = True) -> np.ndarray:
     """`count` external products (2d = rows digit rows of a and b) or key
     switches (d = rows digit rows of a; b + the source's b): the digits,
     their forward NTTs, per output coefficient `rows` 128-bit
-    multiply-adds and one REDC, two inverse NTTs with the 1/N scale."""
-    per = rows * n * DIGIT64 + ntt64_ops(rows, n, lazy) + 2 * n * (rows * MAC128 + REDC64) + intt64_ops(2, n, lazy)
+    multiply-adds and one REDC, two inverse NTTs with the 1/N scale.
+    canonical: whether the forward transforms' lazy values are made
+    canonical before the products (the walk's `lft64::phase` does it;
+    K-EXTPROD64 takes them unreduced)."""
+    per = rows * n * DIGIT64 + ntt64_ops(rows, n, lazy, canonical) + 2 * n * (rows * MAC128 + REDC64) + intt64_ops(2, n, lazy)
     return count * (per + (n * ADD_Q64 if key_switch else 0))
+
+
+def u64_cases(params, residues, dev):
+    """The u64 kernels' launches that M1 and M2 time, at the multi-key full
+    set: K-POLYMUL64, K-NTT64 and `intt64` at each row count the path
+    launches them at, and K-EXTPROD64 at one merge chunk (`chunk` keys of
+    2d rows, 10 consecutive products a key), as an external product and as
+    a key switch. residues(shape) draws residues mod q on the CPU. Returns
+    {(label, rows or products): (kernel call, plain call, bytes moved,
+    instructions)}, and the merge chunk's arguments of `external_product64`
+    for an external product and for a key switch."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops import ntt as tntt
+
+    q, n, plan = params.big_q, params.n, params.rlwe.plan
+    gg, gk = params.rgsw.gadget, params.rlwe.gadget
+    lazy = tntt.lazy_butterflies(q)
+    cases = {}
+    for rows in POLYMUL_ROWS:
+        x, y = residues((rows, n)).to(dev), residues((rows, n)).to(dev)
+        cases["negacyclic_mul64", rows] = (
+            lambda x=x, y=y: tntt.negacyclic_mul64(x, y, plan), lambda x=x, y=y: tntt.negacyclic_mul64_ref(x, y, plan),
+            3 * rows * n * 8, polymul64_ops(rows, n, q),
+        )  # fmt: skip
+    for name, fn, ref, counts, ops in (
+        ("ntt64", tntt.ntt64, tntt.ntt64_ref, NTT_ROWS, ntt64_ops),
+        ("intt64", tntt.intt64, tntt.intt64_ref, INTT_ROWS, intt64_ops),
+    ):
+        for rows in counts:
+            x = residues((rows, n)).to(dev)
+            cases[name, rows] = (lambda x=x, fn=fn: fn(x, plan), lambda x=x, ref=ref: ref(x, plan), 2 * rows * n * 8, ops(rows, n, lazy))
+    chunk = boot.merge_chunk_size(params.lwe_s.n)
+    rows_g = 2 * gg.d
+    count = chunk * rows_g
+    ka, kb = residues((chunk, rows_g, n)).to(dev), residues((chunk, rows_g, n)).to(dev)
+    ct = RlweCiphertext(residues((count, n)).to(dev), residues((count, n)).to(dev))
+    idx = torch.arange(chunk, dtype=torch.int32, device=dev).repeat_interleave(rows_g)
+    args = (gg, plan, ka, kb, idx, ct, False)
+    ks_args = (gk, plan, ka[:, : gk.d].contiguous(), kb[:, : gk.d].contiguous(), idx, ct, True)
+    for label, a, rows in (("external_product64", args, rows_g), ("external_product64 key switch", ks_args, gk.d)):
+        cases[label, count] = (
+            lambda a=a: rgsw.external_product64(*a), lambda a=a: rgsw.external_product64_ref(*a),
+            4 * count * n * 8 + 2 * chunk * rows * n * 8 + count * 4, extprod64_ops(count, n, rows, a[-1], lazy, canonical=False),
+        )  # fmt: skip
+    return cases, args, ks_args
+
+
+def random_walk_key(boot, p, residues, dev):
+    """A bootstrap key of evaluation-basis rows drawn at random for the walk
+    (arithmetic on any rows) at parameters p; residues(shape, modulus)
+    draws them on the CPU."""
+    from learn_fhe_tpu_torch.ops.poly import automorphism_map
+
+    maps = [automorphism_map(p.n, t) for t in p.ak_t]
+    rows = (p.lwe_s.n, 2 * p.rgsw.gadget.d, p.n), (p.w + 1, p.rlwe.gadget.d, p.n)
+    return boot.BootstrapKey(
+        None, None, *(residues(rows[i // 2], p.big_q).to(dev) for i in range(4)),
+        torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)).to(dev), torch.from_numpy(np.stack([m[1] for m in maps])).to(dev),
+    )  # fmt: skip
 
 
 def walk_device_ms(fn, reps: int) -> float:
@@ -645,23 +727,27 @@ MK_PARTIES = 2
 MK_A, MK_B = 177, 7  # `examples/multi_key_uint8.py`'s defaults
 MK_KEYGEN_ROWS = 6000  # one party's brk: 600 RGSW encryptions of 2d = 10 rows
 MK_INSTANCES = (  # the lazy instances the 55-bit set runs; the walk alone (C = 1) and in clusters
-    "ntt64_kernel<true>", "negacyclic_mul64_kernel<true>", "external_product64_kernel<true>",
+    "ntt64_kernel<true>", "negacyclic_mul64_bulk_kernel<true>", "external_product64_kernel<true,11>",
     "fhew_blind_rotate64_kernel<true,false>", "fhew_blind_rotate64_kernel<true,true>",
 )  # fmt: skip
 WALK64_SWEEP = (1, 2, 8, 36, 128)
+# the row counts the multi-key path launches the u64 transforms at: K-POLYMUL64
+# for the pk shares, ak_share_gen, the u8 pk_encrypts and pk_encrypt_rgsw;
+# K-NTT64 for make_ksk, a merge chunk's to_eval and the final to_eval
+POLYMUL_ROWS, NTT_ROWS, INTT_ROWS = (1, 5, 8, 6000), (5, 600, 6000), (6000,)
 ROUND_BATCH = 2  # the u8 expression's commonest round: a majority and a xor (`uint8.py`)
 
 
 def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
     """M1-M4 (see the module's docstring); adds the u64 kernels' entries to
     the kernels line's dicts."""
+    shape_ms = {}  # (kernel, rows or products): (CUDA-graph ms, bound ms)
     from learn_fhe_tpu_torch.examples.multi_key_uint8 import example_params, wrapping_expression
     from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew import gates, lwe, rgsw
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
     from learn_fhe_tpu_torch.ops import ntt as tntt
-    from learn_fhe_tpu_torch.ops.poly import automorphism_map
     from learn_fhe_tpu_torch.parallel import batch as pbatch
     from learn_fhe_tpu_torch.utils.interop import u64_to_torch
     from learn_fhe_tpu_torch.utils.primes import two_adic_primes
@@ -696,45 +782,50 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         for name, got, want in check:
             errs[name] = max(errs[name], max_abs_err(got, want()))
         say(f"M1 ntt64 / intt64 / negacyclic_mul64 == plain at q={q} on ({rows}, {p.n}): ok")
-    for rows in (10, MK_KEYGEN_ROWS):
+    for rows in POLYMUL_ROWS[:-1]:  # the path's other row counts
         x, y = residues((rows, n)).to(dev), residues((rows, n)).to(dev)
-        row_bytes = rows * n * 8
-        for name, kernel, plain_fn, n_bytes, ops in (
-            ("ntt64", lambda: tntt.ntt64(x, plan), lambda: tntt.ntt64_ref(x, plan), 2 * row_bytes, ntt64_ops(rows, n, lazy)),
-            ("intt64", lambda: tntt.intt64(x, plan), lambda: tntt.intt64_ref(x, plan), 2 * row_bytes, intt64_ops(rows, n, lazy)),
-            (
-                "negacyclic_mul64", lambda: tntt.negacyclic_mul64(x, y, plan), lambda: tntt.negacyclic_mul64_ref(x, y, plan),
-                3 * row_bytes, 2 * ntt64_ops(rows, n, lazy) + rows * n * MULMOD64 + intt64_ops(rows, n, lazy),
-            ),
-        ):  # fmt: skip
-            k_ms, g_ms, p_ms = cuda_ms(kernel, 50), graph_ms(kernel, 50), cuda_ms(plain_fn, 3)
-            b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
-            say(f"{tag} M1 {name} at ({rows}, {n}): kernel {k_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch (CUDA graph of 50), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / k_ms:.4f} / {b_ms / g_ms:.4f} of bound")
-            if rows == MK_KEYGEN_ROWS:
-                timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+        errs["negacyclic_mul64"] = max(errs["negacyclic_mul64"], max_abs_err(tntt.negacyclic_mul64(x, y, plan), plain(tntt.negacyclic_mul64_ref, x, y, plan)))
+    say(f"M1 negacyclic_mul64 == plain on ({', '.join(str(r) for r in POLYMUL_ROWS[:-1])}, {n}): ok")
+    timed, args, ks_args = u64_cases(params, residues, dev)
+    for (name, rows), (kernel, plain_fn, n_bytes, ops) in timed.items():
+        if name.startswith("external_product64"):
+            continue  # M2
+        k_ms, g_ms, p_ms = cuda_ms(kernel, 50), graph_ms(kernel, 50), cuda_ms(plain_fn, 3)
+        b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+        shape_ms[name, rows] = (g_ms, b_ms)
+        say(f"{tag} M1 {name} at ({rows}, {n}): kernel {k_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch (CUDA graph of 50), plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.3f} us by {by} = {b_ms / k_ms:.4f} / {b_ms / g_ms:.4f} of bound")
+        if rows == MK_KEYGEN_ROWS:
+            timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
 
     # -- M2. K-EXTPROD64 at one merge chunk --------------------------------------
     chunk = boot.merge_chunk_size(params.lwe_s.n)
     rows_g = 2 * gg.d
-    ka, kb = residues((chunk, rows_g, n)).to(dev), residues((chunk, rows_g, n)).to(dev)
     count = chunk * rows_g
-    ct = RlweCiphertext(residues((count, n)).to(dev), residues((count, n)).to(dev))
-    idx = torch.arange(chunk, dtype=torch.int32, device=dev).repeat_interleave(rows_g)
-    args = (gg, plan, ka, kb, idx, ct, False)
+    _, _, ka, kb, idx, ct, _ = args
     want = plain(rgsw.external_product64_ref, *args)
     got = rgsw.external_product64(*args)
     errs["external_product64"] = max(max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
-    ks_args = (gk, plan, ka[:, : gk.d].contiguous(), kb[:, : gk.d].contiguous(), idx, ct, True)
     want = plain(rgsw.external_product64_ref, *ks_args)
     got = rgsw.external_product64(*ks_args)
     errs["external_product64"] = max(errs["external_product64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
-    say(f"M2 external_product64 == plain at one merge chunk ({chunk} keys, {count} products of {rows_g} rows) and as a key switch ({gk.d} rows): ok")
-    k_ms, p_ms = cuda_ms(lambda: rgsw.external_product64(*args), 5), cuda_ms(lambda: rgsw.external_product64_ref(*args), 1)
-    n_bytes = 4 * count * n * 8 + 2 * chunk * rows_g * n * 8 + count * 4
-    b_ms, by = bound_ms(n_bytes, extprod64_ops(count, n, rows_g, False, lazy), pipe_per_s)
-    timings["external_product64"], bounds["external_product64"] = (k_ms, p_ms), (b_ms, by)
-    regs, st, ld = kernels_report().get("external_product64_kernel<true>", (0, 0, 0))
-    say(f"{tag} M2 external_product64 at one merge chunk: {k_ms:.4f} ms per call (CUDA events, 5 calls) = {k_ms * 1e3 / count:.3f} us per product; plain {p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} = {b_ms / k_ms:.4f} of bound; {regs} registers, {st} / {ld} bytes spilled")
+    # a ragged chunk: 601 products, the last against a 61st key
+    ka1, kb1 = torch.cat([ka, ka[:1]]), torch.cat([kb, kb[:1]])
+    ct1 = RlweCiphertext(torch.cat([ct.a, ct.a[:1]]), torch.cat([ct.b, ct.b[:1]]))
+    args1 = (gg, plan, ka1, kb1, torch.cat([idx, idx.new_full((1,), chunk)]), ct1, False)
+    want = plain(rgsw.external_product64_ref, *args1)
+    got = rgsw.external_product64(*args1)
+    errs["external_product64"] = max(errs["external_product64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
+    say(f"M2 external_product64 == plain at one merge chunk ({chunk} keys, {count} products of {rows_g} rows), at {count + 1} products and as a key switch ({gk.d} rows): ok")
+    kernel, plain_fn, n_bytes, ops = timed["external_product64", count]
+    k_ms, p_ms, g_ms = cuda_ms(kernel, 5), cuda_ms(plain_fn, 1), graph_ms(kernel, 10)
+    b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+    timings["external_product64"], bounds["external_product64"], graphs["external_product64"] = (k_ms, p_ms), (b_ms, by), g_ms
+    shape_ms["external_product64", count] = (g_ms, b_ms)
+    regs, st, ld = kernels_report().get("external_product64_kernel<true,11>", (0, 0, 0))
+    say(f"{tag} M2 external_product64 at one merge chunk: {k_ms:.4f} ms per call (CUDA events, 5 calls), {g_ms:.4f} ms per launch (CUDA graph of 10) = {g_ms * 1e3 / count:.3f} us per product; plain {p_ms:.1f} ms; bound {b_ms:.4f} ms by {by} = {b_ms / k_ms:.4f} / {b_ms / g_ms:.4f} of bound; {regs} registers, {st} / {ld} bytes spilled")
+    kernel, _, n_bytes, ops = timed["external_product64 key switch", count]
+    ks_ms, ks_bound = graph_ms(kernel, 10), bound_ms(n_bytes, ops, pipe_per_s)
+    say(f"{tag} M2 external_product64 as a key switch of {count}: {ks_ms:.4f} ms per launch (CUDA graph of 10); bound {ks_bound[0]:.4f} ms by {ks_bound[1]} = {ks_bound[0] / ks_ms:.4f} of bound")
 
     # -- M3. K-FHEW-BR64 against the plain walk ------------------------------------
     errs["fhew_blind_rotate64"] = errs["fhew_blind_rotate64_cluster"] = 0.0
@@ -747,13 +838,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     key54 = fhew.key_gen(fixture, fhew.rlwe.sk_gen(fixture.rlwe, rng), rng, dev)
 
     def random_key(p):
-        """Evaluation-basis key rows drawn at random (the walk is arithmetic on any rows)."""
-        maps = [automorphism_map(p.n, t) for t in p.ak_t]
-        rows = (p.lwe_s.n, 2 * p.rgsw.gadget.d, p.n), (p.w + 1, p.rlwe.gadget.d, p.n)
-        return boot.BootstrapKey(
-            None, None, *(residues(rows[i // 2], p.big_q).to(dev) for i in range(4)),
-            torch.from_numpy(np.stack([m[0] for m in maps]).astype(np.int32)).to(dev), torch.from_numpy(np.stack([m[1] for m in maps])).to(dev),
-        )  # fmt: skip
+        return random_walk_key(boot, p, residues, dev)
 
     # a 63-bit prime, which takes the eager instance (d = 1: two rows below q 2^64)
     q63 = next(two_adic_primes(63, 8))
@@ -792,8 +877,11 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
 
     # -- M4. the main path -----------------------------------------------------------
     counted = (tntt.ntt64, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
+    by_shape = {"ntt64": tntt.ntt64.by_rows, "intt64": tntt.intt64.by_rows, "negacyclic_mul64": tntt.negacyclic_mul64.by_rows, "external_product64": rgsw.external_product64.by_count}
     for fn in counted:
         fn.launches = 0
+    for c in by_shape.values():
+        c.clear()
     boot.blind_rotate_core_fused64.cluster_launches = 0
     rng = np.random.default_rng(0)
     steps = []
@@ -856,6 +944,17 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     walk_all, walk_clustered = mk_launches.pop("blind_rotate_core_fused64"), boot.blind_rotate_core_fused64.cluster_launches
     mk_launches["fhew_blind_rotate64"], mk_launches["fhew_blind_rotate64_cluster"] = walk_all - walk_clustered, walk_clustered
     say(f"{tag} M4 launches on the main path (the u8 expression, its decryption, one NAND batch of {B}): {mk_launches}")
+    lost = {}
+    for name, counts in by_shape.items():
+        parts = []
+        for rows, cnt in sorted(counts.items()):
+            if (name, rows) in shape_ms:
+                g_ms, b_ms = shape_ms[name, rows]
+                lost[name] = lost.get(name, 0.0) + cnt * (g_ms - b_ms)
+                parts.append(f"{cnt} x {rows} rows: {cnt} x ({g_ms * 1e3:.3f} - {b_ms * 1e3:.3f}) us = {cnt * (g_ms - b_ms) * 1e3:.1f} us")
+            else:
+                parts.append(f"{cnt} x {rows} rows: not timed")
+        say(f"{tag} M4 {name} launches by shape, with launches x (time - bound) from M1/M2's CUDA-graph times: {'; '.join(parts) or 'none'}; in all {lost.get(name, 0.0) * 1e3:.1f} us")
     for name in ("ntt64", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster"):
         if mk_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the multi-key main path")

@@ -11,12 +11,26 @@
 //   K-FHEW-BR64 <- the u64 branch of the scan blind_rotate_core_fused
 //                  (learn_fhe_tpu/models/fhew/bootstrapping.py:423, u32
 //                  false at :436), vmapped over the batch.
-// Both run lft64::phase (u64.cuh): per digit row the Zq gadget digit, its
-// forward NTT, and its products with the key's evaluation-basis Montgomery
-// rows summed in 128 bits; one REDC per output coefficient; two inverse
-// NTTs. The results are bit-identical to external_product64_ref and
-// blind_rotate_core_fused_ref's u64 branch.
+// Per digit row both compute the Zq gadget digit, its forward NTT, and its
+// products with the key's evaluation-basis Montgomery rows summed in 128
+// bits; REDC; two inverse NTTs. The results are bit-identical to
+// external_product64_ref and blind_rotate_core_fused_ref's u64 branch.
 //
+// K-EXTPROD64 (redesigned, lft64::rows::external_product in u64_rows.cuh):
+// one 256-thread block per product, two blocks an SM. What bounded it: at
+// the merge's chunk (600 products of 10 rows, N = 2048, q ~ 2^55) the
+// instructions' issue (0.085 ms counted) against 0.26 ms taken, with one
+// 512-thread block an SM holding all 10 digit rows in 208 KB of shared
+// memory, its 10 forward transforms 54% of a product and the contraction's
+// waits on 320 KB of key rows (L2 hits: each key serves 10 consecutive
+// products) 15%, with no other block to fill them, and 4.55 waves. The
+// design: the digit rows pass through 5-row groups (112 KB a block, so two
+// blocks an SM fill each other's waits); the digits are made inside the
+// first forward pass, the last forward pass feeds the contraction directly
+// (one REDC per group, the group residues added mod q), the first inverse
+// pass runs on the sums in registers and the last writes device memory.
+//
+// K-FHEW-BR64 runs lft64::phase (u64.cuh).
 // K-FHEW-BR64: each ciphertext walks its fused schedule of (ext_idx,
 // auto_idx) pairs to its first (-1, -1). A step runs, if ext >= 0, the
 // external product with brk[ext] (2d rows), then, if auto >= 0, the
@@ -64,6 +78,7 @@
 #include <cstdint>
 
 #include "u64.cuh"
+#include "u64_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -100,35 +115,31 @@ __device__ __forceinline__ void store_acc(const uint64_t* acc, uint64_t* __restr
 
 // Input i of the batch against key rows key_idx[i] (rows of 2^log_n each):
 // an external product (key_switch 0, rows = 2d) or a key switch of the
-// input (key_switch 1, rows = d).
-template <bool kLazy>
-__global__ void __launch_bounds__(kThreads, 1)
+// input (key_switch 1, rows = d), `group` digit rows at a time; kLogN 11 for
+// N = 2048 (every offset a constant), 1 or 2 for N = 2 or 4, else 0
+// (lft64::rows::external_product).
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(lft64::rows::kExtThreads, 2)
     external_product64_kernel(const uint64_t* __restrict__ ct_a, const uint64_t* __restrict__ ct_b,
                               uint64_t* __restrict__ out_a, uint64_t* __restrict__ out_b,
                               const int32_t* __restrict__ key_idx, const uint64_t* __restrict__ key_a,
                               const uint64_t* __restrict__ key_b, int n_keys, int rows, int key_switch,
                               lft64::Tables t, lft64::Gadget g, int log_n, int group, int* __restrict__ error) {
   extern __shared__ uint64_t sh[];
-  const int n = 1 << log_n;
-  uint64_t* acc = sh;
-  uint64_t* gb = sh + 2 * n;
-  uint64_t* buf = sh + 3 * n;
-  const lft64::Share one{0, 1, nullptr};
-  load_acc(acc, ct_a, ct_b, blockIdx.x, log_n);
   const int e = key_idx[blockIdx.x];
-  if (e < 0 || e >= n_keys) {
-    if (threadIdx.x == 0) atomicOr(error, kBadExt);
-  } else {
-    const size_t key = static_cast<size_t>(e) * rows << log_n;
-    if (key_switch) {
-      lft64::phase<true, kLazy, false>(acc, buf, group, gb, one, log_n, t, g, rows, key_a + key, key_b + key,
-                                       nullptr, nullptr);
-    } else {
-      lft64::phase<false, kLazy, false>(acc, buf, group, gb, one, log_n, t, g, rows, key_a + key, key_b + key,
-                                        nullptr, nullptr);
+  const size_t ct = blockIdx.x;
+  if (e < 0 || e >= n_keys) {  // the output is the input
+    const size_t base = ct << log_n;
+    for (int j = threadIdx.x; j < (1 << log_n); j += blockDim.x) {
+      out_a[base + j] = ct_a[base + j];
+      out_b[base + j] = ct_b[base + j];
     }
+    if (threadIdx.x == 0) atomicOr(error, kBadExt);
+    return;
   }
-  store_acc(acc, out_a, out_b, blockIdx.x, log_n);
+  const size_t key = static_cast<size_t>(e) * rows << log_n;
+  lft64::rows::external_product<kLazy, kLogN>(sh, group, ct_a, ct_b, out_a, out_b, ct, key_a + key, key_b + key, rows,
+                                       key_switch != 0, t, g, log_n);
 }
 
 // The walk; with kCluster, one cluster of blocks per ciphertext (the
@@ -194,9 +205,17 @@ WalkKernel walk_kernel(uint64_t q, bool clustered) {
   return clustered ? fhew_blind_rotate64_kernel<true, true> : fhew_blind_rotate64_kernel<true, false>;
 }
 
-// The digit rows a block's buffer holds at once: as many of the `rows` it
-// takes as fit in shared memory beside the fixed rows (all 10 of an
-// external product at N=2048 and C = 1: 208 KB). Fewer rows at a time (4,
+// K-EXTPROD64's instance for the ring: N = 2048, N = 2 or 4, or any other N.
+template <bool kLazy>
+auto ext_kernel(int log_n) -> decltype(&external_product64_kernel<kLazy, 0>) {
+  if (log_n == lft64::kMaxLogN) return external_product64_kernel<kLazy, lft64::kMaxLogN>;
+  if (log_n == 1) return external_product64_kernel<kLazy, 1>;
+  return log_n == 2 ? external_product64_kernel<kLazy, 2> : external_product64_kernel<kLazy, 0>;
+}
+
+// The walk's digit rows a block's buffer holds at once: as many of the
+// `rows` it takes as fit in shared memory beside the fixed rows (all 10 of
+// an external product at N=2048 and C = 1: 208 KB). Fewer rows at a time (4,
 // then 5) ran slower on an H100: more barriers, fewer items per thread
 // between them.
 int group_rows(int log_n, int rows, bool clustered) {
@@ -277,11 +296,11 @@ int lft_external_product64(const void* ct_a, const void* ct_b, void* out_a, void
   if (batch < 1 || n_keys < 1 || bad_args(log_n, q, rows, log_b, d) || rows != (key_switch ? d : 2 * d)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int group = group_rows(log_n, rows, false);
-  const size_t smem = smem_bytes(log_n, group, false);
-  const auto kernel = lft64::lazy_ok(q) ? external_product64_kernel<true> : external_product64_kernel<false>;
+  const int group = lft64::rows::ext_group(log_n, rows, q);
+  const size_t smem = static_cast<size_t>(2 + group) << log_n << 3;
+  const auto kernel = lft64::lazy_ok(q) ? ext_kernel<true>(log_n) : ext_kernel<false>(log_n);
   if (const int err = prepare(kernel, smem)) return err;
-  kernel<<<static_cast<unsigned>(batch), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(batch), lft64::rows::ext_threads(log_n), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(ct_a), static_cast<const uint64_t*>(ct_b), static_cast<uint64_t*>(out_a),
       static_cast<uint64_t*>(out_b), static_cast<const int32_t*>(key_idx), static_cast<const uint64_t*>(key_a),
       static_cast<const uint64_t*>(key_b), n_keys, rows, key_switch,

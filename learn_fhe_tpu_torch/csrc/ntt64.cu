@@ -14,19 +14,34 @@
 // through device memory and does log N u64 Shoup butterflies per pair, each
 // some twenty 32-bit instructions (a 64 x 64 product is several IMADs), so
 // at (6000, 2048) the instructions' issue, not the bytes, sets the floor.
-// The design, simple first: a 256-thread block owns 2048 values (max(1,
-// 2048 / N) rows; a ragged last block reads zeros for its missing rows and
-// does not store them), loads them into shared memory, runs the layers in
-// passes of up to 3 on values held in registers with a barrier after each
-// pass (lft64::ntt_rows / intt_rows, the passes K-EXTPROD64 and K-FHEW-BR64
-// run), and stores them. Twiddles come through the read-only cache. Each
-// kernel has an eager and a lazy instance (u64.cuh); the lazy one runs for
-// q < 2^62 (lft64::lazy_ok).
+// K-NTT64, simple first: a 256-thread block owns 2048 values (max(1, 2048
+// / N) rows; a ragged last block reads zeros for its missing rows and does
+// not store them), loads them into shared memory, runs the layers in passes
+// of up to 3 on values held in registers with a barrier after each pass
+// (lft64::ntt_rows / intt_rows), and stores them. Twiddles come through the
+// read-only cache.
+//
+// K-POLYMUL64 (redesigned, u64_rows.cuh): a 256-thread block owns the same
+// rows of both operands. At N = 2048 (the multi-key sets' ring) a block per
+// row pair brings its two rows into shared memory by two bulk copies (TMA)
+// and runs every pass with its shape a constant; at other N it reads them
+// in its first pass. Its last forward pass, the product and its first
+// inverse pass run on one item in registers, its last inverse pass writes
+// device memory: 6 barriers, not 10. The multi-key path launches it at
+// 6000 rows (an RGSW encryption of a brk; three blocks an SM, 80
+// registers) and at 1-8 rows (a key share's public-key products: one
+// block's chain). Measured and left out (PERF.md): 512-thread blocks for
+// the small launches, and a persistent grid that brought the next row pair
+// in under the current one's passes.
+//
+// Each kernel has an eager and a lazy instance (u64.cuh); the lazy one runs
+// for q < 2^62 (lft64::lazy_ok).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "u64.cuh"
+#include "u64_rows.cuh"
 
 namespace {
 
@@ -74,22 +89,27 @@ __global__ void __launch_bounds__(kThreads)
   store(buf, y, s, log_n);
 }
 
-// y = INTT(NTT(a) * NTT(b)), the product by two REDCs (lft64::mul_mod).
+// y = INTT(NTT(a) * NTT(b)), the product by two REDCs (lft64::mul_mod), at
+// any N: a block owns max(1, 2048 / N) rows of each operand.
 template <bool kLazy>
 __global__ void __launch_bounds__(kThreads)
     negacyclic_mul64_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                             uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n, uint64_t r2) {
   __shared__ uint64_t buf[2 * kValues];
   const Span s = span(rows, log_n);
-  load(buf, a, s, log_n);
-  load(buf + kValues, b, s, log_n);
-  __syncthreads();
-  lft64::ntt_rows<kLazy>(buf, 2 * s.per, log_n, t);  // a's rows, then b's
-  const lft64::Mod m{t.q, t.neg_q_inv};
-  for (int i = threadIdx.x; i < kValues; i += kThreads) buf[i] = lft64::mul_mod(buf[i], buf[kValues + i], r2, m);
-  __syncthreads();
-  lft64::intt_rows<kLazy>(buf, s.per, log_n, t, nullptr);
-  store(buf, y, s, log_n);
+  lft64::rows::OperandRows src{a, b, s.first, s.per, s.have, log_n};
+  lft64::rows::polymul<kThreads, kLazy, 0>(src, y, t, s.first, s.per, s.have, log_n, r2, buf);
+}
+
+// The same at N = 2048, a block per row pair, the rows brought in by bulk
+// copies (lft64::rows::polymul_bulk).
+template <bool kLazy>
+__global__ void __launch_bounds__(kThreads)
+    negacyclic_mul64_bulk_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                                 uint64_t* __restrict__ y, lft64::Tables t, uint64_t r2) {
+  __shared__ __align__(16) uint64_t buf[2 * kValues];
+  __shared__ uint64_t bar;
+  lft64::rows::polymul_bulk<kThreads, kLazy>(a, b, y, t, r2, &bar, buf);
 }
 
 bool bad_args(int rows, int log_n, uint64_t q) {
@@ -142,10 +162,19 @@ int lft_negacyclic_mul64(const void* a, const void* b, void* y, const void* psi,
                          unsigned long long neg_q_inv, unsigned long long n_inv, unsigned long long n_inv_s,
                          unsigned long long r2, void* stream) {
   if (bad_args(rows, log_n, q)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = lft64::lazy_ok(q) ? negacyclic_mul64_kernel<true> : negacyclic_mul64_kernel<false>;
-  kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b), static_cast<uint64_t*>(y),
-      tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n, r2);
+  const lft64::Tables t = tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const uint64_t*>(a);
+  const auto* pb = static_cast<const uint64_t*>(b);
+  auto* py = static_cast<uint64_t*>(y);
+  const bool lazy = lft64::lazy_ok(q);
+  if (log_n != lft64::rows::kBulkLogN) {
+    const auto kernel = lazy ? negacyclic_mul64_kernel<true> : negacyclic_mul64_kernel<false>;
+    kernel<<<grid(rows, log_n), kThreads, 0, s>>>(pa, pb, py, t, rows, log_n, r2);
+  } else {
+    const auto kernel = lazy ? negacyclic_mul64_bulk_kernel<true> : negacyclic_mul64_bulk_kernel<false>;
+    kernel<<<static_cast<unsigned>(rows), kThreads, 0, s>>>(pa, pb, py, t, r2);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

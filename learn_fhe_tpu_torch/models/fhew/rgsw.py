@@ -15,6 +15,7 @@ switch and every row of an internal product.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
@@ -207,11 +208,13 @@ def external_product64(
 ) -> RlweCiphertext:
     """K-EXTPROD64: the u64 external product (or key switch) of M RLWE
     ciphertexts ct (M, N), ciphertext i against key rows key_idx[i] of
-    key_a, key_b (K, R, N) with R = 2d (d for a key switch), one 512-thread
-    block per ciphertext, one launch. On CPU tensors, the plain version. A
-    key index outside the key leaves that output as its input and ORs 1 into
-    the kernel error word (`kernels.error_word`); the callers build the
-    indices in range."""
+    key_a, key_b (K, R, N) with R = 2d (d for a key switch), one launch:
+    one 256-thread block per ciphertext, two to an SM, the digit rows 5 at
+    a time at N=2048 (`csrc/u64_rows.cuh`). The kernel reads key rows with
+    16-byte loads, so key_a and key_b must be 16-byte aligned. On CPU
+    tensors, the plain version. A key index outside the key leaves that
+    output as its input and ORs 1 into the kernel error word
+    (`kernels.error_word`); the callers build the indices in range."""
     if ct.a.is_cpu:
         return external_product64_ref(gadget, plan, key_a, key_b, key_idx, ct, key_switch)
     name, n = "external_product64", plan.n
@@ -226,6 +229,8 @@ def external_product64(
     kernels.require(f"{name} key_idx", key_idx, torch.int32, (m,))
     kernels.require(f"{name} key_a", key_a, torch.int64, (key_a.shape[0], rows, n))
     kernels.require(f"{name} key_b", key_b, torch.int64, key_a.shape)
+    if key_a.data_ptr() % 16 or key_b.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads key rows with 16-byte loads; key_a or key_b is not 16-byte aligned")
     out = RlweCiphertext(torch.empty_like(ct.a), torch.empty_like(ct.b))
     if m:
         kernels.launch(
@@ -235,10 +240,12 @@ def external_product64(
             plan.n_inv_shoup, *gadget_args(gadget), kernels.error_word(ct.a.device).data_ptr(),
         )  # fmt: skip
         external_product64.launches += 1
+        external_product64.by_count[m] += 1
     return out
 
 
-external_product64.launches = 0
+# launches, and launches by the count of products
+external_product64.launches, external_product64.by_count = 0, Counter()
 
 
 def gadget_args(g: Gadget) -> tuple[int, int, int, int]:

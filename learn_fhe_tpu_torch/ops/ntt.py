@@ -15,7 +15,8 @@ radix-2 version:
   `intt` (`:189`);
 - `negacyclic_mul64` replaces `negacyclic_mul` (`:261`): both forward
   transforms, the pointwise Montgomery product and the inverse in one
-  launch.
+  launch (on the row passes of `csrc/u64_rows.cuh`; at N=2048 a block per
+  row pair, its rows brought into shared memory by bulk copies).
 Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
 to the kernel, or the wrapper raises. Below q < 2^62 the kernels run their
 lazy instance (`lazy_butterflies`), above it the eager one, as the C side
@@ -24,6 +25,7 @@ chooses; both return the canonical residues.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import NamedTuple
@@ -195,6 +197,7 @@ def ntt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     if rows:
         kernels.launch("lft_ntt64_fwd", x.data_ptr(), y.data_ptr(), *table_pointers(plan, x.get_device()), rows, plan.log_n, *_consts(plan))
         ntt64.launches += 1
+        ntt64.by_rows[rows] += 1
     return y
 
 
@@ -207,7 +210,13 @@ def intt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     if rows:
         kernels.launch("lft_ntt64_inv", x.data_ptr(), y.data_ptr(), *table_pointers(plan, x.get_device()), rows, plan.log_n, *_consts(plan))
         intt64.launches += 1
+        intt64.by_rows[rows] += 1
     return y
+
+
+# The ring at which K-POLYMUL64 brings its rows in by bulk copies
+# (`lft64::rows::kBulkLogN`), which need 16-byte aligned rows.
+BULK_LOG_N = 11
 
 
 def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.Tensor:
@@ -216,6 +225,8 @@ def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.T
         return negacyclic_mul64_ref(a, b, plan)
     rows = _check("negacyclic_mul64", a, plan)
     kernels.require("negacyclic_mul64", b, torch.int64, a.shape)
+    if plan.log_n == BULK_LOG_N and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError("negacyclic_mul64: at N=2048 the kernel brings rows in by 16-byte bulk copies; a or b is not 16-byte aligned")
     y = torch.empty_like(a)
     if rows:
         kernels.launch(
@@ -223,12 +234,13 @@ def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.T
             rows, plan.log_n, *_consts(plan), plan.zq.r2,
         )  # fmt: skip
         negacyclic_mul64.launches += 1
+        negacyclic_mul64.by_rows[rows] += 1
     return y
 
 
-ntt64.launches = 0
-intt64.launches = 0
-negacyclic_mul64.launches = 0
+# launches, and launches by row count (the shapes a path launches them at)
+for _fn in (ntt64, intt64, negacyclic_mul64):
+    _fn.launches, _fn.by_rows = 0, Counter()
 
 # The JAX package's names.
 ntt, intt, negacyclic_mul = ntt64, intt64, negacyclic_mul64

@@ -1,0 +1,173 @@
+"""Time K-POLYMUL64, K-NTT64, `intt64` and K-EXTPROD64 at every shape the
+multi-key path launches them at, each against its bound, and the kernels
+that share their code or their card beside them; with `--parent DIR`, the
+same for the kernel library built from another checkout's sources
+(`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
+with more than one, each parent's turns around this checkout's).
+
+Both libraries run through this checkout's wrappers on the same inputs
+(`kernels.library` is pointed at one, then the other), so the C entry
+points of the two must take the same arguments. K-NTT64's, K-POLYMUL64's
+and K-EXTPROD64's times are per launch from a CUDA graph of `--reps`
+launches (no host time between launches); the walks' (K-FHEW-BR64 at a
+round of 2 gates and at batch 128) and K-STEP's are CUDA events around
+eager wrapper calls, K-FHEW-BR's (batch 128) from a CUDA graph too.
+Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
+
+Run from the repository root on a machine with one CUDA device:
+
+    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only] [--json PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from learn_fhe_tpu_torch.utils import kernels  # noqa: E402
+
+
+def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """(name, call, bound, how it is timed) for every measured launch:
+    chip_smoke.py's M1 and M2 shapes (`chip_smoke.u64_cases`), and with
+    walks, K-FHEW-BR64 at a round of 2 gates and at 128, K-FHEW-BR and
+    K-STEP."""
+    from learn_fhe_tpu_torch.examples.multi_key_uint8 import example_params
+    from learn_fhe_tpu_torch.models import fhew, tfhe
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.models.tfhe import tggsw, tglwe, tlwe
+    from learn_fhe_tpu_torch.parallel import batch as pbatch
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    params = example_params(full=True)
+    q, n = params.big_q, params.n
+    rng = np.random.default_rng(11)
+
+    def residues(shape, modulus=q):
+        return u64_to_torch(rng.integers(0, modulus, size=shape, dtype=np.uint64))
+
+    timed, _, _ = cs.u64_cases(params, residues, dev)
+    out = [
+        (f"{name} ({rows})", kernel, cs.bound_ms(n_bytes, ops, pipe_per_s), "graph")
+        for (name, rows), (kernel, _, n_bytes, ops) in timed.items()
+    ]
+    if not walks:
+        return out
+
+    # K-FHEW-BR64 on random key rows at the full set: a round of 2 gates, and 128
+    key = cs.random_walk_key(boot, params, residues, dev)
+    a2n = torch.from_numpy(2 * rng.integers(0, n, size=(cs.FHEW_BATCH, params.lwe_s.n)) + 1).to(dev)
+    e_all, a_all = boot.schedule(params, a2n)
+    for b in (cs.ROUND_BATCH, cs.FHEW_BATCH):
+        acc = RlweCiphertext(residues((b, n)).to(dev), residues((b, n)).to(dev))
+        e_idx, a_idx = e_all[:b].contiguous(), a_all[:b].contiguous()
+        label = f"fhew_blind_rotate64 batch {b} (C = {boot.walk64_cluster(b, params, dev)})"
+        out.append((label, lambda e=e_idx, a=a_idx, acc=acc: boot.blind_rotate_core_fused(params, key, e, a, acc), None, "events"))
+
+    # K-FHEW-BR at the 28-bit reference fixture, batch 128
+    fp = cs.fhew_reference_params()
+    z = fhew.rlwe.sk_gen(fp.rlwe, rng)
+    fkey = fhew.key_gen(fp, z, rng, dev)
+    m = torch.from_numpy(rng.integers(0, 2, size=(2, cs.FHEW_BATCH))).to(dev)
+    c0, c1 = (lwe.sk_encrypt(fp.lwe_z, z, gates.encode_bool(fp, m[i]), rng) for i in range(2))
+    lin = gates._lin2(fp, "nand", c0, c1)
+    ct_a, f_prime = pbatch._fhew_preamble(fp, fkey, gates.lut_poly(fp, gates.GATE_TABLES["nand"], dev), lin)
+    fe, fa = boot.schedule(fp, ct_a)
+    facc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
+    out.append((f"fhew_blind_rotate batch {cs.FHEW_BATCH}", lambda: boot.blind_rotate_core_fused(fp, fkey, fe, fa, facc), None, "graph"))
+
+    # K-STEP at the TFHE reference fixture, batch 128, per step of the C loop
+    cfg = cs.REFERENCE
+    tp = tfhe.BootstrapParams(
+        tfhe.TlweParams(log_p=cfg["log_p"], padding=1, n=cfg["n"], std_dev=cfg["tlwe_std"], log_b=4, d=5),
+        tfhe.TggswParams(tfhe.TglweParams(log_p=cfg["log_p"], padding=1, big_n=cfg["big_n"], k=1, std_dev=cfg["tglwe_std"]), log_b=23, d=1),
+    )  # fmt: skip
+    tz = tlwe.sk_gen(tp.tlwe, rng)
+    tkey = tfhe.key_gen(tp, tz, rng, dev)
+    tab = u64_to_torch(tfhe.lut_table(tp.tlwe.log_p, tp.big_n, lambda v: v), dev)
+    cts = tlwe.sk_encrypt(tp.tlwe, tz, tlwe.encode(tp.tlwe, torch.from_numpy(rng.integers(0, tp.tlwe.p, size=cs.BATCH)).to(dev)), rng)
+    a2n_t, b2n_t = tfhe.mod_switch_2n(cts, tp.big_n)
+    zeros = torch.zeros((cs.BATCH, 1, tp.big_n), dtype=torch.int64, device=dev)
+    tacc = tglwe.rotate(tglwe.TglweCiphertext(zeros, tglwe.encode(tp.tglwe, tab).expand(cs.BATCH, tp.big_n)), (-b2n_t) % (2 * tp.big_n))
+    exps = a2n_t.t().contiguous()
+    steps = tp.tlwe.n
+
+    def step():
+        tggsw.blind_rotate_steps(tp.tggsw, tkey.brk, tacc, exps, tkey.mon_v, tkey.mon_d)
+
+    out.append((f"tfhe_step batch {cs.BATCH} (per step of {steps})", step, None, f"events/{steps}"))
+    return out
+
+
+def measure(cases_, reps: int) -> dict[str, float]:
+    got = {}
+    for name, fn, _, how in cases_:
+        if how == "graph":
+            got[name] = cs.graph_ms(fn, reps) * 1e3
+        else:
+            per = int(how.split("/")[1]) if "/" in how else 1
+            got[name] = cs.cuda_ms(fn, 3) * 1e3 / per
+    return got
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, action="append", default=[], help="a checkout whose kernel library is timed in turns with this one (repeatable)")
+    ap.add_argument("--reps", type=int, default=20, help="launches per CUDA graph")
+    ap.add_argument("--json", type=Path, help="write the times here as JSON")
+    ap.add_argument("--u64-only", action="store_true", help="time K-NTT64, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("u64_ab: no CUDA device")
+    card = cs.card_line()
+    sm_mhz = float(cs.smi("clocks.max.sm"))
+    pipe_per_s = cs.SMS * cs.PIPE_LANES * sm_mhz * 1e6
+    print(f"card: {card}; max SM clock {sm_mhz:.0f} MHz", flush=True)
+    libs = {"this": kernels.library()}
+    for parent in args.parent:
+        name = parent.resolve().name
+        so = kernels.BUILD_DIR / "parent" / f"liblft_kernels-{name}.so"
+        t0 = time.perf_counter()
+        kernels.build(parent.resolve() / "learn_fhe_tpu_torch" / "csrc", so)
+        print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
+        libs[name] = kernels.load(so)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    built = cases(dev, pipe_per_s, walks=not args.u64_only)
+    others = [k for k in libs if k != "this"]
+    order = others + ["this", "this"] + others[::-1]
+    runs: dict[str, list[dict[str, float]]] = {k: [] for k in libs}
+    for which in order:
+        kernels.library = lambda lib=libs[which]: lib
+        runs[which].append(measure(built, args.reps))
+        print(f"turn done: {which}", flush=True)
+    rows = []
+    for name, _, bound, how in built:
+        row = {"name": name, "timed": how, **{k: [r[name] for r in v] for k, v in runs.items()}}
+        if bound is not None:
+            row["bound_us"], row["bound_by"] = bound[0] * 1e3, bound[1]
+        rows.append(row)
+        times = "; ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in v) for k, v in ((k, row[k]) for k in runs))
+        share = ""
+        if bound is not None:
+            share = "; share " + "; ".join(f"{k} {row['bound_us'] / min(row[k]):.4f}" for k in runs)
+            share = f"; bound {row['bound_us']:.3f} us by {bound[1]}{share}"
+        print(f"[{card}] {name}: {times} us{share}", flush=True)
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps({"card": card, "sm_mhz": sm_mhz, "rows": rows}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

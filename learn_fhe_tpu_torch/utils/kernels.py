@@ -120,30 +120,32 @@ def _library_path() -> Path:
     return BUILD_DIR / f"liblft_kernels-{h.hexdigest()[:16]}.so"
 
 
-@lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    so = _library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc, tmp = _nvcc(), so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-        outs = [p.communicate()[0] for p in procs]
-        codes = [p.returncode for p in procs]
-        if not any(codes):
-            cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
-            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            outs.append(link.stdout)
-            codes.append(link.returncode)
-        log = "".join(f"$ {' '.join(c)}\n{out}" for c, out in zip(cmds, outs))
-        (BUILD_DIR / "build.log").write_text(log)
-        for o in objs:
-            o.unlink(missing_ok=True)
-        if any(codes):
-            raise KernelBuildError(f"nvcc failed ({max(codes)}):\n{log[-8000:]}")
-        os.replace(tmp, so)
+def build(csrc: Path, so: Path) -> None:
+    """Compile the sources `SOURCES` of `csrc` into the shared library `so`,
+    with the compiler's output in `build.log` beside it."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    nvcc, tmp = _nvcc(), so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)] for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if not any(codes):
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        outs.append(link.stdout)
+        codes.append(link.returncode)
+    log = "".join(f"$ {' '.join(c)}\n{out}" for c, out in zip(cmds, outs))
+    (so.parent / "build.log").write_text(log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if any(codes):
+        raise KernelBuildError(f"nvcc failed ({max(codes)}):\n{log[-8000:]}")
+    os.replace(tmp, so)
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """Load a library that `build` made, with its entry points' argument types."""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -152,6 +154,15 @@ def library() -> ctypes.CDLL:
     lib.lft_error_string.argtypes = (ctypes.c_int,)
     lib.lft_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    so = _library_path()
+    if not so.exists():
+        build(CSRC, so)
+    return load(so)
 
 
 def build_log() -> str:
@@ -166,7 +177,7 @@ def build_log() -> str:
 # source's path, and a template instance adds its arguments after it
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE).
 _KERNEL_NAME = re.compile(
-    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64|negacyclic_mul64"
+    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64|negacyclic_mul64_bulk|negacyclic_mul64"
     r"|external_product64|fhew_blind_rotate64)_kernel(I(?:L[ib]\d+E)+E)?"
 )
 

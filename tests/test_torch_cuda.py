@@ -551,6 +551,157 @@ def test_external_product64_kernel_matches_plain(dev, fixture, key_switch):
         _same(got.b, want.b)
 
 
+# K-POLYMUL64 at the rows the multi-key path launches it at (1: the pk
+# shares; 5: ak_share_gen; 8: the u8 pk_encrypts; 6000: pk_encrypt_rgsw),
+# around a full first wave of blocks (132 SMs on an H100) and past 6000.
+@pytest.mark.parametrize("rows", [1, 5, 8, 131, 132, 133, 6000, 6001])
+@pytest.mark.parametrize("bits", [55, 62, 63])
+def test_negacyclic_mul64_kernel_at_path_shapes(dev, rows, bits):
+    """K-POLYMUL64 at N=2048 against its plain version (run on the card, on
+    the same inputs), at the full set's 55-bit prime, a 62-bit one (both
+    lazy) and a 63-bit one (the eager instance)."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    plan = ntt64.ntt_plan(_prime64(bits, 11), 2048)
+    rng = np.random.default_rng(rows + bits)
+    a, b = _u64(rng, plan.q, (rows, 2048)).to(dev), _u64(rng, plan.q, (rows, 2048)).to(dev)
+    want = ntt64.negacyclic_mul64_ref(a, b, plan).cpu()
+    before = ntt64.negacyclic_mul64.launches
+    _same(ntt64.negacyclic_mul64(a, b, plan), want)
+    assert ntt64.negacyclic_mul64.launches == before + 1
+    assert ntt64.negacyclic_mul64.by_rows[rows] >= 1
+
+
+@pytest.mark.parametrize("count", [1, 7, 10, 600, 601])
+@pytest.mark.parametrize("key_switch", [False, True])
+@pytest.mark.parametrize("fixture", ["full", "eager"])
+def test_external_product64_kernel_at_merge_shapes(dev, count, key_switch, fixture):
+    """K-EXTPROD64 on `count` products against its plain version (run on the
+    card): at the full set, keys as a merge chunk holds them (10
+    consecutive products a key, 600 = one chunk, 601 a ragged one), and on
+    a 63-bit prime (the eager instance, d = 1, N=128); as an external
+    product and as a key switch."""
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops.gadget import Gadget
+    from learn_fhe_tpu_torch.ops.ntt import ntt_plan
+
+    bits, log_n, log_b, d = _FIXTURES64["full"] if fixture == "full" else _EAGER64
+    n = 1 << log_n
+    q = _prime64(bits, log_n)
+    plan, gadget = ntt_plan(q, n), Gadget(q, log_b, d)
+    rows = d if key_switch else 2 * d
+    keys = -(-count // 10)
+    rng = np.random.default_rng(count + 2 * key_switch)
+    ka, kb = _u64(rng, q, (keys, rows, n)).to(dev), _u64(rng, q, (keys, rows, n)).to(dev)
+    ct = RlweCiphertext(_u64(rng, q, (count, n)).to(dev), _u64(rng, q, (count, n)).to(dev))
+    idx = (torch.arange(count, dtype=torch.int32) // 10).to(dev)
+    want = rgsw.external_product64_ref(gadget, plan, ka, kb, idx, ct, key_switch)
+    got = rgsw.external_product64(gadget, plan, ka, kb, idx, ct, key_switch)
+    _same(got.a, want.a.cpu())
+    _same(got.b, want.b.cpu())
+    assert rgsw.external_product64.by_count[count] >= 1
+
+
+@pytest.mark.parametrize("key_switch", [False, True])
+def test_external_product64_flags_a_key_index_outside_the_key(dev, key_switch):
+    """An index outside the key leaves that output as its input and ORs 1
+    into the error word; the other products are right."""
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops.gadget import Gadget
+    from learn_fhe_tpu_torch.ops.ntt import ntt_plan
+    from learn_fhe_tpu_torch.utils import kernels
+
+    bits, log_n, log_b, d = _FIXTURES64["full"]
+    n, q = 1 << log_n, _prime64(bits, log_n)
+    plan, gadget = ntt_plan(q, n), Gadget(q, log_b, d)
+    rows = d if key_switch else 2 * d
+    rng = np.random.default_rng(9)
+    ka, kb = _u64(rng, q, (2, rows, n)), _u64(rng, q, (2, rows, n))
+    ct = RlweCiphertext(_u64(rng, q, (4, n)), _u64(rng, q, (4, n)))
+    idx = torch.tensor([0, 2, 1, -1], dtype=torch.int32)
+    word = kernels.error_word(dev)
+    word.zero_()
+    got = rgsw.external_product64(
+        gadget, plan, ka.to(dev), kb.to(dev), idx.to(dev), RlweCiphertext(ct.a.to(dev), ct.b.to(dev)), key_switch
+    )
+    torch.cuda.synchronize()
+    assert int(word.item()) == 1
+    word.zero_()
+    good = torch.tensor([True, False, True, False])
+    want = rgsw.external_product64_ref(gadget, plan, ka, kb, idx.clamp(0, 1), ct, key_switch)
+    assert torch.equal(got.a.cpu()[good], want.a[good]) and torch.equal(got.b.cpu()[good], want.b[good])
+    assert torch.equal(got.a.cpu()[~good], ct.a[~good]) and torch.equal(got.b.cpu()[~good], ct.b[~good])
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 12)])
+@pytest.mark.parametrize("key_switch", [False, True])
+def test_external_product64_kernel_at_every_ring(dev, n, key_switch):
+    """K-EXTPROD64 at every ring the kernel takes, 2 <= N <= 2048 (at N <= 4
+    no head pass: the contraction makes its digits and the first inverse
+    pass writes device memory), on the full set's 55-bit gadget, as an
+    external product and as a key switch, against its plain version."""
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops.gadget import Gadget
+    from learn_fhe_tpu_torch.ops.ntt import ntt_plan
+
+    _, _, log_b, d = _FIXTURES64["full"]
+    q = _prime64(55, n.bit_length() - 1)
+    plan, gadget = ntt_plan(q, n), Gadget(q, log_b, d)
+    rows = d if key_switch else 2 * d
+    rng = np.random.default_rng(n + key_switch)
+    ka, kb = _u64(rng, q, (3, rows, n)), _u64(rng, q, (3, rows, n))
+    ct = RlweCiphertext(_u64(rng, q, (5, n)), _u64(rng, q, (5, n)))
+    idx = torch.tensor([2, 0, 1, 2, 0], dtype=torch.int32)
+    want = rgsw.external_product64_ref(gadget, plan, ka, kb, idx, ct, key_switch)
+    got = rgsw.external_product64(
+        gadget, plan, ka.to(dev), kb.to(dev), idx.to(dev), RlweCiphertext(ct.a.to(dev), ct.b.to(dev)), key_switch
+    )
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+
+
+def test_u64_kernels_refuse_rows_off_16_byte_alignment(dev):
+    """K-POLYMUL64 at N=2048 (rows brought in by bulk copies) and K-EXTPROD64
+    (key rows read with 16-byte loads) raise on a contiguous view whose data
+    starts 8 bytes off a 16-byte boundary, before any launch; K-POLYMUL64
+    at N=256, which reads its rows a value at a time, takes it."""
+    from learn_fhe_tpu_torch.models.fhew import rgsw
+    from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+    from learn_fhe_tpu_torch.ops.gadget import Gadget
+
+    rng = np.random.default_rng(16)
+    q = _prime64(55, 11)
+    for n, raises in ((2048, True), (256, False)):
+        plan = ntt64.ntt_plan(q, n)
+        flat = _u64(rng, q, (2 * 3 * n + 1,)).to(dev)
+        a, b = flat[1 : 3 * n + 1].view(3, n), flat[3 * n + 1 :].view(3, n)
+        assert a.is_contiguous() and a.data_ptr() % 16 == 8
+        before = ntt64.negacyclic_mul64.launches
+        if raises:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                ntt64.negacyclic_mul64(a, b, plan)
+            assert ntt64.negacyclic_mul64.launches == before
+        else:
+            _same(ntt64.negacyclic_mul64(a, b, plan), ntt64.negacyclic_mul64_ref(a.cpu(), b.cpu(), plan))
+    _, log_n, log_b, d = _FIXTURES64["full"]
+    n = 1 << log_n
+    plan, gadget = ntt64.ntt_plan(q, n), Gadget(q, log_b, d)
+    flat = _u64(rng, q, (2 * d * n + 1,)).to(dev)
+    ka = flat[1:].view(1, 2 * d, n)
+    kb = _u64(rng, q, (1, 2 * d, n)).to(dev)
+    ct = RlweCiphertext(_u64(rng, q, (2, n)).to(dev), _u64(rng, q, (2, n)).to(dev))
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = rgsw.external_product64.launches
+    for key_a, key_b in ((ka, kb), (kb, ka)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            rgsw.external_product64(gadget, plan, key_a, key_b, idx, ct, False)
+    assert rgsw.external_product64.launches == before
+
+
 _FHEW64 = {}
 
 

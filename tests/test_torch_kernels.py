@@ -24,6 +24,8 @@ _FHEW = (
 )
 _FHEW_11 = _FHEW.replace("ILi9EE", "ILi11EE")
 _NTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff12ntt64_kernelILb1EEEvPKmPmN5lft646TablesEiii"
+_MUL64_BULK = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff28negacyclic_mul64_bulk_kernelILb1EEEvPKmS2_PmN5lft646TablesEm"
+_EXT64 = "_ZN44_GLOBAL__N__15b4274e_11_fhew_u64_cu_b001eb1725external_product64_kernelILb1ELi11EEEvPKmS2_PmS3_PKiS2_S2_iiiN5lft646TablesENS6_6GadgetEiiPi"
 _WALK64 = (
     "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
     "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
@@ -52,6 +54,9 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_FHEW_11, "fhew_blind_rotate_kernel<11>"),
         (_NTT64, "ntt64_kernel<true>"),
         (_NTT64.replace("ILb1EE", "ILb0EE"), "ntt64_kernel<false>"),
+        (_MUL64_BULK, "negacyclic_mul64_bulk_kernel<true>"),
+        (_EXT64, "external_product64_kernel<true,11>"),
+        (_EXT64.replace("ILb1ELi11EE", "ILb0ELi0EE"), "external_product64_kernel<false,0>"),
         (_WALK64, "fhew_blind_rotate64_kernel<true,false>"),
         (_WALK64.replace("ILb1ELb0EE", "ILb1ELb1EE"), "fhew_blind_rotate64_kernel<true,true>"),
     ],
