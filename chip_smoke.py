@@ -59,14 +59,15 @@ Then multi-key FHEW with encrypted u8 on the u64 engine, the port of
 N=2048, B=2^11, d=5; LWE n=600, q_ks=2^20, B=2^5, d=4; window 10; 2
 parties):
 
-  M1. hold K-NTT64, intt64 and K-POLYMUL64 against their plain versions at
-      the 55-bit prime on (10, 2048) (one RGSW's rows), a ragged (19, 256)
-      and key generation's (6000, 2048), and K-POLYMUL64 at every row
-      count the multi-key path launches it at (1, 5, 8, 6000: its N=2048
-      instance; the ragged (19, 256) runs the one for any N); time each
-      kernel at the
-      shapes the path launches it at (K-POLYMUL64 at 1, 5, 8 and 6000
-      rows, K-NTT64 at 5, 600 and 6000, intt64 at 6000) against its bound;
+  M1. hold K-NTT64 (`ntt64`, and `ntt64_mont`, its Montgomery output),
+      intt64 and K-POLYMUL64 against their plain versions at the 55-bit
+      prime on (10, 2048) (one RGSW's rows), a ragged (19, 256) and key
+      generation's (6000, 2048), the three transforms also at 5 and 600
+      rows, and K-POLYMUL64 at every row count the multi-key path launches
+      it at (1, 5, 8, 6000: its N=2048 instance; the ragged (19, 256) runs
+      the one for any N); time each kernel at the shapes the path launches
+      it at (K-POLYMUL64 at 1, 5, 8 and 6000 rows, `ntt64` and `ntt64_mont`
+      at 5, 600 and 6000, intt64 at 6000) against its bound;
   M2. hold K-EXTPROD64 against its plain version at one merge chunk (60
       keys, 600 products), at 601 products and as a key switch; time it
       at the chunk;
@@ -79,8 +80,10 @@ parties):
   M4. the main path, with the launch counters set to 0 just before and
       read just after (K-NTT64's, intt64's and K-POLYMUL64's also by row
       count, K-EXTPROD64's by product count, each printed with its
-      launches x (time - bound) where M1 or M2 timed that shape): crs and
-      pk shares, each party's key share, the merge (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
+      launches x (time - bound) where M1 or M2 timed that shape; the path
+      converts keys into the evaluation basis by `ntt64_mont` alone, so
+      plain `ntt64` must not launch): crs and pk shares, each party's key
+      share, the merge (each timed), two u8 pk-encrypted (a=177, b=7), ((a+b)*(a-b)/a)%b in
       wrapping u8, gate round by gate round, and its threshold decryption,
       which must give the expected value (wall time and rounds printed,
       and the rounds by gates per round and by the cluster size they
@@ -91,7 +94,10 @@ parties):
       1, 2, 8, 36 and 128 of its schedule with the cluster size each took;
       the clustered instance at batch 2 (a round of two gates) and the
       single-block one at 128, each against its bound and its plain
-      version; the walk's device time at 128 and the device's idle share.
+      version; the walk's device time at 128 and the device's idle share;
+      the path's conversions into the evaluation basis whole
+      (`rlwe._to_eval_mont` at 5 rows, `rgsw.to_eval` at a merge chunk and
+      at the final 6000 rows), eager and from a CUDA graph.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -377,6 +383,12 @@ def ntt64_ops(rows: int, n: int, lazy: bool = True, canonical: bool = True) -> n
     return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY64_LAZY + (rows * n * 2 * CSUB64 if canonical else 0)
 
 
+def ntt64_mont_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
+    """`ntt64_mont`: the forward transforms, their values taken unreduced
+    into one Shoup product by 2^64 mod q each (canonical)."""
+    return ntt64_ops(rows, n, lazy, canonical=False) + rows * n * SHOUP64
+
+
 def intt64_ops(rows: int, n: int, lazy: bool = True) -> np.ndarray:
     """Inverse transforms with the 1/N scale (a Shoup product, canonical)."""
     return rows * (n // 2) * (n.bit_length() - 1) * (BUTTERFLY64_LAZY if lazy else BUTTERFLY64) + rows * n * SHOUP64
@@ -405,8 +417,9 @@ def extprod64_ops(count: int, n: int, rows: int, key_switch: bool, lazy: bool = 
 
 def u64_cases(params, residues, dev):
     """The u64 kernels' launches that M1 and M2 time, at the multi-key full
-    set: K-POLYMUL64, K-NTT64 and `intt64` at each row count the path
-    launches them at, and K-EXTPROD64 at one merge chunk (`chunk` keys of
+    set: K-POLYMUL64, K-NTT64 (`ntt64`, `ntt64_mont`) and `intt64` at each
+    row count the path launches them at (`ntt64` at `ntt64_mont`'s), and
+    K-EXTPROD64 at one merge chunk (`chunk` keys of
     2d rows, 10 consecutive products a key), as an external product and as
     a key switch. residues(shape) draws residues mod q on the CPU. Returns
     {(label, rows or products): (kernel call, plain call, bytes moved,
@@ -429,6 +442,7 @@ def u64_cases(params, residues, dev):
         )  # fmt: skip
     for name, fn, ref, counts, ops in (
         ("ntt64", tntt.ntt64, tntt.ntt64_ref, NTT_ROWS, ntt64_ops),
+        ("ntt64_mont", tntt.ntt64_mont, tntt.ntt64_mont_ref, NTT_ROWS, ntt64_mont_ops),
         ("intt64", tntt.intt64, tntt.intt64_ref, INTT_ROWS, intt64_ops),
     ):
         for rows in counts:
@@ -448,6 +462,24 @@ def u64_cases(params, residues, dev):
             4 * count * n * 8 + 2 * chunk * rows * n * 8 + count * 4, extprod64_ops(count, n, rows, a[-1], lazy, canonical=False),
         )  # fmt: skip
     return cases, args, ks_args
+
+
+def to_eval_calls(params, residues, dev):
+    """The multi-key path's conversions into the evaluation basis at each
+    shape it gives them: {(call, rows of an operand): (call, operands)}:
+    `rlwe._to_eval_mont` at 5 rows (`make_ksk`), `rgsw.to_eval` at a merge
+    chunk (60 keys of 2d = 10 rows) and at the final 6000 rows, each on
+    residues drawn by residues(shape)."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import rgsw, rlwe
+
+    n, rows_g = params.n, 2 * params.rgsw.gadget.d
+    x = residues((NTT_ROWS[0], n)).to(dev)
+    calls = {("_to_eval_mont", NTT_ROWS[0]): (lambda: rlwe._to_eval_mont(params.rlwe, x), 1)}
+    for keys in (boot.merge_chunk_size(params.lwe_s.n), params.lwe_s.n):
+        ct = rgsw.RgswCiphertext(residues((keys, rows_g, n)).to(dev), residues((keys, rows_g, n)).to(dev))
+        calls["to_eval", keys * rows_g] = (lambda ct=ct: rgsw.to_eval(params.rgsw, ct), 2)
+    return calls
 
 
 def random_walk_key(boot, p, residues, dev):
@@ -727,13 +759,15 @@ MK_PARTIES = 2
 MK_A, MK_B = 177, 7  # `examples/multi_key_uint8.py`'s defaults
 MK_KEYGEN_ROWS = 6000  # one party's brk: 600 RGSW encryptions of 2d = 10 rows
 MK_INSTANCES = (  # the lazy instances the 55-bit set runs; the walk alone (C = 1) and in clusters
-    "ntt64_kernel<true>", "negacyclic_mul64_bulk_kernel<true>", "external_product64_kernel<true,11>",
+    "ntt64_fwd_kernel<true,11,true>", "ntt64_fwd_kernel<true,11,false>", "ntt64_inv_kernel<true,11>",
+    "negacyclic_mul64_bulk_kernel<true>", "external_product64_kernel<true,11>",
     "fhew_blind_rotate64_kernel<true,false>", "fhew_blind_rotate64_kernel<true,true>",
 )  # fmt: skip
 WALK64_SWEEP = (1, 2, 8, 36, 128)
 # the row counts the multi-key path launches the u64 transforms at: K-POLYMUL64
 # for the pk shares, ak_share_gen, the u8 pk_encrypts and pk_encrypt_rgsw;
-# K-NTT64 for make_ksk, a merge chunk's to_eval and the final to_eval
+# K-NTT64's Montgomery instance for make_ksk, a merge chunk's to_eval and the
+# final to_eval
 POLYMUL_ROWS, NTT_ROWS, INTT_ROWS = (1, 5, 8, 6000), (5, 600, 6000), (6000,)
 ROUND_BATCH = 2  # the u8 expression's commonest round: a majority and a xor (`uint8.py`)
 
@@ -768,20 +802,21 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         out = fn(*args)
         return RlweCiphertext(out.a.cpu(), out.b.cpu()) if isinstance(out, tuple) else out.cpu()
 
-    # -- M1. K-NTT64, intt64, K-POLYMUL64 ----------------------------------------
-    for name in ("ntt64", "intt64", "negacyclic_mul64"):
+    # -- M1. K-NTT64 (ntt64, ntt64_mont), intt64, K-POLYMUL64 ---------------------
+    for name in ("ntt64", "ntt64_mont", "intt64", "negacyclic_mul64"):
         errs[name] = 0.0
     small = tntt.ntt_plan(q, min(256, n // 2))
-    for rows, p in ((10, plan), (19, small), (MK_KEYGEN_ROWS, plan)):
+    for rows, p in ((10, plan), (19, small), (MK_KEYGEN_ROWS, plan), *((r, plan) for r in NTT_ROWS[:-1])):
         x, y = residues((rows, p.n)).to(dev), residues((rows, p.n)).to(dev)
         check = (
             ("ntt64", tntt.ntt64(x, p), lambda: plain(tntt.ntt64_ref, x, p)),
+            ("ntt64_mont", tntt.ntt64_mont(x, p), lambda: plain(tntt.ntt64_mont_ref, x, p)),
             ("intt64", tntt.intt64(x, p), lambda: plain(tntt.intt64_ref, x, p)),
             ("negacyclic_mul64", tntt.negacyclic_mul64(x, y, p), lambda: plain(tntt.negacyclic_mul64_ref, x, y, p)),
         )
         for name, got, want in check:
             errs[name] = max(errs[name], max_abs_err(got, want()))
-        say(f"M1 ntt64 / intt64 / negacyclic_mul64 == plain at q={q} on ({rows}, {p.n}): ok")
+        say(f"M1 ntt64 / ntt64_mont / intt64 / negacyclic_mul64 == plain at q={q} on ({rows}, {p.n}): ok")
     for rows in POLYMUL_ROWS[:-1]:  # the path's other row counts
         x, y = residues((rows, n)).to(dev), residues((rows, n)).to(dev)
         errs["negacyclic_mul64"] = max(errs["negacyclic_mul64"], max_abs_err(tntt.negacyclic_mul64(x, y, plan), plain(tntt.negacyclic_mul64_ref, x, y, plan)))
@@ -876,8 +911,11 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
 
     # -- M4. the main path -----------------------------------------------------------
-    counted = (tntt.ntt64, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
-    by_shape = {"ntt64": tntt.ntt64.by_rows, "intt64": tntt.intt64.by_rows, "negacyclic_mul64": tntt.negacyclic_mul64.by_rows, "external_product64": rgsw.external_product64.by_count}
+    counted = (tntt.ntt64, tntt.ntt64_mont, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
+    by_shape = {
+        "ntt64": tntt.ntt64.by_rows, "ntt64_mont": tntt.ntt64_mont.by_rows, "intt64": tntt.intt64.by_rows,
+        "negacyclic_mul64": tntt.negacyclic_mul64.by_rows, "external_product64": rgsw.external_product64.by_count,
+    }  # fmt: skip
     for fn in counted:
         fn.launches = 0
     for c in by_shape.values():
@@ -955,10 +993,15 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
             else:
                 parts.append(f"{cnt} x {rows} rows: not timed")
         say(f"{tag} M4 {name} launches by shape, with launches x (time - bound) from M1/M2's CUDA-graph times: {'; '.join(parts) or 'none'}; in all {lost.get(name, 0.0) * 1e3:.1f} us")
-    for name in ("ntt64", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster"):
+    for name in ("ntt64_mont", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster"):
         if mk_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the multi-key main path")
+    if mk_launches["ntt64"]:
+        raise AssertionError("plain ntt64 ran on the multi-key main path: every conversion into the evaluation basis should be one ntt64_mont launch")
     launches.update(mk_launches)
+    for (call, rows), (fn, operands) in to_eval_calls(params, residues, dev).items():
+        e_ms, g_ms = cuda_ms(fn, 20), graph_ms(fn, 20)
+        say(f"{tag} M4 {call} at ({rows}, {n}) x {operands} operand(s), whole: {e_ms * 1e3:.2f} us per eager call (CUDA events over 20 calls), {g_ms * 1e3:.2f} us per call replayed from a CUDA graph of 20 = {g_ms * 1e3 / operands:.2f} us per operand")
 
     def gate_call():
         pbatch.fhew_gate_batch(params, key, "nand", c0, c1)
@@ -1287,6 +1330,7 @@ def main() -> None:
         ("tfhe_step", "tfhe_step.cu", "bench/pallas_step_experiment.py:202"),
         ("fhew_blind_rotate", "fhew_blind_rotate.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:423 (XLA scan; no Pallas call)"),
         ("ntt64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:135 (XLA fusion; no Pallas call)"),
+        ("ntt64_mont", "ntt64.cu", "learn_fhe_tpu/models/fhew/rgsw.py:116-131 and rlwe.py:148-150 (to_montgomery(ntt(x)), XLA fusions; no Pallas call)"),
         ("intt64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:189 (XLA fusion; no Pallas call)"),
         ("negacyclic_mul64", "ntt64.cu", "learn_fhe_tpu/ops/ntt.py:261 (XLA fusion; no Pallas call)"),
         ("external_product64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/rgsw.py:154 (u64 external product, XLA fusion; no Pallas call)"),

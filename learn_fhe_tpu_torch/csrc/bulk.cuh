@@ -1,7 +1,7 @@
 // The bulk copies (TMA, 1-D) from device memory into shared memory and the
 // mbarriers they report to, as inline PTX for sm_90a. K-POLYMUL64
-// (u64_rows.cuh) brings its rows in by them; csrc/fhew_blind_rotate.cu
-// keeps its own copy of the same helpers, without the two fences.
+// (u64_rows.cuh) brings its rows in by them, and K-FHEW-BR
+// (fhew_blind_rotate.cu) its key rows.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -66,6 +66,7 @@
 #include <utility>
 #include <vector>
 
+#include "bulk.cuh"
 #include "ntt32.cuh"
 
 namespace {
@@ -140,48 +141,6 @@ __host__ __device__ inline Layout layout(int log_n, int d_g, int d_k, bool stage
   l.aut = l.ext + (stage ? 4 * d_g * n : 0);
   l.words = l.aut + (stage ? align4(2 * d_k * n + n + n / 4) : 0);
   return l;
-}
-
-// ---------------------------------------------------------------------------
-// The bulk copies (TMA, 1-D) and their mbarriers.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(1u) : "memory");
-}
-
-// The one arrival of a phase of bar, which then completes when `bytes`
-// have landed.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// bytes (a multiple of 16) from device memory to shared memory, both
-// 16-byte aligned, reported to bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -460,9 +419,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint32_t* tw = sh + l.tw;  // psi, psi_s, psi_inv, psi_inv_s
   const Walk k{sh + l.buf, sh + l.acc, sh + l.gb, tw, tw + n, tw + 2 * n, tw + 3 * n, c};
   if (threadIdx.x == 0) {
-    mbar_init(bar_ext);
-    mbar_init(bar_auto);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    lft::bulk::mbar_init(bar_ext);
+    lft::bulk::mbar_init(bar_auto);
   }
   const size_t row = static_cast<size_t>(blockIdx.x) << LOG_N;
   const uint32_t* tables[4] = {psi, psi_s, psi_inv, psi_inv_s};
@@ -488,10 +446,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (!stage || e < 0 || e >= n_keys) return;
     if (threadIdx.x == 0) {
       const size_t key = static_cast<size_t>(e) * rows_g << LOG_N;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // after the reads of the last copy
-      mbar_expect(bar_ext, 2 * ext_bytes);
-      bulk_copy(ext_buf, brk_a + key, ext_bytes, bar_ext);
-      bulk_copy(ext_buf + rows_g * n, brk_b + key, ext_bytes, bar_ext);
+      lft::bulk::mbar_expect(bar_ext, 2 * ext_bytes);
+      lft::bulk::bulk_copy(ext_buf, brk_a + key, ext_bytes, bar_ext);  // its fence: after the reads of the last copy
+      lft::bulk::bulk_copy(ext_buf + rows_g * n, brk_b + key, ext_bytes, bar_ext);
     }
     ext_pending = true;
   };
@@ -500,12 +457,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (threadIdx.x == 0) {
       const size_t key = static_cast<size_t>(au) * gk.d << LOG_N;
       const size_t map = static_cast<size_t>(au) << LOG_N;
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      mbar_expect(bar_auto, 2 * aut_bytes + 5 * n);
-      bulk_copy(aut_buf, ak_a + key, aut_bytes, bar_auto);
-      bulk_copy(aut_buf + gk.d * n, ak_b + key, aut_bytes, bar_auto);
-      bulk_copy(aut_buf + 2 * gk.d * n, auto_src + map, 4 * n, bar_auto);
-      bulk_copy(aut_buf + 2 * gk.d * n + n, auto_sign + map, n, bar_auto);
+      lft::bulk::mbar_expect(bar_auto, 2 * aut_bytes + 5 * n);
+      lft::bulk::bulk_copy(aut_buf, ak_a + key, aut_bytes, bar_auto);
+      lft::bulk::bulk_copy(aut_buf + gk.d * n, ak_b + key, aut_bytes, bar_auto);
+      lft::bulk::bulk_copy(aut_buf + 2 * gk.d * n, auto_src + map, 4 * n, bar_auto);
+      lft::bulk::bulk_copy(aut_buf + 2 * gk.d * n + n, auto_sign + map, n, bar_auto);
     }
     auto_pending = true;
   };
@@ -532,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const uint32_t* ka = brk_a + key;
       const uint32_t* kb = brk_b + key;
       if (stage) {
-        mbar_wait(bar_ext, ext_phase++ & 1u);
+        lft::bulk::mbar_wait(bar_ext, ext_phase++ & 1u);
         ext_pending = false;
         ka = ext_buf;
         kb = ext_buf + rows_g * n;
@@ -550,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int32_t* map = auto_src + (static_cast<size_t>(au) << LOG_N);
       const uint8_t* sign = auto_sign + (static_cast<size_t>(au) << LOG_N);
       if (stage) {
-        mbar_wait(bar_auto, auto_phase++ & 1u);
+        lft::bulk::mbar_wait(bar_auto, auto_phase++ & 1u);
         auto_pending = false;
         ka = aut_buf;
         kb = aut_buf + gk.d * n;
@@ -567,8 +523,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
   // No copy may land after the block has gone.
-  if (ext_pending) mbar_wait(bar_ext, ext_phase & 1u);
-  if (auto_pending) mbar_wait(bar_auto, auto_phase & 1u);
+  if (ext_pending) lft::bulk::mbar_wait(bar_ext, ext_phase & 1u);
+  if (auto_pending) lft::bulk::mbar_wait(bar_auto, auto_phase & 1u);
   if (bad && threadIdx.x == 0) atomicOr(error, bad);
   for (int j = threadIdx.x; j < n; j += kThreads) {
     out_a[row + j] = k.acc[lft::swizzle(j)];

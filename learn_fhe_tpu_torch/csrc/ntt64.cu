@@ -14,12 +14,22 @@
 // through device memory and does log N u64 Shoup butterflies per pair, each
 // some twenty 32-bit instructions (a 64 x 64 product is several IMADs), so
 // at (6000, 2048) the instructions' issue, not the bytes, sets the floor.
-// K-NTT64, simple first: a 256-thread block owns 2048 values (max(1, 2048
-// / N) rows; a ragged last block reads zeros for its missing rows and does
-// not store them), loads them into shared memory, runs the layers in passes
-// of up to 3 on values held in registers with a barrier after each pass
-// (lft64::ntt_rows / intt_rows), and stores them. Twiddles come through the
-// read-only cache.
+//
+// K-NTT64 and intt64 (redesigned, u64_rows.cuh): a 256-thread block owns
+// 2048 values (max(1, 2048 / N) rows; a ragged last block reads zeros for
+// its missing rows and does not store them). The forward runs the head
+// passes of 3 layers, the first reading device memory, then the last pass
+// of 2 layers, whose item of 4 consecutive values goes out to device memory
+// from registers in 16-byte stores; the inverse runs the same passes the
+// other way, its first pass reading 4 consecutive values in 16-byte loads
+// and its last head pass writing device memory scaled by 1/N. Three
+// barriers at N = 2048, where every pass's shape is a constant. The
+// forward's Montgomery instance (K-NTT64's call sites on the multi-key
+// path, rgsw.to_eval and rlwe._to_eval_mont: the JAX package's jitted
+// to_montgomery(ntt(x)), rgsw.py:116-131 and rlwe.py:148-150) writes x 2^64
+// mod q as one Shoup product by 2^64 mod q in that last pass, so the path's
+// evaluation-basis keys take one launch and no eager conversion. N = 2 and
+// 4 run one pass from device memory to device memory.
 //
 // K-POLYMUL64 (redesigned, u64_rows.cuh): a 256-thread block owns the same
 // rows of both operands. At N = 2048 (the multi-key sets' ring) a block per
@@ -61,32 +71,24 @@ __device__ __forceinline__ Span span(int rows, int log_n) {
   return Span{first, per, static_cast<int>(left < per ? left : per)};
 }
 
-__device__ __forceinline__ void load(uint64_t* buf, const uint64_t* __restrict__ x, const Span& s, int log_n) {
-  const int values = s.have << log_n;
-  const uint64_t* src = x + (s.first << log_n);
-  for (int i = threadIdx.x; i < kValues; i += kThreads) buf[i] = i < values ? __ldg(src + i) : 0;
-}
-
-__device__ __forceinline__ void store(const uint64_t* buf, uint64_t* __restrict__ y, const Span& s, int log_n) {
-  const int values = s.have << log_n;
-  uint64_t* dst = y + (s.first << log_n);
-  for (int i = threadIdx.x; i < values; i += kThreads) dst[i] = buf[i];
-}
-
-template <bool kLazy>
+// kLogN: 11 (N = 2048, a block per row), 2 or 1 (N = 4 or 2, no head pass),
+// 0 (any N >= 8); kMont: the output in the Montgomery domain, r1 = 2^64 mod
+// q with its Shoup dual r1_s.
+template <bool kLazy, int kLogN, bool kMont>
 __global__ void __launch_bounds__(kThreads)
-    ntt64_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n,
-                 int inverse) {
-  __shared__ uint64_t buf[kValues];
-  const Span s = span(rows, log_n);
-  load(buf, x, s, log_n);
-  __syncthreads();
-  if (inverse) {
-    lft64::intt_rows<kLazy>(buf, s.per, log_n, t, nullptr);
-  } else {
-    lft64::ntt_rows<kLazy>(buf, s.per, log_n, t);
-  }
-  store(buf, y, s, log_n);
+    ntt64_fwd_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n,
+                     uint64_t r1, uint64_t r1_s) {
+  __shared__ uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kValues];
+  const Span s = span(rows, kLogN ? kLogN : log_n);
+  lft64::rows::forward<kThreads, kLazy, kLogN, kMont>(x, y, t, s.first, s.per, s.have, log_n, r1, r1_s, buf);
+}
+
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kThreads)
+    ntt64_inv_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n) {
+  __shared__ uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kValues];
+  const Span s = span(rows, kLogN ? kLogN : log_n);
+  lft64::rows::inverse<kThreads, kLazy, kLogN>(x, y, t, s.first, s.per, s.have, log_n, buf);
 }
 
 // y = INTT(NTT(a) * NTT(b)), the product by two REDCs (lft64::mul_mod), at
@@ -128,11 +130,31 @@ lft64::Tables tables(const void* psi, const void* psi_s, const void* psi_inv, co
                        q, neg_q_inv, n_inv, n_inv_s};
 }
 
-int launch_ntt(const void* x, void* y, const lft64::Tables& t, int rows, int log_n, int inverse, void* stream) {
+// The instance for the ring: N = 2048, 4, 2 or any other.
+template <bool kLazy, bool kMont>
+auto forward_kernel(int log_n) {
+  return log_n == 11 ? ntt64_fwd_kernel<kLazy, 11, kMont>
+         : log_n == 2 ? ntt64_fwd_kernel<kLazy, 2, kMont>
+         : log_n == 1 ? ntt64_fwd_kernel<kLazy, 1, kMont>
+                      : ntt64_fwd_kernel<kLazy, 0, kMont>;
+}
+
+template <bool kLazy>
+auto inverse_kernel(int log_n) {
+  return log_n == 11 ? ntt64_inv_kernel<kLazy, 11>
+         : log_n == 2 ? ntt64_inv_kernel<kLazy, 2>
+         : log_n == 1 ? ntt64_inv_kernel<kLazy, 1>
+                      : ntt64_inv_kernel<kLazy, 0>;
+}
+
+int launch_forward(const void* x, void* y, const lft64::Tables& t, int rows, int log_n, bool mont, uint64_t r1,
+                   uint64_t r1_s, void* stream) {
   if (bad_args(rows, log_n, t.q)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = lft64::lazy_ok(t.q) ? ntt64_kernel<true> : ntt64_kernel<false>;
+  const bool lazy = lft64::lazy_ok(t.q);
+  const auto kernel = mont ? (lazy ? forward_kernel<true, true>(log_n) : forward_kernel<false, true>(log_n))
+                           : (lazy ? forward_kernel<true, false>(log_n) : forward_kernel<false, false>(log_n));
   kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), t, rows, log_n, inverse);
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), t, rows, log_n, r1, r1_s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -140,20 +162,35 @@ int launch_ntt(const void* x, void* y, const lft64::Tables& t, int rows, int log
 
 extern "C" {
 
-// x, y: (rows, 2^log_n) residues; the plan's four tables (2^log_n each);
-// q, -q^-1 mod 2^64, 1/N and its Shoup dual.
+// x, y: (rows, 2^log_n) residues, 16-byte aligned (the wrappers check x;
+// y is a fresh allocation); the plan's four tables (2^log_n each); q,
+// -q^-1 mod 2^64, 1/N and its Shoup dual.
 int lft_ntt64_fwd(const void* x, void* y, const void* psi, const void* psi_s, const void* psi_inv,
                   const void* psi_inv_s, int rows, int log_n, unsigned long long q, unsigned long long neg_q_inv,
                   unsigned long long n_inv, unsigned long long n_inv_s, void* stream) {
-  return launch_ntt(x, y, tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n, 0,
-                    stream);
+  return launch_forward(x, y, tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n,
+                        false, 0, 0, stream);
+}
+
+// As lft_ntt64_fwd, y in the Montgomery domain (y 2^64 mod q); r1 = 2^64 mod
+// q and its Shoup dual.
+int lft_ntt64_fwd_mont(const void* x, void* y, const void* psi, const void* psi_s, const void* psi_inv,
+                       const void* psi_inv_s, int rows, int log_n, unsigned long long q, unsigned long long neg_q_inv,
+                       unsigned long long n_inv, unsigned long long n_inv_s, unsigned long long r1,
+                       unsigned long long r1_s, void* stream) {
+  return launch_forward(x, y, tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n,
+                        true, r1, r1_s, stream);
 }
 
 int lft_ntt64_inv(const void* x, void* y, const void* psi, const void* psi_s, const void* psi_inv,
                   const void* psi_inv_s, int rows, int log_n, unsigned long long q, unsigned long long neg_q_inv,
                   unsigned long long n_inv, unsigned long long n_inv_s, void* stream) {
-  return launch_ntt(x, y, tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n, 1,
-                    stream);
+  if (bad_args(rows, log_n, q)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = lft64::lazy_ok(q) ? inverse_kernel<true>(log_n) : inverse_kernel<false>(log_n);
+  kernel<<<grid(rows, log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      tables(psi, psi_s, psi_inv, psi_inv_s, q, neg_q_inv, n_inv, n_inv_s), rows, log_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // As above, with a and b in, y = a * b out, and r2 = 2^128 mod q.

@@ -1,9 +1,9 @@
-// The row passes of K-POLYMUL64 (ntt64.cu) and K-EXTPROD64 (fhew_u64.cu)
-// since their redesign for the H100: the negacyclic NTT of rows held in
-// shared memory, with the first and the last passes fused into what comes
-// before and after them. The arithmetic is u64.cuh's (the same butterflies,
-// eager and lazy, and the same canonical results), so the outputs stay
-// bit-identical to the plain versions.
+// The row passes of K-POLYMUL64, K-NTT64 and intt64 (ntt64.cu) and
+// K-EXTPROD64 (fhew_u64.cu) since their redesign for the H100: the
+// negacyclic NTT of rows held in shared memory, with the first and the last
+// passes fused into what comes before and after them. The arithmetic is
+// u64.cuh's (the same butterflies, eager and lazy, and the same canonical
+// results), so the outputs stay bit-identical to the plain versions.
 //
 // What bounded the kernels before their redesign (PERF.md): one block's
 // chain of barrier-separated stages. K-POLYMUL64 loaded both rows, ran 4
@@ -20,13 +20,15 @@
 //   then a pass of the last 2 layers whose item is 4 consecutive values.
 //   A thread takes one item of a pass in each row it covers, its twiddles
 //   loaded once and reused over those rows.
-// - Fusion. K-EXTPROD64's first forward pass makes the gadget digits from
-//   acc, and the last inverse pass of both scales by 1/N and writes device
-//   memory. The last forward pass, the pointwise product and the first
-//   inverse pass of K-POLYMUL64 run on one item in registers; K-EXTPROD64's
-//   last forward pass feeds the contraction directly, and its first
-//   inverse pass runs on the REDC-ed sums in registers. K-POLYMUL64 has 6
-//   barriers, not 10.
+// - Fusion. K-NTT64's first pass reads device memory and its last writes
+//   it (canonical, or in the Montgomery domain by one Shoup product);
+//   intt64 runs the other way. K-EXTPROD64's first forward pass makes the
+//   gadget digits from acc, and the last inverse pass of both scales by 1/N
+//   and writes device memory. The last forward pass, the pointwise product
+//   and the first inverse pass of K-POLYMUL64 run on one item in registers;
+//   K-EXTPROD64's last forward pass feeds the contraction directly, and its
+//   first inverse pass runs on the REDC-ed sums in registers. K-POLYMUL64
+//   has 6 barriers, not 10; K-NTT64 and intt64 3 at N = 2048.
 // - At N = 2048 (kLogN, the multi-key sets' ring) every pass's shape is a
 //   constant, so a shared-memory access is an offset from the item's base;
 //   K-POLYMUL64's rows come in by two bulk copies (TMA) there, elsewhere
@@ -138,6 +140,145 @@ struct Smem {
 };
 
 // ---------------------------------------------------------------------------
+// K-NTT64 and intt64: the transform of the block's `per` rows from row
+// `first` of device memory, `have` of them real (a ragged last block reads
+// zeros for the others and does not store them); buf holds per rows of
+// 2^log_n. The forward's first head pass reads device memory and its last
+// pass writes it from registers; the inverse's first pass (the last 2
+// layers) reads device memory and its last head pass writes it, scaled by
+// 1/N. At N <= 4 the one pass does both. Every thread of the block calls
+// them.
+// ---------------------------------------------------------------------------
+
+// The inverse's rows out to device memory, scaled by 1/N (canonical): intt64's
+// and K-POLYMUL64's.
+struct ScaledRows {
+  uint64_t* __restrict__ y;
+  long long first;
+  int have, log_n;
+  uint64_t q, n_inv, n_inv_s;
+  template <int V>
+  __device__ __forceinline__ void store(int row, int col, int log_h, const uint64_t (&x)[V]) const {
+    if (row >= have) return;
+    uint64_t* dst = y + ((first + row) << log_n);
+#pragma unroll
+    for (int m = 0; m < V; ++m) dst[col + (m << log_h)] = shoup_q(x[m], n_inv, n_inv_s, q);
+  }
+};
+
+// The block's input rows in device memory. An item of consecutive values
+// (log_h = 0: the last pass's) comes in by 16-byte loads (x 16-byte
+// aligned: the wrappers check it), any other item by 8-byte loads.
+struct DeviceRows {
+  const uint64_t* __restrict__ x;
+  long long first;
+  int have, log_n;
+  template <int V>
+  __device__ __forceinline__ void load(int row, int col, int log_h, uint64_t (&v)[V]) const {
+    const uint64_t* src = x + ((first + row) << log_n) + col;
+    if (row >= have) {
+#pragma unroll
+      for (int m = 0; m < V; ++m) v[m] = 0;
+    } else if (log_h == 0 && V % 2 == 0) {
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        const ulonglong2 p = __ldg(reinterpret_cast<const ulonglong2*>(src) + h);
+        v[2 * h] = p.x;
+        v[2 * h + 1] = p.y;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < V; ++m) v[m] = __ldg(src + (m << log_h));
+    }
+  }
+};
+
+// The forward transform's values out to device memory from the last pass
+// (an item of V = 2 or 4 consecutive values, in 16-byte stores; y is a
+// fresh allocation): canonical (the lazy values below 4q brought into [0,
+// q) by two minimums), or with kMont, in the Montgomery domain: x 2^64 mod
+// q as one Shoup product by r1 = 2^64 mod q with its dual r1_s, exact and
+// canonical for any x < 2^64 (u64.cuh's shoup_q), so the lazy values go in
+// unreduced. Either way the values of to_montgomery(ntt64_ref(x)) /
+// ntt64_ref(x) bit for bit.
+template <bool kLazy, bool kMont>
+struct ForwardRows {
+  uint64_t* __restrict__ y;
+  long long first;
+  int have, log_n;
+  uint64_t q, r1, r1_s;
+  template <int V>
+  __device__ __forceinline__ void store(int row, int col, int, const uint64_t (&x)[V]) const {
+    static_assert(V % 2 == 0, "the last pass's item is 2 or 4 values");
+    if (row >= have) return;
+    uint64_t v[V];
+#pragma unroll
+    for (int m = 0; m < V; ++m) {
+      if constexpr (kMont) {
+        v[m] = shoup_q(x[m], r1, r1_s, q);
+      } else {
+        v[m] = kLazy ? reduce4(x[m], q) : x[m];
+      }
+    }
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(y + ((first + row) << log_n) + col);
+#pragma unroll
+    for (int h = 0; h < V / 2; ++h) dst[h] = make_ulonglong2(v[2 * h], v[2 * h + 1]);
+  }
+};
+
+// kLogN as polymul's: 11 (N = 2048, every offset a constant), 1 or 2 (N = 2
+// or 4: no head pass), or 0 (any N >= 8, log_n as given).
+template <int kThreads, bool kLazy, int kLogN, bool kMont>
+__device__ __forceinline__ void forward(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Tables& t,
+                                        long long first, int per, int have, int log_n_arg, uint64_t r1,
+                                        uint64_t r1_s, uint64_t* buf) {
+  constexpr int W = kLogN ? last_width(kLogN) : 2;
+  const int log_n = kLogN ? kLogN : log_n_arg, threads = kThreads;
+  DeviceRows src{x, first, have, log_n};
+  ForwardRows<kLazy, kMont> dst{y, first, have, log_n, t.q, r1, r1_s};
+  if constexpr (kLogN == 1 || kLogN == 2) {
+    pass<W, false, kLazy>(threads, per, log_n, 0, t, src, dst);
+  } else {
+    Smem sm{buf, log_n};
+    const int hp = head_passes(log_n);
+#pragma unroll
+    for (int p = 0; p < hp; ++p) {
+      if (p == 0) {
+        head_pass<false, kLazy>(threads, p, per, log_n, t, src, sm);
+      } else {
+        head_pass<false, kLazy>(threads, p, per, log_n, t, sm, sm);
+      }
+      __syncthreads();
+    }
+    pass<W, false, kLazy>(threads, per, log_n, head_layers(log_n), t, sm, dst);
+  }
+}
+
+template <int kThreads, bool kLazy, int kLogN>
+__device__ __forceinline__ void inverse(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Tables& t,
+                                        long long first, int per, int have, int log_n_arg, uint64_t* buf) {
+  constexpr int W = kLogN ? last_width(kLogN) : 2;
+  const int log_n = kLogN ? kLogN : log_n_arg, threads = kThreads;
+  DeviceRows src{x, first, have, log_n};
+  ScaledRows dst{y, first, have, log_n, t.q, t.n_inv, t.n_inv_s};
+  if constexpr (kLogN == 1 || kLogN == 2) {
+    pass<W, true, kLazy>(threads, per, log_n, 0, t, src, dst);
+  } else {
+    Smem sm{buf, log_n};
+    pass<W, true, kLazy>(threads, per, log_n, head_layers(log_n), t, src, sm);
+#pragma unroll
+    for (int p = head_passes(log_n) - 1; p >= 0; --p) {
+      __syncthreads();
+      if (p == 0) {
+        head_pass<true, kLazy>(threads, p, per, log_n, t, sm, dst);
+      } else {
+        head_pass<true, kLazy>(threads, p, per, log_n, t, sm, sm);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K-POLYMUL64: y = INTT(NTT(a) NTT(b)) for the block's `per` rows of each
 // operand from row `first` of device memory, `have` of them real (a ragged
 // last block reads zeros for the others and does not store them). buf
@@ -161,21 +302,6 @@ struct OperandRows {
     const uint64_t* src = row_of(row);
 #pragma unroll
     for (int m = 0; m < V; ++m) x[m] = real ? __ldg(src + col + (m << log_h)) : 0;
-  }
-};
-
-// The product's rows out to device memory, scaled by 1/N (canonical).
-struct ScaledRows {
-  uint64_t* __restrict__ y;
-  long long first;
-  int have, log_n;
-  uint64_t q, n_inv, n_inv_s;
-  template <int V>
-  __device__ __forceinline__ void store(int row, int col, int log_h, const uint64_t (&x)[V]) const {
-    if (row >= have) return;
-    uint64_t* dst = y + ((first + row) << log_n);
-#pragma unroll
-    for (int m = 0; m < V; ++m) dst[col + (m << log_h)] = shoup_q(x[m], n_inv, n_inv_s, q);
   }
 };
 

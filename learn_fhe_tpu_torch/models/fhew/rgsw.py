@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ...ops.gadget import Gadget, decompose_zq, decompose_zq32, power_up_zq
-from ...ops.modular import add_mod, mont_mul, sub_mod, sum_mod, to_montgomery
+from ...ops.modular import add_mod, mont_mul, sub_mod, sum_mod
 from ...ops.modular32 import mul_shoup32, shoup32_dual, sum_mod32
-from ...ops.ntt import NttPlan, intt64_ref, ntt64, ntt64_ref, table_pointers
+from ...ops.ntt import NttPlan, intt64_ref, ntt64_mont, ntt64_ref, table_pointers
 from ...ops.ntt32 import intt32, ntt32
 from ...utils import kernels
 from .params import RgswParams
@@ -95,16 +95,14 @@ def decrypt_rgsw(params: RgswParams, sk: np.ndarray, ct: RgswCiphertext) -> torc
 
 
 def to_eval(params: RgswParams, ct: RgswCiphertext) -> RgswEval:
-    """The forward NTT of every row (K-NTT, or K-NTT64), with the Shoup
-    duals on the u32 engine and into the Montgomery domain on the u64."""
+    """The forward NTT of every row: K-NTT with the Shoup duals on the u32
+    engine, K-NTT64's Montgomery instance on the u64 (one launch an
+    operand)."""
     if params.use_u32:
         ea = ntt32(ct.a.to(torch.int32).contiguous(), params.plan32)
         eb = ntt32(ct.b.to(torch.int32).contiguous(), params.plan32)
         return RgswEval(ea, eb, shoup32_dual(ea, params.q), shoup32_dual(eb, params.q))
-    zq = params.plan.zq
-    return RgswEval(
-        to_montgomery(ntt64(ct.a.contiguous(), params.plan), zq), to_montgomery(ntt64(ct.b.contiguous(), params.plan), zq)
-    )
+    return RgswEval(ntt64_mont(ct.a.contiguous(), params.plan), ntt64_mont(ct.b.contiguous(), params.plan))
 
 
 def external_product(params: RgswParams, key: RgswEval, ct: RlweCiphertext) -> RlweCiphertext:

@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ...ops.gadget import decompose_zq32, power_up_zq
-from ...ops.modular import _round_half_away, add_mod, from_i64, sub_mod, to_center_i64, to_montgomery
+from ...ops.modular import _round_half_away, add_mod, from_i64, sub_mod, to_center_i64
 from ...ops.modular32 import add_mod32, mul_shoup32, shoup32_dual, sum_mod32
-from ...ops.ntt import negacyclic_mul64, ntt64
+from ...ops.ntt import negacyclic_mul64, ntt64_mont
 from ...ops.ntt32 import intt32, negacyclic_mul32, ntt32
 from ...ops.poly import automorphism_i64, automorphism_zq, sample_extract_a
 from ...utils.distributions import dg, uniform_zq, zo
@@ -132,8 +132,9 @@ def decrypt(params: RlweParams, sk: np.ndarray, ct: RlweCiphertext) -> torch.Ten
 
 
 def _to_eval_mont(params: RlweParams, x: torch.Tensor) -> torch.Tensor:
-    """The forward NTT (K-NTT64) into the Montgomery domain."""
-    return to_montgomery(ntt64(x.contiguous(), params.plan), params.plan.zq)
+    """The forward NTT into the Montgomery domain (K-NTT64's Montgomery
+    instance, one launch)."""
+    return ntt64_mont(x.contiguous(), params.plan)
 
 
 def make_ksk(params: RlweParams, ct: RlweCiphertext) -> RlweKeySwitchingKey:

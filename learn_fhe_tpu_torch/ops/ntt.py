@@ -9,14 +9,19 @@ a Shoup product and every operation is exact mod q, so the evaluation-basis
 values agree element for element with the JAX package's, and keys move
 between the two packages as they are.
 
-Kernels (`csrc/ntt64.cu`, K-NTT64 and K-POLYMUL64), each beside its plain
-radix-2 version:
+Kernels (`csrc/ntt64.cu`, K-NTT64 and K-POLYMUL64, on the row passes of
+`csrc/u64_rows.cuh`), each beside its plain radix-2 version:
 - `ntt64` / `intt64` replace the XLA fusions of `ntt` (`ntt.py:135`) and
-  `intt` (`:189`);
+  `intt` (`:189`): the first pass reads device memory, the last writes it;
+- `ntt64_mont` is `ntt64` with its output in the Montgomery domain, the
+  conversion done in the kernel's last pass: the XLA fusion of
+  `to_montgomery(ntt(x))` in the JAX package's jitted `rgsw.to_eval`
+  (`models/fhew/rgsw.py:116-131`) and `rlwe._to_eval_mont`
+  (`models/fhew/rlwe.py:148-150`), the multi-key path's calls of K-NTT64;
 - `negacyclic_mul64` replaces `negacyclic_mul` (`:261`): both forward
   transforms, the pointwise Montgomery product and the inverse in one
-  launch (on the row passes of `csrc/u64_rows.cuh`; at N=2048 a block per
-  row pair, its rows brought into shared memory by bulk copies).
+  launch (at N=2048 a block per row pair, its rows brought into shared
+  memory by bulk copies).
 Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
 to the kernel, or the wrapper raises. Below q < 2^62 the kernels run their
 lazy instance (`lazy_butterflies`), above it the eager one, as the C side
@@ -36,7 +41,7 @@ import torch
 from ..utils import kernels
 from ..utils.interop import u64_to_torch
 from ..utils.primes import mod_inverse, two_adic_generator
-from .modular import ZqParams, add_mod, as_i64, mul_mod, mul_shoup, shoup_precompute, sub_mod
+from .modular import ZqParams, add_mod, as_i64, mul_mod, mul_shoup, shoup_precompute, sub_mod, to_montgomery
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:
@@ -63,6 +68,7 @@ class NttPlan:
     psi_inv_br_shoup: np.ndarray
     n_inv: int
     n_inv_shoup: int
+    r1_shoup: int  # Shoup dual of 2^64 mod q (zq.r1): K-NTT64's Montgomery output
 
 
 @lru_cache(maxsize=None)
@@ -89,6 +95,7 @@ def ntt_plan(q: int, n: int) -> NttPlan:
         psi_inv_br_shoup=shoup_precompute(psi_inv_br, q),
         n_inv=n_inv,
         n_inv_shoup=int(shoup_precompute(n_inv, q)),
+        r1_shoup=int(shoup_precompute((1 << 64) % q, q)),
     )
 
 
@@ -143,6 +150,11 @@ def intt64_ref(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     return mul_shoup(out, plan.n_inv, as_i64(plan.n_inv_shoup), q)
 
 
+def ntt64_mont_ref(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """The forward NTT into the Montgomery domain: to_montgomery(ntt64_ref(x))."""
+    return to_montgomery(ntt64_ref(x, plan), plan.zq)
+
+
 def pointwise_mul(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Pointwise product in the evaluation basis (Montgomery, plain torch)."""
     return mul_mod(a, b, plan.zq)
@@ -188,30 +200,39 @@ def lazy_butterflies(q: int) -> bool:
     return q < 1 << 62
 
 
+def _transform(fn, entry: str, x: torch.Tensor, plan: NttPlan, *consts: int) -> torch.Tensor:
+    """Launch K-NTT64 entry point `entry` on every row of x, counted on fn."""
+    rows = _check(fn.__name__, x, plan)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{fn.__name__}: the kernel reads rows in 16-byte loads; x is not 16-byte aligned")
+    y = torch.empty_like(x)
+    if rows:
+        kernels.launch(entry, x.data_ptr(), y.data_ptr(), *table_pointers(plan, x.get_device()), rows, plan.log_n, *_consts(plan), *consts)
+        fn.launches += 1
+        fn.by_rows[rows] += 1
+    return y
+
+
 def ntt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Forward NTT of every row of x (int64 residues in [0, q))."""
     if x.is_cpu:
         return ntt64_ref(x, plan)
-    rows = _check("ntt64", x, plan)
-    y = torch.empty_like(x)
-    if rows:
-        kernels.launch("lft_ntt64_fwd", x.data_ptr(), y.data_ptr(), *table_pointers(plan, x.get_device()), rows, plan.log_n, *_consts(plan))
-        ntt64.launches += 1
-        ntt64.by_rows[rows] += 1
-    return y
+    return _transform(ntt64, "lft_ntt64_fwd", x, plan)
+
+
+def ntt64_mont(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """Forward NTT of every row of x into the Montgomery domain (y 2^64 mod
+    q), the evaluation-basis keys' form: one launch."""
+    if x.is_cpu:
+        return ntt64_mont_ref(x, plan)
+    return _transform(ntt64_mont, "lft_ntt64_fwd_mont", x, plan, plan.zq.r1, plan.r1_shoup)
 
 
 def intt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Inverse NTT of every row of x (int64 residues in [0, q))."""
     if x.is_cpu:
         return intt64_ref(x, plan)
-    rows = _check("intt64", x, plan)
-    y = torch.empty_like(x)
-    if rows:
-        kernels.launch("lft_ntt64_inv", x.data_ptr(), y.data_ptr(), *table_pointers(plan, x.get_device()), rows, plan.log_n, *_consts(plan))
-        intt64.launches += 1
-        intt64.by_rows[rows] += 1
-    return y
+    return _transform(intt64, "lft_ntt64_inv", x, plan)
 
 
 # The ring at which K-POLYMUL64 brings its rows in by bulk copies
@@ -239,7 +260,7 @@ def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.T
 
 
 # launches, and launches by row count (the shapes a path launches them at)
-for _fn in (ntt64, intt64, negacyclic_mul64):
+for _fn in (ntt64, ntt64_mont, intt64, negacyclic_mul64):
     _fn.launches, _fn.by_rows = 0, Counter()
 
 # The JAX package's names.

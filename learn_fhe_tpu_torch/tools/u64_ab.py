@@ -1,15 +1,17 @@
-"""Time K-POLYMUL64, K-NTT64, `intt64` and K-EXTPROD64 at every shape the
-multi-key path launches them at, each against its bound, and the kernels
-that share their code or their card beside them; with `--parent DIR`, the
+"""Time K-POLYMUL64, K-NTT64 (`ntt64`, `ntt64_mont`), `intt64` and
+K-EXTPROD64 at every shape the multi-key path launches them at, each
+against its bound, and the kernels that share their code or their card
+beside them; with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
 with more than one, each parent's turns around this checkout's).
 
 Both libraries run through this checkout's wrappers on the same inputs
 (`kernels.library` is pointed at one, then the other), so the C entry
-points of the two must take the same arguments. K-NTT64's, K-POLYMUL64's
-and K-EXTPROD64's times are per launch from a CUDA graph of `--reps`
-launches (no host time between launches); the walks' (K-FHEW-BR64 at a
+points of the two must take the same arguments; a case whose entry point
+an older library lacks (`NEW_ENTRIES`) is timed on this checkout's alone.
+K-NTT64's, K-POLYMUL64's and K-EXTPROD64's times are per launch from a
+CUDA graph of `--reps` launches (no host time between launches); the walks' (K-FHEW-BR64 at a
 round of 2 gates and at batch 128) and K-STEP's are CUDA events around
 eager wrapper calls, K-FHEW-BR's (batch 128) from a CUDA graph too.
 Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
@@ -35,6 +37,14 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from learn_fhe_tpu_torch.utils import kernels  # noqa: E402
+
+# The cases, by kernel name, that need an entry point newer libraries add.
+NEW_ENTRIES = {"ntt64_mont": "lft_ntt64_fwd_mont"}
+
+
+def runs_on(lib, name: str) -> bool:
+    entry = NEW_ENTRIES.get(name.split(" ")[0])
+    return entry is None or hasattr(lib, entry)
 
 
 def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object, tuple[float, str] | None, str]]:
@@ -111,10 +121,12 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
     return out
 
 
-def measure(cases_, reps: int) -> dict[str, float]:
+def measure(cases_, reps: int, lib) -> dict[str, float | None]:
     got = {}
     for name, fn, _, how in cases_:
-        if how == "graph":
+        if not runs_on(lib, name):
+            got[name] = None
+        elif how == "graph":
             got[name] = cs.graph_ms(fn, reps) * 1e3
         else:
             per = int(how.split("/")[1]) if "/" in how else 1
@@ -127,7 +139,7 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, action="append", default=[], help="a checkout whose kernel library is timed in turns with this one (repeatable)")
     ap.add_argument("--reps", type=int, default=20, help="launches per CUDA graph")
     ap.add_argument("--json", type=Path, help="write the times here as JSON")
-    ap.add_argument("--u64-only", action="store_true", help="time K-NTT64, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
+    ap.add_argument("--u64-only", action="store_true", help="time K-NTT64, ntt64_mont, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("u64_ab: no CUDA device")
@@ -142,7 +154,7 @@ def main() -> None:
         t0 = time.perf_counter()
         kernels.build(parent.resolve() / "learn_fhe_tpu_torch" / "csrc", so)
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
-        libs[name] = kernels.load(so)
+        libs[name] = kernels.load(so, optional=frozenset(NEW_ENTRIES.values()))
     dev = torch.device("cuda", torch.cuda.current_device())
     built = cases(dev, pipe_per_s, walks=not args.u64_only)
     others = [k for k in libs if k != "this"]
@@ -150,7 +162,7 @@ def main() -> None:
     runs: dict[str, list[dict[str, float]]] = {k: [] for k in libs}
     for which in order:
         kernels.library = lambda lib=libs[which]: lib
-        runs[which].append(measure(built, args.reps))
+        runs[which].append(measure(built, args.reps, libs[which]))
         print(f"turn done: {which}", flush=True)
     rows = []
     for name, _, bound, how in built:
@@ -158,10 +170,11 @@ def main() -> None:
         if bound is not None:
             row["bound_us"], row["bound_by"] = bound[0] * 1e3, bound[1]
         rows.append(row)
-        times = "; ".join(f"{k} " + " / ".join(f"{t:.3f}" for t in v) for k, v in ((k, row[k]) for k in runs))
+        times = "; ".join(f"{k} " + " / ".join("-" if t is None else f"{t:.3f}" for t in v) for k, v in ((k, row[k]) for k in runs))
         share = ""
         if bound is not None:
-            share = "; share " + "; ".join(f"{k} {row['bound_us'] / min(row[k]):.4f}" for k in runs)
+            ran = [k for k in runs if None not in row[k]]
+            share = "; share " + "; ".join(f"{k} {row['bound_us'] / min(row[k]):.4f}" for k in ran)
             share = f"; bound {row['bound_us']:.3f} us by {bound[1]}{share}"
         print(f"[{card}] {name}: {times} us{share}", flush=True)
     if args.json:

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # -q^-1 mod 2^64, n_inv, n_inv_shoup, stream
     "lft_ntt64_fwd": (_P,) * 6 + (_I, _I) + (_U64,) * 4 + (_P,),
     "lft_ntt64_inv": (_P,) * 6 + (_I, _I) + (_U64,) * 4 + (_P,),
+    # the same, then 2^64 mod q and its Shoup dual, stream
+    "lft_ntt64_fwd_mont": (_P,) * 6 + (_I, _I) + (_U64,) * 6 + (_P,),
     # a, b, y, the four tables, rows, log_n, q, -q^-1, n_inv, n_inv_shoup,
     # 2^128 mod q, stream
     "lft_negacyclic_mul64": (_P,) * 7 + (_I, _I) + (_U64,) * 5 + (_P,),
@@ -144,10 +146,14 @@ def build(csrc: Path, so: Path) -> None:
     os.replace(tmp, so)
 
 
-def load(so: Path) -> ctypes.CDLL:
-    """Load a library that `build` made, with its entry points' argument types."""
+def load(so: Path, optional: frozenset[str] = frozenset()) -> ctypes.CDLL:
+    """Load a library that `build` made, with its entry points' argument
+    types; an entry point named in `optional` may be missing (a library
+    built from an older checkout's sources)."""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
+        if name in optional and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -175,10 +181,10 @@ def build_log() -> str:
 # The kernels of the library by the name in their source; a mangled name
 # holds it after an anonymous-namespace prefix whose hash depends on the
 # source's path, and a template instance adds its arguments after it
-# (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE).
+# (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
-    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64|negacyclic_mul64_bulk|negacyclic_mul64"
-    r"|external_product64|fhew_blind_rotate64)_kernel(I(?:L[ib]\d+E)+E)?"
+    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64)_kernel(I(?:L[ib]\d+E)+E)?"
 )
 
 

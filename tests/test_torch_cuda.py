@@ -484,19 +484,21 @@ def _prime64(bits, log_n):
 
 @pytest.mark.parametrize("n", [1 << k for k in range(1, 12)])
 def test_ntt64_kernels_match_plain(dev, n):
-    """K-NTT64, its inverse and K-POLYMUL64 at every ring, on 1 row, 3 rows
-    and (below N=2048, where a block holds 2048 / N rows) a row count that
-    leaves the last block ragged, at the full multi-key set's 55-bit prime
-    and at a 62-bit one."""
+    """K-NTT64 (both outputs), its inverse and K-POLYMUL64 at every ring, on
+    1 row, 3 rows and (below N=2048, where a block holds 2048 / N rows) a
+    row count that leaves the last block ragged, at the full multi-key
+    set's 55-bit prime, at a 62-bit one (both lazy) and at a 63-bit one
+    (the eager instances)."""
     from learn_fhe_tpu_torch.ops import ntt as ntt64
 
     rng = np.random.default_rng(n)
     counts = [1, 3] + ([2 * (2048 // n) + 3] if n < 2048 else [])
-    for bits in (55, 62):
+    for bits in (55, 62, 63):
         plan = ntt64.ntt_plan(_prime64(bits, 11), n)
         for rows in counts:
             a, b = _u64(rng, plan.q, (rows, n)), _u64(rng, plan.q, (rows, n))
             _same(ntt64.ntt64(a.to(dev), plan), ntt64.ntt64_ref(a, plan))
+            _same(ntt64.ntt64_mont(a.to(dev), plan), ntt64.ntt64_mont_ref(a, plan))
             _same(ntt64.intt64(a.to(dev), plan), ntt64.intt64_ref(a, plan))
             _same(ntt64.negacyclic_mul64(a.to(dev), b.to(dev), plan), ntt64.negacyclic_mul64_ref(a, b, plan))
 
@@ -549,6 +551,94 @@ def test_external_product64_kernel_matches_plain(dev, fixture, key_switch):
         got = rgsw.internal_product(params, rgsw.RgswEval(key.a.to(dev), key.b.to(dev)), rgsw.RgswCiphertext(share.a.to(dev), share.b.to(dev)))
         _same(got.a, want.a)
         _same(got.b, want.b)
+
+
+# K-NTT64 and intt64 at N=2048 at the rows the multi-key path launches
+# K-NTT64's Montgomery instance at (5: make_ksk; 600: a merge chunk's
+# to_eval; 6000: the final to_eval) and at a few more (every other ring:
+# test_ntt64_kernels_match_plain).
+@pytest.mark.parametrize("rows", [1, 3, 5, 19, 600, 6000])
+@pytest.mark.parametrize("bits", [55, 63])
+def test_ntt64_transforms_at_path_shapes(dev, rows, bits):
+    """`ntt64_mont`, `ntt64` and `intt64` against their plain versions (run
+    on the card, on the same inputs), at the full set's 55-bit prime (the
+    lazy instances) and a 63-bit one (the eager), each one launch counted by
+    its rows."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    plan = ntt64.ntt_plan(_prime64(bits, 11), 2048)
+    x = _u64(np.random.default_rng(rows + bits), plan.q, (rows, 2048)).to(dev)
+    for fn, ref in ((ntt64.ntt64_mont, ntt64.ntt64_mont_ref), (ntt64.ntt64, ntt64.ntt64_ref), (ntt64.intt64, ntt64.intt64_ref)):
+        want = ref(x, plan).cpu()
+        before, by_rows = fn.launches, fn.by_rows[rows]
+        _same(fn(x, plan), want)
+        assert (fn.launches, fn.by_rows[rows]) == (before + 1, by_rows + 1)
+
+
+def test_to_eval_is_one_launch_per_operand(dev):
+    """`rgsw.to_eval` and `rlwe._to_eval_mont` at the full set launch
+    K-NTT64's Montgomery instance once per operand and plain `ntt64` never,
+    and equal their plain versions on the CPU."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import rgsw, rlwe
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    _, log_n, log_b, d = _FIXTURES64["full"]
+    q = _prime64(55, 11)
+    params = fhew.RgswParams(fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=log_b, d=d), log_b=log_b, d=d)
+    rng = np.random.default_rng(6)
+    ct = rgsw.RgswCiphertext(_u64(rng, q, (3, 2 * d, 1 << log_n)), _u64(rng, q, (3, 2 * d, 1 << log_n)))
+    want = rgsw.to_eval(params, ct)
+    counts = (ntt64.ntt64_mont.launches, ntt64.ntt64.launches)
+    got = rgsw.to_eval(params, rgsw.RgswCiphertext(ct.a.to(dev), ct.b.to(dev)))
+    assert (ntt64.ntt64_mont.launches, ntt64.ntt64.launches) == (counts[0] + 2, counts[1])
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    got = rlwe._to_eval_mont(params.rlwe, ct.a[0].to(dev))
+    assert (ntt64.ntt64_mont.launches, ntt64.ntt64.launches) == (counts[0] + 3, counts[1])
+    _same(got, want.a[0])
+
+
+def test_ntt64_wrappers_do_not_sync(dev):
+    """`ntt64_mont`, `ntt64` and `intt64` under
+    torch.cuda.set_sync_debug_mode("error") (after a first call has put the
+    plan's tables on the card): no read back to the host."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    plan = ntt64.ntt_plan(_prime64(55, 11), 2048)
+    x = _u64(np.random.default_rng(7), plan.q, (5, 2048)).to(dev)
+    fns = ((ntt64.ntt64_mont, ntt64.ntt64_mont_ref), (ntt64.ntt64, ntt64.ntt64_ref), (ntt64.intt64, ntt64.intt64_ref))
+    for fn, _ in fns:
+        fn(x, plan)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [fn(x, plan) for fn, _ in fns]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for y, (_, ref) in zip(got, fns):
+        _same(y, ref(x, plan).cpu())
+
+
+def test_ntt64_wrappers_refuse_rows_off_16_byte_alignment(dev):
+    """K-NTT64 and intt64 read rows in 16-byte loads: a contiguous operand
+    whose data starts 8 bytes off a 16-byte boundary raises before any
+    launch, at N=2048 and N=4; the aligned operand beside it runs."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+
+    q = _prime64(55, 11)
+    for n in (2048, 4):
+        plan = ntt64.ntt_plan(q, n)
+        flat = _u64(np.random.default_rng(n), q, (3 * n + 1,)).to(dev)
+        x = flat[1:].view(3, n)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 8
+        for fn, ref in ((ntt64.ntt64_mont, ntt64.ntt64_mont_ref), (ntt64.ntt64, ntt64.ntt64_ref), (ntt64.intt64, ntt64.intt64_ref)):
+            before = fn.launches
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(x, plan)
+            assert fn.launches == before
+            aligned = x.clone()
+            _same(fn(aligned, plan), ref(aligned, plan).cpu())
 
 
 # K-POLYMUL64 at the rows the multi-key path launches it at (1: the pk

@@ -23,7 +23,8 @@ _FHEW = (
     "iS2_S2_iS2_S2_S5_PKhiS2_S2_S2_S2_NS_6ConstsENS_6GadgetES9_iiPi"
 )
 _FHEW_11 = _FHEW.replace("ILi9EE", "ILi11EE")
-_NTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff12ntt64_kernelILb1EEEvPKmPmN5lft646TablesEiii"
+_NTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff16ntt64_fwd_kernelILb1ELi11ELb1EEEvPKmPmN5lft646TablesEiimm"
+_INTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff16ntt64_inv_kernelILb1ELi11EEEvPKmPmN5lft646TablesEii"
 _MUL64_BULK = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff28negacyclic_mul64_bulk_kernelILb1EEEvPKmS2_PmN5lft646TablesEm"
 _EXT64 = "_ZN44_GLOBAL__N__15b4274e_11_fhew_u64_cu_b001eb1725external_product64_kernelILb1ELi11EEEvPKmS2_PmS3_PKiS2_S2_iiiN5lft646TablesENS6_6GadgetEiiPi"
 _WALK64 = (
@@ -52,8 +53,9 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_STEP, "tfhe_step_kernel<11>"),
         (_FHEW, "fhew_blind_rotate_kernel<9>"),
         (_FHEW_11, "fhew_blind_rotate_kernel<11>"),
-        (_NTT64, "ntt64_kernel<true>"),
-        (_NTT64.replace("ILb1EE", "ILb0EE"), "ntt64_kernel<false>"),
+        (_NTT64, "ntt64_fwd_kernel<true,11,true>"),
+        (_NTT64.replace("ILb1ELi11ELb1EE", "ILb0ELi0ELb0EE"), "ntt64_fwd_kernel<false,0,false>"),
+        (_INTT64, "ntt64_inv_kernel<true,11>"),
         (_MUL64_BULK, "negacyclic_mul64_bulk_kernel<true>"),
         (_EXT64, "external_product64_kernel<true,11>"),
         (_EXT64.replace("ILb1ELi11EE", "ILb0ELi0EE"), "external_product64_kernel<false,0>"),

@@ -1,6 +1,6 @@
-"""A model of the row passes of the redesigned K-POLYMUL64 and K-EXTPROD64
-(`learn_fhe_tpu_torch/csrc/u64_rows.cuh`), held against the port's plain
-versions and the JAX package on the CPU.
+"""A model of the row passes of the redesigned K-POLYMUL64, K-EXTPROD64,
+K-NTT64 and intt64 (`learn_fhe_tpu_torch/csrc/u64_rows.cuh`), held against
+the port's plain versions and the JAX package on the CPU.
 
 The kernels run only on a CUDA device, so this models in Python what they
 do: the pass plan (head passes of 3 layers, then a last pass of 2), which
@@ -9,7 +9,10 @@ bank pairs a half-warp's u64 accesses fall in (the wavefronts each pass
 takes, as the design states them), Harvey's lazy ranges through those
 passes with the values that reach the products unreduced, and
 K-EXTPROD64's digit rows in groups (each group's products summed in 128
-bits, one REDC per group, the group residues added mod q).
+bits, one REDC per group, the group residues added mod q), and K-NTT64's
+forward-only and intt64's inverse-only plans (the first pass from device
+memory, the last to it) with K-NTT64's Montgomery output: one Shoup product
+by 2^64 mod q on the lazy values, unreduced.
 """
 
 from collections import defaultdict
@@ -28,8 +31,16 @@ from learn_fhe_tpu.models.fhew import rlwe as jrlwe  # noqa: E402
 from learn_fhe_tpu.ops import ntt as jntt  # noqa: E402
 from learn_fhe_tpu.utils.primes import two_adic_primes  # noqa: E402
 from learn_fhe_tpu_torch.ops.gadget import Gadget, decompose_zq  # noqa: E402
-from learn_fhe_tpu_torch.ops.modular import as_i64  # noqa: E402
-from learn_fhe_tpu_torch.ops.ntt import intt64_ref, negacyclic_mul64_ref, ntt64_ref, ntt_plan, plan_tables  # noqa: E402
+from learn_fhe_tpu_torch.models import fhew as tfhew  # noqa: E402
+from learn_fhe_tpu_torch.ops.modular import as_i64, to_montgomery  # noqa: E402
+from learn_fhe_tpu_torch.ops.ntt import (  # noqa: E402
+    intt64_ref,
+    negacyclic_mul64_ref,
+    ntt64_mont_ref,
+    ntt64_ref,
+    ntt_plan,
+    plan_tables,
+)
 from tests.test_torch_fhew_walk64_model import _below, _csub, _mac128, _redc, _shoup_lazy  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -417,3 +428,121 @@ def test_extprod_groups_match_jax(bits, log_n, log_b, d):
     for group in groups:
         got = model_external_product(Gadget(q, log_b, d), ntt_plan(q, n), ta, tb, tka, tkb, group)
         np.testing.assert_array_equal(torch.stack(got).numpy().view(np.uint64), np.stack([ext.a, ext.b]), err_msg=f"group {group}")
+
+
+# -- K-NTT64 and intt64: the forward-only and inverse-only plans
+
+NTT_THREADS, NTT_VALUES = 256, 2048  # a block's threads, and the values it owns (max(1, 2048 / N) rows)
+
+
+def model_forward(x, plan, mont: bool) -> torch.Tensor:
+    """K-NTT64 as `rows::forward` runs it: the head passes (the first reads
+    device memory) and the last pass, whose item's values go to device
+    memory: canonical (the lazy values below 4q by two minimums), or with
+    mont, one Shoup product by r1 = 2^64 mod q taken on those values
+    unreduced (exact for any input below 2^64 when q < 2^63)."""
+    q, lazy = plan.q, plan.q < 1 << 62
+    v = x
+    for l0, w in plan_of(plan.log_n):
+        v = model_pass(v, plan, l0, w, False, lazy)
+    if mont:
+        return _csub(_shoup_lazy(v, plan.zq.r1, as_i64(plan.r1_shoup), q), q)
+    return _csub(_csub(v, 2 * q), q) if lazy else v
+
+
+def model_inverse(x, plan) -> torch.Tensor:
+    """intt64 as `rows::inverse` runs it: the last pass's layers first, on
+    items of consecutive values read from device memory, then the head
+    passes backwards, the last scaled by 1/N into device memory."""
+    return model_intt(x, plan, plan.q < 1 << 62)
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 3, 4, 8, 11])
+def test_ntt64_blocks_take_every_value_once_in_aligned_items(log_n):
+    """A K-NTT64 / intt64 block (256 threads, max(1, 2048 / N) rows, the
+    last of them ragged): every pass takes each (row, item) once, the
+    device-memory pass (the forward's last, the inverse's first; the only
+    one at N <= 4) reads or writes only the real rows, each value once, in
+    items of 2 or 4 consecutive values that start on a 16-byte boundary of
+    a 16-byte aligned operand."""
+    n, per = 1 << log_n, max(1, NTT_VALUES >> log_n)
+    have = per - 1 if per > 1 else 1
+    plan = plan_of(log_n)
+    for l0, w in plan:
+        taken = [x for v in visits(NTT_THREADS, per, log_n - w) for x in v]
+        assert sorted(taken) == [(i, r) for i in range(n >> w) for r in range(per)]
+    l0, w = plan[-1]
+    assert l0 + w == log_n and w in (1, 2)
+    words = []
+    for i, row in (x for v in visits(NTT_THREADS, per, log_n - w) for x in v):
+        cols = item_cols(i, log_n, l0, w)
+        assert cols == list(range(cols[0], cols[0] + (1 << w))) and at(row, cols[0], log_n) % 2 == 0
+        if row < have:
+            words += [at(row, c, log_n) for c in cols]
+    assert sorted(words) == list(range(have * n))
+
+
+def test_montgomery_output_is_exact_for_any_u64():
+    """The Shoup product by r1 = 2^64 mod q gives x 2^64 mod q for any u64
+    x, at a 55-bit and a 63-bit prime: the lazy values (below 4q) need no
+    reduction before it."""
+    rng = np.random.default_rng(64)
+    for bits in (55, 63):
+        q = next(two_adic_primes(bits, 12))
+        plan = ntt_plan(q, 8)
+        xs = [0, 1, q - 1, q, 2 * q + 1, 4 * q - 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1]
+        xs = [v for v in xs if v < 1 << 64] + [int(v) for v in rng.integers(0, 1 << 63, size=64, dtype=np.uint64)]
+        t = torch.tensor([as_i64(v) for v in xs])
+        got = _csub(_shoup_lazy(t, plan.zq.r1, as_i64(plan.r1_shoup), q), q)
+        assert [v % (1 << 64) for v in got.tolist()] == [(v << 64) % q for v in xs]
+
+
+@pytest.mark.parametrize("bits,log_n", [(55, 1), (55, 2), (55, 4), (55, 6), (62, 8), (63, 8), (55, 11)])
+def test_forward_and_inverse_plans_match_reference_and_jax(bits, log_n):
+    """K-NTT64's forward plan (canonical and Montgomery outputs) and intt64's
+    inverse plan on random rows with 0 and q - 1 in them, lazy below 2^62
+    and eager above: bit for bit against ntt64_ref, to_montgomery(ntt64_ref),
+    ntt64_mont_ref, intt64_ref and the JAX package's jitted
+    `rlwe._to_eval_mont` and `ntt.intt`."""
+    n = 1 << log_n
+    q = next(two_adic_primes(bits, 12))
+    plan, jplan = ntt_plan(q, n), jntt.ntt_plan(q, n)
+    rng = np.random.default_rng(bits * 16 + log_n)
+    x = rng.integers(0, q, size=(3, n), dtype=np.uint64)
+    x[0, :2], x[-1, -1] = [0, q - 1], q - 1
+    tx = torch.from_numpy(x.view(np.int64))
+    fwd, mont = model_forward(tx, plan, False), model_forward(tx, plan, True)
+    assert torch.equal(fwd, ntt64_ref(tx, plan))
+    assert torch.equal(mont, to_montgomery(ntt64_ref(tx, plan), plan.zq))
+    assert torch.equal(mont, ntt64_mont_ref(tx, plan))
+    jmont = jrlwe._to_eval_mont(jrlwe_params(q, log_n), jnp.asarray(x))
+    np.testing.assert_array_equal(mont.numpy().view(np.uint64), np.asarray(jmont))
+    inv = model_inverse(tx, plan)
+    assert torch.equal(inv, intt64_ref(tx, plan))
+    np.testing.assert_array_equal(inv.numpy().view(np.uint64), np.asarray(jax.jit(jntt.intt, static_argnums=1)(jnp.asarray(x), jplan)))
+
+
+def jrlwe_params(q: int, log_n: int, log_b: int = 11, d: int = 5):
+    return jfhew.RlweParams(q=q, p=4, log_n=log_n, log_b=log_b, d=d)
+
+
+def test_cpu_to_eval_matches_jax():
+    """The port's `rgsw.to_eval` and `rlwe._to_eval_mont` on CPU tensors (the
+    plain version of K-NTT64's Montgomery instance) against the JAX
+    package's jitted ones at a small ring of the 55-bit prime, and K-NTT64's
+    modelled Montgomery plan against both."""
+    q, log_n, log_b, d = Q55, 5, 11, 5
+    n = 1 << log_n
+    rng = np.random.default_rng(5)
+    a, b = (rng.integers(0, q, size=(2, 2 * d, n), dtype=np.uint64) for _ in "ab")
+    a[0, 0, :2] = [0, q - 1]
+    jparams = jfhew.RgswParams(jrlwe_params(q, log_n, log_b, d), log_b=log_b, d=d)
+    tparams = tfhew.RgswParams(tfhew.RlweParams(q=q, p=4, log_n=log_n, log_b=log_b, d=d), log_b=log_b, d=d)
+    want = jrgsw.to_eval(jparams, jrgsw.RgswCiphertext(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb = (torch.from_numpy(v.view(np.int64)) for v in (a, b))
+    got = tfhew.rgsw.to_eval(tparams, tfhew.rgsw.RgswCiphertext(ta, tb))
+    for g, w in ((got.a, want.a), (got.b, want.b)):
+        np.testing.assert_array_equal(g.numpy().view(np.uint64), np.asarray(w))
+    assert torch.equal(got.a, model_forward(ta, tparams.plan, True))
+    row = jrlwe._to_eval_mont(jparams.rlwe, jnp.asarray(a[1]))
+    np.testing.assert_array_equal(tfhew.rlwe._to_eval_mont(tparams.rlwe, ta[1]).numpy().view(np.uint64), np.asarray(row))
