@@ -99,6 +99,35 @@ parties):
       (`rlwe._to_eval_mont` at 5 rows, `rgsw.to_eval` at a merge chunk and
       at the final 6000 rows), eager and from a CUDA graph.
 
+Then CKKS up to its key switch on the RNS u64 engine, at the JAX package's
+CKKS metric (`bench.py:657-700`: N=2^13, L=8 q-primes and 8 p-primes of 55
+bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
+
+  C1. hold K-RNS-NTT (forward and inverse; on (16, 8, 8192) over the
+      q-primes and on (16, 16, 8192) over q + p, the inverse also on the
+      key switch's (2, 16, 16, 8192)), K-RNS-MAC (1 and 2 terms, and the key
+      switch's two sums against a key broadcast over the batch), K-BASECONV
+      (8 -> 8) and K-RESCALE (k = 1, and k = 8 after K-BASECONV of the
+      dropped limbs) against their plain versions, `torch.equal`; time each
+      over 20 eager wrapper calls and over 20 launches replayed from a CUDA
+      graph against its bound, and print each instance's registers and
+      spills;
+  C2. the Rust reference transcript (`tests/vectors/rust_dump/ckks_*`, N=512,
+      L=8) on the card: mul + relinearize + rescale, rotate and conjugate
+      must equal the reference's ciphertexts bit for bit;
+  C3. the main path: key generation on the card (rlk, one rotation key,
+      cjk), 2 x 16 messages encoded and sk_encrypted, one batch-16 `mul`
+      with the launch counters set to 0 just before and read just after
+      (each of the four kernels must launch; the counts printed by row
+      count); the 16 products must decode within the budget
+      `tests/test_ckks_large.py` holds at log_n=13, and the first ciphertext
+      of the batch must equal the port's CPU path's after mul, rotate and
+      conjugate; then muls/s at batch 16 and 1 (median and spread of 5
+      calls), the host enqueue time against the wall time, and the device's
+      idle share (profiler);
+  C4. `learn_fhe_tpu_torch/examples/ckks_logistic.py` at its default ring
+      on the card: the classifications must agree.
+
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
 its integer instructions over the SMs' issue rates (the cost model below).
@@ -1083,6 +1112,200 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
 
 
+CKKS = dict(log_n=13, log_qi=55, big_l=8)  # `bench.py:657-700`: N=2^13, 8 q-primes + 8 p-primes of 55 bits
+CKKS_BATCH = 16  # `bench/ckks_profile.py:61,188`
+CKKS_MUL_CALLS = 5
+CKKS_REPS = 20  # eager calls and CUDA-graph launches a C1 timing averages
+CKKS_ROT = 5
+# the budget `tests/test_ckks_large.py::test_mul_chain_32bits` holds at log_n=13
+CKKS_MUL_BITS = 32 - 1.5 * (13 - 10)
+CKKS_INSTANCES = (
+    "rns_ntt_kernel<false,true>", "rns_ntt_kernel<true,true>", "rns_mac_kernel<false>", "rns_mac_kernel<true>",
+    "base_convert_kernel", "rescale_kernel",
+)  # fmt: skip
+
+
+def rns_mac_ops(values: int, terms: int, sums: int) -> np.ndarray:
+    """K-RNS-MAC on `values` outputs of each of `sums` sums of `terms`
+    products: per sum and value the 128-bit multiply-adds, one REDC and one
+    add per chunk (a chunk holds every term at 55 bits), the REDC by 2^128
+    mod q."""
+    return values * sums * (terms * MAC128 + REDC64 + ADD_Q64 + REDC64)
+
+
+def base_convert_ops(cols: int, lq: int, lp: int, add: bool) -> np.ndarray:
+    """K-BASECONV on `cols` coefficient columns: per input limb one Shoup
+    product (and an add where a constant comes first), per output limb lq
+    Shoup products added mod p and the correction subtracted. The overflow
+    count's lq f64 fused multiply-adds go to the FP64 pipe and are not
+    counted."""
+    return cols * (lq * (SHOUP64 + (ADD_Q64 if add else 0)) + lp * lq * (SHOUP64 + ADD_Q64) + lp * ADD_Q64)
+
+
+def rescale_ops(values: int, k1: bool) -> np.ndarray:
+    """K-RESCALE on `values` outputs: add P/2, subtract, one Shoup product;
+    with k = 1 also the dropped limb's add and a Barrett (a Shoup's cost)."""
+    return values * (2 * ADD_Q64 + SHOUP64 + ((ADD_Q64 + SHOUP64) if k1 else 0))
+
+
+def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+    """C1-C4 (see the module's docstring); adds the RNS kernels' entries to
+    the kernels line's dicts."""
+    from learn_fhe_tpu_torch.examples.ckks_logistic import run as logistic
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+    from tests.test_torch_rust_ckks import check_evaluations, transcript
+
+    params = C.CkksParams(**CKKS)
+    qs, ps, qps, n, B = params.qs, params.ps, params.qps, params.n, CKKS_BATCH
+    L, P = len(qs), len(ps)
+    rng = np.random.default_rng(11)
+
+    def residues(basis, lead):
+        x = np.stack([rng.integers(0, q, size=(*lead, n), dtype=np.uint64) for q in basis], axis=-2)
+        x.reshape(-1)[:2] = [0, basis[0] - 1]
+        return u64_to_torch(x).to(dev)
+
+    # -- C1: each kernel vs its plain version at the path's shapes -------------
+    t0 = time.perf_counter()
+    report = kernels_report()
+    for name in CKKS_INSTANCES:
+        regs, st, ld = report[name]
+        say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    plan_q, plan_qp = params.plan(qs), params.plan(qps)
+    xq, yq = residues(qs, (B,)), residues(qs, (B,))
+    xqp = residues(qps, (B,))
+    xqp2 = torch.stack([xqp, xqp])  # the key switch's b and a sums, inverse-transformed in one launch
+    key_b, key_a = residues(qps, ()), residues(qps, ())
+    rp1, rp8 = rns.rescale_plan(qs, 1), rns.rescale_plan(qps, P)
+    conv8 = rns.base_convert(xqp[:, L:], rp8.drop, rp8.keep, add=rp8.p_half[L:])
+    lazy = max(qps) < 1 << 62
+    tab = lambda basis: len(basis) * n * 16  # noqa: E731  (a launch's twiddles and duals)
+    cases = {  # (row, shape): kernel call, plain call, bytes, instructions
+        ("rns_ntt", (B, L, n)): (lambda: rns.rns_ntt(xq, plan_q), lambda: rns.rns_ntt_ref(xq, plan_q),
+                                 2 * B * L * n * 8 + tab(qs), ntt64_ops(B * L, n, lazy)),
+        ("rns_ntt", (B, L + P, n)): (lambda: rns.rns_ntt(xqp, plan_qp), lambda: rns.rns_ntt_ref(xqp, plan_qp),
+                                     2 * B * (L + P) * n * 8 + tab(qps), ntt64_ops(B * (L + P), n, lazy)),
+        ("rns_intt", (B, L, n)): (lambda: rns.rns_intt(xq, plan_q), lambda: rns.rns_intt_ref(xq, plan_q),
+                                  2 * B * L * n * 8 + tab(qs), intt64_ops(B * L, n, lazy)),
+        ("rns_intt", (2, B, L + P, n)): (lambda: rns.rns_intt(xqp2, plan_qp), lambda: rns.rns_intt_ref(xqp2, plan_qp),
+                                         4 * B * (L + P) * n * 8 + tab(qps), intt64_ops(2 * B * (L + P), n, lazy)),
+        ("rns_mac", "K=1"): (lambda: rns.rns_mac([xq], [yq], plan_q), lambda: rns.rns_mac_ref([xq], [yq], plan_q),
+                             3 * B * L * n * 8, rns_mac_ops(B * L * n, 1, 1)),
+        ("rns_mac", "K=2"): (lambda: rns.rns_mac([xq, yq], [yq, xq], plan_q), lambda: rns.rns_mac_ref([xq, yq], [yq, xq], plan_q),
+                             5 * B * L * n * 8, rns_mac_ops(B * L * n, 2, 1)),
+        ("rns_mac", "key switch"): (lambda: rns.rns_mac([xqp], [key_b], plan_qp, [key_a]),
+                                    lambda: rns.rns_mac_ref([xqp], [key_b], plan_qp, [key_a]),
+                                    3 * B * (L + P) * n * 8 + 2 * (L + P) * n * 8, rns_mac_ops(B * (L + P) * n, 1, 2)),
+        ("base_convert", f"{L}->{P}"): (lambda: rns.base_convert(xq, qs, ps), lambda: rns.base_convert_ref(xq, qs, ps),
+                                        B * (L + P) * n * 8, base_convert_ops(B * n, L, P, False)),
+        ("rescale", "k=1"): (lambda: rns.rescale_finish(xq, None, rp1), lambda: rns.rescale_finish_ref(xq, None, rp1),
+                             B * (2 * L - 1) * n * 8, rescale_ops(B * (L - 1) * n, True)),
+        ("rescale", f"k={P}"): (lambda: rns.rescale_finish(xqp, conv8, rp8), lambda: rns.rescale_finish_ref(xqp, conv8, rp8),
+                                3 * B * L * n * 8, rescale_ops(B * L * n, False)),
+    }  # fmt: skip
+    for (name, shape), (kernel, plain, *_) in cases.items():
+        errs[name] = max(errs.get(name, 0.0), max_abs_err(kernel(), plain().cpu()))
+    # the whole rescale by P: K-BASECONV of the dropped limbs + K-RESCALE
+    errs["rescale"] = max(errs["rescale"], max_abs_err(rns.rescale_k(xqp, qps, P), rns.rescale_finish_ref(
+        xqp, rns.base_convert_ref(xqp[:, L:], rp8.drop, rp8.keep, add=rp8.p_half[L:]), rp8).cpu()))  # fmt: skip
+    say(f"C1 K-RNS-NTT (forward, inverse) on ({B}, {L}, {n}) and ({B}, {L + P}, {n}), K-RNS-MAC at K=1, 2 and the key switch's two sums, K-BASECONV {L}->{P}, K-RESCALE at k=1 and k={P} == plain: ok")
+    shape_ms = {}
+    for (name, shape), (kernel, plain, n_bytes, ops) in cases.items():
+        k_ms, g_ms, p_ms = cuda_ms(kernel, CKKS_REPS), graph_ms(kernel, CKKS_REPS), cuda_ms(plain, 3)
+        b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+        shape_ms[name, shape] = (k_ms, g_ms, b_ms)
+        if name not in timings:  # the kernels line takes the first shape of each row
+            timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+        say(f"{tag} C1 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({CKKS_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+    say(f"{tag} C1 took {time.perf_counter() - t0:.1f} s (host clock)")
+
+    # -- C2: the Rust reference transcript on the card ---------------------------
+    t0 = time.perf_counter()
+    check_evaluations(transcript(dev))
+    say(f"{tag} C2 mul + relinearize + rescale, rotate and conjugate of the Rust reference transcript (N=512, L=8) on the card == the reference's ciphertexts, bit for bit ({time.perf_counter() - t0:.1f} s, host clock)")
+
+    # -- C3: the main path ------------------------------------------------------
+    t0 = time.perf_counter()
+    sk = C.sk_gen(params, rng)
+    rlk = C.rlk_gen(params, sk, rng, dev)
+    rtk = C.rtk_gen(params, sk, CKKS_ROT, rng, dev)
+    cjk = C.cjk_gen(params, sk, rng, dev)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ms = [rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l) for _ in range(2 * B)]
+    cts = [C.sk_encrypt(params, sk, C.encode(params, m, device=dev), qs, rng) for m in ms]
+    stack = lambda cs: C.CkksCiphertext(torch.stack([c.b for c in cs]), torch.stack([c.a for c in cs]), qs)  # noqa: E731
+    ct0, ct1 = stack(cts[:B]), stack(cts[B:])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    counted = {"rns_ntt": rns.rns_ntt, "rns_intt": rns.rns_intt, "rns_mac": rns.rns_mac, "base_convert": rns.base_convert, "rescale": rns.rescale_finish}
+    for fn in counted.values():
+        fn.launches, fn.by_rows = 0, Counter()
+    out = C.mul(params, rlk, ct0, ct1)
+    torch.cuda.synchronize()
+    by_rows = {name: dict(fn.by_rows) for name, fn in counted.items()}
+    for name, fn in counted.items():
+        launches[name] = fn.launches
+    say(f"{tag} C3 keys (rlk, a rotation key, cjk) on the card {keygen_s:.2f} s; {2 * B} messages encoded and sk_encrypted {enc_s:.2f} s (host clock, to a sync)")
+    say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: input rows): {by_rows}")
+    for name, count in launches.items():
+        if name in counted and count == 0:
+            raise AssertionError(f"{name} was not launched on the CKKS main path")
+    if out.b.shape != (B, L - 1, n) or out.qs != qs[:-1]:
+        raise AssertionError(f"mul output shape {tuple(out.b.shape)} at {len(out.qs)} limbs")
+    worst = 200.0
+    pts = C.decrypt(params, sk, out)
+    for i in range(B):
+        got = C.decode(params, pts[i], out.qs)
+        d = float(np.max(np.abs(got - ms[i] * ms[B + i])))
+        worst = min(worst, 200.0 if d == 0 else -np.log2(d))
+    say(f"C3 {B} products decode to m0 m1 within {worst:.1f} bits (budget {CKKS_MUL_BITS} bits, `tests/test_ckks_large.py` at log_n=13)")
+    if worst <= CKKS_MUL_BITS:
+        raise AssertionError("a decrypted product is outside its budget")
+    cpu_key = lambda k: C.CkksKeySwitchingKey(k.b.cpu(), k.a.cpu(), k.qs)  # noqa: E731
+    first = lambda ct: C.CkksCiphertext(ct.b[0].contiguous(), ct.a[0].contiguous(), ct.qs)  # noqa: E731
+    cpu = lambda ct: C.CkksCiphertext(ct.b.cpu(), ct.a.cpu(), ct.qs)  # noqa: E731
+    c0, c1 = cpu(first(ct0)), cpu(first(ct1))
+    for label, got, want in (
+        ("mul", out, C.mul(params, cpu_key(rlk), c0, c1)),
+        ("rotate", C.rotate(params, rtk, ct0), C.rotate(params, C.CkksRotKey(cpu_key(rtk.ksk), rtk.j), c0)),
+        ("conjugate", C.conjugate(params, cjk, ct0), C.conjugate(params, cpu_key(cjk), c0)),
+    ):
+        max_abs_err(got.b[0], want.b)
+        max_abs_err(got.a[0], want.a)
+        say(f"C3 {label}: the first ciphertext of the batch == the port's CPU path, bit for bit")
+    mul_ms = {}
+    for batch, (a, b) in ((B, (ct0, ct1)), (1, (first(ct0), first(ct1)))):
+        med, lo, hi = spread_ms(lambda a=a, b=b: C.mul(params, rlk, a, b), CKKS_MUL_CALLS)
+        say(f"{tag} C3 mul at batch {batch}: {med:.3f} ms per call (median of {CKKS_MUL_CALLS}, {lo:.3f}-{hi:.3f}; CUDA events) = {batch / med * 1e3:.1f} muls/s")
+        mul_ms[batch] = med
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.mul(params, rlk, ct0, ct1)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    say(f"{tag} C3 mul at batch {B}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
+    g_ms = graph_ms(lambda: C.mul(params, rlk, ct0, ct1), 3)
+    say(f"{tag} C3 mul at batch {B} from a CUDA graph: {g_ms:.3f} ms per call (device only) = {B / g_ms * 1e3:.1f} muls/s; the device's idle share in an eager call, 1 - graph / eager median = {1 - g_ms / mul_ms[B]:.4f}")
+    idle, kernel_ms, top = device_kernel_ms(lambda: C.mul(params, rlk, ct0, ct1))
+    if kernel_ms:
+        say(f"{tag} C3 mul at batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
+        for name, t, count in top:
+            say(f"  {t:10.3f} ms  {count:6d} x  {name[:100]}")
+    else:
+        say(f"{tag} C3 device kernel time and idle share: not measured (the profiler recorded no device activity)")
+
+    # -- C4: the applied entry point -------------------------------------------
+    t0 = time.perf_counter()
+    res = logistic(10, dev, say=lambda *parts: say("C4", *parts))
+    torch.cuda.synchronize()
+    say(f"{tag} C4 examples/ckks_logistic.py at log_n=10 on the card: classifications agree {res['agree']:.0%}, {time.perf_counter() - t0:.2f} s (host clock, keys included)")
+
+
 def batch_for_cluster(boot, params, cluster: int, dev) -> int | None:
     """The smallest batch for which K-FHEW-BR64's wrapper picks `cluster`
     blocks per ciphertext on this card, or None where no batch picks it."""
@@ -1125,10 +1348,10 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name:  # N=2048, Garner, FHEW's N=512, the u64 kernels
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name:  # N=2048, Garner, FHEW's N=512, the u64 and RNS kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 kernel")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 or RNS kernel")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -1320,6 +1543,7 @@ def main() -> None:
 
     fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches)
     multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)
+    ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)
 
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
@@ -1336,6 +1560,11 @@ def main() -> None:
         ("external_product64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/rgsw.py:154 (u64 external product, XLA fusion; no Pallas call)"),
         ("fhew_blind_rotate64", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:436 (u64 branch of the XLA scan; no Pallas call)"),
         ("fhew_blind_rotate64_cluster", "fhew_u64.cu", "learn_fhe_tpu/models/fhew/bootstrapping.py:436 (u64 branch of the XLA scan; no Pallas call)"),
+        ("rns_ntt", "rns64.cu", "learn_fhe_tpu/ops/rns.py:123 (fwd_stages via rns_ntt, XLA fusion; no Pallas call)"),
+        ("rns_intt", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193 (inv_stages via rns_intt, XLA fusion; no Pallas call)"),
+        ("rns_mac", "rns64.cu", "learn_fhe_tpu/ops/rns.py:280 and models/ckks/ckks.py:588-597,706-716 (rns_mul_eval, mul's tensor, _ks_dot; XLA fusions; no Pallas call)"),
+        ("base_convert", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases / switch_bases, XLA fusion; no Pallas call)"),
+        ("rescale", "rns64.cu", "learn_fhe_tpu/ops/rns.py:426 (rescale_k, XLA fusion; no Pallas call)"),
     ]
     say(
         json.dumps(

@@ -174,15 +174,16 @@ def to_montgomery(a: torch.Tensor, zq: ZqParams) -> torch.Tensor:
 
 
 def generic_mul_mod(a: torch.Tensor, b, q: int) -> torch.Tensor:
-    """a * b mod q for any q < 2^63: a mask for powers of two, the int64
-    product below 2^31, Montgomery for odd q above."""
+    """a * b mod q for a power of two or an odd q < 2^63: a mask for powers
+    of two, the int64 product for odd q below 2^31, Montgomery above. An
+    even q that is not a power of two raises, as the JAX package does."""
     if is_pow2(q):
         return (a * b) & (q - 1)
+    if q % 2 == 0:
+        raise NotImplementedError("even non-power-of-two modulus")
     if q < 1 << 31:
         return (a * b) % q
-    if q % 2 == 1:
-        return mul_mod(a, b, ZqParams(q))
-    raise NotImplementedError("even non-power-of-two modulus")
+    return mul_mod(a, b, ZqParams(q))
 
 
 def barrett_reduce_u64(a: torch.Tensor, q: int) -> torch.Tensor:

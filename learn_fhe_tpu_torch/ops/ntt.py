@@ -259,6 +259,51 @@ def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.T
     return y
 
 
+@lru_cache(maxsize=None)
+def eval_exponents(n: int) -> np.ndarray:
+    """Root exponent per forward-NTT output slot: out[j] = a(psi^{e[j]})
+    (`learn_fhe_tpu/ops/ntt.py:206`): a host mirror of the forward DIT
+    stages run on a(X) = X over a small NTT-friendly prime, its slot values
+    matched against the psi power table. The slot -> root map depends on the
+    butterfly index structure alone, so it holds for every prime."""
+    if n == 1:
+        return np.zeros(1, dtype=np.int64)
+    log_n = n.bit_length() - 1
+    from ..utils.primes import two_adic_primes
+
+    q = next(two_adic_primes(31, log_n + 1))
+    psi = two_adic_generator(q, log_n + 1)
+    pow_list = []
+    acc = 1
+    for _ in range(2 * n):
+        pow_list.append(acc)
+        acc = acc * psi % q
+    psi_br = np.array(pow_list[:n], dtype=object)[bit_reverse_indices(n)]
+    out = np.zeros(n, dtype=object)
+    out[1] = 1  # a(X) = X
+    for layer in range(log_n):
+        m = 1 << layer
+        x = out.reshape(m, 2, n >> (layer + 1))
+        u, v = x[:, 0, :], x[:, 1, :]
+        tv = (v * psi_br[m : 2 * m, None]) % q
+        out = np.stack([(u + tv) % q, (u - tv) % q], axis=1).reshape(n)
+    pos_of_value = {v: k for k, v in enumerate(pow_list)}
+    e = np.array([pos_of_value[int(v)] for v in out], dtype=np.int64)
+    assert (e % 2 == 1).all() and len(set(e.tolist())) == n
+    return e
+
+
+@lru_cache(maxsize=None)
+def eval_automorphism_perm(n: int, t: int) -> np.ndarray:
+    """Permutation sigma with NTT(automorphism_t(x)) == NTT(x)[sigma]
+    (`learn_fhe_tpu/ops/ntt.py:245`): slot j of the transformed automorphism
+    holds a(root^t), the slot whose exponent is e[j] t mod 2n."""
+    assert t % 2 == 1
+    e = eval_exponents(n)
+    pos = {int(exp): j for j, exp in enumerate(e)}
+    return np.array([pos[int(exp) * t % (2 * n)] for exp in e], dtype=np.int64)
+
+
 # launches, and launches by row count (the shapes a path launches them at)
 for _fn in (ntt64, ntt64_mont, intt64, negacyclic_mul64):
     _fn.launches, _fn.by_rows = 0, Counter()

@@ -128,3 +128,26 @@ def fhew_key_share_from_numpy(share, device=None):
         RgswCiphertext(u64_to_torch(np.asarray(share.brk.a), device), u64_to_torch(np.asarray(share.brk.b), device)),
         u64_to_torch(np.asarray(share.ak_b), device),
     )
+
+
+def ckks_ciphertext_from_numpy(ct, device=None):
+    """The port's CkksCiphertext from the JAX package's, given with numpy
+    leaves (b and a u64 of shape (..., L, N)) and its level `qs`, on
+    `device` (see `resolve_device`)."""
+    from ..models.ckks.ckks import CkksCiphertext
+
+    device = resolve_device(device)
+    return CkksCiphertext(u64_to_torch(np.asarray(ct.b), device), u64_to_torch(np.asarray(ct.a), device), tuple(ct.qs))
+
+
+def ckks_ksk_from_numpy(ksk, device=None):
+    """The port's CkksKeySwitchingKey from the JAX package's, given with
+    numpy leaves: the evaluation-basis b and a over qps, (2L, N) or with a
+    leading digit axis (D, 2L, N), copied as they are, on `device`."""
+    from ..models.ckks.ckks import CkksKeySwitchingKey
+
+    device = resolve_device(device)
+    b, a = np.asarray(ksk.b), np.asarray(ksk.a)
+    if b.shape != a.shape or b.ndim not in (2, 3) or b.shape[-2] != len(ksk.qs):
+        raise ValueError(f"ckks_ksk_from_numpy: expected b and a of shape ([D,] {len(ksk.qs)}, N), got {b.shape}, {a.shape}")
+    return CkksKeySwitchingKey(u64_to_torch(b, device), u64_to_torch(a, device), tuple(ksk.qs))

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu")
+SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -91,6 +91,20 @@ _SIGNATURES = {
         (_P,) * 6 + (_I, _I) + (_P, _P, _I) + (_P,) * 4 + (_I,) + (_P,) * 4 + (_I,) + (_U64,) * 4
         + (_I, _I, _I, _U64) * 2 + (_I, _P, _P)
     ),
+    # x, y, the stacked tables psi, psi_shoup, psi_inv, psi_inv_shoup (L, N),
+    # per-limb q, -q^-1 mod 2^64, n_inv, n_inv_shoup (L,), rows, limbs,
+    # log_n, lazy, stream
+    "lft_rns_ntt_fwd": (_P,) * 10 + (_I,) * 4 + (_P,),
+    "lft_rns_ntt_inv": (_P,) * 10 + (_I,) * 4 + (_P,),
+    # host arrays of x, y, z pointers (z null: one sum), out, terms, rows,
+    # limbs, log_n, y_rows, per-limb q, -q^-1, 2^128 mod q, chunk, stream
+    "lft_rns_mac": (_P,) * 4 + (_I,) * 5 + (_P,) * 3 + (_I, _P),
+    # x, y, q, q_hat^-1, its dual, 1/q, p, q_hat mod p, its dual, u Q mod p,
+    # add (or null), lq, lp, log_n, batch, x batch stride, stream
+    "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),
+    # x, conv (or null), y, kept q, P/2 mod q, P^-1 mod q, its dual, Barrett
+    # m, limbs, keep, log_n, batch, dropped q_d, (q_d >> 1), stream
+    "lft_rescale": (_P,) * 8 + (_I,) * 3 + (_LL, _U64, _U64, _P),
     # host function (no stream): cluster, log_n, rows_g, rows_k
     "lft_fhew_walk64_clusters": (_I,) * 4,
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
@@ -184,7 +198,8 @@ def build_log() -> str:
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
-    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64)_kernel(I(?:L[ib]\d+E)+E)?"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt|rns_mac|base_convert"
+    r"|rescale)_kernel(I(?:L[ib]\d+E)+E)?"
 )
 
 

@@ -959,3 +959,130 @@ def test_fhew_multikey_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     for c, g in zip(*outs):
         assert torch.equal(g.cpu(), c)
+
+
+# -- CKKS: the RNS u64 kernels (csrc/rns64.cu) --------------------------------
+
+
+def _rns_primes(limbs: int, log_n: int = 13, bits: int = 55) -> tuple[int, ...]:
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    it = two_adic_primes(bits, log_n + 1)
+    return tuple(next(it) for _ in range(limbs))
+
+
+def _rns_residues(rng, qs, lead, n):
+    return u64_to_torch(np.stack([rng.integers(0, q, size=(*lead, n), dtype=np.uint64) for q in qs], axis=-2))
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("limbs", [1, 8, 16, 23])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_rns_kernels_match_plain(dev, log_n, limbs, batch):
+    """K-RNS-NTT (forward and inverse), K-RNS-MAC (1 and 2 terms, two sums,
+    a key broadcast over the batch), K-BASECONV (limbs -> limbs and a limb
+    slice) and K-RESCALE (k = 1 and k = limbs // 2) at every ring N=2..2^13,
+    on inputs holding 0 and q - 1; at N=2, L=23, batch 1 the elementwise
+    kernels' last block is ragged (46 values)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n * 100 + limbs + batch)
+    qps = _rns_primes(2 * limbs)
+    qs, ps = qps[:limbs], qps[limbs:]
+    x, y = _rns_residues(rng, qs, (batch,), n), _rns_residues(rng, qs, (batch,), n)
+    x[0, 0, 0], x[-1, -1, -1] = 0, qs[-1] - 1
+    plan = rns.rns_plan(qs, n)
+    x, y = x.to(dev), y.to(dev)
+    # the plain versions run on the same tensors on the card (plain torch:
+    # the same values as on the CPU, in far less time at these sizes)
+    same = lambda got, want: _same(got, want.cpu())  # noqa: E731
+    same(rns.rns_ntt(x, plan), rns.rns_ntt_ref(x, plan))
+    same(rns.rns_intt(x, plan), rns.rns_intt_ref(x, plan))
+    same(rns.rns_mac([x], [y], plan), rns.rns_mac_ref([x], [y], plan))
+    same(rns.rns_mac([x, y], [y, x], plan, [x, x]), rns.rns_mac_ref([x, y], [y, x], plan, [x, x]))
+    key = y[0].contiguous()
+    same(rns.rns_mac([x], [key], plan), rns.rns_mac_ref([x], [key], plan))
+    same(rns.base_convert(x, qs, ps), rns.base_convert_ref(x, qs, ps))
+    if limbs > 1:
+        half = limbs // 2
+        same(rns.base_convert(x[:, half:], qs[half:], ps[:3]), rns.base_convert_ref(x[:, half:], qs[half:], ps[:3]))
+        for k in sorted({1, half}):
+            rp = rns.rescale_plan(qs, k)
+            conv = None if k == 1 else rns.base_convert_ref(x[:, limbs - k :], rp.drop, rp.keep, add=rp.p_half[limbs - k :])
+            same(rns.rescale_k(x, qs, k), rns.rescale_finish_ref(x, conv, rp))
+    assert rns.rns_ntt_ref(x.cpu()[:1, :1], rns.rns_plan(qs[:1], n)).equal(rns.rns_ntt(x[:1, :1].contiguous(), rns.rns_plan(qs[:1], n)).cpu())
+
+
+@pytest.mark.parametrize("level", [2, 3, 4, 5, 6])
+def test_rescale_kernel_on_a_ladder(dev, level):
+    """45/55-bit ladder: the dropped limb reduced by Barrett for some kept
+    primes and taken raw for others."""
+    from learn_fhe_tpu_torch.models.ckks.ckks import CkksParams
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = CkksParams(log_n=13, log_qi=55, big_l=6, log_qis=(55, 45, 45, 55, 45, 45), log_ps=(55, 55), dnum=3)
+    qs = params.qs[:level]
+    x = _rns_residues(np.random.default_rng(level), qs, (16,), 1 << 13)
+    for k in range(1, level):
+        _same(rns.rescale_k(x.to(dev), qs, k), rns.rescale_k(x, qs, k))
+
+
+def test_rns_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs = _rns_primes(4)
+    plan = rns.rns_plan(qs, 1 << 10)
+    x = torch.zeros((2, 4, 1 << 10), dtype=torch.int64, device=dev)
+    flat = torch.zeros(2 * 4 * 1024 + 1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        rns.rns_ntt(flat[1:].view(2, 4, 1024), plan)  # off 16-byte alignment
+    with pytest.raises(ValueError):
+        rns.rns_ntt(x[:, :3], rns.rns_plan(qs[:3], 1 << 10))  # not contiguous
+    with pytest.raises(ValueError):
+        rns.rns_mac([x], [x[:1]], plan)  # y neither x's shape nor (L, N)
+    with pytest.raises(ValueError):
+        rns.rescale_finish(x.float(), None, rns.rescale_plan(qs, 1))
+    with pytest.raises(ValueError):
+        rns.base_convert(x.transpose(0, 1), qs, qs)  # leading axes do not merge
+    with pytest.raises(ValueError):
+        rns.rns_ntt(torch.zeros((2, 4, 1 << 14), dtype=torch.int64, device=dev), rns.rns_plan(_rns_primes(4, 14), 1 << 14))
+
+
+def test_ckks_mul_rotate_on_card_match_cpu(dev):
+    """A batch-16 mul, a rotate and a conjugate at N=2^10, L=8 on the card
+    equal the plain path's on the CPU; each of the four kernels launches."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = C.CkksParams(log_n=10, log_qi=55, big_l=8)
+    rng = np.random.default_rng(3)
+    sk = C.sk_gen(params, rng)
+    rlk = C.rlk_gen(params, sk, rng)
+    rtk = C.rtk_gen(params, sk, 3, rng)
+    cjk = C.cjk_gen(params, sk, rng)
+    ms = [rng.random(params.l) + 1j * rng.random(params.l) for _ in range(32)]
+    cts = [C.sk_encrypt(params, sk, C.encode(params, m), params.qs, rng) for m in ms]
+    stack = lambda cs: C.CkksCiphertext(torch.stack([c.b for c in cs]), torch.stack([c.a for c in cs]), params.qs)  # noqa: E731
+    ct0, ct1 = stack(cts[:16]), stack(cts[16:])
+    counted = (rns.rns_ntt, rns.rns_intt, rns.rns_mac, rns.base_convert, rns.rescale_finish)
+    for fn in counted:
+        fn.launches = 0
+    out = C.mul(params, rlk, ct0, ct1)
+    torch.cuda.synchronize()
+    assert all(fn.launches for fn in counted), {fn.__name__: fn.launches for fn in counted}
+    cpu_ct = lambda c: C.CkksCiphertext(c.b.cpu(), c.a.cpu(), c.qs)  # noqa: E731
+    cpu_key = lambda k: C.CkksKeySwitchingKey(k.b.cpu(), k.a.cpu(), k.qs)  # noqa: E731
+    c0, c1 = cpu_ct(C.CkksCiphertext(ct0.b[0], ct0.a[0], params.qs)), cpu_ct(C.CkksCiphertext(ct1.b[0], ct1.a[0], params.qs))
+    want = C.mul(params, cpu_key(rlk), c0, c1)
+    _same(out.b[0], want.b)
+    _same(out.a[0], want.a)
+    got_rot = C.rotate(params, rtk, ct0)
+    want_rot = C.rotate(params, C.CkksRotKey(cpu_key(rtk.ksk), rtk.j), c0)
+    _same(got_rot.a[0], want_rot.a)
+    _same(got_rot.b[0], want_rot.b)
+    got_conj = C.conjugate(params, cjk, ct0)
+    want_conj = C.conjugate(params, cpu_key(cjk), c0)
+    _same(got_conj.b[0], want_conj.b)
+    dec = C.decode(params, C.decrypt(params, sk, C.CkksCiphertext(out.b[5], out.a[5], out.qs)), out.qs)
+    assert np.max(np.abs(dec - ms[5] * ms[21])) < 2.0**-30

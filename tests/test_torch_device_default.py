@@ -179,3 +179,60 @@ def test_fhew_key_gen_defaults_to_the_card():
         pytest.skip("needs a CUDA device")
     key = _fhew_key(None)
     assert all(t.device.type == "cuda" for t in key)
+
+
+CKKS_PARAMS = dict(log_n=3, log_qi=30, big_l=2)
+
+
+def test_ckks_key_gen_and_encryption_raise_without_cuda(no_cuda):
+    from learn_fhe_tpu_torch.models import ckks
+    from learn_fhe_tpu_torch.utils.interop import ckks_ciphertext_from_numpy, ckks_ksk_from_numpy
+
+    params = ckks.CkksParams(**CKKS_PARAMS)
+    rng = np.random.default_rng(0)
+    sk = ckks.sk_gen(params, rng)
+    for make in (
+        lambda: ckks.pk_gen(params, sk, rng),
+        lambda: ckks.rlk_gen(params, sk, rng),
+        lambda: ckks.cjk_gen(params, sk, rng),
+        lambda: ckks.rtk_gen(params, sk, 1, rng),
+        lambda: ckks.rtk_gen_many(params, sk, [1, 2], rng),
+        lambda: ckks.encode(params, np.zeros(params.l)),
+        lambda: ckks_ksk_from_numpy(NS(b=np.zeros((4, 8), np.uint64), a=np.zeros((4, 8), np.uint64), qs=params.qps)),
+        lambda: ckks_ciphertext_from_numpy(NS(b=np.zeros((2, 8), np.uint64), a=np.zeros((2, 8), np.uint64), qs=params.qs)),
+    ):
+        with pytest.raises(RuntimeError, match="GPU"):
+            make()
+
+
+def test_ckks_entry_points_on_cpu_when_asked():
+    from learn_fhe_tpu_torch.models import ckks
+    from learn_fhe_tpu_torch.utils.interop import ckks_ciphertext_from_numpy, ckks_ksk_from_numpy
+
+    params = ckks.CkksParams(**CKKS_PARAMS)
+    rng = np.random.default_rng(0)
+    sk = ckks.sk_gen(params, rng)
+    pk = ckks.pk_gen(params, sk, rng, device="cpu")
+    rlk = ckks.rlk_gen(params, sk, rng, device="cpu")
+    rtk = ckks.rtk_gen_many(params, sk, [1], rng, device="cpu")[1]
+    ct = ckks.pk_encrypt(params, pk, ckks.encode(params, np.ones(params.l), device="cpu"), rng)
+    ct2 = ckks.sk_encrypt(params, sk, ckks.encode(params, np.ones(params.l), device="cpu"), params.qs, rng)
+    for t in (pk.b, rlk.b, rtk.ksk.a, ct.a, ct2.b):
+        assert t.device.type == "cpu"
+    leaves = lambda x: NS(b=x.b.numpy().view(np.uint64), a=x.a.numpy().view(np.uint64), qs=x.qs)  # noqa: E731
+    assert torch.equal(ckks_ksk_from_numpy(leaves(rlk), device="cpu").b, rlk.b)
+    assert torch.equal(ckks_ciphertext_from_numpy(leaves(ct), device="cpu").a, ct.a)
+
+
+@pytest.mark.cuda
+def test_ckks_key_gen_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from learn_fhe_tpu_torch.models import ckks
+
+    params = ckks.CkksParams(**CKKS_PARAMS)
+    rng = np.random.default_rng(0)
+    sk = ckks.sk_gen(params, rng)
+    rlk = ckks.rlk_gen(params, sk, rng)
+    ct = ckks.sk_encrypt(params, sk, ckks.encode(params, np.ones(params.l)), params.qs, rng)
+    assert rlk.b.device.type == "cuda" and ct.b.device.type == "cuda"
