@@ -18,32 +18,63 @@
 // each), the other three a few u64 products per value read: the integer
 // issue rate and the bytes are of the same order.
 //
-// The design, simple first:
-// - K-RNS-NTT: one block per row, the row in dynamic shared memory (64 KB at
-//   N = 2^13, past the 48 KB of a static array: the instance opts in with
-//   cudaFuncSetAttribute), the passes of 3 layers of u64.cuh (lft64::pass)
-//   under the row's limb's tables, rows copied in and out in 16-byte words.
+// The design:
+// - K-RNS-NTT (redesigned for the H100): the row passes of u64_rows.cuh
+//   (head passes of 3 layers, a last pass of 2 on items of 4 consecutive
+//   values) under each row's limb's tables (row r under limb r mod L), the
+//   first pass reading device memory and the last writing it. The first
+//   version gave each 64 KB row of N = 2^13 one 512-thread block: one block
+//   an SM by its registers, so at the CKKS mul's 128-row launches each SM
+//   ran one barrier-separated chain with nothing to fill its waits (0.23 of
+//   the bound, PERF.md). From N = 2048 up a row is now spread over a
+//   cluster of kCluster blocks (2 of 256 threads, 4 sub-rows each: of the
+//   shapes measured, 8 x 128, 4 x 128, 4 x 256, 2 x 512 and a first pass
+//   through L2 as a kernel of its own, the fastest at the CKKS mul's
+//   launches, PERF.md): the first pass's 3 layers leave 8
+//   independent sub-rows of N/8 values; block c of the cluster runs that
+//   pass on its share of the row's items (read from device memory) and
+//   writes each output into the shared memory of the block holding its
+//   sub-row (distributed shared memory), and after one cluster barrier
+//   each block runs the other passes on its sub-rows alone, the last one
+//   into device memory in 16-byte stores. The inverse runs the same passes
+//   the other way: the last pass from device memory in 16-byte loads, the
+//   head passes down to layer 3 on the block's sub-rows, a cluster barrier,
+//   then the first pass on the cluster's share of items, each value read
+//   from the block that holds it and scaled by 1/N on its way out. N = 2^13
+//   (CKKS's ring) has an instance with every pass's shape a constant. Below
+//   N = 2048 a block takes one row through rows::forward / rows::inverse.
 //   Lazy (Harvey) butterflies where every prime is below 2^62.
 // - K-RNS-MAC: one thread per value; the products of up to `chunk` terms
 //   summed in 128 bits (chunk (q-1)^2 < q 2^64), one REDC per chunk, the
 //   chunks' sums added mod q, the total brought out of the Montgomery
 //   domain by a REDC against 2^128 mod q. Products of canonical residues
 //   summed exactly mod q are the JAX package's in any order.
-// - K-BASECONV: one thread per coefficient column: v_i = x_i q_hat_i^-1
-//   (Shoup), the overflow count in f64 as XLA's CPU backend sums it (one
-//   fused multiply-add per limb, in limb order, from 0; rint, ties to
-//   even), then every output limb as the modular sum of Shoup products
-//   (q_hat_i mod p_j) v_i less (u Q mod p_j). The modular sum is exact, so
-//   it equals both of the JAX package's branches (a raw u64 sum and a
-//   Barrett, or the log-depth fold past 2^64).
+// - K-BASECONV (redesigned for the H100): one thread per coefficient
+//   column, its tables in shared memory, loaded once a block. v_i = x_i
+//   q_hat_i^-1 (Shoup) in registers where lq is a constant of the instance
+//   (1, 2 and 8: the CKKS paths' digit and P sizes), in shared memory in
+//   the instance for any lq <= 64; the overflow count in f64 as XLA's CPU
+//   backend sums it (one fused multiply-add per limb, in limb order, from
+//   0; rint, ties to even); then every output limb as sum_i v_i w'_ji in
+//   128 bits, w'_ji = q_hat_i 2^64 mod p_j, one REDC per chunk of terms
+//   (chunk max(q) < 2^64), the chunks added mod p_j, less (u Q mod p_j).
+//   The first version kept the v_i in a local-memory array indexed at run
+//   time and summed Shoup products one modular add at a time (PERF.md).
+//   The modular sum is exact, so it equals both of the JAX package's
+//   branches (a raw u64 sum and a Barrett, or the log-depth fold past
+//   2^64).
 // - K-RESCALE: one thread per output value.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "u64.cuh"
+#include "u64_rows.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using lft64::add_q;
 using lft64::csub;
@@ -51,10 +82,10 @@ using lft64::shoup_q;
 using lft64::sub_q;
 
 constexpr int kMaxLogN = 13;
-constexpr int kNttThreads = 512;
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 constexpr int kMaxLimbs = 64;
+constexpr size_t kMaxSmem = 227 * 1024;  // a block's shared memory at most (dynamic, opted in)
 
 // The stacked (L, N) twiddle tables and the (L,) per-limb constants.
 struct Stacked {
@@ -72,40 +103,285 @@ struct Stacked {
 // K-RNS-NTT
 // ---------------------------------------------------------------------------
 
-template <bool kInv, bool kLazy>
-__global__ void __launch_bounds__(kNttThreads)
-    rns_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked s, int limbs, int log_n) {
-  extern __shared__ __align__(16) uint64_t buf[];
-  const long long row = blockIdx.x;
+constexpr int kNttThreads = 256;  // a cluster's block
+constexpr int kRowThreads = 128;  // a row's block below kSplitLogN
+constexpr int kSplitLogN = 11;  // from N = 2048 up a row runs on a cluster
+constexpr int kSplit = 3;       // the first pass's layers: 8 sub-rows after it
+constexpr int kSubs = 1 << kSplit;
+constexpr int kCluster = 2;                       // blocks per row
+constexpr int kPerBlock = kSubs / kCluster;       // sub-rows a block holds
+constexpr int kRowValues = 1 << (kSplitLogN - 1);  // below kSplitLogN: a block's row, at most
+constexpr int kBufValues = kPerBlock << (kMaxLogN - kSplit);
+// The items a thread takes at N = 2^13 in the inverse's passes that read
+// their values from device memory (kItemsAhead, the last two layers) or
+// from the other block (kSplitAhead, the first three): unrolled, their
+// loads overlap. (Unrolling the forward's first pass measured slower.)
+constexpr int kSplitAhead = (1 << (kMaxLogN - kSplit)) / kCluster / kNttThreads;
+constexpr int kItemsAhead = (kPerBlock << (kMaxLogN - kSplit - 2)) / kNttThreads;
+
+// The tables of row `row`'s limb.
+__device__ __forceinline__ lft64::Tables limb_tables(const Stacked& s, long long row, int limbs, int log_n) {
   const int limb = static_cast<int>(row % limbs);
   const size_t off = static_cast<size_t>(limb) << log_n;
-  const lft64::Tables t{s.psi + off, s.psi_s + off, s.psi_inv + off, s.psi_inv_s + off,
-                        __ldg(s.q + limb), __ldg(s.neg_q_inv + limb), __ldg(s.n_inv + limb), __ldg(s.n_inv_s + limb)};
-  const int pairs = 1 << (log_n - 1);
-  const auto* src = reinterpret_cast<const ulonglong2*>(x + (row << log_n));
-  auto* sb = reinterpret_cast<ulonglong2*>(buf);
-  for (int i = threadIdx.x; i < pairs; i += blockDim.x) sb[i] = src[i];
-  __syncthreads();
-  if constexpr (kInv) {
-    lft64::intt_rows<kLazy>(buf, 1, log_n, t, nullptr);
-  } else {
-    lft64::ntt_rows<kLazy>(buf, 1, log_n, t);
+  return lft64::Tables{s.psi + off,          s.psi_s + off,          s.psi_inv + off,          s.psi_inv_s + off,
+                       __ldg(s.q + limb),    __ldg(s.neg_q_inv + limb), __ldg(s.n_inv + limb), __ldg(s.n_inv_s + limb)};
+}
+
+// The cluster barrier in halves: an arrival that orders no memory, and the
+// wait for every thread of the cluster to arrive.
+__device__ __forceinline__ void cluster_arrive_relaxed() { asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait;\n" ::: "memory"); }
+
+// An item's twiddles and their Shoup duals, as lft64::twiddles gives them:
+// layer t's 2^t of them are consecutive in the table from ((2^l0 + g) <<
+// t), so past the first they come in 16-byte loads (the stacked tables and
+// each limb's row of them start on a 16-byte boundary).
+template <int W>
+__device__ __forceinline__ void item_twiddles(uint64_t (&w)[(1 << W) - 1], uint64_t (&ws)[(1 << W) - 1],
+                                              const uint64_t* __restrict__ tab, const uint64_t* __restrict__ tab_s,
+                                              int l0, int g) {
+  w[0] = __ldg(tab + (1 << l0) + g);
+  ws[0] = __ldg(tab_s + (1 << l0) + g);
+#pragma unroll
+  for (int t = 1; t < W; ++t) {
+    const auto* a = reinterpret_cast<const ulonglong2*>(tab + (((1 << l0) + g) << t));
+    const auto* b = reinterpret_cast<const ulonglong2*>(tab_s + (((1 << l0) + g) << t));
+#pragma unroll
+    for (int h = 0; h < (1 << t) / 2; ++h) {
+      const ulonglong2 x = __ldg(a + h), y = __ldg(b + h);
+      w[(1 << t) - 1 + 2 * h] = x.x;
+      w[(1 << t) + 2 * h] = x.y;
+      ws[(1 << t) - 1 + 2 * h] = y.x;
+      ws[(1 << t) + 2 * h] = y.y;
+    }
   }
-  auto* dst = reinterpret_cast<ulonglong2*>(y + (row << log_n));
-  for (int i = threadIdx.x; i < pairs; i += blockDim.x) dst[i] = sb[i];
+}
+
+// Values of the block's sub-rows: in shared memory (Buf), or in device
+// memory from the block's first sub-row on (Dev: 16-byte loads for an item
+// of consecutive values, as rows::DeviceRows; the forward's canonical
+// output in 16-byte stores, as rows::ForwardRows).
+// An item of consecutive values (the last pass's) moves in 16-byte words:
+// a warp's access then takes half the wavefronts of 8-byte ones.
+struct Buf {
+  uint64_t* p;
+  template <int V>
+  __device__ __forceinline__ void load(int col, int log_h, uint64_t (&x)[V]) const {
+    if (log_h == 0 && V % 2 == 0) {
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        const ulonglong2 v = reinterpret_cast<const ulonglong2*>(p + col)[h];
+        x[2 * h] = v.x;
+        x[2 * h + 1] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < V; ++m) x[m] = p[col + (m << log_h)];
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ void store(int col, int log_h, const uint64_t (&x)[V]) const {
+    if (log_h == 0 && V % 2 == 0) {
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) reinterpret_cast<ulonglong2*>(p + col)[h] = make_ulonglong2(x[2 * h], x[2 * h + 1]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < V; ++m) p[col + (m << log_h)] = x[m];
+    }
+  }
+};
+
+template <bool kLazy>
+struct Dev {
+  const uint64_t* __restrict__ x;
+  uint64_t* __restrict__ y;
+  uint64_t q;
+  template <int V>
+  __device__ __forceinline__ void load(int col, int, uint64_t (&v)[V]) const {
+    static_assert(V % 2 == 0, "the last pass's item is 2 or 4 values");
+#pragma unroll
+    for (int h = 0; h < V / 2; ++h) {
+      const ulonglong2 p = __ldg(reinterpret_cast<const ulonglong2*>(x + col) + h);
+      v[2 * h] = p.x;
+      v[2 * h + 1] = p.y;
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ void store(int col, int, const uint64_t (&v)[V]) const {
+    static_assert(V % 2 == 0, "the last pass's item is 2 or 4 values");
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(y + col);
+#pragma unroll
+    for (int h = 0; h < V / 2; ++h) {
+      dst[h] = kLazy ? make_ulonglong2(lft64::reduce4(v[2 * h], q), lft64::reduce4(v[2 * h + 1], q))
+                     : make_ulonglong2(v[2 * h], v[2 * h + 1]);
+    }
+  }
+};
+
+// A pass of W layers from l0 >= kSplit over the block's kPerBlock sub-rows
+// (the row's sub-rows sub0, sub0 + 1, ...; buffer column (s << log_s) + c
+// for column c of its sub-row s). Item i of a sub-row holds the values c +
+// (m << log_h), m < 2^W, c = (g << (log_n - l0)) + (i mod h), g = i / h, h =
+// 2^(log_n - l0 - W): its items are those of the whole row's pass (rows::pass)
+// that fall in it, so its twiddle group is (sub << (l0 - kSplit)) + g. The
+// block's threads take the items k, k + kNttThreads, ... of its sub-rows
+// one after the other; kAhead of them unrolled, so that a pass reading
+// device memory has their loads in flight together. No barrier.
+template <int W, bool kInv, bool kLazy, int kAhead = 1, class In, class Out>
+__device__ __forceinline__ void sub_pass(int sub0, int log_n, int l0, const lft64::Tables& t, const In& in,
+                                         const Out& out) {
+  const int log_s = log_n - kSplit, log_h = log_n - l0 - W, log_items = log_s - W;
+#pragma unroll (kAhead)
+  for (int k = threadIdx.x; k < (kPerBlock << log_items); k += kNttThreads) {
+    const int s = k >> log_items, i = k & ((1 << log_items) - 1), g = i >> log_h;
+    const int col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1));
+    const int tg = ((sub0 + s) << (l0 - kSplit)) + g;
+    uint64_t w[(1 << W) - 1], ws[(1 << W) - 1], x[1 << W];
+    in.load(col, log_h, x);
+    if constexpr (kInv) {
+      item_twiddles<W>(w, ws, t.psi_inv, t.psi_inv_s, l0, tg);
+      lft64::inv_radix<W, kLazy>(x, w, ws, t.q);
+    } else {
+      item_twiddles<W>(w, ws, t.psi, t.psi_s, l0, tg);
+      lft64::fwd_radix<W, kLazy>(x, w, ws, t.q);
+    }
+    out.store(col, log_h, x);
+  }
+}
+
+// Head pass p >= 1 (layers 3 p, ..., its width) on the block's sub-rows.
+template <bool kInv, bool kLazy, class In, class Out>
+__device__ __forceinline__ void sub_head_pass(int p, int sub0, int log_n, const lft64::Tables& t, const In& in,
+                                              const Out& out) {
+  const int w = lft64::rows::head_width(log_n, p);
+  if (w == 3) {
+    sub_pass<3, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+  } else if (w == 2) {
+    sub_pass<2, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+  } else {
+    sub_pass<1, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+  }
+}
+
+// One row on a cluster of kCluster blocks (grid: rows x kCluster; N >=
+// 2048). kLogN: 13 (every shape a constant) or 0 (log_n as given).
+template <bool kInv, bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n_arg) {
+  __shared__ __align__(16) uint64_t buf[kBufValues];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_n = kLogN ? kLogN : log_n_arg;
+  const int log_s = log_n - kSplit, hp = lft64::rows::head_passes(log_n);
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x / kCluster;
+  const lft64::Tables t = limb_tables(st, row, limbs, log_n);
+  const int sub0 = rank * kPerBlock;
+  const size_t base = static_cast<size_t>(row) << log_n;
+  const size_t mine = base + (static_cast<size_t>(sub0) << log_s);
+  // the first pass: this block's share of the row's 2^log_s items
+  const int share = (1 << log_s) / kCluster, first = rank * share;
+  uint64_t* holder[kSubs];  // the buffer column 0 of each sub-row, in the block that holds it
+#pragma unroll
+  for (int m = 0; m < kSubs; ++m) {
+    holder[m] = cluster.map_shared_rank(buf, m / kPerBlock) + ((m % kPerBlock) << log_s);
+  }
+  uint64_t w[kSubs - 1], ws[kSubs - 1];
+  Buf sm{buf};
+  if constexpr (!kInv) {
+    // a block writes into another's shared memory only once every block of
+    // the cluster has started: an arrival here, the wait before the first
+    // store, the loads and butterflies of the first item between them
+    cluster_arrive_relaxed();
+    bool started = false;
+    item_twiddles<kSplit>(w, ws, t.psi, t.psi_s, 0, 0);
+    for (int k = threadIdx.x; k < share; k += kNttThreads) {
+      const int i = first + k;
+      uint64_t v[kSubs];
+#pragma unroll
+      for (int m = 0; m < kSubs; ++m) v[m] = __ldg(x + base + i + (m << log_s));
+      lft64::fwd_radix<kSplit, kLazy>(v, w, ws, t.q);
+      if (!started) {
+        cluster_wait();
+        started = true;
+      }
+#pragma unroll
+      for (int m = 0; m < kSubs; ++m) holder[m][i] = v[m];
+    }
+    if (!started) cluster_wait();
+    cluster.sync();  // every sub-row is in its block
+#pragma unroll
+    for (int p = 1; p < hp; ++p) {
+      if (p > 1) __syncthreads();
+      sub_head_pass<false, kLazy>(p, sub0, log_n, t, sm, sm);
+    }
+    __syncthreads();
+    Dev<kLazy> dst{nullptr, y + mine, t.q};
+    sub_pass<2, false, kLazy>(sub0, log_n, log_n - 2, t, sm, dst);
+  } else {
+    Dev<kLazy> src{x + mine, nullptr, t.q};
+    sub_pass<2, true, kLazy, kItemsAhead>(sub0, log_n, log_n - 2, t, src, sm);
+#pragma unroll
+    for (int p = hp - 1; p >= 1; --p) {
+      __syncthreads();
+      sub_head_pass<true, kLazy>(p, sub0, log_n, t, sm, sm);
+    }
+    cluster.sync();  // every sub-row is done
+    item_twiddles<kSplit>(w, ws, t.psi_inv, t.psi_inv_s, 0, 0);
+#pragma unroll (kSplitAhead)
+    for (int k = threadIdx.x; k < share; k += kNttThreads) {
+      const int i = first + k;
+      uint64_t v[kSubs];
+#pragma unroll
+      for (int m = 0; m < kSubs; ++m) v[m] = holder[m][i];
+      lft64::inv_radix<kSplit, kLazy>(v, w, ws, t.q);
+#pragma unroll
+      for (int m = 0; m < kSubs; ++m) y[base + i + (m << log_s)] = shoup_q(v[m], t.n_inv, t.n_inv_s, t.q);
+    }
+    cluster.sync();  // no block leaves while another reads its buffer
+  }
+}
+
+// Below N = 2048: a block per row (kLogN 1 or 2: N = 2 or 4, no head pass;
+// 0: any other N).
+template <bool kInv, bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kRowThreads)
+    rns_ntt_rows_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n) {
+  __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
+  const long long row = blockIdx.x;
+  const lft64::Tables t = limb_tables(st, row, limbs, log_n);
+  if constexpr (kInv) {
+    lft64::rows::inverse<kRowThreads, kLazy, kLogN>(x, y, t, row, 1, 1, log_n, buf);
+  } else {
+    lft64::rows::forward<kRowThreads, kLazy, kLogN, false>(x, y, t, row, 1, 1, log_n, 0, 0, buf);
+  }
 }
 
 template <bool kInv, bool kLazy>
 int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, int log_n, cudaStream_t stream) {
-  const auto kernel = rns_ntt_kernel<kInv, kLazy>;
-  // once per instance: the largest row's shared memory, past the static 48 KB
-  static const cudaError_t opt =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 8 << kMaxLogN);
-  if (opt != cudaSuccess) return static_cast<int>(opt);
-  const int n = 1 << log_n;
-  const int threads = n / 8 < 32 ? 32 : (n / 8 > kNttThreads ? kNttThreads : n / 8);
-  kernel<<<static_cast<unsigned>(rows), threads, static_cast<size_t>(8) << log_n, stream>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), s, limbs, log_n);
+  const auto* px = static_cast<const uint64_t*>(x);
+  auto* py = static_cast<uint64_t*>(y);
+  if (log_n < kSplitLogN) {
+    const auto kernel = log_n == 1   ? rns_ntt_rows_kernel<kInv, kLazy, 1>
+                        : log_n == 2 ? rns_ntt_rows_kernel<kInv, kLazy, 2>
+                                     : rns_ntt_rows_kernel<kInv, kLazy, 0>;
+    kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(px, py, s, limbs, log_n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * kCluster, 1, 1);
+  cfg.blockDim = dim3(kNttThreads, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const auto kernel = log_n == kMaxLogN ? rns_ntt_kernel<kInv, kLazy, kMaxLogN> : rns_ntt_kernel<kInv, kLazy, 0>;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, px, py, s, limbs, log_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,14 +446,99 @@ struct Conv {
   const double* __restrict__ frac;     // (Lq) 1/q_i
   const uint64_t* __restrict__ p;      // (Lp)
   const uint64_t* __restrict__ w;      // (Lp, Lq) q_hat_i mod p_j
-  const uint64_t* __restrict__ ws;     // its Shoup duals mod p_j
+  const uint64_t* __restrict__ ws;     // its Shoup duals floor(w 2^64 / p_j)
   const uint64_t* __restrict__ uq;     // (Lq+1, Lp) u Q mod p_j
   const uint64_t* __restrict__ add;    // (Lq) added mod q_i first, or null
 };
 
+// -p^-1 mod 2^64 for an odd p: p is its own inverse to 3 bits, and each
+// Newton step doubles the bits.
+__device__ __forceinline__ uint64_t neg_inv64(uint64_t p) {
+  uint64_t inv = p;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) inv *= 2 - p * inv;
+  return 0 - inv;
+}
+
+// The shared-memory words of a block's tables: per input limb q, q_hat^-1,
+// its dual, 1/q and the added constant; per output limb p and -p^-1; w'
+// (Lp Lq) and uq ((Lq+1) Lp); the chunk; the instance for any lq adds its
+// threads' v (lq per thread).
+__host__ __device__ constexpr size_t conv_words(int lq, int lp, bool v_in_smem) {
+  return static_cast<size_t>(5 * lq + 2 * lp + lp * lq + (lq + 1) * lp + 1) +
+         (v_in_smem ? static_cast<size_t>(lq) * kThreads : 0);
+}
+
+// sum_k v_k w_k mod p for canonical v_k < 2^64 / chunk: the products summed
+// in 128 bits, one REDC per chunk of terms (w in the Montgomery domain, so
+// each REDC gives the chunk's sum of v_k (w_k 2^-64) mod p), the chunks'
+// residues added mod p. v(k) gives term k.
+template <int kLq, class V>
+__device__ __forceinline__ uint64_t conv_sum(const V& v, const uint64_t* w, int lq, int chunk, const lft64::Mod& m) {
+  uint64_t s = 0, hi = 0, lo = 0;
+  if (chunk >= lq) {  // every term in one sum (55-bit primes: chunk 512)
+#pragma unroll
+    for (int k = 0; k < (kLq ? kLq : lq); ++k) lft64::mac128(hi, lo, v(k), w[k]);
+    return lft64::redc(hi, lo, m);
+  }
+  int in_chunk = 0;
+#pragma unroll
+  for (int k = 0; k < (kLq ? kLq : lq); ++k) {
+    lft64::mac128(hi, lo, v(k), w[k]);
+    if (++in_chunk == chunk) {
+      s = add_q(s, lft64::redc(hi, lo, m), m.q);
+      hi = lo = 0;
+      in_chunk = 0;
+    }
+  }
+  return add_q(s, lft64::redc(hi, lo, m), m.q);  // REDC(0) = 0 where the last chunk was full
+}
+
+// kLq: the input limbs, a constant (v in registers), or 0 (lq as given, v
+// in shared memory).
+template <int kLq>
 __global__ void __launch_bounds__(kThreads)
-    base_convert_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Conv c, int lq, int lp, int log_n,
+    base_convert_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Conv c, int lq_arg, int lp, int log_n,
                         long long batch, long long x_stride) {
+  extern __shared__ __align__(16) uint64_t sh[];
+  const int lq = kLq ? kLq : lq_arg;
+  uint64_t* s_q = sh;
+  uint64_t* s_qhi = s_q + lq;
+  uint64_t* s_qhi_s = s_qhi + lq;
+  double* s_frac = reinterpret_cast<double*>(s_qhi_s + lq);
+  uint64_t* s_add = reinterpret_cast<uint64_t*>(s_frac + lq);
+  uint64_t* s_p = s_add + lq;
+  uint64_t* s_nqi = s_p + lp;
+  uint64_t* s_w = s_nqi + lp;
+  uint64_t* s_uq = s_w + lp * lq;
+  uint64_t* s_chunk = s_uq + (lq + 1) * lp;
+  uint64_t* s_v = s_chunk + 1;  // the instance for any lq: v_k of thread t at k kThreads + t
+  for (int k = threadIdx.x; k < lq; k += blockDim.x) {
+    s_q[k] = __ldg(c.q + k);
+    s_qhi[k] = __ldg(c.qhi + k);
+    s_qhi_s[k] = __ldg(c.qhi_s + k);
+    s_frac[k] = __ldg(c.frac + k);
+    s_add[k] = c.add != nullptr ? __ldg(c.add + k) : 0;
+  }
+  for (int j = threadIdx.x; j < lp; j += blockDim.x) {
+    s_p[j] = __ldg(c.p + j);
+    s_nqi[j] = neg_inv64(s_p[j]);
+  }
+  // w' = w 2^64 mod p = w 2^64 - ws p, which is -(ws p) mod 2^64: below p,
+  // so its low word is all of it
+  for (int i = threadIdx.x; i < lp * lq; i += blockDim.x) s_w[i] = 0 - __ldg(c.ws + i) * __ldg(c.p + i / lq);
+  for (int i = threadIdx.x; i < (lq + 1) * lp; i += blockDim.x) s_uq[i] = __ldg(c.uq + i);
+  if (threadIdx.x == 0) {  // terms a 128-bit sum takes below p 2^64: chunk max(q) < 2^64
+    uint64_t top = 0;
+    for (int k = 0; k < lq; ++k) {
+      const uint64_t qk = __ldg(c.q + k);
+      if (qk > top) top = qk;
+    }
+    *s_chunk = ~0ull / top;
+  }
+  __syncthreads();
+  const int chunk = static_cast<int>(*s_chunk < static_cast<uint64_t>(lq) ? *s_chunk : lq);
+  const bool has_add = c.add != nullptr;
   const long long cols = batch << log_n;
   const int n = 1 << log_n;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < cols;
@@ -185,24 +546,33 @@ __global__ void __launch_bounds__(kThreads)
     const long long b = i >> log_n;
     const int col = static_cast<int>(i & (n - 1));
     const uint64_t* xb = x + b * x_stride + col;
-    uint64_t v[kMaxLimbs];
+    uint64_t v[kLq ? kLq : 1];
     double u = 0.0;
+#pragma unroll
     for (int k = 0; k < lq; ++k) {
-      const uint64_t q = __ldg(c.q + k);
-      uint64_t xv = xb[static_cast<size_t>(k) << log_n];
-      if (c.add != nullptr) xv = add_q(xv, __ldg(c.add + k), q);
-      v[k] = shoup_q(xv, __ldg(c.qhi + k), __ldg(c.qhi_s + k), q);
-      u = __fma_rn(__ull2double_rn(v[k]), __ldg(c.frac + k), u);
+      const uint64_t q = s_q[k];
+      uint64_t xv = __ldg(xb + (static_cast<size_t>(k) << log_n));
+      if (has_add) xv = add_q(xv, s_add[k], q);
+      const uint64_t vk = shoup_q(xv, s_qhi[k], s_qhi_s[k], q);
+      if constexpr (kLq != 0) {
+        v[k] = vk;
+      } else {
+        s_v[k * kThreads + threadIdx.x] = vk;
+      }
+      u = __fma_rn(__ull2double_rn(vk), s_frac[k], u);
     }
-    const int uc = static_cast<int>(rint(u));
+    const uint64_t* uq = s_uq + static_cast<int>(rint(u)) * lp;
     uint64_t* yb = y + ((b * lp) << log_n) + col;
+#pragma unroll 2  // two outputs' sums in flight: 3% at 8 -> 8 (PERF.md)
     for (int j = 0; j < lp; ++j) {
-      const uint64_t p = __ldg(c.p + j);
-      const uint64_t* wj = c.w + static_cast<size_t>(j) * lq;
-      const uint64_t* wsj = c.ws + static_cast<size_t>(j) * lq;
-      uint64_t s = 0;
-      for (int k = 0; k < lq; ++k) s = add_q(s, shoup_q(v[k], __ldg(wj + k), __ldg(wsj + k), p), p);
-      yb[static_cast<size_t>(j) << log_n] = sub_q(s, __ldg(c.uq + static_cast<size_t>(uc) * lp + j), p);
+      const lft64::Mod m{s_p[j], s_nqi[j]};
+      uint64_t s;
+      if constexpr (kLq != 0) {
+        s = conv_sum<kLq>([&](int k) { return v[k]; }, s_w + j * lq, lq, chunk, m);
+      } else {
+        s = conv_sum<0>([&](int k) { return s_v[k * kThreads + threadIdx.x]; }, s_w + j * lq, lq, chunk, m);
+      }
+      yb[static_cast<size_t>(j) << log_n] = sub_q(s, uq[j], m.q);
     }
   }
 }
@@ -312,9 +682,20 @@ int lft_base_convert(const void* x, void* y, const void* q, const void* qhi, con
                      int log_n, long long batch, long long x_stride, void* stream) {
   if (lq < 1 || lq > kMaxLimbs || lp < 1 || log_n < 0 || log_n > 30 || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = lq == 8   ? base_convert_kernel<8>
+                      : lq == 2 ? base_convert_kernel<2>
+                      : lq == 1 ? base_convert_kernel<1>
+                                : base_convert_kernel<0>;
+  const size_t smem = conv_words(lq, lp, kernel == base_convert_kernel<0>) * sizeof(uint64_t);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const Conv c{cp<uint64_t>(q), cp<uint64_t>(qhi), cp<uint64_t>(qhi_s), cp<double>(frac), cp<uint64_t>(p),
                cp<uint64_t>(w), cp<uint64_t>(ws), cp<uint64_t>(uq), cp<uint64_t>(add)};
-  base_convert_kernel<<<grid_for(batch << log_n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid_for(batch << log_n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), c, lq, lp, log_n, batch, x_stride);
   return static_cast<int>(cudaGetLastError());
 }

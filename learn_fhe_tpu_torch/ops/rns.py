@@ -204,7 +204,7 @@ def rns_intt_ref(x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 # Wrappers
 # ---------------------------------------------------------------------------
 
-MAX_LOG_N = 13  # K-RNS-NTT: one block a row, the row in dynamic shared memory
+MAX_LOG_N = 13  # K-RNS-NTT: a row's 8 sub-rows of N/8 in its cluster's shared memory
 MAX_TERMS = 16  # K-RNS-MAC: products a launch sums
 MAX_LIMBS = 64  # K-BASECONV: input limbs a thread holds
 
@@ -516,6 +516,9 @@ def base_convert(x: torch.Tensor, qs: tuple[int, ...], ps: tuple[int, ...], add=
     if len(qs) > MAX_LIMBS:
         raise ValueError(f"base_convert: the kernel takes at most {MAX_LIMBS} input limbs, got {len(qs)}")
     batch, stride = _batch_layout("base_convert", x, len(qs), n)
+    most = _conv_out_limbs(len(qs))
+    if len(ps) > most:  # the tables of all ps outgrow a block's shared memory: a launch per slice of them
+        return torch.cat([base_convert(x, qs, ps[j : j + most], add) for j in range(0, len(ps), most)], dim=-2)
     y = torch.empty((*x.shape[:-2], len(ps), n), dtype=torch.int64, device=x.device)
     if batch:
         t = base_extend_tables(base_extend_plan(qs, ps), x.device)
@@ -526,6 +529,16 @@ def base_convert(x: torch.Tensor, qs: tuple[int, ...], ps: tuple[int, ...], add=
         )  # fmt: skip
         _count(base_convert, batch * len(qs))
     return y
+
+
+def _conv_out_limbs(lq: int) -> int:
+    """Output limbs one K-BASECONV launch takes: its block's tables within
+    227 KB of shared memory, as `rns64.cu::conv_words` counts them (per
+    input limb 5 words; per output limb 2, lq of w' and lq + 1 of the
+    correction; one more; the instance for an lq other than 1, 2 or 8 also
+    its 256 threads' v)."""
+    fixed = 5 * lq + 1 + (0 if lq in (1, 2, 8) else 256 * lq)
+    return (227 * 1024 // 8 - fixed) // (2 * lq + 3)
 
 
 @lru_cache(maxsize=None)

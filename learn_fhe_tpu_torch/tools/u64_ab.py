@@ -1,7 +1,9 @@
 """Time K-POLYMUL64, K-NTT64 (`ntt64`, `ntt64_mont`), `intt64` and
 K-EXTPROD64 at every shape the multi-key path launches them at, each
 against its bound, and the kernels that share their code or their card
-beside them; with `--parent DIR`, the
+beside them; the RNS kernels at the batch-16 CKKS `mul`'s shapes (the
+transforms and K-BASECONV also with a cold L2) and that whole `mul` from a
+CUDA graph; with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
 with more than one, each parent's turns around this checkout's).
@@ -10,15 +12,19 @@ Both libraries run through this checkout's wrappers on the same inputs
 (`kernels.library` is pointed at one, then the other), so the C entry
 points of the two must take the same arguments; a case whose entry point
 an older library lacks (`NEW_ENTRIES`) is timed on this checkout's alone.
-K-NTT64's, K-POLYMUL64's and K-EXTPROD64's times are per launch from a
-CUDA graph of `--reps` launches (no host time between launches); the walks' (K-FHEW-BR64 at a
+K-NTT64's, K-POLYMUL64's, K-EXTPROD64's and the RNS kernels' times are per
+launch from a CUDA graph of `--reps` launches (no host time between
+launches; a cold-L2 case takes its input from more copies than the L2
+holds, `chip_smoke.cold_graph_ms`; the transforms and K-BASECONV also per
+eager wrapper call, CUDA events around `--reps` calls), the `mul`'s per
+call from a graph of 3 calls; the walks' (K-FHEW-BR64 at a
 round of 2 gates and at batch 128) and K-STEP's are CUDA events around
 eager wrapper calls, K-FHEW-BR's (batch 128) from a CUDA graph too.
 Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only] [--json PATH]
+    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only] [--json PATH]
 """
 
 from __future__ import annotations
@@ -121,13 +127,42 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
     return out
 
 
+def rns_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """chip_smoke.py's C1 cases (`chip_smoke.rns_cases`), the transforms and
+    K-BASECONV also cold, and C3's batch-16 `mul` (keys and ciphertexts made
+    on the card as C3 makes them)."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+
+    params = C.CkksParams(**cs.CKKS)
+    B = cs.CKKS_BATCH
+    rng = np.random.default_rng(11)
+    out = []
+    for (name, shape), (kernel, _, n_bytes, ops, cold) in cs.rns_cases(params, B, rng, dev).items():
+        bound = cs.bound_ms(n_bytes, ops, pipe_per_s)
+        out.append((f"{name} {shape}", kernel, bound, "graph"))
+        if cold is not None:
+            out.append((f"{name} {shape} cold-L2", cold, bound, "cold"))
+            out.append((f"{name} {shape} eager", kernel, bound, "eager"))
+    sk = C.sk_gen(params, rng)
+    rlk = C.rlk_gen(params, sk, rng, dev)
+    ms = [rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l) for _ in range(2 * B)]
+    cts = [C.sk_encrypt(params, sk, C.encode(params, m, device=dev), params.qs, rng) for m in ms]
+    ct0, ct1 = (C.CkksCiphertext(torch.stack([c.b for c in h]), torch.stack([c.a for c in h]), params.qs) for h in (cts[:B], cts[B:]))
+    out.append((f"ckks mul batch {B} (per call)", lambda: C.mul(params, rlk, ct0, ct1), None, "graph:3"))
+    return out
+
+
 def measure(cases_, reps: int, lib) -> dict[str, float | None]:
     got = {}
     for name, fn, _, how in cases_:
         if not runs_on(lib, name):
             got[name] = None
-        elif how == "graph":
-            got[name] = cs.graph_ms(fn, reps) * 1e3
+        elif how.startswith("graph"):
+            got[name] = cs.graph_ms(fn, int(how.split(":")[1]) if ":" in how else reps) * 1e3
+        elif how == "cold":
+            got[name] = cs.cold_graph_ms(*fn, reps)[0] * 1e3
+        elif how == "eager":
+            got[name] = cs.cuda_ms(fn, reps) * 1e3
         else:
             per = int(how.split("/")[1]) if "/" in how else 1
             got[name] = cs.cuda_ms(fn, 3) * 1e3 / per
@@ -139,7 +174,9 @@ def main() -> None:
     ap.add_argument("--parent", type=Path, action="append", default=[], help="a checkout whose kernel library is timed in turns with this one (repeatable)")
     ap.add_argument("--reps", type=int, default=20, help="launches per CUDA graph")
     ap.add_argument("--json", type=Path, help="write the times here as JSON")
-    ap.add_argument("--u64-only", action="store_true", help="time K-NTT64, ntt64_mont, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--u64-only", action="store_true", help="time K-NTT64, ntt64_mont, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
+    only.add_argument("--rns-only", action="store_true", help="time the RNS kernels and the CKKS mul alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("u64_ab: no CUDA device")
@@ -156,7 +193,9 @@ def main() -> None:
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
         libs[name] = kernels.load(so, optional=frozenset(NEW_ENTRIES.values()))
     dev = torch.device("cuda", torch.cuda.current_device())
-    built = cases(dev, pipe_per_s, walks=not args.u64_only)
+    built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
+    if not args.u64_only:
+        built += rns_cases(dev, pipe_per_s)
     others = [k for k in libs if k != "this"]
     order = others + ["this", "this"] + others[::-1]
     runs: dict[str, list[dict[str, float]]] = {k: [] for k in libs}

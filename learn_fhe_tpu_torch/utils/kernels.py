@@ -198,8 +198,8 @@ def build_log() -> str:
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
-    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt|rns_mac|base_convert"
-    r"|rescale)_kernel(I(?:L[ib]\d+E)+E)?"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_mac"
+    r"|base_convert|rescale)_kernel(I(?:L[ib]\d+E)+E)?"
 )
 
 
@@ -211,11 +211,12 @@ def _template_args(mangled: str | None) -> str:
     return "<" + ",".join(v if t == "i" else ("true" if v == "1" else "false") for t, v in args) + ">"
 
 
-def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
+def ptxas_report(log: str) -> dict[str, tuple[int, int, int, int]]:
     """Per kernel instance in a build log (`build_log()`): registers, bytes
-    of spill stores and bytes of spill loads, keyed as in the source with
-    the ring's LOG_N for a template instance (`ntt32_fwd_kernel<11>`,
-    `garner_kernel`)."""
+    of spill stores, bytes of spill loads and bytes of stack frame (local
+    memory: spills, and arrays the compiler could not keep in registers),
+    keyed as in the source with the ring's LOG_N for a template instance
+    (`ntt32_fwd_kernel<11>`, `garner_kernel`)."""
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -224,12 +225,12 @@ def ptxas_report(log: str) -> dict[str, tuple[int, int, int]]:
             continue
         if name is None:
             continue
-        regs, st, ld = out.get(name, (0, 0, 0))
-        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
-            st, ld = int(m[1]), int(m[2])
+        regs, st, ld, stack = out.get(name, (0, 0, 0, 0))
+        if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            stack, st, ld = int(m[1]), int(m[2]), int(m[3])
         if m := re.search(r"Used (\d+) registers", line):
             regs = int(m[1])
-        out[name] = (regs, st, ld)
+        out[name] = (regs, st, ld, stack)
     return out
 
 

@@ -1014,6 +1014,110 @@ def test_rns_kernels_match_plain(dev, log_n, limbs, batch):
     assert rns.rns_ntt_ref(x.cpu()[:1, :1], rns.rns_plan(qs[:1], n)).equal(rns.rns_ntt(x[:1, :1].contiguous(), rns.rns_plan(qs[:1], n)).cpu())
 
 
+# (limbs, leading axes) of the rows K-RNS-NTT is held at: 1, 3, 128 and 513 rows
+_RNS_ROWS = [(1, (1,)), (3, (1,)), (8, (16,)), (19, (27,))]
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13])
+@pytest.mark.parametrize("limbs,lead", _RNS_ROWS)
+@pytest.mark.parametrize("bits", [55, 63])
+def test_rns_transforms_at_row_counts(dev, log_n, limbs, lead, bits):
+    """K-RNS-NTT's instances (forward and inverse, lazy at 55 bits and eager
+    at 63: the cluster per row at N = 2^13 with its shapes constant and at
+    2^11, 2^12, a block per row at 2^10) on 1, 3, 128 and 513 rows holding 0
+    and q - 1, each row under its own limb's tables."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(limbs, log_n, bits)
+    x = _rns_residues(np.random.default_rng(log_n * 1000 + limbs + bits), qs, lead, n)
+    x.view(-1)[0], x[..., -1, -1] = 0, qs[-1] - 1
+    plan = rns.rns_plan(qs, n)
+    x = x.to(dev)
+    _same(rns.rns_ntt(x, plan), rns.rns_ntt_ref(x, plan).cpu())
+    _same(rns.rns_intt(x, plan), rns.rns_intt_ref(x, plan).cpu())
+
+
+def test_rns_transforms_on_a_ladder(dev):
+    """The 45/55-bit ladder of `tests/test_ckks_dnum.py` with its p-primes
+    at N = 2^13, batch 16: both transforms over the q + p basis."""
+    from learn_fhe_tpu_torch.models.ckks.ckks import CkksParams
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = CkksParams(log_n=13, log_qi=55, big_l=6, log_qis=(55, 45, 45, 55, 45, 45), log_ps=(55, 55), dnum=3)
+    plan = params.plan(params.qps)
+    x = _rns_residues(np.random.default_rng(45), params.qps, (16,), 1 << 13).to(dev)
+    _same(rns.rns_ntt(x, plan), rns.rns_ntt_ref(x, plan).cpu())
+    _same(rns.rns_intt(x, plan), rns.rns_intt_ref(x, plan).cpu())
+
+
+@pytest.mark.parametrize("lq", [*range(1, 17), 23, 64])
+@pytest.mark.parametrize("bits", [55, 62])
+def test_base_convert_kernel_at_every_limb_count(dev, lq, bits):
+    """K-BASECONV's instances (lq = 1, 2, 8 with the limbs in registers, any
+    other lq up to 64 in shared memory) on a limb slice of a wider tensor
+    (rows contiguous, the batch stride the wider tensor's), with and without
+    an added constant, into 5 output limbs; at 62 bits a 128-bit sum holds 4
+    terms, so lq > 4 takes more than one chunk."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n, lp = 1 << 13, 5
+    qs = _rns_primes(lq + 2, 13, bits)
+    ps = _rns_primes(lp, 12, 55)
+    x = _rns_residues(np.random.default_rng(lq * 7 + bits), qs, (4,), n)
+    x.view(-1)[0], x[..., -1, -1] = 0, qs[-1] - 1
+    view = x.to(dev)[:, 1 : lq + 1]
+    src = qs[1 : lq + 1]
+    add = tuple(q // 2 for q in src)
+    for a in (None, add):
+        _same(rns.base_convert(view, src, ps, add=a), rns.base_convert_ref(view, src, ps, add=a).cpu())
+
+
+def test_base_convert_kernel_past_its_shared_memory(dev):
+    """64 input limbs into more output limbs than the tables of one launch
+    hold in a block's shared memory: the wrapper launches K-BASECONV on
+    slices of the output primes; the result is the plain version's."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    primes = _rns_primes(64 + rns._conv_out_limbs(64) + 7)
+    qs, ps = primes[:64], primes[64:]
+    x = _rns_residues(np.random.default_rng(164), qs, (2,), 1 << 10).to(dev)
+    launches = rns.base_convert.launches
+    _same(rns.base_convert(x, qs, ps), rns.base_convert_ref(x, qs, ps).cpu())
+    assert rns.base_convert.launches - launches == -(-len(ps) // rns._conv_out_limbs(64))
+
+
+def test_rns_wrappers_do_not_sync(dev):
+    """`rns_ntt`, `rns_intt` (a cluster per row, and a block per row) and
+    `base_convert` (an instance with the limbs in registers and one with
+    them in shared memory, with and without an added constant) under
+    torch.cuda.set_sync_debug_mode("error"), after a first call has put the
+    tables on the card: no read back to the host."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs = _rns_primes(8)
+    rng = np.random.default_rng(8)
+    calls = []
+    for n in (1 << 13, 1 << 9):
+        plan = rns.rns_plan(qs, n)
+        x = _rns_residues(rng, qs, (2,), n).to(dev)
+        calls += [(rns.rns_ntt, rns.rns_ntt_ref, (x, plan)), (rns.rns_intt, rns.rns_intt_ref, (x, plan))]
+    x = _rns_residues(rng, qs, (2,), 1 << 13).to(dev)
+    for src in (qs, qs[:5]):
+        for add in (None, tuple(q // 2 for q in src)):
+            calls.append((rns.base_convert, rns.base_convert_ref, (x[:, : len(src)], src, _rns_primes(3, 12), add)))
+    for fn, _, args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [fn(*args) for fn, _, args in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for y, (_, ref, args) in zip(got, calls):
+        _same(y, ref(*args).cpu())
+
+
 @pytest.mark.parametrize("level", [2, 3, 4, 5, 6])
 def test_rescale_kernel_on_a_ladder(dev, level):
     """45/55-bit ladder: the dropped limb reduced by Barrett for some kept

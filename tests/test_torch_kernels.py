@@ -1,6 +1,7 @@
 """The kernel build's report (`learn_fhe_tpu_torch/utils/kernels.py`): the
-registers and spills of each kernel instance, read from nvcc's `-Xptxas -v`
-output. Runs on the CPU, on lines as an sm_90a build prints them."""
+registers, spills and stack frame of each kernel instance, read from
+nvcc's `-Xptxas -v` output. Runs on the CPU, on lines as an sm_90a build
+prints them."""
 
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
-    assert kernels.ptxas_report(_entry(mangled, 61, 8)) == {name: (61, 8, 8)}
+    assert kernels.ptxas_report(_entry(mangled, 61, 8)) == {name: (61, 8, 8, 64)}
 
 
 def test_ptxas_report_reads_a_whole_build_log():
@@ -78,9 +79,9 @@ def test_ptxas_report_reads_a_whole_build_log():
         + _entry(_STEP, 64, 8)
     )
     assert kernels.ptxas_report(log) == {
-        "negacyclic_mul32_kernel<11>": (64, 0, 0),
-        "ntt32_inv_kernel<11>": (61, 0, 0),
-        "garner_kernel": (29, 0, 0),
-        "tfhe_step_kernel<11>": (64, 8, 8),
+        "negacyclic_mul32_kernel<11>": (64, 0, 0, 0),
+        "ntt32_inv_kernel<11>": (61, 0, 0, 0),
+        "garner_kernel": (29, 0, 0, 0),
+        "tfhe_step_kernel<11>": (64, 8, 8, 64),
     }
     assert kernels.ptxas_report("") == {}

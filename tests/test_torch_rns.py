@@ -219,6 +219,11 @@ _RNS = "_ZN40_GLOBAL__N__1a2b3c4d_8_rns64_cu_5e6f7a8b"
         (_RNS + "14rns_mac_kernelILb1EEEvNS_5TermsEPmixxiiPKmS5_S5_i", "rns_mac_kernel<true>"),
         (_RNS + "19base_convert_kernelEPKmPmNS_4ConvEiiixx", "base_convert_kernel"),
         (_RNS + "14rescale_kernelEPKmS1_PmNS_7RescaleEiiixmm", "rescale_kernel"),
+        (_RNS + "14rns_ntt_kernelILb0ELb1ELi13EEEvPKmPmNS_7StackedEii", "rns_ntt_kernel<false,true,13>"),
+        (_RNS + "14rns_ntt_kernelILb1ELb0ELi0EEEvPKmPmNS_7StackedEii", "rns_ntt_kernel<true,false,0>"),
+        (_RNS + "19rns_ntt_rows_kernelILb1ELb1ELi2EEEvPKmPmNS_7StackedEii", "rns_ntt_rows_kernel<true,true,2>"),
+        (_RNS + "19base_convert_kernelILi8EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<8>"),
+        (_RNS + "19base_convert_kernelILi0EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<0>"),
     ],
 )
 def test_ptxas_report_names_the_rns_kernels(mangled, name):
@@ -228,7 +233,7 @@ def test_ptxas_report_names_the_rns_kernels(mangled, name):
         "    512 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 40 registers, used 1 barriers\n"
     )
-    assert kernels.ptxas_report(log) == {name: (40, 0, 0)}
+    assert kernels.ptxas_report(log) == {name: (40, 0, 0, 512)}
 
 
 def test_wrappers_raise_rather_than_fall_back():

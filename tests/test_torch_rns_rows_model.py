@@ -1,0 +1,339 @@
+"""A model of the redesigned K-RNS-NTT and K-BASECONV
+(`learn_fhe_tpu_torch/csrc/rns64.cu`), held against the port's plain
+versions and the JAX package on the CPU.
+
+The kernels run only on a CUDA device, so this models in Python what they
+do. K-RNS-NTT: from N = 2048 up a row runs on a cluster of 2 blocks of 256
+threads; the first pass's 3 layers leave 8 sub-rows of N/8 values, block c
+takes items [c N/16, (c+1) N/16) of that pass and writes output m of item i
+into the buffer of the block that holds sub-row m (4 a block, at column i
+of it), then each block runs the head passes from layer 3 and the last pass
+of 2 layers on its sub-rows alone; the inverse the other way round, scaled
+by 1/N in the first pass. Below N = 2048 a block of 128 threads takes one
+row through the row passes of `u64_rows.cuh`. Each row r is under limb r
+mod L. The tests check which block and thread take which item of which
+pass (every value once, the reference's butterflies and twiddles) at N =
+2..2^13, the arithmetic of both plans with per-row limb tables and
+Harvey's lazy ranges at N <= 256, and K-BASECONV's sum (128-bit products,
+one REDC per chunk of terms, Montgomery tables made from the Shoup duals,
+-p^-1 by Newton's iteration) in Python integers.
+"""
+
+from collections import defaultdict
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from learn_fhe_tpu.ops import rns as JR  # noqa: E402
+from learn_fhe_tpu_torch.ops import rns as TR  # noqa: E402
+from learn_fhe_tpu_torch.ops.modular import mulhi64  # noqa: E402
+from learn_fhe_tpu_torch.utils.interop import torch_to_u64, u64_to_torch  # noqa: E402
+from learn_fhe_tpu_torch.utils.primes import two_adic_primes  # noqa: E402
+from tests.test_torch_u64_rows_model import head_passes, head_width, item_cols, plan_of, visits  # noqa: E402
+
+CPU = torch.device("cpu")
+SIGN = -(1 << 63)
+
+# the launch shapes, as rns64.cu has them
+THREADS = 256  # a cluster's block
+ROW_THREADS = 128  # a row's block below SPLIT_LOG_N
+SPLIT_LOG_N = 11  # from N = 2048 up a row runs on a cluster
+SPLIT = 3  # the first pass's layers
+SUBS = 1 << SPLIT
+CLUSTER = 2
+PER_BLOCK = SUBS // CLUSTER
+
+
+def _primes(bits: int, log_n: int, count: int) -> tuple[int, ...]:
+    it = two_adic_primes(bits, log_n + 1)
+    return tuple(next(it) for _ in range(count))
+
+
+# -- the split plan: which block and thread take which item of each pass
+
+
+def split_items(log_n: int) -> dict[tuple[int, int], list[int]]:
+    """The first pass: block c's thread t takes items c share + k, k = t, t
+    + THREADS, ... below share = 2^log_s / CLUSTER; item i holds the values
+    i + m 2^log_s, m < 8."""
+    share = (1 << (log_n - SPLIT)) // CLUSTER
+    return {(c, t): [c * share + k for k in range(t, share, THREADS)] for c in range(CLUSTER) for t in range(THREADS)}
+
+
+def sub_items(log_n: int, l0: int, w: int) -> dict[tuple[int, int], list[tuple[int, int, int]]]:
+    """A pass of w layers from l0 >= 3 on the blocks' sub-rows, as
+    `sub_pass` deals it: block c's thread t takes k = t, t + THREADS, ... of
+    its PER_BLOCK sub-rows' items; (buffer column, global column, twiddle
+    group) of each item."""
+    log_s, log_h = log_n - SPLIT, log_n - l0 - w
+    log_items = log_s - w
+    out = {}
+    for c in range(CLUSTER):
+        sub0 = c * PER_BLOCK
+        for t in range(THREADS):
+            got = []
+            for k in range(t, PER_BLOCK << log_items, THREADS):
+                s, i = k >> log_items, k & ((1 << log_items) - 1)
+                g = i >> log_h
+                col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1))
+                got.append((col, (sub0 << log_s) + col, ((sub0 + s) << (l0 - SPLIT)) + g))
+            out[c, t] = got
+    return out
+
+
+def split_plan(log_n: int) -> list[tuple[int, int]]:
+    """(l0, w) of the passes after the first: the head passes from layer 3,
+    then the last pass of 2 layers."""
+    return [(3 * p, head_width(log_n, p)) for p in range(1, head_passes(log_n))] + [(log_n - 2, 2)]
+
+
+def split_passes(log_n: int) -> list[tuple[int, int, list[list[int]], list[int]]]:
+    """Every pass of the split plan in forward order: (l0, w, the global
+    columns of each item, each item's twiddle group), over all blocks and
+    threads."""
+    log_s = log_n - SPLIT
+    items = [i for v in split_items(log_n).values() for i in v]
+    out = [(0, SPLIT, [[i + (m << log_s) for m in range(SUBS)] for i in items], [0] * len(items))]
+    for l0, w in split_plan(log_n):
+        log_h = log_n - l0 - w
+        taken = [x for v in sub_items(log_n, l0, w).values() for x in v]
+        out.append((l0, w, [[gcol + (m << log_h) for m in range(1 << w)] for _, gcol, _ in taken], [g for *_, g in taken]))
+    return out
+
+
+def rows_passes(log_n: int) -> list[tuple[int, int, list[list[int]], list[int]]]:
+    """Below N = 2048 a block of ROW_THREADS threads takes one row through
+    the passes of `rows::forward` (one row: every item a thread covers)."""
+    out = []
+    for l0, w in plan_of(log_n):
+        taken = [i for v in visits(ROW_THREADS, 1, log_n - w) for i, _ in v]
+        out.append((l0, w, [item_cols(i, log_n, l0, w) for i in taken], [i >> (log_n - l0 - w) for i in taken]))
+    return out
+
+
+def plan_passes(log_n: int, split: bool) -> list:
+    return split_passes(log_n) if split else rows_passes(log_n)
+
+
+def _check_butterflies(passes, log_n: int) -> None:
+    """Each pass takes every value once, and its layers pair exactly the
+    reference's values with its twiddle index 2^L + g."""
+    n, seen, layers = 1 << log_n, defaultdict(list), 0
+    for l0, w, cols, groups in passes:
+        assert sorted(c for item in cols for c in item) == list(range(n)), f"pass at l0 = {l0}"
+        for item, g in zip(cols, groups):
+            for t in range(w):
+                half = 1 << (w - 1 - t)
+                for u in range(1 << t):
+                    for j in range(half):
+                        a = 2 * half * u + j
+                        seen[l0 + t].append(((item[a], item[a + half]), (1 << (l0 + t)) + (g << t) + u))
+        layers += w
+    assert layers == log_n
+    for layer, pairs in seen.items():
+        h = n >> (layer + 1)
+        want = sorted(((g * 2 * h + j, g * 2 * h + h + j), (1 << layer) + g) for g in range(1 << layer) for j in range(h))
+        assert sorted(pairs) == want, f"layer {layer}"
+
+
+@pytest.mark.parametrize("log_n", range(SPLIT_LOG_N, 14))
+def test_cluster_plan_takes_every_value_once_with_the_reference_twiddles(log_n):
+    """At N = 2048, 4096 and 8192: every pass of the cluster's plan takes
+    each value once, with the reference's butterflies and twiddles; in the
+    first pass each (block, thread) takes its own items and every block's
+    buffer gets each of its sub-rows' columns once, from the block that ran
+    its item; in the others a block's items fall in its own sub-rows, each
+    (block, item) taken by one thread; the last pass's items are 4
+    consecutive values on a 16-byte boundary."""
+    _check_butterflies(split_passes(log_n), log_n)
+    log_s = log_n - SPLIT
+    buffers = defaultdict(list)
+    for (c, _), items in split_items(log_n).items():
+        for i in items:
+            for m in range(SUBS):
+                buffers[m // PER_BLOCK].append(((m % PER_BLOCK) << log_s) + i)
+    assert sorted(buffers) == list(range(CLUSTER))
+    assert all(sorted(v) == list(range(PER_BLOCK << log_s)) for v in buffers.values())
+    for l0, w in split_plan(log_n):
+        for (c, _), got in sub_items(log_n, l0, w).items():
+            for col, gcol, _ in got:
+                assert col < PER_BLOCK << log_s and gcol >> log_s in range(c * PER_BLOCK, (c + 1) * PER_BLOCK)
+    for got in sub_items(log_n, log_n - 2, 2).values():
+        assert all(col % 4 == 0 and gcol % 4 == 0 for col, gcol, _ in got)
+
+
+@pytest.mark.parametrize("log_n", range(1, SPLIT_LOG_N))
+def test_row_plan_takes_every_value_once_with_the_reference_twiddles(log_n):
+    """Below N = 2048 (one row a block of 128 threads): every pass takes each
+    value once with the reference's butterflies and twiddles."""
+    _check_butterflies(rows_passes(log_n), log_n)
+
+
+# -- the arithmetic: the plans' passes on values, each row under its limb's tables
+
+
+def _ult(a, b) -> torch.Tensor:
+    return (a ^ SIGN) < (b ^ SIGN)
+
+
+def _csub(s, m) -> torch.Tensor:
+    t = s - m
+    return torch.where(_ult(t, s), t, s)
+
+
+def _shoup_lazy(a, w, ws, q) -> torch.Tensor:
+    return a * w - mulhi64(a, ws) * q
+
+
+def _radix(x: list, w: list, ws: list, q, width: int, inverse: bool, lazy: bool) -> None:
+    """fwd_radix / inv_radix of u64.cuh on the item values x (in place), the
+    lazy ranges checked after each layer."""
+    for t in reversed(range(width)) if inverse else range(width):
+        half = 1 << (width - 1 - t)
+        for u in range(1 << t):
+            wt, wst = w[(1 << t) - 1 + u], ws[(1 << t) - 1 + u]
+            for j in range(half):
+                a = 2 * half * u + j
+                x0, x1 = x[a], x[a + half]
+                if inverse and lazy:
+                    x[a], x[a + half] = _csub(x0 + x1, 2 * q), _shoup_lazy(x0 - x1 + 2 * q, wt, wst, q)
+                elif inverse:
+                    d = x0 - x1
+                    x[a], x[a + half] = _csub(x0 + x1, q), _csub(_shoup_lazy(torch.where(_ult(x0, x1), d + q, d), wt, wst, q), q)
+                elif lazy:
+                    y0, y1 = _csub(x0, 2 * q), _shoup_lazy(x1, wt, wst, q)
+                    x[a], x[a + half] = y0 + y1, y0 - y1 + 2 * q
+                else:
+                    y1 = _csub(_shoup_lazy(x1, wt, wst, q), q)
+                    d = x0 - y1
+                    x[a], x[a + half] = _csub(x0 + y1, q), torch.where(_ult(x0, y1), d + q, d)
+        bound = ((2 if inverse else 4) if lazy else 1) * q
+        assert all(bool(_ult(v, bound.expand_as(v)).all()) for v in x), "a value left its lazy range"
+
+
+def model_transform(x: torch.Tensor, plan: TR.RnsPlan, inverse: bool, split: bool) -> torch.Tensor:
+    """K-RNS-NTT on rows x (R, N), row r under limb r mod L: the plan's
+    passes (the inverse's in reverse order, each inverse), on the columns
+    and twiddle groups the kernel computes for each item."""
+    rows = x.shape[0]
+    t = TR.rns_tables(plan, CPU)
+    limb = torch.arange(rows) % len(plan.qs)
+    q = t.q[limb]  # (R, 1)
+    tab, tab_s = (t.psi_inv[limb], t.psi_inv_s[limb]) if inverse else (t.psi[limb], t.psi_s[limb])
+    lazy = max(plan.qs) < 1 << 62
+    v = x.clone()
+    passes = plan_passes(plan.log_n, split)
+    for l0, w, cols, groups in reversed(passes) if inverse else passes:
+        cols, groups = torch.tensor(cols), torch.tensor(groups)
+        vals = [v[:, cols[:, m]] for m in range(1 << w)]
+        idx = [(((1 << (l0 + tt)) + (groups << tt)) + u) for tt in range(w) for u in range(1 << tt)]
+        _radix(vals, [tab[:, i] for i in idx], [tab_s[:, i] for i in idx], q, w, inverse, lazy)
+        for m in range(1 << w):
+            v[:, cols[:, m]] = vals[m]
+    if inverse:
+        return _csub(_shoup_lazy(v, t.n_inv[limb], t.n_inv_s[limb], q), q)
+    return _csub(_csub(v, 2 * q), q) if lazy else v
+
+
+@pytest.mark.parametrize(
+    "bits,log_n,limbs,lead",
+    [(55, 1, 3, 2), (55, 2, 8, 1), (55, 3, 1, 3), (55, 5, 3, 2), (55, 6, 8, 1), (55, 8, 3, 3), (63, 5, 3, 1), (63, 8, 2, 2), (62, 7, 3, 1)],
+)
+def test_model_transforms_match_reference_and_jax(bits, log_n, limbs, lead):
+    """Both plans (the cluster's, modelled here at small rings too, and the
+    row plan) on (lead, L, N) rows holding 0 and q - 1, lazy below 2^62 and
+    eager above: forward and inverse bit for bit against rns_ntt_ref /
+    rns_intt_ref and the JAX package's rns_ntt / rns_intt, every row under
+    its own limb's tables."""
+    n = 1 << log_n
+    qs = _primes(bits, log_n, limbs)
+    rng = np.random.default_rng(bits * 100 + log_n * 10 + limbs)
+    x = np.stack([rng.integers(0, q, size=(lead, n), dtype=np.uint64) for q in qs], axis=-2)
+    x[0, 0, 0], x[-1, -1, -1] = 0, qs[-1] - 1
+    tx = u64_to_torch(x)
+    plan, jplan = TR.rns_plan(qs, n), JR.rns_plan(qs, n)
+    want_f, want_i = TR.rns_ntt_ref(tx, plan), TR.rns_intt_ref(tx, plan)
+    np.testing.assert_array_equal(torch_to_u64(want_f), np.asarray(JR.rns_ntt(jnp.asarray(x), jplan)))
+    np.testing.assert_array_equal(torch_to_u64(want_i), np.asarray(JR.rns_intt(jnp.asarray(x), jplan)))
+    rows = tx.reshape(-1, n)
+    for split in (False, True) if log_n >= 6 else (False,):  # the cluster plan needs 8 first-pass items
+        assert torch.equal(model_transform(rows, plan, False, split).reshape(tx.shape), want_f), f"forward, split {split}"
+        assert torch.equal(model_transform(rows, plan, True, split).reshape(tx.shape), want_i), f"inverse, split {split}"
+
+
+# -- K-BASECONV: the chunked 128-bit sum with one REDC per chunk, in Python integers
+
+
+def neg_inv64(p: int) -> int:
+    """The kernel's -p^-1 mod 2^64: p is its own inverse to 3 bits, five
+    Newton steps."""
+    inv = p
+    for _ in range(5):
+        inv = inv * (2 - p * inv) % (1 << 64)
+    return -inv % (1 << 64)
+
+
+def redc(t: int, p: int, nqi: int) -> int:
+    """lft64::redc on t = hi 2^64 + lo < p 2^64."""
+    assert t < p << 64, "a chunk's sum left the REDC bound"
+    hi, lo = t >> 64, t & ((1 << 64) - 1)
+    k = lo * nqi % (1 << 64)
+    s = hi + ((k * p) >> 64) + (lo != 0)
+    return s - p if s >= p else s
+
+
+def model_base_convert(x: np.ndarray, qs, ps, add=None) -> np.ndarray:
+    """K-BASECONV on x (B, Lq, N): v_k (the Shoup product's exact value), u
+    from the f64 sum the kernel makes (`overflow_sums`, rint), then per
+    output limb the sum of v_k w'_jk over chunks of terms below p 2^64, one
+    REDC each, w'_jk = -(ws_jk p_j) mod 2^64, the chunks added mod p_j, less
+    u Q mod p_j."""
+    bp = TR.base_extend_plan(qs, ps)
+    chunk = min(((1 << 64) - 1) // max(qs), len(qs))
+    b_, lq, n = x.shape
+    xs = [[[int(x[b, k, j]) for j in range(n)] for k in range(lq)] for b in range(b_)]
+    if add is not None:
+        xs = [[[(v + add[k]) % qs[k] for v in row] for k, row in enumerate(blk)] for blk in xs]
+    v = [[[val * int(bp.q_hats_inv[k]) % qs[k] for val in row] for k, row in enumerate(blk)] for blk in xs]
+    u = torch.round(TR.overflow_sums(u64_to_torch(np.array(v, dtype=np.uint64)), qs)).long()
+    out = np.zeros((b_, len(ps), n), dtype=np.uint64)
+    for j, p in enumerate(ps):
+        wm = [(-int(bp.q_hats_ps_shoup[j, k]) * p) % (1 << 64) for k in range(lq)]
+        assert wm == [(int(bp.q_hats_ps[j, k]) << 64) % p for k in range(lq)]
+        nqi = neg_inv64(p)
+        assert nqi * p % (1 << 64) == (1 << 64) - 1
+        for b in range(b_):
+            for c in range(n):
+                s = 0
+                for k0 in range(0, lq, chunk):
+                    s = (s + redc(sum(v[b][k][c] * wm[k] for k in range(k0, min(lq, k0 + chunk))), p, nqi)) % p
+                out[b, j, c] = (s - int(bp.uq_ps_t[int(u[b, c]), j])) % p
+    return out
+
+
+@pytest.mark.parametrize(
+    "lq,lp,bits,with_add",
+    [(1, 3, 55, False), (8, 8, 55, False), (8, 8, 55, True), (23, 4, 55, False), (64, 3, 55, True), (6, 3, 62, False), (6, 3, 62, True)],
+)
+def test_base_convert_chunked_sum_matches_reference_and_jax(lq, lp, bits, with_add):
+    """The kernel's sum against base_convert_ref and the JAX package's
+    extend_bases: lq = 1, 8, 23 and 64 input limbs of 55 bits (one chunk),
+    and 62-bit input primes, whose chunks hold 4 terms; with and without a
+    constant added mod q_i first (the rescale's P/2), on inputs holding 0
+    and q - 1."""
+    primes = _primes(bits, 4, lq) + _primes(55, 5, lp) if bits != 55 else _primes(55, 4, lq + lp)
+    qs, ps = primes[:lq], primes[lq:]
+    assert bits != 62 or ((1 << 64) - 1) // max(qs) == 4
+    rng = np.random.default_rng(lq * 10 + lp + bits + with_add)
+    n = 16
+    x = np.stack([rng.integers(0, q, size=(2, n), dtype=np.uint64) for q in qs], axis=-2)
+    x[0, :, 0], x[1, :, 1] = 0, np.array(qs, dtype=np.uint64) - 1
+    add = tuple(int(q) // 2 + k for k, q in enumerate(qs)) if with_add else None
+    got = model_base_convert(x, qs, ps, add)
+    np.testing.assert_array_equal(got, torch_to_u64(TR.base_convert_ref(u64_to_torch(x), qs, ps, add)))
+    xa = x if add is None else (x.astype(object) + np.array(add, dtype=object)[:, None]) % np.array(qs, dtype=object)[:, None]
+    np.testing.assert_array_equal(got, np.asarray(JR.extend_bases(jnp.asarray(xa.astype(np.uint64)), qs, ps)))
