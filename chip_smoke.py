@@ -107,9 +107,11 @@ bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
   C1. hold K-RNS-NTT (forward and inverse; on (16, 8, 8192) over the
       q-primes and on (16, 16, 8192) over q + p, the inverse also on the
       key switch's (2, 16, 16, 8192)), K-RNS-MAC (1 and 2 terms, and the key
-      switch's two sums against a key broadcast over the batch), K-BASECONV
-      (8 -> 8) and K-RESCALE (k = 1, and k = 8 after K-BASECONV of the
-      dropped limbs) against their plain versions, `torch.equal`; time each
+      switch's two sums against a key broadcast over the batch), the same
+      three sums inside the inverse transform (`rns_intt_mac`, the path's),
+      K-BASECONV (8 -> 8) and K-RESCALE (k = 1, and k = 8 after K-BASECONV
+      of the dropped limbs) against their plain versions, `torch.equal`,
+      each wrapper's launch counter rising by one a call; time each
       over 20 eager wrapper calls and over 20 launches replayed from a CUDA
       graph against its bound, the transforms and K-BASECONV also from a
       graph whose launches take their inputs from more copies than the
@@ -121,8 +123,9 @@ bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
   C3. the main path: key generation on the card (rlk, one rotation key,
       cjk), 2 x 16 messages encoded and sk_encrypted, one batch-16 `mul`
       with the launch counters set to 0 just before and read just after
-      (each of the four kernels must launch; the counts printed by row
-      count); the 16 products must decode within the budget
+      (K-RNS-NTT, `rns_intt_mac`, K-BASECONV and K-RESCALE must launch, the
+      MAC and the inverse transform alone must not; the counts printed by
+      row count); the 16 products must decode within the budget
       `tests/test_ckks_large.py` holds at log_n=13, and the first ciphertext
       of the batch must equal the port's CPU path's after mul, rotate and
       conjugate; then muls/s at batch 16 and 1 (median and spread of 5
@@ -1123,18 +1126,21 @@ CKKS_ROT = 5
 # the budget `tests/test_ckks_large.py::test_mul_chain_32bits` holds at log_n=13
 CKKS_MUL_BITS = 32 - 1.5 * (13 - 10)
 CKKS_INSTANCES = (
-    "rns_ntt_kernel<false,true,13>", "rns_ntt_kernel<true,true,13>", "rns_mac_kernel<false>", "rns_mac_kernel<true>",
-    "base_convert_kernel<8>", "rescale_kernel",
+    "rns_ntt_kernel<false,true,13>", "rns_ntt_kernel<true,true,13>", "rns_intt_mac_kernel<true,13,1>",
+    "rns_intt_mac_kernel<true,13,2>", "rns_mac_kernel<4>", "base_convert_kernel<8>", "rescale_kernel",
 )  # fmt: skip
 L2_BYTES = 50e6  # the H100's L2 cache
 
 
-def rns_mac_ops(values: int, terms: int, sums: int) -> np.ndarray:
+def rns_mac_ops(values: int, terms: int, sums: int, fused: bool = False) -> np.ndarray:
     """K-RNS-MAC on `values` outputs of each of `sums` sums of `terms`
-    products: per sum and value the 128-bit multiply-adds, one REDC and one
-    add per chunk (a chunk holds every term at 55 bits), the REDC by 2^128
-    mod q."""
-    return values * sums * (terms * MAC128 + REDC64 + ADD_Q64 + REDC64)
+    products: per sum and value the 128-bit multiply-adds, one REDC per
+    chunk (a chunk holds every term at 55 bits); alone, also the add of the
+    chunk's residue mod q and the REDC by 2^128 mod q that takes the sum out
+    of the Montgomery domain. Inside the inverse transform (fused: the
+    instances for 1 and 2 terms, one chunk) neither: the transform's final
+    scale takes the 2^-64 out."""
+    return values * sums * (terms * MAC128 + REDC64 + (0 if fused else ADD_Q64 + REDC64))
 
 
 def base_convert_ops(cols: int, qs: tuple[int, ...], lp: int, add: bool) -> np.ndarray:
@@ -1167,8 +1173,10 @@ def rns_cases(params, batch: int, rng, dev):
     """The RNS kernels' launches that C1 times, at a batch-`batch` `mul`'s
     shapes: K-RNS-NTT (forward and inverse) on (B, L, N) and (B, L+P, N),
     the inverse also on the key switch's (2, B, L+P, N); K-RNS-MAC at K=1,
-    K=2 and the key switch's two sums; K-BASECONV L -> P; K-RESCALE at k=1
-    and k=P. Returns {(row, shape): (kernel call, plain call, bytes,
+    K=2 and the key switch's two sums, alone and inside the inverse
+    (`rns_intt_mac`, whose bytes count each x, y and z read once, the
+    twiddles and the output written once); K-BASECONV L -> P; K-RESCALE at
+    k=1 and k=P. Returns {(row, shape): (kernel call, plain call, bytes,
     instructions, cold)}: cold is (call of an input, the input) where C1
     also reads a cold-L2 time (the transforms and K-BASECONV), else None."""
     from learn_fhe_tpu_torch.ops import rns
@@ -1210,6 +1218,15 @@ def rns_cases(params, batch: int, rng, dev):
         ("rns_mac", "key switch"): (lambda: rns.rns_mac([xqp], [key_b], plan_qp, [key_a]),
                                     lambda: rns.rns_mac_ref([xqp], [key_b], plan_qp, [key_a]),
                                     3 * B * (L + P) * n * 8 + 2 * (L + P) * n * 8, rns_mac_ops(B * (L + P) * n, 1, 2), None),
+        ("rns_intt_mac", "K=1"): (lambda: rns.rns_intt_mac([xq], [yq], plan_q), lambda: rns.rns_intt_mac_ref([xq], [yq], plan_q),
+                                  3 * B * L * n * 8 + tab(qs), intt64_ops(B * L, n, lazy) + rns_mac_ops(B * L * n, 1, 1, True), None),
+        ("rns_intt_mac", "K=2"): (lambda: rns.rns_intt_mac([xq, yq], [yq, xq], plan_q),
+                                  lambda: rns.rns_intt_mac_ref([xq, yq], [yq, xq], plan_q),
+                                  5 * B * L * n * 8 + tab(qs), intt64_ops(B * L, n, lazy) + rns_mac_ops(B * L * n, 2, 1, True), None),
+        ("rns_intt_mac", "key switch"): (lambda: rns.rns_intt_mac([xqp], [key_b], plan_qp, [key_a]),
+                                         lambda: rns.rns_intt_mac_ref([xqp], [key_b], plan_qp, [key_a]),
+                                         3 * B * (L + P) * n * 8 + 2 * (L + P) * n * 8 + tab(qps),
+                                         intt64_ops(2 * B * (L + P), n, lazy) + rns_mac_ops(B * (L + P) * n, 1, 2, True), None),
         ("base_convert", f"{L}->{P}"): (lambda: conv(xq), lambda: rns.base_convert_ref(xq, qs, ps),
                                         B * (L + P) * n * 8, base_convert_ops(B * n, qs, P, False), (conv, xq)),
         ("rescale", "k=1"): (lambda: rns.rescale_finish(xq, None, rp1), lambda: rns.rescale_finish_ref(xq, None, rp1),
@@ -1250,14 +1267,19 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
         regs, st, ld, stack = report[name]
         say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
     cases = rns_cases(params, B, rng, dev)
+    wrappers = {"rns_ntt": rns.rns_ntt, "rns_intt": rns.rns_intt, "rns_mac": rns.rns_mac, "rns_intt_mac": rns.rns_intt_mac, "base_convert": rns.base_convert, "rescale": rns.rescale_finish}
     for (name, shape), (kernel, plain, *_) in cases.items():
-        errs[name] = max(errs.get(name, 0.0), max_abs_err(kernel(), plain().cpu()))
+        before = wrappers[name].launches
+        got = kernel()
+        if wrappers[name].launches != before + 1:
+            raise AssertionError(f"C1 {name} {shape}: the wrapper did not launch its kernel once")
+        errs[name] = max(errs.get(name, 0.0), max_abs_err(got, plain().cpu()))
     # the whole rescale by P: K-BASECONV of the dropped limbs + K-RESCALE
     xqp = cases["rns_ntt", (B, L + P, n)][4][1]  # the (B, L+P, N) residues the transform cases take
     rp8 = rns.rescale_plan(qps, P)
     errs["rescale"] = max(errs["rescale"], max_abs_err(rns.rescale_k(xqp, qps, P), rns.rescale_finish_ref(
         xqp, rns.base_convert_ref(xqp[:, L:], rp8.drop, rp8.keep, add=rp8.p_half[L:]), rp8).cpu()))  # fmt: skip
-    say(f"C1 K-RNS-NTT (forward, inverse) on ({B}, {L}, {n}) and ({B}, {L + P}, {n}), K-RNS-MAC at K=1, 2 and the key switch's two sums, K-BASECONV {L}->{P}, K-RESCALE at k=1 and k={P} == plain: ok")
+    say(f"C1 K-RNS-NTT (forward, inverse) on ({B}, {L}, {n}) and ({B}, {L + P}, {n}), K-RNS-MAC at K=1, 2 and the key switch's two sums alone and inside the inverse (rns_intt_mac), K-BASECONV {L}->{P}, K-RESCALE at k=1 and k={P} == plain, each wrapper launching its kernel once a call: ok")
     for (name, shape), (kernel, plain, n_bytes, ops, cold) in cases.items():
         k_ms, g_ms, p_ms = cuda_ms(kernel, CKKS_REPS), graph_ms(kernel, CKKS_REPS), cuda_ms(plain, 3)
         b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
@@ -1293,19 +1315,25 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     ct0, ct1 = stack(cts[:B]), stack(cts[B:])
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    counted = {"rns_ntt": rns.rns_ntt, "rns_intt": rns.rns_intt, "rns_mac": rns.rns_mac, "base_convert": rns.base_convert, "rescale": rns.rescale_finish}
-    for fn in counted.values():
+    # the mul makes its sums inside the inverse transforms: the MAC and the
+    # inverse alone (held in C1) must not launch on it
+    counted = {"rns_ntt": rns.rns_ntt, "rns_intt_mac": rns.rns_intt_mac, "base_convert": rns.base_convert, "rescale": rns.rescale_finish}
+    alone = {"rns_intt": rns.rns_intt, "rns_mac": rns.rns_mac}
+    for fn in (*counted.values(), *alone.values()):
         fn.launches, fn.by_rows = 0, Counter()
     out = C.mul(params, rlk, ct0, ct1)
     torch.cuda.synchronize()
     by_rows = {name: dict(fn.by_rows) for name, fn in counted.items()}
-    for name, fn in counted.items():
+    for name, fn in (*counted.items(), *alone.items()):
         launches[name] = fn.launches
     say(f"{tag} C3 keys (rlk, a rotation key, cjk) on the card {keygen_s:.2f} s; {2 * B} messages encoded and sk_encrypted {enc_s:.2f} s (host clock, to a sync)")
-    say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: input rows): {by_rows}")
-    for name, count in launches.items():
-        if name in counted and count == 0:
+    say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: input rows; rns_intt_mac: (output rows, terms)): {by_rows}; rns_intt alone {launches['rns_intt']}, rns_mac alone {launches['rns_mac']}")
+    for name in counted:
+        if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the CKKS main path")
+    for name in alone:
+        if launches[name]:
+            raise AssertionError(f"{name} launched alone on the CKKS main path, whose sums are made inside the inverse transforms")
     if out.b.shape != (B, L - 1, n) or out.qs != qs[:-1]:
         raise AssertionError(f"mul output shape {tuple(out.b.shape)} at {len(out.qs)} limbs")
     worst = 200.0
@@ -1615,6 +1643,7 @@ def main() -> None:
         ("rns_ntt", "rns64.cu", "learn_fhe_tpu/ops/rns.py:123 (fwd_stages via rns_ntt, XLA fusion; no Pallas call)"),
         ("rns_intt", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193 (inv_stages via rns_intt, XLA fusion; no Pallas call)"),
         ("rns_mac", "rns64.cu", "learn_fhe_tpu/ops/rns.py:280 and models/ckks/ckks.py:588-597,706-716 (rns_mul_eval, mul's tensor, _ks_dot; XLA fusions; no Pallas call)"),
+        ("rns_intt_mac", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280,287 and models/ckks/ckks.py:592-597,706-716,738-739 (rns_intt of rns_mul_eval / _ks_dot under one jit; XLA fusions; no Pallas call)"),
         ("base_convert", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases / switch_bases, XLA fusion; no Pallas call)"),
         ("rescale", "rns64.cu", "learn_fhe_tpu/ops/rns.py:426 (rescale_k, XLA fusion; no Pallas call)"),
     ]

@@ -88,7 +88,8 @@ __global__ void __launch_bounds__(kThreads)
     ntt64_inv_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, lft64::Tables t, int rows, int log_n) {
   __shared__ uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kValues];
   const Span s = span(rows, kLogN ? kLogN : log_n);
-  lft64::rows::inverse<kThreads, kLazy, kLogN>(x, y, t, s.first, s.per, s.have, log_n, buf);
+  lft64::rows::DeviceRows src{x, s.first, s.have, kLogN ? kLogN : log_n};
+  lft64::rows::inverse<kThreads, kLazy, kLogN>(src, y, t, s.first, s.per, s.have, log_n, buf);
 }
 
 // y = INTT(NTT(a) * NTT(b)), the product by two REDCs (lft64::mul_mod), at

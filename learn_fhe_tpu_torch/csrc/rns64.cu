@@ -6,7 +6,9 @@
 //   K-RNS-NTT   <- fwd_stages / inv_stages via rns_ntt / rns_intt
 //                  (rns.py:123,193,252,259)
 //   K-RNS-MAC   <- rns_mul_eval (rns.py:280), CKKS mul's tensor and
-//                  _ks_dot (models/ckks/ckks.py:588-597,706-716)
+//                  _ks_dot (models/ckks/ckks.py:588-597,706-716); inside
+//                  K-RNS-NTT's inverse (rns_intt_mac) <- rns_intt of them
+//                  under one jit (rns.py:193,280,287; ckks.py:592-597,738-739)
 //   K-BASECONV  <- extend_bases / switch_bases (rns.py:356-422)
 //   K-RESCALE   <- rescale_k's add of P/2, subtraction and division by P
 //                  (rns.py:426-464)
@@ -44,11 +46,19 @@
 //   (CKKS's ring) has an instance with every pass's shape a constant. Below
 //   N = 2048 a block takes one row through rows::forward / rows::inverse.
 //   Lazy (Harvey) butterflies where every prime is below 2^62.
-// - K-RNS-MAC: one thread per value; the products of up to `chunk` terms
-//   summed in 128 bits (chunk (q-1)^2 < q 2^64), one REDC per chunk, the
-//   chunks' sums added mod q, the total brought out of the Montgomery
-//   domain by a REDC against 2^128 mod q. Products of canonical residues
-//   summed exactly mod q are the JAX package's in any order.
+// - K-RNS-MAC (redesigned for the H100): every sum the port makes feeds an
+//   inverse transform, so rns_intt_mac builds them inside the inverse's
+//   first pass and never stores them: the first version wrote its sums
+//   (two thirds of the key switch's bytes) and the inverse read them back.
+//   Each 4-value item of that pass is sum_k x_k y_k from 16-byte words of
+//   each term's x and y, summed in 128 bits with one REDC per chunk of terms
+//   (chunk (q-1)^2 < q 2^64), the chunks added mod q (mac_item). A REDC
+//   leaves 2^-64, which the inverse's final scale takes out (N^-1 2^64 in
+//   place of N^-1; the transform is Z_q-linear) instead of a REDC a value
+//   against 2^128 mod q. A block's output row gives its sum, x row, limb and
+//   key row once (the first version took two 64-bit divisions a value). The
+//   kernel alone (rns_mac) takes mac_item's sums out of the Montgomery
+//   domain by that REDC, an item of 4 values a thread in 16-byte words.
 // - K-BASECONV (redesigned for the H100): one thread per coefficient
 //   column, its tables in shared memory, loaded once a block. v_i = x_i
 //   q_hat_i^-1 (Shoup) in registers where lq is a constant of the instance
@@ -119,9 +129,8 @@ constexpr int kBufValues = kPerBlock << (kMaxLogN - kSplit);
 constexpr int kSplitAhead = (1 << (kMaxLogN - kSplit)) / kCluster / kNttThreads;
 constexpr int kItemsAhead = (kPerBlock << (kMaxLogN - kSplit - 2)) / kNttThreads;
 
-// The tables of row `row`'s limb.
-__device__ __forceinline__ lft64::Tables limb_tables(const Stacked& s, long long row, int limbs, int log_n) {
-  const int limb = static_cast<int>(row % limbs);
+// The tables of limb `limb`.
+__device__ __forceinline__ lft64::Tables limb_tables(const Stacked& s, int limb, int log_n) {
   const size_t off = static_cast<size_t>(limb) << log_n;
   return lft64::Tables{s.psi + off,          s.psi_s + off,          s.psi_inv + off,          s.psi_inv_s + off,
                        __ldg(s.q + limb),    __ldg(s.neg_q_inv + limb), __ldg(s.n_inv + limb), __ldg(s.n_inv_s + limb)};
@@ -263,6 +272,54 @@ __device__ __forceinline__ void sub_head_pass(int p, int sub0, int log_n, const 
   }
 }
 
+// The buffer column 0 of each of the row's sub-rows, in the block of the
+// cluster that holds it.
+__device__ __forceinline__ void sub_row_holders(cg::cluster_group& cluster, uint64_t* buf, int log_s,
+                                                uint64_t* (&holder)[kSubs]) {
+#pragma unroll
+  for (int m = 0; m < kSubs; ++m) {
+    holder[m] = cluster.map_shared_rank(buf, m / kPerBlock) + ((m % kPerBlock) << log_s);
+  }
+}
+
+// The inverse of one row on its cluster into y (the row's 2^log_n values):
+// the last pass (2 layers) takes its items from src (kAhead of them
+// unrolled) into the block's sub-rows, the head passes down to layer 3 run
+// on them, a cluster barrier, then the first pass on the cluster's share of
+// items, each value read from the block that holds it and scaled by t.n_inv
+// on its way out. Every thread of the cluster calls it.
+template <bool kLazy, int kAhead, class Src>
+__device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __restrict__ y, const lft64::Tables& t,
+                                                int log_n, uint64_t* buf) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log_s = log_n - kSplit, hp = lft64::rows::head_passes(log_n);
+  const int rank = static_cast<int>(cluster.block_rank()), sub0 = rank * kPerBlock;
+  const int share = (1 << log_s) / kCluster, first = rank * share;
+  uint64_t* holder[kSubs];
+  sub_row_holders(cluster, buf, log_s, holder);
+  Buf sm{buf};
+  sub_pass<2, true, kLazy, kAhead>(sub0, log_n, log_n - 2, t, src, sm);
+#pragma unroll
+  for (int p = hp - 1; p >= 1; --p) {
+    __syncthreads();
+    sub_head_pass<true, kLazy>(p, sub0, log_n, t, sm, sm);
+  }
+  cluster.sync();  // every sub-row is done
+  uint64_t w[kSubs - 1], ws[kSubs - 1];
+  item_twiddles<kSplit>(w, ws, t.psi_inv, t.psi_inv_s, 0, 0);
+#pragma unroll (kSplitAhead)
+  for (int k = threadIdx.x; k < share; k += kNttThreads) {
+    const int i = first + k;
+    uint64_t v[kSubs];
+#pragma unroll
+    for (int m = 0; m < kSubs; ++m) v[m] = holder[m][i];
+    lft64::inv_radix<kSplit, kLazy>(v, w, ws, t.q);
+#pragma unroll
+    for (int m = 0; m < kSubs; ++m) y[i + (m << log_s)] = shoup_q(v[m], t.n_inv, t.n_inv_s, t.q);
+  }
+  cluster.sync();  // no block leaves while another reads its buffer
+}
+
 // One row on a cluster of kCluster blocks (grid: rows x kCluster; N >=
 // 2048). kLogN: 13 (every shape a constant) or 0 (log_n as given).
 template <bool kInv, bool kLazy, int kLogN>
@@ -271,23 +328,22 @@ __global__ void __launch_bounds__(kNttThreads)
   __shared__ __align__(16) uint64_t buf[kBufValues];
   cg::cluster_group cluster = cg::this_cluster();
   const int log_n = kLogN ? kLogN : log_n_arg;
-  const int log_s = log_n - kSplit, hp = lft64::rows::head_passes(log_n);
+  const int log_s = log_n - kSplit;
   const int rank = static_cast<int>(cluster.block_rank());
   const long long row = blockIdx.x / kCluster;
-  const lft64::Tables t = limb_tables(st, row, limbs, log_n);
+  const lft64::Tables t = limb_tables(st, static_cast<int>(row % limbs), log_n);
   const int sub0 = rank * kPerBlock;
   const size_t base = static_cast<size_t>(row) << log_n;
   const size_t mine = base + (static_cast<size_t>(sub0) << log_s);
-  // the first pass: this block's share of the row's 2^log_s items
-  const int share = (1 << log_s) / kCluster, first = rank * share;
-  uint64_t* holder[kSubs];  // the buffer column 0 of each sub-row, in the block that holds it
-#pragma unroll
-  for (int m = 0; m < kSubs; ++m) {
-    holder[m] = cluster.map_shared_rank(buf, m / kPerBlock) + ((m % kPerBlock) << log_s);
-  }
-  uint64_t w[kSubs - 1], ws[kSubs - 1];
-  Buf sm{buf};
-  if constexpr (!kInv) {
+  if constexpr (kInv) {
+    cluster_inverse<kLazy, kItemsAhead>(Dev<kLazy>{x + mine, nullptr, t.q}, y + base, t, log_n, buf);
+  } else {
+    // the first pass: this block's share of the row's 2^log_s items
+    const int share = (1 << log_s) / kCluster, first = rank * share;
+    uint64_t* holder[kSubs];
+    sub_row_holders(cluster, buf, log_s, holder);
+    uint64_t w[kSubs - 1], ws[kSubs - 1];
+    Buf sm{buf};
     // a block writes into another's shared memory only once every block of
     // the cluster has started: an arrival here, the wait before the first
     // store, the loads and butterflies of the first item between them
@@ -310,34 +366,13 @@ __global__ void __launch_bounds__(kNttThreads)
     if (!started) cluster_wait();
     cluster.sync();  // every sub-row is in its block
 #pragma unroll
-    for (int p = 1; p < hp; ++p) {
+    for (int p = 1; p < lft64::rows::head_passes(log_n); ++p) {
       if (p > 1) __syncthreads();
       sub_head_pass<false, kLazy>(p, sub0, log_n, t, sm, sm);
     }
     __syncthreads();
     Dev<kLazy> dst{nullptr, y + mine, t.q};
     sub_pass<2, false, kLazy>(sub0, log_n, log_n - 2, t, sm, dst);
-  } else {
-    Dev<kLazy> src{x + mine, nullptr, t.q};
-    sub_pass<2, true, kLazy, kItemsAhead>(sub0, log_n, log_n - 2, t, src, sm);
-#pragma unroll
-    for (int p = hp - 1; p >= 1; --p) {
-      __syncthreads();
-      sub_head_pass<true, kLazy>(p, sub0, log_n, t, sm, sm);
-    }
-    cluster.sync();  // every sub-row is done
-    item_twiddles<kSplit>(w, ws, t.psi_inv, t.psi_inv_s, 0, 0);
-#pragma unroll (kSplitAhead)
-    for (int k = threadIdx.x; k < share; k += kNttThreads) {
-      const int i = first + k;
-      uint64_t v[kSubs];
-#pragma unroll
-      for (int m = 0; m < kSubs; ++m) v[m] = holder[m][i];
-      lft64::inv_radix<kSplit, kLazy>(v, w, ws, t.q);
-#pragma unroll
-      for (int m = 0; m < kSubs; ++m) y[base + i + (m << log_s)] = shoup_q(v[m], t.n_inv, t.n_inv_s, t.q);
-    }
-    cluster.sync();  // no block leaves while another reads its buffer
   }
 }
 
@@ -348,12 +383,29 @@ __global__ void __launch_bounds__(kRowThreads)
     rns_ntt_rows_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n) {
   __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
   const long long row = blockIdx.x;
-  const lft64::Tables t = limb_tables(st, row, limbs, log_n);
+  const lft64::Tables t = limb_tables(st, static_cast<int>(row % limbs), log_n);
   if constexpr (kInv) {
-    lft64::rows::inverse<kRowThreads, kLazy, kLogN>(x, y, t, row, 1, 1, log_n, buf);
+    lft64::rows::DeviceRows src{x, row, 1, kLogN ? kLogN : log_n};
+    lft64::rows::inverse<kRowThreads, kLazy, kLogN>(src, y, t, row, 1, 1, log_n, buf);
   } else {
     lft64::rows::forward<kRowThreads, kLazy, kLogN, false>(x, y, t, row, 1, 1, log_n, 0, 0, buf);
   }
+}
+
+// A launch of `rows` clusters of kCluster blocks of kNttThreads (attr: the
+// cluster attribute the configuration points to).
+cudaLaunchConfig_t cluster_config(int rows, cudaStream_t stream, cudaLaunchAttribute& attr) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * kCluster, 1, 1);
+  cfg.blockDim = dim3(kNttThreads, 1, 1);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <bool kInv, bool kLazy>
@@ -369,16 +421,7 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
   }
   if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows) * kCluster, 1, 1);
-  cfg.blockDim = dim3(kNttThreads, 1, 1);
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
   const auto kernel = log_n == kMaxLogN ? rns_ntt_kernel<kInv, kLazy, kMaxLogN> : rns_ntt_kernel<kInv, kLazy, 0>;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, px, py, s, limbs, log_n);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -391,43 +434,222 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
 
 struct Terms {
   const uint64_t* x[kMaxTerms];
-  const uint64_t* y[kMaxTerms];
-  const uint64_t* z[kMaxTerms];
+  const uint64_t* w[2 * kMaxTerms];  // term k's y at k, its z at kMaxTerms + k
 };
 
-// out0 = sum_k x_k y_k, and with kTwo out1 = sum_k x_k z_k, mod q_limb; the
-// y and z of value i at i mod y_count (y_count < count: broadcast over the
-// leading axes).
-template <bool kTwo>
-__global__ void __launch_bounds__(kThreads)
-    rns_mac_kernel(Terms t, uint64_t* __restrict__ out, int terms, long long count, long long y_count, int limbs,
-                   int log_n, const uint64_t* __restrict__ q_arr, const uint64_t* __restrict__ nqi_arr,
-                   const uint64_t* __restrict__ r2_arr, int chunk) {
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int limb = static_cast<int>((i >> log_n) % limbs);
-    const lft64::Mod m{__ldg(q_arr + limb), __ldg(nqi_arr + limb)};
-    const long long iy = y_count == count ? i : i % y_count;
-    uint64_t s0 = 0, h0 = 0, l0 = 0, s1 = 0, h1 = 0, l1 = 0;
-    int in_chunk = 0;
-    for (int k = 0; k < terms; ++k) {
-      const uint64_t xv = t.x[k][i];
-      lft64::mac128(h0, l0, xv, t.y[k][iy]);
-      if constexpr (kTwo) lft64::mac128(h1, l1, xv, t.z[k][iy]);
-      if (++in_chunk == chunk || k == terms - 1) {
-        s0 = add_q(s0, lft64::redc(h0, l0, m), m.q);
-        h0 = l0 = 0;
-        if constexpr (kTwo) {
-          s1 = add_q(s1, lft64::redc(h1, l1, m), m.q);
-          h1 = l1 = 0;
-        }
-        in_chunk = 0;
-      }
-    }
-    const uint64_t r2 = __ldg(r2_arr + limb);
-    out[i] = lft64::redc(__umul64hi(s0, r2), s0 * r2, m);
-    if constexpr (kTwo) out[count + i] = lft64::redc(__umul64hi(s1, r2), s1 * r2, m);
+// A launch's operands: `terms` products a sum; each x of `rows` rows, row r
+// under limb r mod limbs; each y and z of y_rows rows (rows, or limbs: a key
+// broadcast over the batch); `sums` sums (1: the y; 2: the y and the z);
+// `chunk` products summed in 128 bits before a REDC.
+struct MacShape {
+  int terms, rows, limbs, y_rows, sums, chunk;
+};
+
+// Output row r of the sums x rows: sum s = r / rows of x row r mod rows
+// (under its limb) against y (s = 0) or z row (r mod rows) mod y_rows, which
+// is the x row itself, or its limb where the key is broadcast. Element
+// offsets of the x row and the y (or z) row, the pointer table's offset for
+// s (sel) and the limb: once per block, no 64-bit division per value.
+struct MacRow {
+  size_t x_off, w_off;
+  int sel, limb;
+};
+
+__device__ __forceinline__ MacRow mac_row(const MacShape& sh, long long r, int log_n) {
+  const int s = r >= sh.rows ? 1 : 0;
+  const long long xrow = r - static_cast<long long>(s) * sh.rows;
+  const int limb = static_cast<int>(xrow % sh.limbs);
+  const long long yrow = sh.y_rows == sh.rows ? xrow : limb;
+  return MacRow{static_cast<size_t>(xrow) << log_n, static_cast<size_t>(yrow) << log_n, s * kMaxTerms, limb};
+}
+
+// The output row that the g-th row of blocks of a launch takes: with two
+// sums, the two of one x row one after the other, so that the second finds
+// x in L2.
+__device__ __forceinline__ long long mac_out_row(const MacShape& sh, long long g) {
+  return sh.sums == 2 ? (g & 1) * sh.rows + (g >> 1) : g;
+}
+
+// V consecutive u64 of device memory: 16-byte words (every operand's base is
+// 16-byte aligned, the wrappers check it, and so are its rows and an item's
+// first column), one 8-byte word at V = 1.
+template <int V>
+__device__ __forceinline__ void load_words(const uint64_t* __restrict__ p, uint64_t (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = __ldg(p);
+  } else {
+    lft64::rows::load_key(p, v);
   }
+}
+
+// The sums of V consecutive columns from col of one output row, times
+// 2^-64: v_j = 2^-64 sum_k x_k y_k mod q (canonical). Each term's x and y
+// (or z) come in 16-byte words; their products are summed in 128 bits, one
+// REDC per chunk of terms (chunk (q-1)^2 < q 2^64), the chunks' residues
+// added mod q. Products of canonical residues summed exactly mod q are the
+// JAX package's in any order. Each REDC leaves the 2^-64 that the caller
+// undoes: K-RNS-MAC by a REDC against 2^128 mod q, the fused inverse in its
+// final scale. kTerms: the terms as a constant, 1 or 2 (one chunk at any q
+// < 2^63: 2 (q-1)^2 < q 2^64), or 0 (terms as given).
+template <int kTerms, int V>
+__device__ __forceinline__ void mac_item(const Terms& t, const MacRow& r, int terms, int chunk, const lft64::Mod& m,
+                                         size_t col, uint64_t (&v)[V]) {
+  uint64_t hi[V], lo[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) hi[j] = lo[j] = v[j] = 0;
+  const int count = kTerms ? kTerms : terms;
+  int in_chunk = 0;
+#pragma unroll (kTerms ? kTerms : 1)
+  for (int k = 0; k < count; ++k) {
+    uint64_t x[V], y[V];
+    load_words(t.x[k] + r.x_off + col, x);
+    load_words(t.w[r.sel + k] + r.w_off + col, y);
+#pragma unroll
+    for (int j = 0; j < V; ++j) lft64::mac128(hi[j], lo[j], x[j], y[j]);
+    if (kTerms == 0 && ++in_chunk == chunk) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        v[j] = add_q(v[j], lft64::redc(hi[j], lo[j], m), m.q);
+        hi[j] = lo[j] = 0;
+      }
+      in_chunk = 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const uint64_t s = lft64::redc(hi[j], lo[j], m);
+    v[j] = kTerms ? s : add_q(v[j], s, m.q);  // REDC(0) = 0 where the last chunk was full
+  }
+}
+
+// K-RNS-MAC alone (rns_mac): out[s] = sum_k x_k (y_k, or z_k for s = 1) mod
+// q_limb, mac_item's sums brought out of the Montgomery domain by a REDC
+// against 2^128 mod q; x read once per sum (the second from L1). A thread
+// takes an item of V consecutive values of one x row (V = 4, or N below
+// 4); a block kThreads items: where a row holds as many, blockIdx.y's share
+// of row blockIdx.x, else the items of kThreads / items rows from
+// blockIdx.x's.
+constexpr int kLogThreads = 8;
+static_assert(kThreads == 1 << kLogThreads, "K-RNS-MAC's thread mapping");
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    rns_mac_kernel(Terms t, uint64_t* __restrict__ out, MacShape sh, int log_n, const uint64_t* __restrict__ q_arr,
+                   const uint64_t* __restrict__ nqi_arr, const uint64_t* __restrict__ r2_arr) {
+  const int log_items = log_n - (V == 4 ? 2 : V == 2 ? 1 : 0);
+  long long row = blockIdx.x;
+  int item = (blockIdx.y << kLogThreads) + threadIdx.x;
+  if (log_items < kLogThreads) {
+    row = (row << (kLogThreads - log_items)) + (threadIdx.x >> log_items);
+    item = threadIdx.x & ((1 << log_items) - 1);
+    if (row >= sh.rows) return;
+  }
+  MacRow r = mac_row(sh, row, log_n);
+  const lft64::Mod m{__ldg(q_arr + r.limb), __ldg(nqi_arr + r.limb)};
+  const uint64_t r2 = __ldg(r2_arr + r.limb);
+  const size_t col = static_cast<size_t>(item) * V;
+  for (int s = 0; s < sh.sums; ++s) {
+    r.sel = s * kMaxTerms;
+    uint64_t v[V];
+    mac_item<0>(t, r, sh.terms, sh.chunk, m, col, v);
+    uint64_t* dst = out + ((static_cast<size_t>(s) * sh.rows) << log_n) + r.x_off + col;
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = lft64::redc(__umul64hi(v[j], r2), v[j] * r2, m);
+    if constexpr (V == 1) {
+      dst[0] = v[0];
+    } else {
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) reinterpret_cast<ulonglong2*>(dst)[h] = make_ulonglong2(v[2 * h], v[2 * h + 1]);
+    }
+  }
+}
+
+// The inverse's first pass's items as the MAC sums of one output row (mac_item
+// at the row's offsets, which the cluster kernel moves to its block's first
+// sub-row): load(col, log_h, v) for sub_pass, load(row, col, log_h, v) for
+// the row passes (the block's one row). The sums are never stored.
+template <int kTerms>
+struct MacSums {
+  const Terms& t;
+  MacRow r;
+  int terms, chunk;
+  lft64::Mod m;
+  template <int V>
+  __device__ __forceinline__ void load(int col, int, uint64_t (&v)[V]) const {
+    mac_item<kTerms>(t, r, terms, chunk, m, col, v);
+  }
+  template <int V>
+  __device__ __forceinline__ void load(int, int col, int, uint64_t (&v)[V]) const {
+    mac_item<kTerms>(t, r, terms, chunk, m, col, v);
+  }
+};
+
+// Items of the fused inverse's first pass a thread takes unrolled, their
+// loads in flight together: all of them (K-RNS-NTT's kItemsAhead) with 1 or
+// 2 terms (80 registers, no spill; with 2 terms half as many measured 0.3
+// us slower at the CKKS mul's 128 rows, PERF.md), one with a run-time count.
+template <int kTerms>
+constexpr int kMacAhead = kTerms == 1 || kTerms == 2 ? kItemsAhead : 1;
+
+// K-RNS-MAC inside K-RNS-NTT's inverse (rns_intt_mac): cluster g runs the
+// inverse of output row mac_out_row(g) with the row's MAC sums as its first
+// pass's items, so they are never stored and read back. The sums carry
+// 2^-64; the inverse is Z_q-linear, so the final scale by N^-1 2^64 mod q
+// (st.n_inv and its dual, which the wrapper passes in place of N^-1) takes
+// it out, canonical as K-RNS-NTT's. The passes, tables and barriers are
+// K-RNS-NTT's. kLogN: 13 (every shape a constant) or 0; kTerms as mac_item's.
+template <bool kLazy, int kLogN, int kTerms>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_intt_mac_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
+  __shared__ __align__(16) uint64_t buf[kBufValues];
+  const int log_n = kLogN ? kLogN : log_n_arg;
+  const long long r = mac_out_row(sh, blockIdx.x / kCluster);
+  MacRow row = mac_row(sh, r, log_n);
+  const lft64::Tables tab = limb_tables(st, row.limb, log_n);
+  const size_t mine = static_cast<size_t>(cg::this_cluster().block_rank() * kPerBlock) << (log_n - kSplit);
+  row.x_off += mine;
+  row.w_off += mine;
+  const MacSums<kTerms> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}};
+  cluster_inverse<kLazy, kMacAhead<kTerms>>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n, buf);
+}
+
+// Below N = 2048: a block per output row through rows::inverse (kLogN as
+// rns_ntt_rows_kernel's).
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kRowThreads)
+    rns_intt_mac_rows_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n) {
+  __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
+  const long long r = mac_out_row(sh, blockIdx.x);
+  const MacRow row = mac_row(sh, r, log_n);
+  const lft64::Tables tab = limb_tables(st, row.limb, log_n);
+  MacSums<0> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}};
+  lft64::rows::inverse<kRowThreads, kLazy, kLogN>(src, y, tab, r, 1, 1, log_n, buf);
+}
+
+// The instances: at N = 2^13 the lazy ones for 1 and 2 terms (the CKKS mul's
+// tensor and its key switch at dnum None), else the one for any terms.
+template <bool kLazy>
+int launch_intt_mac(const Terms& t, uint64_t* y, const Stacked& s, const MacShape& sh, int log_n,
+                    cudaStream_t stream) {
+  const int rows = sh.sums * sh.rows;
+  if (log_n < kSplitLogN) {
+    const auto kernel = log_n == 1   ? rns_intt_mac_rows_kernel<kLazy, 1>
+                        : log_n == 2 ? rns_intt_mac_rows_kernel<kLazy, 2>
+                                     : rns_intt_mac_rows_kernel<kLazy, 0>;
+    kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
+  auto kernel = log_n == kMaxLogN ? rns_intt_mac_kernel<kLazy, kMaxLogN, 0> : rns_intt_mac_kernel<kLazy, 0, 0>;
+  if constexpr (kLazy) {
+    if (log_n == kMaxLogN && sh.terms == 1) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 1>;
+    if (log_n == kMaxLogN && sh.terms == 2) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 2>;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 unsigned grid_for(long long count) {
@@ -621,6 +843,22 @@ const T* cp(const void* p) {
   return static_cast<const T*>(p);
 }
 
+// The device pointers of the host arrays xs, ys and zs (zs null: one sum).
+Terms terms_of(const void* xs, const void* ys, const void* zs, int terms) {
+  Terms t{};
+  for (int k = 0; k < terms; ++k) {
+    t.x[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(xs)[k]);
+    t.w[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(ys)[k]);
+    if (zs != nullptr) t.w[kMaxTerms + k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(zs)[k]);
+  }
+  return t;
+}
+
+bool mac_args_ok(int terms, int rows, int limbs, int y_rows, int chunk) {
+  return terms >= 1 && terms <= kMaxTerms && rows >= 1 && limbs >= 1 && chunk >= 1 &&
+         (y_rows == rows || y_rows == limbs);
+}
+
 }  // namespace
 
 extern "C" {
@@ -650,28 +888,47 @@ int lft_rns_ntt_inv(const void* x, void* y, const void* psi, const void* psi_s, 
               : launch_ntt<true, false>(x, y, s, rows, limbs, log_n, st);
 }
 
-// xs, ys, zs: host arrays of `terms` device pointers (zs null: one sum);
-// out: (2 if zs else 1, rows, 2^log_n); each x (rows, 2^log_n), each y and z
-// (y_rows, 2^log_n), y_rows = rows or limbs (broadcast); per-limb q, -q^-1
-// mod 2^64, 2^128 mod q; chunk: products summed before a REDC.
+// xs, ys, zs: host arrays of `terms` device pointers (zs null: one sum),
+// each 16-byte aligned; out: (2 if zs else 1, rows, 2^log_n); each x (rows,
+// 2^log_n), each y and z (y_rows, 2^log_n), y_rows = rows or limbs
+// (broadcast); per-limb q, -q^-1 mod 2^64, 2^128 mod q; chunk: products
+// summed before a REDC.
 int lft_rns_mac(const void* xs, const void* ys, const void* zs, void* out, int terms, int rows, int limbs,
                 int log_n, int y_rows, const void* q, const void* neg_q_inv, const void* r2, int chunk,
                 void* stream) {
-  if (terms < 1 || terms > kMaxTerms || rows < 1 || limbs < 1 || chunk < 1 || (y_rows != rows && y_rows != limbs))
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n < 0 || log_n > 30)
     return static_cast<int>(cudaErrorInvalidValue);
-  Terms t{};
-  for (int k = 0; k < terms; ++k) {
-    t.x[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(xs)[k]);
-    t.y[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(ys)[k]);
-    if (zs != nullptr) t.z[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(zs)[k]);
-  }
-  const long long count = static_cast<long long>(rows) << log_n;
-  const long long y_count = static_cast<long long>(y_rows) << log_n;
-  const auto kernel = zs != nullptr ? rns_mac_kernel<true> : rns_mac_kernel<false>;
-  kernel<<<grid_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      t, static_cast<uint64_t*>(out), terms, count, y_count, limbs, log_n, cp<uint64_t>(q), cp<uint64_t>(neg_q_inv),
-      cp<uint64_t>(r2), chunk);
+  const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
+  const int log_v = log_n < 2 ? log_n : 2, log_items = log_n - log_v;
+  const dim3 grid = log_items >= kLogThreads
+                        ? dim3(static_cast<unsigned>(rows), 1u << (log_items - kLogThreads), 1)
+                        : dim3(static_cast<unsigned>((rows + (kThreads >> log_items) - 1) >> (kLogThreads - log_items)), 1, 1);
+  const auto kernel = log_v == 2 ? rns_mac_kernel<4> : log_v == 1 ? rns_mac_kernel<2> : rns_mac_kernel<1>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(terms_of(xs, ys, zs, terms),
+                                                                   static_cast<uint64_t*>(out), sh, log_n,
+                                                                   cp<uint64_t>(q), cp<uint64_t>(neg_q_inv),
+                                                                   cp<uint64_t>(r2));
   return static_cast<int>(cudaGetLastError());
+}
+
+// rns_intt of lft_rns_mac's sums, in one launch: xs, ys, zs, out, terms,
+// rows, limbs, y_rows, chunk as lft_rns_mac's (out: the inverse transforms,
+// row r under limb r mod limbs), the stacked tables as lft_rns_ntt_inv's
+// but N^-1 2^64 mod q and its Shoup dual in place of 1/N; lazy: every prime
+// below 2^62.
+int lft_rns_intt_mac(const void* xs, const void* ys, const void* zs, void* out, int terms, int rows, int limbs,
+                     int log_n, int y_rows, const void* psi, const void* psi_s, const void* psi_inv,
+                     const void* psi_inv_s, const void* q, const void* neg_q_inv, const void* n_inv_mac,
+                     const void* n_inv_mac_s, int chunk, int lazy, void* stream) {
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n < 1 || log_n > kMaxLogN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Stacked s{cp<uint64_t>(psi), cp<uint64_t>(psi_s), cp<uint64_t>(psi_inv), cp<uint64_t>(psi_inv_s),
+                  cp<uint64_t>(q), cp<uint64_t>(neg_q_inv), cp<uint64_t>(n_inv_mac), cp<uint64_t>(n_inv_mac_s)};
+  const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
+  const Terms t = terms_of(xs, ys, zs, terms);
+  auto* y = static_cast<uint64_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return lazy ? launch_intt_mac<true>(t, y, s, sh, log_n, st) : launch_intt_mac<false>(t, y, s, sh, log_n, st);
 }
 
 // x: `batch` blocks of (lq, 2^log_n) residues over the qs, block b at x +

@@ -254,12 +254,13 @@ __device__ __forceinline__ void forward(const uint64_t* __restrict__ x, uint64_t
   }
 }
 
-template <int kThreads, bool kLazy, int kLogN>
-__device__ __forceinline__ void inverse(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Tables& t,
-                                        long long first, int per, int have, int log_n_arg, uint64_t* buf) {
+// src gives the first pass its items (row, col, log_h 0): a DeviceRows of x,
+// or what builds them (rns64.cu's MAC sums).
+template <int kThreads, bool kLazy, int kLogN, class Src>
+__device__ __forceinline__ void inverse(Src& src, uint64_t* __restrict__ y, const Tables& t, long long first, int per,
+                                        int have, int log_n_arg, uint64_t* buf) {
   constexpr int W = kLogN ? last_width(kLogN) : 2;
   const int log_n = kLogN ? kLogN : log_n_arg, threads = kThreads;
-  DeviceRows src{x, first, have, log_n};
   ScaledRows dst{y, first, have, log_n, t.q, t.n_inv, t.n_inv_s};
   if constexpr (kLogN == 1 || kLogN == 2) {
     pass<W, true, kLazy>(threads, per, log_n, 0, t, src, dst);

@@ -35,8 +35,7 @@ from ...ops.rns import (
     rescale_k,
     rns_add,
     rns_from_i64,
-    rns_intt,
-    rns_mac,
+    rns_intt_mac,
     rns_mul,
     rns_neg,
     rns_ntt,
@@ -445,8 +444,8 @@ def add_constant(params: CkksParams, m, ct: CkksCiphertext) -> CkksCiphertext:
 def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
     """Tensor + relinearize + rescale (`ckks.rs:255-267`): the four operands
     transformed once, the tensor's products summed in the evaluation basis
-    (d1's two in one K-RNS-MAC launch), three inverse transforms, then the
-    key switch of d2 and the rescale."""
+    inside their three inverse transforms (d1's two products in one launch),
+    then the key switch of d2 and the rescale."""
     ct0, ct1, qs = _align(ct0, ct1)
     if ct0.b.shape != ct1.b.shape:
         b0, a0, b1, a1 = (t.contiguous() for t in torch.broadcast_tensors(ct0.b, ct0.a, ct1.b, ct1.a))
@@ -454,9 +453,9 @@ def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: 
     plan = params.plan(qs)
     ea0, eb0 = rns_ntt(ct0.a, plan), rns_ntt(ct0.b, plan)
     ea1, eb1 = rns_ntt(ct1.a, plan), rns_ntt(ct1.b, plan)
-    d0 = rns_intt(rns_mac([eb0], [eb1], plan), plan)
-    d1 = rns_intt(rns_mac([eb0, ea0], [ea1, eb1], plan), plan)
-    d2 = rns_intt(rns_mac([ea0], [ea1], plan), plan)
+    d0 = rns_intt_mac([eb0], [eb1], plan)
+    d1 = rns_intt_mac([eb0, ea0], [ea1, eb1], plan)
+    d2 = rns_intt_mac([ea0], [ea1], plan)
     relin = _ks_finish(params, rlk, _ks_hoist(params, d2, qs), qs)  # (2, ..., L, N): b and a
     return rescale_ct(CkksCiphertext(rns_add(d0, relin[0], plan), rns_add(d1, relin[1], plan), qs))
 
@@ -530,9 +529,8 @@ def _ksk_digits(params: CkksParams, arr: torch.Tensor, n_active: int, idx: list[
 
 def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple) -> torch.Tensor:
     """The digit contraction of ae (..., D, Lqp, N) against both ksk
-    components (one K-RNS-MAC launch), their inverse transforms and the
-    rescale by P: (2, ..., L, N), the switched b (without the source's b)
-    and a."""
+    components inside their inverse transforms (one launch), and the rescale
+    by P: (2, ..., L, N), the switched b (without the source's b) and a."""
     qps = qs + params.ps
     plan = params.plan(qps)
     idx = [params.qps.index(q) for q in qps]
@@ -540,8 +538,8 @@ def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, q
     ksk_a = _ksk_digits(params, ksk.a, len(qs), idx)
     D = ae.shape[-3]
     xs = [ae[..., d, :, :].contiguous() for d in range(D)]
-    acc = rns_mac(xs, [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)])
-    return rescale_k(rns_intt(acc, plan), qps, len(params.ps))
+    ba = rns_intt_mac(xs, [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)])
+    return rescale_k(ba, qps, len(params.ps))
 
 
 def key_switch(params: CkksParams, ksk: CkksKeySwitchingKey, ct: CkksCiphertext) -> CkksCiphertext:

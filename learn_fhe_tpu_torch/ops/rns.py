@@ -13,7 +13,10 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
   `inv_stages`, XLA fusions);
 - K-RNS-MAC, `rns_mac`: sum_k x_k y_k mod q_limb in the evaluation basis,
   for one or two sets of y (`rns_mul_eval` :280, CKKS `mul`'s tensor and
-  `_ks_dot`);
+  `_ks_dot`); `rns_intt_mac` builds those sums inside K-RNS-NTT's inverse
+  and returns their inverse transforms (`rns_intt(rns_mul_eval(..))` :287,
+  the JAX package's CKKS `mul` and `key_switch` under one jit), which is
+  every use the port makes of them;
 - K-BASECONV, `base_convert`: the approximate base extension qs -> ps
   (`extend_bases` :356, `switch_bases` :422);
 - K-RESCALE, `rescale_finish`: the rounding division by the dropped primes
@@ -108,6 +111,8 @@ class RnsPlan:
     psi_inv_br_shoup: np.ndarray
     n_inv: np.ndarray  # (L, 1)
     n_inv_shoup: np.ndarray
+    n_inv_mac: np.ndarray  # (L, 1) N^-1 2^64 mod q: rns_intt_mac's final scale
+    n_inv_mac_shoup: np.ndarray
     # Montgomery constants, shape (L, 1)
     q_arr: np.ndarray
     neg_q_inv: np.ndarray
@@ -136,6 +141,8 @@ def rns_plan(qs: tuple[int, ...], n: int) -> RnsPlan:
         psi_inv_br_shoup=stack("psi_inv_br_shoup"),
         n_inv=col([p.n_inv for p in plans]),
         n_inv_shoup=col([p.n_inv_shoup for p in plans]),
+        n_inv_mac=col([(p.n_inv << 64) % q for p, q in zip(plans, qs)]),
+        n_inv_mac_shoup=col([int(shoup_precompute((p.n_inv << 64) % q, q)) for p, q in zip(plans, qs)]),
         q_arr=col(qs),
         neg_q_inv=col([p.zq.neg_q_inv for p in plans]),
         r2=col([p.zq.r2 for p in plans]),
@@ -155,11 +162,16 @@ class RnsTables(NamedTuple):
     n_inv: torch.Tensor
     n_inv_s: torch.Tensor
     r2: torch.Tensor
+    n_inv_mac: torch.Tensor
+    n_inv_mac_s: torch.Tensor
 
 
 @lru_cache(maxsize=None)
 def rns_tables(plan: RnsPlan, device: torch.device) -> RnsTables:
-    fields = ("psi_br", "psi_br_shoup", "psi_inv_br", "psi_inv_br_shoup", "q_arr", "neg_q_inv", "n_inv", "n_inv_shoup", "r2")
+    fields = (
+        "psi_br", "psi_br_shoup", "psi_inv_br", "psi_inv_br_shoup", "q_arr", "neg_q_inv", "n_inv", "n_inv_shoup", "r2",
+        "n_inv_mac", "n_inv_mac_shoup",
+    )  # fmt: skip
     return RnsTables(*(u64_to_torch(getattr(plan, f), device) for f in fields))
 
 
@@ -278,37 +290,78 @@ def _mac_chunk(qs: tuple[int, ...]) -> int:
     return min(min(((q << 64) - 1) // (q - 1) ** 2, 1 << 30) for q in qs)
 
 
-def rns_mac(xs, ys, plan: RnsPlan, zs=None) -> torch.Tensor:
-    """sum_k xs[k] * ys[k] mod q_limb in the evaluation basis: xs[k] of shape
-    (..., L, N); each ys[k] of the same shape, or (L, N) and broadcast over
-    the leading axes (a key). With zs (shaped as ys), both sums, stacked on
-    a new leading axis (one launch, xs read once)."""
-    if xs[0].is_cpu:
-        return rns_mac_ref(xs, ys, plan, zs)
-    name, limbs, n = "rns_mac", len(plan.qs), plan.n
-    shape = xs[0].shape
+def _mac_operands(name: str, xs, ys, zs, plan: RnsPlan) -> tuple[int, int, tuple]:
+    """(x rows, y rows, the host arrays of x, y and z pointers) of a MAC's
+    operands on the card: 1..MAX_TERMS terms, each x a contiguous (..., L, N)
+    of one shape, each y and z of that shape or (L, N) (a key broadcast over
+    the leading axes), every one 16-byte aligned (the kernels move 16-byte
+    words)."""
+    limbs, n = len(plan.qs), plan.n
     if not 1 <= len(xs) <= MAX_TERMS or len(ys) != len(xs) or (zs is not None and len(zs) != len(xs)):
         raise ValueError(f"{name}: takes 1..{MAX_TERMS} terms with as many y (and z), got {len(xs)}, {len(ys)}")
+    shape = tuple(xs[0].shape)
     rows = _check_rows(name, xs[0], limbs, n)
     w_shape = tuple(ys[0].shape)
-    if w_shape not in (tuple(shape), (limbs, n)):
-        raise ValueError(f"{name}: y must be {tuple(shape)} or ({limbs}, {n}), got {w_shape}")
+    if w_shape not in (shape, (limbs, n)):
+        raise ValueError(f"{name}: y must be {shape} or ({limbs}, {n}), got {w_shape}")
     for x in xs:
         kernels.require(name, x, torch.int64, shape)
     for w in (*ys, *(zs or ())):
         kernels.require(name, w, torch.int64, w_shape)
-    out = torch.empty((1 if zs is None else 2, *shape), dtype=torch.int64, device=xs[0].device)
+    ops = (*xs, *ys, *(zs or ()))
+    if any(t.data_ptr() % 16 for t in ops):
+        raise ValueError(f"{name}: the kernel reads its operands in 16-byte loads; an x, y or z is not 16-byte aligned")
+    ptrs = lambda ts: np.array([t.data_ptr() for t in ts], dtype=np.uint64)  # noqa: E731
+    return rows, ys[0].numel() // n, (ptrs(xs), ptrs(ys), None if zs is None else ptrs(zs))
+
+
+def rns_mac(xs, ys, plan: RnsPlan, zs=None) -> torch.Tensor:
+    """sum_k xs[k] * ys[k] mod q_limb in the evaluation basis: xs[k] of shape
+    (..., L, N); each ys[k] of the same shape, or (L, N) and broadcast over
+    the leading axes (a key). With zs (shaped as ys), both sums, stacked on
+    a new leading axis (one launch)."""
+    if xs[0].is_cpu:
+        return rns_mac_ref(xs, ys, plan, zs)
+    rows, y_rows, (px, py, pz) = _mac_operands("rns_mac", xs, ys, zs, plan)
+    out = torch.empty((1 if zs is None else 2, *xs[0].shape), dtype=torch.int64, device=xs[0].device)
     if rows:
-        ptrs = lambda ts: np.array([t.data_ptr() for t in ts], dtype=np.uint64)  # noqa: E731
-        px, py = ptrs(xs), ptrs(ys)
-        pz = ptrs(zs) if zs is not None else None
         t = rns_tables(plan, xs[0].device)
         kernels.launch(
             "lft_rns_mac", px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data,
-            out.data_ptr(), len(xs), rows, limbs, plan.log_n, ys[0].numel() // n,
+            out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows,
             t.q.data_ptr(), t.neg_q_inv.data_ptr(), t.r2.data_ptr(), _mac_chunk(plan.qs),
         )  # fmt: skip
         _count(rns_mac, rows)
+    return out[0] if zs is None else out
+
+
+def rns_intt_mac_ref(xs, ys, plan: RnsPlan, zs=None):
+    return rns_intt_ref(rns_mac_ref(xs, ys, plan, zs), plan)
+
+
+def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None) -> torch.Tensor:
+    """rns_intt(rns_mac(xs, ys, plan, zs), plan) in one launch: the sums are
+    made inside the inverse transform's first pass and never stored. Takes
+    rns_mac's operands; returns (..., L, N), or (2, ..., L, N) with zs."""
+    if xs[0].is_cpu:
+        return rns_intt_mac_ref(xs, ys, plan, zs)
+    if plan.n == 1:  # the inverse transform of one value is the value
+        return rns_mac(xs, ys, plan, zs)
+    name = "rns_intt_mac"
+    if plan.log_n > MAX_LOG_N:
+        raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
+    rows, y_rows, (px, py, pz) = _mac_operands(name, xs, ys, zs, plan)
+    sums = 1 if zs is None else 2
+    out = torch.empty((sums, *xs[0].shape), dtype=torch.int64, device=xs[0].device)
+    if rows:
+        t = rns_tables(plan, xs[0].device)
+        tabs = (t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, t.q, t.neg_q_inv, t.n_inv_mac, t.n_inv_mac_s)
+        kernels.launch(
+            "lft_rns_intt_mac", px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data,
+            out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows, *(v.data_ptr() for v in tabs),
+            _mac_chunk(plan.qs), int(max(plan.qs) < 1 << 62),
+        )  # fmt: skip
+        _count(rns_intt_mac, (sums * rows, len(xs)))
     return out[0] if zs is None else out
 
 
@@ -333,8 +386,13 @@ def rns_mul_eval(a, b, plan: RnsPlan):
 
 
 def rns_mul(a, b, plan: RnsPlan):
-    """Coefficient-basis negacyclic product, all limbs fused."""
-    return rns_intt(rns_mul_eval(rns_ntt(a, plan), rns_ntt(b, plan), plan), plan)
+    """Coefficient-basis negacyclic product, all limbs fused: the product of
+    the transforms inside the inverse (either operand may be the (L, N) one
+    broadcast over the other's leading axes)."""
+    ea, eb = rns_ntt(a, plan), rns_ntt(b, plan)
+    if ea.dim() < eb.dim():
+        ea, eb = eb, ea
+    return rns_intt_mac([ea], [eb], plan)
 
 
 def rns_from_i64(v: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
@@ -663,6 +721,7 @@ def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int) -> torch.Tensor:
     return rescale_finish(x, conv, rp)
 
 
-# launches, and launches by row count (K-BASECONV: input rows)
-for _fn in (rns_ntt, rns_intt, rns_mac, base_convert, rescale_finish):
+# launches, and launches by row count (K-BASECONV: input rows; rns_intt_mac:
+# (output rows, terms))
+for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish):
     _fn.launches, _fn.by_rows = 0, Counter()

@@ -2,8 +2,10 @@
 K-EXTPROD64 at every shape the multi-key path launches them at, each
 against its bound, and the kernels that share their code or their card
 beside them; the RNS kernels at the batch-16 CKKS `mul`'s shapes (the
-transforms and K-BASECONV also with a cold L2) and that whole `mul` from a
-CUDA graph; with `--parent DIR`, the
+transforms and K-BASECONV also with a cold L2; the sums inside the inverse,
+`rns_intt_mac`, against `rns_mac` then `rns_intt`, from a graph and eager)
+with their registers and spills, and that whole `mul` from a CUDA graph;
+with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
 with more than one, each parent's turns around this checkout's).
@@ -11,7 +13,9 @@ with more than one, each parent's turns around this checkout's).
 Both libraries run through this checkout's wrappers on the same inputs
 (`kernels.library` is pointed at one, then the other), so the C entry
 points of the two must take the same arguments; a case whose entry point
-an older library lacks (`NEW_ENTRIES`) is timed on this checkout's alone.
+an older library lacks (`NEW_ENTRIES`) is timed on this checkout's alone,
+and on a library without `lft_rns_intt_mac` the `mul` makes its sums with
+`rns_mac` and transforms them with `rns_intt`, as it did before.
 K-NTT64's, K-POLYMUL64's, K-EXTPROD64's and the RNS kernels' times are per
 launch from a CUDA graph of `--reps` launches (no host time between
 launches; a cold-L2 case takes its input from more copies than the L2
@@ -33,6 +37,7 @@ import argparse
 import json
 import sys
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -45,7 +50,7 @@ import chip_smoke as cs  # noqa: E402
 from learn_fhe_tpu_torch.utils import kernels  # noqa: E402
 
 # The cases, by kernel name, that need an entry point newer libraries add.
-NEW_ENTRIES = {"ntt64_mont": "lft_ntt64_fwd_mont"}
+NEW_ENTRIES = {"ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac"}
 
 
 def runs_on(lib, name: str) -> bool:
@@ -129,20 +134,29 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
 
 def rns_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
     """chip_smoke.py's C1 cases (`chip_smoke.rns_cases`), the transforms and
-    K-BASECONV also cold, and C3's batch-16 `mul` (keys and ciphertexts made
-    on the card as C3 makes them)."""
+    K-BASECONV also cold; each of `rns_intt_mac`'s shapes also as the
+    parent's two launches (`rns_mac`, then `rns_intt` of its sums), both
+    from a graph and eager, and its registers, spills and stack; and C3's
+    batch-16 `mul` (keys and ciphertexts made on the card as C3 makes them;
+    on a library without `lft_rns_intt_mac` the `mul` makes its sums with
+    `rns_mac` and transforms them with `rns_intt`, as before the fusion)."""
     from learn_fhe_tpu_torch.models.ckks import ckks as C
 
     params = C.CkksParams(**cs.CKKS)
     B = cs.CKKS_BATCH
     rng = np.random.default_rng(11)
-    out = []
+    out, apart = [], []
     for (name, shape), (kernel, _, n_bytes, ops, cold) in cs.rns_cases(params, B, rng, dev).items():
         bound = cs.bound_ms(n_bytes, ops, pipe_per_s)
         out.append((f"{name} {shape}", kernel, bound, "graph"))
         if cold is not None:
             out.append((f"{name} {shape} cold-L2", cold, bound, "cold"))
+        if cold is not None or name == "rns_intt_mac":
             out.append((f"{name} {shape} eager", kernel, bound, "eager"))
+        if name == "rns_intt_mac":
+            two = _two_launches(kernel)
+            apart += [(f"rns_mac+rns_intt {shape}", two, None, "graph"), (f"rns_mac+rns_intt {shape} eager", two, None, "eager")]
+    out += apart
     sk = C.sk_gen(params, rng)
     rlk = C.rlk_gen(params, sk, rng, dev)
     ms = [rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l) for _ in range(2 * B)]
@@ -152,7 +166,46 @@ def rns_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, st
     return out
 
 
+def _mac_then_intt(xs, ys, plan, zs=None):
+    """`rns_intt_mac` as two launches: the sums by `rns_mac`, then their
+    inverse transform by `rns_intt`."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    return rns.rns_intt(rns.rns_mac(xs, ys, plan, zs), plan)
+
+
+@contextmanager
+def _sums_apart():
+    """Within it `ops.rns` and the CKKS ops make their sums by `_mac_then_intt`."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+
+    saved = C.rns_intt_mac, rns.rns_intt_mac
+    C.rns_intt_mac = rns.rns_intt_mac = _mac_then_intt
+    try:
+        yield
+    finally:
+        C.rns_intt_mac, rns.rns_intt_mac = saved
+
+
+def _two_launches(fused):
+    """The call `fused` (an `rns_intt_mac` of chip_smoke.rns_cases) made by `_mac_then_intt`."""
+
+    def two():
+        with _sums_apart():
+            return fused()
+
+    return two
+
+
 def measure(cases_, reps: int, lib) -> dict[str, float | None]:
+    """The cases' times on lib; on a library without `lft_rns_intt_mac` (a
+    parent's) the sums are made apart, as before the fusion."""
+    with nullcontext() if hasattr(lib, "lft_rns_intt_mac") else _sums_apart():
+        return _measure(cases_, reps, lib)
+
+
+def _measure(cases_, reps: int, lib) -> dict[str, float | None]:
     got = {}
     for name, fn, _, how in cases_:
         if not runs_on(lib, name):
@@ -167,6 +220,13 @@ def measure(cases_, reps: int, lib) -> dict[str, float | None]:
             per = int(how.split("/")[1]) if "/" in how else 1
             got[name] = cs.cuda_ms(fn, 3) * 1e3 / per
     return got
+
+
+def print_rns_ptxas(label: str, log: str) -> None:
+    """The registers, spills and stack frame of each RNS kernel instance in a build log."""
+    for name, (regs, st, ld, stack) in sorted(kernels.ptxas_report(log).items()):
+        if "rns" in name:
+            print(f"ptxas {label}: {name}: {regs} registers, {st} / {ld} bytes spill stores / loads, {stack} bytes stack frame", flush=True)
 
 
 def main() -> None:
@@ -185,12 +245,16 @@ def main() -> None:
     pipe_per_s = cs.SMS * cs.PIPE_LANES * sm_mhz * 1e6
     print(f"card: {card}; max SM clock {sm_mhz:.0f} MHz", flush=True)
     libs = {"this": kernels.library()}
+    if not args.u64_only:
+        print_rns_ptxas("this", kernels.build_log())
     for parent in args.parent:
         name = parent.resolve().name
         so = kernels.BUILD_DIR / "parent" / f"liblft_kernels-{name}.so"
         t0 = time.perf_counter()
         kernels.build(parent.resolve() / "learn_fhe_tpu_torch" / "csrc", so)
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
+        if not args.u64_only:
+            print_rns_ptxas(name, (so.parent / "build.log").read_text())
         libs[name] = kernels.load(so, optional=frozenset(NEW_ENTRIES.values()))
     dev = torch.device("cuda", torch.cuda.current_device())
     built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)

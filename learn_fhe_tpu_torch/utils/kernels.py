@@ -99,6 +99,10 @@ _SIGNATURES = {
     # host arrays of x, y, z pointers (z null: one sum), out, terms, rows,
     # limbs, log_n, y_rows, per-limb q, -q^-1, 2^128 mod q, chunk, stream
     "lft_rns_mac": (_P,) * 4 + (_I,) * 5 + (_P,) * 3 + (_I, _P),
+    # the same pointer arrays and out, terms, rows, limbs, log_n, y_rows, the
+    # stacked tables as lft_rns_ntt_inv's with N^-1 2^64 mod q and its dual
+    # for 1/N, chunk, lazy, stream
+    "lft_rns_intt_mac": (_P,) * 4 + (_I,) * 5 + (_P,) * 8 + (_I, _I, _P),
     # x, y, q, q_hat^-1, its dual, 1/q, p, q_hat mod p, its dual, u Q mod p,
     # add (or null), lq, lp, log_n, batch, x batch stride, stream
     "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),
@@ -198,7 +202,7 @@ def build_log() -> str:
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
-    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_mac"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_intt_mac_rows|rns_intt_mac|rns_mac"
     r"|base_convert|rescale)_kernel(I(?:L[ib]\d+E)+E)?"
 )
 

@@ -1073,6 +1073,90 @@ def test_base_convert_kernel_at_every_limb_count(dev, lq, bits):
         _same(rns.base_convert(view, src, ps, add=a), rns.base_convert_ref(view, src, ps, add=a).cpu())
 
 
+def _mac_operands(rng, qs, lead, n, terms, with_z, broadcast):
+    """terms x of (*lead, L, N), as many y (and z) of that shape or, with
+    broadcast, of (L, N), on the CPU; x holding 0 and q - 1."""
+    xs = [_rns_residues(rng, qs, lead, n) for _ in range(terms)]
+    xs[0].view(-1)[0], xs[-1][..., -1, -1] = 0, qs[-1] - 1
+    w_lead = () if broadcast else lead
+    ys = [_rns_residues(rng, qs, w_lead, n) for _ in range(terms)]
+    zs = [_rns_residues(rng, qs, w_lead, n) for _ in range(terms)] if with_z else None
+    return xs, ys, zs
+
+
+def _check_intt_mac(dev, plan, xs, ys, zs):
+    from learn_fhe_tpu_torch.ops import rns
+
+    on = lambda ts: None if ts is None else [t.to(dev) for t in ts]  # noqa: E731
+    xd, yd, zd = on(xs), on(ys), on(zs)
+    launches = rns.rns_intt_mac.launches
+    # the plain version runs on the same tensors on the card: the CPU's values, sooner
+    _same(rns.rns_intt_mac(xd, yd, plan, zd), rns.rns_intt_mac_ref(xd, yd, plan, zd).cpu())
+    assert rns.rns_intt_mac.launches == launches + 1
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("bits", [55, 62, 63])
+def test_rns_intt_mac_at_every_ring(dev, log_n, bits):
+    """rns_intt_mac (the MAC sums inside K-RNS-NTT's inverse: a cluster per
+    row from N = 2048, at N = 2^13 with the 1- and 2-term instances; a block
+    per row below) at every ring N = 2..2^13, lazy at 55 and 62 bits (where
+    a 128-bit sum holds 4 products, so 16 terms take 4 REDCs) and eager at
+    63 (2 products a REDC), on 1, 2, 3 and 16 terms, with and without z,
+    with y and z of x's shape or a key broadcast over the batch: equal to
+    rns_intt_ref(rns_mac_ref(..))."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(3, log_n, bits)
+    plan = rns.rns_plan(qs, n)
+    rng = np.random.default_rng(log_n * 100 + bits)
+    for terms, with_z, broadcast in [(1, False, False), (1, True, True), (2, False, True), (2, True, False), (3, True, True), (16, False, False), (16, True, True)]:
+        _check_intt_mac(dev, plan, *_mac_operands(rng, qs, (2,), n, terms, with_z, broadcast))
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 13])
+@pytest.mark.parametrize("limbs,lead", _RNS_ROWS)
+@pytest.mark.parametrize("bits", [55, 63])
+def test_rns_intt_mac_at_row_counts(dev, log_n, limbs, lead, bits):
+    """rns_intt_mac on 1, 3, 128 and 513 x rows (2, 6, 256 and 1026 output
+    rows with z), 1 and 2 terms, each row under its own limb's tables, the
+    key broadcast or not; lazy at 55 bits, eager at 63."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(limbs, log_n, bits)
+    plan = rns.rns_plan(qs, n)
+    rng = np.random.default_rng(log_n * 1000 + limbs + bits)
+    for terms, with_z, broadcast in [(1, False, False), (1, True, True), (2, False, True), (2, True, False)]:
+        _check_intt_mac(dev, plan, *_mac_operands(rng, qs, lead, n, terms, with_z, broadcast))
+
+
+def test_rns_intt_mac_on_limb_slices_and_misaligned_views(dev):
+    """Keys that are slices of a wider key's limbs (contiguous rows at an
+    offset, as the key switch's active level selects them) give the plain
+    version's values; an x, y or z off 16-byte alignment raises."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n, limbs = 1 << 13, 8
+    qs = _rns_primes(limbs + 2)
+    plan = rns.rns_plan(qs[1 : limbs + 1], n)
+    rng = np.random.default_rng(17)
+    x = _rns_residues(rng, qs[1 : limbs + 1], (4,), n).to(dev)
+    wide = [_rns_residues(rng, qs, (), n).to(dev) for _ in range(2)]
+    kb, ka = (w[1 : limbs + 1] for w in wide)
+    assert kb.is_contiguous() and kb.data_ptr() != wide[0].data_ptr()
+    _same(rns.rns_intt_mac([x], [kb], plan, [ka]), rns.rns_intt_mac_ref([x], [kb], plan, [ka]).cpu())
+    _same(rns.rns_intt_mac([x, x], [kb, ka], plan), rns.rns_intt_mac_ref([x, x], [kb, ka], plan).cpu())
+    flat = torch.zeros(limbs * n + 1, dtype=torch.int64, device=dev)
+    off = flat[1:].view(limbs, n)
+    for args in (([off[None]], [kb]), ([x], [off]), ([x], [kb], [off])):
+        with pytest.raises(ValueError):
+            rns.rns_intt_mac(args[0], args[1], plan, *args[2:])
+        with pytest.raises(ValueError):
+            rns.rns_mac(args[0], args[1], plan, *args[2:])
+
+
 def test_base_convert_kernel_past_its_shared_memory(dev):
     """64 input limbs into more output limbs than the tables of one launch
     hold in a block's shared memory: the wrapper launches K-BASECONV on
@@ -1088,7 +1172,8 @@ def test_base_convert_kernel_past_its_shared_memory(dev):
 
 
 def test_rns_wrappers_do_not_sync(dev):
-    """`rns_ntt`, `rns_intt` (a cluster per row, and a block per row) and
+    """`rns_ntt`, `rns_intt`, `rns_intt_mac` (a cluster per row, and a block
+    per row; one term, two terms with z and a broadcast key) and
     `base_convert` (an instance with the limbs in registers and one with
     them in shared memory, with and without an added constant) under
     torch.cuda.set_sync_debug_mode("error"), after a first call has put the
@@ -1102,6 +1187,11 @@ def test_rns_wrappers_do_not_sync(dev):
         plan = rns.rns_plan(qs, n)
         x = _rns_residues(rng, qs, (2,), n).to(dev)
         calls += [(rns.rns_ntt, rns.rns_ntt_ref, (x, plan)), (rns.rns_intt, rns.rns_intt_ref, (x, plan))]
+        key = _rns_residues(rng, qs, (), n).to(dev)
+        calls += [
+            (rns.rns_intt_mac, rns.rns_intt_mac_ref, ([x], [x], plan)),
+            (rns.rns_intt_mac, rns.rns_intt_mac_ref, ([x, x], [key, key], plan, [key, x[0]])),
+        ]
     x = _rns_residues(rng, qs, (2,), 1 << 13).to(dev)
     for src in (qs, qs[:5]):
         for add in (None, tuple(q // 2 for q in src)):
@@ -1155,7 +1245,9 @@ def test_rns_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def test_ckks_mul_rotate_on_card_match_cpu(dev):
     """A batch-16 mul, a rotate and a conjugate at N=2^10, L=8 on the card
-    equal the plain path's on the CPU; each of the four kernels launches."""
+    equal the plain path's on the CPU; K-RNS-NTT, the inverse with its MAC
+    source, K-BASECONV and K-RESCALE launch, the MAC and the inverse alone
+    do not."""
     from learn_fhe_tpu_torch.models.ckks import ckks as C
     from learn_fhe_tpu_torch.ops import rns
 
@@ -1169,12 +1261,13 @@ def test_ckks_mul_rotate_on_card_match_cpu(dev):
     cts = [C.sk_encrypt(params, sk, C.encode(params, m), params.qs, rng) for m in ms]
     stack = lambda cs: C.CkksCiphertext(torch.stack([c.b for c in cs]), torch.stack([c.a for c in cs]), params.qs)  # noqa: E731
     ct0, ct1 = stack(cts[:16]), stack(cts[16:])
-    counted = (rns.rns_ntt, rns.rns_intt, rns.rns_mac, rns.base_convert, rns.rescale_finish)
-    for fn in counted:
+    counted = (rns.rns_ntt, rns.rns_intt_mac, rns.base_convert, rns.rescale_finish)
+    for fn in (*counted, rns.rns_intt, rns.rns_mac):
         fn.launches = 0
     out = C.mul(params, rlk, ct0, ct1)
     torch.cuda.synchronize()
     assert all(fn.launches for fn in counted), {fn.__name__: fn.launches for fn in counted}
+    assert rns.rns_intt.launches == rns.rns_mac.launches == 0  # the sums are made inside the inverse
     cpu_ct = lambda c: C.CkksCiphertext(c.b.cpu(), c.a.cpu(), c.qs)  # noqa: E731
     cpu_key = lambda k: C.CkksKeySwitchingKey(k.b.cpu(), k.a.cpu(), k.qs)  # noqa: E731
     c0, c1 = cpu_ct(C.CkksCiphertext(ct0.b[0], ct0.a[0], params.qs)), cpu_ct(C.CkksCiphertext(ct1.b[0], ct1.a[0], params.qs))

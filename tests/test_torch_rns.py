@@ -81,6 +81,42 @@ def test_rns_mac_sums_match_jax():
     _same(np.stack([jdot(ys), jdot(zs)]), both)
 
 
+# a 45/55-bit ladder whose primes serve N up to 256
+_L45, _L55 = two_adic_primes(45, 9), two_adic_primes(55, 9)
+LADDER_256 = tuple(next(_L55 if b == 55 else _L45) for b in (55, 45, 45, 55, 45, 45, 55, 55))
+
+
+@pytest.mark.parametrize(
+    "n,terms,with_z,broadcast,ladder",
+    [(2, 1, False, False, False), (32, 2, False, False, False), (32, 3, True, True, True), (256, 3, True, True, False), (256, 1, True, False, True)],
+)
+def test_rns_intt_mac_matches_jax(n, terms, with_z, broadcast, ladder):
+    """rns_intt_mac (its plain path on the CPU) against the JAX package's
+    rns_intt of the products' sum: rns_mul_eval of each term added in order
+    (the tensor of `mul`), or `_ks_dot` where a key (L, N) is broadcast over
+    the batch (the key switch); one sum, or two with z; 55-bit primes and a
+    45/55-bit ladder."""
+    qs = LADDER_256 if ladder else PRIMES[:8]
+    rng = np.random.default_rng(n + terms * 10 + with_z)
+    xs = [_residues(rng, qs, (2, n)) for _ in range(terms)]
+    w_shape = (n,) if broadcast else (2, n)
+    ws = [[_residues(rng, qs, w_shape) for _ in range(terms)] for _ in range(2 if with_z else 1)]
+    jplan, tplan = JR.rns_plan(qs, n), TR.rns_plan(qs, n)
+
+    def jsum(wk):
+        if broadcast:
+            return JC._ks_dot(jnp.asarray(np.stack(wk)), jnp.asarray(np.stack(xs, axis=-3)), jplan)
+        acc = JR.rns_mul_eval(jnp.asarray(xs[0]), jnp.asarray(wk[0]), jplan)
+        for x, w in zip(xs[1:], wk[1:]):
+            acc = JR.rns_add(acc, JR.rns_mul_eval(jnp.asarray(x), jnp.asarray(w), jplan), jplan)
+        return acc
+
+    t = lambda vs: [u64_to_torch(v) for v in vs]  # noqa: E731
+    want = np.stack([np.asarray(JR.rns_intt(jsum(wk), jplan)) for wk in ws])
+    got = TR.rns_intt_mac(t(xs), t(ws[0]), tplan, t(ws[1]) if with_z else None)
+    _same(want if with_z else want[0], got)
+
+
 @pytest.mark.parametrize("lq,lp", [(8, 8), (3, 5)])
 @pytest.mark.parametrize("n", [2, 32, 256])
 def test_extend_bases_matches_jax(lq, lp, n):
@@ -217,6 +253,11 @@ _RNS = "_ZN40_GLOBAL__N__1a2b3c4d_8_rns64_cu_5e6f7a8b"
         (_RNS + "14rns_ntt_kernelILb0ELb1EEEvPKmPmNS_7StackedEii", "rns_ntt_kernel<false,true>"),
         (_RNS + "14rns_ntt_kernelILb1ELb1EEEvPKmPmNS_7StackedEii", "rns_ntt_kernel<true,true>"),
         (_RNS + "14rns_mac_kernelILb1EEEvNS_5TermsEPmixxiiPKmS5_S5_i", "rns_mac_kernel<true>"),
+        (_RNS + "14rns_mac_kernelILi4EEEvNS_5TermsEPmNS_8MacShapeEiPKmS6_S6_", "rns_mac_kernel<4>"),
+        (_RNS + "19rns_intt_mac_kernelILb1ELi13ELi1EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_kernel<true,13,1>"),
+        (_RNS + "19rns_intt_mac_kernelILb1ELi13ELi2EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_kernel<true,13,2>"),
+        (_RNS + "19rns_intt_mac_kernelILb0ELi0ELi0EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_kernel<false,0,0>"),
+        (_RNS + "24rns_intt_mac_rows_kernelILb1ELi2EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_rows_kernel<true,2>"),
         (_RNS + "19base_convert_kernelEPKmPmNS_4ConvEiiixx", "base_convert_kernel"),
         (_RNS + "14rescale_kernelEPKmS1_PmNS_7RescaleEiiixmm", "rescale_kernel"),
         (_RNS + "14rns_ntt_kernelILb0ELb1ELi13EEEvPKmPmNS_7StackedEii", "rns_ntt_kernel<false,true,13>"),
@@ -244,3 +285,6 @@ def test_wrappers_raise_rather_than_fall_back():
         TR._transform(TR.rns_ntt, "lft_rns_ntt_fwd", torch.zeros((2, 8), dtype=torch.int64), plan)
     with pytest.raises(ValueError):
         TR._batch_layout("base_convert", torch.zeros((2, 8), dtype=torch.int64), 2, 8)
+    x = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        TR._mac_operands("rns_intt_mac", [x], [x], None, plan)

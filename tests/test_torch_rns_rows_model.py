@@ -3,7 +3,12 @@
 versions and the JAX package on the CPU.
 
 The kernels run only on a CUDA device, so this models in Python what they
-do. K-RNS-NTT: from N = 2048 up a row runs on a cluster of 2 blocks of 256
+do. K-RNS-MAC inside the inverse (`rns_intt_mac`): output row r of S R rows
+(S sums, R x rows) is sum r / R of x row r mod R against y or z row
+(r mod R) mod y_rows, the blocks taking the two sums of an x row back to
+back; the inverse's first pass builds each 4-value item from the terms'
+16-byte words (128-bit sums, one REDC per chunk of terms), and the final
+scale by N^-1 2^64 in place of 1/N takes out the REDCs' 2^-64. K-RNS-NTT: from N = 2048 up a row runs on a cluster of 2 blocks of 256
 threads; the first pass's 3 layers leave 8 sub-rows of N/8 values, block c
 takes items [c N/16, (c+1) N/16) of that pass and writes output m of item i
 into the buffer of the block that holds sub-row m (4 a block, at column i
@@ -215,10 +220,11 @@ def _radix(x: list, w: list, ws: list, q, width: int, inverse: bool, lazy: bool)
         assert all(bool(_ult(v, bound.expand_as(v)).all()) for v in x), "a value left its lazy range"
 
 
-def model_transform(x: torch.Tensor, plan: TR.RnsPlan, inverse: bool, split: bool) -> torch.Tensor:
+def model_transform(x: torch.Tensor, plan: TR.RnsPlan, inverse: bool, split: bool, scale=None) -> torch.Tensor:
     """K-RNS-NTT on rows x (R, N), row r under limb r mod L: the plan's
     passes (the inverse's in reverse order, each inverse), on the columns
-    and twiddle groups the kernel computes for each item."""
+    and twiddle groups the kernel computes for each item; the inverse scaled
+    by 1/N, or by scale (per-limb (L, 1) value and Shoup dual)."""
     rows = x.shape[0]
     t = TR.rns_tables(plan, CPU)
     limb = torch.arange(rows) % len(plan.qs)
@@ -235,7 +241,8 @@ def model_transform(x: torch.Tensor, plan: TR.RnsPlan, inverse: bool, split: boo
         for m in range(1 << w):
             v[:, cols[:, m]] = vals[m]
     if inverse:
-        return _csub(_shoup_lazy(v, t.n_inv[limb], t.n_inv_s[limb], q), q)
+        w, ws = (t.n_inv, t.n_inv_s) if scale is None else scale
+        return _csub(_shoup_lazy(v, w[limb], ws[limb], q), q)
     return _csub(_csub(v, 2 * q), q) if lazy else v
 
 
@@ -337,3 +344,136 @@ def test_base_convert_chunked_sum_matches_reference_and_jax(lq, lp, bits, with_a
     np.testing.assert_array_equal(got, torch_to_u64(TR.base_convert_ref(u64_to_torch(x), qs, ps, add)))
     xa = x if add is None else (x.astype(object) + np.array(add, dtype=object)[:, None]) % np.array(qs, dtype=object)[:, None]
     np.testing.assert_array_equal(got, np.asarray(JR.extend_bases(jnp.asarray(xa.astype(np.uint64)), qs, ps)))
+
+
+# -- K-RNS-MAC inside the inverse: the row mapping, the MAC source's loads, the rescaled 1/N
+
+
+def mac_out_row(sums: int, rows: int, g: int) -> int:
+    """The output row of a launch's g-th cluster (or block): with two sums,
+    the two of x row g / 2 one after the other."""
+    return (g & 1) * rows + (g >> 1) if sums == 2 else g
+
+
+def mac_row(rows: int, limbs: int, y_rows: int, r: int) -> tuple[int, int, int, int]:
+    """(sum, x row, limb, y or z row) of output row r, as `mac_row` makes
+    them once a block: the key row is the x row, or its limb where the key
+    is broadcast."""
+    s = int(r >= rows)
+    xrow = r - s * rows
+    limb = xrow % limbs
+    return s, xrow, limb, xrow if y_rows == rows else limb
+
+
+@pytest.mark.parametrize(
+    "limbs,lead,sums,broadcast", [(8, 16, 1, False), (8, 16, 2, True), (16, 16, 2, True), (3, 5, 2, False), (1, 1, 1, True), (19, 27, 2, True)]
+)
+def test_mac_rows_take_each_output_row_once(limbs, lead, sums, broadcast):
+    """The launch's clusters take every output row once; row r is sum r / R
+    of x row r mod R under limb r mod L (its transform's tables) against
+    key row (r mod R) mod y_rows; with two sums, cluster g takes x row g / 2."""
+    rows = limbs * lead
+    y_rows = limbs if broadcast else rows
+    order = [mac_out_row(sums, rows, g) for g in range(sums * rows)]
+    assert sorted(order) == list(range(sums * rows))
+    for g, r in enumerate(order):
+        s, xrow, limb, yrow = mac_row(rows, limbs, y_rows, r)
+        assert (s, xrow, yrow) == (r // rows, r % rows, (r % rows) % y_rows)
+        assert limb == r % limbs
+        assert sums == 1 or xrow == g // 2
+
+
+def mac_loads(log_n: int) -> list[tuple[int, int]]:
+    """Every load of the fused inverse's first pass for one output row and
+    one term: (column of the row, values), each a 16-byte aligned word run
+    of an item. From N = 2048 the cluster's blocks take the last pass's
+    items of their sub-rows (`sub_items`) at the block's offset; below, a
+    block of ROW_THREADS takes the row's items through `rows::pass`."""
+    if log_n >= SPLIT_LOG_N:
+        return [(gcol, 4) for got in sub_items(log_n, log_n - 2, 2).values() for _, gcol, _ in got]
+    l0, w = plan_of(log_n)[-1]
+    return [(item_cols(i, log_n, l0, w)[0], 1 << w) for v in visits(ROW_THREADS, 1, log_n - w) for i, _ in v]
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_mac_source_gives_each_first_pass_value_once(log_n):
+    """Each value of an output row's first inverse pass is built once, from
+    one load of each term's x and y at the same column, in 16-byte words
+    (2 or 4 consecutive values at a multiple of their count)."""
+    loads = mac_loads(log_n)
+    cols = sorted(c + j for c, v in loads for j in range(v))
+    assert cols == list(range(1 << log_n))
+    assert all(v in (2, 4) and c % v == 0 for c, v in loads)
+
+
+def model_mac_sums(xs, ws, qs, rows: int, y_rows: int, sums: int, chunk: int) -> torch.Tensor:
+    """The first pass's values of every output row, as `mac_item` makes them
+    in Python integers: per term the product of canonical residues, summed
+    over chunks of `chunk` terms below q 2^64, one REDC a chunk (each leaves
+    2^-64), the chunks' residues added mod q. xs: per term (R, N) rows; ws:
+    per sum, per term (y_rows, N) rows."""
+    limbs = len(qs)
+    n = len(xs[0][0])
+    out = np.zeros((sums * rows, n), dtype=np.uint64)
+    for r in range(sums * rows):
+        s, xrow, limb, yrow = mac_row(rows, limbs, y_rows, r)
+        q = qs[limb]
+        nqi = neg_inv64(q)
+        for c in range(n):
+            v = 0
+            for k0 in range(0, len(xs), chunk):
+                t = sum(int(xs[k][xrow][c]) * int(ws[s][k][yrow][c]) for k in range(k0, min(len(xs), k0 + chunk)))
+                v = (v + redc(t, q, nqi)) % q
+            out[r, c] = v
+    return u64_to_torch(out)
+
+
+@pytest.mark.parametrize(
+    "bits,log_n,limbs,lead,terms,sums,broadcast",
+    [(55, 6, 3, 2, 1, 2, True), (55, 8, 2, 2, 2, 1, False), (62, 6, 2, 2, 9, 2, True), (63, 7, 2, 1, 3, 1, False), (55, 3, 3, 1, 3, 2, False)],
+)
+def test_mac_sums_with_rescaled_inverse_match_reference_and_jax(bits, log_n, limbs, lead, terms, sums, broadcast):
+    """The fused plan's values: the sums times 2^-64 (a 62-bit prime's
+    chunk holds 4 products, so 9 terms take 3 REDCs; a 63-bit one's 2), run
+    through the inverse passes with N^-1 2^64 in place of 1/N, equal
+    rns_intt_mac_ref, rns_intt_ref(rns_mac_ref(..)), and the JAX package's
+    rns_intt of rns_mul_eval sums (of _ks_dot where the key is broadcast)."""
+    n = 1 << log_n
+    qs = _primes(bits, log_n, limbs)
+    plan, jplan = TR.rns_plan(qs, n), JR.rns_plan(qs, n)
+    chunk = TR._mac_chunk(qs)
+    assert bits != 62 or chunk == 4
+    rng = np.random.default_rng(bits + log_n + terms)
+    res = lambda lead_: np.stack([rng.integers(0, q, size=(*lead_, n), dtype=np.uint64) for q in qs], axis=-2)  # noqa: E731
+    w_lead = () if broadcast else (lead,)
+    xs = [res((lead,)) for _ in range(terms)]
+    ws = [[res(w_lead) for _ in range(terms)] for _ in range(sums)]
+    xs[0][0, 0, 0], ws[0][-1].reshape(-1)[-1] = 0, qs[-1] - 1
+    rows, y_rows = lead * limbs, limbs if broadcast else lead * limbs
+    v = model_mac_sums([x.reshape(rows, n) for x in xs], [[w.reshape(y_rows, n) for w in wk] for wk in ws], qs, rows, y_rows, sums, chunk)
+    t = TR.rns_tables(plan, CPU)
+    tx = [u64_to_torch(x) for x in xs]
+    ty = [u64_to_torch(w) for w in ws[0]]
+    tz = [u64_to_torch(w) for w in ws[1]] if sums == 2 else None
+    mac = TR.rns_mac_ref(tx, ty, plan, tz).reshape(sums * rows, n)
+    limb = torch.arange(sums * rows) % limbs
+    r1 = u64_to_torch(np.array([[(1 << 64) % q] for q in qs], dtype=np.uint64))
+    assert torch.equal(TR.mul_mod_v(v, r1[limb], t.q[limb], t.neg_q_inv[limb], t.r2[limb]), mac)  # v 2^64 = the sums
+    want = TR.rns_intt_mac_ref(tx, ty, plan, tz)
+    assert torch.equal(want, TR.rns_intt_ref(TR.rns_mac_ref(tx, ty, plan, tz), plan))
+    for split in (False, True) if log_n >= 6 else (False,):
+        got = model_transform(v, plan, True, split, scale=(t.n_inv_mac, t.n_inv_mac_s))
+        assert torch.equal(got.reshape(want.shape), want), f"split {split}"
+
+    def jsum(wk):
+        if broadcast:
+            from learn_fhe_tpu.models.ckks import ckks as JC
+
+            return JC._ks_dot(jnp.asarray(np.stack(wk)), jnp.asarray(np.stack(xs, axis=-3)), jplan)
+        acc = JR.rns_mul_eval(jnp.asarray(xs[0]), jnp.asarray(wk[0]), jplan)
+        for x, w in zip(xs[1:], wk[1:]):
+            acc = JR.rns_add(acc, JR.rns_mul_eval(jnp.asarray(x), jnp.asarray(w), jplan), jplan)
+        return acc
+
+    jwant = np.stack([np.asarray(JR.rns_intt(jsum(wk), jplan)) for wk in ws])
+    np.testing.assert_array_equal(torch_to_u64(want).reshape(jwant.shape), jwant)
