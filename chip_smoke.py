@@ -134,6 +134,38 @@ bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
   C4. `learn_fhe_tpu_torch/examples/ckks_logistic.py` at its default ring
       on the card: the classifications must agree.
 
+Then the CKKS bootstrap (mod_raise, CoeffToSlot, EvalMod, SlotToCoeff) at
+the JAX package's bootstrap metric (`bench.py:714-778` at --log-n 13: N=2^13,
+L=23 q-primes and 23 p-primes of 55 bits, one key-switch digit, a sparse
+ternary secret of weight 64, r=3, EvalModParams(k=24, r=4, degree=34),
+batch 2 from seed 17, messages x 1e-4):
+
+  B1. hold K-RNS-MAC's gathered instances against their plain versions at
+      the bootstrap's shapes: W[j] (`rns_mac`, a digit of the hoisted mask
+      (2, 46, 8192) through sigma_j, the key's b and a sums) and
+      `rns_intt_mac` with 1-4 terms and z, through each of the path's 22
+      rotations' permutations and the identity, and b's sums (2, 23, 8192)
+      with a term read in place; K-AUTOMORPH on b and a (2, 23, 8192) for
+      each rotation and t = -1; K-BASECONV from one limb into 22 (mod_raise)
+      and from every level 1..23 into the 23 p-primes (the hoists);
+      K-RNS-NTT at 46 and 23 limbs; K-RESCALE at k=1 and k=23; all with
+      `torch.equal`, each wrapper's counter rising by one a call; time
+      each over 20 eager calls and from a CUDA graph of 20 against its
+      bound, and print the new instances' registers, spills and stack;
+  B2. the bootstrap at N=16, L=16 (r=3, default EvalModParams, batch 2,
+      seed 17) on the card == the port's CPU path, bit for bit;
+  B3. the path: key generation on the card, timed (it must launch the
+      kernels); one cold bootstrap of the batch of 2; one warm one with the
+      launch counters set to 0 just before and read just after, printed by
+      shape (the gathered `rns_intt_mac`, K-AUTOMORPH, K-BASECONV at lq = 1,
+      K-RNS-NTT, K-RESCALE and the key switches' `rns_intt_mac` must
+      launch); at least 2 levels left and more than 16 relative bits for
+      each decrypted ciphertext (`tests/test_ckks_bootstrap.py::
+      test_full_bootstrap_n8192`); then 3 warm bootstraps (median and
+      spread of seconds per ciphertext, bootstraps/s), the host enqueue
+      against the wall, a warm bootstrap from a CUDA graph (device only),
+      the device's idle share and top kernels (profiler).
+
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
 its integer instructions over the SMs' issue rates (the cost model below).
@@ -1327,7 +1359,7 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     for name, fn in (*counted.items(), *alone.items()):
         launches[name] = fn.launches
     say(f"{tag} C3 keys (rlk, a rotation key, cjk) on the card {keygen_s:.2f} s; {2 * B} messages encoded and sk_encrypted {enc_s:.2f} s (host clock, to a sync)")
-    say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: input rows; rns_intt_mac: (output rows, terms)): {by_rows}; rns_intt alone {launches['rns_intt']}, rns_mac alone {launches['rns_mac']}")
+    say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: (input rows, input limbs, output limbs); rns_intt_mac: (output rows, terms)): {by_rows}; rns_intt alone {launches['rns_intt']}, rns_mac alone {launches['rns_mac']}")
     for name in counted:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the CKKS main path")
@@ -1386,6 +1418,292 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     say(f"{tag} C4 examples/ckks_logistic.py at log_n=10 on the card: classifications agree {res['agree']:.0%}, {time.perf_counter() - t0:.2f} s (host clock, keys included)")
 
 
+BOOT = dict(log_n=13, log_qi=55, big_l=23)  # `bench.py:714-778` at --log-n 13: N=2^13, 23 q-primes + 23 p-primes of 55 bits
+BOOT_BATCH = 2  # `bench.py:738`
+BOOT_SEED = 17  # `bench.py:726`
+BOOT_EM = dict(k=24, r=4, degree=34)  # `bench.py:773`
+BOOT_SMALL = dict(log_n=4, log_qi=55, big_l=16)  # B2: the ring of `tests/test_torch_ckks_bootstrap_e2e.py`
+BOOT_WARM = 3  # warm bootstraps timed one by one
+BOOT_REPS = 20  # eager calls and CUDA-graph launches a B1 timing averages
+BOOT_BITS = 16.0  # `tests/test_ckks_bootstrap.py::test_full_bootstrap_n8192`
+BOOT_LEVELS = 2  # levels left that the same test asks for
+BOOT_INSTANCES = (
+    "rns_mac_gather_kernel<4>", "rns_intt_mac_gather_kernel<true,13>", "automorphism_kernel<4>", "base_convert_kernel<1>",
+    "base_convert_kernel<0>",
+)  # fmt: skip
+
+
+def gather_mac_ops(values: int, terms: int, sums: int, fused: bool) -> np.ndarray:
+    """K-RNS-MAC's gathered instances on `values` outputs of each of `sums`
+    sums of `terms` products: per sum and value the 128-bit multiply-adds,
+    one REDC and the add of its residue mod q (the terms are a run-time
+    count); alone, also the REDC by 2^128 mod q. The gather's index loads
+    are not counted (no arithmetic)."""
+    return values * sums * (terms * MAC128 + REDC64 + ADD_Q64 + (0 if fused else REDC64))
+
+
+def bootstrap_cases(params, batch: int, rng, dev):
+    """B1's timed launches at the bootstrap's shapes: the gathered MAC as
+    W[j] (a digit of the hoisted mask through sigma_j, the key's b and a
+    sums) and as a giant group's b sum (4 diagonals, b read through 3
+    permutations and in place) inside the inverse; K-AUTOMORPH on b and a;
+    K-BASECONV from one limb (mod_raise, b and a stacked) and from 23
+    (the hoist at the top level); the transforms at 46 and 23 limbs;
+    K-RESCALE at k=1 and k=23 (the key switch's b and a). Returns
+    ({(name, shape): (kernel call, plain call, bytes, instructions)}, the
+    operands B1 also checks with every permutation)."""
+    from learn_fhe_tpu_torch.models.ckks import bootstrapping as Bt
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    qs, ps, qps, n, B = params.qs, params.ps, params.qps, params.n, batch
+    L, P = len(qs), len(ps)
+
+    def residues(basis, lead):
+        x = np.stack([rng.integers(0, q, size=(*lead, n), dtype=np.uint64) for q in basis], axis=-2)
+        x.reshape(-1)[:2] = [0, basis[0] - 1]
+        return u64_to_torch(x).to(dev)
+
+    plan_q, plan_qp = params.plan(qs), params.plan(qps)
+    js = Bt.rotation_indices(Bt.BootstrapParams(params, r=3))
+    sig = [C._eval_perm(n, params.pow5(j), dev) for j in js]
+    x46, kb, ka = residues(qps, (B,)), residues(qps, ()), residues(qps, ())
+    be, pts = residues(qs, (B,)), [residues(qs, ()) for _ in range(4)]
+    ba = torch.stack([residues(qs, (B,)), residues(qs, (B,))])
+    ba46 = torch.stack([x46, residues(qps, (B,))])
+    low = torch.stack([residues(qs[:1], (B,)), residues(qs[:1], (B,))])
+    rp1, rp23 = rns.rescale_plan(qs, 1), rns.rescale_plan(qps, P)
+    conv23 = rns.base_convert(ba46[..., L:, :], rp23.drop, rp23.keep, add=rp23.p_half[L:])
+    lazy = max(qps) < 1 << 62
+    tab = lambda basis: len(basis) * n * 16  # noqa: E731  (a launch's twiddles and duals)
+    b_perms = [None, *sig[:3]]
+    code = rns.automorphism_code(n, params.pow5(js[0]), dev)
+    negated = int((code < 0).sum())
+    cases = {
+        ("rns_mac_gather", (B, L + P, n)): (
+            lambda: rns.rns_mac([x46], [kb], plan_qp, [ka], sig[:1]), lambda: rns.rns_mac_ref([x46], [kb], plan_qp, [ka], sig[:1]),
+            3 * B * (L + P) * n * 8 + 2 * (L + P) * n * 8 + n * 4, gather_mac_ops(B * (L + P) * n, 1, 2, False)),
+        ("rns_intt_mac_gather", (B, L, n)): (
+            lambda: rns.rns_intt_mac([be] * 4, pts, plan_q, perms=b_perms),
+            lambda: rns.rns_intt_mac_ref([be] * 4, pts, plan_q, perms=b_perms),
+            2 * B * L * n * 8 + 4 * L * n * 8 + 3 * n * 4 + tab(qs), intt64_ops(B * L, n, lazy) + gather_mac_ops(B * L * n, 4, 1, True)),
+        ("automorphism_rns", (2, B, L, n)): (
+            lambda: rns.automorphism_rns((ba[0], ba[1]), params.pow5(js[0]), qs),
+            lambda: tuple(rns.automorphism_rns_ref(v, params.pow5(js[0]), qs) for v in ba),
+            2 * 2 * B * L * n * 8 + n * 4, 2 * B * L * negated * CSUB64),
+        ("base_convert", f"1->{L - 1}"): (lambda: rns.base_convert(low, qs[:1], qs[1:]), lambda: rns.base_convert_ref(low, qs[:1], qs[1:]),
+                                    2 * B * L * n * 8, base_convert_ops(2 * B * n, qs[:1], L - 1, False)),
+        ("base_convert", f"{L}->{P}"): (lambda: rns.base_convert(be, qs, ps), lambda: rns.base_convert_ref(be, qs, ps),
+                                        B * (L + P) * n * 8, base_convert_ops(B * n, qs, P, False)),
+        ("rns_ntt", (B, L + P, n)): (lambda: rns.rns_ntt(x46, plan_qp), lambda: rns.rns_ntt_ref(x46, plan_qp),
+                                     2 * B * (L + P) * n * 8 + tab(qps), ntt64_ops(B * (L + P), n, lazy)),
+        ("rns_ntt", (B, L, n)): (lambda: rns.rns_ntt(be, plan_q), lambda: rns.rns_ntt_ref(be, plan_q),
+                                 2 * B * L * n * 8 + tab(qs), ntt64_ops(B * L, n, lazy)),
+        ("rns_intt", (B, L + P, n)): (lambda: rns.rns_intt(x46, plan_qp), lambda: rns.rns_intt_ref(x46, plan_qp),
+                                      2 * B * (L + P) * n * 8 + tab(qps), intt64_ops(B * (L + P), n, lazy)),
+        ("rns_intt", (B, L, n)): (lambda: rns.rns_intt(be, plan_q), lambda: rns.rns_intt_ref(be, plan_q),
+                                  2 * B * L * n * 8 + tab(qs), intt64_ops(B * L, n, lazy)),
+        ("rescale", "k=1"): (lambda: rns.rescale_finish(be, None, rp1), lambda: rns.rescale_finish_ref(be, None, rp1),
+                             B * (2 * L - 1) * n * 8, rescale_ops(B * (L - 1) * n, True)),
+        ("rescale", f"k={P}"): (lambda: rns.rescale_finish(ba46, conv23, rp23), lambda: rns.rescale_finish_ref(ba46, conv23, rp23),
+                                3 * 2 * B * L * n * 8, rescale_ops(2 * B * L * n, False)),
+    }  # fmt: skip
+    return cases, dict(sig=sig, js=js, x46=x46, kb=kb, ka=ka, be=be, pts=pts, ba=ba, low=low, ba46=ba46)
+
+
+def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
+    """B1 (see the module's docstring); adds the gathered MAC's and
+    K-AUTOMORPH's entries to the kernels line's dicts."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+
+    t0 = time.perf_counter()
+    params = C.CkksParams(**BOOT)
+    qs, ps, qps, n, B = params.qs, params.ps, params.qps, params.n, BOOT_BATCH
+    L, P = len(qs), len(ps)
+    report = kernels_report()
+    for name in BOOT_INSTANCES:
+        regs, st, ld, stack = report[name]
+        say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+    cases, ops = bootstrap_cases(params, B, np.random.default_rng(41), dev)
+    plan_q, plan_qp = params.plan(qs), params.plan(qps)
+
+    def check(name, fn, got_call, plain_call, gathered=False):
+        before, g_before = fn.launches, getattr(fn, "gather_launches", 0)
+        got = got_call()
+        if fn.launches != before + 1 or (gathered and fn.gather_launches != g_before + 1):
+            raise AssertionError(f"B1 {name}: the wrapper did not launch its kernel once")
+        want = plain_call()
+        for g, w in zip(got, want) if isinstance(got, tuple) else ((got, want),):
+            errs[name] = max(errs.get(name, 0.0), max_abs_err(g, w.cpu()))
+
+    # every permutation of the path (its 22 rotations and the identity) in
+    # W[j] and in the key switch's sums of 1-4 terms, and b's sums
+    sig = [*ops["sig"], C._eval_perm(n, 1, dev)]
+    x46, kb, ka, be, pts = ops["x46"], ops["kb"], ops["ka"], ops["be"], ops["pts"]
+    for k, p in enumerate(sig):
+        check("rns_mac_gather", rns.rns_mac, lambda p=p: rns.rns_mac([x46], [kb], plan_qp, [ka], [p]),
+              lambda p=p: rns.rns_mac_ref([x46], [kb], plan_qp, [ka], [p]), True)  # fmt: skip
+        terms = k % 4 + 1
+        perms = [sig[(k + t) % len(sig)] for t in range(terms)]
+        check("rns_intt_mac_gather", rns.rns_intt_mac, lambda t=terms, ps_=perms: rns.rns_intt_mac([x46] * t, [kb] * t, plan_qp, [ka] * t, ps_),
+              lambda t=terms, ps_=perms: rns.rns_intt_mac_ref([x46] * t, [kb] * t, plan_qp, [ka] * t, ps_), True)  # fmt: skip
+        b_perms = [None, *[sig[(k + t) % len(sig)] for t in range(k % 3 + 1)]]  # 2-4 terms, j = 0's in place
+        check("rns_intt_mac_gather", rns.rns_intt_mac, lambda ps_=b_perms: rns.rns_intt_mac([be] * len(ps_), pts[: len(ps_)], plan_q, perms=ps_),
+              lambda ps_=b_perms: rns.rns_intt_mac_ref([be] * len(ps_), pts[: len(ps_)], plan_q, perms=ps_), True)  # fmt: skip
+    for j in (*ops["js"], 0):
+        t = params.pow5(j) if j else -1
+        check("automorphism_rns", rns.automorphism_rns, lambda t=t: rns.automorphism_rns((ops["ba"][0], ops["ba"][1]), t, qs),
+              lambda t=t: tuple(rns.automorphism_rns_ref(v, t, qs) for v in ops["ba"]))  # fmt: skip
+    for lq in range(1, L + 1):  # the hoist from every level
+        x = be[:, :lq].contiguous()
+        check("base_convert", rns.base_convert, lambda x=x, lq=lq: rns.base_convert(x, qs[:lq], ps), lambda x=x, lq=lq: rns.base_convert_ref(x, qs[:lq], ps))
+    wrappers = {"rns_mac_gather": rns.rns_mac, "rns_intt_mac_gather": rns.rns_intt_mac, "automorphism_rns": rns.automorphism_rns,
+                "base_convert": rns.base_convert, "rns_ntt": rns.rns_ntt, "rns_intt": rns.rns_intt, "rescale": rns.rescale_finish}  # fmt: skip
+    for (name, shape), (kernel, plain, *_) in cases.items():
+        check(name, wrappers[name], kernel, plain, name.endswith("_gather"))
+    xr = ops["ba46"]
+    rp = rns.rescale_plan(qps, P)
+    errs["rescale"] = max(errs["rescale"], max_abs_err(rns.rescale_k(xr, qps, P), rns.rescale_finish_ref(
+        xr, rns.base_convert_ref(xr[..., L:, :], rp.drop, rp.keep, add=rp.p_half[L:]), rp).cpu()))  # fmt: skip
+    say(f"B1 the gathered rns_mac (W[j]) and rns_intt_mac (1-4 terms, with z, and b's sums) at ({B}, {L + P} | {L}, {n}) through each of the path's {len(sig) - 1} permutations and the identity, K-AUTOMORPH on b and a ({B}, {L}, {n}) for each rotation and t = -1, K-BASECONV from 1 -> {L - 1} and from every level 1..{L} -> {P}, K-RNS-NTT at {L + P} and {L} limbs, K-RESCALE at k=1 and k={P} == plain, each wrapper launching its kernel once a call: ok")
+    for (name, shape), (kernel, plain, n_bytes, ops_) in cases.items():
+        k_ms, g_ms, p_ms = cuda_ms(kernel, BOOT_REPS), graph_ms(kernel, BOOT_REPS), cuda_ms(plain, 3)
+        b_ms, by = bound_ms(n_bytes, ops_, pipe_per_s)
+        if name not in timings:  # the new rows of the kernels line
+            timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+        say(f"{tag} B1 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({BOOT_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops_[0] / 1e6:.1f} M FMA, {ops_[1] / 1e6:.1f} M ALU, {ops_[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+    say(f"{tag} B1 took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def bootstrap_setup(params, rng, dev, batch: int):
+    """Keys and a batch of exhausted ciphertexts, drawn in `bench.py`'s order
+    (`bench_ckks_bootstrap`): the secret (sparse ternary, h = 64, where N
+    allows), rlk, cjk, the bootstrap key, then per ciphertext its message
+    (x 1e-4) and its encryption at the top level, dropped to (q0,)."""
+    from learn_fhe_tpu_torch.models.ckks import bootstrapping as Bt
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+
+    sk = C.sk_gen_sparse(params, min(64, params.n // 2), rng)
+    rlk, cjk = C.rlk_gen(params, sk, rng, dev), C.cjk_gen(params, sk, rng, dev)
+    bk = Bt.key_gen(Bt.BootstrapParams(params, r=3), sk, rng, dev)
+    ms = [(rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l)) * 1e-4 for _ in range(batch)]
+    lows = [C.to_level(C.sk_encrypt(params, sk, C.encode(params, m, device=dev), params.qs, rng), params.qs[:1]) for m in ms]
+    low = C.CkksCiphertext(torch.stack([c.b for c in lows]), torch.stack([c.a for c in lows]), params.qs[:1])
+    return sk, rlk, cjk, bk, ms, low
+
+
+def bootstrap_b2(dev, tag) -> None:
+    """B2: the bootstrap at N=16, L=16 on the card == the port's CPU path."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.models.ckks import evalmod as E
+
+    t0 = time.perf_counter()
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        params = C.CkksParams(**BOOT_SMALL)
+        _, rlk, cjk, bk, _, low = bootstrap_setup(params, np.random.default_rng(BOOT_SEED), device, BOOT_BATCH)
+        outs.append(E.bootstrap(params, bk, rlk, cjk, low))
+    got, want = outs
+    if got.qs != want.qs:
+        raise AssertionError("B2: the card's bootstrap ends at another level than the CPU's")
+    max_abs_err(got.b, want.b)
+    max_abs_err(got.a, want.a)
+    say(f"{tag} B2 the bootstrap at N=16, L=16, r=3, default EvalModParams, batch {BOOT_BATCH} on the card == the port's CPU path, bit for bit ({len(got.qs)} levels left; {time.perf_counter() - t0:.1f} s, host clock)")
+
+
+BOOT_COUNTED = ("rns_ntt", "rns_intt", "rns_mac", "rns_intt_mac", "base_convert", "rescale_finish", "automorphism_rns")
+
+
+def bootstrap_b3(dev, tag, launches) -> None:
+    """B3, the bootstrap path (see the module's docstring): key generation,
+    a cold bootstrap, one warm one with the launch counters, the outputs'
+    levels and precision, the warm bootstraps' times, the host enqueue, a
+    CUDA graph's device time and the profiler. Adds the gathered MAC's and
+    K-AUTOMORPH's launches to `launches`."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.models.ckks import evalmod as E
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = C.CkksParams(**BOOT)
+    B, em = BOOT_BATCH, E.EvalModParams(**BOOT_EM)
+    fns = {name: getattr(rns, name) for name in BOOT_COUNTED}
+
+    def zero():
+        for fn in fns.values():
+            fn.launches, fn.by_rows = 0, Counter()
+        rns.rns_mac.gather_launches = rns.rns_intt_mac.gather_launches = 0
+
+    zero()
+    t0 = time.perf_counter()
+    sk, rlk, cjk, bk, ms, low = bootstrap_setup(params, np.random.default_rng(BOOT_SEED), dev, B)
+    torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    key_launches = {name: fn.launches for name, fn in fns.items() if fn.launches}
+    if not key_launches.get("rns_ntt") or any(k.ksk.b.device != dev for k in bk.rtk.values()):
+        raise AssertionError("B3: the bootstrap key was not made on the card by its kernels")
+    say(f"{tag} B3 keys (sparse secret h=64, rlk, cjk, {len(bk.rtk)} rotation keys), 2 x {B} messages encoded, encrypted and dropped to (q0,) on the card: {keygen_s:.2f} s (host clock, to a sync); launches {key_launches}")
+    run = lambda: E.bootstrap(params, bk, rlk, cjk, low, em)  # noqa: E731
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    say(f"{tag} B3 cold bootstrap of the batch of {B} (the diagonals' and constants' encodes included): {time.perf_counter() - t0:.2f} s (host clock, to a sync)")
+    zero()
+    out = run()
+    torch.cuda.synchronize()
+    for name, fn in fns.items():
+        launches[f"boot_{name}"] = fn.launches
+    launches["rns_mac_gather"], launches["rns_intt_mac_gather"] = rns.rns_mac.gather_launches, rns.rns_intt_mac.gather_launches
+    launches["automorphism_rns"] = rns.automorphism_rns.launches
+    say(f"B3 launches of one warm bootstrap of the batch of {B}: " + ", ".join(f"{name} {fn.launches}" for name, fn in fns.items()) + f"; the gathered instances: rns_mac {rns.rns_mac.gather_launches}, rns_intt_mac {rns.rns_intt_mac.gather_launches}")
+    for name, fn in fns.items():
+        say(f"  B3 {name} by rows: {dict(sorted(fn.by_rows.items(), key=str))}")
+    lq1 = sum(c for (_, lq, _), c in rns.base_convert.by_rows.items() if lq == 1)
+    must = {"the gathered rns_intt_mac": rns.rns_intt_mac.gather_launches, "K-AUTOMORPH": rns.automorphism_rns.launches,
+            "K-BASECONV at lq = 1": lq1, "K-RNS-NTT": rns.rns_ntt.launches, "K-RESCALE": rns.rescale_finish.launches,
+            "the key switches' rns_intt_mac": rns.rns_intt_mac.launches - rns.rns_intt_mac.gather_launches}  # fmt: skip
+    for what, count in must.items():
+        if not count:
+            raise AssertionError(f"B3: {what} was not launched on the bootstrap")
+    levels = len(out.qs)
+    if out.b.shape != (B, levels, params.n) or levels < BOOT_LEVELS:
+        raise AssertionError(f"B3: the bootstrap's output is {tuple(out.b.shape)} at {levels} levels (at least {BOOT_LEVELS} asked)")
+    bits = []
+    for i, m in enumerate(ms):
+        one = C.CkksCiphertext(out.b[i], out.a[i], out.qs)
+        got = C.decode(params, C.decrypt(params, sk, one), out.qs)
+        bits.append(float(-np.log2(np.max(np.abs(got - m)) / np.max(np.abs(m)))))
+    say(f"B3 the bootstrap of the batch of {B} at N={params.n}, L={len(params.qs)}: {levels} levels left; relative bits of each decrypted ciphertext against its message {[round(b, 2) for b in bits]} (more than {BOOT_BITS} asked, `tests/test_ckks_bootstrap.py::test_full_bootstrap_n8192`)")
+    if min(bits) <= BOOT_BITS:
+        raise AssertionError("B3: a bootstrapped ciphertext is outside its precision budget")
+    times = []
+    for _ in range(BOOT_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    say(f"{tag} B3 warm bootstrap of the batch of {B}: {med:.4f} s (median of {BOOT_WARM}, {min(times):.4f}-{max(times):.4f}; host clock to a sync) = {med / B:.4f} s per ciphertext = {B / med:.3f} bootstraps/s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    say(f"{tag} B3 warm bootstrap: host enqueue {host_s:.4f} s, wall with sync {wall_s:.4f} s")
+    g_ms = graph_ms(run, 1)
+    say(f"{tag} B3 warm bootstrap from a CUDA graph: {g_ms:.3f} ms per batch of {B} (device only) = {g_ms / B:.3f} ms per ciphertext; the device's idle share in an eager call, 1 - graph / eager median = {1 - g_ms / (med * 1e3):.4f}")
+    idle, kernel_ms, top = device_kernel_ms(run)
+    if kernel_ms:
+        say(f"{tag} B3 warm bootstrap: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
+        for name, t, count in top:
+            say(f"  {t:10.3f} ms  {count:6d} x  {name[:100]}")
+    else:
+        say(f"{tag} B3 device kernel time and idle share: not measured (the profiler recorded no device activity)")
+
+
 def batch_for_cluster(boot, params, cluster: int, dev) -> int | None:
     """The smallest batch for which K-FHEW-BR64's wrapper picks `cluster`
     blocks per ciphertext on this card, or None where no batch picks it."""
@@ -1428,9 +1746,9 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld, stack) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name:  # N=2048, Garner, FHEW's N=512, the u64 and RNS kernels
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name:  # N=2048, Garner, FHEW's N=512, the u64 and RNS kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES} <= report.keys():
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES} <= report.keys():
         raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 or RNS kernel")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
@@ -1624,6 +1942,9 @@ def main() -> None:
     fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches)
     multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)
     ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)
+    bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)
+    bootstrap_b2(dev, tag)
+    bootstrap_b3(dev, tag, launches)
 
     src = "learn_fhe_tpu_torch/csrc/"
     table = [
@@ -1646,6 +1967,9 @@ def main() -> None:
         ("rns_intt_mac", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280,287 and models/ckks/ckks.py:592-597,706-716,738-739 (rns_intt of rns_mul_eval / _ks_dot under one jit; XLA fusions; no Pallas call)"),
         ("base_convert", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases / switch_bases, XLA fusion; no Pallas call)"),
         ("rescale", "rns64.cu", "learn_fhe_tpu/ops/rns.py:426 (rescale_k, XLA fusion; no Pallas call)"),
+        ("rns_mac_gather", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:142-146 (_ks_dot of ae[..., perm] inside _bsgs_apply's jit, XLA fusion; no Pallas call)"),
+        ("rns_intt_mac_gather", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:147,152-169 and models/ckks/ckks.py:666-672 (rns_intt of products with be[..., perm] / ae[..., perm] under one jit; XLA fusions; no Pallas call)"),
+        ("automorphism_rns", "rns64.cu", "learn_fhe_tpu/models/ckks/ckks.py:605-611 (_automorphism_rns, XLA fusion; no Pallas call)"),
     ]
     say(
         json.dumps(

@@ -12,8 +12,12 @@
 //   K-BASECONV  <- extend_bases / switch_bases (rns.py:356-422)
 //   K-RESCALE   <- rescale_k's add of P/2, subtraction and division by P
 //                  (rns.py:426-464)
+//   K-RNS-MAC's gathered instances <- the evaluation-slot permutation of
+//                  the hoisted mask and of b before their products
+//                  (models/ckks/bootstrapping.py:142-147, ckks.py:666)
+//   K-AUTOMORPH <- _automorphism_rns (models/ckks/ckks.py:605-611)
 // On CKKS's mul + relinearize + rescale they are every launch but the
-// element-wise adds and the automorphism gathers.
+// element-wise adds; on its rotations and bootstrap, with the last two.
 //
 // What bounds them on an H100: a transform moves 2 x 8 B per value and does
 // log N u64 Shoup butterflies per pair (some twenty 32-bit instructions
@@ -74,6 +78,13 @@
 //   branches (a raw u64 sum and a Barrett, or the log-depth fold past
 //   2^64).
 // - K-RESCALE: one thread per output value.
+// - K-RNS-MAC's gathered instances (rns_mac / rns_intt_mac with perms):
+//   mac_item with a term's x read at the columns of its permutation table
+//   (the table in 16-byte words, x in 8-byte loads from its row), a null
+//   table reading x in place; separate instances, so the ungathered ones
+//   are as they were. The rotations of a hoisted mask then cost no copy.
+// - K-AUTOMORPH: one thread per 4 consecutive outputs of b and a, the
+//   signed gather of each from its row.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -433,8 +444,19 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
 // ---------------------------------------------------------------------------
 
 struct Terms {
+  static constexpr bool kGather = false;
   const uint64_t* x[kMaxTerms];
   const uint64_t* w[2 * kMaxTerms];  // term k's y at k, its z at kMaxTerms + k
+};
+
+// The gathered instances' operands: term k reads x_k[..., perm_k[c]] at
+// column c where perm_k (N int32, 16-byte aligned) is given, x_k[..., c]
+// where it is null. CKKS's hoisted rotations read their slot permutation
+// (a rotation of the evaluation basis) here rather than from a permuted
+// copy of x.
+struct GatherTerms : Terms {
+  static constexpr bool kGather = true;
+  const int32_t* perm[kMaxTerms];
 };
 
 // A launch's operands: `terms` products a sum; each x of `rows` rows, row r
@@ -482,6 +504,26 @@ __device__ __forceinline__ void load_words(const uint64_t* __restrict__ p, uint6
   }
 }
 
+// V values of x row x_row at the columns a permutation table gives from
+// `at` (V consecutive int32, read in one 4-, 8- or 16-byte word), each in an
+// 8-byte load.
+template <int V>
+__device__ __forceinline__ void load_gathered(const uint64_t* __restrict__ x_row, const int32_t* __restrict__ at,
+                                              uint64_t (&v)[V]) {
+  int idx[V];
+  if constexpr (V == 4) {
+    const int4 w = __ldg(reinterpret_cast<const int4*>(at));
+    idx[0] = w.x, idx[1] = w.y, idx[2] = w.z, idx[3] = w.w;
+  } else if constexpr (V == 2) {
+    const int2 w = __ldg(reinterpret_cast<const int2*>(at));
+    idx[0] = w.x, idx[1] = w.y;
+  } else {
+    idx[0] = __ldg(at);
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = __ldg(x_row + idx[j]);
+}
+
 // The sums of V consecutive columns from col of one output row, times
 // 2^-64: v_j = 2^-64 sum_k x_k y_k mod q (canonical). Each term's x and y
 // (or z) come in 16-byte words; their products are summed in 128 bits, one
@@ -491,9 +533,13 @@ __device__ __forceinline__ void load_words(const uint64_t* __restrict__ p, uint6
 // undoes: K-RNS-MAC by a REDC against 2^128 mod q, the fused inverse in its
 // final scale. kTerms: the terms as a constant, 1 or 2 (one chunk at any q
 // < 2^63: 2 (q-1)^2 < q 2^64), or 0 (terms as given).
-template <int kTerms, int V>
-__device__ __forceinline__ void mac_item(const Terms& t, const MacRow& r, int terms, int chunk, const lft64::Mod& m,
-                                         size_t col, uint64_t (&v)[V]) {
+//
+// TT: Terms, or GatherTerms (the gathered instances), whose table column of
+// `col` is c_off + col: a cluster's block takes its columns from c_off,
+// and r.x_off counts them.
+template <int kTerms, int V, class TT = Terms>
+__device__ __forceinline__ void mac_item(const TT& t, const MacRow& r, int terms, int chunk, const lft64::Mod& m,
+                                         size_t col, uint64_t (&v)[V], size_t c_off = 0) {
   uint64_t hi[V], lo[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) hi[j] = lo[j] = v[j] = 0;
@@ -502,7 +548,15 @@ __device__ __forceinline__ void mac_item(const Terms& t, const MacRow& r, int te
 #pragma unroll (kTerms ? kTerms : 1)
   for (int k = 0; k < count; ++k) {
     uint64_t x[V], y[V];
-    load_words(t.x[k] + r.x_off + col, x);
+    if constexpr (TT::kGather) {
+      if (t.perm[k] != nullptr) {
+        load_gathered(t.x[k] + (r.x_off - c_off), t.perm[k] + c_off + col, x);
+      } else {
+        load_words(t.x[k] + r.x_off + col, x);
+      }
+    } else {
+      load_words(t.x[k] + r.x_off + col, x);
+    }
     load_words(t.w[r.sel + k] + r.w_off + col, y);
 #pragma unroll
     for (int j = 0; j < V; ++j) lft64::mac128(hi[j], lo[j], x[j], y[j]);
@@ -532,10 +586,10 @@ __device__ __forceinline__ void mac_item(const Terms& t, const MacRow& r, int te
 constexpr int kLogThreads = 8;
 static_assert(kThreads == 1 << kLogThreads, "K-RNS-MAC's thread mapping");
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-    rns_mac_kernel(Terms t, uint64_t* __restrict__ out, MacShape sh, int log_n, const uint64_t* __restrict__ q_arr,
-                   const uint64_t* __restrict__ nqi_arr, const uint64_t* __restrict__ r2_arr) {
+template <int V, class TT>
+__device__ __forceinline__ void mac_rows(const TT& t, uint64_t* __restrict__ out, const MacShape& sh, int log_n,
+                                         const uint64_t* __restrict__ q_arr, const uint64_t* __restrict__ nqi_arr,
+                                         const uint64_t* __restrict__ r2_arr) {
   const int log_items = log_n - (V == 4 ? 2 : V == 2 ? 1 : 0);
   long long row = blockIdx.x;
   int item = (blockIdx.y << kLogThreads) + threadIdx.x;
@@ -564,23 +618,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    rns_mac_kernel(Terms t, uint64_t* __restrict__ out, MacShape sh, int log_n, const uint64_t* __restrict__ q_arr,
+                   const uint64_t* __restrict__ nqi_arr, const uint64_t* __restrict__ r2_arr) {
+  mac_rows<V>(t, out, sh, log_n, q_arr, nqi_arr, r2_arr);
+}
+
+// The gathered instance (rns_mac with perms).
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    rns_mac_gather_kernel(GatherTerms t, uint64_t* __restrict__ out, MacShape sh, int log_n,
+                          const uint64_t* __restrict__ q_arr, const uint64_t* __restrict__ nqi_arr,
+                          const uint64_t* __restrict__ r2_arr) {
+  mac_rows<V>(t, out, sh, log_n, q_arr, nqi_arr, r2_arr);
+}
+
 // The inverse's first pass's items as the MAC sums of one output row (mac_item
 // at the row's offsets, which the cluster kernel moves to its block's first
 // sub-row): load(col, log_h, v) for sub_pass, load(row, col, log_h, v) for
 // the row passes (the block's one row). The sums are never stored.
-template <int kTerms>
+// c_off: the block's first column (the gathered instances' table offset).
+template <int kTerms, class TT = Terms>
 struct MacSums {
-  const Terms& t;
+  const TT& t;
   MacRow r;
   int terms, chunk;
   lft64::Mod m;
+  size_t c_off = 0;
   template <int V>
   __device__ __forceinline__ void load(int col, int, uint64_t (&v)[V]) const {
-    mac_item<kTerms>(t, r, terms, chunk, m, col, v);
+    mac_item<kTerms>(t, r, terms, chunk, m, col, v, c_off);
   }
   template <int V>
   __device__ __forceinline__ void load(int, int col, int, uint64_t (&v)[V]) const {
-    mac_item<kTerms>(t, r, terms, chunk, m, col, v);
+    mac_item<kTerms>(t, r, terms, chunk, m, col, v, c_off);
   }
 };
 
@@ -598,10 +670,9 @@ constexpr int kMacAhead = kTerms == 1 || kTerms == 2 ? kItemsAhead : 1;
 // (st.n_inv and its dual, which the wrapper passes in place of N^-1) takes
 // it out, canonical as K-RNS-NTT's. The passes, tables and barriers are
 // K-RNS-NTT's. kLogN: 13 (every shape a constant) or 0; kTerms as mac_item's.
-template <bool kLazy, int kLogN, int kTerms>
-__global__ void __launch_bounds__(kNttThreads)
-    rns_intt_mac_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
-  __shared__ __align__(16) uint64_t buf[kBufValues];
+template <bool kLazy, int kLogN, int kTerms, class TT>
+__device__ __forceinline__ void intt_mac_cluster(const TT& t, uint64_t* __restrict__ y, const Stacked& st,
+                                                 const MacShape& sh, int log_n_arg, uint64_t* buf) {
   const int log_n = kLogN ? kLogN : log_n_arg;
   const long long r = mac_out_row(sh, blockIdx.x / kCluster);
   MacRow row = mac_row(sh, r, log_n);
@@ -609,21 +680,49 @@ __global__ void __launch_bounds__(kNttThreads)
   const size_t mine = static_cast<size_t>(cg::this_cluster().block_rank() * kPerBlock) << (log_n - kSplit);
   row.x_off += mine;
   row.w_off += mine;
-  const MacSums<kTerms> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}};
+  const MacSums<kTerms, TT> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}, mine};
   cluster_inverse<kLazy, kMacAhead<kTerms>>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n, buf);
+}
+
+template <bool kLazy, int kLogN, int kTerms>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_intt_mac_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
+  __shared__ __align__(16) uint64_t buf[kBufValues];
+  intt_mac_cluster<kLazy, kLogN, kTerms>(t, y, st, sh, log_n_arg, buf);
+}
+
+// The gathered instance (rns_intt_mac with perms): terms as given.
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_intt_mac_gather_kernel(GatherTerms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
+  __shared__ __align__(16) uint64_t buf[kBufValues];
+  intt_mac_cluster<kLazy, kLogN, 0>(t, y, st, sh, log_n_arg, buf);
 }
 
 // Below N = 2048: a block per output row through rows::inverse (kLogN as
 // rns_ntt_rows_kernel's).
+template <bool kLazy, int kLogN, class TT>
+__device__ __forceinline__ void intt_mac_row(const TT& t, uint64_t* __restrict__ y, const Stacked& st,
+                                             const MacShape& sh, int log_n, uint64_t* buf) {
+  const long long r = mac_out_row(sh, blockIdx.x);
+  const MacRow row = mac_row(sh, r, log_n);
+  const lft64::Tables tab = limb_tables(st, row.limb, log_n);
+  MacSums<0, TT> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}};
+  lft64::rows::inverse<kRowThreads, kLazy, kLogN>(src, y, tab, r, 1, 1, log_n, buf);
+}
+
 template <bool kLazy, int kLogN>
 __global__ void __launch_bounds__(kRowThreads)
     rns_intt_mac_rows_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n) {
   __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
-  const long long r = mac_out_row(sh, blockIdx.x);
-  const MacRow row = mac_row(sh, r, log_n);
-  const lft64::Tables tab = limb_tables(st, row.limb, log_n);
-  MacSums<0> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}};
-  lft64::rows::inverse<kRowThreads, kLazy, kLogN>(src, y, tab, r, 1, 1, log_n, buf);
+  intt_mac_row<kLazy, kLogN>(t, y, st, sh, log_n, buf);
+}
+
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kRowThreads)
+    rns_intt_mac_gather_rows_kernel(GatherTerms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n) {
+  __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
+  intt_mac_row<kLazy, kLogN>(t, y, st, sh, log_n, buf);
 }
 
 // The instances: at N = 2^13 the lazy ones for 1 and 2 terms (the CKKS mul's
@@ -647,6 +746,29 @@ int launch_intt_mac(const Terms& t, uint64_t* y, const Stacked& s, const MacShap
     if (log_n == kMaxLogN && sh.terms == 1) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 1>;
     if (log_n == kMaxLogN && sh.terms == 2) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 2>;
   }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gathered instances: a cluster per output row from N = 2048 (every
+// shape a constant at 2^13), a block per row below; terms as given.
+template <bool kLazy>
+int launch_intt_mac_gather(const GatherTerms& t, uint64_t* y, const Stacked& s, const MacShape& sh, int log_n,
+                           cudaStream_t stream) {
+  const int rows = sh.sums * sh.rows;
+  if (log_n < kSplitLogN) {
+    const auto kernel = log_n == 1   ? rns_intt_mac_gather_rows_kernel<kLazy, 1>
+                        : log_n == 2 ? rns_intt_mac_gather_rows_kernel<kLazy, 2>
+                                     : rns_intt_mac_gather_rows_kernel<kLazy, 0>;
+    kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
+  const auto kernel =
+      log_n == kMaxLogN ? rns_intt_mac_gather_kernel<kLazy, kMaxLogN> : rns_intt_mac_gather_kernel<kLazy, 0>;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -838,6 +960,65 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K-AUTOMORPH
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxParts = 2;  // CKKS's b and a, permuted by one t
+
+struct Parts {
+  const uint64_t* x[kMaxParts];
+  uint64_t* y[kMaxParts];
+};
+
+// The coefficient automorphism X -> X^t of (rows, N) residues, row r under
+// limb r mod limbs, for part blockIdx.y: y[c] = x[src[c]], negated mod q
+// (q - v where v != 0) where the sign is set. code: N int32, src | sign <<
+// 31 (16-byte aligned). A thread takes items of V consecutive outputs: the
+// codes in one word, x in 8-byte loads from its row (a row is 2^log_n u64,
+// so the gather stays in it), y in 16-byte stores.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    automorphism_kernel(Parts p, const int32_t* __restrict__ code, const uint64_t* __restrict__ q_arr, int rows,
+                        int limbs, int log_n) {
+  constexpr int kLogV = V == 4 ? 2 : V == 2 ? 1 : 0;
+  const int log_items = log_n - kLogV;
+  const long long items = static_cast<long long>(rows) << log_items;
+  const uint64_t* __restrict__ x = blockIdx.y ? p.x[1] : p.x[0];  // no indexing of the parameter array at run time
+  uint64_t* __restrict__ y = blockIdx.y ? p.y[1] : p.y[0];
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < items;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i >> log_items);
+    const int col = static_cast<int>(i & ((1 << log_items) - 1)) << kLogV;
+    const uint64_t q = __ldg(q_arr + row % limbs);
+    const size_t base = static_cast<size_t>(row) << log_n;
+    int c[V];
+    if constexpr (V == 4) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(code + col));
+      c[0] = w.x, c[1] = w.y, c[2] = w.z, c[3] = w.w;
+    } else if constexpr (V == 2) {
+      const int2 w = __ldg(reinterpret_cast<const int2*>(code + col));
+      c[0] = w.x, c[1] = w.y;
+    } else {
+      c[0] = __ldg(code + col);
+    }
+    uint64_t v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const uint64_t a = __ldg(x + base + (c[j] & 0x7fffffff));
+      v[j] = c[j] < 0 && a != 0 ? q - a : a;
+    }
+    if constexpr (V == 1) {
+      y[base + col] = v[0];
+    } else {
+#pragma unroll
+      for (int h = 0; h < V / 2; ++h) {
+        reinterpret_cast<ulonglong2*>(y + base + col)[h] = make_ulonglong2(v[2 * h], v[2 * h + 1]);
+      }
+    }
+  }
+}
+
 template <typename T>
 const T* cp(const void* p) {
   return static_cast<const T*>(p);
@@ -850,6 +1031,17 @@ Terms terms_of(const void* xs, const void* ys, const void* zs, int terms) {
     t.x[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(xs)[k]);
     t.w[k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(ys)[k]);
     if (zs != nullptr) t.w[kMaxTerms + k] = reinterpret_cast<const uint64_t*>(static_cast<const uint64_t*>(zs)[k]);
+  }
+  return t;
+}
+
+// terms_of's, with each term's permutation table from the host array perms
+// (0: none).
+GatherTerms gather_terms_of(const void* xs, const void* ys, const void* zs, const void* perms, int terms) {
+  GatherTerms t{};
+  static_cast<Terms&>(t) = terms_of(xs, ys, zs, terms);
+  for (int k = 0; k < terms; ++k) {
+    t.perm[k] = reinterpret_cast<const int32_t*>(static_cast<const uint64_t*>(perms)[k]);
   }
   return t;
 }
@@ -929,6 +1121,61 @@ int lft_rns_intt_mac(const void* xs, const void* ys, const void* zs, void* out, 
   auto* y = static_cast<uint64_t*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   return lazy ? launch_intt_mac<true>(t, y, s, sh, log_n, st) : launch_intt_mac<false>(t, y, s, sh, log_n, st);
+}
+
+// lft_rns_mac with a permutation table per term: perms, a host array of
+// `terms` device pointers to N int32 (16-byte aligned), 0 for a term read
+// in place; term k reads x_k[..., perm_k[c]] at column c.
+int lft_rns_mac_gather(const void* xs, const void* ys, const void* zs, const void* perms, void* out, int terms,
+                       int rows, int limbs, int log_n, int y_rows, const void* q, const void* neg_q_inv,
+                       const void* r2, int chunk, void* stream) {
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n < 0 || log_n > 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
+  const int log_v = log_n < 2 ? log_n : 2, log_items = log_n - log_v;
+  const dim3 grid = log_items >= kLogThreads
+                        ? dim3(static_cast<unsigned>(rows), 1u << (log_items - kLogThreads), 1)
+                        : dim3(static_cast<unsigned>((rows + (kThreads >> log_items) - 1) >> (kLogThreads - log_items)), 1, 1);
+  const auto kernel =
+      log_v == 2 ? rns_mac_gather_kernel<4> : log_v == 1 ? rns_mac_gather_kernel<2> : rns_mac_gather_kernel<1>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(gather_terms_of(xs, ys, zs, perms, terms),
+                                                                   static_cast<uint64_t*>(out), sh, log_n,
+                                                                   cp<uint64_t>(q), cp<uint64_t>(neg_q_inv),
+                                                                   cp<uint64_t>(r2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lft_rns_intt_mac with lft_rns_mac_gather's permutation tables.
+int lft_rns_intt_mac_gather(const void* xs, const void* ys, const void* zs, const void* perms, void* out, int terms,
+                            int rows, int limbs, int log_n, int y_rows, const void* psi, const void* psi_s,
+                            const void* psi_inv, const void* psi_inv_s, const void* q, const void* neg_q_inv,
+                            const void* n_inv_mac, const void* n_inv_mac_s, int chunk, int lazy, void* stream) {
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n < 1 || log_n > kMaxLogN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Stacked s{cp<uint64_t>(psi), cp<uint64_t>(psi_s), cp<uint64_t>(psi_inv), cp<uint64_t>(psi_inv_s),
+                  cp<uint64_t>(q), cp<uint64_t>(neg_q_inv), cp<uint64_t>(n_inv_mac), cp<uint64_t>(n_inv_mac_s)};
+  const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
+  const GatherTerms t = gather_terms_of(xs, ys, zs, perms, terms);
+  auto* y = static_cast<uint64_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return lazy ? launch_intt_mac_gather<true>(t, y, s, sh, log_n, st)
+              : launch_intt_mac_gather<false>(t, y, s, sh, log_n, st);
+}
+
+// K-AUTOMORPH on one or two parts (x1, y1 null: one): each x and y (rows,
+// 2^log_n), row r under limb r mod limbs, 16-byte aligned; code: 2^log_n
+// int32, src | sign << 31; q: (limbs,).
+int lft_rns_automorphism(const void* x0, const void* x1, void* y0, void* y1, const void* code, const void* q,
+                         int rows, int limbs, int log_n, void* stream) {
+  if (rows < 1 || limbs < 1 || log_n < 0 || log_n > 30 || (x1 == nullptr) != (y1 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Parts p{{cp<uint64_t>(x0), cp<uint64_t>(x1)}, {static_cast<uint64_t*>(y0), static_cast<uint64_t*>(y1)}};
+  const int log_v = log_n < 2 ? log_n : 2;
+  const auto kernel = log_v == 2 ? automorphism_kernel<4> : log_v == 1 ? automorphism_kernel<2> : automorphism_kernel<1>;
+  const dim3 grid(grid_for(static_cast<long long>(rows) << (log_n - log_v)), x1 != nullptr ? 2 : 1, 1);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, static_cast<const int32_t*>(code),
+                                                                   cp<uint64_t>(q), rows, limbs, log_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x: `batch` blocks of (lq, 2^log_n) residues over the qs, block b at x +

@@ -26,16 +26,17 @@ import torch
 
 from ...ops.modular import shoup_precompute
 from ...ops.ntt import eval_automorphism_perm
-from ...ops.poly import automorphism_i64, automorphism_map
+from ...ops.poly import automorphism_i64
 from ...ops.rns import (
     RnsPlan,
+    automorphism_rns,
     extend_bases,
     mul_shoup_v,
-    neg_mod_v,
     rescale_k,
     rns_add,
     rns_from_i64,
     rns_intt_mac,
+    rns_mac,
     rns_mul,
     rns_neg,
     rns_ntt,
@@ -186,11 +187,18 @@ class CkksRotKey:
     j: int
 
 
+@lru_cache(maxsize=None)
+def _index(idx: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """An index list on a device, made once: a copy from the host each call
+    would wait for the device's queue to drain."""
+    return torch.tensor(idx, device=device)
+
+
 def _select(x: torch.Tensor, idx: list[int], axis: int) -> torch.Tensor:
     """x's entries idx along axis (a fresh tensor), or x where idx takes them all in order."""
     if idx == list(range(x.shape[axis])):
         return x
-    return x.index_select(axis % x.dim(), torch.tensor(idx, device=x.device))
+    return x.index_select(axis % x.dim(), _index(tuple(idx), x.device))
 
 
 def to_level(ct: CkksCiphertext, qs: tuple) -> CkksCiphertext:
@@ -460,35 +468,35 @@ def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: 
     return rescale_ct(CkksCiphertext(rns_add(d0, relin[0], plan), rns_add(d1, relin[1], plan), qs))
 
 
+def _automorphism_rns(x, t: int, qs: tuple):
+    """X -> X^t of x (..., L, N), or of a pair (b, a) in one launch (K-AUTOMORPH)."""
+    return automorphism_rns(x, t, qs)
+
+
 @lru_cache(maxsize=None)
-def _automorphism_index(n: int, t: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    src, sign = automorphism_map(n, t)
-    return torch.from_numpy(src).to(device), torch.from_numpy(sign).to(device)
-
-
-def _automorphism_rns(x: torch.Tensor, t: int, qs: tuple) -> torch.Tensor:
-    src, sign = _automorphism_index(x.shape[-1], t, x.device)
-    g = x[..., src]
-    return torch.where(sign, neg_mod_v(g, rns_tables(rns_plan(qs, x.shape[-1]), x.device).q), g)
+def _eval_perm(n: int, t: int, device: torch.device) -> torch.Tensor:
+    """`eval_automorphism_perm(n, t)` as the int32 (n,) table K-RNS-MAC's
+    gathered instances read, on a device."""
+    return torch.from_numpy(eval_automorphism_perm(n, t).astype(np.int32)).to(device)
 
 
 def conjugate(params: CkksParams, cjk: CkksKeySwitchingKey, ct: CkksCiphertext) -> CkksCiphertext:
-    ct_conj = CkksCiphertext(_automorphism_rns(ct.b, -1, ct.qs), _automorphism_rns(ct.a, -1, ct.qs), ct.qs)
-    return key_switch(params, cjk, ct_conj)
+    b, a = _automorphism_rns((ct.b, ct.a), -1, ct.qs)
+    return key_switch(params, cjk, CkksCiphertext(b, a, ct.qs))
 
 
 def rotate(params: CkksParams, rtk: CkksRotKey, ct: CkksCiphertext) -> CkksCiphertext:
-    t = params.pow5(rtk.j)
-    ct_rot = CkksCiphertext(_automorphism_rns(ct.b, t, ct.qs), _automorphism_rns(ct.a, t, ct.qs), ct.qs)
-    return key_switch(params, rtk.ksk, ct_rot)
+    b, a = _automorphism_rns((ct.b, ct.a), params.pow5(rtk.j), ct.qs)
+    return key_switch(params, rtk.ksk, CkksCiphertext(b, a, ct.qs))
 
 
 def hoisted_rotations(params: CkksParams, rtks: tuple, ct: CkksCiphertext, js: tuple) -> tuple:
     """Rotate one ciphertext by many indices at the cost of one base extension
     and one forward transform (eprint 2018/1043 §5.3): automorphisms act on
     the evaluation basis as a slot permutation (`ops/ntt.py`
-    `eval_automorphism_perm`), so the extended, transformed mask is permuted
-    per rotation and dotted with its eval-resident key."""
+    `eval_automorphism_perm`), so each rotation dots the extended,
+    transformed mask, read through its permutation (K-RNS-MAC's gathered
+    instance: no permuted copy), with its eval-resident key."""
     qs = ct.qs
     plan_q = params.plan(qs)
     ae = _ks_hoist(params, ct.a, qs)  # (..., D, Lqp, N)
@@ -497,8 +505,7 @@ def hoisted_rotations(params: CkksParams, rtks: tuple, ct: CkksCiphertext, js: t
     for rtk, j in zip(rtks, js):
         assert rtk.j == j % params.l
         t = params.pow5(j)
-        perm = torch.from_numpy(eval_automorphism_perm(n, t)).to(ae.device)
-        ba = _ks_finish(params, rtk.ksk, ae[..., perm], qs)
+        ba = _ks_finish(params, rtk.ksk, ae, qs, _eval_perm(n, t, ae.device))
         outs.append(CkksCiphertext(rns_add(ba[0], _automorphism_rns(ct.b, t, qs), plan_q), ba[1], qs))
     return tuple(outs)
 
@@ -527,18 +534,35 @@ def _ksk_digits(params: CkksParams, arr: torch.Tensor, n_active: int, idx: list[
     return _select(a3[:d_active], idx, -2)
 
 
-def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple) -> torch.Tensor:
-    """The digit contraction of ae (..., D, Lqp, N) against both ksk
-    components inside their inverse transforms (one launch), and the rescale
-    by P: (2, ..., L, N), the switched b (without the source's b) and a."""
+def _digits(ae: torch.Tensor) -> list[torch.Tensor]:
+    """The D digits of a hoisted mask (..., D, Lqp, N), each contiguous."""
+    return [ae[..., d, :, :].contiguous() for d in range(ae.shape[-3])]
+
+
+def _ks_dot(ksk_sel: torch.Tensor, ae: torch.Tensor, plan: RnsPlan, perm=None, ksk_z=None) -> torch.Tensor:
+    """sum_d ksk[d] * ae[d] in the evaluation basis (the digit contraction)
+    in one K-RNS-MAC launch: ksk_sel (D, Lqp, N), ae (..., D, Lqp, N). With
+    perm (an `_eval_perm` table), ae read through it, as the JAX package's
+    `_ks_dot(ksk, ae[..., perm])`; with ksk_z (shaped as ksk_sel), both
+    sums, stacked: (2, ..., Lqp, N)."""
+    D = ae.shape[-3]
+    zs = None if ksk_z is None else [ksk_z[d] for d in range(D)]
+    return rns_mac(_digits(ae), [ksk_sel[d] for d in range(D)], plan, zs, None if perm is None else [perm] * D)
+
+
+def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None) -> torch.Tensor:
+    """The digit contraction of ae (..., D, Lqp, N), read through perm where
+    given (`_eval_perm`), against both ksk components inside their inverse
+    transforms (one launch), and the rescale by P: (2, ..., L, N), the
+    switched b (without the source's b) and a."""
     qps = qs + params.ps
     plan = params.plan(qps)
     idx = [params.qps.index(q) for q in qps]
     ksk_b = _ksk_digits(params, ksk.b, len(qs), idx)
     ksk_a = _ksk_digits(params, ksk.a, len(qs), idx)
     D = ae.shape[-3]
-    xs = [ae[..., d, :, :].contiguous() for d in range(D)]
-    ba = rns_intt_mac(xs, [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)])
+    perms = None if perm is None else [perm] * D
+    ba = rns_intt_mac(_digits(ae), [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)], perms)
     return rescale_k(ba, qps, len(params.ps))
 
 

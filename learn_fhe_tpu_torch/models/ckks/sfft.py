@@ -1,8 +1,11 @@
 """CKKS "special FFT" in powers-of-5 order (Algorithm 1 of eprint 2018/1043;
 reference `scheme/ckks/src/sfft.rs`), on the host in double-double or 256-bit
-fixed point (`learn_fhe_tpu/models/ckks/sfft.py`, its sfft and sifft).
+fixed point (`learn_fhe_tpu/models/ckks/sfft.py`).
 
 sfft: coefficients -> slot evaluations at zeta^{5^j}; sifft its inverse.
+sfft_fmats/sifft_fmats: the factorization of the (inverse) decode matrix into
+log N sparse-diagonal factors (V_0 of eprint 2018/1073), consumed by the
+homomorphic CoeffToSlot/SlotToCoeff (`bootstrapping.py`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 
 from ...ops.ntt import bit_reverse_indices
 from ...utils.dd import DDC, cis_table_dd
+from ...utils.matrix import mat_inv
 
 
 @lru_cache(maxsize=None)
@@ -96,3 +100,30 @@ def sifft(z):
         z[b_idx] = (a - b) * t
     z = z[np.asarray(bit_reverse_indices(n))]
     return z.scale_pow2(-log_n)
+
+
+def sfft_fmats(n: int) -> list[dict[int, DDC]]:
+    """Sparse-diagonal factorization of the sfft matrix (V_0 of 2018/1073,
+    `sfft.rs:75-94`): log n factors, each a dict offset -> diagonal."""
+    assert n & (n - 1) == 0
+    log_n = n.bit_length() - 1
+    mats = []
+    for log_k in range(log_n):
+        m = 1 << (log_n - 1 - log_k)
+        w = w_dd(2 * m)
+        one = DDC.from_f64(np.ones(m))
+        zero = DDC.zeros(m)
+        diag_zero = one.concat(-w).tile(n // (2 * m))
+        if log_k == 0:
+            diag_neg = w.concat(one).tile(n // (2 * m))
+            mats.append({0: diag_zero, (n - m) % n: diag_neg})
+        else:
+            diag_neg = zero.concat(one).tile(n // (2 * m))
+            diag_pos = w.concat(zero).tile(n // (2 * m))
+            mats.append({0: diag_zero, n - m: diag_neg, m: diag_pos})
+    return mats
+
+
+def sifft_fmats(n: int) -> list[dict[int, DDC]]:
+    """Inverses of the reversed factors (`sfft.rs:97-99`)."""
+    return [mat_inv(m, n) for m in reversed(sfft_fmats(n))]

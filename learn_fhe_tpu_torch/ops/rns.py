@@ -20,7 +20,13 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
 - K-BASECONV, `base_convert`: the approximate base extension qs -> ps
   (`extend_bases` :356, `switch_bases` :422);
 - K-RESCALE, `rescale_finish`: the rounding division by the dropped primes
-  that ends `rescale_k` (:426).
+  that ends `rescale_k` (:426);
+- the gathered instances of K-RNS-MAC (`rns_mac` / `rns_intt_mac` with
+  `perms`): a term's x read at the columns of an evaluation-slot
+  permutation (CKKS's hoisted rotations, `models/ckks/bootstrapping.py:143,
+  147`, `ckks.py:666`, where XLA fuses the gather into the products);
+- K-AUTOMORPH, `automorphism_rns`: the coefficient automorphism X -> X^t
+  of (..., L, N) rows, b and a in one launch (`models/ckks/ckks.py:605`).
 Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
 to the kernel, or the wrapper raises. Add, subtract, negate and
 `rns_from_i64` stay plain torch on either device, as they are XLA
@@ -48,6 +54,7 @@ from ..utils.interop import u64_to_torch
 from ..utils.primes import mod_inverse
 from .modular import barrett_reduce_u64, mulhi64, shoup_precompute
 from .ntt import ntt_plan
+from .poly import automorphism_map
 
 # ---------------------------------------------------------------------------
 # Stacked-limb modular primitives: q and the constants are (L, 1) int64
@@ -221,9 +228,11 @@ MAX_TERMS = 16  # K-RNS-MAC: products a launch sums
 MAX_LIMBS = 64  # K-BASECONV: input limbs a thread holds
 
 
-def _count(fn, rows: int) -> None:
+def _count(fn, rows: int, gather: bool = False) -> None:
     fn.launches += 1
     fn.by_rows[rows] += 1
+    if gather:
+        fn.gather_launches += 1
 
 
 def _check_rows(name: str, x: torch.Tensor, limbs: int, n: int) -> int:
@@ -270,9 +279,19 @@ def rns_intt(x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
     return _transform(rns_intt, "lft_rns_ntt_inv", x, plan)
 
 
-def rns_mac_ref(xs, ys, plan: RnsPlan, zs=None):
+def _permuted(xs, perms):
+    """xs[k][..., perms[k]] where perms[k] is given (the plain versions' gather)."""
+    if perms is None:
+        return xs
+    return [x if p is None else x[..., p.long()] for x, p in zip(xs, perms)]
+
+
+def rns_mac_ref(xs, ys, plan: RnsPlan, zs=None, perms=None):
     """sum_k xs[k] ys[k] mod q_limb (and, given zs, sum_k xs[k] zs[k]):
-    each product by two REDCs, then the modular sum in order (`_ks_dot`)."""
+    each product by two REDCs, then the modular sum in order (`_ks_dot`).
+    With perms, xs[k] is read as xs[k][..., perms[k]] where perms[k] is not
+    None."""
+    xs = _permuted(xs, perms)
     t = rns_tables(plan, xs[0].device)
 
     def dot(ws):
@@ -315,54 +334,143 @@ def _mac_operands(name: str, xs, ys, zs, plan: RnsPlan) -> tuple[int, int, tuple
     return rows, ys[0].numel() // n, (ptrs(xs), ptrs(ys), None if zs is None else ptrs(zs))
 
 
-def rns_mac(xs, ys, plan: RnsPlan, zs=None) -> torch.Tensor:
+def _perm_operands(name: str, perms, terms: int, n: int) -> np.ndarray | None:
+    """The host array of the terms' permutation-table pointers (0 for None),
+    or None where no term has a table (the ungathered instances). A table
+    is a contiguous, 16-byte aligned int32 (n,) on the current CUDA device,
+    a permutation of 0..n-1 (the caller's: the kernels do not check it)."""
+    if perms is None or all(p is None for p in perms):
+        return None
+    if len(perms) != terms:
+        raise ValueError(f"{name}: takes one permutation table (or None) per term, got {len(perms)} for {terms}")
+    for p in perms:
+        if p is not None:
+            kernels.require(name, p, torch.int32, (n,))
+            if p.data_ptr() % 16:
+                raise ValueError(f"{name}: the kernel reads a permutation table in 16-byte words; it is not 16-byte aligned")
+    return np.array([0 if p is None else p.data_ptr() for p in perms], dtype=np.uint64)
+
+
+def rns_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
     """sum_k xs[k] * ys[k] mod q_limb in the evaluation basis: xs[k] of shape
     (..., L, N); each ys[k] of the same shape, or (L, N) and broadcast over
     the leading axes (a key). With zs (shaped as ys), both sums, stacked on
-    a new leading axis (one launch)."""
+    a new leading axis (one launch). With perms (one int32 (N,) table or
+    None per term), term k reads xs[k][..., perms[k]]: the gathered
+    instance, which reads x at the table's columns rather than a permuted
+    copy."""
     if xs[0].is_cpu:
-        return rns_mac_ref(xs, ys, plan, zs)
+        return rns_mac_ref(xs, ys, plan, zs, perms)
     rows, y_rows, (px, py, pz) = _mac_operands("rns_mac", xs, ys, zs, plan)
+    pp = _perm_operands("rns_mac", perms, len(xs), plan.n)
     out = torch.empty((1 if zs is None else 2, *xs[0].shape), dtype=torch.int64, device=xs[0].device)
     if rows:
         t = rns_tables(plan, xs[0].device)
+        entry, gather = ("lft_rns_mac",), ()
+        if pp is not None:
+            entry, gather = ("lft_rns_mac_gather",), (pp.ctypes.data,)
         kernels.launch(
-            "lft_rns_mac", px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data,
+            *entry, px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data, *gather,
             out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows,
             t.q.data_ptr(), t.neg_q_inv.data_ptr(), t.r2.data_ptr(), _mac_chunk(plan.qs),
         )  # fmt: skip
-        _count(rns_mac, rows)
+        _count(rns_mac, rows, pp is not None)
     return out[0] if zs is None else out
 
 
-def rns_intt_mac_ref(xs, ys, plan: RnsPlan, zs=None):
-    return rns_intt_ref(rns_mac_ref(xs, ys, plan, zs), plan)
+def rns_intt_mac_ref(xs, ys, plan: RnsPlan, zs=None, perms=None):
+    return rns_intt_ref(rns_mac_ref(xs, ys, plan, zs, perms), plan)
 
 
-def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None) -> torch.Tensor:
-    """rns_intt(rns_mac(xs, ys, plan, zs), plan) in one launch: the sums are
-    made inside the inverse transform's first pass and never stored. Takes
-    rns_mac's operands; returns (..., L, N), or (2, ..., L, N) with zs."""
+def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
+    """rns_intt(rns_mac(xs, ys, plan, zs, perms), plan) in one launch: the
+    sums are made inside the inverse transform's first pass and never
+    stored. Takes rns_mac's operands; returns (..., L, N), or (2, ..., L, N)
+    with zs."""
     if xs[0].is_cpu:
-        return rns_intt_mac_ref(xs, ys, plan, zs)
+        return rns_intt_mac_ref(xs, ys, plan, zs, perms)
     if plan.n == 1:  # the inverse transform of one value is the value
-        return rns_mac(xs, ys, plan, zs)
+        return rns_mac(xs, ys, plan, zs, perms)
     name = "rns_intt_mac"
     if plan.log_n > MAX_LOG_N:
         raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
     rows, y_rows, (px, py, pz) = _mac_operands(name, xs, ys, zs, plan)
+    pp = _perm_operands(name, perms, len(xs), plan.n)
     sums = 1 if zs is None else 2
     out = torch.empty((sums, *xs[0].shape), dtype=torch.int64, device=xs[0].device)
     if rows:
         t = rns_tables(plan, xs[0].device)
         tabs = (t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, t.q, t.neg_q_inv, t.n_inv_mac, t.n_inv_mac_s)
+        entry, gather = ("lft_rns_intt_mac",), ()
+        if pp is not None:
+            entry, gather = ("lft_rns_intt_mac_gather",), (pp.ctypes.data,)
         kernels.launch(
-            "lft_rns_intt_mac", px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data,
+            *entry, px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data, *gather,
             out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows, *(v.data_ptr() for v in tabs),
             _mac_chunk(plan.qs), int(max(plan.qs) < 1 << 62),
         )  # fmt: skip
-        _count(rns_intt_mac, (sums * rows, len(xs)))
+        _count(rns_intt_mac, (sums * rows, len(xs)), pp is not None)
     return out[0] if zs is None else out
+
+
+# ---------------------------------------------------------------------------
+# K-AUTOMORPH: the coefficient automorphism of RNS rows
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def automorphism_index(n: int, t: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """automorphism_map's src (int64) and sign (bool) on a device."""
+    src, sign = automorphism_map(n, t)
+    return torch.from_numpy(src).to(device), torch.from_numpy(sign).to(device)
+
+
+@lru_cache(maxsize=None)
+def automorphism_code(n: int, t: int, device: torch.device) -> torch.Tensor:
+    """K-AUTOMORPH's table: int32 src | sign << 31 per output column."""
+    src, sign = automorphism_map(n, t)
+    code = src.astype(np.uint32) | (sign.astype(np.uint32) << np.uint32(31))
+    return torch.from_numpy(code.view(np.int32)).to(device)
+
+
+def automorphism_rns_ref(x: torch.Tensor, t: int, qs: tuple) -> torch.Tensor:
+    """X -> X^t of every row of x (..., L, N): the signed gather, negated
+    mod the row's prime (`learn_fhe_tpu/models/ckks/ckks.py:605`)."""
+    src, sign = automorphism_index(x.shape[-1], t, x.device)
+    g = x[..., src]
+    return torch.where(sign, neg_mod_v(g, rns_tables(rns_plan(qs, x.shape[-1]), x.device).q), g)
+
+
+def automorphism_rns(x, t: int, qs: tuple):
+    """K-AUTOMORPH: X -> X^t of the rows of x, a (..., L, N) tensor over
+    qs, or of a pair of them of one shape (CKKS's b and a) in one launch;
+    returns what it was given, permuted. Inputs need not be contiguous (a
+    strided one is copied first)."""
+    pair = isinstance(x, (tuple, list))
+    xs = tuple(x) if pair else (x,)
+    if xs[0].is_cpu:
+        out = tuple(automorphism_rns_ref(v, t, qs) for v in xs)
+        return out if pair else out[0]
+    if not 1 <= len(xs) <= 2:
+        raise ValueError(f"automorphism_rns: takes one tensor or a pair, got {len(xs)}")
+    n = xs[0].shape[-1]
+    xs = tuple(v.contiguous() for v in xs)
+    rows = _check_rows("automorphism_rns", xs[0], len(qs), n)
+    for v in xs[1:]:
+        kernels.require("automorphism_rns", v, torch.int64, xs[0].shape)
+        if v.data_ptr() % 16:
+            raise ValueError("automorphism_rns: the kernel writes rows in 16-byte stores; x is not 16-byte aligned")
+    ys = tuple(torch.empty_like(v) for v in xs)
+    if rows:
+        code = automorphism_code(n, t, xs[0].device)
+        q = rns_tables(rns_plan(qs, n), xs[0].device).q
+        second = (xs[1].data_ptr(), ys[1].data_ptr()) if len(xs) == 2 else (0, 0)
+        kernels.launch(
+            "lft_rns_automorphism", xs[0].data_ptr(), second[0], ys[0].data_ptr(), second[1], code.data_ptr(),
+            q.data_ptr(), rows, len(qs), n.bit_length() - 1,
+        )  # fmt: skip
+        _count(automorphism_rns, len(xs) * rows)
+    return ys if pair else ys[0]
 
 
 def rns_add(a, b, plan: RnsPlan):
@@ -585,7 +693,7 @@ def base_convert(x: torch.Tensor, qs: tuple[int, ...], ps: tuple[int, ...], add=
             "lft_base_convert", x.data_ptr(), y.data_ptr(), *(v.data_ptr() for v in t), 0 if add_t is None else add_t.data_ptr(),
             len(qs), len(ps), n.bit_length() - 1, batch, stride,
         )  # fmt: skip
-        _count(base_convert, batch * len(qs))
+        _count(base_convert, (batch * len(qs), len(qs), len(ps)))
     return y
 
 
@@ -721,7 +829,10 @@ def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int) -> torch.Tensor:
     return rescale_finish(x, conv, rp)
 
 
-# launches, and launches by row count (K-BASECONV: input rows; rns_intt_mac:
-# (output rows, terms))
-for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish):
+# launches, and launches by row count (K-BASECONV: (input rows, input
+# limbs, output limbs); rns_intt_mac: (output rows, terms); K-AUTOMORPH:
+# rows of all its parts); of the MAC's, those of its gathered instances
+for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns):
     _fn.launches, _fn.by_rows = 0, Counter()
+for _fn in (rns_mac, rns_intt_mac):
+    _fn.gather_launches = 0

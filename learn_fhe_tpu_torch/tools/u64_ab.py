@@ -50,7 +50,10 @@ import chip_smoke as cs  # noqa: E402
 from learn_fhe_tpu_torch.utils import kernels  # noqa: E402
 
 # The cases, by kernel name, that need an entry point newer libraries add.
-NEW_ENTRIES = {"ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac"}
+NEW_ENTRIES = {
+    "ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac", "rns_mac_gather": "lft_rns_mac_gather",
+    "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
+}  # fmt: skip
 
 
 def runs_on(lib, name: str) -> bool:

@@ -151,3 +151,19 @@ def ckks_ksk_from_numpy(ksk, device=None):
     if b.shape != a.shape or b.ndim not in (2, 3) or b.shape[-2] != len(ksk.qs):
         raise ValueError(f"ckks_ksk_from_numpy: expected b and a of shape ([D,] {len(ksk.qs)}, N), got {b.shape}, {a.shape}")
     return CkksKeySwitchingKey(u64_to_torch(b, device), u64_to_torch(a, device), tuple(ksk.qs))
+
+
+def ckks_bootstrap_key_from_numpy(bk, device=None):
+    """The port's BootstrapKey from the JAX package's, given with numpy
+    leaves: its parameters (a CkksParams' fields and r) and its `rtk` dict
+    of rotation keys, each key by `ckks_ksk_from_numpy`, on `device` (see
+    `resolve_device`). The diagonal cache starts empty: the port encodes
+    its own."""
+    from ..models.ckks.bootstrapping import BootstrapKey, BootstrapParams
+    from ..models.ckks.ckks import CkksParams, CkksRotKey
+
+    device = resolve_device(device)
+    p = bk.bp.params
+    params = CkksParams(p.log_n, p.log_qi, p.big_l, p.log_qis, p.log_ps, p.dnum)
+    rtk = {int(j): CkksRotKey(ckks_ksk_from_numpy(k.ksk, device), int(k.j)) for j, k in bk.rtk.items()}
+    return BootstrapKey(BootstrapParams(params, bk.bp.r), rtk)

@@ -1243,11 +1243,154 @@ def test_rns_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rns.rns_ntt(torch.zeros((2, 4, 1 << 14), dtype=torch.int64, device=dev), rns.rns_plan(_rns_primes(4, 14), 1 << 14))
 
 
+def _perm_tables(rng, n, dev):
+    """Index tables of the gathered instances: evaluation-slot permutations
+    (`eval_automorphism_perm`, as CKKS's rotations read them) where N >= 4,
+    a random permutation and the identity."""
+    from learn_fhe_tpu_torch.ops.ntt import eval_automorphism_perm
+
+    tabs = [rng.permutation(n), np.arange(n)]
+    if n >= 4:
+        tabs += [eval_automorphism_perm(n, pow(5, j, 2 * n)) for j in (1, 3)] + [eval_automorphism_perm(n, 2 * n - 1)]
+    return [torch.from_numpy(t.astype(np.int32)).to(dev) for t in tabs]
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("bits", [55, 62, 63])
+def test_gathered_mac_at_every_ring(dev, log_n, bits):
+    """K-RNS-MAC's gathered instances (rns_mac and rns_intt_mac with perms)
+    at every ring N = 2..2^13, lazy at 55 and 62 bits and eager at 63, on 1,
+    2, 3 and 16 terms, with and without z, with y and z of x's shape or a
+    key broadcast over the batch, each term read through a random
+    permutation, an evaluation-slot permutation, the identity or no table:
+    equal to the plain versions (x[..., perm] then the sum)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(3, log_n, bits)
+    plan = rns.rns_plan(qs, n)
+    rng = np.random.default_rng(log_n * 100 + bits + 7)
+    tabs = _perm_tables(rng, n, dev)
+    for terms, with_z, broadcast in [(1, False, False), (1, True, True), (2, False, True), (2, True, False), (3, True, True), (16, False, False), (16, True, True)]:
+        xs, ys, zs = _mac_operands(rng, qs, (2,), n, terms, with_z, broadcast)
+        on = lambda ts: None if ts is None else [t.to(dev) for t in ts]  # noqa: E731
+        xd, yd, zd = on(xs), on(ys), on(zs)
+        perms = [None if k % 4 == 3 else tabs[k % len(tabs)] for k in range(terms)]
+        for fn, ref in ((rns.rns_mac, rns.rns_mac_ref), (rns.rns_intt_mac, rns.rns_intt_mac_ref)):
+            before, gathered = fn.launches, fn.gather_launches
+            _same(fn(xd, yd, plan, zd, perms), ref(xd, yd, plan, zd, perms).cpu())
+            assert (fn.launches, fn.gather_launches) == (before + 1, gathered + 1)
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 13])
+@pytest.mark.parametrize("limbs,lead", _RNS_ROWS)
+def test_gathered_mac_at_row_counts(dev, log_n, limbs, lead):
+    """The gathered rns_intt_mac on 1, 3, 128 and 513 x rows, the
+    bootstrap's shapes among them (a batch of 2 at 46 limbs with z; b's
+    sum at 23 limbs with a term read in place)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(limbs, log_n)
+    plan = rns.rns_plan(qs, n)
+    rng = np.random.default_rng(log_n * 1000 + limbs)
+    tabs = _perm_tables(rng, n, dev)
+    for terms, with_z in [(1, True), (4, False)]:
+        xs, ys, zs = (None if t is None else [v.to(dev) for v in t] for t in _mac_operands(rng, qs, lead, n, terms, with_z, True))
+        perms = [tabs[k % len(tabs)] if k else None for k in range(terms)]
+        _same(rns.rns_intt_mac(xs, ys, plan, zs, perms), rns.rns_intt_mac_ref(xs, ys, plan, zs, perms).cpu())
+    for limbs2 in (23, 46):
+        qs2 = _rns_primes(limbs2, log_n)
+        plan2 = rns.rns_plan(qs2, n)
+        xs, ys, zs = (None if t is None else [v.to(dev) for v in t] for t in _mac_operands(rng, qs2, (2,), n, 1, True, True))
+        _same(rns.rns_mac(xs, ys, plan2, zs, tabs[2:3]), rns.rns_mac_ref(xs, ys, plan2, zs, tabs[2:3]).cpu())
+
+
+@pytest.mark.parametrize("log_n", range(1, 14))
+def test_automorphism_kernel_at_every_ring(dev, log_n):
+    """K-AUTOMORPH at every ring N = 2..2^13 for t = 5^j and -1, on one
+    tensor and on a pair (b and a in one launch), holding 0 and q - 1 (the
+    negation of 0 is 0); a strided input is copied first."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    n = 1 << log_n
+    qs = _rns_primes(5, log_n, 62)
+    rng = np.random.default_rng(log_n + 40)
+    x, y = (_rns_residues(rng, qs, (2,), n).to(dev) for _ in range(2))
+    x[0, :, : n // 2] = 0
+    x[1, -1, -1] = qs[-1] - 1
+    for t in (5, 25, pow(5, 11, 2 * n), -1):
+        before = rns.automorphism_rns.launches
+        _same(rns.automorphism_rns(x, t, qs), rns.automorphism_rns_ref(x, t, qs).cpu())
+        b, a = rns.automorphism_rns((x, y), t, qs)
+        _same(b, rns.automorphism_rns_ref(x, t, qs).cpu())
+        _same(a, rns.automorphism_rns_ref(y, t, qs).cpu())
+        assert rns.automorphism_rns.launches == before + 2
+    view = x[:, 1:4]
+    _same(rns.automorphism_rns(view, -1, qs[1:4]), rns.automorphism_rns_ref(view, -1, qs[1:4]).cpu())
+
+
+@pytest.mark.parametrize("lq", range(1, 24))
+def test_base_convert_at_the_bootstrap_levels(dev, lq):
+    """K-BASECONV at the bootstrap's shapes (N = 2^13, a batch of 2): a
+    level's lq q-limbs into the 23 p-primes (the hoist), and at lq = 1 the
+    bottom limb into the other 22 q-primes (mod_raise, b and a stacked)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    primes = _rns_primes(46)
+    qs, ps = primes[:23], primes[23:]
+    x = _rns_residues(np.random.default_rng(lq + 300), qs[:lq], (2,), 1 << 13).to(dev)
+    _same(rns.base_convert(x, qs[:lq], ps), rns.base_convert_ref(x, qs[:lq], ps).cpu())
+    if lq == 1:
+        ba = torch.stack([x, x.flip(0)])
+        _same(rns.base_convert(ba, qs[:1], qs[1:]), rns.base_convert_ref(ba, qs[:1], qs[1:]).cpu())
+
+
+def test_ckks_bootstrap_on_card_matches_cpu(dev):
+    """The bootstrap at N=16, L=16, r=3 and the default EvalModParams on a
+    batch of 2: the card's output equals the plain path's on the CPU, and
+    the gathered rns_intt_mac and rns_mac, K-AUTOMORPH, K-BASECONV,
+    K-RNS-NTT and K-RESCALE launch on it."""
+    from learn_fhe_tpu_torch.models.ckks import bootstrapping as B
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.models.ckks import evalmod as E
+    from learn_fhe_tpu_torch.ops import rns
+
+    outs = []
+    for device in (dev, "cpu"):
+        params = C.CkksParams(log_n=4, log_qi=55, big_l=16)
+        rng = np.random.default_rng(17)
+        sk = C.sk_gen(params, rng)
+        rlk, cjk = C.rlk_gen(params, sk, rng, device), C.cjk_gen(params, sk, rng, device)
+        bk = B.key_gen(B.BootstrapParams(params, r=3), sk, rng, device)
+        lows = [
+            C.to_level(C.sk_encrypt(params, sk, C.encode(params, rng.standard_normal(params.l) * 1e-4, device=device), params.qs, rng), params.qs[:1])
+            for _ in range(2)
+        ]
+        low = C.CkksCiphertext(torch.stack([c.b for c in lows]), torch.stack([c.a for c in lows]), params.qs[:1])
+        fns = (rns.rns_intt_mac, rns.rns_mac, rns.automorphism_rns, rns.base_convert, rns.rns_ntt, rns.rescale_finish)
+        for fn in fns:
+            fn.launches = 0
+        rns.rns_intt_mac.gather_launches = rns.rns_mac.gather_launches = 0
+        outs.append(E.bootstrap(params, bk, rlk, cjk, low))
+        if device is dev:
+            torch.cuda.synchronize()
+            assert all(fn.launches for fn in fns), {fn.__name__: fn.launches for fn in fns}
+            assert rns.rns_intt_mac.gather_launches and rns.rns_mac.gather_launches == rns.rns_mac.launches
+    (got, want) = outs
+    assert got.qs == want.qs and len(got.qs) >= 2
+    _same(got.b, want.b)
+    _same(got.a, want.a)
+
+
 def test_ckks_mul_rotate_on_card_match_cpu(dev):
-    """A batch-16 mul, a rotate and a conjugate at N=2^10, L=8 on the card
-    equal the plain path's on the CPU; K-RNS-NTT, the inverse with its MAC
-    source, K-BASECONV and K-RESCALE launch, the MAC and the inverse alone
-    do not."""
+    """A batch-16 mul, a rotate, a conjugate and two hoisted rotations at
+    N=2^10, L=8 on the card equal the plain path's on the CPU; K-RNS-NTT,
+    the inverse with its MAC source, K-BASECONV and K-RESCALE launch on the
+    mul, the MAC and the inverse alone do not; a rotate launches K-AUTOMORPH
+    once (b and a) and no gathered MAC; the hoisted rotations one hoist,
+    then per rotation the gathered MAC inside the inverse and K-AUTOMORPH of
+    b alone."""
     from learn_fhe_tpu_torch.models.ckks import ckks as C
     from learn_fhe_tpu_torch.ops import rns
 
@@ -1274,12 +1417,34 @@ def test_ckks_mul_rotate_on_card_match_cpu(dev):
     want = C.mul(params, cpu_key(rlk), c0, c1)
     _same(out.b[0], want.b)
     _same(out.a[0], want.a)
+    # a rotate: K-AUTOMORPH once (b and a), the key switch's hoist
+    # (K-BASECONV q -> p, one forward transform), its dot inside the
+    # inverse, the rescale by P (K-BASECONV + K-RESCALE); no MAC alone, no
+    # gather
+    counted = (rns.automorphism_rns, rns.rns_ntt, rns.rns_intt_mac, rns.base_convert, rns.rescale_finish, rns.rns_mac)
+    for fn in counted:
+        fn.launches = 0
+    rns.rns_intt_mac.gather_launches = 0
     got_rot = C.rotate(params, rtk, ct0)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [1, 1, 1, 2, 1, 0] and rns.rns_intt_mac.gather_launches == 0
     want_rot = C.rotate(params, C.CkksRotKey(cpu_key(rtk.ksk), rtk.j), c0)
     _same(got_rot.a[0], want_rot.a)
     _same(got_rot.b[0], want_rot.b)
     got_conj = C.conjugate(params, cjk, ct0)
     want_conj = C.conjugate(params, cpu_key(cjk), c0)
     _same(got_conj.b[0], want_conj.b)
+    # hoisted rotations: one hoist, then per rotation the gathered dot
+    # inside the inverse (no permuted copy) and K-AUTOMORPH of b alone
+    rtk2 = C.rtk_gen(params, sk, 7, rng)
+    for fn in counted:
+        fn.launches = 0
+    got_h = C.hoisted_rotations(params, (rtk, rtk2), ct0, (3, 7))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [2, 1, 2, 3, 2, 0] and rns.rns_intt_mac.gather_launches == 2
+    want_h = C.hoisted_rotations(params, (C.CkksRotKey(cpu_key(rtk.ksk), 3), C.CkksRotKey(cpu_key(rtk2.ksk), 7)), c0, (3, 7))
+    for g, w in zip(got_h, want_h):
+        _same(g.b[0], w.b)
+        _same(g.a[0], w.a)
     dec = C.decode(params, C.decrypt(params, sk, C.CkksCiphertext(out.b[5], out.a[5], out.qs)), out.qs)
     assert np.max(np.abs(dec - ms[5] * ms[21])) < 2.0**-30

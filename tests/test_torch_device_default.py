@@ -236,3 +236,48 @@ def test_ckks_key_gen_defaults_to_the_card():
     rlk = ckks.rlk_gen(params, sk, rng)
     ct = ckks.sk_encrypt(params, sk, ckks.encode(params, np.ones(params.l)), params.qs, rng)
     assert rlk.b.device.type == "cuda" and ct.b.device.type == "cuda"
+
+
+def _bootstrap_params():
+    from learn_fhe_tpu_torch.models import ckks
+
+    return ckks.BootstrapParams(ckks.CkksParams(log_n=3, log_qi=30, big_l=3), r=3)
+
+
+def test_ckks_bootstrap_key_gen_and_carry_over_raise_without_cuda(no_cuda):
+    from learn_fhe_tpu_torch.models import ckks
+    from learn_fhe_tpu_torch.utils.interop import ckks_bootstrap_key_from_numpy
+
+    bp = _bootstrap_params()
+    rng = np.random.default_rng(0)
+    sk = ckks.sk_gen(bp.params, rng)
+    with pytest.raises(RuntimeError, match="GPU"):
+        ckks.key_gen(bp, sk, rng)
+    ksk = NS(b=np.zeros((6, 8), np.uint64), a=np.zeros((6, 8), np.uint64), qs=bp.params.qps)
+    with pytest.raises(RuntimeError, match="GPU"):
+        ckks_bootstrap_key_from_numpy(NS(bp=bp, rtk={1: NS(ksk=ksk, j=1)}))
+
+
+def test_ckks_bootstrap_key_on_cpu_when_asked():
+    from learn_fhe_tpu_torch.models import ckks
+    from learn_fhe_tpu_torch.utils.interop import ckks_bootstrap_key_from_numpy
+
+    bp = _bootstrap_params()
+    rng = np.random.default_rng(0)
+    bk = ckks.key_gen(bp, ckks.sk_gen(bp.params, rng), rng, device="cpu")
+    assert bk.rtk and all(k.ksk.b.device.type == "cpu" for k in bk.rtk.values())
+    leaves = {j: NS(ksk=NS(b=k.ksk.b.numpy().view(np.uint64), a=k.ksk.a.numpy().view(np.uint64), qs=k.ksk.qs), j=k.j) for j, k in bk.rtk.items()}
+    carried = ckks_bootstrap_key_from_numpy(NS(bp=bp, rtk=leaves), device="cpu")
+    assert all(torch.equal(carried.rtk[j].ksk.a, k.ksk.a) for j, k in bk.rtk.items())
+
+
+@pytest.mark.cuda
+def test_ckks_bootstrap_key_gen_defaults_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from learn_fhe_tpu_torch.models import ckks
+
+    bp = _bootstrap_params()
+    rng = np.random.default_rng(0)
+    bk = ckks.key_gen(bp, ckks.sk_gen(bp.params, rng), rng)
+    assert all(k.ksk.b.device.type == "cuda" for k in bk.rtk.values())

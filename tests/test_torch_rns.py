@@ -265,6 +265,10 @@ _RNS = "_ZN40_GLOBAL__N__1a2b3c4d_8_rns64_cu_5e6f7a8b"
         (_RNS + "19rns_ntt_rows_kernelILb1ELb1ELi2EEEvPKmPmNS_7StackedEii", "rns_ntt_rows_kernel<true,true,2>"),
         (_RNS + "19base_convert_kernelILi8EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<8>"),
         (_RNS + "19base_convert_kernelILi0EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<0>"),
+        (_RNS + "26rns_intt_mac_gather_kernelILb1ELi13EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_gather_kernel<true,13>"),
+        (_RNS + "31rns_intt_mac_gather_rows_kernelILb0ELi0EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_gather_rows_kernel<false,0>"),
+        (_RNS + "21rns_mac_gather_kernelILi4EEEvNS_11GatherTermsEPmNS_8MacShapeEiPKmS5_S5_", "rns_mac_gather_kernel<4>"),
+        (_RNS + "19automorphism_kernelILi4EEEvNS_5PartsEPKiPKmiii", "automorphism_kernel<4>"),
     ],
 )
 def test_ptxas_report_names_the_rns_kernels(mangled, name):
@@ -288,3 +292,9 @@ def test_wrappers_raise_rather_than_fall_back():
     x = torch.zeros((2, 8), dtype=torch.int64)
     with pytest.raises(ValueError):
         TR._mac_operands("rns_intt_mac", [x], [x], None, plan)
+    # the gathered instances' tables and K-AUTOMORPH's rows
+    with pytest.raises(ValueError):
+        TR._perm_operands("rns_intt_mac", [torch.arange(8, dtype=torch.int32)], 1, 8)
+    with pytest.raises(ValueError):
+        TR._check_rows("automorphism_rns", x, 2, 8)
+    assert TR._perm_operands("rns_mac", [None, None], 2, 8) is None
