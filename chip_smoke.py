@@ -145,21 +145,26 @@ batch 2 from seed 17, messages x 1e-4):
       (2, 46, 8192) through sigma_j, the key's b and a sums) and
       `rns_intt_mac` with 1-4 terms and z, through each of the path's 22
       rotations' permutations and the identity, and b's sums (2, 23, 8192)
-      with a term read in place; K-AUTOMORPH on b and a (2, 23, 8192) for
+      of 2-4 terms with one read in place, each with one x in every term
+      (the shared-x instances, which the wrapper must take) and with
+      distinct x (which it must not); K-AUTOMORPH on b and a (2, 23, 8192) for
       each rotation and t = -1; K-BASECONV from one limb into 22 (mod_raise)
       and from every level 1..23 into the 23 p-primes (the hoists);
       K-RNS-NTT at 46 and 23 limbs; K-RESCALE at k=1 and k=23; all with
       `torch.equal`, each wrapper's counter rising by one a call; time
       each over 20 eager calls and from a CUDA graph of 20 against its
-      bound, and print the new instances' registers, spills and stack;
+      bound (the gathered sums at 23 and 5 limbs beside `rns_intt` at the
+      same rows, and at 23 with distinct x), and print the bootstrap's
+      instances' registers, spills and stack;
   B2. the bootstrap at N=16, L=16 (r=3, default EvalModParams, batch 2,
       seed 17) on the card == the port's CPU path, bit for bit;
   B3. the path: key generation on the card, timed (it must launch the
       kernels); one cold bootstrap of the batch of 2; one warm one with the
       launch counters set to 0 just before and read just after, printed by
-      shape (the gathered `rns_intt_mac`, K-AUTOMORPH, K-BASECONV at lq = 1,
-      K-RNS-NTT, K-RESCALE and the key switches' `rns_intt_mac` must
-      launch); at least 2 levels left and more than 16 relative bits for
+      shape, the gathered `rns_intt_mac` apart by (rows, terms) (it, its
+      shared-x instance, K-AUTOMORPH, K-BASECONV at lq = 1, K-RNS-NTT,
+      K-RESCALE and the key switches' `rns_intt_mac` must launch); at
+      least 2 levels left and more than 16 relative bits for
       each decrypted ciphertext (`tests/test_ckks_bootstrap.py::
       test_full_bootstrap_n8192`); then 3 warm bootstraps (median and
       spread of seconds per ciphertext, bootstraps/s), the host enqueue
@@ -1428,30 +1433,36 @@ BOOT_REPS = 20  # eager calls and CUDA-graph launches a B1 timing averages
 BOOT_BITS = 16.0  # `tests/test_ckks_bootstrap.py::test_full_bootstrap_n8192`
 BOOT_LEVELS = 2  # levels left that the same test asks for
 BOOT_INSTANCES = (
-    "rns_mac_gather_kernel<4>", "rns_intt_mac_gather_kernel<true,13>", "automorphism_kernel<4>", "base_convert_kernel<1>",
-    "base_convert_kernel<0>",
+    "rns_mac_gather_kernel<4>", "rns_intt_mac_gather_kernel<true,13>", "rns_intt_mac_shared_kernel<1>",
+    "rns_intt_mac_shared_kernel<2>", "rns_intt_mac_shared_kernel<3>", "rns_intt_mac_shared_kernel<4>",
+    "automorphism_kernel<4>", "base_convert_kernel<1>", "base_convert_kernel<0>",
 )  # fmt: skip
+BOOT_LOW = 5  # SlotToCoeff's limbs at its b sums of 4 terms (the path's 10-row launches)
 
 
-def gather_mac_ops(values: int, terms: int, sums: int, fused: bool) -> np.ndarray:
+def gather_mac_ops(values: int, terms: int, sums: int, fused: bool, shared: bool = False) -> np.ndarray:
     """K-RNS-MAC's gathered instances on `values` outputs of each of `sums`
     sums of `terms` products: per sum and value the 128-bit multiply-adds,
     one REDC and the add of its residue mod q (the terms are a run-time
-    count); alone, also the REDC by 2^128 mod q. The gather's index loads
-    are not counted (no arithmetic)."""
-    return values * sums * (terms * MAC128 + REDC64 + ADD_Q64 + (0 if fused else REDC64))
+    count; not in the shared-x instances inside the inverse, whose count is
+    a constant of one chunk); alone, also the REDC by 2^128 mod q. The
+    gather's index loads are not counted (no arithmetic)."""
+    return values * sums * (terms * MAC128 + REDC64 + (0 if shared else ADD_Q64) + (0 if fused else REDC64))
 
 
 def bootstrap_cases(params, batch: int, rng, dev):
     """B1's timed launches at the bootstrap's shapes: the gathered MAC as
     W[j] (a digit of the hoisted mask through sigma_j, the key's b and a
     sums) and as a giant group's b sum (4 diagonals, b read through 3
-    permutations and in place) inside the inverse; K-AUTOMORPH on b and a;
+    permutations and in place) inside the inverse, at CoeffToSlot's 23
+    limbs and SlotToCoeff's BOOT_LOW (the shared-x instance), and at 23
+    with 4 distinct x (the instance for any x); K-AUTOMORPH on b and a;
     K-BASECONV from one limb (mod_raise, b and a stacked) and from 23
     (the hoist at the top level); the transforms at 46 and 23 limbs;
     K-RESCALE at k=1 and k=23 (the key switch's b and a). Returns
     ({(name, shape): (kernel call, plain call, bytes, instructions)}, the
-    operands B1 also checks with every permutation)."""
+    operands B1 also checks with every permutation). The transforms at
+    BOOT_LOW limbs time `rns_intt` at the gathered sums' rows beside them."""
     from learn_fhe_tpu_torch.models.ckks import bootstrapping as Bt
     from learn_fhe_tpu_torch.models.ckks import ckks as C
     from learn_fhe_tpu_torch.ops import rns
@@ -1470,6 +1481,10 @@ def bootstrap_cases(params, batch: int, rng, dev):
     sig = [C._eval_perm(n, params.pow5(j), dev) for j in js]
     x46, kb, ka = residues(qps, (B,)), residues(qps, ()), residues(qps, ())
     be, pts = residues(qs, (B,)), [residues(qs, ()) for _ in range(4)]
+    bes = [be, *(residues(qs, (B,)) for _ in range(3))]
+    lo = BOOT_LOW
+    plan_lo = params.plan(qs[:lo])
+    be_lo, pts_lo = be[:, :lo].contiguous(), [pt[:lo].contiguous() for pt in pts]
     ba = torch.stack([residues(qs, (B,)), residues(qs, (B,))])
     ba46 = torch.stack([x46, residues(qps, (B,))])
     low = torch.stack([residues(qs[:1], (B,)), residues(qs[:1], (B,))])
@@ -1487,7 +1502,15 @@ def bootstrap_cases(params, batch: int, rng, dev):
         ("rns_intt_mac_gather", (B, L, n)): (
             lambda: rns.rns_intt_mac([be] * 4, pts, plan_q, perms=b_perms),
             lambda: rns.rns_intt_mac_ref([be] * 4, pts, plan_q, perms=b_perms),
-            2 * B * L * n * 8 + 4 * L * n * 8 + 3 * n * 4 + tab(qs), intt64_ops(B * L, n, lazy) + gather_mac_ops(B * L * n, 4, 1, True)),
+            2 * B * L * n * 8 + 4 * L * n * 8 + 3 * n * 4 + tab(qs), intt64_ops(B * L, n, lazy) + gather_mac_ops(B * L * n, 4, 1, True, True)),
+        ("rns_intt_mac_gather", (B, lo, n)): (
+            lambda: rns.rns_intt_mac([be_lo] * 4, pts_lo, plan_lo, perms=b_perms),
+            lambda: rns.rns_intt_mac_ref([be_lo] * 4, pts_lo, plan_lo, perms=b_perms),
+            2 * B * lo * n * 8 + 4 * lo * n * 8 + 3 * n * 4 + tab(qs[:lo]), intt64_ops(B * lo, n, lazy) + gather_mac_ops(B * lo * n, 4, 1, True, True)),
+        ("rns_intt_mac_gather", f"({B}, {L}, {n}) distinct x"): (
+            lambda: rns.rns_intt_mac(bes, pts, plan_q, perms=b_perms),
+            lambda: rns.rns_intt_mac_ref(bes, pts, plan_q, perms=b_perms),
+            5 * B * L * n * 8 + 4 * L * n * 8 + 3 * n * 4 + tab(qs), intt64_ops(B * L, n, lazy) + gather_mac_ops(B * L * n, 4, 1, True)),
         ("automorphism_rns", (2, B, L, n)): (
             lambda: rns.automorphism_rns((ba[0], ba[1]), params.pow5(js[0]), qs),
             lambda: tuple(rns.automorphism_rns_ref(v, params.pow5(js[0]), qs) for v in ba),
@@ -1504,12 +1527,14 @@ def bootstrap_cases(params, batch: int, rng, dev):
                                       2 * B * (L + P) * n * 8 + tab(qps), intt64_ops(B * (L + P), n, lazy)),
         ("rns_intt", (B, L, n)): (lambda: rns.rns_intt(be, plan_q), lambda: rns.rns_intt_ref(be, plan_q),
                                   2 * B * L * n * 8 + tab(qs), intt64_ops(B * L, n, lazy)),
+        ("rns_intt", (B, lo, n)): (lambda: rns.rns_intt(be_lo, plan_lo), lambda: rns.rns_intt_ref(be_lo, plan_lo),
+                                   2 * B * lo * n * 8 + tab(qs[:lo]), intt64_ops(B * lo, n, lazy)),
         ("rescale", "k=1"): (lambda: rns.rescale_finish(be, None, rp1), lambda: rns.rescale_finish_ref(be, None, rp1),
                              B * (2 * L - 1) * n * 8, rescale_ops(B * (L - 1) * n, True)),
         ("rescale", f"k={P}"): (lambda: rns.rescale_finish(ba46, conv23, rp23), lambda: rns.rescale_finish_ref(ba46, conv23, rp23),
                                 3 * 2 * B * L * n * 8, rescale_ops(2 * B * L * n, False)),
     }  # fmt: skip
-    return cases, dict(sig=sig, js=js, x46=x46, kb=kb, ka=ka, be=be, pts=pts, ba=ba, low=low, ba46=ba46)
+    return cases, dict(sig=sig, js=js, x46=x46, kb=kb, ka=ka, be=be, bes=bes, pts=pts, ba=ba, low=low, ba46=ba46)
 
 
 def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
@@ -1529,29 +1554,35 @@ def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
     cases, ops = bootstrap_cases(params, B, np.random.default_rng(41), dev)
     plan_q, plan_qp = params.plan(qs), params.plan(qps)
 
-    def check(name, fn, got_call, plain_call, gathered=False):
-        before, g_before = fn.launches, getattr(fn, "gather_launches", 0)
+    def check(name, fn, got_call, plain_call, gathered=False, shared=None):
+        before, g_before, s_before = fn.launches, getattr(fn, "gather_launches", 0), getattr(fn, "shared_launches", 0)
         got = got_call()
         if fn.launches != before + 1 or (gathered and fn.gather_launches != g_before + 1):
             raise AssertionError(f"B1 {name}: the wrapper did not launch its kernel once")
+        if shared is not None and fn.shared_launches != s_before + int(shared):
+            raise AssertionError(f"B1 {name}: the wrapper {'did not take' if shared else 'took'} the shared-x instance")
         want = plain_call()
         for g, w in zip(got, want) if isinstance(got, tuple) else ((got, want),):
             errs[name] = max(errs.get(name, 0.0), max_abs_err(g, w.cpu()))
 
     # every permutation of the path (its 22 rotations and the identity) in
-    # W[j] and in the key switch's sums of 1-4 terms, and b's sums
+    # W[j] and in the key switch's sums of 1-4 terms with z, and b's sums of
+    # 2-4; the sums with one x (the shared-x instances) and with distinct x
     sig = [*ops["sig"], C._eval_perm(n, 1, dev)]
     x46, kb, ka, be, pts = ops["x46"], ops["kb"], ops["ka"], ops["be"], ops["pts"]
+    x46s, bes = (x46, ops["ba46"][1]), ops["bes"]
     for k, p in enumerate(sig):
         check("rns_mac_gather", rns.rns_mac, lambda p=p: rns.rns_mac([x46], [kb], plan_qp, [ka], [p]),
               lambda p=p: rns.rns_mac_ref([x46], [kb], plan_qp, [ka], [p]), True)  # fmt: skip
         terms = k % 4 + 1
         perms = [sig[(k + t) % len(sig)] for t in range(terms)]
-        check("rns_intt_mac_gather", rns.rns_intt_mac, lambda t=terms, ps_=perms: rns.rns_intt_mac([x46] * t, [kb] * t, plan_qp, [ka] * t, ps_),
-              lambda t=terms, ps_=perms: rns.rns_intt_mac_ref([x46] * t, [kb] * t, plan_qp, [ka] * t, ps_), True)  # fmt: skip
+        for xs in ([x46] * terms, [x46s[t % 2] for t in range(terms)]):
+            check("rns_intt_mac_gather", rns.rns_intt_mac, lambda xs=xs, t=terms, ps_=perms: rns.rns_intt_mac(xs, [kb] * t, plan_qp, [ka] * t, ps_),
+                  lambda xs=xs, t=terms, ps_=perms: rns.rns_intt_mac_ref(xs, [kb] * t, plan_qp, [ka] * t, ps_), True, rns._shared_x(xs))  # fmt: skip
         b_perms = [None, *[sig[(k + t) % len(sig)] for t in range(k % 3 + 1)]]  # 2-4 terms, j = 0's in place
-        check("rns_intt_mac_gather", rns.rns_intt_mac, lambda ps_=b_perms: rns.rns_intt_mac([be] * len(ps_), pts[: len(ps_)], plan_q, perms=ps_),
-              lambda ps_=b_perms: rns.rns_intt_mac_ref([be] * len(ps_), pts[: len(ps_)], plan_q, perms=ps_), True)  # fmt: skip
+        for xs, shared in (([be] * len(b_perms), True), (bes[: len(b_perms)], False)):
+            check("rns_intt_mac_gather", rns.rns_intt_mac, lambda xs=xs, ps_=b_perms: rns.rns_intt_mac(xs, pts[: len(ps_)], plan_q, perms=ps_),
+                  lambda xs=xs, ps_=b_perms: rns.rns_intt_mac_ref(xs, pts[: len(ps_)], plan_q, perms=ps_), True, shared)  # fmt: skip
     for j in (*ops["js"], 0):
         t = params.pow5(j) if j else -1
         check("automorphism_rns", rns.automorphism_rns, lambda t=t: rns.automorphism_rns((ops["ba"][0], ops["ba"][1]), t, qs),
@@ -1562,18 +1593,26 @@ def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
     wrappers = {"rns_mac_gather": rns.rns_mac, "rns_intt_mac_gather": rns.rns_intt_mac, "automorphism_rns": rns.automorphism_rns,
                 "base_convert": rns.base_convert, "rns_ntt": rns.rns_ntt, "rns_intt": rns.rns_intt, "rescale": rns.rescale_finish}  # fmt: skip
     for (name, shape), (kernel, plain, *_) in cases.items():
-        check(name, wrappers[name], kernel, plain, name.endswith("_gather"))
+        shared = None if name != "rns_intt_mac_gather" else not isinstance(shape, str)  # "... distinct x"
+        check(name, wrappers[name], kernel, plain, name.endswith("_gather"), shared)
     xr = ops["ba46"]
     rp = rns.rescale_plan(qps, P)
     errs["rescale"] = max(errs["rescale"], max_abs_err(rns.rescale_k(xr, qps, P), rns.rescale_finish_ref(
         xr, rns.base_convert_ref(xr[..., L:, :], rp.drop, rp.keep, add=rp.p_half[L:]), rp).cpu()))  # fmt: skip
-    say(f"B1 the gathered rns_mac (W[j]) and rns_intt_mac (1-4 terms, with z, and b's sums) at ({B}, {L + P} | {L}, {n}) through each of the path's {len(sig) - 1} permutations and the identity, K-AUTOMORPH on b and a ({B}, {L}, {n}) for each rotation and t = -1, K-BASECONV from 1 -> {L - 1} and from every level 1..{L} -> {P}, K-RNS-NTT at {L + P} and {L} limbs, K-RESCALE at k=1 and k={P} == plain, each wrapper launching its kernel once a call: ok")
+    say(f"B1 the gathered rns_mac (W[j]) and rns_intt_mac (1-4 terms with z, and b's sums of 2-4; each with one x, the shared-x instances, and with distinct x) at ({B}, {L + P} | {L}, {n}) through each of the path's {len(sig) - 1} permutations and the identity, K-AUTOMORPH on b and a ({B}, {L}, {n}) for each rotation and t = -1, K-BASECONV from 1 -> {L - 1} and from every level 1..{L} -> {P}, K-RNS-NTT at {L + P} and {L} limbs, K-RESCALE at k=1 and k={P} == plain, each wrapper launching its kernel once a call: ok")
+    graphed = {}
     for (name, shape), (kernel, plain, n_bytes, ops_) in cases.items():
         k_ms, g_ms, p_ms = cuda_ms(kernel, BOOT_REPS), graph_ms(kernel, BOOT_REPS), cuda_ms(plain, 3)
+        graphed[name, shape] = g_ms
         b_ms, by = bound_ms(n_bytes, ops_, pipe_per_s)
         if name not in timings:  # the new rows of the kernels line
             timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
         say(f"{tag} B1 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({BOOT_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops_[0] / 1e6:.1f} M FMA, {ops_[1] / 1e6:.1f} M ALU, {ops_[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+    for (name, shape), g_ms in graphed.items():  # the gathered sums beside the inverse transform alone
+        if name == "rns_intt_mac_gather":
+            rows = (B, L, n) if isinstance(shape, str) else shape
+            t_ms = graphed["rns_intt", rows]
+            say(f"{tag} B1 rns_intt_mac_gather {shape}: {g_ms * 1e3:.2f} us from a CUDA graph, rns_intt at the same rows {t_ms * 1e3:.2f} us: the sums cost {(g_ms - t_ms) * 1e3:.2f} us")
     say(f"{tag} B1 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -1633,7 +1672,9 @@ def bootstrap_b3(dev, tag, launches) -> None:
     def zero():
         for fn in fns.values():
             fn.launches, fn.by_rows = 0, Counter()
-        rns.rns_mac.gather_launches = rns.rns_intt_mac.gather_launches = 0
+        for fn in (rns.rns_mac, rns.rns_intt_mac):
+            fn.gather_launches, fn.gather_by_rows = 0, Counter()
+        rns.rns_intt_mac.shared_launches = 0
 
     zero()
     t0 = time.perf_counter()
@@ -1659,8 +1700,10 @@ def bootstrap_b3(dev, tag, launches) -> None:
     say(f"B3 launches of one warm bootstrap of the batch of {B}: " + ", ".join(f"{name} {fn.launches}" for name, fn in fns.items()) + f"; the gathered instances: rns_mac {rns.rns_mac.gather_launches}, rns_intt_mac {rns.rns_intt_mac.gather_launches}")
     for name, fn in fns.items():
         say(f"  B3 {name} by rows: {dict(sorted(fn.by_rows.items(), key=str))}")
+    say(f"  B3 the gathered rns_intt_mac by (output rows, terms): {dict(sorted(rns.rns_intt_mac.gather_by_rows.items()))}; of its {rns.rns_intt_mac.gather_launches} launches {rns.rns_intt_mac.shared_launches} took the shared-x instance")
     lq1 = sum(c for (_, lq, _), c in rns.base_convert.by_rows.items() if lq == 1)
-    must = {"the gathered rns_intt_mac": rns.rns_intt_mac.gather_launches, "K-AUTOMORPH": rns.automorphism_rns.launches,
+    must = {"the gathered rns_intt_mac": rns.rns_intt_mac.gather_launches, "its shared-x instance": rns.rns_intt_mac.shared_launches,
+            "K-AUTOMORPH": rns.automorphism_rns.launches,
             "K-BASECONV at lq = 1": lq1, "K-RNS-NTT": rns.rns_ntt.launches, "K-RESCALE": rns.rescale_finish.launches,
             "the key switches' rns_intt_mac": rns.rns_intt_mac.launches - rns.rns_intt_mac.gather_launches}  # fmt: skip
     for what, count in must.items():

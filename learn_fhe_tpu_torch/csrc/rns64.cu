@@ -83,6 +83,13 @@
 //   (the table in 16-byte words, x in 8-byte loads from its row), a null
 //   table reading x in place; separate instances, so the ungathered ones
 //   are as they were. The rotations of a hoisted mask then cost no copy.
+//   Inside the inverse, where every term reads one x (the bootstrap's b
+//   sums; lazy, N = 2^13, 1-4 terms: rns_intt_mac_shared_kernel), each
+//   block copies the x row into shared memory by one bulk copy and the
+//   tables index it; a thread's tables and y come in 16-byte loads for a
+//   group of its items before their sums (redesigned for the H100: the
+//   first version's 8-byte loads from L2, an item and a term at a time,
+//   cost 4.7-9.6 us a launch, PERF.md).
 // - K-AUTOMORPH: one thread per 4 consecutive outputs of b and a, the
 //   signed gather of each from its row.
 #include <cooperative_groups.h>
@@ -90,6 +97,7 @@
 
 #include <cstdint>
 
+#include "bulk.cuh"
 #include "u64.cuh"
 #include "u64_rows.cuh"
 
@@ -293,6 +301,21 @@ __device__ __forceinline__ void sub_row_holders(cg::cluster_group& cluster, uint
   }
 }
 
+// cluster_inverse's last pass: sub_pass, or, for the sums from a shared x
+// row (RowSums, below), staged_last_pass.
+template <int kTerms>
+struct RowSums;
+
+template <bool kLazy, int kAhead, class Src>
+__device__ __forceinline__ void inverse_last_pass(int sub0, int log_n, const lft64::Tables& t, const Src& src,
+                                                  const Buf& out) {
+  sub_pass<2, true, kLazy, kAhead>(sub0, log_n, log_n - 2, t, src, out);
+}
+
+template <bool kLazy, int kAhead, int kTerms>
+__device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
+                                                  const Buf& out);
+
 // The inverse of one row on its cluster into y (the row's 2^log_n values):
 // the last pass (2 layers) takes its items from src (kAhead of them
 // unrolled) into the block's sub-rows, the head passes down to layer 3 run
@@ -309,7 +332,7 @@ __device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __rest
   uint64_t* holder[kSubs];
   sub_row_holders(cluster, buf, log_s, holder);
   Buf sm{buf};
-  sub_pass<2, true, kLazy, kAhead>(sub0, log_n, log_n - 2, t, src, sm);
+  inverse_last_pass<kLazy, kAhead>(sub0, log_n, t, src, sm);
 #pragma unroll
   for (int p = hp - 1; p >= 1; --p) {
     __syncthreads();
@@ -725,6 +748,131 @@ __global__ void __launch_bounds__(kRowThreads)
   intt_mac_row<kLazy, kLogN>(t, y, st, sh, log_n, buf);
 }
 
+// The gathered instance where every term reads one x (rns_intt_mac with
+// perms and one x tensor: the bootstrap's b sums, sum_j pt_j be[sigma_j]),
+// lazy at N = 2^13 with 1-4 terms. The first version read each gathered
+// value with an 8-byte load at a scattered column of the x row in device
+// memory (a 32-byte L2 sector for 8 bytes, per term) one item and one term
+// after the other, so the loads' latency showed once per item and term.
+// Here each block of a row's cluster copies the x row (64 KB) into its
+// shared memory by one bulk copy, issued first; the tables then index
+// shared memory. Each thread issues the 16-byte loads of its items' tables
+// and y (kStaged items at a time) before the copy is waited for and
+// before their sums, which take the x values from shared memory.
+constexpr int kRowBytes = (1 << kMaxLogN) * static_cast<int>(sizeof(uint64_t));
+constexpr int kRowTerms = 4;  // a lazy instance's terms in one 128-bit sum: 4 (q-1)^2 < q 2^64 for q < 2^62
+
+// Items a thread stages at a time: all of them (kItemsAhead) with 1 or 2
+// terms, half as many with 3 or 4 (their tables and y in registers).
+template <int kTerms>
+constexpr int kStaged = kTerms <= 2 ? kItemsAhead : kItemsAhead / 2;
+
+// The sums of the inverse's first pass from the x row in shared memory:
+// fetch issues an item's loads of each term's table (16-byte words; the
+// identity's columns where a term has none) and y, sum makes the item's
+// values from them, 2^-64 sum_k x[idx_k] y_k mod q (one REDC: kTerms <=
+// kRowTerms), ready waits for the row's copy.
+template <int kTerms>
+struct RowSums {
+  static_assert(kTerms >= 1 && kTerms <= kRowTerms, "one REDC an item");
+  const GatherTerms& t;
+  MacRow r;  // w_off at the block's first column
+  lft64::Mod m;
+  const uint64_t* xs;  // the x row, 2^13 values
+  int c_off;           // the block's first column
+  uint64_t* bar;       // the copy's mbarrier
+  struct Staged {
+    int idx[kTerms][4];
+    uint64_t y[kTerms][4];
+  };
+  __device__ __forceinline__ void fetch(int col, Staged& s) const {
+#pragma unroll
+    for (int k = 0; k < kTerms; ++k) {
+      if (t.perm[k] != nullptr) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(t.perm[k] + c_off + col));
+        s.idx[k][0] = w.x, s.idx[k][1] = w.y, s.idx[k][2] = w.z, s.idx[k][3] = w.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s.idx[k][j] = c_off + col + j;
+      }
+      load_words(t.w[r.sel + k] + r.w_off + col, s.y[k]);
+    }
+  }
+  __device__ __forceinline__ void ready() const { lft::bulk::mbar_wait(bar, 0); }
+  __device__ __forceinline__ void sum(const Staged& s, uint64_t (&v)[4]) const {
+    uint64_t hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < kTerms; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lft64::mac128(hi[j], lo[j], xs[s.idx[k][j]], s.y[k][j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = lft64::redc(hi[j], lo[j], m);
+  }
+};
+
+// The inverse's last pass (the first it runs; 2 layers on items of 4
+// consecutive values) from a source that stages: sub_pass's items at N =
+// 2^13, kAhead of them at a time, each group's loads (src.fetch, the
+// twiddles) issued before its sums; the first group's sums wait for the
+// copy (src.ready).
+template <bool kLazy, int kAhead, class Src>
+__device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& t, const Src& src, const Buf& out) {
+  constexpr int log_s = kMaxLogN - kSplit, l0 = kMaxLogN - 2, log_items = log_s - 2;
+  static_assert(kItemsAhead % kAhead == 0 && kItemsAhead * kNttThreads == kPerBlock << log_items, "every item once");
+#pragma unroll
+  for (int a0 = 0; a0 < kItemsAhead; a0 += kAhead) {
+    typename Src::Staged st[kAhead];
+    uint64_t w[kAhead][3], ws[kAhead][3];
+    int col[kAhead];
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      const int k = threadIdx.x + (a0 + a) * kNttThreads;
+      const int s = k >> log_items, i = k & ((1 << log_items) - 1);
+      col[a] = (s << log_s) + (i << 2);
+      src.fetch(col[a], st[a]);
+      item_twiddles<2>(w[a], ws[a], t.psi_inv, t.psi_inv_s, l0, ((sub0 + s) << (l0 - kSplit)) + i);
+    }
+    if (a0 == 0) src.ready();
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      uint64_t x[4];
+      src.sum(st[a], x);
+      lft64::inv_radix<2, kLazy>(x, w[a], ws[a], t.q);
+      out.store(col[a], 0, x);
+    }
+  }
+}
+
+template <bool kLazy, int kAhead, int kTerms>
+__device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
+                                                  const Buf& out) {
+  staged_last_pass<kLazy, kStaged<kTerms>>(sub0, t, src, out);
+}
+
+// Grid and cluster as rns_intt_mac_gather_kernel's; dynamic shared memory:
+// the x row (kRowBytes).
+template <int kTerms>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_intt_mac_shared_kernel(GatherTerms t, uint64_t* __restrict__ y, Stacked st, MacShape sh) {
+  __shared__ __align__(16) uint64_t buf[kBufValues];
+  __shared__ __align__(8) uint64_t bar;
+  extern __shared__ __align__(16) uint64_t xs[];
+  const long long r = mac_out_row(sh, blockIdx.x / kCluster);
+  MacRow row = mac_row(sh, r, kMaxLogN);
+  if (threadIdx.x == 0) {
+    lft::bulk::mbar_init(&bar);
+    lft::bulk::mbar_expect(&bar, kRowBytes);
+    lft::bulk::bulk_copy(xs, t.x[0] + row.x_off, kRowBytes, &bar);
+  }
+  __syncthreads();  // the mbarrier is made before any thread waits on it
+  const lft64::Tables tab = limb_tables(st, row.limb, kMaxLogN);
+  const int c_off = static_cast<int>(cg::this_cluster().block_rank()) * kPerBlock << (kMaxLogN - kSplit);
+  row.w_off += c_off;
+  const RowSums<kTerms> src{t, row, {tab.q, tab.neg_q_inv}, xs, c_off, &bar};
+  cluster_inverse<true, kItemsAhead>(src, y + (static_cast<size_t>(r) << kMaxLogN), tab, kMaxLogN, buf);
+}
+
 // The instances: at N = 2^13 the lazy ones for 1 and 2 terms (the CKKS mul's
 // tensor and its key switch at dnum None), else the one for any terms.
 template <bool kLazy>
@@ -770,6 +918,26 @@ int launch_intt_mac_gather(const GatherTerms& t, uint64_t* y, const Stacked& s, 
   const auto kernel =
       log_n == kMaxLogN ? rns_intt_mac_gather_kernel<kLazy, kMaxLogN> : rns_intt_mac_gather_kernel<kLazy, 0>;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-x instances (lazy, N = 2^13, 1 to kRowTerms terms, every
+// term's x one row): a cluster per output row, as the gathered instance.
+int launch_intt_mac_shared(const GatherTerms& t, uint64_t* y, const Stacked& s, const MacShape& sh,
+                           cudaStream_t stream) {
+  const int rows = sh.sums * sh.rows;
+  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = sh.terms == 1   ? rns_intt_mac_shared_kernel<1>
+                      : sh.terms == 2 ? rns_intt_mac_shared_kernel<2>
+                      : sh.terms == 3 ? rns_intt_mac_shared_kernel<3>
+                                      : rns_intt_mac_shared_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
+  cfg.dynamicSmemBytes = kRowBytes;
+  err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1160,6 +1328,28 @@ int lft_rns_intt_mac_gather(const void* xs, const void* ys, const void* zs, cons
   const auto st = static_cast<cudaStream_t>(stream);
   return lazy ? launch_intt_mac_gather<true>(t, y, s, sh, log_n, st)
               : launch_intt_mac_gather<false>(t, y, s, sh, log_n, st);
+}
+
+// lft_rns_intt_mac_gather where every term's x is one tensor (the same
+// pointer in xs), every prime below 2^62 (lazy), log_n = 13 and 1 to 4
+// terms: the instance that copies each x row into shared memory. Any other
+// operands are refused (cudaErrorInvalidValue).
+int lft_rns_intt_mac_gather_shared(const void* xs, const void* ys, const void* zs, const void* perms, void* out,
+                                   int terms, int rows, int limbs, int log_n, int y_rows, const void* psi,
+                                   const void* psi_s, const void* psi_inv, const void* psi_inv_s, const void* q,
+                                   const void* neg_q_inv, const void* n_inv_mac, const void* n_inv_mac_s, int chunk,
+                                   int lazy, void* stream) {
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n != kMaxLogN || !lazy || terms > kRowTerms ||
+      chunk < terms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GatherTerms t = gather_terms_of(xs, ys, zs, perms, terms);
+  for (int k = 1; k < terms; ++k) {
+    if (t.x[k] != t.x[0]) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Stacked s{cp<uint64_t>(psi), cp<uint64_t>(psi_s), cp<uint64_t>(psi_inv), cp<uint64_t>(psi_inv_s),
+                  cp<uint64_t>(q), cp<uint64_t>(neg_q_inv), cp<uint64_t>(n_inv_mac), cp<uint64_t>(n_inv_mac_s)};
+  const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
+  return launch_intt_mac_shared(t, static_cast<uint64_t*>(out), s, sh, static_cast<cudaStream_t>(stream));
 }
 
 // K-AUTOMORPH on one or two parts (x1, y1 null: one): each x and y (rows,

@@ -25,6 +25,8 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
   `perms`): a term's x read at the columns of an evaluation-slot
   permutation (CKKS's hoisted rotations, `models/ckks/bootstrapping.py:143,
   147`, `ckks.py:666`, where XLA fuses the gather into the products);
+  `rns_intt_mac`'s where every term reads one x copies each x row into
+  shared memory and gathers from there (`_row_instance`);
 - K-AUTOMORPH, `automorphism_rns`: the coefficient automorphism X -> X^t
   of (..., L, N) rows, b and a in one launch (`models/ckks/ckks.py:605`).
 Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
@@ -225,14 +227,18 @@ def rns_intt_ref(x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 
 MAX_LOG_N = 13  # K-RNS-NTT: a row's 8 sub-rows of N/8 in its cluster's shared memory
 MAX_TERMS = 16  # K-RNS-MAC: products a launch sums
+ROW_TERMS = 4  # the gathered rns_intt_mac's shared-x instances: 1..4 terms (lazy, N = 2^MAX_LOG_N)
 MAX_LIMBS = 64  # K-BASECONV: input limbs a thread holds
 
 
-def _count(fn, rows: int, gather: bool = False) -> None:
+def _count(fn, rows: int, gather: bool = False, shared: bool = False) -> None:
     fn.launches += 1
     fn.by_rows[rows] += 1
     if gather:
         fn.gather_launches += 1
+        fn.gather_by_rows[rows] += 1
+    if shared:
+        fn.shared_launches += 1
 
 
 def _check_rows(name: str, x: torch.Tensor, limbs: int, n: int) -> int:
@@ -351,6 +357,22 @@ def _perm_operands(name: str, perms, terms: int, n: int) -> np.ndarray | None:
     return np.array([0 if p is None else p.data_ptr() for p in perms], dtype=np.uint64)
 
 
+def _shared_x(xs) -> bool:
+    """Whether every term reads one x: the same tensor memory, at the same
+    storage offset, of the same shape and strides (views of one storage at
+    other offsets or strides are other x)."""
+    x0 = xs[0]
+    key = (x0.data_ptr(), tuple(x0.shape), x0.stride())
+    return all((x.data_ptr(), tuple(x.shape), x.stride()) == key for x in xs[1:])
+
+
+def _row_instance(xs, plan: RnsPlan) -> bool:
+    """Whether a gathered rns_intt_mac takes the instance that copies each x
+    row into shared memory: one x (`_shared_x`), lazy, N = 2^MAX_LOG_N and
+    1..ROW_TERMS terms (`lft_rns_intt_mac_gather_shared` refuses others)."""
+    return plan.log_n == MAX_LOG_N and max(plan.qs) < 1 << 62 and len(xs) <= ROW_TERMS and _shared_x(xs)
+
+
 def rns_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
     """sum_k xs[k] * ys[k] mod q_limb in the evaluation basis: xs[k] of shape
     (..., L, N); each ys[k] of the same shape, or (L, N) and broadcast over
@@ -386,7 +408,10 @@ def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
     """rns_intt(rns_mac(xs, ys, plan, zs, perms), plan) in one launch: the
     sums are made inside the inverse transform's first pass and never
     stored. Takes rns_mac's operands; returns (..., L, N), or (2, ..., L, N)
-    with zs."""
+    with zs. With perms, where every term reads one x (the bootstrap's b
+    sums), lazy at N = 2^13 with up to ROW_TERMS terms, the launch copies
+    each x row into shared memory and gathers from there
+    (`_row_instance`)."""
     if xs[0].is_cpu:
         return rns_intt_mac_ref(xs, ys, plan, zs, perms)
     if plan.n == 1:  # the inverse transform of one value is the value
@@ -401,15 +426,16 @@ def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
     if rows:
         t = rns_tables(plan, xs[0].device)
         tabs = (t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, t.q, t.neg_q_inv, t.n_inv_mac, t.n_inv_mac_s)
-        entry, gather = ("lft_rns_intt_mac",), ()
+        entry, gather, shared = ("lft_rns_intt_mac",), (), False
         if pp is not None:
-            entry, gather = ("lft_rns_intt_mac_gather",), (pp.ctypes.data,)
+            shared = _row_instance(xs, plan)
+            entry, gather = ("lft_rns_intt_mac_gather_shared" if shared else "lft_rns_intt_mac_gather",), (pp.ctypes.data,)
         kernels.launch(
             *entry, px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data, *gather,
             out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows, *(v.data_ptr() for v in tabs),
             _mac_chunk(plan.qs), int(max(plan.qs) < 1 << 62),
         )  # fmt: skip
-        _count(rns_intt_mac, (sums * rows, len(xs)), pp is not None)
+        _count(rns_intt_mac, (sums * rows, len(xs)), pp is not None, shared)
     return out[0] if zs is None else out
 
 
@@ -832,7 +858,9 @@ def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int) -> torch.Tensor:
 # launches, and launches by row count (K-BASECONV: (input rows, input
 # limbs, output limbs); rns_intt_mac: (output rows, terms); K-AUTOMORPH:
 # rows of all its parts); of the MAC's, those of its gathered instances
+# and theirs by row count; of rns_intt_mac's, those of its shared-x ones
 for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns):
     _fn.launches, _fn.by_rows = 0, Counter()
 for _fn in (rns_mac, rns_intt_mac):
-    _fn.gather_launches = 0
+    _fn.gather_launches, _fn.gather_by_rows = 0, Counter()
+rns_intt_mac.shared_launches = 0

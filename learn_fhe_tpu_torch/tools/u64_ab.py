@@ -4,7 +4,10 @@ against its bound, and the kernels that share their code or their card
 beside them; the RNS kernels at the batch-16 CKKS `mul`'s shapes (the
 transforms and K-BASECONV also with a cold L2; the sums inside the inverse,
 `rns_intt_mac`, against `rns_mac` then `rns_intt`, from a graph and eager)
-with their registers and spills, and that whole `mul` from a CUDA graph;
+and at the CKKS bootstrap's (`chip_smoke.bootstrap_cases`: the gathered
+MAC alone and inside the inverse, K-AUTOMORPH, K-BASECONV, the transforms,
+K-RESCALE) with their registers and spills, and that whole `mul` from a
+CUDA graph;
 with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
@@ -14,8 +17,10 @@ Both libraries run through this checkout's wrappers on the same inputs
 (`kernels.library` is pointed at one, then the other), so the C entry
 points of the two must take the same arguments; a case whose entry point
 an older library lacks (`NEW_ENTRIES`) is timed on this checkout's alone,
-and on a library without `lft_rns_intt_mac` the `mul` makes its sums with
-`rns_mac` and transforms them with `rns_intt`, as it did before.
+on a library without `lft_rns_intt_mac` the `mul` makes its sums with
+`rns_mac` and transforms them with `rns_intt`, as it did before, and on
+one without `lft_rns_intt_mac_gather_shared` the gathered sums of one x
+run its `lft_rns_intt_mac_gather` (its own gathered path).
 K-NTT64's, K-POLYMUL64's, K-EXTPROD64's and the RNS kernels' times are per
 launch from a CUDA graph of `--reps` launches (no host time between
 launches; a cold-L2 case takes its input from more copies than the L2
@@ -50,6 +55,9 @@ import chip_smoke as cs  # noqa: E402
 from learn_fhe_tpu_torch.utils import kernels  # noqa: E402
 
 # The cases, by kernel name, that need an entry point newer libraries add.
+# The shared-x gathered sums' entry point; an older library runs them on its
+# gathered one, which takes the same arguments.
+SHARED_ENTRY, GATHER_ENTRY = "lft_rns_intt_mac_gather_shared", "lft_rns_intt_mac_gather"
 NEW_ENTRIES = {
     "ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac", "rns_mac_gather": "lft_rns_mac_gather",
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
@@ -139,7 +147,10 @@ def rns_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, st
     """chip_smoke.py's C1 cases (`chip_smoke.rns_cases`), the transforms and
     K-BASECONV also cold; each of `rns_intt_mac`'s shapes also as the
     parent's two launches (`rns_mac`, then `rns_intt` of its sums), both
-    from a graph and eager, and its registers, spills and stack; and C3's
+    from a graph and eager, and its registers, spills and stack; B1's
+    bootstrap cases (`chip_smoke.bootstrap_cases`) and the gathered sums at
+    every shape of the bootstrap's path (`boot_gather_cases`) from a graph;
+    and C3's
     batch-16 `mul` (keys and ciphertexts made on the card as C3 makes them;
     on a library without `lft_rns_intt_mac` the `mul` makes its sums with
     `rns_mac` and transforms them with `rns_intt`, as before the fusion)."""
@@ -160,12 +171,59 @@ def rns_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, st
             two = _two_launches(kernel)
             apart += [(f"rns_mac+rns_intt {shape}", two, None, "graph"), (f"rns_mac+rns_intt {shape} eager", two, None, "eager")]
     out += apart
+    boot, _ = cs.bootstrap_cases(C.CkksParams(**cs.BOOT), cs.BOOT_BATCH, np.random.default_rng(41), dev)
+    for (name, shape), (kernel, _, n_bytes, ops) in boot.items():
+        out.append((f"{name} {shape} (bootstrap)", kernel, cs.bound_ms(n_bytes, ops, pipe_per_s), "graph"))
+    out += boot_gather_cases(dev, pipe_per_s)
     sk = C.sk_gen(params, rng)
     rlk = C.rlk_gen(params, sk, rng, dev)
     ms = [rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l) for _ in range(2 * B)]
     cts = [C.sk_encrypt(params, sk, C.encode(params, m, device=dev), params.qs, rng) for m in ms]
     ct0, ct1 = (C.CkksCiphertext(torch.stack([c.b for c in h]), torch.stack([c.a for c in h]), params.qs) for h in (cts[:B], cts[B:]))
     out.append((f"ckks mul batch {B} (per call)", lambda: C.mul(params, rlk, ct0, ct1), None, "graph:3"))
+    return out
+
+
+# The gathered rns_intt_mac's launches in a warm CKKS bootstrap of the batch
+# of 2 (chip_smoke.py B3, N = 2^13): (limbs, terms, terms read in place),
+# every one reading one x; its rows are twice the limbs.
+BOOT_GATHERED = (
+    (3, 2, 1), (23, 2, 1), *((limbs, 3, 0) for limbs in (4, 5, 6, 20, 21, 22)), *((limbs, 4, 1) for limbs in (4, 5, 6, 20, 21, 22)),
+)  # fmt: skip
+
+
+def boot_gather_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """The gathered rns_intt_mac at each shape a bootstrap launches it at
+    (`BOOT_GATHERED`: b's sums, one x through the path's permutations, a
+    diagonal a term), each beside `rns_intt` at the same rows, from a graph."""
+    from learn_fhe_tpu_torch.models.ckks import bootstrapping as Bt
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    params = C.CkksParams(**cs.BOOT)
+    n, qs, B = params.n, params.qs, cs.BOOT_BATCH
+    rng = np.random.default_rng(43)
+    sig = [C._eval_perm(n, params.pow5(j), dev) for j in Bt.rotation_indices(Bt.BootstrapParams(params, r=3))]
+
+    def residues(basis, lead):
+        return u64_to_torch(np.stack([rng.integers(0, q, size=(*lead, n), dtype=np.uint64) for q in basis], axis=-2)).to(dev)
+
+    out = []
+    for limbs, terms, in_place in BOOT_GATHERED:
+        plan = rns.rns_plan(qs[:limbs], n)
+        be, pts = residues(qs[:limbs], (B,)), [residues(qs[:limbs], ()) for _ in range(terms)]
+        perms = [None] * in_place + sig[: terms - in_place]
+        tab = limbs * n * 16
+        n_bytes = 2 * B * limbs * n * 8 + terms * limbs * n * 8 + (terms - in_place) * n * 4 + tab
+        ops = cs.intt64_ops(B * limbs, n) + cs.gather_mac_ops(B * limbs * n, terms, 1, True, True)
+        rows = f"({B}, {limbs}, {n})"
+        out.append((f"rns_intt_mac_gather {rows} {terms} terms, {in_place} in place (bootstrap path)",
+                    lambda be=be, pts=pts, plan=plan, perms=perms, t=terms: rns.rns_intt_mac([be] * t, pts, plan, perms=perms),
+                    cs.bound_ms(n_bytes, ops, pipe_per_s), "graph"))  # fmt: skip
+        if terms == 4 or limbs in (3, 23):
+            out.append((f"rns_intt {rows} (bootstrap path)", lambda be=be, plan=plan: rns.rns_intt(be, plan),
+                        cs.bound_ms(2 * B * limbs * n * 8 + tab, cs.intt64_ops(B * limbs, n), pipe_per_s), "graph"))  # fmt: skip
     return out
 
 
@@ -258,7 +316,10 @@ def main() -> None:
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
         if not args.u64_only:
             print_rns_ptxas(name, (so.parent / "build.log").read_text())
-        libs[name] = kernels.load(so, optional=frozenset(NEW_ENTRIES.values()))
+        lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY)))
+        if not hasattr(lib, SHARED_ENTRY) and hasattr(lib, GATHER_ENTRY):
+            setattr(lib, SHARED_ENTRY, getattr(lib, GATHER_ENTRY))
+        libs[name] = lib
     dev = torch.device("cuda", torch.cuda.current_device())
     built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
     if not args.u64_only:

@@ -107,6 +107,8 @@ _SIGNATURES = {
     # each term's permutation table (0: none)
     "lft_rns_mac_gather": (_P,) * 5 + (_I,) * 5 + (_P,) * 3 + (_I, _P),
     "lft_rns_intt_mac_gather": (_P,) * 5 + (_I,) * 5 + (_P,) * 8 + (_I, _I, _P),
+    # lft_rns_intt_mac_gather's, every x the same pointer
+    "lft_rns_intt_mac_gather_shared": (_P,) * 5 + (_I,) * 5 + (_P,) * 8 + (_I, _I, _P),
     # x0, x1 (or null), y0, y1 (or null), code (src | sign << 31), per-limb
     # q, rows, limbs, log_n, stream
     "lft_rns_automorphism": (_P,) * 6 + (_I,) * 3 + (_P,),
@@ -210,7 +212,8 @@ def build_log() -> str:
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_intt_mac_rows|rns_intt_mac|rns_mac"
-    r"|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_mac_gather|automorphism|base_convert|rescale)_kernel(I(?:L[ib]\d+E)+E)?"
+    r"|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared|rns_mac_gather|automorphism|base_convert|rescale)_kernel"
+    r"(I(?:L[ib]\d+E)+E)?"
 )
 
 

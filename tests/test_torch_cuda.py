@@ -1263,7 +1263,9 @@ def test_gathered_mac_at_every_ring(dev, log_n, bits):
     2, 3 and 16 terms, with and without z, with y and z of x's shape or a
     key broadcast over the batch, each term read through a random
     permutation, an evaluation-slot permutation, the identity or no table:
-    equal to the plain versions (x[..., perm] then the sum)."""
+    equal to the plain versions (x[..., perm] then the sum). Each also with
+    one x in every term, which `rns_intt_mac` takes to its shared-x
+    instance where there is one (lazy, N = 2^13, up to 4 terms)."""
     from learn_fhe_tpu_torch.ops import rns
 
     n = 1 << log_n
@@ -1271,15 +1273,20 @@ def test_gathered_mac_at_every_ring(dev, log_n, bits):
     plan = rns.rns_plan(qs, n)
     rng = np.random.default_rng(log_n * 100 + bits + 7)
     tabs = _perm_tables(rng, n, dev)
-    for terms, with_z, broadcast in [(1, False, False), (1, True, True), (2, False, True), (2, True, False), (3, True, True), (16, False, False), (16, True, True)]:
+    cases = [(1, False, False), (1, True, True), (2, False, True), (2, True, False), (3, True, True), (4, False, True), (4, True, True), (16, False, False), (16, True, True)]  # fmt: skip
+    for terms, with_z, broadcast in cases:
         xs, ys, zs = _mac_operands(rng, qs, (2,), n, terms, with_z, broadcast)
         on = lambda ts: None if ts is None else [t.to(dev) for t in ts]  # noqa: E731
         xd, yd, zd = on(xs), on(ys), on(zs)
         perms = [None if k % 4 == 3 else tabs[k % len(tabs)] for k in range(terms)]
-        for fn, ref in ((rns.rns_mac, rns.rns_mac_ref), (rns.rns_intt_mac, rns.rns_intt_mac_ref)):
-            before, gathered = fn.launches, fn.gather_launches
-            _same(fn(xd, yd, plan, zd, perms), ref(xd, yd, plan, zd, perms).cpu())
-            assert (fn.launches, fn.gather_launches) == (before + 1, gathered + 1)
+        for xk in (xd, [xd[0]] * terms):
+            shared = rns._row_instance(xk, plan)
+            assert shared == (xk[0] is xk[-1] and log_n == 13 and max(qs) < 1 << 62 and terms <= 4)
+            for fn, ref in ((rns.rns_mac, rns.rns_mac_ref), (rns.rns_intt_mac, rns.rns_intt_mac_ref)):
+                before, gathered, s_before = fn.launches, fn.gather_launches, rns.rns_intt_mac.shared_launches
+                _same(fn(xk, yd, plan, zd, perms), ref(xk, yd, plan, zd, perms).cpu())
+                assert (fn.launches, fn.gather_launches) == (before + 1, gathered + 1)
+                assert rns.rns_intt_mac.shared_launches == s_before + int(shared and fn is rns.rns_intt_mac)
 
 
 @pytest.mark.parametrize("log_n", [10, 11, 13])
@@ -1287,7 +1294,8 @@ def test_gathered_mac_at_every_ring(dev, log_n, bits):
 def test_gathered_mac_at_row_counts(dev, log_n, limbs, lead):
     """The gathered rns_intt_mac on 1, 3, 128 and 513 x rows, the
     bootstrap's shapes among them (a batch of 2 at 46 limbs with z; b's
-    sum at 23 limbs with a term read in place)."""
+    sum at 23 limbs with a term read in place), with distinct x and with
+    one x (the shared-x instance at N = 2^13)."""
     from learn_fhe_tpu_torch.ops import rns
 
     n = 1 << log_n
@@ -1295,10 +1303,13 @@ def test_gathered_mac_at_row_counts(dev, log_n, limbs, lead):
     plan = rns.rns_plan(qs, n)
     rng = np.random.default_rng(log_n * 1000 + limbs)
     tabs = _perm_tables(rng, n, dev)
-    for terms, with_z in [(1, True), (4, False)]:
+    for terms, with_z in [(1, True), (3, True), (4, False)]:
         xs, ys, zs = (None if t is None else [v.to(dev) for v in t] for t in _mac_operands(rng, qs, lead, n, terms, with_z, True))
         perms = [tabs[k % len(tabs)] if k else None for k in range(terms)]
-        _same(rns.rns_intt_mac(xs, ys, plan, zs, perms), rns.rns_intt_mac_ref(xs, ys, plan, zs, perms).cpu())
+        for xk in (xs, [xs[0]] * terms):
+            before = rns.rns_intt_mac.shared_launches
+            _same(rns.rns_intt_mac(xk, ys, plan, zs, perms), rns.rns_intt_mac_ref(xk, ys, plan, zs, perms).cpu())
+            assert rns.rns_intt_mac.shared_launches == before + int(log_n == 13 and xk[0] is xk[-1] and terms > 1)  # 1 term: no table
     for limbs2 in (23, 46):
         qs2 = _rns_primes(limbs2, log_n)
         plan2 = rns.rns_plan(qs2, n)

@@ -266,6 +266,7 @@ _RNS = "_ZN40_GLOBAL__N__1a2b3c4d_8_rns64_cu_5e6f7a8b"
         (_RNS + "19base_convert_kernelILi8EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<8>"),
         (_RNS + "19base_convert_kernelILi0EEEvPKmPmNS_4ConvEiiixx", "base_convert_kernel<0>"),
         (_RNS + "26rns_intt_mac_gather_kernelILb1ELi13EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_gather_kernel<true,13>"),
+        (_RNS + "26rns_intt_mac_shared_kernelILi4EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeE", "rns_intt_mac_shared_kernel<4>"),
         (_RNS + "31rns_intt_mac_gather_rows_kernelILb0ELi0EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_gather_rows_kernel<false,0>"),
         (_RNS + "21rns_mac_gather_kernelILi4EEEvNS_11GatherTermsEPmNS_8MacShapeEiPKmS5_S5_", "rns_mac_gather_kernel<4>"),
         (_RNS + "19automorphism_kernelILi4EEEvNS_5PartsEPKiPKmiii", "automorphism_kernel<4>"),
@@ -298,3 +299,28 @@ def test_wrappers_raise_rather_than_fall_back():
     with pytest.raises(ValueError):
         TR._check_rows("automorphism_rns", x, 2, 8)
     assert TR._perm_operands("rns_mac", [None, None], 2, 8) is None
+
+
+def test_gathered_sums_take_the_shared_x_instance_for_one_x_only():
+    """rns_intt_mac's shared-x decision (`_shared_x`, `_row_instance`): the
+    same tensor in every term is one x; views of one storage at another
+    offset or with other strides, and a copy, are not; the instance takes
+    lazy primes at N = 2^13 and 1..ROW_TERMS terms."""
+    n = 1 << TR.MAX_LOG_N
+    base = torch.zeros((4, 2, n), dtype=torch.int64)
+    x = base[:2]
+    assert TR._shared_x([x]) and TR._shared_x([x, x, x]) and TR._shared_x([x, base[:2]])
+    assert not TR._shared_x([x, base[1:3]])  # another offset of one storage
+    assert not TR._shared_x([x, x.clone()])  # another storage
+    wide = torch.zeros((2, 4, n), dtype=torch.int64)
+    assert not TR._shared_x([wide[:, :2], wide[:, ::2]])  # one offset, other strides
+    assert not TR._shared_x([base.view(8, n)[:1], base[0]])  # one offset, other shapes
+    plan = TR.rns_plan(PRIMES[:2], n)
+    assert TR._row_instance([x] * TR.ROW_TERMS, plan)
+    assert not TR._row_instance([x] * (TR.ROW_TERMS + 1), plan)
+    assert not TR._row_instance([x, base[1:3]], plan)
+    assert not TR._row_instance([x], TR.rns_plan(PRIMES[:2], n // 2))
+    stream = two_adic_primes(63, TR.MAX_LOG_N + 1)
+    big = (next(stream), next(stream))
+    assert min(big) >= 1 << 62
+    assert not TR._row_instance([x], TR.rns_plan(big, n))  # eager primes

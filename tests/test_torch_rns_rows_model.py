@@ -477,3 +477,180 @@ def test_mac_sums_with_rescaled_inverse_match_reference_and_jax(bits, log_n, lim
 
     jwant = np.stack([np.asarray(JR.rns_intt(jsum(wk), jplan)) for wk in ws])
     np.testing.assert_array_equal(torch_to_u64(want).reshape(jwant.shape), jwant)
+
+
+# -- K-RNS-MAC's gathered instance with one x: the x row in each block's shared memory
+
+ROW_LOG_N = 13  # the shared-x instances' ring (lazy, 1..ROW_TERMS terms)
+ROW_TERMS = 4
+ITEMS_AHEAD = (PER_BLOCK << (ROW_LOG_N - SPLIT - 2)) // THREADS  # kItemsAhead: a thread's items of the last pass
+
+
+def staged(terms: int) -> int:
+    """kStaged: the items a thread stages at a time (tables and y in
+    registers): all of them with 1 or 2 terms, half as many with 3 or 4."""
+    return ITEMS_AHEAD if terms <= 2 else ITEMS_AHEAD // 2
+
+
+def row_copy(rows: int, limbs: int, y_rows: int, sums: int, g: int, c: int) -> tuple[int, int]:
+    """(first value, values) of x that block c of cluster g copies into its
+    shared memory: the whole x row of the cluster's output row, whichever
+    block it is."""
+    _, xrow, _, _ = mac_row(rows, limbs, y_rows, mac_out_row(sums, rows, g))
+    return xrow << ROW_LOG_N, 1 << ROW_LOG_N
+
+
+def staged_items(log_n: int, terms: int) -> dict[tuple[int, int], list[list[tuple[int, int, int]]]]:
+    """`staged_last_pass`'s dealing: block c's thread t takes items k = t +
+    a THREADS of its PER_BLOCK sub-rows' last-pass items (4 consecutive
+    values each), in groups of staged(terms), each item as (block column
+    col, table column c_off + col, twiddle group), c_off = c N / 2 the
+    block's first column. The kernel's shape is N = 2^13's (every thread
+    ITEMS_AHEAD items); at a smaller N the same columns fall to fewer
+    threads, which is how the arithmetic below runs them."""
+    log_s, l0 = log_n - SPLIT, log_n - 2
+    log_items = log_s - 2
+    out = {}
+    for c in range(CLUSTER):
+        c_off, sub0 = (c * PER_BLOCK) << log_s, c * PER_BLOCK
+        for t in range(THREADS):
+            groups = []
+            for a0 in range(0, ITEMS_AHEAD, staged(terms)):
+                group = []
+                for a in range(a0, a0 + staged(terms)):
+                    k = t + a * THREADS
+                    if k < PER_BLOCK << log_items:
+                        s, i = k >> log_items, k & ((1 << log_items) - 1)
+                        col = (s << log_s) + (i << 2)
+                        group.append((col, c_off + col, ((sub0 + s) << (l0 - SPLIT)) + i))
+                groups.append(group)
+            out[c, t] = groups
+    return out
+
+
+def staged_values(smem: np.ndarray, perm, tcol: int) -> list[int]:
+    """The 4 values of a term that an item at table column tcol reads from
+    the block's shared-memory row: at the table's entries, or at tcol.. for
+    a term without a table (the identity)."""
+    idx = [tcol + j for j in range(4)] if perm is None else [int(perm[tcol + j]) for j in range(4)]
+    return [int(smem[i]) for i in idx]
+
+
+@pytest.mark.parametrize("terms", range(1, ROW_TERMS + 1))
+def test_staged_pass_takes_the_last_pass_items_once(terms):
+    """At N = 2^13 every thread takes ITEMS_AHEAD items in groups of
+    staged(terms), and the cluster's items are the last pass's (`sub_items`:
+    every column once, the same twiddle groups), so the transform's other
+    passes run on them as on K-RNS-NTT's."""
+    dealt = staged_items(ROW_LOG_N, terms)
+    assert all(len(g) == staged(terms) for groups in dealt.values() for g in groups)
+    assert all(sum(map(len, groups)) == ITEMS_AHEAD for groups in dealt.values())
+    want = sub_items(ROW_LOG_N, ROW_LOG_N - 2, 2)
+    for (c, t), groups in dealt.items():
+        assert [it for g in groups for it in g] == want[c, t]
+    cols = sorted(tc + j for groups in dealt.values() for g in groups for _, tc, _ in g for j in range(4))
+    assert cols == list(range(1 << ROW_LOG_N))
+
+
+@pytest.mark.parametrize("limbs,lead,sums", [(23, 2, 1), (5, 2, 1), (46, 2, 2)])
+def test_shared_row_gives_every_term_x_at_its_permutation(limbs, lead, sums):
+    """Both blocks of a cluster copy the whole x row of its output row; an
+    item at table column c_off + col reads, for every term, the staged
+    values x[perm[c]] (x[c] without a table) of its 4 columns: every first
+    pass value of every term is x at its permutation, on each of the path's
+    22 rotations' tables and the identity."""
+    from learn_fhe_tpu_torch.models.ckks import bootstrapping as Bt
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops.ntt import eval_automorphism_perm
+
+    n = 1 << ROW_LOG_N
+    params = C.CkksParams(log_n=ROW_LOG_N, log_qi=55, big_l=23)
+    js = Bt.rotation_indices(Bt.BootstrapParams(params, r=3))
+    tabs = [eval_automorphism_perm(n, params.pow5(j)) for j in js] + [np.arange(n)]
+    rows = limbs * lead
+    rng = np.random.default_rng(limbs + sums)
+    x = rng.integers(0, 1 << 55, size=(rows, n), dtype=np.uint64)
+    for g in (0, 1, sums * rows - 1):  # clusters of the first, second and last output rows
+        copies = [row_copy(rows, limbs, limbs, sums, g, c) for c in range(CLUSTER)]
+        assert copies[0] == copies[1]
+        start, count = copies[0]
+        smem = x.reshape(-1)[start : start + count]
+        xrow = start >> ROW_LOG_N
+        for k0 in range(0, len(tabs), ROW_TERMS):
+            perms = [None, *tabs[k0 : k0 + ROW_TERMS - 1]]
+            tcols = np.array([tc for groups in staged_items(ROW_LOG_N, len(perms)).values() for g in groups for _, tc, _ in g])
+            cols = (tcols[:, None] + np.arange(4)).reshape(-1)  # each item's 4 table columns
+            assert np.array_equal(np.sort(cols), np.arange(n))
+            for p in perms:
+                got = np.zeros(n, dtype=np.uint64)
+                got[cols] = smem[cols if p is None else p[cols]]  # staged_values of every item
+                np.testing.assert_array_equal(got, x[xrow] if p is None else x[xrow][p])
+
+
+def model_row_sums(x: np.ndarray, perms, ws, qs, rows: int, y_rows: int, sums: int) -> torch.Tensor:
+    """The first pass's values of every output row as the shared-x instance
+    makes them in Python integers: each cluster's blocks stage x's row,
+    each item sums, over the terms, the staged values at its table columns
+    times y (or z) at its columns, in 128 bits with one REDC (1..ROW_TERMS
+    terms of lazy primes are one chunk). x: (R, N) rows; ws: per sum, per
+    term (y_rows, N) rows."""
+    limbs, n = len(qs), x.shape[1]
+    log_n = n.bit_length() - 1
+    out = np.zeros((sums * rows, n), dtype=np.uint64)
+    dealt = staged_items(log_n, len(perms))
+    for g in range(sums * rows):
+        r = mac_out_row(sums, rows, g)
+        s, xrow, limb, yrow = mac_row(rows, limbs, y_rows, r)
+        q = qs[limb]
+        smem = x[xrow]
+        for (_, _), groups in dealt.items():
+            for _, tcol, _ in (it for grp in groups for it in grp):
+                acc = [0] * 4
+                for k, p in enumerate(perms):
+                    xv = staged_values(smem, p, tcol)
+                    for j in range(4):
+                        acc[j] += xv[j] * int(ws[s][k][yrow][tcol + j])
+                assert max(acc) < q << 64  # one chunk
+                out[r, tcol : tcol + 4] = [redc(a, q, neg_inv64(q)) for a in acc]
+    return u64_to_torch(out)
+
+
+@pytest.mark.parametrize(
+    "terms,identity,sums", [(1, False, 1), (2, True, 1), (3, False, 2), (3, True, 1), (4, True, 1), (4, False, 2)]
+)
+def test_shared_row_sums_match_reference_and_jax(terms, identity, sums):
+    """The shared-x instance's values (the staged gather, one REDC an item)
+    through the inverse passes with N^-1 2^64 equal rns_intt_mac_ref on one
+    x and the JAX package's rns_intt of sum_k rns_mul_eval(x[..., perm_k],
+    y_k), bit for bit: 1-4 terms, with and without a term read in place,
+    each y a key broadcast over the batch (the bootstrap's diagonals)."""
+    from learn_fhe_tpu_torch.ops.ntt import eval_automorphism_perm
+
+    log_n, limbs, lead = 7, 3, 2  # one shape: the JAX side compiles once
+    n = 1 << log_n
+    qs = _primes(55, log_n, limbs)
+    plan, jplan = TR.rns_plan(qs, n), JR.rns_plan(qs, n)
+    rng = np.random.default_rng(terms * 10 + sums + identity)
+    tabs = [eval_automorphism_perm(n, pow(5, j, 2 * n)) for j in (1, 2, 3)] + [rng.permutation(n)]
+    perms = [None if identity and k == 0 else tabs[k % len(tabs)] for k in range(terms)]
+    res = lambda lead_: np.stack([rng.integers(0, q, size=(*lead_, n), dtype=np.uint64) for q in qs], axis=-2)  # noqa: E731
+    x = res((lead,))
+    x[0, 0, 0], x[-1, -1, -1] = 0, qs[-1] - 1
+    ws = [[res(()) for _ in range(terms)] for _ in range(sums)]
+    rows = lead * limbs
+    v = model_row_sums(x.reshape(rows, n), perms, ws, qs, rows, limbs, sums)
+    t = TR.rns_tables(plan, CPU)
+    got = model_transform(v, plan, True, True, scale=(t.n_inv_mac, t.n_inv_mac_s))
+    tx = u64_to_torch(x)
+    tp = [None if p is None else torch.from_numpy(p.astype(np.int32)) for p in perms]
+    tz = [u64_to_torch(w) for w in ws[1]] if sums == 2 else None
+    want = TR.rns_intt_mac_ref([tx] * terms, [u64_to_torch(w) for w in ws[0]], plan, tz, tp)
+    assert torch.equal(got.reshape(want.shape), want)
+    for s in range(sums):
+        acc = None
+        for p, w in zip(perms, ws[s]):
+            xp = jnp.asarray(x if p is None else x[..., p])
+            term = JR.rns_mul_eval(xp, jnp.asarray(np.broadcast_to(w, x.shape)), jplan)
+            acc = term if acc is None else JR.rns_add(acc, term, jplan)
+        jwant = np.asarray(JR.rns_intt(acc, jplan))
+        np.testing.assert_array_equal(torch_to_u64(want if sums == 1 else want[s]), jwant)
