@@ -47,9 +47,17 @@
 //   head passes down to layer 3 on the block's sub-rows, a cluster barrier,
 //   then the first pass on the cluster's share of items, each value read
 //   from the block that holds it and scaled by 1/N on its way out. N = 2^13
-//   (CKKS's ring) has an instance with every pass's shape a constant. Below
-//   N = 2048 a block takes one row through rows::forward / rows::inverse.
-//   Lazy (Harvey) butterflies where every prime is below 2^62.
+//   (CKKS's ring) has an instance with every pass's shape a constant. Past
+//   it (the production bootstrap's N = 2^16, and 2^14, 2^15) a block's 4
+//   sub-rows would outgrow its shared memory (256 KB at 2^16), so the
+//   cluster grows with the ring: 2^(log N - 13) blocks of 8 / C sub-rows,
+//   2^13 values (64 KB, dynamic shared memory) a block, the same passes
+//   (a cluster of 8 at 2^16, one sub-row a block), lazy instances only,
+//   every shape a constant; every rns_intt_mac instance but the shared-x
+//   one (which stays at 2^13: its x row would be 512 KB) takes the same
+//   clusters. Below N = 2048 a block takes one row through rows::forward /
+//   rows::inverse. Lazy (Harvey) butterflies where every prime is below
+//   2^62.
 // - K-RNS-MAC (redesigned for the H100): every sum the port makes feeds an
 //   inverse transform, so rns_intt_mac builds them inside the inverse's
 //   first pass and never stores them: the first version wrote its sums
@@ -110,7 +118,8 @@ using lft64::csub;
 using lft64::shoup_q;
 using lft64::sub_q;
 
-constexpr int kMaxLogN = 13;
+constexpr int kFixedLogN = 13;  // CKKS's ring at its mul and the N = 2^13 bootstrap: every shape a constant
+constexpr int kMaxLogN = 16;    // the production bootstrap's ring
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 constexpr int kMaxLimbs = 64;
@@ -137,16 +146,38 @@ constexpr int kRowThreads = 128;  // a row's block below kSplitLogN
 constexpr int kSplitLogN = 11;  // from N = 2048 up a row runs on a cluster
 constexpr int kSplit = 3;       // the first pass's layers: 8 sub-rows after it
 constexpr int kSubs = 1 << kSplit;
-constexpr int kCluster = 2;                       // blocks per row
-constexpr int kPerBlock = kSubs / kCluster;       // sub-rows a block holds
+constexpr int kCluster = 2;                       // blocks per row up to N = 2^13
+constexpr int kPerBlock = kSubs / kCluster;       // sub-rows a block holds there
 constexpr int kRowValues = 1 << (kSplitLogN - 1);  // below kSplitLogN: a block's row, at most
-constexpr int kBufValues = kPerBlock << (kMaxLogN - kSplit);
+constexpr int kBufValues = kPerBlock << (kFixedLogN - kSplit);
 // The items a thread takes at N = 2^13 in the inverse's passes that read
 // their values from device memory (kItemsAhead, the last two layers) or
 // from the other block (kSplitAhead, the first three): unrolled, their
 // loads overlap. (Unrolling the forward's first pass measured slower.)
-constexpr int kSplitAhead = (1 << (kMaxLogN - kSplit)) / kCluster / kNttThreads;
-constexpr int kItemsAhead = (kPerBlock << (kMaxLogN - kSplit - 2)) / kNttThreads;
+constexpr int kSplitAhead = (1 << (kFixedLogN - kSplit)) / kCluster / kNttThreads;
+constexpr int kItemsAhead = (kPerBlock << (kFixedLogN - kSplit - 2)) / kNttThreads;
+// Past N = 2^13 a block's 4 sub-rows of N/8 outgrow its shared memory (256
+// KB at 2^16): there the cluster grows with the ring instead, 2^(log N -
+// 13) blocks (2, 4, 8 at 2^14, 2^15, 2^16), each holding 8 / C sub-rows,
+// 2^13 values (kBigBufBytes of dynamic shared memory), so every block
+// runs the passes of the 2^13 instance's blocks on twice as many values.
+constexpr int kBigBufBytes = (1 << kFixedLogN) * static_cast<int>(sizeof(uint64_t));
+
+// A cluster instance's shape (kLogN: its ring, or 0 for any N = 2^11,
+// 2^12): blocks per row, sub-rows a block holds, and the items a thread
+// takes unrolled in the inverse's first pass and in its last.
+template <int kLogN>
+struct RowShape {
+  static constexpr bool kBig = kLogN > kFixedLogN;
+  static constexpr int kC = kBig ? 1 << (kLogN - kFixedLogN) : kCluster;
+  static constexpr int kPer = kSubs / kC;
+  static constexpr int kAheadSplit = kBig ? (1 << (kFixedLogN - kSplit)) / kNttThreads : kSplitAhead;
+  static constexpr int kAheadItems = kBig ? (1 << (kFixedLogN - 2)) / kNttThreads : kItemsAhead;
+  static_assert(kC <= 8, "a portable cluster holds at most 8 blocks");
+};
+
+// Blocks per row of a cluster instance at N = 2^log_n.
+constexpr int cluster_of(int log_n) { return log_n > kFixedLogN ? 1 << (log_n - kFixedLogN) : kCluster; }
 
 // The tables of limb `limb`.
 __device__ __forceinline__ lft64::Tables limb_tables(const Stacked& s, int limb, int log_n) {
@@ -246,7 +277,7 @@ struct Dev {
   }
 };
 
-// A pass of W layers from l0 >= kSplit over the block's kPerBlock sub-rows
+// A pass of W layers from l0 >= kSplit over the block's kPer sub-rows
 // (the row's sub-rows sub0, sub0 + 1, ...; buffer column (s << log_s) + c
 // for column c of its sub-row s). Item i of a sub-row holds the values c +
 // (m << log_h), m < 2^W, c = (g << (log_n - l0)) + (i mod h), g = i / h, h =
@@ -255,12 +286,12 @@ struct Dev {
 // block's threads take the items k, k + kNttThreads, ... of its sub-rows
 // one after the other; kAhead of them unrolled, so that a pass reading
 // device memory has their loads in flight together. No barrier.
-template <int W, bool kInv, bool kLazy, int kAhead = 1, class In, class Out>
+template <int W, bool kInv, bool kLazy, int kAhead = 1, int kPer = kPerBlock, class In, class Out>
 __device__ __forceinline__ void sub_pass(int sub0, int log_n, int l0, const lft64::Tables& t, const In& in,
                                          const Out& out) {
   const int log_s = log_n - kSplit, log_h = log_n - l0 - W, log_items = log_s - W;
 #pragma unroll (kAhead)
-  for (int k = threadIdx.x; k < (kPerBlock << log_items); k += kNttThreads) {
+  for (int k = threadIdx.x; k < (kPer << log_items); k += kNttThreads) {
     const int s = k >> log_items, i = k & ((1 << log_items) - 1), g = i >> log_h;
     const int col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1));
     const int tg = ((sub0 + s) << (l0 - kSplit)) + g;
@@ -278,26 +309,27 @@ __device__ __forceinline__ void sub_pass(int sub0, int log_n, int l0, const lft6
 }
 
 // Head pass p >= 1 (layers 3 p, ..., its width) on the block's sub-rows.
-template <bool kInv, bool kLazy, class In, class Out>
+template <bool kInv, bool kLazy, int kPer, class In, class Out>
 __device__ __forceinline__ void sub_head_pass(int p, int sub0, int log_n, const lft64::Tables& t, const In& in,
                                               const Out& out) {
   const int w = lft64::rows::head_width(log_n, p);
   if (w == 3) {
-    sub_pass<3, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<3, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
   } else if (w == 2) {
-    sub_pass<2, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<2, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
   } else {
-    sub_pass<1, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<1, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
   }
 }
 
 // The buffer column 0 of each of the row's sub-rows, in the block of the
 // cluster that holds it.
+template <int kPer>
 __device__ __forceinline__ void sub_row_holders(cg::cluster_group& cluster, uint64_t* buf, int log_s,
                                                 uint64_t* (&holder)[kSubs]) {
 #pragma unroll
   for (int m = 0; m < kSubs; ++m) {
-    holder[m] = cluster.map_shared_rank(buf, m / kPerBlock) + ((m % kPerBlock) << log_s);
+    holder[m] = cluster.map_shared_rank(buf, m / kPer) + ((m % kPer) << log_s);
   }
 }
 
@@ -306,13 +338,13 @@ __device__ __forceinline__ void sub_row_holders(cg::cluster_group& cluster, uint
 template <int kTerms>
 struct RowSums;
 
-template <bool kLazy, int kAhead, class Src>
+template <bool kLazy, int kAhead, int kPer, class Src>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int log_n, const lft64::Tables& t, const Src& src,
                                                   const Buf& out) {
-  sub_pass<2, true, kLazy, kAhead>(sub0, log_n, log_n - 2, t, src, out);
+  sub_pass<2, true, kLazy, kAhead, kPer>(sub0, log_n, log_n - 2, t, src, out);
 }
 
-template <bool kLazy, int kAhead, int kTerms>
+template <bool kLazy, int kAhead, int kPer, int kTerms>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
                                                   const Buf& out);
 
@@ -321,27 +353,29 @@ __device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Ta
 // unrolled) into the block's sub-rows, the head passes down to layer 3 run
 // on them, a cluster barrier, then the first pass on the cluster's share of
 // items, each value read from the block that holds it and scaled by t.n_inv
-// on its way out. Every thread of the cluster calls it.
-template <bool kLazy, int kAhead, class Src>
+// on its way out. Every thread of the cluster calls it. kLogN: the
+// instance's ring, as RowShape takes it.
+template <bool kLazy, int kAhead, int kLogN, class Src>
 __device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __restrict__ y, const lft64::Tables& t,
                                                 int log_n, uint64_t* buf) {
+  using Sh = RowShape<kLogN>;
   cg::cluster_group cluster = cg::this_cluster();
   const int log_s = log_n - kSplit, hp = lft64::rows::head_passes(log_n);
-  const int rank = static_cast<int>(cluster.block_rank()), sub0 = rank * kPerBlock;
-  const int share = (1 << log_s) / kCluster, first = rank * share;
+  const int rank = static_cast<int>(cluster.block_rank()), sub0 = rank * Sh::kPer;
+  const int share = (1 << log_s) / Sh::kC, first = rank * share;
   uint64_t* holder[kSubs];
-  sub_row_holders(cluster, buf, log_s, holder);
+  sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
   Buf sm{buf};
-  inverse_last_pass<kLazy, kAhead>(sub0, log_n, t, src, sm);
+  inverse_last_pass<kLazy, kAhead, Sh::kPer>(sub0, log_n, t, src, sm);
 #pragma unroll
   for (int p = hp - 1; p >= 1; --p) {
     __syncthreads();
-    sub_head_pass<true, kLazy>(p, sub0, log_n, t, sm, sm);
+    sub_head_pass<true, kLazy, Sh::kPer>(p, sub0, log_n, t, sm, sm);
   }
   cluster.sync();  // every sub-row is done
   uint64_t w[kSubs - 1], ws[kSubs - 1];
   item_twiddles<kSplit>(w, ws, t.psi_inv, t.psi_inv_s, 0, 0);
-#pragma unroll (kSplitAhead)
+#pragma unroll (Sh::kAheadSplit)
   for (int k = threadIdx.x; k < share; k += kNttThreads) {
     const int i = first + k;
     uint64_t v[kSubs];
@@ -354,28 +388,43 @@ __device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __rest
   cluster.sync();  // no block leaves while another reads its buffer
 }
 
-// One row on a cluster of kCluster blocks (grid: rows x kCluster; N >=
-// 2048). kLogN: 13 (every shape a constant) or 0 (log_n as given).
+// A cluster block's buffer of sub-rows: static up to N = 2^13, the dynamic
+// kBigBufBytes past it (which the launch passes).
+template <int kLogN>
+__device__ __forceinline__ uint64_t* row_buf() {
+  if constexpr (RowShape<kLogN>::kBig) {
+    extern __shared__ __align__(16) uint64_t big_buf[];
+    return big_buf;
+  } else {
+    __shared__ __align__(16) uint64_t buf[kBufValues];
+    return buf;
+  }
+}
+
+// One row on a cluster of RowShape<kLogN>::kC blocks (grid: rows x kC; N
+// >= 2048). kLogN: 13 to 16 (every shape a constant) or 0 (log_n as
+// given, 2^11 or 2^12).
 template <bool kInv, bool kLazy, int kLogN>
 __global__ void __launch_bounds__(kNttThreads)
     rns_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n_arg) {
-  __shared__ __align__(16) uint64_t buf[kBufValues];
+  using Sh = RowShape<kLogN>;
+  uint64_t* buf = row_buf<kLogN>();
   cg::cluster_group cluster = cg::this_cluster();
   const int log_n = kLogN ? kLogN : log_n_arg;
   const int log_s = log_n - kSplit;
   const int rank = static_cast<int>(cluster.block_rank());
-  const long long row = blockIdx.x / kCluster;
+  const long long row = blockIdx.x / Sh::kC;
   const lft64::Tables t = limb_tables(st, static_cast<int>(row % limbs), log_n);
-  const int sub0 = rank * kPerBlock;
+  const int sub0 = rank * Sh::kPer;
   const size_t base = static_cast<size_t>(row) << log_n;
   const size_t mine = base + (static_cast<size_t>(sub0) << log_s);
   if constexpr (kInv) {
-    cluster_inverse<kLazy, kItemsAhead>(Dev<kLazy>{x + mine, nullptr, t.q}, y + base, t, log_n, buf);
+    cluster_inverse<kLazy, Sh::kAheadItems, kLogN>(Dev<kLazy>{x + mine, nullptr, t.q}, y + base, t, log_n, buf);
   } else {
     // the first pass: this block's share of the row's 2^log_s items
-    const int share = (1 << log_s) / kCluster, first = rank * share;
+    const int share = (1 << log_s) / Sh::kC, first = rank * share;
     uint64_t* holder[kSubs];
-    sub_row_holders(cluster, buf, log_s, holder);
+    sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
     uint64_t w[kSubs - 1], ws[kSubs - 1];
     Buf sm{buf};
     // a block writes into another's shared memory only once every block of
@@ -402,11 +451,11 @@ __global__ void __launch_bounds__(kNttThreads)
 #pragma unroll
     for (int p = 1; p < lft64::rows::head_passes(log_n); ++p) {
       if (p > 1) __syncthreads();
-      sub_head_pass<false, kLazy>(p, sub0, log_n, t, sm, sm);
+      sub_head_pass<false, kLazy, Sh::kPer>(p, sub0, log_n, t, sm, sm);
     }
     __syncthreads();
     Dev<kLazy> dst{nullptr, y + mine, t.q};
-    sub_pass<2, false, kLazy>(sub0, log_n, log_n - 2, t, sm, dst);
+    sub_pass<2, false, kLazy, 1, Sh::kPer>(sub0, log_n, log_n - 2, t, sm, dst);
   }
 }
 
@@ -426,21 +475,42 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// A launch of `rows` clusters of kCluster blocks of kNttThreads (attr: the
+// A launch of `rows` clusters of `c` blocks of kNttThreads (attr: the
 // cluster attribute the configuration points to).
-cudaLaunchConfig_t cluster_config(int rows, cudaStream_t stream, cudaLaunchAttribute& attr) {
+cudaLaunchConfig_t cluster_config(int rows, int c, cudaStream_t stream, cudaLaunchAttribute& attr) {
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.x = c;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows) * kCluster, 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * c, 1, 1);
   cfg.blockDim = dim3(kNttThreads, 1, 1);
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cfg;
 }
+
+// Launches `kernel` on `rows` clusters of cluster_of(log_n) blocks with
+// dyn_bytes of dynamic shared memory (0: none asked).
+template <class... P, class... A>
+int launch_clusters(void (*kernel)(P...), int rows, int log_n, int dyn_bytes, cudaStream_t stream, A... args) {
+  const int c = cluster_of(log_n);
+  if (rows > (1 << 30) / c) return static_cast<int>(cudaErrorInvalidValue);
+  if (dyn_bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(rows, c, stream, attr);
+  cfg.dynamicSmemBytes = dyn_bytes;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of a cluster instance at N = 2^log_n.
+constexpr int row_buf_bytes(int log_n) { return log_n > kFixedLogN ? kBigBufBytes : 0; }
 
 template <bool kInv, bool kLazy>
 int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, int log_n, cudaStream_t stream) {
@@ -453,13 +523,15 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(px, py, s, limbs, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
-  const auto kernel = log_n == kMaxLogN ? rns_ntt_kernel<kInv, kLazy, kMaxLogN> : rns_ntt_kernel<kInv, kLazy, 0>;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, px, py, s, limbs, log_n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = log_n == kFixedLogN ? rns_ntt_kernel<kInv, kLazy, kFixedLogN> : rns_ntt_kernel<kInv, kLazy, 0>;
+  if constexpr (kLazy) {  // past N = 2^13 the lazy instances alone (every prime below 2^62)
+    if (log_n == 14) kernel = rns_ntt_kernel<kInv, kLazy, 14>;
+    if (log_n == 15) kernel = rns_ntt_kernel<kInv, kLazy, 15>;
+    if (log_n == 16) kernel = rns_ntt_kernel<kInv, kLazy, 16>;
+  } else if (log_n > kFixedLogN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, px, py, s, limbs, log_n);
 }
 
 // ---------------------------------------------------------------------------
@@ -683,8 +755,12 @@ struct MacSums {
 // loads in flight together: all of them (K-RNS-NTT's kItemsAhead) with 1 or
 // 2 terms (80 registers, no spill; with 2 terms half as many measured 0.3
 // us slower at the CKKS mul's 128 rows, PERF.md), one with a run-time count.
-template <int kTerms>
-constexpr int kMacAhead = kTerms == 1 || kTerms == 2 ? kItemsAhead : 1;
+// Past N = 2^13, where a thread has twice the items, half of them: the
+// 2^13 instance's count.
+template <int kTerms, int kLogN>
+constexpr int kMacAhead = kTerms == 1 || kTerms == 2
+                              ? RowShape<kLogN>::kAheadItems / (RowShape<kLogN>::kBig ? 2 : 1)
+                              : 1;
 
 // K-RNS-MAC inside K-RNS-NTT's inverse (rns_intt_mac): cluster g runs the
 // inverse of output row mac_out_row(g) with the row's MAC sums as its first
@@ -692,34 +768,34 @@ constexpr int kMacAhead = kTerms == 1 || kTerms == 2 ? kItemsAhead : 1;
 // 2^-64; the inverse is Z_q-linear, so the final scale by N^-1 2^64 mod q
 // (st.n_inv and its dual, which the wrapper passes in place of N^-1) takes
 // it out, canonical as K-RNS-NTT's. The passes, tables and barriers are
-// K-RNS-NTT's. kLogN: 13 (every shape a constant) or 0; kTerms as mac_item's.
+// K-RNS-NTT's. kLogN: as rns_ntt_kernel's; kTerms as mac_item's.
 template <bool kLazy, int kLogN, int kTerms, class TT>
 __device__ __forceinline__ void intt_mac_cluster(const TT& t, uint64_t* __restrict__ y, const Stacked& st,
                                                  const MacShape& sh, int log_n_arg, uint64_t* buf) {
+  using Sh = RowShape<kLogN>;
   const int log_n = kLogN ? kLogN : log_n_arg;
-  const long long r = mac_out_row(sh, blockIdx.x / kCluster);
+  const long long r = mac_out_row(sh, blockIdx.x / Sh::kC);
   MacRow row = mac_row(sh, r, log_n);
   const lft64::Tables tab = limb_tables(st, row.limb, log_n);
-  const size_t mine = static_cast<size_t>(cg::this_cluster().block_rank() * kPerBlock) << (log_n - kSplit);
+  const size_t mine = static_cast<size_t>(cg::this_cluster().block_rank() * Sh::kPer) << (log_n - kSplit);
   row.x_off += mine;
   row.w_off += mine;
   const MacSums<kTerms, TT> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}, mine};
-  cluster_inverse<kLazy, kMacAhead<kTerms>>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n, buf);
+  cluster_inverse<kLazy, kMacAhead<kTerms, kLogN>, kLogN>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n,
+                                                           buf);
 }
 
 template <bool kLazy, int kLogN, int kTerms>
 __global__ void __launch_bounds__(kNttThreads)
     rns_intt_mac_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
-  __shared__ __align__(16) uint64_t buf[kBufValues];
-  intt_mac_cluster<kLazy, kLogN, kTerms>(t, y, st, sh, log_n_arg, buf);
+  intt_mac_cluster<kLazy, kLogN, kTerms>(t, y, st, sh, log_n_arg, row_buf<kLogN>());
 }
 
 // The gathered instance (rns_intt_mac with perms): terms as given.
 template <bool kLazy, int kLogN>
 __global__ void __launch_bounds__(kNttThreads)
     rns_intt_mac_gather_kernel(GatherTerms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
-  __shared__ __align__(16) uint64_t buf[kBufValues];
-  intt_mac_cluster<kLazy, kLogN, 0>(t, y, st, sh, log_n_arg, buf);
+  intt_mac_cluster<kLazy, kLogN, 0>(t, y, st, sh, log_n_arg, row_buf<kLogN>());
 }
 
 // Below N = 2048: a block per output row through rows::inverse (kLogN as
@@ -759,7 +835,7 @@ __global__ void __launch_bounds__(kRowThreads)
 // shared memory. Each thread issues the 16-byte loads of its items' tables
 // and y (kStaged items at a time) before the copy is waited for and
 // before their sums, which take the x values from shared memory.
-constexpr int kRowBytes = (1 << kMaxLogN) * static_cast<int>(sizeof(uint64_t));
+constexpr int kRowBytes = (1 << kFixedLogN) * static_cast<int>(sizeof(uint64_t));
 constexpr int kRowTerms = 4;  // a lazy instance's terms in one 128-bit sum: 4 (q-1)^2 < q 2^64 for q < 2^62
 
 // Items a thread stages at a time: all of them (kItemsAhead) with 1 or 2
@@ -818,7 +894,7 @@ struct RowSums {
 // copy (src.ready).
 template <bool kLazy, int kAhead, class Src>
 __device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& t, const Src& src, const Buf& out) {
-  constexpr int log_s = kMaxLogN - kSplit, l0 = kMaxLogN - 2, log_items = log_s - 2;
+  constexpr int log_s = kFixedLogN - kSplit, l0 = kFixedLogN - 2, log_items = log_s - 2;
   static_assert(kItemsAhead % kAhead == 0 && kItemsAhead * kNttThreads == kPerBlock << log_items, "every item once");
 #pragma unroll
   for (int a0 = 0; a0 < kItemsAhead; a0 += kAhead) {
@@ -844,9 +920,10 @@ __device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& 
   }
 }
 
-template <bool kLazy, int kAhead, int kTerms>
+template <bool kLazy, int kAhead, int kPer, int kTerms>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
                                                   const Buf& out) {
+  static_assert(kPer == kPerBlock, "the shared-x instance runs at N = 2^13");
   staged_last_pass<kLazy, kStaged<kTerms>>(sub0, t, src, out);
 }
 
@@ -859,18 +936,27 @@ __global__ void __launch_bounds__(kNttThreads)
   __shared__ __align__(8) uint64_t bar;
   extern __shared__ __align__(16) uint64_t xs[];
   const long long r = mac_out_row(sh, blockIdx.x / kCluster);
-  MacRow row = mac_row(sh, r, kMaxLogN);
+  MacRow row = mac_row(sh, r, kFixedLogN);
   if (threadIdx.x == 0) {
     lft::bulk::mbar_init(&bar);
     lft::bulk::mbar_expect(&bar, kRowBytes);
     lft::bulk::bulk_copy(xs, t.x[0] + row.x_off, kRowBytes, &bar);
   }
   __syncthreads();  // the mbarrier is made before any thread waits on it
-  const lft64::Tables tab = limb_tables(st, row.limb, kMaxLogN);
-  const int c_off = static_cast<int>(cg::this_cluster().block_rank()) * kPerBlock << (kMaxLogN - kSplit);
+  const lft64::Tables tab = limb_tables(st, row.limb, kFixedLogN);
+  const int c_off = static_cast<int>(cg::this_cluster().block_rank()) * kPerBlock << (kFixedLogN - kSplit);
   row.w_off += c_off;
   const RowSums<kTerms> src{t, row, {tab.q, tab.neg_q_inv}, xs, c_off, &bar};
-  cluster_inverse<true, kItemsAhead>(src, y + (static_cast<size_t>(r) << kMaxLogN), tab, kMaxLogN, buf);
+  cluster_inverse<true, kItemsAhead, kFixedLogN>(src, y + (static_cast<size_t>(r) << kFixedLogN), tab, kFixedLogN,
+                                                 buf);
+}
+
+// Past N = 2^13 (lazy): the instances for 1 and 2 terms, and for any.
+template <int kLogN>
+auto big_intt_mac(int terms) {
+  return terms == 1 ? rns_intt_mac_kernel<true, kLogN, 1>
+         : terms == 2 ? rns_intt_mac_kernel<true, kLogN, 2>
+                      : rns_intt_mac_kernel<true, kLogN, 0>;
 }
 
 // The instances: at N = 2^13 the lazy ones for 1 and 2 terms (the CKKS mul's
@@ -886,17 +972,17 @@ int launch_intt_mac(const Terms& t, uint64_t* y, const Stacked& s, const MacShap
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
-  auto kernel = log_n == kMaxLogN ? rns_intt_mac_kernel<kLazy, kMaxLogN, 0> : rns_intt_mac_kernel<kLazy, 0, 0>;
+  auto kernel = log_n == kFixedLogN ? rns_intt_mac_kernel<kLazy, kFixedLogN, 0> : rns_intt_mac_kernel<kLazy, 0, 0>;
   if constexpr (kLazy) {
-    if (log_n == kMaxLogN && sh.terms == 1) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 1>;
-    if (log_n == kMaxLogN && sh.terms == 2) kernel = rns_intt_mac_kernel<kLazy, kMaxLogN, 2>;
+    if (log_n == kFixedLogN && sh.terms == 1) kernel = rns_intt_mac_kernel<kLazy, kFixedLogN, 1>;
+    if (log_n == kFixedLogN && sh.terms == 2) kernel = rns_intt_mac_kernel<kLazy, kFixedLogN, 2>;
+    if (log_n > kFixedLogN) kernel = log_n == 14 ? big_intt_mac<14>(sh.terms)
+                                     : log_n == 15 ? big_intt_mac<15>(sh.terms)
+                                                   : big_intt_mac<16>(sh.terms);
+  } else if (log_n > kFixedLogN) {  // past N = 2^13 the lazy instances alone
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, t, y, s, sh, log_n);
 }
 
 // The gathered instances: a cluster per output row from N = 2048 (every
@@ -912,34 +998,27 @@ int launch_intt_mac_gather(const GatherTerms& t, uint64_t* y, const Stacked& s, 
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
-  const auto kernel =
-      log_n == kMaxLogN ? rns_intt_mac_gather_kernel<kLazy, kMaxLogN> : rns_intt_mac_gather_kernel<kLazy, 0>;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh, log_n);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel =
+      log_n == kFixedLogN ? rns_intt_mac_gather_kernel<kLazy, kFixedLogN> : rns_intt_mac_gather_kernel<kLazy, 0>;
+  if constexpr (kLazy) {
+    if (log_n == 14) kernel = rns_intt_mac_gather_kernel<kLazy, 14>;
+    if (log_n == 15) kernel = rns_intt_mac_gather_kernel<kLazy, 15>;
+    if (log_n == 16) kernel = rns_intt_mac_gather_kernel<kLazy, 16>;
+  } else if (log_n > kFixedLogN) {  // past N = 2^13 the lazy instances alone
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, t, y, s, sh, log_n);
 }
 
 // The shared-x instances (lazy, N = 2^13, 1 to kRowTerms terms, every
 // term's x one row): a cluster per output row, as the gathered instance.
 int launch_intt_mac_shared(const GatherTerms& t, uint64_t* y, const Stacked& s, const MacShape& sh,
                            cudaStream_t stream) {
-  const int rows = sh.sums * sh.rows;
-  if (rows > (1 << 30) / kCluster) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = sh.terms == 1   ? rns_intt_mac_shared_kernel<1>
                       : sh.terms == 2 ? rns_intt_mac_shared_kernel<2>
                       : sh.terms == 3 ? rns_intt_mac_shared_kernel<3>
                                       : rns_intt_mac_shared_kernel<4>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(rows, stream, attr);
-  cfg.dynamicSmemBytes = kRowBytes;
-  err = cudaLaunchKernelEx(&cfg, kernel, t, y, s, sh);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(kernel, sh.sums * sh.rows, kFixedLogN, kRowBytes, stream, t, y, s, sh);
 }
 
 unsigned grid_for(long long count) {
@@ -1339,7 +1418,7 @@ int lft_rns_intt_mac_gather_shared(const void* xs, const void* ys, const void* z
                                    const void* psi_s, const void* psi_inv, const void* psi_inv_s, const void* q,
                                    const void* neg_q_inv, const void* n_inv_mac, const void* n_inv_mac_s, int chunk,
                                    int lazy, void* stream) {
-  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n != kMaxLogN || !lazy || terms > kRowTerms ||
+  if (!mac_args_ok(terms, rows, limbs, y_rows, chunk) || log_n != kFixedLogN || !lazy || terms > kRowTerms ||
       chunk < terms)
     return static_cast<int>(cudaErrorInvalidValue);
   const GatherTerms t = gather_terms_of(xs, ys, zs, perms, terms);

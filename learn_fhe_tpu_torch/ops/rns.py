@@ -29,8 +29,10 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
   shared memory and gathers from there (`_row_instance`);
 - K-AUTOMORPH, `automorphism_rns`: the coefficient automorphism X -> X^t
   of (..., L, N) rows, b and a in one launch (`models/ckks/ckks.py:605`).
-Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
-to the kernel, or the wrapper raises. Add, subtract, negate and
+K-RNS-NTT and every `rns_intt_mac` instance take 2 <= N <= 2^16, past
+2^13 on primes below 2^62 only (`_check_ring`: the production bootstrap's
+ring). Each wrapper runs the plain version only for CPU tensors; a CUDA
+tensor goes to the kernel, or the wrapper raises. Add, subtract, negate and
 `rns_from_i64` stay plain torch on either device, as they are XLA
 element-wise ops in the JAX package.
 
@@ -225,9 +227,11 @@ def rns_intt_ref(x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 # Wrappers
 # ---------------------------------------------------------------------------
 
-MAX_LOG_N = 13  # K-RNS-NTT: a row's 8 sub-rows of N/8 in its cluster's shared memory
+MAX_LOG_N = 16  # K-RNS-NTT: a row's 8 sub-rows of N/8 in the shared memory of its cluster of up to 8 blocks
+FIXED_LOG_N = 13  # past it the cluster instances are lazy only (every prime below 2^62)
 MAX_TERMS = 16  # K-RNS-MAC: products a launch sums
-ROW_TERMS = 4  # the gathered rns_intt_mac's shared-x instances: 1..4 terms (lazy, N = 2^MAX_LOG_N)
+ROW_LOG_N = 13  # the gathered rns_intt_mac's shared-x instances: N = 2^13 (a 64 KB x row a block)
+ROW_TERMS = 4  # ... and 1..4 terms (lazy)
 MAX_LIMBS = 64  # K-BASECONV: input limbs a thread holds
 
 
@@ -256,13 +260,23 @@ def _ntt_ptrs(t: RnsTables) -> tuple[int, ...]:
     return tuple(v.data_ptr() for v in (t.psi, t.psi_s, t.psi_inv, t.psi_inv_s, t.q, t.neg_q_inv, t.n_inv, t.n_inv_s))
 
 
-def _transform(fn, entry: str, x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+def _check_ring(name: str, plan: RnsPlan) -> bool:
+    """Whether K-RNS-NTT's instances at the plan's ring are lazy (every prime
+    below 2^62); raises where no instance takes the plan: 2 <= N <= 2^16, and
+    past N = 2^13 lazy ones alone."""
+    lazy = max(plan.qs) < 1 << 62
     if not 1 <= plan.log_n <= MAX_LOG_N:
-        raise ValueError(f"{fn.__name__}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
+        raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
+    if plan.log_n > FIXED_LOG_N and not lazy:
+        raise ValueError(f"{name}: past n = {1 << FIXED_LOG_N} the kernel takes primes below 2^62, got {max(plan.qs)}")
+    return lazy
+
+
+def _transform(fn, entry: str, x: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    lazy = _check_ring(fn.__name__, plan)
     rows = _check_rows(fn.__name__, x, len(plan.qs), plan.n)
     y = torch.empty_like(x)
     if rows:
-        lazy = max(plan.qs) < 1 << 62
         kernels.launch(entry, x.data_ptr(), y.data_ptr(), *_ntt_ptrs(rns_tables(plan, x.device)), rows, len(plan.qs), plan.log_n, int(lazy))
         _count(fn, rows)
     return y
@@ -368,9 +382,10 @@ def _shared_x(xs) -> bool:
 
 def _row_instance(xs, plan: RnsPlan) -> bool:
     """Whether a gathered rns_intt_mac takes the instance that copies each x
-    row into shared memory: one x (`_shared_x`), lazy, N = 2^MAX_LOG_N and
-    1..ROW_TERMS terms (`lft_rns_intt_mac_gather_shared` refuses others)."""
-    return plan.log_n == MAX_LOG_N and max(plan.qs) < 1 << 62 and len(xs) <= ROW_TERMS and _shared_x(xs)
+    row into shared memory: one x (`_shared_x`), lazy, N = 2^ROW_LOG_N and
+    1..ROW_TERMS terms (`lft_rns_intt_mac_gather_shared` refuses others;
+    past 2^13 the distinct-x instance takes every gathered sum)."""
+    return plan.log_n == ROW_LOG_N and max(plan.qs) < 1 << 62 and len(xs) <= ROW_TERMS and _shared_x(xs)
 
 
 def rns_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
@@ -411,14 +426,13 @@ def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
     with zs. With perms, where every term reads one x (the bootstrap's b
     sums), lazy at N = 2^13 with up to ROW_TERMS terms, the launch copies
     each x row into shared memory and gathers from there
-    (`_row_instance`)."""
+    (`_row_instance`). Rings and primes as K-RNS-NTT's (`_check_ring`)."""
     if xs[0].is_cpu:
         return rns_intt_mac_ref(xs, ys, plan, zs, perms)
     if plan.n == 1:  # the inverse transform of one value is the value
         return rns_mac(xs, ys, plan, zs, perms)
     name = "rns_intt_mac"
-    if plan.log_n > MAX_LOG_N:
-        raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
+    lazy = _check_ring(name, plan)
     rows, y_rows, (px, py, pz) = _mac_operands(name, xs, ys, zs, plan)
     pp = _perm_operands(name, perms, len(xs), plan.n)
     sums = 1 if zs is None else 2
@@ -433,7 +447,7 @@ def rns_intt_mac(xs, ys, plan: RnsPlan, zs=None, perms=None) -> torch.Tensor:
         kernels.launch(
             *entry, px.ctypes.data, py.ctypes.data, 0 if pz is None else pz.ctypes.data, *gather,
             out.data_ptr(), len(xs), rows, len(plan.qs), plan.log_n, y_rows, *(v.data_ptr() for v in tabs),
-            _mac_chunk(plan.qs), int(max(plan.qs) < 1 << 62),
+            _mac_chunk(plan.qs), int(lazy),
         )  # fmt: skip
         _count(rns_intt_mac, (sums * rows, len(xs)), pp is not None, shared)
     return out[0] if zs is None else out

@@ -43,10 +43,14 @@ def rns_to_bigints(limbs: np.ndarray, qs: tuple[int, ...]) -> list[int]:
 
 
 def bigints_to_rns(values: list[int], qs: tuple[int, ...], n: int | None = None) -> np.ndarray:
-    """Python ints -> (L, N) u64 residues."""
+    """Python ints -> (L, N) u64 residues (floor mod, in int64 where every
+    value fits, else per value)."""
     n = len(values) if n is None else n
     out = np.empty((len(qs), n), dtype=np.uint64)
+    try:
+        v = np.array(values[:n], dtype=np.int64)
+    except OverflowError:
+        v = np.array(values[:n], dtype=object)
     for i, q in enumerate(qs):
-        for j, v in enumerate(values):
-            out[i, j] = v % q
+        out[i] = v % q
     return out

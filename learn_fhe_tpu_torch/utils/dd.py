@@ -227,8 +227,12 @@ class DDC:
         """Exact round-to-nearest of (re, im) to Python ints."""
 
         def rnd(h, l):
+            h, l = h.ravel(), l.ravel()
+            if np.all(np.abs(h) < 2.0**62):  # the same steps in int64, half to even as round()
+                n0 = np.rint(h)
+                return (n0.astype(np.int64) + np.rint((h - n0) + l).astype(np.int64)).tolist()
             out = []
-            for hh, lll in zip(h.ravel(), l.ravel()):
+            for hh, lll in zip(h, l):
                 n0 = int(round(hh))
                 frac = (hh - n0) + lll
                 out.append(n0 + int(round(frac)))

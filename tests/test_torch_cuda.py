@@ -1016,16 +1016,23 @@ def test_rns_kernels_match_plain(dev, log_n, limbs, batch):
 
 # (limbs, leading axes) of the rows K-RNS-NTT is held at: 1, 3, 128 and 513 rows
 _RNS_ROWS = [(1, (1,)), (3, (1,)), (8, (16,)), (19, (27,))]
+# past N = 2^13: 1, 3 and 64 rows, and 60 (the production ladder's 30 q-limbs
+# and 32 q + p of a ciphertext's b and a)
+_RNS_BIG_ROWS = [(1, (1,)), (3, (1,)), (32, (2,)), (30, (2,))]
+_RNS_ROW_CASES = [
+    *((log_n, limbs, lead, bits) for log_n in (10, 11, 12, 13) for limbs, lead in _RNS_ROWS for bits in (55, 63)),
+    *((log_n, limbs, lead, bits) for log_n in (14, 15, 16) for limbs, lead in _RNS_BIG_ROWS for bits in (55, 59)),
+]
 
 
-@pytest.mark.parametrize("log_n", [10, 11, 12, 13])
-@pytest.mark.parametrize("limbs,lead", _RNS_ROWS)
-@pytest.mark.parametrize("bits", [55, 63])
+@pytest.mark.parametrize("log_n,limbs,lead,bits", _RNS_ROW_CASES)
 def test_rns_transforms_at_row_counts(dev, log_n, limbs, lead, bits):
     """K-RNS-NTT's instances (forward and inverse, lazy at 55 bits and eager
     at 63: the cluster per row at N = 2^13 with its shapes constant and at
     2^11, 2^12, a block per row at 2^10) on 1, 3, 128 and 513 rows holding 0
-    and q - 1, each row under its own limb's tables."""
+    and q - 1, each row under its own limb's tables; past 2^13 (the lazy
+    clusters of 2, 4 and 8 blocks at 2^14, 2^15 and 2^16) at 55 and 59 bits
+    (the production ladder's widest primes) on 1, 3, 60 and 64 rows."""
     from learn_fhe_tpu_torch.ops import rns
 
     n = 1 << log_n
@@ -1095,15 +1102,16 @@ def _check_intt_mac(dev, plan, xs, ys, zs):
     assert rns.rns_intt_mac.launches == launches + 1
 
 
-@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("log_n", range(1, 17))
 @pytest.mark.parametrize("bits", [55, 62, 63])
 def test_rns_intt_mac_at_every_ring(dev, log_n, bits):
     """rns_intt_mac (the MAC sums inside K-RNS-NTT's inverse: a cluster per
-    row from N = 2048, at N = 2^13 with the 1- and 2-term instances; a block
-    per row below) at every ring N = 2..2^13, lazy at 55 and 62 bits (where
-    a 128-bit sum holds 4 products, so 16 terms take 4 REDCs) and eager at
-    63 (2 products a REDC), on 1, 2, 3 and 16 terms, with and without z,
-    with y and z of x's shape or a key broadcast over the batch: equal to
+    row from N = 2048, at N = 2^13 and past it with the 1- and 2-term
+    instances; a block per row below) at every ring N = 2..2^16, lazy at 55
+    and 62 bits (where a 128-bit sum holds 4 products, so 16 terms take 4
+    REDCs) and eager at 63 (2 products a REDC; past 2^13 the wrapper raises:
+    the instances there are lazy), on 1, 2, 3 and 16 terms, with and without
+    z, with y and z of x's shape or a key broadcast over the batch: equal to
     rns_intt_ref(rns_mac_ref(..))."""
     from learn_fhe_tpu_torch.ops import rns
 
@@ -1111,6 +1119,11 @@ def test_rns_intt_mac_at_every_ring(dev, log_n, bits):
     qs = _rns_primes(3, log_n, bits)
     plan = rns.rns_plan(qs, n)
     rng = np.random.default_rng(log_n * 100 + bits)
+    if log_n > 13 and bits == 63:
+        x = torch.zeros((2, 3, n), dtype=torch.int64, device=dev)
+        with pytest.raises(ValueError):
+            rns.rns_intt_mac([x], [x], plan)
+        return
     for terms, with_z, broadcast in [(1, False, False), (1, True, True), (2, False, True), (2, True, False), (3, True, True), (16, False, False), (16, True, True)]:
         _check_intt_mac(dev, plan, *_mac_operands(rng, qs, (2,), n, terms, with_z, broadcast))
 
@@ -1239,8 +1252,56 @@ def test_rns_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rns.rescale_finish(x.float(), None, rns.rescale_plan(qs, 1))
     with pytest.raises(ValueError):
         rns.base_convert(x.transpose(0, 1), qs, qs)  # leading axes do not merge
-    with pytest.raises(ValueError):
-        rns.rns_ntt(torch.zeros((2, 4, 1 << 14), dtype=torch.int64, device=dev), rns.rns_plan(_rns_primes(4, 14), 1 << 14))
+    with pytest.raises(ValueError):  # past the largest ring
+        rns.rns_ntt(torch.zeros((2, 4, 1 << 17), dtype=torch.int64, device=dev), rns.rns_plan(_rns_primes(4, 17), 1 << 17))
+    eager = rns.rns_plan(_rns_primes(4, 14, 63), 1 << 14)
+    x14 = torch.zeros((2, 4, 1 << 14), dtype=torch.int64, device=dev)
+    for call in (lambda: rns.rns_ntt(x14, eager), lambda: rns.rns_intt(x14, eager), lambda: rns.rns_intt_mac([x14], [x14], eager)):
+        with pytest.raises(ValueError):  # past 2^13 the instances are lazy
+            call()
+
+
+def test_production_ring_kernels(dev):
+    """At the production bootstrap's N = 2^16 and primes (`production_config
+    (16)`: 30 q-primes of 52-56 bits, 2 p-primes of 59): rns_intt_mac with
+    1 and 2 terms (the mul's tensor), 3, and 15 digits with z against a key
+    broadcast over the batch (the key switch), the gathered instance with
+    one x and with distinct x (neither takes the shared-x instance, which
+    stays at 2^13), K-BASECONV 1 -> 29 (mod_raise, b and a stacked) and 2
+    -> 30 (a digit's hoist), K-RESCALE at k = 1 and k = 2 (P), and
+    K-AUTOMORPH on b and a: equal to their plain versions on the card."""
+    from learn_fhe_tpu_torch.models.ckks.production import production_config
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = production_config(16).params
+    qs, ps, qps, n = params.qs, params.ps, params.qps, params.n
+    rng = np.random.default_rng(16)
+    on = lambda ts: None if ts is None else [t.to(dev) for t in ts]  # noqa: E731
+    plan_q, plan_qp = params.plan(qs), params.plan(qps)
+    for plan, basis, terms, with_z, broadcast in [(plan_q, qs, 1, False, False), (plan_q, qs, 2, False, False), (plan_q, qs, 3, True, True), (plan_qp, qps, 15, True, True)]:  # fmt: skip
+        _check_intt_mac(dev, plan, *_mac_operands(rng, basis, (1,), n, terms, with_z, broadcast))
+    tabs = _perm_tables(rng, n, dev)
+    xs, ys, zs = (on(t) for t in _mac_operands(rng, qs, (1,), n, 4, True, True))
+    perms = [None, *tabs[2:5]]
+    for xk in (xs, [xs[0]] * 4):
+        before = rns.rns_intt_mac.shared_launches
+        _same(rns.rns_intt_mac(xk, ys, plan_q, zs, perms), rns.rns_intt_mac_ref(xk, ys, plan_q, zs, perms).cpu())
+        assert rns.rns_intt_mac.shared_launches == before
+    low = _rns_residues(rng, qs[:1], (2,), n).to(dev)
+    _same(rns.base_convert(low, qs[:1], qs[1:]), rns.base_convert_ref(low, qs[:1], qs[1:]).cpu())
+    digit = _rns_residues(rng, qs[:2], (1,), n).to(dev)
+    rest = qs[2:] + ps
+    _same(rns.base_convert(digit, qs[:2], rest), rns.base_convert_ref(digit, qs[:2], rest).cpu())
+    x = _rns_residues(rng, qs, (2,), n).to(dev)
+    _same(rns.rescale_k(x, qs, 1), rns.rescale_finish_ref(x, None, rns.rescale_plan(qs, 1)).cpu())
+    xp = _rns_residues(rng, qps, (2,), n).to(dev)
+    rp = rns.rescale_plan(qps, len(ps))
+    conv = rns.base_convert_ref(xp[..., len(qs) :, :], rp.drop, rp.keep, add=rp.p_half[len(qs) :])
+    _same(rns.rescale_k(xp, qps, len(ps)), rns.rescale_finish_ref(xp, conv, rp).cpu())
+    for t in (params.pow5(1), params.pow5(1 << 14), -1):
+        b, a = rns.automorphism_rns((x[0], x[1]), t, qs)
+        _same(b, rns.automorphism_rns_ref(x[0], t, qs).cpu())
+        _same(a, rns.automorphism_rns_ref(x[1], t, qs).cpu())
 
 
 def _perm_tables(rng, n, dev):
@@ -1255,11 +1316,12 @@ def _perm_tables(rng, n, dev):
     return [torch.from_numpy(t.astype(np.int32)).to(dev) for t in tabs]
 
 
-@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("log_n", range(1, 17))
 @pytest.mark.parametrize("bits", [55, 62, 63])
 def test_gathered_mac_at_every_ring(dev, log_n, bits):
     """K-RNS-MAC's gathered instances (rns_mac and rns_intt_mac with perms)
-    at every ring N = 2..2^13, lazy at 55 and 62 bits and eager at 63, on 1,
+    at every ring N = 2..2^16, lazy at 55 and 62 bits and eager at 63 (past
+    2^13 only rns_mac: rns_intt_mac raises there on eager primes), on 1,
     2, 3 and 16 terms, with and without z, with y and z of x's shape or a
     key broadcast over the batch, each term read through a random
     permutation, an evaluation-slot permutation, the identity or no table:
@@ -1283,6 +1345,10 @@ def test_gathered_mac_at_every_ring(dev, log_n, bits):
             shared = rns._row_instance(xk, plan)
             assert shared == (xk[0] is xk[-1] and log_n == 13 and max(qs) < 1 << 62 and terms <= 4)
             for fn, ref in ((rns.rns_mac, rns.rns_mac_ref), (rns.rns_intt_mac, rns.rns_intt_mac_ref)):
+                if fn is rns.rns_intt_mac and log_n > 13 and bits == 63:
+                    with pytest.raises(ValueError):
+                        fn(xk, yd, plan, zd, perms)
+                    continue
                 before, gathered, s_before = fn.launches, fn.gather_launches, rns.rns_intt_mac.shared_launches
                 _same(fn(xk, yd, plan, zd, perms), ref(xk, yd, plan, zd, perms).cpu())
                 assert (fn.launches, fn.gather_launches) == (before + 1, gathered + 1)
@@ -1317,9 +1383,9 @@ def test_gathered_mac_at_row_counts(dev, log_n, limbs, lead):
         _same(rns.rns_mac(xs, ys, plan2, zs, tabs[2:3]), rns.rns_mac_ref(xs, ys, plan2, zs, tabs[2:3]).cpu())
 
 
-@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("log_n", range(1, 17))
 def test_automorphism_kernel_at_every_ring(dev, log_n):
-    """K-AUTOMORPH at every ring N = 2..2^13 for t = 5^j and -1, on one
+    """K-AUTOMORPH at every ring N = 2..2^16 for t = 5^j and -1, on one
     tensor and on a pair (b and a in one launch), holding 0 and q - 1 (the
     negation of 0 is 0); a strided input is copied first."""
     from learn_fhe_tpu_torch.ops import rns

@@ -305,8 +305,9 @@ def test_gathered_sums_take_the_shared_x_instance_for_one_x_only():
     """rns_intt_mac's shared-x decision (`_shared_x`, `_row_instance`): the
     same tensor in every term is one x; views of one storage at another
     offset or with other strides, and a copy, are not; the instance takes
-    lazy primes at N = 2^13 and 1..ROW_TERMS terms."""
-    n = 1 << TR.MAX_LOG_N
+    lazy primes at N = 2^13 (ROW_LOG_N) and 1..ROW_TERMS terms; past 2^13
+    the distinct-x instance takes every gathered sum."""
+    n = 1 << TR.ROW_LOG_N
     base = torch.zeros((4, 2, n), dtype=torch.int64)
     x = base[:2]
     assert TR._shared_x([x]) and TR._shared_x([x, x, x]) and TR._shared_x([x, base[:2]])
@@ -320,7 +321,63 @@ def test_gathered_sums_take_the_shared_x_instance_for_one_x_only():
     assert not TR._row_instance([x] * (TR.ROW_TERMS + 1), plan)
     assert not TR._row_instance([x, base[1:3]], plan)
     assert not TR._row_instance([x], TR.rns_plan(PRIMES[:2], n // 2))
-    stream = two_adic_primes(63, TR.MAX_LOG_N + 1)
+    stream = two_adic_primes(63, TR.ROW_LOG_N + 1)
     big = (next(stream), next(stream))
     assert min(big) >= 1 << 62
     assert not TR._row_instance([x], TR.rns_plan(big, n))  # eager primes
+    stream = two_adic_primes(55, 17)
+    for log_n in (14, 16):
+        wide = torch.zeros((2, 2, 1 << log_n), dtype=torch.int64)
+        assert not TR._row_instance([wide] * 2, TR.rns_plan((next(stream), next(stream)), 1 << log_n))
+
+
+def test_ring_limits_of_the_transform_kernels():
+    """K-RNS-NTT and rns_intt_mac take 2 <= N <= 2^16; past 2^13 only
+    lazy primes (below 2^62), the instances there being lazy alone."""
+    s55, s63 = two_adic_primes(55, 18), two_adic_primes(63, 18)
+    for log_n in (1, 13, 14, 16):
+        assert TR._check_ring("rns_ntt", TR.rns_plan((next(s55),), 1 << log_n))
+    assert not TR._check_ring("rns_ntt", TR.rns_plan((next(s63),), 1 << 13))
+    for log_n, stream in ((17, s55), (14, s63), (16, s63)):
+        with pytest.raises(ValueError):
+            TR._check_ring("rns_ntt", TR.rns_plan((next(stream),), 1 << log_n))
+
+
+# the production ladder's widest primes (59-bit p-primes, 56-bit EvalMod band)
+# past N = 2^13, where the kernels now run
+_WIDE = {log_n: tuple(next(two_adic_primes(b, log_n + 1)) for b in (52, 56, 59)) for log_n in (14, 16)}
+
+
+@pytest.mark.parametrize("log_n", [14, 16])
+def test_transforms_and_fused_sums_past_2_13_match_jax(log_n):
+    """The plain rns_ntt, rns_intt and rns_intt_mac (2 terms and z, the key
+    broadcast; and the gathered form through an evaluation-slot
+    permutation) on 2 rows of each of 52-, 56- and 59-bit primes at N =
+    2^14 and 2^16, against the JAX package's rns_ntt, rns_intt and rns_intt
+    of its rns_mul_eval sums."""
+    from learn_fhe_tpu.ops.ntt import eval_automorphism_perm as jperm
+
+    n, qs = 1 << log_n, _WIDE[log_n]
+    rng = np.random.default_rng(log_n)
+    x = _residues(rng, qs, (2, n))
+    x[0, 0, 0], x[-1, -1, -1] = 0, qs[-1] - 1
+    ys = [_residues(rng, qs, (n,)) for _ in range(2)]
+    zs = [_residues(rng, qs, (n,)) for _ in range(2)]
+    x2 = _residues(rng, qs, (2, n))
+    jplan, tplan = JR.rns_plan(qs, n), TR.rns_plan(qs, n)
+    tx = u64_to_torch(x)
+    _same(JR.rns_ntt(jnp.asarray(x), jplan), TR.rns_ntt(tx, tplan))
+    _same(JR.rns_intt(jnp.asarray(x), jplan), TR.rns_intt(tx, tplan))
+
+    def jsum(xs, ws):
+        acc = JR.rns_mul_eval(jnp.asarray(xs[0]), jnp.asarray(ws[0]), jplan)
+        for xv, w in zip(xs[1:], ws[1:]):
+            acc = JR.rns_add(acc, JR.rns_mul_eval(jnp.asarray(xv), jnp.asarray(w), jplan), jplan)
+        return JR.rns_intt(acc, jplan)
+
+    got = TR.rns_intt_mac([tx, u64_to_torch(x2)], [u64_to_torch(y) for y in ys], tplan, [u64_to_torch(z) for z in zs])
+    _same(np.stack([jsum([x, x2], ys), jsum([x, x2], zs)]), got)
+    perm = jperm(n, pow(5, 3, 2 * n))
+    tperm = torch.from_numpy(perm.astype(np.int32))
+    got = TR.rns_intt_mac([tx, tx], [u64_to_torch(y) for y in ys], tplan, perms=[None, tperm])
+    _same(jsum([x, x[..., perm]], ys), got)

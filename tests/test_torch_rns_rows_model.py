@@ -8,17 +8,19 @@ do. K-RNS-MAC inside the inverse (`rns_intt_mac`): output row r of S R rows
 (r mod R) mod y_rows, the blocks taking the two sums of an x row back to
 back; the inverse's first pass builds each 4-value item from the terms'
 16-byte words (128-bit sums, one REDC per chunk of terms), and the final
-scale by N^-1 2^64 in place of 1/N takes out the REDCs' 2^-64. K-RNS-NTT: from N = 2048 up a row runs on a cluster of 2 blocks of 256
-threads; the first pass's 3 layers leave 8 sub-rows of N/8 values, block c
-takes items [c N/16, (c+1) N/16) of that pass and writes output m of item i
-into the buffer of the block that holds sub-row m (4 a block, at column i
-of it), then each block runs the head passes from layer 3 and the last pass
-of 2 layers on its sub-rows alone; the inverse the other way round, scaled
-by 1/N in the first pass. Below N = 2048 a block of 128 threads takes one
-row through the row passes of `u64_rows.cuh`. Each row r is under limb r
-mod L. The tests check which block and thread take which item of which
-pass (every value once, the reference's butterflies and twiddles) at N =
-2..2^13, the arithmetic of both plans with per-row limb tables and
+scale by N^-1 2^64 in place of 1/N takes out the REDCs' 2^-64. K-RNS-NTT:
+from N = 2048 up a row runs on a cluster of C blocks of 256 threads, C = 2
+up to N = 2^13 and 2^(log N - 13) past it (2, 4, 8 at 2^14, 2^15, 2^16:
+each block then holds 2^13 values); the first pass's 3 layers leave 8
+sub-rows of N/8 values, block c takes items [c N/(8C), (c+1) N/(8C)) of
+that pass and writes output m of item i into the buffer of the block that
+holds sub-row m (8/C a block, at column i of it), then each block runs the
+head passes from layer 3 and the last pass of 2 layers on its sub-rows
+alone; the inverse the other way round, scaled by 1/N in the first pass.
+Below N = 2048 a block of 128 threads takes one row through the row passes
+of `u64_rows.cuh`. Each row r is under limb r mod L. The tests check which
+block and thread take which item of which pass (every value once, the
+reference's butterflies and twiddles) at N = 2..2^16, the arithmetic of both plans with per-row limb tables and
 Harvey's lazy ranges at N <= 256, and K-BASECONV's sum (128-bit products,
 one REDC per chunk of terms, Montgomery tables made from the Shoup duals,
 -p^-1 by Newton's iteration) in Python integers.
@@ -49,8 +51,15 @@ ROW_THREADS = 128  # a row's block below SPLIT_LOG_N
 SPLIT_LOG_N = 11  # from N = 2048 up a row runs on a cluster
 SPLIT = 3  # the first pass's layers
 SUBS = 1 << SPLIT
-CLUSTER = 2
+CLUSTER = 2  # blocks per row up to FIXED_LOG_N
 PER_BLOCK = SUBS // CLUSTER
+FIXED_LOG_N = 13  # past it the cluster grows with the ring
+MAX_LOG_N = 16
+
+
+def cluster(log_n: int) -> int:
+    """Blocks per row (`rns64.cu::cluster_of`)."""
+    return 1 << (log_n - FIXED_LOG_N) if log_n > FIXED_LOG_N else CLUSTER
 
 
 def _primes(bits: int, log_n: int, count: int) -> tuple[int, ...]:
@@ -63,25 +72,28 @@ def _primes(bits: int, log_n: int, count: int) -> tuple[int, ...]:
 
 def split_items(log_n: int) -> dict[tuple[int, int], list[int]]:
     """The first pass: block c's thread t takes items c share + k, k = t, t
-    + THREADS, ... below share = 2^log_s / CLUSTER; item i holds the values
-    i + m 2^log_s, m < 8."""
-    share = (1 << (log_n - SPLIT)) // CLUSTER
-    return {(c, t): [c * share + k for k in range(t, share, THREADS)] for c in range(CLUSTER) for t in range(THREADS)}
+    + THREADS, ... below share = 2^log_s / C; item i holds the values i + m
+    2^log_s, m < 8."""
+    c_n = cluster(log_n)
+    share = (1 << (log_n - SPLIT)) // c_n
+    return {(c, t): [c * share + k for k in range(t, share, THREADS)] for c in range(c_n) for t in range(THREADS)}
 
 
 def sub_items(log_n: int, l0: int, w: int) -> dict[tuple[int, int], list[tuple[int, int, int]]]:
     """A pass of w layers from l0 >= 3 on the blocks' sub-rows, as
     `sub_pass` deals it: block c's thread t takes k = t, t + THREADS, ... of
-    its PER_BLOCK sub-rows' items; (buffer column, global column, twiddle
-    group) of each item."""
+    its 8/C sub-rows' items; (buffer column, global column, twiddle group) of
+    each item."""
     log_s, log_h = log_n - SPLIT, log_n - l0 - w
     log_items = log_s - w
+    c_n = cluster(log_n)
+    per = SUBS // c_n
     out = {}
-    for c in range(CLUSTER):
-        sub0 = c * PER_BLOCK
+    for c in range(c_n):
+        sub0 = c * per
         for t in range(THREADS):
             got = []
-            for k in range(t, PER_BLOCK << log_items, THREADS):
+            for k in range(t, per << log_items, THREADS):
                 s, i = k >> log_items, k & ((1 << log_items) - 1)
                 g = i >> log_h
                 col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1))
@@ -145,30 +157,40 @@ def _check_butterflies(passes, log_n: int) -> None:
         assert sorted(pairs) == want, f"layer {layer}"
 
 
-@pytest.mark.parametrize("log_n", range(SPLIT_LOG_N, 14))
+@pytest.mark.parametrize("log_n", range(SPLIT_LOG_N, MAX_LOG_N + 1))
 def test_cluster_plan_takes_every_value_once_with_the_reference_twiddles(log_n):
-    """At N = 2048, 4096 and 8192: every pass of the cluster's plan takes
-    each value once, with the reference's butterflies and twiddles; in the
-    first pass each (block, thread) takes its own items and every block's
-    buffer gets each of its sub-rows' columns once, from the block that ran
-    its item; in the others a block's items fall in its own sub-rows, each
-    (block, item) taken by one thread; the last pass's items are 4
-    consecutive values on a 16-byte boundary."""
+    """At N = 2^11 .. 2^16 (clusters of 2 blocks up to 2^13, then 2, 4 and 8
+    of 2^13 values each): every pass of the cluster's plan takes each value
+    once, with the reference's butterflies and twiddles; in the first pass
+    each (block, thread) takes its own items and every block's buffer gets
+    each of its sub-rows' columns once, from the block that ran its item;
+    in the others a block's items fall in its own sub-rows, each (block,
+    item) taken by one thread; the last pass's items are 4 consecutive
+    values on a 16-byte boundary; each block's buffer fits its shared
+    memory (the static 32 KB up to 2^13, the dynamic 64 KB past it), and
+    the items a thread takes in the first pass and in the last are the
+    instance's unrolled counts."""
     _check_butterflies(split_passes(log_n), log_n)
-    log_s = log_n - SPLIT
+    log_s, c_n = log_n - SPLIT, cluster(log_n)
+    per = SUBS // c_n
+    assert (per << log_s) * 8 <= (64 if log_n > FIXED_LOG_N else 32) * 1024
     buffers = defaultdict(list)
     for (c, _), items in split_items(log_n).items():
         for i in items:
             for m in range(SUBS):
-                buffers[m // PER_BLOCK].append(((m % PER_BLOCK) << log_s) + i)
-    assert sorted(buffers) == list(range(CLUSTER))
-    assert all(sorted(v) == list(range(PER_BLOCK << log_s)) for v in buffers.values())
+                buffers[m // per].append(((m % per) << log_s) + i)
+    assert sorted(buffers) == list(range(c_n))
+    assert all(sorted(v) == list(range(per << log_s)) for v in buffers.values())
     for l0, w in split_plan(log_n):
         for (c, _), got in sub_items(log_n, l0, w).items():
             for col, gcol, _ in got:
-                assert col < PER_BLOCK << log_s and gcol >> log_s in range(c * PER_BLOCK, (c + 1) * PER_BLOCK)
-    for got in sub_items(log_n, log_n - 2, 2).values():
+                assert col < per << log_s and gcol >> log_s in range(c * per, (c + 1) * per)
+    last = sub_items(log_n, log_n - 2, 2)
+    for got in last.values():
         assert all(col % 4 == 0 and gcol % 4 == 0 for col, gcol, _ in got)
+    if log_n >= FIXED_LOG_N:  # RowShape's kAheadSplit and kAheadItems: every thread the same count
+        assert {len(v) for v in split_items(log_n).values()} == {2 if log_n == FIXED_LOG_N else 4}
+        assert {len(v) for v in last.values()} == {4 if log_n == FIXED_LOG_N else 8}
 
 
 @pytest.mark.parametrize("log_n", range(1, SPLIT_LOG_N))
@@ -270,6 +292,23 @@ def test_model_transforms_match_reference_and_jax(bits, log_n, limbs, lead):
     for split in (False, True) if log_n >= 6 else (False,):  # the cluster plan needs 8 first-pass items
         assert torch.equal(model_transform(rows, plan, False, split).reshape(tx.shape), want_f), f"forward, split {split}"
         assert torch.equal(model_transform(rows, plan, True, split).reshape(tx.shape), want_i), f"inverse, split {split}"
+
+
+@pytest.mark.parametrize("log_n", [14, 16])
+def test_model_transforms_past_2_13_match_reference(log_n):
+    """The cluster's plan past 2^13 (2 and 8 blocks of 2^13 values) on 2 rows
+    of 52- and 59-bit primes (the production ladder's; lazy): forward and
+    inverse bit for bit against rns_ntt_ref / rns_intt_ref (which
+    `tests/test_torch_rns.py` holds against the JAX package at these rings),
+    the fused inverse's rescale by N^-1 2^64 too."""
+    n = 1 << log_n
+    qs = (_primes(52, log_n, 1)[0], _primes(59, log_n, 1)[0])
+    rng = np.random.default_rng(log_n + 59)
+    x = u64_to_torch(np.stack([rng.integers(0, q, size=(1, n), dtype=np.uint64) for q in qs], axis=-2)).reshape(-1, n)
+    x[0, 0], x[-1, -1] = 0, qs[-1] - 1
+    plan = TR.rns_plan(qs, n)
+    assert torch.equal(model_transform(x, plan, False, True), TR.rns_ntt_ref(x, plan))
+    assert torch.equal(model_transform(x, plan, True, True), TR.rns_intt_ref(x, plan))
 
 
 # -- K-BASECONV: the chunked 128-bit sum with one REDC per chunk, in Python integers
@@ -395,7 +434,7 @@ def mac_loads(log_n: int) -> list[tuple[int, int]]:
     return [(item_cols(i, log_n, l0, w)[0], 1 << w) for v in visits(ROW_THREADS, 1, log_n - w) for i, _ in v]
 
 
-@pytest.mark.parametrize("log_n", range(1, 14))
+@pytest.mark.parametrize("log_n", range(1, MAX_LOG_N + 1))
 def test_mac_source_gives_each_first_pass_value_once(log_n):
     """Each value of an output row's first inverse pass is built once, from
     one load of each term's x and y at the same column, in 16-byte words
