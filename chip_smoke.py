@@ -201,10 +201,41 @@ by the HES tables), as `bench/production_bootstrap_probe.py` runs it:
       seed and knobs (15.7 / 14.1 bits) printed beside them; the peak
       device memory and the device's idle share (profiler).
 
+Then BGV at a deployment's size, `BgvParams(log_n=14, t=65537, log_qi=45,
+big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
+`utils/security.estimate`), batch 16 from seed 17:
+
+  G1. hold K-BGV-DROP (`ops/rns.py::drop_limbs_t`) against its plain
+      version at N=2^14 on b and a of a batch of 16 in one launch: the key
+      switch's division by P (8 limbs, k=4), a mul's whole drop (k=4, the
+      add of d0 and d1, one more drop), mod_switch (4 limbs, k=1), and 5
+      limbs at k=1 and k=4, `torch.equal`, the wrapper's counter rising by
+      one a call; time each over 20 eager calls and from a CUDA graph of 20
+      against its bound, with the instances' registers and spills;
+  G2. the path: keys on the card (pk, rlk, rotation keys for j = 1 and 7,
+      cjk; seconds by part), 6 x 16 messages encoded and pk_encrypted; with
+      the launch counters set to 0 just before and read just after, a mul
+      chain to depth 3 with fresh operands brought down by mod_switch,
+      rotate by 1 and 7, conjugate, and mul_plain, mod_switch, add_plain
+      (K-RNS-NTT, `rns_intt_mac`, K-BASECONV, K-AUTOMORPH and K-BGV-DROP must
+      launch; `rns_intt`, `rns_mac` and K-RESCALE must not); every slot of
+      every ciphertext must decrypt exactly to the numpy oracle mod t; one
+      batch-16 mul's launches by shape; its first ciphertext == the port's
+      CPU path; muls/s at batch 16 and 1 (median and spread of 5 calls),
+      the host enqueue against the wall, a CUDA graph's device time and the
+      device's idle share (profiler).
+
+Then the TFHE reference-order PBS (T1): `bootstrap(..., parity=True)` at the
+reference fixture, unbatched, on 4 messages through the identity LUT (each
+must decrypt right; seconds per PBS; K-NTT, `intt32` and K-GARNER must
+launch, K-STEP must not), and its first 8 CMux steps on the card == the
+port's CPU path.
+
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
-instances (`*_n65536`: P1's shapes, P2's launches). The phases' seconds
-are printed before it.
+instances (`*_n65536`: P1's shapes, P2's launches); the `bgv_drop` row
+times G1's first shape and carries G2's path's launches. The phases'
+seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -2093,6 +2124,290 @@ def batch_for_cluster(boot, params, cluster: int, dev) -> int | None:
     return batch if boot.walk64_cluster(batch, params, dev) == cluster else None
 
 
+BGV = dict(log_n=14, t=65537, log_qi=45, big_l=4)  # the smallest ring with 4 + 4 primes of 45 bits at 128 bits (utils/security)
+BGV_BATCH = 16
+BGV_SEED = 17
+BGV_REPS = 20  # eager calls and CUDA-graph launches a G1 timing averages
+BGV_MUL_CALLS = 5
+BGV_ROTATIONS = (1, 7)
+BGV_INSTANCES = ("bgv_drop_kernel<4>", "bgv_drop_kernel<5>", "bgv_drop_kernel<8>")
+# K-BGV-DROP's work, from the u64 operations' SASS counts above: per column
+# and drop, the centered residue, two Barrett reductions mod t, the product
+# by q_l^-1 mod t and the centered k (two Shoup-sized products and the
+# selects); per kept limb and drop, the two centered values into [0, q_i)
+# (selects), two Shoup products, an add and a subtract mod q_i
+DROP_STEP = 2 * SHOUP64 + 3 * CSUB64 + np.array([3, 0, 1])
+DROP_LIMB = 2 * SHOUP64 + 2 * ADD_Q64 + 2 * CSUB64
+
+
+def drop_ops(cols: int, limbs: int, k: int, then: int = 0, add: bool = False) -> np.ndarray:
+    """K-BGV-DROP on `cols` columns of `limbs` limbs: k drops, the add of
+    limbs - k values, then `then` drops."""
+    steps = sum(DROP_STEP + (limbs - 1 - s) * DROP_LIMB for s in range(k + then))
+    return cols * (steps + ((limbs - k) * ADD_Q64 if add else 0))
+
+
+def bgv_drop_cases(params, rng, dev):
+    """G1's launches at N=2^14, batch 16 x (b, a): the key switch's division
+    by P (8 limbs, k=4), a mul's whole drop (k=4, the add of d0 and d1, one
+    more drop), mod_switch at the top level (4 limbs, k=1), and 5 limbs at
+    k=1 and k=4. Returns {shape: (kernel call, plain call, bytes, instructions)}."""
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    n, B, t = params.n, BGV_BATCH, params.t
+    qs, qps = params.qs, params.qps
+
+    def residues(basis):
+        x = np.stack([rng.integers(0, q, size=(B, n), dtype=np.uint64) for q in basis], axis=-2)
+        x[0, :, :4] = np.array([[0, q // 2, q // 2 + 1, q - 1] for q in basis])
+        return u64_to_torch(x).to(dev)
+
+    cases = {}
+    for basis, k, then, add in ((qps, 4, 0, False), (qps, 4, 1, True), (qs, 1, 0, False), (qps[:5], 1, 0, False), (qps[:5], 4, 0, False)):
+        L = len(basis)
+        xs = (residues(basis), residues(basis))
+        adds = (residues(basis[: L - k]), residues(basis[: L - k])) if add else None
+        cols = 2 * B * n
+        n_bytes = cols * 8 * (L + (L - k if add else 0) + L - k - then)
+        label = f"{L}->{L - k - then} (k={k}{', + d0/d1, k=1' if then else ''})"
+        cases[label] = (
+            lambda xs=xs, b=basis, k=k, a=adds, th=then: rns.drop_limbs_t(xs, b, t, k, a, th),
+            lambda xs=xs, b=basis, k=k, a=adds, th=then: tuple(
+                rns.drop_limbs_t_ref(x, b, t, k, None if a is None else a[i], th) for i, x in enumerate(xs)
+            ),
+            n_bytes,
+            drop_ops(cols, L, k, then, add),
+        )
+    return cases
+
+
+def bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
+    """G1 (see the module's docstring): K-BGV-DROP against its plain version
+    and its bound; adds its entry to the kernels line's dicts."""
+    from learn_fhe_tpu_torch.models.bgv import BgvParams
+    from learn_fhe_tpu_torch.ops import rns
+
+    t0 = time.perf_counter()
+    params = BgvParams(**BGV)
+    report = kernels_report()
+    for name in BGV_INSTANCES:
+        regs, st, ld, stack = report[name]
+        say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+    cases = bgv_drop_cases(params, np.random.default_rng(3), dev)
+    for shape, (kernel, plain, *_) in cases.items():
+        before = rns.drop_limbs_t.launches
+        got = kernel()
+        if rns.drop_limbs_t.launches != before + 1:
+            raise AssertionError(f"G1 drop_limbs_t {shape}: the wrapper did not launch its kernel once")
+        for g, w in zip(got, plain()):
+            errs["bgv_drop"] = max(errs.get("bgv_drop", 0.0), max_abs_err(g, w.cpu()))
+    say(f"G1 K-BGV-DROP at N={params.n}, batch {BGV_BATCH} x (b, a), {', '.join(cases)} == plain, one launch a call: ok")
+    for shape, (kernel, plain, n_bytes, ops) in cases.items():
+        k_ms, g_ms, p_ms = cuda_ms(kernel, BGV_REPS), graph_ms(kernel, BGV_REPS), cuda_ms(plain, 3)
+        b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+        if "bgv_drop" not in timings:  # the kernels line takes the key switch's division by P
+            timings["bgv_drop"], graphs["bgv_drop"], bounds["bgv_drop"] = (k_ms, p_ms), g_ms, (b_ms, by)
+        say(f"{tag} G1 bgv_drop {shape}: kernel {k_ms * 1e3:.2f} us eager ({BGV_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+    say(f"{tag} G1 took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+BGV_COUNTED = ("rns_ntt", "rns_intt", "rns_mac", "rns_intt_mac", "base_convert", "rescale_finish", "automorphism_rns", "drop_limbs_t")
+
+
+def bgv_g2(dev, tag, launches) -> None:
+    """G2, BGV at a deployment's size (see the module's docstring). Adds
+    K-BGV-DROP's launches on the path to `launches`."""
+    import math
+
+    from learn_fhe_tpu_torch.models import bgv as G
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils import security
+
+    t_g2 = time.perf_counter()
+    params = G.BgvParams(**BGV)
+    n, t, B = params.n, params.t, BGV_BATCH
+    log_qp = sum(math.log2(q) for q in params.qps)
+    est = security.estimate(n, log_qp)
+    say(f"G2 config: BgvParams({BGV}): N={n}, {len(params.qs)} q-primes + {len(params.ps)} p-primes of {params.log_qi} bits (log2 QP {log_qp:.1f}), t={t}, batch {B}, seed {BGV_SEED}; security estimate {est.security_bits} bits (level {est.level}; `utils/security.estimate`)")
+    fns = {name: getattr(rns, name) for name in BGV_COUNTED}
+
+    def zero():
+        for fn in fns.values():
+            fn.launches, fn.by_rows = 0, Counter()
+
+    rng = np.random.default_rng(BGV_SEED)
+    keygen = {}
+
+    def timed(part, call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        keygen[part] = time.perf_counter() - t0
+        return out
+
+    sk = timed("sk", lambda: G.sk_gen(params, rng))
+    pk = timed("pk", lambda: G.pk_gen(params, sk, rng, dev))
+    rlk = timed("rlk", lambda: G.rlk_gen(params, sk, rng, dev))
+    rtk = {j: timed(f"rtk j={j}", lambda j=j: G.rtk_gen(params, sk, j, rng, dev)) for j in BGV_ROTATIONS}
+    cjk = timed("cjk", lambda: G.cjk_gen(params, sk, rng, dev))
+    say(f"{tag} G2 key generation on the card (host clock to a sync): " + ", ".join(f"{k} {v:.3f} s" for k, v in keygen.items()) + f"; in all {sum(keygen.values()):.3f} s")
+
+    depth = params.big_l - 1
+    msgs = [rng.integers(0, t, size=(B, n), dtype=np.int64) for _ in range(depth + 3)]
+
+    def encrypt(m):
+        pts = G.encode(params, m, dev)
+        cs = [G.pk_encrypt(params, pk, pts[i], rng) for i in range(B)]
+        return G.BgvCiphertext(torch.stack([c.b for c in cs]), torch.stack([c.a for c in cs]), params.qs)
+
+    t0 = time.perf_counter()
+    cts = [encrypt(m) for m in msgs]
+    torch.cuda.synchronize()
+    say(f"{tag} G2 {len(msgs)} x {B} messages encoded and pk_encrypted: {time.perf_counter() - t0:.2f} s (host clock, to a sync)")
+
+    def check(label, ct, want):
+        got = G.decrypt(params, sk, ct)
+        if got.shape != want.shape or not np.array_equal(got, want % t):
+            raise AssertionError(f"G2 {label}: {int((got != want % t).sum())} of {want.size} slots decrypt wrong")
+        say(f"G2 {label}: all {want.size} slots of the {B} ciphertexts decrypt exactly (level {len(ct.qs)}, factor {ct.factor})")
+
+    # -- the path, with the launch counters set to 0 just before and read just after
+    t0 = time.perf_counter()
+    zero()
+    acc, acc_m = cts[0], msgs[0]
+    chain = []
+    for m, ct in zip(msgs[1 : depth + 1], cts[1 : depth + 1]):
+        while len(ct.qs) > len(acc.qs):
+            ct = G.mod_switch(params, ct)
+        acc = G.mul(params, rlk, acc, ct)
+        acc_m = acc_m * m % t
+        chain.append((acc, acc_m))
+    fresh, fm = cts[depth + 1], msgs[depth + 1]
+    rots = {j: G.rotate(params, rtk[j], fresh) for j in BGV_ROTATIONS}
+    conj = G.conjugate(params, cjk, fresh)
+    plain_ct = G.add_plain(params, msgs[depth + 2], G.mod_switch(params, G.mul_plain(params, msgs[depth + 2], fresh)))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    path = {name: fn.launches for name, fn in fns.items()}
+    path_rows = {name: dict(fn.by_rows) for name, fn in fns.items() if fn.launches}
+    launches["bgv_drop"] = path["drop_limbs_t"]
+    say(f"{tag} G2 the path (a mul chain of depth {depth}, fresh operands brought down by mod_switch; rotate by {BGV_ROTATIONS}; conjugate; mul_plain, mod_switch, add_plain) at batch {B}: {path_s:.3f} s (host clock, to a sync)")
+    say(f"G2 launches on the path: {path}; by shape: {path_rows}")
+    for name in ("rns_ntt", "rns_intt_mac", "base_convert", "automorphism_rns", "drop_limbs_t"):
+        if path[name] == 0:
+            raise AssertionError(f"{name} was not launched on the BGV path")
+    for name in ("rns_intt", "rns_mac", "rescale_finish"):
+        if path[name]:
+            raise AssertionError(f"{name} launched on the BGV path, which runs its sums inside the inverse transforms and drops limbs by K-BGV-DROP")
+    for d, (ct, want) in enumerate(chain, 1):
+        check(f"mul chain depth {d}", ct, want)
+    half = n // 2
+    for j, ct in rots.items():
+        check(f"rotate by {j}", ct, np.concatenate([np.roll(fm[:, :half], -j, -1), np.roll(fm[:, half:], -j, -1)], axis=-1))
+    check("conjugate", conj, np.concatenate([fm[:, half:], fm[:, :half]], axis=-1))
+    check("mul_plain, mod_switch, add_plain", plain_ct, fm * msgs[depth + 2] + msgs[depth + 2])
+
+    # one batch-16 mul at the top level: its launches by shape
+    zero()
+    out = G.mul(params, rlk, cts[0], cts[1])
+    torch.cuda.synchronize()
+    say(f"G2 launches of one batch-{B} mul at the top level, by shape (rns_intt_mac: (output rows, terms); K-BASECONV: (input rows, input limbs, output limbs); K-BGV-DROP: (rows of b and a, limbs, drops)): " + str({name: dict(fn.by_rows) for name, fn in fns.items() if fn.launches}))
+    # the first ciphertext's mul against the port's CPU path
+    first = lambda ct: G.BgvCiphertext(ct.b[0].cpu(), ct.a[0].cpu(), ct.qs, ct.factor)  # noqa: E731
+    rlk_cpu = G.BgvKeySwitchingKey(rlk.b.cpu(), rlk.a.cpu(), rlk.qs)
+    t0 = time.perf_counter()
+    want = G.mul(params, rlk_cpu, first(cts[0]), first(cts[1]))
+    max_abs_err(out.b[0], want.b)
+    max_abs_err(out.a[0], want.a)
+    if out.factor != want.factor or out.qs != want.qs:
+        raise AssertionError("G2: the card's mul carries another factor or level than the CPU's")
+    say(f"G2 mul: the first ciphertext of the batch == the port's CPU path, bit for bit ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    mul_ms = {}
+    for batch, (a, b) in ((B, (cts[0], cts[1])), (1, tuple(G.BgvCiphertext(c.b[:1].contiguous(), c.a[:1].contiguous(), c.qs) for c in cts[:2]))):
+        med, lo, hi = spread_ms(lambda a=a, b=b: G.mul(params, rlk, a, b), BGV_MUL_CALLS)
+        mul_ms[batch] = med
+        say(f"{tag} G2 mul at batch {batch}: {med:.3f} ms per call (median of {BGV_MUL_CALLS}, {lo:.3f}-{hi:.3f}; CUDA events) = {batch / med * 1e3:.1f} muls/s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G.mul(params, rlk, cts[0], cts[1])
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    say(f"{tag} G2 mul at batch {B}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
+    g_ms = graph_ms(lambda: G.mul(params, rlk, cts[0], cts[1]), 3)
+    say(f"{tag} G2 mul at batch {B} from a CUDA graph: {g_ms:.3f} ms per call (device only) = {B / g_ms * 1e3:.1f} muls/s; 1 - graph / eager median = {1 - g_ms / mul_ms[B]:.4f}")
+    idle, kernel_ms, top = device_kernel_ms(lambda: [G.mul(params, rlk, cts[0], cts[1]) for _ in range(3)])
+    if kernel_ms:
+        say(f"{tag} G2 3 muls at batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
+        for name, t_, count in top:
+            say(f"  {t_:10.3f} ms  {count:6d} x  {name[:100]}")
+    else:
+        say(f"{tag} G2 device kernel time and idle share: not measured (the profiler recorded no device activity)")
+    say(f"{tag} G2 took {time.perf_counter() - t_g2:.1f} s (host clock)")
+
+
+T1_MESSAGES = 4
+T1_STEPS = 8  # CMux steps held against the CPU path
+
+
+def tfhe_t1(dev, tag) -> None:
+    """T1: the reference-order PBS (parity=True) at the reference fixture,
+    unbatched (see the module's docstring)."""
+    from learn_fhe_tpu_torch.models import tfhe
+    from learn_fhe_tpu_torch.models.tfhe import tggsw, tglwe, tlwe
+    from learn_fhe_tpu_torch.ops import ntt32 as tntt
+    from learn_fhe_tpu_torch.ops import torus_crt as tcrt
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    t_t1 = time.perf_counter()
+    cfg = REFERENCE
+    params = tfhe.BootstrapParams(
+        tfhe.TlweParams(log_p=cfg["log_p"], padding=1, n=cfg["n"], std_dev=cfg["tlwe_std"], log_b=4, d=5),
+        tfhe.TggswParams(tfhe.TglweParams(log_p=cfg["log_p"], padding=1, big_n=cfg["big_n"], k=1, std_dev=cfg["tglwe_std"]), log_b=23, d=1),
+    )
+    rng = np.random.default_rng(0)
+    z = tlwe.sk_gen(params.tlwe, rng)
+    key = tfhe.key_gen(params, z, rng, dev)
+    n_big = params.big_n
+    lut = u64_to_torch(tfhe.lut_table(params.tlwe.log_p, n_big, lambda v: v), dev)
+    ms = rng.integers(0, params.tlwe.p, size=T1_MESSAGES)
+    cts = [tlwe.sk_encrypt(params.tlwe, z, tlwe.encode(params.tlwe, torch.tensor(int(m), device=dev)), rng) for m in ms]
+    counted = (tntt.ntt32, tntt.intt32, tcrt.garner_to_u64, tggsw.cmux_rotate, tggsw.blind_rotate_steps)
+    for fn in counted:
+        fn.launches = 0
+    secs = []
+    for m, ct in zip(ms, cts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tfhe.bootstrap(params, key, lut, ct, parity=True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = int(tlwe.decode(params.tlwe, tlwe.decrypt(params.tlwe, z, out)))
+        if got != m:
+            raise AssertionError(f"T1: the parity PBS of {m} decrypts to {got}")
+    counts = {fn.__name__: fn.launches for fn in counted}
+    say(f"{tag} T1 reference-order PBS (parity=True; n={params.tlwe.n}, N={n_big}, unbatched): {T1_MESSAGES} messages {ms.tolist()} decrypt through the identity LUT; {np.median(secs):.3f} s per PBS (median of {T1_MESSAGES}, {min(secs):.3f}-{max(secs):.3f}; host clock to a sync); launches {counts}")
+    for name in ("ntt32", "intt32", "garner_to_u64"):
+        if counts[name] == 0:
+            raise AssertionError(f"T1: {name} was not launched on the parity path")
+    if counts["cmux_rotate"] or counts["blind_rotate_steps"]:
+        raise AssertionError("T1: the parity path launched the step kernel")
+    # the first CMux steps of the first message against the port's CPU path
+    a2n, b2n = tfhe.mod_switch_2n(cts[0], n_big)
+    cut = lambda k, f: tfhe.BootstrapKey(tggsw.TggswEval(*(f(x[:T1_STEPS]) for x in k.brk)), k.ksk, f(k.mon_v), f(k.mon_d))  # noqa: E731
+    v_enc = tglwe.encode(params.tglwe, lut)
+    got = tfhe.blind_rotate(params, cut(key, lambda x: x), v_enc, a2n[:T1_STEPS], b2n, parity=True)
+    t0 = time.perf_counter()
+    want = tfhe.blind_rotate(params, cut(key, lambda x: x.cpu()), v_enc.cpu(), a2n[:T1_STEPS].cpu(), b2n.cpu(), parity=True)
+    max_abs_err(got.a, want.a)
+    max_abs_err(got.b, want.b)
+    say(f"T1 the first {T1_STEPS} CMux steps of the first message on the card == the port's CPU path, bit for bit ({time.perf_counter() - t0:.1f} s on the CPU)")
+    say(f"{tag} T1 took {time.perf_counter() - t_t1:.1f} s (host clock)")
+
+
 def kernels_report() -> dict:
     from learn_fhe_tpu_torch.utils import kernels
 
@@ -2126,10 +2441,10 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld, stack) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name:  # N=2048, Garner, FHEW's N=512, the u64 and RNS kernels
+        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64 or RNS kernel")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64, RNS or BGV kernel")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -2329,6 +2644,9 @@ def main() -> None:
         ("bootstrap B3", lambda: bootstrap_b3(dev, tag, launches)),
         ("production P1", lambda: production_p1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("production P2", lambda: production_p2(dev, tag, launches)),
+        ("BGV G1", lambda: bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
+        ("BGV G2", lambda: bgv_g2(dev, tag, launches)),
+        ("TFHE T1", lambda: tfhe_t1(dev, tag)),
     ):
         t0 = time.perf_counter()
         run()
@@ -2364,6 +2682,8 @@ def main() -> None:
         ("rns_intt_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193 (inv_stages via rns_intt at N=2^16, XLA fusion; no Pallas call)"),
         ("rns_intt_mac_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280,287 and models/ckks/ckks.py:706-716 (the key switch's rns_intt of _ks_dot at N=2^16, dnum 15; XLA fusions; no Pallas call)"),
         ("rns_intt_mac_gather_n65536", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:147,152-169 (rns_intt of products with be[..., perm] at N=2^16; XLA fusions; no Pallas call)"),
+        # BGV's t-corrected limb drop (G1's shapes; its launches are G2's path's)
+        ("bgv_drop", "bgv.cu", "learn_fhe_tpu/models/bgv/bgv.py:176 (_drop_limb with its _DropPlan tables :154-173, XLA fusion; no Pallas call)"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {

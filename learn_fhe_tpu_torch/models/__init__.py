@@ -1,1 +1,2 @@
-"""The schemes (so far TFHE)."""
+"""The schemes: TFHE, FHEW (single- and multi-key), CKKS with its bootstrap,
+and BGV."""

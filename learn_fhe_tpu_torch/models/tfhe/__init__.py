@@ -1,9 +1,8 @@
-"""TFHE: torus LWE tower TLWE -> TGLWE -> TGGSW with CMux-chain blind
-rotation and programmable bootstrapping (the port's first slice; `tgsw`,
-`external_product`/`cmux` and the reference-order blind rotation are not
-ported yet)."""
+"""TFHE: torus LWE tower TLWE -> TGLWE -> TGSW -> TGGSW with CMux-chain
+blind rotation and programmable bootstrapping, by default through the step
+kernel, and in the reference's exact CMux order with parity=True."""
 
-from . import tggsw, tglwe, tlwe
+from . import tggsw, tglwe, tgsw, tlwe
 from .bootstrapping import (
     BootstrapKey,
     BootstrapParams,
@@ -14,7 +13,7 @@ from .bootstrapping import (
     lut_table,
     mod_switch_2n,
 )
-from .params import TggswParams, TglweParams, TlweParams
+from .params import TggswParams, TglweParams, TgswParams, TlweParams
 
 __all__ = [
     "BootstrapKey",
@@ -22,6 +21,7 @@ __all__ = [
     "TfheBootstrap",
     "TggswParams",
     "TglweParams",
+    "TgswParams",
     "TlweParams",
     "blind_rotate",
     "bootstrap",
@@ -30,5 +30,6 @@ __all__ = [
     "mod_switch_2n",
     "tggsw",
     "tglwe",
+    "tgsw",
     "tlwe",
 ]

@@ -7,8 +7,11 @@
 
 The monomial is applied pointwise in the NTT domain from a public table of
 evaluation rows, so a step is one launch of the step kernel, and the whole
-chain is one C call (`tggsw.blind_rotate_steps`). Only the default step
-order is ported; the JAX package's `parity=True` reference order is not.
+chain is one C call (`tggsw.blind_rotate_steps`). With parity=True the
+chain runs the reference's exact CMux order instead, acc = cmux(brk_i, acc,
+acc X^{a_i}) with the rotation in the coefficient domain
+(`tggsw.external_product`), unbatched: its outputs are bit-identical to the
+reference's, for the transcript parity check, at no attempt at speed.
 """
 
 from __future__ import annotations
@@ -89,19 +92,44 @@ def mod_switch_2n(ct: TlweCiphertext, big_n: int) -> tuple[torch.Tensor, torch.T
     return shr_u64(ct.a + half, bits), shr_u64(ct.b + half, bits)
 
 
+def _blind_rotate_parity(
+    params: BootstrapParams, key: BootstrapKey, v_encoded: torch.Tensor, a2n: torch.Tensor, b2n: torch.Tensor
+) -> TglweCiphertext:
+    """The reference's CMux order for one ciphertext (`tggsw.rs:113-120`,
+    `bootstrapping.rs:88-95`): acc = cmux(brk_i, acc, acc X^{a_i})."""
+    k, n_big = params.tglwe.k, params.big_n
+    n2 = 2 * n_big
+    acc0 = TglweCiphertext(torch.zeros((k, n_big), dtype=torch.int64, device=b2n.device), v_encoded)
+    acc = tglwe.rotate(acc0, (-b2n) % n2)
+    brk = key.brk
+    for i in range(a2n.shape[-1]):
+        key_i = TggswEval(brk.av[i], brk.ad[i], brk.bv[i], brk.bd[i])
+        acc = tggsw.cmux(params.tggsw, key_i, acc, tglwe.rotate(acc, a2n[i] % n2))
+    return acc
+
+
 def blind_rotate(
     params: BootstrapParams,
     key: BootstrapKey,
     v_encoded: torch.Tensor,  # (N,) torus LUT
     a2n: torch.Tensor,  # (..., n) exponents in [0, 2N]
     b2n: torch.Tensor,  # (...,)
+    parity: bool = False,
 ) -> TglweCiphertext:
     """CMux chain (`bootstrapping.rs:84-96`) over a batch of ciphertexts.
 
     The JAX package runs the n steps as a `lax.scan` whose carry is a new
     accumulator each step. Here `tggsw.blind_rotate_steps` launches the n
     step kernels from one C call and each step adds its delta into the
-    accumulator's storage in place, which JAX could not do."""
+    accumulator's storage in place, which JAX could not do.
+
+    parity=True runs the reference's exact CMux order (see the module's
+    docstring) on one ciphertext (a2n (n,), b2n a scalar); a batch raises,
+    as the JAX package asserts."""
+    if parity:
+        if b2n.dim():
+            raise ValueError("the parity blind rotation is unbatched by design: pass one ciphertext")
+        return _blind_rotate_parity(params, key, v_encoded, a2n, b2n)
     k, n_big = params.tglwe.k, params.big_n
     batch = b2n.shape
     a2n = a2n.reshape(-1, a2n.shape[-1])
@@ -118,13 +146,14 @@ def blind_rotate(
 
 
 def bootstrap(
-    params: BootstrapParams, key: BootstrapKey, v: torch.Tensor, ct: TlweCiphertext
+    params: BootstrapParams, key: BootstrapKey, v: torch.Tensor, ct: TlweCiphertext, parity: bool = False
 ) -> TlweCiphertext:
     """Programmable bootstrap: LUT v (N values mod p) -> fresh ciphertext of
-    v[round(phase)] (`bootstrapping.rs:78-82`)."""
+    v[round(phase)] (`bootstrapping.rs:78-82`). parity=True: the reference's
+    exact CMux order, one ciphertext (see `blind_rotate`)."""
     v_enc = tglwe.encode(params.tglwe, v)
     a2n, b2n = mod_switch_2n(ct, params.big_n)
-    acc = blind_rotate(params, key, v_enc, a2n, b2n)
+    acc = blind_rotate(params, key, v_enc, a2n, b2n, parity)
     ext = tglwe.sample_extract(params.tglwe, acc, 0)
     return tlwe.key_switch(params.tlwe, key.ksk, ext)
 

@@ -63,6 +63,17 @@ class TglweParams:
 
 
 @dataclass(frozen=True)
+class TgswParams:
+    tlwe: TlweParams
+    log_b: int
+    d: int
+
+    @cached_property
+    def gadget(self) -> Gadget:
+        return Gadget(0, self.log_b, self.d)
+
+
+@dataclass(frozen=True)
 class TggswParams:
     tglwe: TglweParams
     log_b: int

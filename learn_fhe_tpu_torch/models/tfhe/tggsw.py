@@ -14,6 +14,11 @@ Kernel (`csrc/tfhe_step.cu`), replacing the Pallas step kernel
 `bench/pallas_step_experiment.py:202` (`pallas_step`): `cmux_rotate` is one
 whole step in one launch, `blind_rotate_steps` all n steps of a blind
 rotation from one C call. `cmux_rotate_ref` is the plain version of both.
+
+`external_product` and `cmux` (the reference's CMux order, which the
+`parity=True` blind rotation runs) need no kernel of their own: the digits
+go through K-NTT, the row contraction is torch on the residues, the sums
+through `intt32` and K-GARNER.
 """
 
 from __future__ import annotations
@@ -31,17 +36,20 @@ from ...ops.gadget import (
     shr_u64,
 )
 from ...ops.modular32 import mul_mod32, shoup32_dual, small_u32_to_mod32, sub_mod32
-from ...ops.ntt32 import intt32_ref, ntt32_ref
+from ...ops.ntt32 import intt32, intt32_ref, ntt32_ref
 from ...ops.torus_crt import (
     TorusCrtPlan,
     crt_tables,
+    garner_to_u64,
     garner_to_u64_ref,
     required_bound_bits,
+    small_to_eval,
     torus_crt_plan,
     torus_to_eval,
 )
 from ...utils import kernels
 from .params import TggswParams
+from . import tglwe
 from .tglwe import TglweCiphertext, sk_encrypt as tglwe_sk_encrypt
 
 
@@ -84,6 +92,13 @@ def sk_encrypt(
     return TggswCiphertext(a, b)
 
 
+def decrypt(params: TggswParams, sk: np.ndarray, ct: TggswCiphertext) -> torch.Tensor:
+    """Decrypt the last row, rounding-shr by the top base (`tggsw.rs`)."""
+    mu_star = ct.b[..., -1, :] - tglwe._dot_sk(ct.a[..., -1, :, :], sk)
+    bits = params.gadget.log_bases[-1]
+    return shr_u64(mu_star + ((1 << bits) >> 1), bits)
+
+
 def to_eval(params: TggswParams, ct: TggswCiphertext) -> TggswEval:
     """Key-side transform: per-prime NTT residues (the forward NTT kernel)
     with Shoup duals, the prime axis moved next to the row axis."""
@@ -110,6 +125,36 @@ def _decompose_rows(params: TggswParams, ct: TglweCiphertext) -> torch.Tensor:
         limbs = decompose_t64(ab, params.gadget)
     limbs = limbs.movedim(0, -2)  # (..., k+1, d, N)
     return limbs.reshape(*limbs.shape[:-3], -1, params.big_n)
+
+
+def external_product(params: TggswParams, key: TggswEval, ct: TglweCiphertext) -> TglweCiphertext:
+    """The row contraction in the CRT-NTT domain (`tggsw.rs:100-112`): the
+    digits of (a, b) through K-NTT under each prime, their products with the
+    key's rows reduced mod the prime and summed over the rows (int64 products
+    of residues below 2^31 are exact), the k + 1 sums of each prime through
+    one `intt32` launch, then K-GARNER. key: one TggswEval (av (K, R, k, N),
+    ...); ct: a (..., k, N), b (..., N).
+
+    Exact: the digits are bounded by 2^(log_b-1), so every row-contracted
+    integer coefficient is below R N 2^(log_b-1) 2^63 < Q/2 by the plan."""
+    plan = _crt_plan(params)
+    k = params.k
+    limbs = _decompose_rows(params, ct)  # (..., R, N) centered digits
+    l_ev = small_to_eval(limbs, plan, bound_bits=min(params.gadget.log_b, 31))
+    res = []
+    for i, (q, p) in enumerate(zip(plan.primes, plan.plans)):
+        le = l_ev[i].long()
+        e_a = mul_mod32(le[..., :, None, :], key.av[..., i, :, :, :].long(), q).sum(-3) % q  # (..., k, N)
+        e_b = mul_mod32(le, key.bv[..., i, :, :].long(), q).sum(-2) % q  # (..., N)
+        res.append(intt32(torch.cat([e_a, e_b[..., None, :]], dim=-2).int(), p))
+    out = garner_to_u64(torch.stack(res), plan)  # (..., k+1, N)
+    return TglweCiphertext(out[..., :k, :], out[..., k, :])
+
+
+def cmux(params: TggswParams, key: TggswEval, ct0: TglweCiphertext, ct1: TglweCiphertext) -> TglweCiphertext:
+    """ct0 + key (*) (ct1 - ct0) (`tggsw.rs:114-121`)."""
+    prod = external_product(params, key, tglwe.sub(ct1, ct0))
+    return tglwe.add(ct0, prod)
 
 
 def cmux_rotate_ref(

@@ -18,13 +18,21 @@ from ...ops.poly import monomial_mul_t64
 from ...ops.torus_crt import negacyclic_mul_t64_crt
 from ...utils.distributions import binary, tdg, uniform_t64
 from ...utils.interop import u64_to_torch
-from .params import TglweParams
+from .params import TglweParams, TlweParams
 from .tlwe import TlweCiphertext
 
 
 class TglweCiphertext(NamedTuple):
     a: torch.Tensor  # (..., k, N)
     b: torch.Tensor  # (..., N)
+
+
+def add(ct0: TglweCiphertext, ct1: TglweCiphertext) -> TglweCiphertext:
+    return TglweCiphertext(ct0.a + ct1.a, ct0.b + ct1.b)
+
+
+def sub(ct0: TglweCiphertext, ct1: TglweCiphertext) -> TglweCiphertext:
+    return TglweCiphertext(ct0.a - ct1.a, ct0.b - ct1.b)
 
 
 def sk_gen(params: TglweParams, rng: np.random.Generator) -> np.ndarray:
@@ -75,3 +83,7 @@ def sample_extract(params: TglweParams, ct: TglweCiphertext, i: int) -> TlweCiph
     tail = -ct.a[..., i + 1 :].flip(-1)
     a = torch.cat([head, tail], dim=-1)  # (..., k, N)
     return TlweCiphertext(a.reshape(*a.shape[:-2], params.k * params.big_n), ct.b[..., i])
+
+
+def tlwe_view_params(params: TglweParams, log_b=None, d=None) -> TlweParams:
+    return params.tlwe_view(log_b, d)

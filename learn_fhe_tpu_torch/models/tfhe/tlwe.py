@@ -27,6 +27,14 @@ class TlweKeySwitchingKey(NamedTuple):
     b: torch.Tensor  # (d, n_from)
 
 
+def add(ct0: TlweCiphertext, ct1: TlweCiphertext) -> TlweCiphertext:
+    return TlweCiphertext(ct0.a + ct1.a, ct0.b + ct1.b)
+
+
+def sub(ct0: TlweCiphertext, ct1: TlweCiphertext) -> TlweCiphertext:
+    return TlweCiphertext(ct0.a - ct1.a, ct0.b - ct1.b)
+
+
 def sk_gen(params: TlweParams, rng: np.random.Generator) -> np.ndarray:
     """Binary secret (`tlwe.rs:96-98`)."""
     return binary(rng, params.n)

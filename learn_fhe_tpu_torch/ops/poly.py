@@ -34,6 +34,13 @@ def automorphism_zq(a: torch.Tensor, t: int, q: int) -> torch.Tensor:
     return torch.where(torch.from_numpy(sign_neg).to(a.device), neg_mod(gathered, q), gathered)
 
 
+def automorphism_t64(a: torch.Tensor, t: int) -> torch.Tensor:
+    """X -> X^t on a torus polynomial (wrapping negation)."""
+    src, sign_neg = automorphism_map(a.shape[-1], t)
+    gathered = a[..., torch.from_numpy(src).to(a.device)]
+    return torch.where(torch.from_numpy(sign_neg).to(a.device), -gathered, gathered)
+
+
 def automorphism_i64(a: np.ndarray, t: int) -> np.ndarray:
     """Host automorphism of a signed coefficient vector (key generation)."""
     src, sign_neg = automorphism_map(a.shape[-1], t)

@@ -28,7 +28,10 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
   `rns_intt_mac`'s where every term reads one x copies each x row into
   shared memory and gathers from there (`_row_instance`);
 - K-AUTOMORPH, `automorphism_rns`: the coefficient automorphism X -> X^t
-  of (..., L, N) rows, b and a in one launch (`models/ckks/ckks.py:605`).
+  of (..., L, N) rows, b and a in one launch (`models/ckks/ckks.py:605`);
+- K-BGV-DROP (`csrc/bgv.cu`), `drop_limbs_t`: BGV's exact t-corrected drop
+  of trailing limbs, b and a in one launch, with an add between or after
+  the drops (`models/bgv/bgv.py:176` `_drop_limb`).
 K-RNS-NTT and every `rns_intt_mac` instance take 2 <= N <= 2^16, past
 2^13 on primes below 2^62 only (`_check_ring`: the production bootstrap's
 ring). Each wrapper runs the plain version only for CPU tensors; a CUDA
@@ -869,11 +872,127 @@ def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int) -> torch.Tensor:
     return rescale_finish(x, conv, rp)
 
 
+# ---------------------------------------------------------------------------
+# The t-corrected limb drop (BGV's modulus switch, `models/bgv/bgv.py:154-194`)
+# ---------------------------------------------------------------------------
+
+MAX_DROP_LIMBS = 16  # K-BGV-DROP: a column's limbs in registers (an instance per count 2..16)
+
+
+@lru_cache(maxsize=None)
+def _drop_table(qs: tuple[int, ...], t: int, steps: int) -> np.ndarray:
+    """K-BGV-DROP's table for `steps` drops from qs with plaintext modulus t
+    (the JAX package's `_DropPlan` of each step), as `csrc/bgv.cu` reads it:
+    the MAX_DROP_LIMBS primes (0 past L), then per step s (dropping q_l =
+    qs[L-1-s]) q_l, q_l^-1 mod t and per kept limb i (MAX_DROP_LIMBS slots)
+    q_l mod q_i, its Shoup dual, q_l^-1 mod q_i, its Shoup dual."""
+    m = MAX_DROP_LIMBS
+    tab = np.zeros(m + steps * (2 + 4 * m), dtype=np.uint64)
+    tab[: len(qs)] = qs
+    for s in range(steps):
+        ql, base = qs[len(qs) - 1 - s], m + s * (2 + 4 * m)
+        tab[base : base + 2] = ql, mod_inverse(ql % t, t)
+        for i, q in enumerate(qs[: len(qs) - 1 - s]):
+            w, inv = ql % q, mod_inverse(ql % q, q)
+            tab[base + 2 + 4 * i : base + 6 + 4 * i] = w, (w << 64) // q, inv, (inv << 64) // q
+    return tab
+
+
+@lru_cache(maxsize=None)
+def drop_table(qs: tuple[int, ...], t: int, steps: int, device: torch.device) -> torch.Tensor:
+    return u64_to_torch(_drop_table(qs, t, steps), device)
+
+
+def _drop_limb_ref(x: torch.Tensor, qs: tuple[int, ...], t: int) -> torch.Tensor:
+    """x (..., L, N) over qs -> (..., L-1, N) over qs[:-1]: exactly (x - d) /
+    q_l with d = x (mod q_l), d = 0 (mod t), in int64 as the JAX package
+    computes it (torch's % is floor-mod, as jnp.mod)."""
+    dev, ql, keep = x.device, qs[-1], qs[:-1]
+    inv_ql_t = mod_inverse(ql % t, t)
+    r = x[..., -1, :]  # in [0, ql)
+    rc = torch.where(r > ql // 2, r - ql, r)  # centered, |rc| <= ql/2
+    k = ((t - rc % t) * inv_ql_t) % t
+    kc = torch.where(k > t // 2, k - t, k)  # |kc| <= t/2
+    keep_q = _col(keep, dev)
+    d_mod = (rc[..., None, :] % keep_q + _col([ql % q for q in keep], dev) * kc[..., None, :]) % keep_q
+    inv = [mod_inverse(ql % q, q) for q in keep]
+    num = sub_mod_v(x[..., :-1, :], d_mod, keep_q)
+    return mul_shoup_v(num, _col(inv, dev), _col([(w << 64) // q for w, q in zip(inv, keep)], dev), keep_q)
+
+
+def drop_limbs_t_ref(x: torch.Tensor, qs: tuple[int, ...], t: int, k: int, add=None, then: int = 0) -> torch.Tensor:
+    """The plain version of `drop_limbs_t` on one tensor: k drops, add (a
+    tensor over qs[:-k], or None) mod q, `then` more drops."""
+    basis = qs
+    for _ in range(k):
+        x, basis = _drop_limb_ref(x, basis, t), basis[:-1]
+    if add is not None:
+        x = add_mod_v(x, add, _col(basis, x.device))
+    for _ in range(then):
+        x, basis = _drop_limb_ref(x, basis, t), basis[:-1]
+    return x
+
+
+def _drop_check(name: str, x: torch.Tensor, shape: tuple) -> None:
+    kernels.require(name, x, torch.int64, shape)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel moves two columns in 16-byte words; a tensor is not 16-byte aligned")
+
+
+def drop_limbs_t(x, qs: tuple[int, ...], t: int, k: int, add=None, then: int = 0):
+    """K-BGV-DROP: drop the k trailing limbs of x (..., L, N) over qs one at a
+    time, each exactly (x - d) / q_l with d = x (mod q_l), d = 0 (mod t)
+    (BGV's modulus switch, the JAX package's `_drop_limb` k times); then add
+    `add` (over the kept limbs) mod q; then drop `then` more limbs. x is a
+    tensor or a pair (b, a) of one shape, in one launch; add is None, a
+    tensor, or for a pair a pair whose entries may be None. Returns what it
+    was given, over qs[:L-k-then]. On the card every prime must exceed half
+    of the largest (so a centered residue needs one conditional add) and
+    t max(q) < 2^63, t < 2^32; the wrapper raises otherwise."""
+    pair = isinstance(x, (tuple, list))
+    xs = tuple(x) if pair else (x,)
+    adds = (tuple(add) if pair else (add,)) if add is not None else (None,) * len(xs)
+    if len(adds) != len(xs):
+        raise ValueError(f"drop_limbs_t: takes one add (or None) per part, got {len(adds)} for {len(xs)}")
+    steps = k + then
+    if k < 1 or then < 0 or steps >= len(qs):
+        raise ValueError(f"drop_limbs_t: cannot drop {k} + {then} of {len(qs)} limbs")
+    if xs[0].is_cpu:
+        out = tuple(drop_limbs_t_ref(v, qs, t, k, a, then) for v, a in zip(xs, adds))
+        return out if pair else out[0]
+    name, L, n = "drop_limbs_t", len(qs), xs[0].shape[-1]
+    if not 2 <= L <= MAX_DROP_LIMBS or not 2 <= n or n & (n - 1) or len(xs) > 2:
+        raise ValueError(f"drop_limbs_t: the kernel takes 2..{MAX_DROP_LIMBS} limbs, N >= 2 a power of 2 and one or two parts, got L={L}, N={n}, {len(xs)} parts")
+    if 2 * min(qs) <= max(qs) or t >= 1 << 32 or t * max(qs) >= 1 << 63:
+        raise ValueError("drop_limbs_t: the kernel needs max(q) / 2 < min(q), t < 2^32 and t max(q) < 2^63")
+    shape = tuple(xs[0].shape)
+    if len(shape) < 2 or shape[-2] != L:
+        raise ValueError(f"drop_limbs_t: expected (..., {L}, {n}), got {shape}")
+    mid = (*shape[:-2], L - k, n)
+    for v in xs:
+        _drop_check(name, v, shape)
+    for a in adds:
+        if a is not None:
+            _drop_check(name, a, mid)
+    ys = tuple(torch.empty((*shape[:-2], L - steps, n), dtype=torch.int64, device=v.device) for v in xs)
+    rows = xs[0].numel() // (L * n)
+    if rows:
+        ptr = lambda ts, i: ts[i].data_ptr() if i < len(ts) and ts[i] is not None else 0  # noqa: E731
+        kernels.launch(
+            "lft_bgv_drop", ptr(xs, 0), ptr(xs, 1), ptr(adds, 0), ptr(adds, 1), ptr(ys, 0), ptr(ys, 1),
+            drop_table(qs, t, steps, xs[0].device).data_ptr(), L, k, then, n.bit_length() - 1, rows, t, (1 << 64) // t,
+        )  # fmt: skip
+        drop_limbs_t.launches += 1
+        drop_limbs_t.by_rows[len(xs) * rows, L, steps] += 1
+    return ys if pair else ys[0]
+
+
 # launches, and launches by row count (K-BASECONV: (input rows, input
 # limbs, output limbs); rns_intt_mac: (output rows, terms); K-AUTOMORPH:
-# rows of all its parts); of the MAC's, those of its gathered instances
-# and theirs by row count; of rns_intt_mac's, those of its shared-x ones
-for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns):
+# rows of all its parts; K-BGV-DROP: (rows of all its parts, limbs, drops));
+# of the MAC's, those of its gathered instances and theirs by row count; of
+# rns_intt_mac's, those of its shared-x ones
+for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns, drop_limbs_t):
     _fn.launches, _fn.by_rows = 0, Counter()
 for _fn in (rns_mac, rns_intt_mac):
     _fn.gather_launches, _fn.gather_by_rows = 0, Counter()

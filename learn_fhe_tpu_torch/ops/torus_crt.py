@@ -163,6 +163,16 @@ def torus_to_eval(x: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
     )
 
 
+def small_to_eval(x: torch.Tensor, plan: TorusCrtPlan, bound_bits: int = 31) -> torch.Tensor:
+    """NTT residues of a small centered polynomial (gadget digits, |coef| <
+    2^bound_bits <= 2^31): the sign fold per prime, then K-NTT. x: (..., n)
+    int32 or int64 -> (K, ..., n) int32."""
+    assert bound_bits <= 31
+    return torch.stack(
+        [ntt32(small_u32_to_mod32(x, q).int(), p) for q, p in zip(plan.primes, plan.plans)]
+    )
+
+
 def garner_to_u64_ref(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
     """Plain Garner reconstruction: coefficient residues (K, ...) int32 ->
     wrapping u64 (as int64) with the centered lift (subtract Q when the value

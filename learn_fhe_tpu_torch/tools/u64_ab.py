@@ -61,6 +61,7 @@ SHARED_ENTRY, GATHER_ENTRY = "lft_rns_intt_mac_gather_shared", "lft_rns_intt_mac
 NEW_ENTRIES = {
     "ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac", "rns_mac_gather": "lft_rns_mac_gather",
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
+    "bgv_drop": "lft_bgv_drop",
 }  # fmt: skip
 
 

@@ -167,3 +167,48 @@ def ckks_bootstrap_key_from_numpy(bk, device=None):
     params = CkksParams(p.log_n, p.log_qi, p.big_l, p.log_qis, p.log_ps, p.dnum)
     rtk = {int(j): CkksRotKey(ckks_ksk_from_numpy(k.ksk, device), int(k.j)) for j, k in bk.rtk.items()}
     return BootstrapKey(BootstrapParams(params, bk.bp.r), rtk)
+
+
+def bgv_ciphertext_from_numpy(ct, device=None):
+    """The port's BgvCiphertext from the JAX package's, given with numpy
+    leaves (b and a u64 of shape (..., L, N)), its level `qs` and its
+    plaintext `factor`, on `device` (see `resolve_device`)."""
+    from ..models.bgv.bgv import BgvCiphertext
+
+    device = resolve_device(device)
+    return BgvCiphertext(
+        u64_to_torch(np.asarray(ct.b), device), u64_to_torch(np.asarray(ct.a), device), tuple(ct.qs), int(ct.factor)
+    )
+
+
+def bgv_ksk_from_numpy(ksk, device=None):
+    """The port's BgvKeySwitchingKey from the JAX package's, given with numpy
+    leaves (the evaluation-basis b and a (2L, N) over qps, copied as they
+    are), or its BgvRotKey from a JAX BgvRotKey (keeping `j`), on `device`."""
+    from ..models.bgv.bgv import BgvKeySwitchingKey, BgvRotKey
+
+    if hasattr(ksk, "ksk"):
+        return BgvRotKey(bgv_ksk_from_numpy(ksk.ksk, device), int(ksk.j))
+    device = resolve_device(device)
+    b, a = np.asarray(ksk.b), np.asarray(ksk.a)
+    if b.shape != a.shape or b.ndim != 2 or b.shape[0] != len(ksk.qs):
+        raise ValueError(f"bgv_ksk_from_numpy: expected b and a of shape ({len(ksk.qs)}, N), got {b.shape}, {a.shape}")
+    return BgvKeySwitchingKey(u64_to_torch(b, device), u64_to_torch(a, device), tuple(ksk.qs))
+
+
+def tgsw_ciphertext_from_numpy(ct, device=None):
+    """The port's TgswCiphertext from the JAX package's, as numpy leaves (a
+    (..., R, n) and b (..., R) torus values), on `device`."""
+    from ..models.tfhe.tgsw import TgswCiphertext
+
+    device = resolve_device(device)
+    return TgswCiphertext(u64_to_torch(np.asarray(ct.a), device), u64_to_torch(np.asarray(ct.b), device))
+
+
+def tggsw_ciphertext_from_numpy(ct, device=None):
+    """The port's TggswCiphertext from the JAX package's, as numpy leaves (a
+    (..., R, k, N) and b (..., R, N) torus values), on `device`."""
+    from ..models.tfhe.tggsw import TggswCiphertext
+
+    device = resolve_device(device)
+    return TggswCiphertext(u64_to_torch(np.asarray(ct.a), device), u64_to_torch(np.asarray(ct.b), device))

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu")
+SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -118,6 +118,9 @@ _SIGNATURES = {
     # x, conv (or null), y, kept q, P/2 mod q, P^-1 mod q, its dual, Barrett
     # m, limbs, keep, log_n, batch, dropped q_d, (q_d >> 1), stream
     "lft_rescale": (_P,) * 8 + (_I,) * 3 + (_LL, _U64, _U64, _P),
+    # x0, x1 (or null), add0, add1 (or null), y0, y1 (or null), the drop
+    # table, limbs, k, then, log_n, rows, t, floor(2^64 / t), stream
+    "lft_bgv_drop": (_P,) * 7 + (_I,) * 4 + (_LL, _U64, _U64, _P),
     # host function (no stream): cluster, log_n, rows_g, rows_k
     "lft_fhew_walk64_clusters": (_I,) * 4,
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
@@ -151,11 +154,13 @@ def _library_path() -> Path:
 
 def build(csrc: Path, so: Path) -> None:
     """Compile the sources `SOURCES` of `csrc` into the shared library `so`,
-    with the compiler's output in `build.log` beside it."""
+    with the compiler's output in `build.log` beside it. An older checkout's
+    `csrc` may lack the newer sources: those it has are built."""
     so.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tmp = _nvcc(), so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)] for s, o in zip(SOURCES, objs)]
+    sources = [s for s in SOURCES if (csrc / s).exists()]
+    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)] for s, o in zip(sources, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
     codes = [p.returncode for p in procs]
@@ -212,7 +217,7 @@ def build_log() -> str:
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_intt_mac_rows|rns_intt_mac|rns_mac"
-    r"|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared|rns_mac_gather|automorphism|base_convert|rescale)_kernel"
+    r"|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop)_kernel"
     r"(I(?:L[ib]\d+E)+E)?"
 )
 

@@ -1525,3 +1525,139 @@ def test_ckks_mul_rotate_on_card_match_cpu(dev):
         _same(g.a[0], w.a)
     dec = C.decode(params, C.decrypt(params, sk, C.CkksCiphertext(out.b[5], out.a[5], out.qs)), out.qs)
     assert np.max(np.abs(dec - ms[5] * ms[21])) < 2.0**-30
+
+
+# -- K-BGV-DROP, BGV and the reference-order TFHE path ----------------------------
+
+
+def _bgv_primes(count: int = 16) -> tuple[int, ...]:
+    """count 45-bit primes of one bit length, NTT-friendly up to N = 2^15."""
+    from itertools import islice
+
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    return tuple(islice(two_adic_primes(45, 16), count))
+
+
+@pytest.mark.parametrize("log_n", range(6, 16))
+def test_bgv_drop_kernel_at_every_limb_count(dev, log_n):
+    """K-BGV-DROP against its plain version at N=2^log_n for every limb count
+    L = 2..16 and every k = 1..L-1: on b and a in one launch with the add
+    of the kept limbs on b and, where a limb is left for it, one drop after
+    the add; and on one tensor alone. The residues hold 0, q/2, q/2 + 1 and
+    q - 1."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs, t, n = _bgv_primes(), 65537, 1 << log_n
+    rng = np.random.default_rng(log_n)
+    lead = (2,) if log_n < 13 else (1,)
+
+    def residues(basis):
+        x = np.stack([rng.integers(0, q, size=(*lead, n), dtype=np.uint64) for q in basis], axis=-2)
+        x[0, :, :4] = np.array([[0, q // 2, q // 2 + 1, q - 1] for q in basis])
+        return u64_to_torch(x)
+
+    for limbs in range(2, 17):
+        basis = qs[:limbs]
+        xb, xa = residues(basis), residues(basis)
+        for k in range(1, limbs):
+            then = int(k < limbs - 1)
+            add = residues(basis[: limbs - k])
+            before = rns.drop_limbs_t.launches
+            got = rns.drop_limbs_t((xb.to(dev), xa.to(dev)), basis, t, k, (add.to(dev), None), then)
+            assert rns.drop_limbs_t.launches == before + 1
+            _same(got[0], rns.drop_limbs_t_ref(xb, basis, t, k, add, then))
+            _same(got[1], rns.drop_limbs_t_ref(xa, basis, t, k, None, then))
+            _same(rns.drop_limbs_t(xb.to(dev), basis, t, k), rns.drop_limbs_t_ref(xb, basis, t, k))
+
+
+def test_bgv_drop_refuses_what_the_kernel_does_not_take(dev):
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    qs, t = _bgv_primes(), 65537
+    x = torch.zeros((2, 17, 64), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="limbs"):
+        rns.drop_limbs_t(x, qs + (next(two_adic_primes(45, 16)),), t, 1)  # 17 limbs
+    mixed = (qs[0], next(two_adic_primes(30, 16)))
+    with pytest.raises(ValueError, match="max"):
+        rns.drop_limbs_t(x[:, :2].contiguous(), mixed, t, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        rns.drop_limbs_t(torch.zeros(2 * 4 * 64 + 1, dtype=torch.int64, device=dev)[1:].view(2, 4, 64), qs[:4], t, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        rns.drop_limbs_t(x[:, :4], qs[:4], t, 1)
+
+
+def test_bgv_ops_on_card_match_cpu(dev):
+    """BGV at N=2^10 (4 + 4 primes of 45 bits) on a batch of 2: mul, a mul at
+    the next level, mod_switch, rotate, conjugate, key_switch at a lower
+    level, mul_plain and add_plain on the card equal the plain path's on the
+    CPU, and decrypt right; one mul launches K-RNS-NTT, `rns_intt_mac`,
+    K-BASECONV and K-BGV-DROP once each but the transforms and sums."""
+    from learn_fhe_tpu_torch.models import bgv as G
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = G.BgvParams(log_n=10)
+    rng = np.random.default_rng(5)
+    sk = G.sk_gen(params, rng)
+    pk, rlk = G.pk_gen(params, sk, rng, dev), G.rlk_gen(params, sk, rng, dev)
+    rtk, cjk = G.rtk_gen(params, sk, 3, rng, dev), G.cjk_gen(params, sk, rng, dev)
+    ms = [rng.integers(0, params.t, size=(2, params.n)) for _ in range(3)]
+
+    def encrypt(m):
+        cs = [G.pk_encrypt(params, pk, G.encode(params, row, dev), rng) for row in m]
+        return G.BgvCiphertext(torch.stack([c.b for c in cs]), torch.stack([c.a for c in cs]), params.qs)
+
+    c0, c1, c2 = (encrypt(m) for m in ms)
+    cpu = lambda c: G.BgvCiphertext(c.b.cpu(), c.a.cpu(), c.qs, c.factor)  # noqa: E731
+    key = lambda k: G.BgvKeySwitchingKey(k.b.cpu(), k.a.cpu(), k.qs)  # noqa: E731
+    for fn in (rns.rns_ntt, rns.rns_intt_mac, rns.base_convert, rns.drop_limbs_t):
+        fn.launches = 0
+    prod = G.mul(params, rlk, c0, c1)
+    torch.cuda.synchronize()
+    assert (rns.rns_ntt.launches, rns.rns_intt_mac.launches, rns.base_convert.launches, rns.drop_limbs_t.launches) == (5, 4, 1, 1)
+    low = G.mod_switch(params, c2)
+    cases = (
+        (prod, G.mul(params, key(rlk), cpu(c0), cpu(c1)), ms[0] * ms[1]),
+        (G.mul(params, rlk, prod, low), G.mul(params, key(rlk), G.mul(params, key(rlk), cpu(c0), cpu(c1)), G.mod_switch(params, cpu(c2))), ms[0] * ms[1] * ms[2]),
+        (low, G.mod_switch(params, cpu(c2)), ms[2]),
+        (G.rotate(params, rtk, c0), G.rotate(params, G.BgvRotKey(key(rtk.ksk), rtk.j), cpu(c0)), None),
+        (G.conjugate(params, cjk, c0), G.conjugate(params, key(cjk), cpu(c0)), None),
+        (G.key_switch(params, rlk, G.mod_switch(params, low)), G.key_switch(params, key(rlk), G.mod_switch(params, G.mod_switch(params, cpu(c2)))), None),
+        (G.add_plain(params, ms[1], G.mul_plain(params, ms[0], low)), G.add_plain(params, ms[1], G.mul_plain(params, ms[0], G.mod_switch(params, cpu(c2)))), ms[0] * ms[2] + ms[1]),
+    )
+    for got, want, m in cases:
+        assert got.qs == want.qs and got.factor == want.factor
+        _same(got.b, want.b)
+        _same(got.a, want.a)
+        if m is not None:
+            np.testing.assert_array_equal(G.decrypt(params, sk, got), m % params.t)
+
+
+def test_parity_external_product_and_cmux_on_card_match_cpu(dev):
+    """The TGGSW external product and CMux of the reference-order blind
+    rotation at N=2048 (k=1, B=2^23, d=1) on the card equal the plain path's
+    on the CPU, and launch K-NTT, intt32 and K-GARNER."""
+    from learn_fhe_tpu_torch.models.tfhe import tglwe
+
+    gg = tfhe.TggswParams(tfhe.TglweParams(log_p=4, padding=1, big_n=2048, k=1, std_dev=2.845267479601915e-15), log_b=23, d=1)
+    rng = np.random.default_rng(11)
+    sk = tglwe.sk_gen(gg.tglwe, rng)
+    bits = np.zeros((2, 2048), dtype=np.uint64)
+    bits[1, 0] = 1
+    key = tggsw.to_eval(gg, tggsw.sk_encrypt(gg, sk, u64_to_torch(bits), rng))
+    acc = [TglweCiphertext(u64_to_torch(rng.integers(0, 1 << 64, size=(1, 2048), dtype=np.uint64)),
+                           u64_to_torch(rng.integers(0, 1 << 64, size=2048, dtype=np.uint64))) for _ in range(2)]  # fmt: skip
+    on = lambda c: TglweCiphertext(c.a.to(dev), c.b.to(dev))  # noqa: E731
+    for fn in (tntt.ntt32, tntt.intt32, tcrt.garner_to_u64):
+        fn.launches = 0
+    for i in range(2):
+        key_i = tggsw.TggswEval(*(x[i] for x in key))
+        key_d = tggsw.TggswEval(*(x[i].to(dev) for x in key))
+        for got, want in (
+            (tggsw.external_product(gg, key_d, on(acc[0])), tggsw.external_product(gg, key_i, acc[0])),
+            (tggsw.cmux(gg, key_d, on(acc[0]), on(acc[1])), tggsw.cmux(gg, key_i, acc[0], acc[1])),
+        ):
+            _same(got.a, want.a)
+            _same(got.b, want.b)
+    assert tntt.ntt32.launches and tntt.intt32.launches and tcrt.garner_to_u64.launches
