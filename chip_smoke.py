@@ -208,8 +208,9 @@ big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
   G1. hold K-BGV-DROP (`ops/rns.py::drop_limbs_t`) against its plain
       version at N=2^14 on b and a of a batch of 16 in one launch: the key
       switch's division by P (8 limbs, k=4), a mul's whole drop (k=4, the
-      add of d0 and d1, one more drop), mod_switch (4 limbs, k=1), and 5
-      limbs at k=1 and k=4, `torch.equal`, the wrapper's counter rising by
+      add of d0 and d1, one more drop), a rotation's (k=4, the permuted b
+      added after the drops), mod_switch (4 limbs, k=1), and 5 limbs at k=1
+      and k=4, `torch.equal`, the wrapper's counter rising by
       one a call; time each over 20 eager calls and from a CUDA graph of 20
       against its bound, with the instances' registers and spills;
   G2. the path: keys on the card (pk, rlk, rotation keys for j = 1 and 7,
@@ -223,7 +224,8 @@ big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
       batch-16 mul's launches by shape; its first ciphertext == the port's
       CPU path; muls/s at batch 16 and 1 (median and spread of 5 calls),
       the host enqueue against the wall, a CUDA graph's device time and the
-      device's idle share (profiler).
+      device's idle share (profiler over 20 muls; "not measured" where its
+      records sum to less than 0.9 of the graph's kernel time).
 
 Then the TFHE reference-order PBS (T1): `bootstrap(..., parity=True)` at the
 reference fixture, unbatched, on 4 messages through the identity LUT (each
@@ -2129,29 +2131,32 @@ BGV_BATCH = 16
 BGV_SEED = 17
 BGV_REPS = 20  # eager calls and CUDA-graph launches a G1 timing averages
 BGV_MUL_CALLS = 5
+BGV_PROFILED_MULS = 20
 BGV_ROTATIONS = (1, 7)
 BGV_INSTANCES = ("bgv_drop_kernel<4>", "bgv_drop_kernel<5>", "bgv_drop_kernel<8>")
 # K-BGV-DROP's work, from the u64 operations' SASS counts above: per column
 # and drop, the centered residue, two Barrett reductions mod t, the product
 # by q_l^-1 mod t and the centered k (two Shoup-sized products and the
 # selects); per kept limb and drop, the two centered values into [0, q_i)
-# (selects), two Shoup products, an add and a subtract mod q_i
+# (selects), one Shoup product and two subtracts mod q_i:
+# y_i = (x_i - rc) q_l^-1 - kc, as q_l kc q_l^-1 = kc (mod q_i)
 DROP_STEP = 2 * SHOUP64 + 3 * CSUB64 + np.array([3, 0, 1])
-DROP_LIMB = 2 * SHOUP64 + 2 * ADD_Q64 + 2 * CSUB64
+DROP_LIMB = SHOUP64 + 2 * ADD_Q64 + 2 * CSUB64
 
 
-def drop_ops(cols: int, limbs: int, k: int, then: int = 0, add: bool = False) -> np.ndarray:
+def drop_ops(cols: int, limbs: int, k: int, then: int = 0, add_cols: int = 0) -> np.ndarray:
     """K-BGV-DROP on `cols` columns of `limbs` limbs: k drops, the add of
-    limbs - k values, then `then` drops."""
+    limbs - k values on `add_cols` of them, then `then` drops."""
     steps = sum(DROP_STEP + (limbs - 1 - s) * DROP_LIMB for s in range(k + then))
-    return cols * (steps + ((limbs - k) * ADD_Q64 if add else 0))
+    return cols * steps + add_cols * (limbs - k) * ADD_Q64
 
 
 def bgv_drop_cases(params, rng, dev):
     """G1's launches at N=2^14, batch 16 x (b, a): the key switch's division
     by P (8 limbs, k=4), a mul's whole drop (k=4, the add of d0 and d1, one
-    more drop), mod_switch at the top level (4 limbs, k=1), and 5 limbs at
-    k=1 and k=4. Returns {shape: (kernel call, plain call, bytes, instructions)}."""
+    more drop), the rotation's and conjugation's key switch (k=4, the
+    permuted b added after the drops), mod_switch at the top level (4 limbs,
+    k=1), and 5 limbs at k=1 and k=4. Returns {shape: (kernel call, plain call, bytes, instructions)}."""
     from learn_fhe_tpu_torch.ops import rns
     from learn_fhe_tpu_torch.utils.interop import u64_to_torch
 
@@ -2164,20 +2169,21 @@ def bgv_drop_cases(params, rng, dev):
         return u64_to_torch(x).to(dev)
 
     cases = {}
-    for basis, k, then, add in ((qps, 4, 0, False), (qps, 4, 1, True), (qs, 1, 0, False), (qps[:5], 1, 0, False), (qps[:5], 4, 0, False)):
+    # add: the parts (b, then a) that take an add between the drops
+    for basis, k, then, add in ((qps, 4, 0, 0), (qps, 4, 1, 2), (qps, 4, 0, 1), (qs, 1, 0, 0), (qps[:5], 1, 0, 0), (qps[:5], 4, 0, 0)):
         L = len(basis)
         xs = (residues(basis), residues(basis))
-        adds = (residues(basis[: L - k]), residues(basis[: L - k])) if add else None
-        cols = 2 * B * n
-        n_bytes = cols * 8 * (L + (L - k if add else 0) + L - k - then)
-        label = f"{L}->{L - k - then} (k={k}{', + d0/d1, k=1' if then else ''})"
+        adds = tuple(residues(basis[: L - k]) if i < add else None for i in range(2)) if add else None
+        cols, add_cols = 2 * B * n, add * B * n
+        n_bytes = 8 * (cols * (L + L - k - then) + add_cols * (L - k))
+        label = f"{L}->{L - k - then} (k={k}{', + d0/d1, k=1' if then else ', + b' if add else ''})"
         cases[label] = (
             lambda xs=xs, b=basis, k=k, a=adds, th=then: rns.drop_limbs_t(xs, b, t, k, a, th),
             lambda xs=xs, b=basis, k=k, a=adds, th=then: tuple(
                 rns.drop_limbs_t_ref(x, b, t, k, None if a is None else a[i], th) for i, x in enumerate(xs)
             ),
             n_bytes,
-            drop_ops(cols, L, k, then, add),
+            drop_ops(cols, L, k, then, add_cols),
         )
     return cases
 
@@ -2339,13 +2345,15 @@ def bgv_g2(dev, tag, launches) -> None:
     say(f"{tag} G2 mul at batch {B}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
     g_ms = graph_ms(lambda: G.mul(params, rlk, cts[0], cts[1]), 3)
     say(f"{tag} G2 mul at batch {B} from a CUDA graph: {g_ms:.3f} ms per call (device only) = {B / g_ms * 1e3:.1f} muls/s; 1 - graph / eager median = {1 - g_ms / mul_ms[B]:.4f}")
-    idle, kernel_ms, top = device_kernel_ms(lambda: [G.mul(params, rlk, cts[0], cts[1]) for _ in range(3)])
-    if kernel_ms:
-        say(f"{tag} G2 3 muls at batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
+    # the profiler's idle share holds only where its records add up to the
+    # kernel time the graph shows (it has lost records of short windows)
+    idle, kernel_ms, top = device_kernel_ms(lambda: [G.mul(params, rlk, cts[0], cts[1]) for _ in range(BGV_PROFILED_MULS)])
+    if kernel_ms >= 0.9 * BGV_PROFILED_MULS * g_ms:
+        say(f"{tag} G2 {BGV_PROFILED_MULS} muls at batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
         for name, t_, count in top:
             say(f"  {t_:10.3f} ms  {count:6d} x  {name[:100]}")
     else:
-        say(f"{tag} G2 device kernel time and idle share: not measured (the profiler recorded no device activity)")
+        say(f"{tag} G2 device idle share (profiler): not measured; its records of {BGV_PROFILED_MULS} muls sum to {kernel_ms:.3f} ms of kernels against {BGV_PROFILED_MULS * g_ms:.3f} ms from the graph, so records were lost")
     say(f"{tag} G2 took {time.perf_counter() - t_g2:.1f} s (host clock)")
 
 

@@ -8,16 +8,17 @@
 // the last limb q_l computes exactly (x - d) / q_l over the kept limbs, with
 // d = x (mod q_l) and d = 0 (mod t):
 //   rc = x_l centered (|rc| <= q_l / 2),  k = (-rc) q_l^-1 mod t centered,
-//   d = rc + q_l k,  y_i = (x_i - d mod q_i) q_l^-1 mod q_i.
+//   d = rc + q_l k,  y_i = (x_i - d) q_l^-1 = (x_i - rc) q_l^-1 - k mod q_i
+// (q_l k q_l^-1 = k mod q_i, so d itself is never formed).
 // The outputs are the unique residues, so this equals the JAX package bit
 // for bit whatever exact arithmetic computes them.
 //
 // What bounds it on an H100: a column reads its L limbs and writes L - k;
 // at the BGV mul's key switch (batch 16 x (b, a), N = 2^14, 8 limbs to 4)
 // that is 33.6 MB read and 16.8 MB written, about 15 us at 3.35 TB/s. Each
-// kept limb of each drop costs two u64 Shoup products, an add and a
-// subtract (some 75 32-bit instructions), and at that shape the integer
-// issue, about 30 us, bounds it more than the bytes.
+// kept limb of each drop costs one u64 Shoup product, two subtracts and two
+// selects (some 50 32-bit instructions), and at that shape the integer
+// instruction rate, about 22 us, bounds it more than the bytes.
 //
 // The design (a simple first kernel): a thread takes two adjacent columns of
 // one part (b or a) in 16-byte words, holds their L limbs in registers (an
@@ -28,10 +29,9 @@
 // division by the product of the dropped primes picks another d and would
 // not be bit-identical. Every prime of the basis exceeds half of the largest
 // (one bit length, as BgvParams makes them), so a centered residue and a
-// centered k are brought into [0, q_i) by one conditional add, and the
-// product (q_l mod q_i) k by one Shoup product; mod t goes by a Barrett
-// constant, never a 64-bit division. The tables (per step q_l, q_l^-1 mod t,
-// and per kept limb q_l mod q_i, q_l^-1 mod q_i with their Shoup duals) are
+// centered k are brought into [0, q_i) by one conditional add; mod t goes
+// by a Barrett constant, never a 64-bit division. The tables (per step q_l,
+// q_l^-1 mod t, and per kept limb q_l^-1 mod q_i with its Shoup dual) are
 // loaded into shared memory once a block. Where the BGV op adds a tensor
 // between the drops (mul's d0 / d1 before its last drop) or after them (the
 // key switch's b), the add runs in the same launch: a mod-q add is exact.
@@ -49,7 +49,7 @@ using lft64::sub_q;
 
 constexpr int kThreads = 256;
 constexpr int kMaxLimbs = 16;
-constexpr int kStepWords = 2 + 4 * kMaxLimbs;  // q_l, q_l^-1 mod t, then 4 words a kept limb
+constexpr int kStepWords = 2 + 2 * kMaxLimbs;  // q_l, q_l^-1 mod t, then 2 words a kept limb
 constexpr int kTableWords = kMaxLimbs + (kMaxLimbs - 1) * kStepWords;
 
 struct DropParts {
@@ -86,14 +86,12 @@ __device__ __forceinline__ Correction correction(uint64_t r, uint64_t ql, uint64
   return c;
 }
 
-// (x - d) q_l^-1 mod q, d = rc + q_l kc mod q: w = q_l mod q, ws its Shoup
-// dual, u = q_l^-1 mod q, us its dual.
-__device__ __forceinline__ uint64_t divide(uint64_t x, const Correction& c, uint64_t q, uint64_t w, uint64_t ws,
-                                           uint64_t u, uint64_t us) {
+// (x - d) q_l^-1 mod q with d = rc + q_l kc, as (x - rc) q_l^-1 - kc mod q:
+// u = q_l^-1 mod q, us its Shoup dual.
+__device__ __forceinline__ uint64_t divide(uint64_t x, const Correction& c, uint64_t q, uint64_t u, uint64_t us) {
   const uint64_t rc = c.neg ? q - c.mag : c.mag;    // rc mod q: |rc| <= q_l / 2 < q
   const uint64_t kc = c.kneg ? q - c.kmag : c.kmag;  // kc mod q: |kc| <= t / 2 < q
-  const uint64_t d = add_q(rc, shoup_q(kc, w, ws, q), q);
-  return shoup_q(sub_q(x, d, q), u, us, q);
+  return sub_q(shoup_q(sub_q(x, rc, q), u, us, q), kc, q);
 }
 
 // Steps from..to-1 on the two columns v0, v1: step s drops limb L - 1 - s.
@@ -119,9 +117,9 @@ __device__ __forceinline__ void drops(uint64_t (&v0)[L], uint64_t (&v1)[L], cons
 #pragma unroll
     for (int i = 0; i < L - 1; ++i) {
       if (i < dl) {
-        const uint64_t q = tab[i], w = st[2 + 4 * i], ws = st[3 + 4 * i], u = st[4 + 4 * i], us = st[5 + 4 * i];
-        v0[i] = divide(v0[i], c0, q, w, ws, u, us);
-        v1[i] = divide(v1[i], c1, q, w, ws, u, us);
+        const uint64_t q = tab[i], u = st[2 + 2 * i], us = st[3 + 2 * i];
+        v0[i] = divide(v0[i], c0, q, u, us);
+        v1[i] = divide(v1[i], c1, q, u, us);
       }
     }
   }

@@ -885,16 +885,16 @@ def _drop_table(qs: tuple[int, ...], t: int, steps: int) -> np.ndarray:
     (the JAX package's `_DropPlan` of each step), as `csrc/bgv.cu` reads it:
     the MAX_DROP_LIMBS primes (0 past L), then per step s (dropping q_l =
     qs[L-1-s]) q_l, q_l^-1 mod t and per kept limb i (MAX_DROP_LIMBS slots)
-    q_l mod q_i, its Shoup dual, q_l^-1 mod q_i, its Shoup dual."""
+    q_l^-1 mod q_i and its Shoup dual."""
     m = MAX_DROP_LIMBS
-    tab = np.zeros(m + steps * (2 + 4 * m), dtype=np.uint64)
+    tab = np.zeros(m + steps * (2 + 2 * m), dtype=np.uint64)
     tab[: len(qs)] = qs
     for s in range(steps):
-        ql, base = qs[len(qs) - 1 - s], m + s * (2 + 4 * m)
+        ql, base = qs[len(qs) - 1 - s], m + s * (2 + 2 * m)
         tab[base : base + 2] = ql, mod_inverse(ql % t, t)
         for i, q in enumerate(qs[: len(qs) - 1 - s]):
-            w, inv = ql % q, mod_inverse(ql % q, q)
-            tab[base + 2 + 4 * i : base + 6 + 4 * i] = w, (w << 64) // q, inv, (inv << 64) // q
+            inv = mod_inverse(ql % q, q)
+            tab[base + 2 + 2 * i : base + 4 + 2 * i] = inv, (inv << 64) // q
     return tab
 
 

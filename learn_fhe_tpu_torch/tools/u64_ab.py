@@ -313,7 +313,9 @@ def main() -> None:
         name = parent.resolve().name
         so = kernels.BUILD_DIR / "parent" / f"liblft_kernels-{name}.so"
         t0 = time.perf_counter()
-        kernels.build(parent.resolve() / "learn_fhe_tpu_torch" / "csrc", so)
+        csrc = parent.resolve() / "learn_fhe_tpu_torch" / "csrc"
+        # an older checkout lacks the newer sources: build those it has
+        kernels.build(csrc, so, tuple(s for s in kernels.SOURCES if (csrc / s).exists()))
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
         if not args.u64_only:
             print_rns_ptxas(name, (so.parent / "build.log").read_text())

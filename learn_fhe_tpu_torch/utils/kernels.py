@@ -152,13 +152,11 @@ def _library_path() -> Path:
     return BUILD_DIR / f"liblft_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build(csrc: Path, so: Path) -> None:
-    """Compile the sources `SOURCES` of `csrc` into the shared library `so`,
-    with the compiler's output in `build.log` beside it. An older checkout's
-    `csrc` may lack the newer sources: those it has are built."""
+def build(csrc: Path, so: Path, sources: tuple[str, ...] = SOURCES) -> None:
+    """Compile `sources` of `csrc` into the shared library `so`, with the
+    compiler's output in `build.log` beside it."""
     so.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tmp = _nvcc(), so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    sources = [s for s in SOURCES if (csrc / s).exists()]
     objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)] for s, o in zip(sources, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]

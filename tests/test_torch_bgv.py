@@ -3,7 +3,8 @@ t = 65537. Keys, encodings, ciphertexts, plaintext factors and decryptions
 must be bit-identical from one numpy seed; every decryption must also equal
 the numpy oracle mod t. One module-scoped set of keys serves every test.
 The plain t-corrected limb drop (K-BGV-DROP's plain version) is held
-against the JAX package's `_drop_limb` at 1..4 drops."""
+against the JAX package's `_drop_limb` at 1..4 drops, and a model of the
+kernel's arithmetic on its table against the plain version."""
 
 from types import SimpleNamespace
 
@@ -19,7 +20,7 @@ import learn_fhe_tpu.models.bgv as G  # noqa: E402
 from learn_fhe_tpu.models.bgv.bgv import _drop_limb as j_drop_limb  # noqa: E402
 from learn_fhe_tpu.ops.rns import rns_add as j_rns_add  # noqa: E402
 import learn_fhe_tpu_torch.models.bgv as B  # noqa: E402
-from learn_fhe_tpu_torch.ops.rns import drop_limbs_t, drop_limbs_t_ref  # noqa: E402
+from learn_fhe_tpu_torch.ops.rns import MAX_DROP_LIMBS, _drop_table, drop_limbs_t, drop_limbs_t_ref  # noqa: E402
 from learn_fhe_tpu_torch.utils.interop import (  # noqa: E402
     bgv_ciphertext_from_numpy,
     bgv_ksk_from_numpy,
@@ -179,6 +180,52 @@ def test_plain_drop_matches_jax(env, k):
     stepwise = j_drop_limb(j_rns_add(want, jnp.asarray(add), env.jp.plan(basis)), basis, t)
     _eq(fused[0], stepwise)
     _eq(fused[1], drop_limbs_t_ref(u64_to_torch(x[::-1].copy()), qps, t, k + 1))
+
+
+def _drop_kernel_model(col: list[int], qs: tuple[int, ...], t: int, steps: int) -> list[int]:
+    """`csrc/bgv.cu`'s drops on one column of Python ints, read from the
+    table the wrapper uploads, with the kernel's u64 wrap-around: Barrett mod
+    t, y_i = (x_i - rc) q_l^-1 - kc mod q_i by one Shoup product."""
+    m, w64, mu = MAX_DROP_LIMBS, (1 << 64) - 1, (1 << 64) // t
+    tab = [int(v) for v in _drop_table(qs, t, steps)]
+
+    def mod_t(v):
+        r = (v - ((v * mu) >> 64) * t) & w64
+        return r - t if r >= t else r
+
+    v, L = list(col), len(qs)
+    for s in range(steps):
+        st = m + s * (2 + 2 * m)
+        ql, inv_t, r = tab[st], tab[st + 1], v[L - 1 - s]
+        neg = r > ql >> 1
+        mag = ql - r if neg else r
+        rem = mod_t(mag)
+        k = mod_t((t - (t - rem if neg and rem else rem)) * inv_t)
+        kneg = k > t >> 1
+        kmag = t - k if kneg else k
+        for i in range(L - 1 - s):
+            q, u, us = tab[i], tab[st + 2 + 2 * i], tab[st + 3 + 2 * i]
+            a = (v[i] - (q - mag if neg else mag)) % q
+            y = (a * u - (((a * us) >> 64) * q)) & w64
+            assert y < 2 * q
+            v[i] = (min(y, y - q & w64) - (q - kmag if kneg else kmag)) % q
+    return v[: L - steps]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_drop_kernel_arithmetic_matches_plain(k):
+    """K-BGV-DROP's arithmetic and table layout, modelled on the CPU: k drops
+    from the 8 limbs of qs + ps on residues holding 0, q/2, q/2 + 1, q - 1
+    and random values equal the plain version's."""
+    p = _params(B)
+    rng = np.random.default_rng(100 + k)
+    x = np.stack([rng.integers(0, q, size=(2, 32), dtype=np.uint64) for q in p.qps], axis=-2)
+    x[0, :, :4] = np.array([[0, q // 2, q // 2 + 1, q - 1] for q in p.qps])
+    want = torch_to_u64(drop_limbs_t_ref(u64_to_torch(x), p.qps, p.t, k))
+    for r in range(x.shape[0]):
+        for c in range(x.shape[-1]):
+            got = _drop_kernel_model([int(v) for v in x[r, :, c]], p.qps, p.t, k)
+            assert got == [int(v) for v in want[r, :, c]], (r, c)
 
 
 def test_mul_and_depth3_chain_match_jax(env):
