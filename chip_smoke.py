@@ -185,7 +185,7 @@ by the HES tables), as `bench/production_bootstrap_probe.py` runs it:
       versions at the production shapes, `torch.equal`, each wrapper's
       counter rising by one a call; time each eager and from a CUDA graph
       against its bound, with the registers and spills of the 2^16
-      instances;
+      instances and each cluster launch's blocks and their residency;
   P2. the path: keys from seed 2026 (the dense secret, rlk, cjk, then the
       rotation keys with `rtk_gen_many` in groups of 4 in sorted index
       order), their seconds split into host draws, host -> device copies
@@ -205,6 +205,15 @@ Then BGV at a deployment's size, `BgvParams(log_n=14, t=65537, log_qi=45,
 big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
 `utils/security.estimate`), batch 16 from seed 17:
 
+  G0. hold K-RNS-NTT and rns_intt_mac past N=2^13 at the batch-16 mul's
+      shapes (N=2^14) against their plain versions, `torch.equal`, each
+      wrapper's counter rising by one a call: the forward transform on
+      (16, 4, N) and (16, 8, N), the tensor's sums of 1 and 2 terms inside
+      the inverse (64 rows) and the key switch's two sums against the key
+      broadcast over the batch (256 rows); time each over 20 eager calls and
+      from a CUDA graph of 20 against its bound, with each launch's blocks,
+      their shape and residency (the CUDA occupancy calculator) and the
+      2^14 instances' registers and spills;
   G1. hold K-BGV-DROP (`ops/rns.py::drop_limbs_t`) against its plain
       version at N=2^14 on b and a of a batch of 16 in one launch: the key
       switch's division by P (8 limbs, k=4), a mul's whole drop (k=4, the
@@ -235,8 +244,10 @@ port's CPU path.
 
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
-instances (`*_n65536`: P1's shapes, P2's launches); the `bgv_drop` row
-times G1's first shape and carries G2's path's launches. The phases'
+instances (`*_n65536`: P1's shapes, P2's launches), two BGV's ring's
+(`*_n16384`: G0's forward transform at 64 rows and sums of one term at 64
+rows, G2's path's launches of the kernel); the `bgv_drop` row times G1's
+first shape and carries G2's path's launches. The phases'
 seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
@@ -1826,7 +1837,7 @@ PROD_RECORD = (15.7, 14.1)  # the JAX package's record for this seed and knobs (
 PROD_REPS = 5  # eager calls and CUDA-graph launches a P1 timing averages
 PROD_TERMS = 8  # a giant group's b sum at the CoeffToSlot chunks (up to 8 baby steps)
 PROD_INSTANCES = (
-    "rns_ntt_kernel<false,true,16>", "rns_ntt_kernel<true,true,16>", "rns_intt_mac_kernel<true,16,0>",
+    "rns_ntt_kernel<false,true,16>", "rns_ntt_kernel<true,true,16>", "rns_intt_mac_resident_kernel<16,0>",
     "rns_intt_mac_kernel<true,16,1>", "rns_intt_mac_kernel<true,16,2>", "rns_intt_mac_gather_kernel<true,16>",
 )  # fmt: skip
 
@@ -1954,7 +1965,12 @@ def production_p1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
         for row, case in PROD_ROWS.items():
             if case == (name, shape):
                 timings[row], graphs[row], bounds[row], errs[row] = (k_ms, p_ms), g_ms, (b_ms, by), p1_errs[name, shape]
-        say(f"{tag} P1 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({PROD_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops_[0] / 1e6:.1f} M FMA, {ops_[1] / 1e6:.1f} M ALU, {ops_[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+        note = ""
+        if name in rns.CLUSTER_KINDS:
+            rows = {"rns_ntt": 15 * 32, "rns_intt": 2 * 30}.get(name, 2 * 32 if "key switch" in str(shape) else 30)
+            terms = {"1 term": 1, "2 terms": 2}.get(shape, 0) if name == "rns_intt_mac" else 0
+            note = f"; {cluster_note(name, PROD_LOG_N, rows, terms)}"
+        say(f"{tag} P1 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({PROD_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops_[0] / 1e6:.1f} M FMA, {ops_[1] / 1e6:.1f} M ALU, {ops_[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph{note}")
     say(f"{tag} P1 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -2133,22 +2149,37 @@ BGV_REPS = 20  # eager calls and CUDA-graph launches a G1 timing averages
 BGV_MUL_CALLS = 5
 BGV_PROFILED_MULS = 20
 BGV_ROTATIONS = (1, 7)
-BGV_INSTANCES = ("bgv_drop_kernel<4>", "bgv_drop_kernel<5>", "bgv_drop_kernel<8>")
+BGV_INSTANCES = ("bgv_drop_kernel<4,1,0>", "bgv_drop_kernel<5,0,0>", "bgv_drop_kernel<8,4,0>", "bgv_drop_kernel<8,4,1>")
+BGV_RNS_INSTANCES = (
+    "rns_ntt_wide_kernel<false,14>", "rns_intt_mac_wide_kernel<14,1>", "rns_intt_mac_wide_kernel<14,2>",
+    "rns_ntt_kernel<false,true,14>", "rns_intt_mac_kernel<true,14,1>",
+)  # fmt: skip
+# the kernels line's rows of BGV's ring: (row, G0's case); their launches are G2's path's
+BGV_ROWS = {"rns_ntt_n16384": ("rns_ntt", (BGV_BATCH, 4, 1 << 14)), "rns_intt_mac_n16384": ("rns_intt_mac", "K=1")}
 # K-BGV-DROP's work, from the u64 operations' SASS counts above: per column
-# and drop, the centered residue, two Barrett reductions mod t, the product
-# by q_l^-1 mod t and the centered k (two Shoup-sized products and the
-# selects); per kept limb and drop, the two centered values into [0, q_i)
-# (selects), one Shoup product and two subtracts mod q_i:
-# y_i = (x_i - rc) q_l^-1 - kc, as q_l kc q_l^-1 = kc (mod q_i)
-DROP_STEP = 2 * SHOUP64 + 3 * CSUB64 + np.array([3, 0, 1])
-DROP_LIMB = SHOUP64 + 2 * ADD_Q64 + 2 * CSUB64
+# and drop, the dropped limb made canonical, the centered residue, one
+# Barrett reduction mod t (a Shoup-sized product: k = -rc q_l^-1 mod t from
+# |rc| q_l^-1) and the centered k; per kept limb and drop, the lazy
+# (x_i + q_i - rc) q_l^-1 - kc: two 3-input adds, a Shoup product without
+# its last subtract, one conditional subtract of 2 q_i (as q_l kc q_l^-1 =
+# kc mod q_i; the limbs stay below 2 q_i between the drops); per output limb
+# one conditional subtract. The first count, canonical between the drops
+# and two Barretts a step (DROP_STEP_CANONICAL, DROP_LIMB_CANONICAL), was
+# more work than the redesigned kernel's own SASS does (PERF.md).
+DROP_STEP = SHOUP64 + 3 * CSUB64 + np.array([3, 0, 1])
+DROP_LIMB = SHOUP64 + np.array([0, 0, 4])
+DROP_STEP_CANONICAL = 2 * SHOUP64 + 3 * CSUB64 + np.array([3, 0, 1])
+DROP_LIMB_CANONICAL = SHOUP64 + 2 * ADD_Q64 + 2 * CSUB64
 
 
-def drop_ops(cols: int, limbs: int, k: int, then: int = 0, add_cols: int = 0) -> np.ndarray:
+def drop_ops(cols: int, limbs: int, k: int, then: int = 0, add_cols: int = 0, canonical: bool = False) -> np.ndarray:
     """K-BGV-DROP on `cols` columns of `limbs` limbs: k drops, the add of
-    limbs - k values on `add_cols` of them, then `then` drops."""
-    steps = sum(DROP_STEP + (limbs - 1 - s) * DROP_LIMB for s in range(k + then))
-    return cols * steps + add_cols * (limbs - k) * ADD_Q64
+    limbs - k values on `add_cols` of them, then `then` drops (canonical:
+    the first count)."""
+    step, limb = (DROP_STEP_CANONICAL, DROP_LIMB_CANONICAL) if canonical else (DROP_STEP, DROP_LIMB)
+    steps = sum(step + (limbs - 1 - s) * limb for s in range(k + then))
+    outs = 0 if canonical else (limbs - k - then) * CSUB64
+    return cols * (steps + outs) + add_cols * (limbs - k) * ADD_Q64
 
 
 def bgv_drop_cases(params, rng, dev):
@@ -2156,7 +2187,8 @@ def bgv_drop_cases(params, rng, dev):
     by P (8 limbs, k=4), a mul's whole drop (k=4, the add of d0 and d1, one
     more drop), the rotation's and conjugation's key switch (k=4, the
     permuted b added after the drops), mod_switch at the top level (4 limbs,
-    k=1), and 5 limbs at k=1 and k=4. Returns {shape: (kernel call, plain call, bytes, instructions)}."""
+    k=1), and 5 limbs at k=1 and k=4. Returns {shape: (kernel call, plain call, bytes, instructions, the first
+    count's instructions)}."""
     from learn_fhe_tpu_torch.ops import rns
     from learn_fhe_tpu_torch.utils.interop import u64_to_torch
 
@@ -2184,8 +2216,58 @@ def bgv_drop_cases(params, rng, dev):
             ),
             n_bytes,
             drop_ops(cols, L, k, then, add_cols),
+            drop_ops(cols, L, k, then, add_cols, canonical=True),
         )
     return cases
+
+
+def cluster_note(kind: str, log_n: int, rows: int, terms: int = 0) -> str:
+    """A cluster instance's launch at `rows` rows: its blocks, their shape and
+    how many of them the card holds at once (`ops.rns.cluster_occupancy`)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    o = rns.cluster_occupancy(kind, log_n, terms, rows)
+    blocks = rows * o["cluster"]
+    resident = min(o["blocks_per_sm"] * SMS, o["clusters"] * o["cluster"])
+    return (f"{blocks} blocks of {o['threads']} threads (clusters of {o['cluster']}, {o['smem'] // 1024} KB of dynamic shared memory each), "
+            f"{o['blocks_per_sm']} an SM, {o['clusters']} clusters at once: {blocks / resident:.2f} of the card's resident blocks")
+
+
+def bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
+    """G0 (see the module's docstring): K-RNS-NTT and rns_intt_mac at the
+    batch-16 BGV mul's shapes (N=2^14) against their plain versions and their
+    bounds; adds the kernels line's rows of BGV's ring (BGV_ROWS)."""
+    from learn_fhe_tpu_torch.models.bgv import BgvParams
+    from learn_fhe_tpu_torch.ops import rns
+
+    t0 = time.perf_counter()
+    params = BgvParams(**BGV)
+    report = kernels_report()
+    for name in BGV_RNS_INSTANCES:
+        regs, st, ld, stack = report[name]
+        say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+    cases = {key: case for key, case in rns_cases(params, BGV_BATCH, np.random.default_rng(13), dev).items() if key[0] in ("rns_ntt", "rns_intt_mac")}
+    wrappers = {"rns_ntt": rns.rns_ntt, "rns_intt_mac": rns.rns_intt_mac}
+    qs_rows, qps_rows = BGV_BATCH * len(params.qs), BGV_BATCH * len(params.qps)
+    g0_errs = {}
+    for (name, shape), (kernel, plain, *_) in cases.items():
+        before = wrappers[name].launches
+        got = kernel()
+        if wrappers[name].launches != before + 1:
+            raise AssertionError(f"G0 {name} {shape}: the wrapper did not launch its kernel once")
+        g0_errs[name, shape] = max_abs_err(got, plain().cpu())
+        errs[name] = max(errs.get(name, 0.0), g0_errs[name, shape])
+    say(f"G0 at N={params.n}, batch {BGV_BATCH}: K-RNS-NTT on ({BGV_BATCH}, {len(params.qs)}, {params.n}) and ({BGV_BATCH}, {len(params.qps)}, {params.n}), rns_intt_mac at K=1, K=2 and the key switch's two sums == plain, each wrapper launching its kernel once a call: ok")
+    for (name, shape), (kernel, plain, n_bytes, ops, _) in cases.items():
+        k_ms, g_ms, p_ms = cuda_ms(kernel, BGV_REPS), graph_ms(kernel, BGV_REPS), cuda_ms(plain, 3)
+        b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+        for row, case in BGV_ROWS.items():
+            if case == (name, shape):
+                timings[row], graphs[row], bounds[row], errs[row] = (k_ms, p_ms), g_ms, (b_ms, by), g0_errs[name, shape]
+        terms = {"K=1": 1, "K=2": 2, "key switch": 1}.get(shape, 0)
+        rows = {"K=1": qs_rows, "K=2": qs_rows, "key switch": 2 * qps_rows}.get(shape) or shape[0] * shape[1]
+        say(f"{tag} G0 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({BGV_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph; {cluster_note(name, 14, rows, terms)}")
+    say(f"{tag} G0 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
 def bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
@@ -2209,12 +2291,13 @@ def bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
         for g, w in zip(got, plain()):
             errs["bgv_drop"] = max(errs.get("bgv_drop", 0.0), max_abs_err(g, w.cpu()))
     say(f"G1 K-BGV-DROP at N={params.n}, batch {BGV_BATCH} x (b, a), {', '.join(cases)} == plain, one launch a call: ok")
-    for shape, (kernel, plain, n_bytes, ops) in cases.items():
+    for shape, (kernel, plain, n_bytes, ops, old_ops) in cases.items():
         k_ms, g_ms, p_ms = cuda_ms(kernel, BGV_REPS), graph_ms(kernel, BGV_REPS), cuda_ms(plain, 3)
         b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
         if "bgv_drop" not in timings:  # the kernels line takes the key switch's division by P
             timings["bgv_drop"], graphs["bgv_drop"], bounds["bgv_drop"] = (k_ms, p_ms), g_ms, (b_ms, by)
-        say(f"{tag} G1 bgv_drop {shape}: kernel {k_ms * 1e3:.2f} us eager ({BGV_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph")
+        old_ms, old_by = bound_ms(n_bytes, old_ops, pipe_per_s)
+        say(f"{tag} G1 bgv_drop {shape}: kernel {k_ms * 1e3:.2f} us eager ({BGV_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph; the first count's bound {old_ms * 1e3:.2f} us by {old_by} = {old_ms / g_ms:.4f} of it")
     say(f"{tag} G1 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -2299,6 +2382,8 @@ def bgv_g2(dev, tag, launches) -> None:
     path = {name: fn.launches for name, fn in fns.items()}
     path_rows = {name: dict(fn.by_rows) for name, fn in fns.items() if fn.launches}
     launches["bgv_drop"] = path["drop_limbs_t"]
+    for row, (name, _) in BGV_ROWS.items():
+        launches[row] = path[name]
     say(f"{tag} G2 the path (a mul chain of depth {depth}, fresh operands brought down by mod_switch; rotate by {BGV_ROTATIONS}; conjugate; mul_plain, mod_switch, add_plain) at batch {B}: {path_s:.3f} s (host clock, to a sync)")
     say(f"G2 launches on the path: {path}; by shape: {path_rows}")
     for name in ("rns_ntt", "rns_intt_mac", "base_convert", "automorphism_rns", "drop_limbs_t"):
@@ -2451,7 +2536,7 @@ def main() -> None:
     for name, (regs, st, ld, stack) in sorted(report.items()):
         if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES} <= report.keys():
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES} <= report.keys():
         raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64, RNS or BGV kernel")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
@@ -2652,6 +2737,7 @@ def main() -> None:
         ("bootstrap B3", lambda: bootstrap_b3(dev, tag, launches)),
         ("production P1", lambda: production_p1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("production P2", lambda: production_p2(dev, tag, launches)),
+        ("BGV G0", lambda: bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("BGV G1", lambda: bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("BGV G2", lambda: bgv_g2(dev, tag, launches)),
         ("TFHE T1", lambda: tfhe_t1(dev, tag)),
@@ -2690,6 +2776,9 @@ def main() -> None:
         ("rns_intt_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193 (inv_stages via rns_intt at N=2^16, XLA fusion; no Pallas call)"),
         ("rns_intt_mac_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280,287 and models/ckks/ckks.py:706-716 (the key switch's rns_intt of _ks_dot at N=2^16, dnum 15; XLA fusions; no Pallas call)"),
         ("rns_intt_mac_gather_n65536", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:147,152-169 (rns_intt of products with be[..., perm] at N=2^16; XLA fusions; no Pallas call)"),
+        # BGV's ring (G0's shapes; their launches are G2's path's)
+        ("rns_ntt_n16384", "rns64.cu", "learn_fhe_tpu/ops/rns.py:123 (fwd_stages via rns_ntt at N=2^14, BGV's mul; XLA fusion; no Pallas call)"),
+        ("rns_intt_mac_n16384", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280 and models/bgv/bgv.py:420-422 (rns_intt of the mul's tensor products at N=2^14; XLA fusions; no Pallas call)"),
         # BGV's t-corrected limb drop (G1's shapes; its launches are G2's path's)
         ("bgv_drop", "bgv.cu", "learn_fhe_tpu/models/bgv/bgv.py:176 (_drop_limb with its _DropPlan tables :154-173, XLA fusion; no Pallas call)"),
     ]

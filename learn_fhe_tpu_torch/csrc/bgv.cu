@@ -16,25 +16,40 @@
 // What bounds it on an H100: a column reads its L limbs and writes L - k;
 // at the BGV mul's key switch (batch 16 x (b, a), N = 2^14, 8 limbs to 4)
 // that is 33.6 MB read and 16.8 MB written, about 15 us at 3.35 TB/s. Each
-// kept limb of each drop costs one u64 Shoup product, two subtracts and two
-// selects (some 50 32-bit instructions), and at that shape the integer
-// instruction rate, about 22 us, bounds it more than the bytes.
+// kept limb of each drop costs one u64 Shoup product and a few adds and
+// selects: about 12 us of the SMs' integer issue at that shape, so the
+// bytes bound it, the instructions close behind.
 //
-// The design (a simple first kernel): a thread takes two adjacent columns of
-// one part (b or a) in 16-byte words, holds their L limbs in registers (an
-// instance per L = 2..16, every limb index a constant after unrolling; the
-// steps a loop, the dropped limb picked by compare and select: the first
-// version unrolled the steps too and spilled from L = 7) and runs the drops
-// in sequence there: one drop at a time, since a one-shot
-// division by the product of the dropped primes picks another d and would
-// not be bit-identical. Every prime of the basis exceeds half of the largest
-// (one bit length, as BgvParams makes them), so a centered residue and a
-// centered k are brought into [0, q_i) by one conditional add; mod t goes
-// by a Barrett constant, never a 64-bit division. The tables (per step q_l,
-// q_l^-1 mod t, and per kept limb q_l^-1 mod q_i with its Shoup dual) are
-// loaded into shared memory once a block. Where the BGV op adds a tensor
-// between the drops (mul's d0 / d1 before its last drop) or after them (the
-// key switch's b), the add runs in the same launch: a mod-q add is exact.
+// The design (redesigned for the H100 from the first version's own SASS:
+// 1911 instructions a column at 8 -> 4 where the bound counts 1394, PERF.md):
+// - A thread takes kCols = 2 adjacent columns (16-byte words), their L limbs
+//   in registers, each table word read once for both (one column a thread
+//   measured no faster at 8 -> 4 and slower in the loop instances). The
+//   launch is a grid of the blocks the card holds at once, each taking an
+//   equal run of units of 32 threads' columns, so no short last wave (the
+//   first version's 1024 blocks at the key switch's shape were 2.6 waves).
+// - The steps are unrolled at the counts BGV launches (8 -> 4, the key
+//   switch and the rotation's, with its add; 8 -> 3, the mul's, with the add
+//   of d0 / d1 before the last drop; 4 -> 3, mod_switch): the dropped limb
+//   and the kept ones are constants there. Any other (L, k, then) runs the
+//   steps in a loop, the dropped limb picked by compare and select.
+// - The limbs stay below 2 q_i between the drops (Harvey's lazy ranges):
+//   y_i = (x_i + q_i - rc) q_l^-1 by a lazy Shoup product, + q_i - kc, one
+//   conditional subtract of 2 q_i; the dropped limb is made canonical before
+//   it is centered, the outputs once at the end. rc and kc are centered
+//   values in two's complement, so no select picks rc or kc mod q_i.
+// - The correction takes one reduction mod t a step: k = -rc q_l^-1 mod t is
+//   |rc| q_l^-1 mod t, negated where rc >= 0 (|rc| q_l^-1 < t q_l / 2 <
+//   2^62, the wrapper checks t max(q) < 2^63), by a Barrett constant.
+// One drop at a time, since a one-shot division by the product of the
+// dropped primes picks another d and would not be bit-identical. Every prime
+// of the basis exceeds half of the largest (one bit length, as BgvParams
+// makes them), so |rc| <= q_l / 2 < q_i, and |kc| <= t / 2 < q_i. The tables
+// (per step q_l, q_l^-1 mod t, and per kept limb q_l^-1 mod q_i with its
+// Shoup dual) are loaded into shared memory once a block. Where the BGV op
+// adds a tensor between the drops (mul's d0 / d1 before its last drop) or
+// after them (the key switch's b), the add runs in the same launch: a mod-q
+// add is exact.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,11 +58,12 @@
 
 namespace {
 
-using lft64::add_q;
-using lft64::shoup_q;
-using lft64::sub_q;
+using lft64::csub;
+using lft64::shoup_lazy;
 
 constexpr int kThreads = 256;
+constexpr int kWarp = 32;
+constexpr int kCols = 2;  // columns a thread takes at once
 constexpr int kMaxLimbs = 16;
 constexpr int kStepWords = 2 + 2 * kMaxLimbs;  // q_l, q_l^-1 mod t, then 2 words a kept limb
 constexpr int kTableWords = kMaxLimbs + (kMaxLimbs - 1) * kStepWords;
@@ -65,132 +81,191 @@ __device__ __forceinline__ uint64_t mod_t(uint64_t v, uint64_t t, uint64_t mu) {
   return r >= t ? r - t : r;
 }
 
-// A column's correction for the drop of limb value r under q_l: the centered
-// residue rc = +-mag and the centered k = +-kmag.
+// A column's correction for the drop of limb value r (canonical) under q_l:
+// the centered residue rc and the centered k = -rc q_l^-1 mod t, each as a
+// two's complement u64.
 struct Correction {
-  bool neg;
-  uint64_t mag;
-  bool kneg;
-  uint64_t kmag;
+  uint64_t rc, kc;
 };
 
 __device__ __forceinline__ Correction correction(uint64_t r, uint64_t ql, uint64_t inv_ql_t, uint64_t t, uint64_t mu) {
-  Correction c;
-  c.neg = r > (ql >> 1);
-  c.mag = c.neg ? ql - r : r;  // |rc|
-  const uint64_t rem = mod_t(c.mag, t, mu);
-  const uint64_t rm = c.neg && rem != 0 ? t - rem : rem;  // rc mod t, floored
-  const uint64_t k = mod_t((t - rm) * inv_ql_t, t, mu);   // (t - rm) q_l^-1 < t^2 < 2^64
-  c.kneg = k > (t >> 1);
-  c.kmag = c.kneg ? t - k : k;  // |kc|
-  return c;
+  const bool neg = r > (ql >> 1);
+  const uint64_t m = mod_t((neg ? ql - r : r) * inv_ql_t, t, mu);  // |rc| q_l^-1 mod t
+  const uint64_t k = neg ? m : (m != 0 ? t - m : 0);              // -rc q_l^-1 mod t
+  return Correction{neg ? r - ql : r, k > (t >> 1) ? k - t : k};
 }
 
-// (x - d) q_l^-1 mod q with d = rc + q_l kc, as (x - rc) q_l^-1 - kc mod q:
-// u = q_l^-1 mod q, us its Shoup dual.
+// (x - d) q_l^-1 mod q with d = rc + q_l kc, as (x - rc) q_l^-1 - kc (q_l kc
+// q_l^-1 = kc mod q), lazily: x below 2q, the result below 2q. u = q_l^-1
+// mod q, us its Shoup dual. x + q - rc lies in (0, 4q), the lazy product
+// below 2q, and that + q - kc in (0, 3q + t/2) (|rc| <= q_l / 2 < q, |kc| <=
+// t / 2 < q).
 __device__ __forceinline__ uint64_t divide(uint64_t x, const Correction& c, uint64_t q, uint64_t u, uint64_t us) {
-  const uint64_t rc = c.neg ? q - c.mag : c.mag;    // rc mod q: |rc| <= q_l / 2 < q
-  const uint64_t kc = c.kneg ? q - c.kmag : c.kmag;  // kc mod q: |kc| <= t / 2 < q
-  return sub_q(shoup_q(sub_q(x, rc, q), u, us, q), kc, q);
+  return csub(shoup_lazy(x + q - c.rc, u, us, q) + q - c.kc, 2 * q);
 }
 
-// Steps from..to-1 on the two columns v0, v1: step s drops limb L - 1 - s.
-// The steps run in a loop; the limbs are indexed only by unrolled constants
-// (the dropped one picked by compare and select), so they stay in registers,
-// and each table word is loaded once for both columns.
+// Step s on kCols columns' limbs v (each below 2 q_i): drop limb L - 1 - s.
+// At a constant s every limb index is a constant; at a run-time one the
+// dropped limb is picked by compare and select and the kept ones are
+// predicated, so the limbs stay in registers either way. Each table word is
+// read once for the thread's columns.
 template <int L>
-__device__ __forceinline__ void drops(uint64_t (&v0)[L], uint64_t (&v1)[L], const uint64_t* __restrict__ tab,
-                                      int from, int to, uint64_t t, uint64_t mu) {
-#pragma unroll 1
-  for (int s = from; s < to; ++s) {
-    const int dl = L - 1 - s;
-    const uint64_t* st = tab + kMaxLimbs + s * kStepWords;
-    uint64_t r0 = 0, r1 = 0;
+__device__ __forceinline__ void drop(uint64_t (&v)[kCols][L], int s, const volatile uint64_t* tab,
+                                     const uint64_t (&q)[L], uint64_t t, uint64_t mu) {
+  const int dl = L - 1 - s;
+  const volatile uint64_t* st = tab + kMaxLimbs + s * kStepWords;
+  const uint64_t ql = st[0], inv_ql_t = st[1];
+  Correction c[kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    uint64_t r = 0;
 #pragma unroll
     for (int j = 1; j < L; ++j) {
-      if (j == dl) {
-        r0 = v0[j];
-        r1 = v1[j];
-      }
+      if (j == dl) r = v[k][j];
     }
-    const Correction c0 = correction(r0, st[0], st[1], t, mu), c1 = correction(r1, st[0], st[1], t, mu);
+    c[k] = correction(csub(r, ql), ql, inv_ql_t, t, mu);
+  }
 #pragma unroll
-    for (int i = 0; i < L - 1; ++i) {
-      if (i < dl) {
-        const uint64_t q = tab[i], u = st[2 + 2 * i], us = st[3 + 2 * i];
-        v0[i] = divide(v0[i], c0, q, u, us);
-        v1[i] = divide(v1[i], c1, q, u, us);
-      }
+  for (int i = 0; i < L - 1; ++i) {
+    if (i < dl) {
+      const uint64_t u = st[2 + 2 * i], us = st[3 + 2 * i];
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) v[k][i] = divide(v[k][i], c[k], q[i], u, us);
     }
   }
+}
+
+// Steps from..to-1 (kConst: the counts are the instance's constants, the
+// steps unrolled; else a loop).
+template <int L, bool kConst>
+__device__ __forceinline__ void drops(uint64_t (&v)[kCols][L], const volatile uint64_t* tab, const uint64_t (&q)[L],
+                                      int from, int to, uint64_t t, uint64_t mu) {
+  if constexpr (kConst) {
+#pragma unroll
+    for (int s = from; s < to; ++s) drop<L>(v, s, tab, q, t, mu);
+  } else {
+#pragma unroll 1
+    for (int s = from; s < to; ++s) drop<L>(v, s, tab, q, t, mu);
+  }
+}
+
+// The kCols consecutive u64 at p, in 16-byte words, or into them.
+static_assert(kCols % 2 == 0, "a thread's columns move in 16-byte words");
+
+__device__ __forceinline__ void load_cols(const uint64_t* __restrict__ p, uint64_t (&w)[kCols]) {
+#pragma unroll
+  for (int h = 0; h < kCols / 2; ++h) {
+    const ulonglong2 x = reinterpret_cast<const ulonglong2*>(p)[h];
+    w[2 * h] = x.x;
+    w[2 * h + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void store_cols(uint64_t* __restrict__ p, const uint64_t (&w)[kCols]) {
+#pragma unroll
+  for (int h = 0; h < kCols / 2; ++h) reinterpret_cast<ulonglong2*>(p)[h] = make_ulonglong2(w[2 * h], w[2 * h + 1]);
 }
 
 // y[p] (rows, L - k - then, N) from x[p] (rows, L, N): k drops, + add[p]
-// (rows, L - k, N; null: none), `then` drops; p = blockIdx.y. A thread takes
-// two adjacent columns of a row.
-template <int L>
+// (rows, L - k, N; null: none), `then` drops; parts p = 0 and, where
+// `parts` is 2, 1. kK, kThen: the instance's counts (kK = 0: k and then as
+// given). The columns of all parts, in units of kWarp threads' kCols
+// columns, are dealt to the blocks in equal runs; a block's warps take the
+// units of its run in turn, a thread kCols adjacent columns of a unit. The
+// table is read through a volatile pointer, so that no word of it is held
+// in a register from one unit to the next (the unrolled instances took 174
+// registers so, PERF.md).
+template <int L, int kK, int kThen>
 __global__ void __launch_bounds__(kThreads)
-    bgv_drop_kernel(DropParts p, const uint64_t* __restrict__ g_tab, int k, int then, int log_n, long long rows,
-                    uint64_t t, uint64_t mu) {
-  __shared__ uint64_t tab[kTableWords];
+    bgv_drop_kernel(DropParts p, const uint64_t* __restrict__ g_tab, int k_arg, int then_arg, int log_n,
+                    long long rows, int parts, uint64_t t, uint64_t mu) {
+  constexpr bool kConst = kK != 0;
+  __shared__ uint64_t tab_s[kTableWords];
+  const volatile uint64_t* tab = tab_s;
+  const int k = kConst ? kK : k_arg, then = kConst ? kThen : then_arg;
   const int words = kMaxLimbs + (k + then) * kStepWords;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) tab[i] = g_tab[i];
+  for (int i = threadIdx.x; i < words; i += blockDim.x) tab_s[i] = g_tab[i];
   __syncthreads();
-  const uint64_t* __restrict__ x = blockIdx.y ? p.x[1] : p.x[0];  // no indexing of the parameter array at run time
-  const uint64_t* __restrict__ add = blockIdx.y ? p.add[1] : p.add[0];
-  uint64_t* __restrict__ y = blockIdx.y ? p.y[1] : p.y[0];
-  const int log_pairs = log_n - 1, mid = L - k, out = L - k - then;
-  const long long items = rows << log_pairs;
-  for (long long it = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; it < items;
-       it += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long row = it >> log_pairs;
-    const long long col = (it & ((1ll << log_pairs) - 1)) << 1;
-    const uint64_t* xr = x + ((row * L) << log_n) + col;
-    uint64_t v0[L], v1[L];
+  const int mid = L - k, out = L - k - then;
+  const long long cols = (rows * parts) << log_n, unit = kWarp * kCols;
+  const long long units = (cols + unit - 1) / unit;
+  const long long u1 = units * (blockIdx.x + 1) / gridDim.x;
+  const int lane = static_cast<int>(threadIdx.x) % kWarp;
+  for (long long u = units * blockIdx.x / gridDim.x + threadIdx.x / kWarp; u < u1; u += kThreads / kWarp) {
+    const long long f = (u * kWarp + lane) * kCols;
+    if (f >= cols) break;
+    const long long grow = f >> log_n;  // row of all parts
+    const bool second = grow >= rows;
+    const long long row = second ? grow - rows : grow, col = f & ((1ll << log_n) - 1);
+    const uint64_t* __restrict__ x = second ? p.x[1] : p.x[0];  // no indexing of the parameter array at run time
+    const uint64_t* __restrict__ add = second ? p.add[1] : p.add[0];
+    uint64_t* __restrict__ y = second ? p.y[1] : p.y[0];
+    uint64_t q[L], v[kCols][L];
 #pragma unroll
     for (int l = 0; l < L; ++l) {
-      const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(xr + (static_cast<long long>(l) << log_n));
-      v0[l] = w.x;
-      v1[l] = w.y;
+      q[l] = tab[l];
+      uint64_t w[kCols];
+      load_cols(x + ((row * L + l) << log_n) + col, w);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) v[c][l] = w[c];
     }
-    drops<L>(v0, v1, tab, 0, k, t, mu);
+    drops<L, kConst>(v, tab, q, 0, k, t, mu);
     if (add != nullptr) {
-      const uint64_t* ar = add + ((row * mid) << log_n) + col;
 #pragma unroll
       for (int l = 0; l < L - 1; ++l) {
         if (l < mid) {
-          const ulonglong2 w = *reinterpret_cast<const ulonglong2*>(ar + (static_cast<long long>(l) << log_n));
-          v0[l] = add_q(v0[l], w.x, tab[l]);
-          v1[l] = add_q(v1[l], w.y, tab[l]);
+          uint64_t w[kCols];
+          load_cols(add + ((row * mid + l) << log_n) + col, w);
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) v[c][l] = csub(v[c][l] + w[c], 2 * q[l]);  // below 3 q, then 2 q
         }
       }
     }
-    drops<L>(v0, v1, tab, k, k + then, t, mu);
-    uint64_t* yr = y + ((row * out) << log_n) + col;
+    drops<L, kConst>(v, tab, q, k, k + then, t, mu);
 #pragma unroll
     for (int l = 0; l < L - 1; ++l) {
-      if (l < out) *reinterpret_cast<ulonglong2*>(yr + (static_cast<long long>(l) << log_n)) = make_ulonglong2(v0[l], v1[l]);
+      if (l < out) {
+        uint64_t w[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) w[c] = csub(v[c][l], q[l]);
+        store_cols(y + ((row * out + l) << log_n) + col, w);
+      }
     }
   }
 }
 
-template <int L>
-void* kernel_for() {
-  return reinterpret_cast<void*>(bgv_drop_kernel<L>);
-}
-
-template <int... Ls>
-struct Instances {
-  static void* pick(int limbs) {
-    void* out = nullptr;
-    ((limbs == Ls ? (out = kernel_for<Ls>(), 0) : 0), ...);
-    return out;
-  }
+// A kernel instance and the blocks of it the card holds at once.
+struct Instance {
+  void* kernel;
+  int (*resident)();
 };
 
-unsigned grid_for(long long count) {
-  const long long blocks = (count + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16);
+template <int L, int kK, int kThen>
+int resident_blocks() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bgv_drop_kernel<L, kK, kThen>, kThreads, 0);
+    return per_sm * sms;
+  }();
+  return blocks;
+}
+
+template <int L, int kK = 0, int kThen = 0>
+Instance instance() {
+  return Instance{reinterpret_cast<void*>(bgv_drop_kernel<L, kK, kThen>), resident_blocks<L, kK, kThen>};
+}
+
+// The unrolled instances at BGV's counts, else the loop's for L limbs.
+template <int... Ls>
+Instance pick(int limbs, int k, int then) {
+  if (limbs == 8 && k == 4 && then == 0) return instance<8, 4, 0>();
+  if (limbs == 8 && k == 4 && then == 1) return instance<8, 4, 1>();
+  if (limbs == 4 && k == 1 && then == 0) return instance<4, 1, 0>();
+  Instance out{nullptr, nullptr};
+  ((limbs == Ls ? (out = instance<Ls>(), 0) : 0), ...);
+  return out;
 }
 
 }  // namespace
@@ -206,18 +281,21 @@ int lft_bgv_drop(const void* x0, const void* x1, const void* add0, const void* a
                  const void* tab, int limbs, int k, int then, int log_n, long long rows, unsigned long long t,
                  unsigned long long mu, void* stream) {
   if (limbs < 2 || limbs > kMaxLimbs || k < 1 || then < 0 || k + then >= limbs || log_n < 1 || log_n > 30 ||
-      rows < 1 || x0 == nullptr || y0 == nullptr || (x1 == nullptr) != (y1 == nullptr) || t < 2 ||
-      t >= (1ull << 32))
+      rows < 1 || rows > (1ll << 32) || x0 == nullptr || y0 == nullptr || (x1 == nullptr) != (y1 == nullptr) ||
+      t < 2 || t >= (1ull << 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DropParts p{{static_cast<const uint64_t*>(x0), static_cast<const uint64_t*>(x1)},
-                    {static_cast<const uint64_t*>(add0), static_cast<const uint64_t*>(add1)},
-                    {static_cast<uint64_t*>(y0), static_cast<uint64_t*>(y1)}};
-  void* kernel = Instances<2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16>::pick(limbs);
-  const dim3 grid(grid_for(rows << (log_n - 1)), x1 != nullptr ? 2 : 1, 1);
+  DropParts p{{static_cast<const uint64_t*>(x0), static_cast<const uint64_t*>(x1)},
+              {static_cast<const uint64_t*>(add0), static_cast<const uint64_t*>(add1)},
+              {static_cast<uint64_t*>(y0), static_cast<uint64_t*>(y1)}};
+  int parts = x1 != nullptr ? 2 : 1;
+  const Instance in = pick<2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16>(limbs, k, then);
+  const long long blocks = (((rows * parts) << log_n) + kThreads * kCols - 1) / (kThreads * kCols);
+  const int resident = in.resident();
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(blocks < resident ? blocks : resident), 1, 1);
   const uint64_t* g_tab = static_cast<const uint64_t*>(tab);
-  void* args[] = {const_cast<DropParts*>(&p), &g_tab, &k, &then, &log_n, &rows, &t, &mu};
-  const cudaError_t err =
-      cudaLaunchKernel(kernel, grid, dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  void* args[] = {&p, &g_tab, &k, &then, &log_n, &rows, &parts, &t, &mu};
+  const cudaError_t err = cudaLaunchKernel(in.kernel, grid, dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

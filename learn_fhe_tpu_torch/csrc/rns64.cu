@@ -58,6 +58,25 @@
 //   clusters. Below N = 2048 a block takes one row through rows::forward /
 //   rows::inverse. Lazy (Harvey) butterflies where every prime is below
 //   2^62.
+// - Past N = 2^13, redesigned for the H100 from a pass split by clock64()
+//   stamps and the occupancy calculator (PERF.md): BGV's mul launches 64
+//   and 128 rows at 2^14, 128 and 256 blocks of 8 warps, so an SM ran one
+//   block's barrier-separated chain of passes alone. Smaller blocks, 4 or 8
+//   a row, lost: clusters of 4 and 8 place on 124 of the 132 SMs, and 64
+//   rows of 8-block clusters took a second wave (62 fit). What paid: at
+//   2^14 a launch whose rows the card holds at once takes a wide instance,
+//   512 threads on the same 64 KB (a thread's items of a pass halved; 64
+//   registers for the transforms, 2 blocks an SM), its buffer swizzled so
+//   that the head pass from layer 9 (groups of 4 columns 32 apart) spreads
+//   over the banks, each sub-row's block mapped where it is used; at 2^16
+//   the key switch's sums (a run-time count of terms, 102 registers: 2
+//   blocks an SM) with ptxas held to 80 registers, so that the 3 blocks its
+//   64 KB allow share an SM. Every other launch past 2^13 keeps these
+//   clusters of 256-thread blocks, which measured fastest at its rows (a
+//   wide instance at 256 rows, and 512 or 1024 threads at 2^16, were
+//   slower). The 2^13 instances keep their launch bounds: a minimum of one
+//   block an SM let ptxas take 92 registers in the forward, and 256-row
+//   launches lost 15%.
 // - K-RNS-MAC (redesigned for the H100): every sum the port makes feeds an
 //   inverse transform, so rns_intt_mac builds them inside the inverse's
 //   first pass and never stores them: the first version wrote its sums
@@ -159,25 +178,59 @@ constexpr int kItemsAhead = (kPerBlock << (kFixedLogN - kSplit - 2)) / kNttThrea
 // Past N = 2^13 a block's 4 sub-rows of N/8 outgrow its shared memory (256
 // KB at 2^16): there the cluster grows with the ring instead, 2^(log N -
 // 13) blocks (2, 4, 8 at 2^14, 2^15, 2^16), each holding 8 / C sub-rows,
-// 2^13 values (kBigBufBytes of dynamic shared memory), so every block
-// runs the passes of the 2^13 instance's blocks on twice as many values.
-constexpr int kBigBufBytes = (1 << kFixedLogN) * static_cast<int>(sizeof(uint64_t));
+// 2^13 values (64 KB of dynamic shared memory), so every block runs the
+// passes of the 2^13 instance's blocks on twice as many values. Smaller
+// blocks, more of them a row, lost there: clusters of 4 and 8 blocks place
+// on 124 of the card's 132 SMs, and a 64-row launch at 2^14 on clusters of
+// 8 took a second wave (62 clusters at once, PERF.md). A launch at 2^14
+// whose rows the card holds at once (the BGV mul's 64 and 128 rows: one
+// block an SM) takes a wide instance instead, kWideThreads a block on the
+// same 64 KB, so that each thread takes half as many items of every pass.
+constexpr int kWideLogN = 14;
+constexpr int kWideThreads = 512;
+constexpr int kWideNttBlocks = 2;  // the wide transforms: 64 registers, 2 blocks an SM (132 clusters)
+// The wide sums: 2 blocks an SM with 1 term (64 registers, no spill), 1 with
+// 2 (120 registers; at 64 they spilled, PERF.md).
+template <int kTerms>
+constexpr int kWideMacBlocks = kTerms == 1 ? 2 : 1;
 
 // A cluster instance's shape (kLogN: its ring, or 0 for any N = 2^11,
-// 2^12): blocks per row, sub-rows a block holds, and the items a thread
-// takes unrolled in the inverse's first pass and in its last.
-template <int kLogN>
+// 2^12; kThreads: its block, kNttThreads or, for the wide instances,
+// kWideThreads): blocks per row, sub-rows a block holds, its dynamic shared
+// memory (none up to 2^13: a static buffer), and the items a thread takes
+// unrolled in the inverse's first pass and in its last. A wide instance
+// swizzles its buffer and maps each sub-row's block where it is used.
+template <int kLogN, int kThreads_ = kNttThreads>
 struct RowShape {
   static constexpr bool kBig = kLogN > kFixedLogN;
+  static constexpr bool kWide = kThreads_ != kNttThreads;
+  static constexpr int kThreads = kThreads_;
   static constexpr int kC = kBig ? 1 << (kLogN - kFixedLogN) : kCluster;
   static constexpr int kPer = kSubs / kC;
-  static constexpr int kAheadSplit = kBig ? (1 << (kFixedLogN - kSplit)) / kNttThreads : kSplitAhead;
-  static constexpr int kAheadItems = kBig ? (1 << (kFixedLogN - 2)) / kNttThreads : kItemsAhead;
+  static constexpr int kBufBytes = kBig ? (kPer << (kLogN - kSplit)) * static_cast<int>(sizeof(uint64_t)) : 0;
+  static constexpr int kAheadSplit = kBig ? (1 << (kLogN - kSplit)) / kC / kThreads : kSplitAhead;
+  static constexpr int kAheadItems = kBig ? (kPer << (kLogN - kSplit - 2)) / kThreads : kItemsAhead;
   static_assert(kC <= 8, "a portable cluster holds at most 8 blocks");
+  static_assert(!kWide || kBig, "the wide instances run past 2^13");
+  static_assert(!kBig || (kAheadSplit >= 1 && kAheadSplit * kC * kThreads == 1 << (kLogN - kSplit)),
+                "every thread the same share of the first pass");
+  static_assert(!kBig || (kAheadItems >= 1 && kAheadItems * kThreads == kPer << (kLogN - kSplit - 2)),
+                "every thread the same share of the last pass");
 };
 
-// Blocks per row of a cluster instance at N = 2^log_n.
-constexpr int cluster_of(int log_n) { return log_n > kFixedLogN ? 1 << (log_n - kFixedLogN) : kCluster; }
+template <int kLogN>
+using WideShape = RowShape<kLogN, kWideThreads>;
+
+// A buffer column's place in a block's shared memory: where kSw (the wide
+// instances), bits 2-3 of the column XORed with bits 5-6. The head pass
+// whose items hold 8 values 4 apart in groups of 4 columns 32 apart (at
+// 2^14 the one from layer 9) then has a half-warp's accesses in 16
+// distinct banks (4 to a bank without); every other pass's accesses stay
+// within their aligned runs of 16 or 32 columns, so they keep theirs.
+template <bool kSw>
+__device__ __forceinline__ int swz(int col) {
+  return kSw ? col ^ (((col >> 5) & 3) << 2) : col;
+}
 
 // The tables of limb `limb`.
 __device__ __forceinline__ lft64::Tables limb_tables(const Stacked& s, int limb, int log_n) {
@@ -216,12 +269,13 @@ __device__ __forceinline__ void item_twiddles(uint64_t (&w)[(1 << W) - 1], uint6
   }
 }
 
-// Values of the block's sub-rows: in shared memory (Buf), or in device
-// memory from the block's first sub-row on (Dev: 16-byte loads for an item
-// of consecutive values, as rows::DeviceRows; the forward's canonical
-// output in 16-byte stores, as rows::ForwardRows).
+// Values of the block's sub-rows: in shared memory (Buf, swizzled where
+// kSw), or in device memory from the block's first sub-row on (Dev: 16-byte
+// loads for an item of consecutive values, as rows::DeviceRows; the
+// forward's canonical output in 16-byte stores, as rows::ForwardRows).
 // An item of consecutive values (the last pass's) moves in 16-byte words:
 // a warp's access then takes half the wavefronts of 8-byte ones.
+template <bool kSw = false>
 struct Buf {
   uint64_t* p;
   template <int V>
@@ -229,23 +283,25 @@ struct Buf {
     if (log_h == 0 && V % 2 == 0) {
 #pragma unroll
       for (int h = 0; h < V / 2; ++h) {
-        const ulonglong2 v = reinterpret_cast<const ulonglong2*>(p + col)[h];
+        const ulonglong2 v = reinterpret_cast<const ulonglong2*>(p + swz<kSw>(col))[h];
         x[2 * h] = v.x;
         x[2 * h + 1] = v.y;
       }
     } else {
 #pragma unroll
-      for (int m = 0; m < V; ++m) x[m] = p[col + (m << log_h)];
+      for (int m = 0; m < V; ++m) x[m] = p[swz<kSw>(col + (m << log_h))];
     }
   }
   template <int V>
   __device__ __forceinline__ void store(int col, int log_h, const uint64_t (&x)[V]) const {
     if (log_h == 0 && V % 2 == 0) {
 #pragma unroll
-      for (int h = 0; h < V / 2; ++h) reinterpret_cast<ulonglong2*>(p + col)[h] = make_ulonglong2(x[2 * h], x[2 * h + 1]);
+      for (int h = 0; h < V / 2; ++h) {
+        reinterpret_cast<ulonglong2*>(p + swz<kSw>(col))[h] = make_ulonglong2(x[2 * h], x[2 * h + 1]);
+      }
     } else {
 #pragma unroll
-      for (int m = 0; m < V; ++m) p[col + (m << log_h)] = x[m];
+      for (int m = 0; m < V; ++m) p[swz<kSw>(col + (m << log_h))] = x[m];
     }
   }
 };
@@ -277,21 +333,21 @@ struct Dev {
   }
 };
 
-// A pass of W layers from l0 >= kSplit over the block's kPer sub-rows
+// A pass of W layers from l0 >= kSplit over the block's Sh::kPer sub-rows
 // (the row's sub-rows sub0, sub0 + 1, ...; buffer column (s << log_s) + c
 // for column c of its sub-row s). Item i of a sub-row holds the values c +
 // (m << log_h), m < 2^W, c = (g << (log_n - l0)) + (i mod h), g = i / h, h =
 // 2^(log_n - l0 - W): its items are those of the whole row's pass (rows::pass)
 // that fall in it, so its twiddle group is (sub << (l0 - kSplit)) + g. The
-// block's threads take the items k, k + kNttThreads, ... of its sub-rows
+// block's threads take the items k, k + Sh::kThreads, ... of its sub-rows
 // one after the other; kAhead of them unrolled, so that a pass reading
 // device memory has their loads in flight together. No barrier.
-template <int W, bool kInv, bool kLazy, int kAhead = 1, int kPer = kPerBlock, class In, class Out>
+template <class Sh, int W, bool kInv, bool kLazy, int kAhead = 1, class In, class Out>
 __device__ __forceinline__ void sub_pass(int sub0, int log_n, int l0, const lft64::Tables& t, const In& in,
                                          const Out& out) {
   const int log_s = log_n - kSplit, log_h = log_n - l0 - W, log_items = log_s - W;
 #pragma unroll (kAhead)
-  for (int k = threadIdx.x; k < (kPer << log_items); k += kNttThreads) {
+  for (int k = threadIdx.x; k < (Sh::kPer << log_items); k += Sh::kThreads) {
     const int s = k >> log_items, i = k & ((1 << log_items) - 1), g = i >> log_h;
     const int col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1));
     const int tg = ((sub0 + s) << (l0 - kSplit)) + g;
@@ -309,16 +365,16 @@ __device__ __forceinline__ void sub_pass(int sub0, int log_n, int l0, const lft6
 }
 
 // Head pass p >= 1 (layers 3 p, ..., its width) on the block's sub-rows.
-template <bool kInv, bool kLazy, int kPer, class In, class Out>
+template <class Sh, bool kInv, bool kLazy, class In, class Out>
 __device__ __forceinline__ void sub_head_pass(int p, int sub0, int log_n, const lft64::Tables& t, const In& in,
                                               const Out& out) {
   const int w = lft64::rows::head_width(log_n, p);
   if (w == 3) {
-    sub_pass<3, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<Sh, 3, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
   } else if (w == 2) {
-    sub_pass<2, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<Sh, 2, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
   } else {
-    sub_pass<1, kInv, kLazy, 1, kPer>(sub0, log_n, 3 * p, t, in, out);
+    sub_pass<Sh, 1, kInv, kLazy>(sub0, log_n, 3 * p, t, in, out);
   }
 }
 
@@ -333,54 +389,65 @@ __device__ __forceinline__ void sub_row_holders(cg::cluster_group& cluster, uint
   }
 }
 
+// The buffer column 0 of sub-row m: from `holder`, or in a wide instance
+// mapped where it is used (not held in registers across the pass).
+template <class Sh>
+__device__ __forceinline__ uint64_t* holder_of(cg::cluster_group& cluster, uint64_t* buf, int log_s,
+                                               uint64_t* const (&holder)[kSubs], int m) {
+  if constexpr (Sh::kWide) {
+    return cluster.map_shared_rank(buf, m / Sh::kPer) + ((m % Sh::kPer) << log_s);
+  } else {
+    return holder[m];
+  }
+}
+
 // cluster_inverse's last pass: sub_pass, or, for the sums from a shared x
 // row (RowSums, below), staged_last_pass.
 template <int kTerms>
 struct RowSums;
 
-template <bool kLazy, int kAhead, int kPer, class Src>
+template <class Sh, bool kLazy, int kAhead, class Src, class Out>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int log_n, const lft64::Tables& t, const Src& src,
-                                                  const Buf& out) {
-  sub_pass<2, true, kLazy, kAhead, kPer>(sub0, log_n, log_n - 2, t, src, out);
+                                                  const Out& out) {
+  sub_pass<Sh, 2, true, kLazy, kAhead>(sub0, log_n, log_n - 2, t, src, out);
 }
 
-template <bool kLazy, int kAhead, int kPer, int kTerms>
+template <class Sh, bool kLazy, int kAhead, int kTerms>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
-                                                  const Buf& out);
+                                                  const Buf<>& out);
 
 // The inverse of one row on its cluster into y (the row's 2^log_n values):
 // the last pass (2 layers) takes its items from src (kAhead of them
 // unrolled) into the block's sub-rows, the head passes down to layer 3 run
 // on them, a cluster barrier, then the first pass on the cluster's share of
 // items, each value read from the block that holds it and scaled by t.n_inv
-// on its way out. Every thread of the cluster calls it. kLogN: the
-// instance's ring, as RowShape takes it.
-template <bool kLazy, int kAhead, int kLogN, class Src>
+// on its way out. Every thread of the cluster calls it. Sh: the instance's
+// RowShape.
+template <class Sh, bool kLazy, int kAhead, class Src>
 __device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __restrict__ y, const lft64::Tables& t,
                                                 int log_n, uint64_t* buf) {
-  using Sh = RowShape<kLogN>;
   cg::cluster_group cluster = cg::this_cluster();
   const int log_s = log_n - kSplit, hp = lft64::rows::head_passes(log_n);
   const int rank = static_cast<int>(cluster.block_rank()), sub0 = rank * Sh::kPer;
   const int share = (1 << log_s) / Sh::kC, first = rank * share;
   uint64_t* holder[kSubs];
-  sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
-  Buf sm{buf};
-  inverse_last_pass<kLazy, kAhead, Sh::kPer>(sub0, log_n, t, src, sm);
+  if constexpr (!Sh::kWide) sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
+  Buf<Sh::kWide> sm{buf};
+  inverse_last_pass<Sh, kLazy, kAhead>(sub0, log_n, t, src, sm);
 #pragma unroll
   for (int p = hp - 1; p >= 1; --p) {
     __syncthreads();
-    sub_head_pass<true, kLazy, Sh::kPer>(p, sub0, log_n, t, sm, sm);
+    sub_head_pass<Sh, true, kLazy>(p, sub0, log_n, t, sm, sm);
   }
   cluster.sync();  // every sub-row is done
   uint64_t w[kSubs - 1], ws[kSubs - 1];
   item_twiddles<kSplit>(w, ws, t.psi_inv, t.psi_inv_s, 0, 0);
 #pragma unroll (Sh::kAheadSplit)
-  for (int k = threadIdx.x; k < share; k += kNttThreads) {
+  for (int k = threadIdx.x; k < share; k += Sh::kThreads) {
     const int i = first + k;
     uint64_t v[kSubs];
 #pragma unroll
-    for (int m = 0; m < kSubs; ++m) v[m] = holder[m][i];
+    for (int m = 0; m < kSubs; ++m) v[m] = holder_of<Sh>(cluster, buf, log_s, holder, m)[swz<Sh::kWide>(i)];
     lft64::inv_radix<kSplit, kLazy>(v, w, ws, t.q);
 #pragma unroll
     for (int m = 0; m < kSubs; ++m) y[i + (m << log_s)] = shoup_q(v[m], t.n_inv, t.n_inv_s, t.q);
@@ -389,10 +456,10 @@ __device__ __forceinline__ void cluster_inverse(const Src& src, uint64_t* __rest
 }
 
 // A cluster block's buffer of sub-rows: static up to N = 2^13, the dynamic
-// kBigBufBytes past it (which the launch passes).
-template <int kLogN>
+// Sh::kBufBytes past it (which the launch passes).
+template <class Sh>
 __device__ __forceinline__ uint64_t* row_buf() {
-  if constexpr (RowShape<kLogN>::kBig) {
+  if constexpr (Sh::kBig) {
     extern __shared__ __align__(16) uint64_t big_buf[];
     return big_buf;
   } else {
@@ -401,14 +468,13 @@ __device__ __forceinline__ uint64_t* row_buf() {
   }
 }
 
-// One row on a cluster of RowShape<kLogN>::kC blocks (grid: rows x kC; N
-// >= 2048). kLogN: 13 to 16 (every shape a constant) or 0 (log_n as
-// given, 2^11 or 2^12).
-template <bool kInv, bool kLazy, int kLogN>
-__global__ void __launch_bounds__(kNttThreads)
-    rns_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n_arg) {
-  using Sh = RowShape<kLogN>;
-  uint64_t* buf = row_buf<kLogN>();
+// One row on a cluster of Sh::kC blocks (grid: rows x kC; N >= 2048).
+// kLogN: 13 to 16 (every shape a constant) or 0 (log_n as given, 2^11 or
+// 2^12); Sh: its RowShape.
+template <bool kInv, bool kLazy, int kLogN, class Sh = RowShape<kLogN>>
+__device__ __forceinline__ void ntt_row(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Stacked& st,
+                                        int limbs, int log_n_arg) {
+  uint64_t* buf = row_buf<Sh>();
   cg::cluster_group cluster = cg::this_cluster();
   const int log_n = kLogN ? kLogN : log_n_arg;
   const int log_s = log_n - kSplit;
@@ -419,21 +485,21 @@ __global__ void __launch_bounds__(kNttThreads)
   const size_t base = static_cast<size_t>(row) << log_n;
   const size_t mine = base + (static_cast<size_t>(sub0) << log_s);
   if constexpr (kInv) {
-    cluster_inverse<kLazy, Sh::kAheadItems, kLogN>(Dev<kLazy>{x + mine, nullptr, t.q}, y + base, t, log_n, buf);
+    cluster_inverse<Sh, kLazy, Sh::kAheadItems>(Dev<kLazy>{x + mine, nullptr, t.q}, y + base, t, log_n, buf);
   } else {
     // the first pass: this block's share of the row's 2^log_s items
     const int share = (1 << log_s) / Sh::kC, first = rank * share;
     uint64_t* holder[kSubs];
-    sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
+    if constexpr (!Sh::kWide) sub_row_holders<Sh::kPer>(cluster, buf, log_s, holder);
     uint64_t w[kSubs - 1], ws[kSubs - 1];
-    Buf sm{buf};
+    Buf<Sh::kWide> sm{buf};
     // a block writes into another's shared memory only once every block of
     // the cluster has started: an arrival here, the wait before the first
     // store, the loads and butterflies of the first item between them
     cluster_arrive_relaxed();
     bool started = false;
     item_twiddles<kSplit>(w, ws, t.psi, t.psi_s, 0, 0);
-    for (int k = threadIdx.x; k < share; k += kNttThreads) {
+    for (int k = threadIdx.x; k < share; k += Sh::kThreads) {
       const int i = first + k;
       uint64_t v[kSubs];
 #pragma unroll
@@ -444,19 +510,34 @@ __global__ void __launch_bounds__(kNttThreads)
         started = true;
       }
 #pragma unroll
-      for (int m = 0; m < kSubs; ++m) holder[m][i] = v[m];
+      for (int m = 0; m < kSubs; ++m) holder_of<Sh>(cluster, buf, log_s, holder, m)[swz<Sh::kWide>(i)] = v[m];
     }
     if (!started) cluster_wait();
     cluster.sync();  // every sub-row is in its block
 #pragma unroll
     for (int p = 1; p < lft64::rows::head_passes(log_n); ++p) {
       if (p > 1) __syncthreads();
-      sub_head_pass<false, kLazy, Sh::kPer>(p, sub0, log_n, t, sm, sm);
+      sub_head_pass<Sh, false, kLazy>(p, sub0, log_n, t, sm, sm);
     }
     __syncthreads();
     Dev<kLazy> dst{nullptr, y + mine, t.q};
-    sub_pass<2, false, kLazy, 1, Sh::kPer>(sub0, log_n, log_n - 2, t, sm, dst);
+    sub_pass<Sh, 2, false, kLazy>(sub0, log_n, log_n - 2, t, sm, dst);
   }
+}
+
+template <bool kInv, bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs, int log_n_arg) {
+  ntt_row<kInv, kLazy, kLogN>(x, y, st, limbs, log_n_arg);
+}
+
+// The wide instance (lazy, 2^14): kWideThreads a block on the 64 KB of
+// the ring's cluster, ptxas held to the registers that let kWideNttBlocks
+// blocks share an SM.
+template <bool kInv, int kLogN>
+__global__ void __launch_bounds__(kWideThreads, kWideNttBlocks)
+    rns_ntt_wide_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, int limbs) {
+  ntt_row<kInv, true, kLogN, WideShape<kLogN>>(x, y, st, limbs, kLogN);
 }
 
 // Below N = 2048: a block per row (kLogN 1 or 2: N = 2 or 4, no head pass;
@@ -475,42 +556,78 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// A launch of `rows` clusters of `c` blocks of kNttThreads (attr: the
-// cluster attribute the configuration points to).
-cudaLaunchConfig_t cluster_config(int rows, int c, cudaStream_t stream, cudaLaunchAttribute& attr) {
+// A launch of `rows` clusters of Sh's shape (attr: the cluster attribute
+// the configuration points to), with dyn_bytes of dynamic shared memory.
+template <class Sh>
+cudaLaunchConfig_t cluster_config(int rows, int dyn_bytes, cudaStream_t stream, cudaLaunchAttribute& attr) {
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.x = Sh::kC;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows) * c, 1, 1);
-  cfg.blockDim = dim3(kNttThreads, 1, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * Sh::kC, 1, 1);
+  cfg.blockDim = dim3(Sh::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dyn_bytes;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// Launches `kernel` on `rows` clusters of cluster_of(log_n) blocks with
-// dyn_bytes of dynamic shared memory (0: none asked).
-template <class... P, class... A>
-int launch_clusters(void (*kernel)(P...), int rows, int log_n, int dyn_bytes, cudaStream_t stream, A... args) {
-  const int c = cluster_of(log_n);
-  if (rows > (1 << 30) / c) return static_cast<int>(cudaErrorInvalidValue);
-  if (dyn_bytes) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+// Opts `kernel` in to dyn_bytes of dynamic shared memory (0: none asked).
+template <class K>
+cudaError_t allow_smem(K kernel, int dyn_bytes) {
+  return dyn_bytes ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_bytes)
+                   : cudaSuccess;
+}
+
+// Launches `kernel` on `rows` clusters of Sh's shape with dyn_bytes of
+// dynamic shared memory (by default the shape's buffer).
+template <class Sh, class... P, class... A>
+int launch_clusters(void (*kernel)(P...), int rows, cudaStream_t stream, int dyn_bytes, A... args) {
+  if (rows > (1 << 30) / Sh::kC) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = allow_smem(kernel, dyn_bytes); err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(rows, c, stream, attr);
-  cfg.dynamicSmemBytes = dyn_bytes;
+  cudaLaunchConfig_t cfg = cluster_config<Sh>(rows, dyn_bytes, stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory of a cluster instance at N = 2^log_n.
-constexpr int row_buf_bytes(int log_n) { return log_n > kFixedLogN ? kBigBufBytes : 0; }
+// The clusters of kKernel (shape Sh) the device holds at once, asked once
+// (cudaOccupancyMaxActiveClusters); 0 where the query fails.
+template <class Sh, auto kKernel>
+int resident_clusters() {
+  static const int count = [] {
+    int n = 0;
+    if (allow_smem(kKernel, Sh::kBufBytes) != cudaSuccess) return 0;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config<Sh>(1, Sh::kBufBytes, nullptr, attr);
+    return cudaOccupancyMaxActiveClusters(&n, kKernel, &cfg) == cudaSuccess ? n : 0;
+  }();
+  return count;
+}
+
+// Whether a lazy transform of `rows` rows at N = 2^log_n takes the wide
+// instance: at 2^14 where the card holds every row's cluster at once.
+template <bool kInv>
+bool takes_wide_ntt(int log_n, int rows) {
+  return log_n == kWideLogN && rows <= resident_clusters<WideShape<kWideLogN>, rns_ntt_wide_kernel<kInv, kWideLogN>>();
+}
+
+// K-RNS-NTT's cluster instance at ring kLogN (0: 2^11, 2^12) on `rows` rows.
+template <bool kInv, bool kLazy, int kLogN>
+int launch_ntt_rows(const uint64_t* x, uint64_t* y, const Stacked& s, int rows, int limbs, int log_n,
+                    cudaStream_t stream) {
+  using Sh = RowShape<kLogN>;
+  if constexpr (kLazy && kLogN == kWideLogN) {
+    if (takes_wide_ntt<kInv>(log_n, rows)) {
+      using Wh = WideShape<kLogN>;
+      return launch_clusters<Wh>(rns_ntt_wide_kernel<kInv, kLogN>, rows, stream, Wh::kBufBytes, x, y, s, limbs);
+    }
+  }
+  return launch_clusters<Sh>(rns_ntt_kernel<kInv, kLazy, kLogN>, rows, stream, Sh::kBufBytes, x, y, s, limbs, log_n);
+}
 
 template <bool kInv, bool kLazy>
 int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, int log_n, cudaStream_t stream) {
@@ -523,15 +640,14 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(px, py, s, limbs, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  auto kernel = log_n == kFixedLogN ? rns_ntt_kernel<kInv, kLazy, kFixedLogN> : rns_ntt_kernel<kInv, kLazy, 0>;
+  if (log_n == kFixedLogN) return launch_ntt_rows<kInv, kLazy, kFixedLogN>(px, py, s, rows, limbs, log_n, stream);
+  if (log_n < kFixedLogN) return launch_ntt_rows<kInv, kLazy, 0>(px, py, s, rows, limbs, log_n, stream);
   if constexpr (kLazy) {  // past N = 2^13 the lazy instances alone (every prime below 2^62)
-    if (log_n == 14) kernel = rns_ntt_kernel<kInv, kLazy, 14>;
-    if (log_n == 15) kernel = rns_ntt_kernel<kInv, kLazy, 15>;
-    if (log_n == 16) kernel = rns_ntt_kernel<kInv, kLazy, 16>;
-  } else if (log_n > kFixedLogN) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (log_n == 14) return launch_ntt_rows<kInv, kLazy, 14>(px, py, s, rows, limbs, log_n, stream);
+    if (log_n == 15) return launch_ntt_rows<kInv, kLazy, 15>(px, py, s, rows, limbs, log_n, stream);
+    return launch_ntt_rows<kInv, kLazy, 16>(px, py, s, rows, limbs, log_n, stream);
   }
-  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, px, py, s, limbs, log_n);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -756,11 +872,9 @@ struct MacSums {
 // 2 terms (80 registers, no spill; with 2 terms half as many measured 0.3
 // us slower at the CKKS mul's 128 rows, PERF.md), one with a run-time count.
 // Past N = 2^13, where a thread has twice the items, half of them: the
-// 2^13 instance's count.
-template <int kTerms, int kLogN>
-constexpr int kMacAhead = kTerms == 1 || kTerms == 2
-                              ? RowShape<kLogN>::kAheadItems / (RowShape<kLogN>::kBig ? 2 : 1)
-                              : 1;
+// 2^13 instance's count (the wide instances: half of theirs).
+template <int kTerms, class Sh>
+constexpr int kMacAhead = kTerms == 1 || kTerms == 2 ? Sh::kAheadItems / (Sh::kBig ? 2 : 1) : 1;
 
 // K-RNS-MAC inside K-RNS-NTT's inverse (rns_intt_mac): cluster g runs the
 // inverse of output row mac_out_row(g) with the row's MAC sums as its first
@@ -768,11 +882,12 @@ constexpr int kMacAhead = kTerms == 1 || kTerms == 2
 // 2^-64; the inverse is Z_q-linear, so the final scale by N^-1 2^64 mod q
 // (st.n_inv and its dual, which the wrapper passes in place of N^-1) takes
 // it out, canonical as K-RNS-NTT's. The passes, tables and barriers are
-// K-RNS-NTT's. kLogN: as rns_ntt_kernel's; kTerms as mac_item's.
-template <bool kLazy, int kLogN, int kTerms, class TT>
+// K-RNS-NTT's. kLogN: as rns_ntt_kernel's; kTerms as mac_item's; Sh: the
+// instance's RowShape.
+template <bool kLazy, int kLogN, int kTerms, class Sh, class TT>
 __device__ __forceinline__ void intt_mac_cluster(const TT& t, uint64_t* __restrict__ y, const Stacked& st,
-                                                 const MacShape& sh, int log_n_arg, uint64_t* buf) {
-  using Sh = RowShape<kLogN>;
+                                                 const MacShape& sh, int log_n_arg) {
+  uint64_t* buf = row_buf<Sh>();
   const int log_n = kLogN ? kLogN : log_n_arg;
   const long long r = mac_out_row(sh, blockIdx.x / Sh::kC);
   MacRow row = mac_row(sh, r, log_n);
@@ -781,21 +896,40 @@ __device__ __forceinline__ void intt_mac_cluster(const TT& t, uint64_t* __restri
   row.x_off += mine;
   row.w_off += mine;
   const MacSums<kTerms, TT> src{t, row, sh.terms, sh.chunk, {tab.q, tab.neg_q_inv}, mine};
-  cluster_inverse<kLazy, kMacAhead<kTerms, kLogN>, kLogN>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n,
-                                                           buf);
+  cluster_inverse<Sh, kLazy, kMacAhead<kTerms, Sh>>(src, y + (static_cast<size_t>(r) << log_n), tab, log_n, buf);
 }
 
 template <bool kLazy, int kLogN, int kTerms>
 __global__ void __launch_bounds__(kNttThreads)
     rns_intt_mac_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
-  intt_mac_cluster<kLazy, kLogN, kTerms>(t, y, st, sh, log_n_arg, row_buf<kLogN>());
+  intt_mac_cluster<kLazy, kLogN, kTerms, RowShape<kLogN>>(t, y, st, sh, log_n_arg);
 }
 
 // The gathered instance (rns_intt_mac with perms): terms as given.
 template <bool kLazy, int kLogN>
 __global__ void __launch_bounds__(kNttThreads)
     rns_intt_mac_gather_kernel(GatherTerms t, uint64_t* __restrict__ y, Stacked st, MacShape sh, int log_n_arg) {
-  intt_mac_cluster<kLazy, kLogN, 0>(t, y, st, sh, log_n_arg, row_buf<kLogN>());
+  intt_mac_cluster<kLazy, kLogN, 0, RowShape<kLogN>>(t, y, st, sh, log_n_arg);
+}
+
+// The wide instance (lazy, 2^14), as rns_ntt_wide_kernel's: kWideThreads a
+// block, kWideMacBlocks an SM.
+template <int kLogN, int kTerms>
+__global__ void __launch_bounds__(kWideThreads, kWideMacBlocks<kTerms>)
+    rns_intt_mac_wide_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh) {
+  intt_mac_cluster<true, kLogN, kTerms, WideShape<kLogN>>(t, y, st, sh, kLogN);
+}
+
+// Sums of a run-time count of terms (the key switch's digits) at N = 2^16:
+// the ring's cluster with ptxas held to the registers that let the 3 blocks
+// its 64 KB allow share an SM (102 registers let 2, PERF.md).
+constexpr int kResidentLogN = 16;
+constexpr int kResidentBlocks = 3;
+
+template <int kLogN, int kTerms>
+__global__ void __launch_bounds__(kNttThreads, kResidentBlocks)
+    rns_intt_mac_resident_kernel(Terms t, uint64_t* __restrict__ y, Stacked st, MacShape sh) {
+  intt_mac_cluster<true, kLogN, kTerms, RowShape<kLogN>>(t, y, st, sh, kLogN);
 }
 
 // Below N = 2048: a block per output row through rows::inverse (kLogN as
@@ -893,7 +1027,7 @@ struct RowSums {
 // twiddles) issued before its sums; the first group's sums wait for the
 // copy (src.ready).
 template <bool kLazy, int kAhead, class Src>
-__device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& t, const Src& src, const Buf& out) {
+__device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& t, const Src& src, const Buf<>& out) {
   constexpr int log_s = kFixedLogN - kSplit, l0 = kFixedLogN - 2, log_items = log_s - 2;
   static_assert(kItemsAhead % kAhead == 0 && kItemsAhead * kNttThreads == kPerBlock << log_items, "every item once");
 #pragma unroll
@@ -920,10 +1054,10 @@ __device__ __forceinline__ void staged_last_pass(int sub0, const lft64::Tables& 
   }
 }
 
-template <bool kLazy, int kAhead, int kPer, int kTerms>
+template <class Sh, bool kLazy, int kAhead, int kTerms>
 __device__ __forceinline__ void inverse_last_pass(int sub0, int, const lft64::Tables& t, const RowSums<kTerms>& src,
-                                                  const Buf& out) {
-  static_assert(kPer == kPerBlock, "the shared-x instance runs at N = 2^13");
+                                                  const Buf<>& out) {
+  static_assert(Sh::kPer == kPerBlock && Sh::kThreads == kNttThreads, "the shared-x instance runs at N = 2^13");
   staged_last_pass<kLazy, kStaged<kTerms>>(sub0, t, src, out);
 }
 
@@ -947,20 +1081,47 @@ __global__ void __launch_bounds__(kNttThreads)
   const int c_off = static_cast<int>(cg::this_cluster().block_rank()) * kPerBlock << (kFixedLogN - kSplit);
   row.w_off += c_off;
   const RowSums<kTerms> src{t, row, {tab.q, tab.neg_q_inv}, xs, c_off, &bar};
-  cluster_inverse<true, kItemsAhead, kFixedLogN>(src, y + (static_cast<size_t>(r) << kFixedLogN), tab, kFixedLogN,
-                                                 buf);
+  cluster_inverse<RowShape<kFixedLogN>, true, kItemsAhead>(src, y + (static_cast<size_t>(r) << kFixedLogN), tab,
+                                                           kFixedLogN, buf);
 }
 
-// Past N = 2^13 (lazy): the instances for 1 and 2 terms, and for any.
-template <int kLogN>
-auto big_intt_mac(int terms) {
-  return terms == 1 ? rns_intt_mac_kernel<true, kLogN, 1>
-         : terms == 2 ? rns_intt_mac_kernel<true, kLogN, 2>
-                      : rns_intt_mac_kernel<true, kLogN, 0>;
+// Whether rns_intt_mac of `terms` terms on `rows` output rows at N =
+// 2^log_n (lazy) takes the wide instance: 1 or 2 terms at 2^14, where the
+// card holds every row's cluster at once.
+bool takes_wide_mac(int log_n, int terms, int rows) {
+  using Wh = WideShape<kWideLogN>;
+  if (log_n != kWideLogN || (terms != 1 && terms != 2)) return false;
+  return rows <= (terms == 1 ? resident_clusters<Wh, rns_intt_mac_wide_kernel<kWideLogN, 1>>()
+                             : resident_clusters<Wh, rns_intt_mac_wide_kernel<kWideLogN, 2>>());
 }
 
-// The instances: at N = 2^13 the lazy ones for 1 and 2 terms (the CKKS mul's
-// tensor and its key switch at dnum None), else the one for any terms.
+// rns_intt_mac's cluster instance at ring kLogN (0: 2^11, 2^12) on `rows`
+// output rows: for 1 and 2 terms where kConst (the lazy instances at 2^13
+// and past it; wide where takes_wide_mac), else the one for any terms (at
+// 2^16 the resident one).
+template <bool kLazy, int kLogN, bool kConst>
+int launch_mac_rows(const Terms& t, uint64_t* y, const Stacked& s, const MacShape& sh, int rows, int log_n,
+                    cudaStream_t stream) {
+  using Sh = RowShape<kLogN>;
+  const int dyn = Sh::kBufBytes;
+  if constexpr (kLazy && kLogN == kWideLogN) {
+    if (takes_wide_mac(log_n, sh.terms, rows)) {
+      using Wh = WideShape<kLogN>;
+      const auto kernel = sh.terms == 1 ? rns_intt_mac_wide_kernel<kLogN, 1> : rns_intt_mac_wide_kernel<kLogN, 2>;
+      return launch_clusters<Wh>(kernel, rows, stream, Wh::kBufBytes, t, y, s, sh);
+    }
+  }
+  if constexpr (kConst) {
+    if (sh.terms == 1) return launch_clusters<Sh>(rns_intt_mac_kernel<kLazy, kLogN, 1>, rows, stream, dyn, t, y, s, sh, log_n);
+    if (sh.terms == 2) return launch_clusters<Sh>(rns_intt_mac_kernel<kLazy, kLogN, 2>, rows, stream, dyn, t, y, s, sh, log_n);
+  }
+  if constexpr (kLazy && kLogN == kResidentLogN) {
+    return launch_clusters<Sh>(rns_intt_mac_resident_kernel<kLogN, 0>, rows, stream, dyn, t, y, s, sh);
+  } else {
+    return launch_clusters<Sh>(rns_intt_mac_kernel<kLazy, kLogN, 0>, rows, stream, dyn, t, y, s, sh, log_n);
+  }
+}
+
 template <bool kLazy>
 int launch_intt_mac(const Terms& t, uint64_t* y, const Stacked& s, const MacShape& sh, int log_n,
                     cudaStream_t stream) {
@@ -972,17 +1133,23 @@ int launch_intt_mac(const Terms& t, uint64_t* y, const Stacked& s, const MacShap
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  auto kernel = log_n == kFixedLogN ? rns_intt_mac_kernel<kLazy, kFixedLogN, 0> : rns_intt_mac_kernel<kLazy, 0, 0>;
-  if constexpr (kLazy) {
-    if (log_n == kFixedLogN && sh.terms == 1) kernel = rns_intt_mac_kernel<kLazy, kFixedLogN, 1>;
-    if (log_n == kFixedLogN && sh.terms == 2) kernel = rns_intt_mac_kernel<kLazy, kFixedLogN, 2>;
-    if (log_n > kFixedLogN) kernel = log_n == 14 ? big_intt_mac<14>(sh.terms)
-                                     : log_n == 15 ? big_intt_mac<15>(sh.terms)
-                                                   : big_intt_mac<16>(sh.terms);
-  } else if (log_n > kFixedLogN) {  // past N = 2^13 the lazy instances alone
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (log_n == kFixedLogN) return launch_mac_rows<kLazy, kFixedLogN, kLazy>(t, y, s, sh, rows, log_n, stream);
+  if (log_n < kFixedLogN) return launch_mac_rows<kLazy, 0, false>(t, y, s, sh, rows, log_n, stream);
+  if constexpr (kLazy) {  // past N = 2^13 the lazy instances alone
+    if (log_n == 14) return launch_mac_rows<true, 14, true>(t, y, s, sh, rows, log_n, stream);
+    if (log_n == 15) return launch_mac_rows<true, 15, true>(t, y, s, sh, rows, log_n, stream);
+    return launch_mac_rows<true, 16, true>(t, y, s, sh, rows, log_n, stream);
   }
-  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, t, y, s, sh, log_n);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gathered instance's cluster launch at ring kLogN (0: 2^11, 2^12).
+template <bool kLazy, int kLogN>
+int launch_gather_rows(const GatherTerms& t, uint64_t* y, const Stacked& s, const MacShape& sh, int rows, int log_n,
+                       cudaStream_t stream) {
+  using Sh = RowShape<kLogN>;
+  return launch_clusters<Sh>(rns_intt_mac_gather_kernel<kLazy, kLogN>, rows, stream, Sh::kBufBytes, t, y, s, sh,
+                             log_n);
 }
 
 // The gathered instances: a cluster per output row from N = 2048 (every
@@ -998,16 +1165,14 @@ int launch_intt_mac_gather(const GatherTerms& t, uint64_t* y, const Stacked& s, 
     kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(t, y, s, sh, log_n);
     return static_cast<int>(cudaGetLastError());
   }
-  auto kernel =
-      log_n == kFixedLogN ? rns_intt_mac_gather_kernel<kLazy, kFixedLogN> : rns_intt_mac_gather_kernel<kLazy, 0>;
-  if constexpr (kLazy) {
-    if (log_n == 14) kernel = rns_intt_mac_gather_kernel<kLazy, 14>;
-    if (log_n == 15) kernel = rns_intt_mac_gather_kernel<kLazy, 15>;
-    if (log_n == 16) kernel = rns_intt_mac_gather_kernel<kLazy, 16>;
-  } else if (log_n > kFixedLogN) {  // past N = 2^13 the lazy instances alone
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (log_n == kFixedLogN) return launch_gather_rows<kLazy, kFixedLogN>(t, y, s, sh, rows, log_n, stream);
+  if (log_n < kFixedLogN) return launch_gather_rows<kLazy, 0>(t, y, s, sh, rows, log_n, stream);
+  if constexpr (kLazy) {  // past N = 2^13 the lazy instances alone
+    if (log_n == 14) return launch_gather_rows<true, 14>(t, y, s, sh, rows, log_n, stream);
+    if (log_n == 15) return launch_gather_rows<true, 15>(t, y, s, sh, rows, log_n, stream);
+    return launch_gather_rows<true, 16>(t, y, s, sh, rows, log_n, stream);
   }
-  return launch_clusters(kernel, rows, log_n, row_buf_bytes(log_n), stream, t, y, s, sh, log_n);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The shared-x instances (lazy, N = 2^13, 1 to kRowTerms terms, every
@@ -1018,7 +1183,7 @@ int launch_intt_mac_shared(const GatherTerms& t, uint64_t* y, const Stacked& s, 
                       : sh.terms == 2 ? rns_intt_mac_shared_kernel<2>
                       : sh.terms == 3 ? rns_intt_mac_shared_kernel<3>
                                       : rns_intt_mac_shared_kernel<4>;
-  return launch_clusters(kernel, sh.sums * sh.rows, kFixedLogN, kRowBytes, stream, t, y, s, sh);
+  return launch_clusters<RowShape<kFixedLogN>>(kernel, sh.sums * sh.rows, stream, kRowBytes, t, y, s, sh);
 }
 
 unsigned grid_for(long long count) {
@@ -1298,6 +1463,54 @@ bool mac_args_ok(int terms, int rows, int limbs, int y_rows, int chunk) {
          (y_rows == rows || y_rows == limbs);
 }
 
+// A cluster instance's shape, and how many of its blocks an SM and of its
+// clusters the device holds at once: out = {blocks a row, threads a block,
+// dynamic shared memory, blocks an SM, clusters}.
+template <class Sh, class K>
+int occupancy_of(K kernel, int* out) {
+  if (const cudaError_t err = allow_smem(kernel, Sh::kBufBytes); err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0, clusters = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, Sh::kThreads, Sh::kBufBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config<Sh>(1, Sh::kBufBytes, nullptr, attr);
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int got[] = {Sh::kC, Sh::kThreads, Sh::kBufBytes, blocks, clusters};
+  for (int i = 0; i < 5; ++i) out[i] = got[i];
+  return 0;
+}
+
+// The instance a lazy launch of `rows` rows at ring kLogN takes: kind 0 the
+// forward transform, 1 its inverse, 2 rns_intt_mac with `terms` terms, 3
+// its gathered instance.
+template <int kLogN>
+int occupancy_at(int kind, int terms, int rows, int* out) {
+  using Sh = RowShape<kLogN>;
+  if constexpr (kLogN == kWideLogN) {
+    using Wh = WideShape<kLogN>;
+    if (kind == 0 && takes_wide_ntt<false>(kLogN, rows)) return occupancy_of<Wh>(rns_ntt_wide_kernel<false, kLogN>, out);
+    if (kind == 1 && takes_wide_ntt<true>(kLogN, rows)) return occupancy_of<Wh>(rns_ntt_wide_kernel<true, kLogN>, out);
+    if (kind == 2 && takes_wide_mac(kLogN, terms, rows)) {
+      return terms == 1 ? occupancy_of<Wh>(rns_intt_mac_wide_kernel<kLogN, 1>, out)
+                        : occupancy_of<Wh>(rns_intt_mac_wide_kernel<kLogN, 2>, out);
+    }
+  }
+  if (kind == 0) return occupancy_of<Sh>(rns_ntt_kernel<false, true, kLogN>, out);
+  if (kind == 1) return occupancy_of<Sh>(rns_ntt_kernel<true, true, kLogN>, out);
+  if (kind == 2 && terms == 1) return occupancy_of<Sh>(rns_intt_mac_kernel<true, kLogN, 1>, out);
+  if (kind == 2 && terms == 2) return occupancy_of<Sh>(rns_intt_mac_kernel<true, kLogN, 2>, out);
+  if (kind == 2) {
+    if constexpr (kLogN == kResidentLogN) {
+      return occupancy_of<Sh>(rns_intt_mac_resident_kernel<kLogN, 0>, out);
+    } else {
+      return occupancy_of<Sh>(rns_intt_mac_kernel<true, kLogN, 0>, out);
+    }
+  }
+  if (kind == 3) return occupancy_of<Sh>(rns_intt_mac_gather_kernel<true, kLogN>, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1429,6 +1642,23 @@ int lft_rns_intt_mac_gather_shared(const void* xs, const void* ys, const void* z
                   cp<uint64_t>(q), cp<uint64_t>(neg_q_inv), cp<uint64_t>(n_inv_mac), cp<uint64_t>(n_inv_mac_s)};
   const MacShape sh{terms, rows, limbs, y_rows, zs != nullptr ? 2 : 1, chunk};
   return launch_intt_mac_shared(t, static_cast<uint64_t*>(out), s, sh, static_cast<cudaStream_t>(stream));
+}
+
+// The shape and residency of the lazy cluster instance that a launch of
+// `rows` rows takes, of kind 0 (forward transform), 1 (inverse), 2
+// (rns_intt_mac with `terms` terms) or 3 (its gathered instance) at N =
+// 2^log_n, 13 <= log_n <= 16, into out[5]: blocks a row, threads a block,
+// dynamic shared memory bytes, blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and clusters on the device
+// (cudaOccupancyMaxActiveClusters). Host function; a CUDA error, or 0.
+int lft_rns_cluster_occupancy(int kind, int log_n, int terms, int rows, int* out) {
+  switch (log_n) {
+    case 13: return occupancy_at<13>(kind, terms, rows, out);
+    case 14: return occupancy_at<14>(kind, terms, rows, out);
+    case 15: return occupancy_at<15>(kind, terms, rows, out);
+    case 16: return occupancy_at<16>(kind, terms, rows, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K-AUTOMORPH on one or two parts (x1, y1 null: one): each x and y (rows,

@@ -248,6 +248,23 @@ def _count(fn, rows: int, gather: bool = False, shared: bool = False) -> None:
         fn.shared_launches += 1
 
 
+CLUSTER_KINDS = ("rns_ntt", "rns_intt", "rns_intt_mac", "rns_intt_mac_gather")
+
+
+def cluster_occupancy(kind: str, log_n: int, terms: int = 0, rows: int = 1) -> dict[str, int]:
+    """The lazy cluster instance that a launch of `kind` (CLUSTER_KINDS;
+    rns_intt_mac's with `terms` terms, 0: any other count) on `rows` rows at
+    N = 2^log_n, 13 <= log_n <= 16, takes on the current CUDA device: blocks
+    a row, threads a block, dynamic shared memory bytes, blocks an SM and
+    clusters the device holds at once (the CUDA occupancy calculator). Host
+    only: no launch."""
+    out = np.zeros(5, dtype=np.int32)
+    status = kernels.call("lft_rns_cluster_occupancy", CLUSTER_KINDS.index(kind), log_n, terms, rows, out.ctypes.data)
+    if status != 0:
+        raise RuntimeError(f"cluster_occupancy({kind}, {log_n}): CUDA error {status}")
+    return dict(zip(("cluster", "threads", "smem", "blocks_per_sm", "clusters"), (int(v) for v in out)))
+
+
 def _check_rows(name: str, x: torch.Tensor, limbs: int, n: int) -> int:
     """Rows of a contiguous, 16-byte aligned (..., limbs, n) int64 CUDA tensor."""
     kernels.require(name, x, torch.int64)

@@ -7,7 +7,10 @@ transforms and K-BASECONV also with a cold L2; the sums inside the inverse,
 and at the CKKS bootstrap's (`chip_smoke.bootstrap_cases`: the gathered
 MAC alone and inside the inverse, K-AUTOMORPH, K-BASECONV, the transforms,
 K-RESCALE) with their registers and spills, and that whole `mul` from a
-CUDA graph;
+CUDA graph; with `--rings-only`, K-RNS-NTT and `rns_intt_mac` at the
+batch-16 BGV `mul`'s shapes (N=2^14, `chip_smoke.py` G0) and the production
+bootstrap's (N=2^16, P1), the 2^13 ones beside them (C1), K-BGV-DROP at
+G1's shapes, and the BGV and CKKS `mul`s from a CUDA graph;
 with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
@@ -33,7 +36,7 @@ Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only] [--json PATH]
+    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only | --rings-only] [--json PATH]
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ NEW_ENTRIES = {
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
     "bgv_drop": "lft_bgv_drop",
 }  # fmt: skip
+HOST_ENTRIES = ("lft_rns_cluster_occupancy",)  # host functions an older library lacks
 
 
 def runs_on(lib, name: str) -> bool:
@@ -228,6 +232,45 @@ def boot_gather_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[f
     return out
 
 
+def ring_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """The cluster instances past 2^13 at the shapes their paths launch them
+    at: G0's (BGV's mul at N=2^14: the transforms at 64 and 128 rows, the
+    sums of 1 and 2 terms, the key switch's) and P1's (N=2^16: the transforms
+    at (15, 32) and (2, 30), the sums of 1, 2 and 15 terms, the gathered b
+    sum); C1's 2^13 transforms and sums beside them; K-BGV-DROP at G1's
+    shapes; and the BGV and CKKS batch-16 `mul`s from a CUDA graph of 3."""
+    from learn_fhe_tpu_torch.models import bgv as G
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.models.ckks.production import production_config
+
+    out, keep = [], ("rns_ntt", "rns_intt", "rns_intt_mac", "rns_intt_mac_gather")
+    bgv = G.BgvParams(**cs.BGV)
+    for ring, params, seed in (("2^13", C.CkksParams(**cs.CKKS), 11), ("2^14", bgv, 13)):
+        for (name, shape), (kernel, _, n_bytes, ops, _) in cs.rns_cases(params, 16, np.random.default_rng(seed), dev).items():
+            if name in keep:
+                out.append((f"{ring} {name} {shape}", kernel, cs.bound_ms(n_bytes, ops, pipe_per_s), "graph"))
+    for (name, shape), (kernel, _, n_bytes, ops) in cs.production_cases(production_config(cs.PROD_LOG_N).params, np.random.default_rng(61), dev).items():
+        if name in keep:
+            out.append((f"2^16 {name} {shape}", kernel, cs.bound_ms(n_bytes, ops, pipe_per_s), "graph"))
+    for shape, (kernel, _, n_bytes, ops, _) in cs.bgv_drop_cases(bgv, np.random.default_rng(3), dev).items():
+        out.append((f"bgv_drop {shape}", kernel, cs.bound_ms(n_bytes, ops, pipe_per_s), "graph"))
+    rng, B = np.random.default_rng(cs.BGV_SEED), cs.BGV_BATCH
+    sk = G.sk_gen(bgv, rng)
+    rlk = G.rlk_gen(bgv, sk, rng, dev)
+    pts = [G.encode(bgv, rng.integers(0, bgv.t, size=(B, bgv.n), dtype=np.int64), dev) for _ in range(2)]
+    made = [[G.sk_encrypt(bgv, sk, pt[i], bgv.qs, rng) for i in range(B)] for pt in pts]
+    ct0, ct1 = (G.BgvCiphertext(torch.stack([c.b for c in h]), torch.stack([c.a for c in h]), bgv.qs) for h in made)
+    out.append((f"bgv mul batch {B} (per call)", lambda: G.mul(bgv, rlk, ct0, ct1), None, "graph:3"))
+    params = C.CkksParams(**cs.CKKS)
+    sk = C.sk_gen(params, rng)
+    crlk = C.rlk_gen(params, sk, rng, dev)
+    ms = [rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l) for _ in range(2 * B)]
+    cts = [C.sk_encrypt(params, sk, C.encode(params, m, device=dev), params.qs, rng) for m in ms]
+    c0, c1 = (C.CkksCiphertext(torch.stack([c.b for c in h]), torch.stack([c.a for c in h]), params.qs) for h in (cts[:B], cts[B:]))
+    out.append((f"ckks mul batch {B} (per call)", lambda: C.mul(params, crlk, c0, c1), None, "graph:3"))
+    return out
+
+
 def _mac_then_intt(xs, ys, plan, zs=None):
     """`rns_intt_mac` as two launches: the sums by `rns_mac`, then their
     inverse transform by `rns_intt`."""
@@ -299,6 +342,7 @@ def main() -> None:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--u64-only", action="store_true", help="time K-NTT64, ntt64_mont, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
     only.add_argument("--rns-only", action="store_true", help="time the RNS kernels and the CKKS mul alone")
+    only.add_argument("--rings-only", action="store_true", help="time the instances past 2^13 (BGV's and the production ring's), the 2^13 ones, K-BGV-DROP and both muls alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("u64_ab: no CUDA device")
@@ -319,14 +363,17 @@ def main() -> None:
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
         if not args.u64_only:
             print_rns_ptxas(name, (so.parent / "build.log").read_text())
-        lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY)))
+        lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY, *HOST_ENTRIES)))
         if not hasattr(lib, SHARED_ENTRY) and hasattr(lib, GATHER_ENTRY):
             setattr(lib, SHARED_ENTRY, getattr(lib, GATHER_ENTRY))
         libs[name] = lib
     dev = torch.device("cuda", torch.cuda.current_device())
-    built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
-    if not args.u64_only:
-        built += rns_cases(dev, pipe_per_s)
+    if args.rings_only:
+        built = ring_cases(dev, pipe_per_s)
+    else:
+        built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
+        if not args.u64_only:
+            built += rns_cases(dev, pipe_per_s)
     others = [k for k in libs if k != "this"]
     order = others + ["this", "this"] + others[::-1]
     runs: dict[str, list[dict[str, float]]] = {k: [] for k in libs}

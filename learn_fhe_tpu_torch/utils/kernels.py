@@ -112,6 +112,8 @@ _SIGNATURES = {
     # x0, x1 (or null), y0, y1 (or null), code (src | sign << 31), per-limb
     # q, rows, limbs, log_n, stream
     "lft_rns_automorphism": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # host function (no stream): kind, log_n, terms, rows, out (5 int32)
+    "lft_rns_cluster_occupancy": (_I, _I, _I, _I, _P),
     # x, y, q, q_hat^-1, its dual, 1/q, p, q_hat mod p, its dual, u Q mod p,
     # add (or null), lq, lp, log_n, batch, x batch stride, stream
     "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),
@@ -214,8 +216,9 @@ def build_log() -> str:
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
-    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt|rns_intt_mac_rows|rns_intt_mac|rns_mac"
-    r"|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop)_kernel"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
+    r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
+    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop)_kernel"
     r"(I(?:L[ib]\d+E)+E)?"
 )
 

@@ -182,34 +182,67 @@ def test_plain_drop_matches_jax(env, k):
     _eq(fused[1], drop_limbs_t_ref(u64_to_torch(x[::-1].copy()), qps, t, k + 1))
 
 
-def _drop_kernel_model(col: list[int], qs: tuple[int, ...], t: int, steps: int) -> list[int]:
-    """`csrc/bgv.cu`'s drops on one column of Python ints, read from the
-    table the wrapper uploads, with the kernel's u64 wrap-around: Barrett mod
-    t, y_i = (x_i - rc) q_l^-1 - kc mod q_i by one Shoup product."""
+def _drop_kernel_model(col: list[int], qs: tuple[int, ...], t: int, k: int, then: int = 0, add=None) -> list[int]:
+    """`csrc/bgv.cu`'s drops on one column of Python ints (a thread takes two, each alike), read
+    from the table the wrapper uploads, with the kernel's u64 wrap-around:
+    k drops, the add (a list over the kept limbs, or None), `then` drops.
+    Between the drops a limb stays below 2 q_i: the dropped one is made
+    canonical, centered (rc, two's complement), kc = -rc q_l^-1 mod t
+    centered from one Barrett reduction of |rc| q_l^-1; each kept limb
+    (x + q - rc) q_l^-1 by a lazy Shoup product, + q - kc, one conditional
+    subtract of 2 q; the outputs made canonical at the end. An unrolled
+    instance runs these steps with constant indices, the loop's with
+    run-time ones: the same arithmetic. Asserts each lazy range."""
     m, w64, mu = MAX_DROP_LIMBS, (1 << 64) - 1, (1 << 64) // t
-    tab = [int(v) for v in _drop_table(qs, t, steps)]
+    tab = [int(v) for v in _drop_table(qs, t, k + then)]
 
     def mod_t(v):
+        assert v < 1 << 64
         r = (v - ((v * mu) >> 64) * t) & w64
         return r - t if r >= t else r
 
+    def csub(s, q):
+        return min(s, (s - q) & w64)
+
     v, L = list(col), len(qs)
-    for s in range(steps):
+
+    def step(s):
         st = m + s * (2 + 2 * m)
-        ql, inv_t, r = tab[st], tab[st + 1], v[L - 1 - s]
+        ql, inv_t = tab[st], tab[st + 1]
+        assert v[L - 1 - s] < 2 * ql
+        r = csub(v[L - 1 - s], ql)
         neg = r > ql >> 1
-        mag = ql - r if neg else r
-        rem = mod_t(mag)
-        k = mod_t((t - (t - rem if neg and rem else rem)) * inv_t)
-        kneg = k > t >> 1
-        kmag = t - k if kneg else k
+        mm = mod_t((ql - r if neg else r) * inv_t)
+        kk = mm if neg else (t - mm if mm else 0)
+        rc, kc = (r - ql) & w64 if neg else r, (kk - t) & w64 if kk > t >> 1 else kk
         for i in range(L - 1 - s):
             q, u, us = tab[i], tab[st + 2 + 2 * i], tab[st + 3 + 2 * i]
-            a = (v[i] - (q - mag if neg else mag)) % q
+            assert v[i] < 2 * q
+            a = (v[i] + q - rc) & w64
+            assert 0 < a < 4 * q
             y = (a * u - (((a * us) >> 64) * q)) & w64
             assert y < 2 * q
-            v[i] = (min(y, y - q & w64) - (q - kmag if kneg else kmag)) % q
-    return v[: L - steps]
+            z = (y + q - kc) & w64
+            assert z < 4 * q
+            v[i] = csub(z, 2 * q)
+
+    for s in range(k):
+        step(s)
+    if add is not None:
+        for i, w in enumerate(add):
+            assert w < tab[i]
+            v[i] = csub(v[i] + w, 2 * tab[i])
+    for s in range(k, k + then):
+        step(s)
+    return [csub(v[i], tab[i]) for i in range(L - k - then)]
+
+
+def _drop_columns(p, L: int) -> np.ndarray:
+    """Columns of L limbs over qps[:L] holding 0, q/2, q/2 + 1, q - 1 and random values."""
+    rng = np.random.default_rng(100 + L)
+    x = np.stack([rng.integers(0, q, size=(2, 32), dtype=np.uint64) for q in p.qps[:L]], axis=-2)
+    x[0, :, :4] = np.array([[0, q // 2, q // 2 + 1, q - 1] for q in p.qps[:L]])
+    return x
 
 
 @pytest.mark.parametrize("k", [1, 4])
@@ -218,14 +251,76 @@ def test_drop_kernel_arithmetic_matches_plain(k):
     from the 8 limbs of qs + ps on residues holding 0, q/2, q/2 + 1, q - 1
     and random values equal the plain version's."""
     p = _params(B)
-    rng = np.random.default_rng(100 + k)
-    x = np.stack([rng.integers(0, q, size=(2, 32), dtype=np.uint64) for q in p.qps], axis=-2)
-    x[0, :, :4] = np.array([[0, q // 2, q // 2 + 1, q - 1] for q in p.qps])
+    x = _drop_columns(p, 8)
     want = torch_to_u64(drop_limbs_t_ref(u64_to_torch(x), p.qps, p.t, k))
     for r in range(x.shape[0]):
         for c in range(x.shape[-1]):
             got = _drop_kernel_model([int(v) for v in x[r, :, c]], p.qps, p.t, k)
             assert got == [int(v) for v in want[r, :, c]], (r, c)
+
+
+@pytest.mark.parametrize(
+    "limbs,k,then,add",
+    [(8, 4, 0, "b"), (8, 4, 1, "d0"), (4, 1, 0, None), (8, 4, 0, None), (7, 4, 1, "d0"), (5, 4, 0, None), (6, 2, 3, "d0")],
+)
+def test_drop_kernel_counts_match_plain(limbs, k, then, add):
+    """The kernel's arithmetic at the counts its unrolled instances take (8 ->
+    4 with the key switch's add of b, the mul's 8 -> 3 with the add of d0 /
+    d1 before the last drop, mod_switch's 4 -> 3) and at others the loop
+    instance takes (the lower levels' 7 -> 2, 5 -> 1, a 6 -> 1 with the add
+    between): one column a thread, lazy below 2 q between the drops, equal
+    to `drop_limbs_t_ref`; the adds hold q - 1 in places, the top of their
+    range."""
+    p = _params(B)
+    qs = p.qps[:limbs]
+    x = _drop_columns(p, limbs)
+    mid = qs[: limbs - k]
+    rng = np.random.default_rng(limbs * 10 + k)
+    a = None
+    if add is not None:
+        a = np.stack([rng.integers(0, q, size=(2, 32), dtype=np.uint64) for q in mid], axis=-2)
+        a[1, :, :2] = np.array([[q - 1, q - 1] for q in mid])
+    want = torch_to_u64(drop_limbs_t_ref(u64_to_torch(x), qs, p.t, k, None if a is None else u64_to_torch(a), then))
+    for r in range(x.shape[0]):
+        for c in range(x.shape[-1]):
+            col_add = None if a is None else [int(w) for w in a[r, :, c]]
+            got = _drop_kernel_model([int(v) for v in x[r, :, c]], qs, p.t, k, then, col_add)
+            assert got == [int(v) for v in want[r, :, c]], (r, c)
+
+
+WARP, DROP_THREADS, DROP_COLS = 32, 256, 2  # csrc/bgv.cu: kWarp, kThreads, kCols
+
+
+def _drop_lanes(rows: int, parts: int, log_n: int, grid: int) -> list[list[int]]:
+    """The columns each block of `bgv_drop_kernel` takes (flat over the parts'
+    rows): units of WARP lanes' DROP_COLS adjacent columns, dealt in equal
+    runs to the blocks, a block's warps taking the units of its run in turn."""
+    cols, unit = (rows * parts) << log_n, WARP * DROP_COLS
+    units = -(-cols // unit)
+    out = []
+    for b in range(grid):
+        got = []
+        for w in range(DROP_THREADS // WARP):
+            for u in range(units * b // grid + w, units * (b + 1) // grid, DROP_THREADS // WARP):
+                for lane in range(WARP):
+                    f = (u * WARP + lane) * DROP_COLS
+                    if f < cols:
+                        assert (f & ((1 << log_n) - 1)) + DROP_COLS <= 1 << log_n  # a lane's columns in one row
+                        got += range(f, f + DROP_COLS)
+        out.append(got)
+    return out
+
+
+@pytest.mark.parametrize("rows,parts,log_n,grid", [(16, 2, 14, 660), (16, 2, 14, 792), (1, 1, 1, 1), (3, 2, 6, 5), (5, 1, 4, 7)])
+def test_drop_kernel_grid_takes_every_column_once(rows, parts, log_n, grid):
+    """The launch's grid (at most the blocks the card holds at once) takes
+    every column of b and a once, two adjacent columns of one row a lane,
+    and the blocks' shares differ by at most one unit of a warp's columns:
+    no short last wave."""
+    got = _drop_lanes(rows, parts, log_n, grid)
+    assert sorted(f for v in got for f in v) == list(range((rows * parts) << log_n))
+    units = [-(-len(v) // (WARP * DROP_COLS)) for v in got]
+    assert max(units) - min(units) <= 1
 
 
 def test_mul_and_depth3_chain_match_jax(env):

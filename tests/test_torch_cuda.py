@@ -1145,6 +1145,46 @@ def test_rns_intt_mac_at_row_counts(dev, log_n, limbs, lead, bits):
         _check_intt_mac(dev, plan, *_mac_operands(rng, qs, lead, n, terms, with_z, broadcast))
 
 
+@pytest.mark.parametrize("rows", [64, 66, 67, 128, 132, 133, 256])
+def test_rns_instances_past_2_13_on_each_side_of_the_wide_pick(dev, rows):
+    """At N = 2^14 a launch whose rows the card holds at once takes the wide
+    instance (512 threads a block), a larger one the 256-thread clusters:
+    the transforms and rns_intt_mac of 1 and 2 terms (with z, twice the
+    output rows) on row counts on each side of the card's clusters (66 and
+    132 on an H100), each the instance `cluster_occupancy` names, equal to
+    their plain versions; at 2^16 the key switch's sums of a run-time count
+    of terms (the resident instance) on the same rows, up to 133."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    def threads(kind, log_n, terms, out_rows):
+        wide_clusters = rns.cluster_occupancy(kind, log_n, terms, 1)["clusters"]
+        got = rns.cluster_occupancy(kind, log_n, terms, out_rows)["threads"]
+        assert got == (512 if log_n == 14 and out_rows <= wide_clusters and terms in (0, 1, 2) else 256), (kind, out_rows)
+
+    for log_n, terms_list in ((14, (1, 2)), (16, (3,))):
+        if log_n == 16 and rows > 133:
+            continue
+        n = 1 << log_n
+        qs = _rns_primes(1, log_n, 59)
+        plan = rns.rns_plan(qs, n)
+        rng = np.random.default_rng(rows * 10 + log_n)
+        if log_n == 14:
+            x = _rns_residues(rng, qs, (rows,), n)
+            x.view(-1)[0], x[-1, -1, -1] = 0, qs[0] - 1
+            xd = x.to(dev)
+            _same(rns.rns_ntt(xd, plan), rns.rns_ntt_ref(xd, plan).cpu())
+            _same(rns.rns_intt(xd, plan), rns.rns_intt_ref(xd, plan).cpu())
+            threads("rns_ntt", log_n, 0, rows)
+            threads("rns_intt", log_n, 0, rows)
+        for terms in terms_list:
+            for with_z in (False, True):
+                _check_intt_mac(dev, plan, *_mac_operands(rng, qs, (rows,), n, terms, with_z, True))
+                if log_n == 14:
+                    threads("rns_intt_mac", log_n, terms, rows * (2 if with_z else 1))
+                else:
+                    assert rns.cluster_occupancy("rns_intt_mac", log_n, terms, rows)["blocks_per_sm"] == 3
+
+
 def test_rns_intt_mac_on_limb_slices_and_misaligned_views(dev):
     """Keys that are slices of a wider key's limbs (contiguous rows at an
     offset, as the key switch's active level selects them) give the plain

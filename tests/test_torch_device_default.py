@@ -281,3 +281,100 @@ def test_ckks_bootstrap_key_gen_defaults_to_the_card():
     rng = np.random.default_rng(0)
     bk = ckks.key_gen(bp, ckks.sk_gen(bp.params, rng), rng)
     assert all(k.ksk.b.device.type == "cuda" for k in bk.rtk.values())
+
+
+BGV_PARAMS = dict(log_n=4, t=65537, log_qi=45, big_l=2)
+
+
+def _bgv_makers(params, sk, rng, **device):
+    """Each BGV key generation entry point, by name."""
+    from learn_fhe_tpu_torch.models import bgv
+    from learn_fhe_tpu_torch.models.bgv.bgv import ksk_gen
+
+    return {
+        "pk_gen": lambda: bgv.pk_gen(params, sk, rng, **device),
+        "ksk_gen": lambda: ksk_gen(params, sk, sk, rng, **device),
+        "rlk_gen": lambda: bgv.rlk_gen(params, sk, rng, **device),
+        "rtk_gen": lambda: bgv.rtk_gen(params, sk, 1, rng, **device).ksk,
+        "cjk_gen": lambda: bgv.cjk_gen(params, sk, rng, **device),
+    }
+
+
+def _carry_makers(params, **device):
+    """The interop entry points that carry BGV and TGSW values over from the
+    JAX package's layout (numpy leaves), by name."""
+    from learn_fhe_tpu_torch.utils.interop import (
+        bgv_ciphertext_from_numpy,
+        bgv_ksk_from_numpy,
+        tggsw_ciphertext_from_numpy,
+        tgsw_ciphertext_from_numpy,
+    )
+
+    n, u64 = params.n, np.uint64
+    ksk = NS(b=np.ones((len(params.qps), n), u64), a=np.full((len(params.qps), n), 2, u64), qs=params.qps)
+    return {
+        "bgv_ciphertext_from_numpy": lambda: bgv_ciphertext_from_numpy(
+            NS(b=np.ones((len(params.qs), n), u64), a=np.full((len(params.qs), n), 3, u64), qs=params.qs, factor=1), **device
+        ),
+        "bgv_ksk_from_numpy": lambda: bgv_ksk_from_numpy(ksk, **device),
+        "bgv_ksk_from_numpy (rotation key)": lambda: bgv_ksk_from_numpy(NS(ksk=ksk, j=1), **device).ksk,
+        "tgsw_ciphertext_from_numpy": lambda: tgsw_ciphertext_from_numpy(NS(a=np.ones((2, 4, 8), u64), b=np.ones((2, 4), u64)), **device),
+        "tggsw_ciphertext_from_numpy": lambda: tggsw_ciphertext_from_numpy(
+            NS(a=np.ones((4, 1, 16), u64), b=np.full((4, 16), 5, u64)), **device
+        ),
+    }
+
+
+@pytest.mark.parametrize("name", ["pk_gen", "ksk_gen", "rlk_gen", "rtk_gen", "cjk_gen"])
+def test_bgv_key_gen_raises_without_cuda(no_cuda, name):
+    from learn_fhe_tpu_torch.models import bgv
+
+    params = bgv.BgvParams(**BGV_PARAMS)
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="GPU"):
+        _bgv_makers(params, bgv.sk_gen(params, rng), rng)[name]()
+
+
+@pytest.mark.parametrize("name", ["pk_gen", "ksk_gen", "rlk_gen", "rtk_gen", "cjk_gen"])
+def test_bgv_key_gen_on_cpu_when_asked(name):
+    from learn_fhe_tpu_torch.models import bgv
+
+    params = bgv.BgvParams(**BGV_PARAMS)
+    rng = np.random.default_rng(0)
+    out = _bgv_makers(params, bgv.sk_gen(params, rng), rng, device="cpu")[name]()
+    assert out.b.device.type == "cpu" and out.a.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "name", ["bgv_ciphertext_from_numpy", "bgv_ksk_from_numpy", "bgv_ksk_from_numpy (rotation key)", "tgsw_ciphertext_from_numpy", "tggsw_ciphertext_from_numpy"]
+)
+def test_bgv_and_tgsw_carry_over_raises_without_cuda(no_cuda, name):
+    from learn_fhe_tpu_torch.models import bgv
+
+    with pytest.raises(RuntimeError, match="GPU"):
+        _carry_makers(bgv.BgvParams(**BGV_PARAMS))[name]()
+
+
+@pytest.mark.parametrize(
+    "name", ["bgv_ciphertext_from_numpy", "bgv_ksk_from_numpy", "bgv_ksk_from_numpy (rotation key)", "tgsw_ciphertext_from_numpy", "tggsw_ciphertext_from_numpy"]
+)
+def test_bgv_and_tgsw_carry_over_on_cpu_when_asked(name):
+    from learn_fhe_tpu_torch.models import bgv
+
+    out = _carry_makers(bgv.BgvParams(**BGV_PARAMS), device="cpu")[name]()
+    assert out.b.device.type == "cpu" and out.a.device.type == "cpu"
+    assert int(out.b.reshape(-1)[0]) in (1, 5)
+
+
+@pytest.mark.cuda
+def test_bgv_key_gen_and_carry_over_default_to_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from learn_fhe_tpu_torch.models import bgv
+
+    params = bgv.BgvParams(**BGV_PARAMS)
+    rng = np.random.default_rng(0)
+    made = {**_bgv_makers(params, bgv.sk_gen(params, rng), rng), **_carry_makers(params)}
+    for name, make in made.items():
+        out = make()
+        assert out.b.device.type == "cuda" and out.a.device.type == "cuda", name

@@ -270,6 +270,10 @@ _RNS = "_ZN40_GLOBAL__N__1a2b3c4d_8_rns64_cu_5e6f7a8b"
         (_RNS + "31rns_intt_mac_gather_rows_kernelILb0ELi0EEEvNS_11GatherTermsEPmNS_7StackedENS_8MacShapeEi", "rns_intt_mac_gather_rows_kernel<false,0>"),
         (_RNS + "21rns_mac_gather_kernelILi4EEEvNS_11GatherTermsEPmNS_8MacShapeEiPKmS5_S5_", "rns_mac_gather_kernel<4>"),
         (_RNS + "19automorphism_kernelILi4EEEvNS_5PartsEPKiPKmiii", "automorphism_kernel<4>"),
+        (_RNS + "19rns_ntt_wide_kernelILb0ELi14EEEvPKmPmNS_7StackedEi", "rns_ntt_wide_kernel<false,14>"),
+        (_RNS + "24rns_intt_mac_wide_kernelILi14ELi2EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeE", "rns_intt_mac_wide_kernel<14,2>"),
+        (_RNS + "28rns_intt_mac_resident_kernelILi16ELi0EEEvNS_5TermsEPmNS_7StackedENS_8MacShapeE", "rns_intt_mac_resident_kernel<16,0>"),
+        (_RNS + "15bgv_drop_kernelILi8ELi4ELi1EEEvNS_9DropPartsEPKmiiixiyy", "bgv_drop_kernel<8,4,1>"),
     ],
 )
 def test_ptxas_report_names_the_rns_kernels(mangled, name):

@@ -11,7 +11,9 @@ back; the inverse's first pass builds each 4-value item from the terms'
 scale by N^-1 2^64 in place of 1/N takes out the REDCs' 2^-64. K-RNS-NTT:
 from N = 2048 up a row runs on a cluster of C blocks of 256 threads, C = 2
 up to N = 2^13 and 2^(log N - 13) past it (2, 4, 8 at 2^14, 2^15, 2^16:
-each block then holds 2^13 values); the first pass's 3 layers leave 8
+each block then holds 2^13 values); at 2^14 a launch whose rows the card
+holds at once takes the wide instance, 512 threads a block on the same
+sub-rows, its buffer columns swizzled; the first pass's 3 layers leave 8
 sub-rows of N/8 values, block c takes items [c N/(8C), (c+1) N/(8C)) of
 that pass and writes output m of item i into the buffer of the block that
 holds sub-row m (8/C a block, at column i of it), then each block runs the
@@ -57,9 +59,23 @@ FIXED_LOG_N = 13  # past it the cluster grows with the ring
 MAX_LOG_N = 16
 
 
+WIDE_LOG_N, WIDE_THREADS = 14, 512  # rns64.cu's wide instances: their ring and block
+
+
+def shape(log_n: int, wide: bool = False) -> tuple[int, int]:
+    """(blocks a row, threads a block) of the cluster instance (`rns64.cu::RowShape`)."""
+    return (1 << (log_n - FIXED_LOG_N) if log_n > FIXED_LOG_N else CLUSTER), (WIDE_THREADS if wide else THREADS)
+
+
 def cluster(log_n: int) -> int:
-    """Blocks per row (`rns64.cu::cluster_of`)."""
-    return 1 << (log_n - FIXED_LOG_N) if log_n > FIXED_LOG_N else CLUSTER
+    """Blocks per row."""
+    return shape(log_n)[0]
+
+
+def swz(col: int, wide: bool) -> int:
+    """A buffer column's place in shared memory (`rns64.cu::swz`): in a wide
+    instance bits 2-3 XORed with bits 5-6."""
+    return col ^ (((col >> 5) & 3) << 2) if wide else col
 
 
 def _primes(bits: int, log_n: int, count: int) -> tuple[int, ...]:
@@ -70,30 +86,30 @@ def _primes(bits: int, log_n: int, count: int) -> tuple[int, ...]:
 # -- the split plan: which block and thread take which item of each pass
 
 
-def split_items(log_n: int) -> dict[tuple[int, int], list[int]]:
+def split_items(log_n: int, wide: bool = False) -> dict[tuple[int, int], list[int]]:
     """The first pass: block c's thread t takes items c share + k, k = t, t
-    + THREADS, ... below share = 2^log_s / C; item i holds the values i + m
+    + T, ... below share = 2^log_s / C; item i holds the values i + m
     2^log_s, m < 8."""
-    c_n = cluster(log_n)
+    c_n, threads = shape(log_n, wide)
     share = (1 << (log_n - SPLIT)) // c_n
-    return {(c, t): [c * share + k for k in range(t, share, THREADS)] for c in range(c_n) for t in range(THREADS)}
+    return {(c, t): [c * share + k for k in range(t, share, threads)] for c in range(c_n) for t in range(threads)}
 
 
-def sub_items(log_n: int, l0: int, w: int) -> dict[tuple[int, int], list[tuple[int, int, int]]]:
+def sub_items(log_n: int, l0: int, w: int, wide: bool = False) -> dict[tuple[int, int], list[tuple[int, int, int]]]:
     """A pass of w layers from l0 >= 3 on the blocks' sub-rows, as
-    `sub_pass` deals it: block c's thread t takes k = t, t + THREADS, ... of
-    its 8/C sub-rows' items; (buffer column, global column, twiddle group) of
+    `sub_pass` deals it: block c's thread t takes k = t, t + T, ... of its
+    8/C sub-rows' items; (buffer column, global column, twiddle group) of
     each item."""
     log_s, log_h = log_n - SPLIT, log_n - l0 - w
     log_items = log_s - w
-    c_n = cluster(log_n)
+    c_n, threads = shape(log_n, wide)
     per = SUBS // c_n
     out = {}
     for c in range(c_n):
         sub0 = c * per
-        for t in range(THREADS):
+        for t in range(threads):
             got = []
-            for k in range(t, per << log_items, THREADS):
+            for k in range(t, per << log_items, threads):
                 s, i = k >> log_items, k & ((1 << log_items) - 1)
                 g = i >> log_h
                 col = (s << log_s) + (g << (log_n - l0)) + (i & ((1 << log_h) - 1))
@@ -108,16 +124,16 @@ def split_plan(log_n: int) -> list[tuple[int, int]]:
     return [(3 * p, head_width(log_n, p)) for p in range(1, head_passes(log_n))] + [(log_n - 2, 2)]
 
 
-def split_passes(log_n: int) -> list[tuple[int, int, list[list[int]], list[int]]]:
+def split_passes(log_n: int, wide: bool = False) -> list[tuple[int, int, list[list[int]], list[int]]]:
     """Every pass of the split plan in forward order: (l0, w, the global
     columns of each item, each item's twiddle group), over all blocks and
     threads."""
     log_s = log_n - SPLIT
-    items = [i for v in split_items(log_n).values() for i in v]
+    items = [i for v in split_items(log_n, wide).values() for i in v]
     out = [(0, SPLIT, [[i + (m << log_s) for m in range(SUBS)] for i in items], [0] * len(items))]
     for l0, w in split_plan(log_n):
         log_h = log_n - l0 - w
-        taken = [x for v in sub_items(log_n, l0, w).values() for x in v]
+        taken = [x for v in sub_items(log_n, l0, w, wide).values() for x in v]
         out.append((l0, w, [[gcol + (m << log_h) for m in range(1 << w)] for _, gcol, _ in taken], [g for *_, g in taken]))
     return out
 
@@ -132,8 +148,8 @@ def rows_passes(log_n: int) -> list[tuple[int, int, list[list[int]], list[int]]]
     return out
 
 
-def plan_passes(log_n: int, split: bool) -> list:
-    return split_passes(log_n) if split else rows_passes(log_n)
+def plan_passes(log_n: int, split: bool, wide: bool = False) -> list:
+    return split_passes(log_n, wide) if split else rows_passes(log_n)
 
 
 def _check_butterflies(passes, log_n: int) -> None:
@@ -159,38 +175,93 @@ def _check_butterflies(passes, log_n: int) -> None:
 
 @pytest.mark.parametrize("log_n", range(SPLIT_LOG_N, MAX_LOG_N + 1))
 def test_cluster_plan_takes_every_value_once_with_the_reference_twiddles(log_n):
-    """At N = 2^11 .. 2^16 (clusters of 2 blocks up to 2^13, then 2, 4 and 8
-    of 2^13 values each): every pass of the cluster's plan takes each value
-    once, with the reference's butterflies and twiddles; in the first pass
-    each (block, thread) takes its own items and every block's buffer gets
-    each of its sub-rows' columns once, from the block that ran its item;
-    in the others a block's items fall in its own sub-rows, each (block,
-    item) taken by one thread; the last pass's items are 4 consecutive
-    values on a 16-byte boundary; each block's buffer fits its shared
-    memory (the static 32 KB up to 2^13, the dynamic 64 KB past it), and
-    the items a thread takes in the first pass and in the last are the
-    instance's unrolled counts."""
-    _check_butterflies(split_passes(log_n), log_n)
-    log_s, c_n = log_n - SPLIT, cluster(log_n)
+    """At N = 2^11 .. 2^16 (clusters of 2 blocks of 256 threads up to 2^13,
+    then 2, 4 and 8 of 2^13 values each; at 2^14 also the wide instance's
+    blocks of 512 threads): every pass of the cluster's plan takes each value once,
+    with the reference's butterflies and twiddles; in the first pass each
+    (block, thread) takes its own items and every block's buffer gets each
+    of its sub-rows' columns once, from the block that ran its item; in the
+    others a block's items fall in its own sub-rows, each (block, item)
+    taken by one thread; the last pass's items are 4 consecutive values on
+    a 16-byte boundary; each block's buffer fits its shared memory (the
+    static 32 KB up to 2^13, the dynamic 64 KB past it), and the items a
+    thread takes in the first pass and in the last are the instance's
+    unrolled counts (RowShape's kAheadSplit and kAheadItems)."""
+    for wide in (False, True) if log_n == WIDE_LOG_N else (False,):
+        _check_butterflies(split_passes(log_n, wide), log_n)
+        log_s, (c_n, threads) = log_n - SPLIT, shape(log_n, wide)
+        per = SUBS // c_n
+        assert (per << log_s) * 8 <= (64 if log_n > FIXED_LOG_N else 32) * 1024
+        buffers = defaultdict(list)
+        for (c, _), items in split_items(log_n, wide).items():
+            for i in items:
+                for m in range(SUBS):
+                    buffers[m // per].append(((m % per) << log_s) + i)
+        assert sorted(buffers) == list(range(c_n))
+        assert all(sorted(v) == list(range(per << log_s)) for v in buffers.values())
+        for l0, w in split_plan(log_n):
+            for (c, _), got in sub_items(log_n, l0, w, wide).items():
+                for col, gcol, _ in got:
+                    assert col < per << log_s and gcol >> log_s in range(c * per, (c + 1) * per)
+        last = sub_items(log_n, log_n - 2, 2, wide)
+        for got in last.values():
+            assert all(col % 4 == 0 and gcol % 4 == 0 for col, gcol, _ in got)
+        if log_n >= FIXED_LOG_N:  # every thread the same count
+            ahead_split = (1 << log_s) // c_n // threads if log_n > FIXED_LOG_N else 2
+            ahead_items = (per << (log_s - 2)) // threads if log_n > FIXED_LOG_N else 4
+            assert ahead_split >= 1 and ahead_items >= 1
+            assert {len(v) for v in split_items(log_n, wide).values()} == {ahead_split}
+            assert {len(v) for v in last.values()} == {ahead_items}
+
+
+def _wavefronts(cols: list[int], words: int) -> int:
+    """Shared-memory wavefronts of a warp's access of `words` u64 at each of
+    its threads' columns (32 banks of 4 bytes): each 128-byte line a
+    wavefront takes serves one address a bank."""
+    banks = defaultdict(set)
+    for c in cols:
+        for w in range(words):
+            for b in (2 * (c + w), 2 * (c + w) + 1):
+                banks[b % 32].add(b // 32)
+    return max(len(v) for v in banks.values())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_wide_swizzle_spreads_every_pass_over_the_banks(wide):
+    """At 2^14 the swizzle maps each block's buffer onto itself, and every
+    warp access of every pass (the head passes' values m of an item, the last
+    pass's 16-byte words, the first pass's columns through the cluster)
+    takes the fewest wavefronts: 2 for 8-byte accesses, 8 for the last
+    pass's 32 bytes a thread. Unswizzled, the head pass from layer 9 (groups
+    of 4 columns 32 apart) takes 8 a value (4 addresses to a bank in each
+    half-warp); swizzled, 2."""
+    log_n = WIDE_LOG_N
+    log_s, (c_n, threads) = log_n - SPLIT, shape(log_n, wide)
     per = SUBS // c_n
-    assert (per << log_s) * 8 <= (64 if log_n > FIXED_LOG_N else 32) * 1024
-    buffers = defaultdict(list)
-    for (c, _), items in split_items(log_n).items():
-        for i in items:
-            for m in range(SUBS):
-                buffers[m // per].append(((m % per) << log_s) + i)
-    assert sorted(buffers) == list(range(c_n))
-    assert all(sorted(v) == list(range(per << log_s)) for v in buffers.values())
+    assert sorted(swz(c, wide) for c in range(per << log_s)) == list(range(per << log_s))
+    worst = {}
     for l0, w in split_plan(log_n):
-        for (c, _), got in sub_items(log_n, l0, w).items():
-            for col, gcol, _ in got:
-                assert col < per << log_s and gcol >> log_s in range(c * per, (c + 1) * per)
-    last = sub_items(log_n, log_n - 2, 2)
-    for got in last.values():
-        assert all(col % 4 == 0 and gcol % 4 == 0 for col, gcol, _ in got)
-    if log_n >= FIXED_LOG_N:  # RowShape's kAheadSplit and kAheadItems: every thread the same count
-        assert {len(v) for v in split_items(log_n).values()} == {2 if log_n == FIXED_LOG_N else 4}
-        assert {len(v) for v in last.values()} == {4 if log_n == FIXED_LOG_N else 8}
+        taken = sub_items(log_n, l0, w, wide)
+        log_h = log_n - l0 - w
+        for (c, t0), _ in taken.items():
+            if t0 % 32:
+                continue
+            warp = [taken[c, t] for t in range(t0, t0 + 32)]
+            for a in range(len(warp[0])):
+                cols = [items[a][0] for items in warp if a < len(items)]
+                if log_h == 0:  # 4 consecutive values, two 16-byte words
+                    worst[l0] = max(worst.get(l0, 0), _wavefronts([swz(col, wide) for col in cols], 4))
+                else:
+                    for m in range(1 << w):
+                        got = _wavefronts([swz(col + (m << log_h), wide) for col in cols], 1)
+                        worst[l0] = max(worst.get(l0, 0), got)
+    for (c, t0), items in split_items(log_n, wide).items():
+        if t0 % 32 == 0:
+            for a in range(len(items)):
+                cols = [split_items(log_n, wide)[c, t][a] for t in range(t0, t0 + 32)]
+                worst[0] = max(worst.get(0, 0), _wavefronts([swz(i, wide) for i in cols], 1))
+    want = {0: 2, 3: 2, 6: 2, 9: 2 if wide else 8, 12: 8}
+    assert worst == want
 
 
 @pytest.mark.parametrize("log_n", range(1, SPLIT_LOG_N))
