@@ -242,12 +242,47 @@ must decrypt right; seconds per PBS; K-NTT, `intt32` and K-GARNER must
 launch, K-STEP must not), and its first 8 CMux steps on the card == the
 port's CPU path.
 
+Then the NTT polymul at the Pallas kernels' own ring, N = 2^14
+(`bench/pallas_ntt14_experiment.py`: (256, 16384), a 31-bit prime), and the
+parallel layer (`learn_fhe_tpu_torch/parallel/`):
+
+  N1. hold K-NTT, intt32 and K-POLYMUL against their plain versions at
+      (256, 4096), (256, 8192) and (256, 16384) under the experiment's
+      31-bit prime, and the 28-bit route (two K-NTT, a torch product, one
+      intt32) at `bench.py`'s scaling shape (4, 16384), `torch.equal`, each
+      counter rising by one a call; time each eager and from a CUDA graph
+      against its bound, with the instances' registers and spills; the
+      path: `bench.py::bench_ntt`'s chained loop (10 muls and 10 adds a
+      call) at (256, 16384), then the 28-bit polymul, with the counters
+      set to 0 just before and read just after; polymuls/s of the loop;
+  N2. `ntt64`, `intt64`, `negacyclic_mul64` at (256, 16384) under a 55-bit
+      prime through K-RNS-NTT with one limb, `torch.equal`, the RNS
+      counters rising as the route says; the same loop's polymuls/s;
+  S1. K-COEF-CROSS (`parallel/coef.py::coef_cross`, `coef32.py::
+      coef32_cross`), forward and inverse, u64 at (16, 8, 8192 / D) and
+      u32 at (4, 16384 / D), D = 2, 4, 8, at every cross layer against its
+      plain version, timed eager and from a graph against its bound;
+  S2. `python -m learn_fhe_tpu_torch.parallel.dryrun`'s ranks with D = 2, 4
+      and 8 ranks on the one card over gloo (`parallel/dryrun.py`: the
+      coefficient-sharded u64 ntt / intt / mul at (16, 8, 8192), the u32
+      ones at (4, 16384) with a 28-bit prime, the batch-sharded PBS at the
+      reference fixture (batch 128; D = 8 also 4096 ciphertexts in chunks
+      of 128), a FHEW NAND batch of 128, `merge_shares` of D parties), each
+      result gathered and equal to the unsharded card result; then one
+      rank under nccl (init, the merge, an exchange-free D = 1 product).
+      The wall times are printed as what they are: D ranks share one card,
+      not a scaling number. The ranks' launches are summed; K-COEF-CROSS
+      must launch.
+
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
 instances (`*_n65536`: P1's shapes, P2's launches), two BGV's ring's
 (`*_n16384`: G0's forward transform at 64 rows and sums of one term at 64
 rows, G2's path's launches of the kernel); the `bgv_drop` row times G1's
-first shape and carries G2's path's launches. The phases'
+first shape and carries G2's path's launches; the `*_n16384` rows of
+`ntt32.cu` time N1's (256, 16384) and carry N1's path's launches, the
+`ntt64_n16384` row N2's, and the `coef_cross` / `coef32_cross` rows S1's
+D = 2 forward shapes with S2's ranks' launches. The phases'
 seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
@@ -2501,6 +2536,223 @@ def tfhe_t1(dev, tag) -> None:
     say(f"{tag} T1 took {time.perf_counter() - t_t1:.1f} s (host clock)")
 
 
+NTT_LOG_NS = (12, 13, 14)  # N1's rings; 2^14 is the Pallas kernels' own (`bench/pallas_ntt14_experiment.py:207-216`)
+NTT_BATCH = 256  # `bench.py:365`, the Pallas experiment's --batch
+NTT_CHAIN = 10  # `bench.py:366`: muls (and adds) a chained call
+NTT_REPS = 20  # eager calls and CUDA-graph launches an N1 / N2 / S1 timing averages
+NTT_LOOP_REPS = 8  # chained calls a polymuls/s figure times (`bench.py:367`)
+SCALING_ROWS = 4  # `bench.py`'s scaling metric: the u32 coef-sharded polymul at (4, 16384), 28-bit q
+COEF_SHAPE = (16, 8, 1 << 13)  # S1 / S2: the CKKS `mul`'s ring, batch 16, 8 primes of 55 bits
+COEF_RANKS = (2, 4, 8)
+
+
+def chain_pps(mul, add, a, b, reps: int) -> float:
+    """Polymuls/s of `bench.py::bench_ntt`'s chained loop on (B, N): NTT_CHAIN
+    times (c = a * b; b = b + c) a call, `reps` calls between CUDA events."""
+
+    def call(x, y):
+        for _ in range(NTT_CHAIN):
+            c = mul(x, y)
+            x, y = c, add(y, c)
+        return x, y
+
+    x, y = call(a, b)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        x, y = call(x, y)
+    end.record()
+    end.synchronize()
+    return a.shape[0] * NTT_CHAIN * reps / (start.elapsed_time(end) / 1e3)
+
+
+def ntt_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+    """N1, N2 (see the module's docstring): the u32 transforms past 2048 and
+    the u64 engine at 2^14; adds the kernels line's rows of the 2^14 ring."""
+    from learn_fhe_tpu_torch.ops import ntt as t64
+    from learn_fhe_tpu_torch.ops import ntt32 as t32
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.ops.modular import add_mod
+    from learn_fhe_tpu_torch.utils import kernels
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch, u64_to_torch
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    t_n = time.perf_counter()
+    rng = np.random.default_rng(14)
+    report = kernels.ptxas_report(kernels.build_log())
+    for log_n in NTT_LOG_NS:
+        for kind in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32"):
+            regs, st, ld, stack = report[f"{kind}_kernel<{log_n}>"]
+            say(f"  ptxas: {kind}_kernel<{log_n}>: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+
+    # -- N1. K-NTT, intt32, K-POLYMUL at 2^12 .. 2^14 --------------------------
+    q31, q28 = next(two_adic_primes(31, 15)), next(two_adic_primes(28, 15))
+    cases = {}
+    for log_n in NTT_LOG_NS:
+        n = 1 << log_n
+        plan = t32.ntt32_plan(q31, n)
+        a, b = (u32_to_torch(rng.integers(0, q31, size=(NTT_BATCH, n), dtype=np.uint32), dev) for _ in range(2))
+        for name, fn, plain, args, ops, n_bytes in (
+            ("ntt32", t32.ntt32, t32.ntt32_ref, (a,), ntt_ops(NTT_BATCH, n), 2 * a.numel() * 4),
+            ("intt32", t32.intt32, t32.intt32_ref, (a,), ntt_ops(NTT_BATCH, n) + a.numel() * SHOUP, 2 * a.numel() * 4),
+            ("negacyclic_mul32", t32.negacyclic_mul32, t32.negacyclic_mul32_ref, (a, b), 3 * ntt_ops(NTT_BATCH, n) + 2 * a.numel() * SHOUP, 3 * a.numel() * 4),
+        ):
+            before = fn.launches
+            got = fn(*args, plan)
+            if fn.launches != before + 1:
+                raise AssertionError(f"N1: {name} at N={n} launched {fn.launches - before} times in one call")
+            err = max_abs_err(got, plain(*args, plan).cpu())
+            cases[name, log_n] = (lambda fn=fn, args=args, plan=plan: fn(*args, plan), lambda plain=plain, args=args, plan=plan: plain(*args, plan), bound_ms(n_bytes, ops, pipe_per_s), err)
+        say(f"N1 ntt32 / intt32 / negacyclic_mul32 == plain at ({NTT_BATCH}, {n}), q = {q31}, each counter +1 a call: ok")
+    plan28 = t32.ntt32_plan(q28, 1 << 14)
+    a28, b28 = (u32_to_torch(rng.integers(0, q28, size=(SCALING_ROWS, 1 << 14), dtype=np.uint32), dev) for _ in range(2))
+    counted32 = (t32.ntt32, t32.intt32, t32.negacyclic_mul32)
+    before = [fn.launches for fn in counted32]
+    err28 = max_abs_err(t32.negacyclic_mul32(a28, b28, plan28), t32.negacyclic_mul32_ref(a28, b28, plan28).cpu())
+    steps = [fn.launches - b0 for fn, b0 in zip(counted32, before)]
+    if steps != [2, 1, 0]:
+        raise AssertionError(f"N1: the 28-bit route launched (ntt32, intt32, negacyclic_mul32) {steps}, expected [2, 1, 0]")
+    say(f"N1 the 28-bit route (q = {q28}) at ({SCALING_ROWS}, 16384) == plain: two K-NTT, one intt32 launch: ok (max |err| {err28})")
+    for (name, log_n), (kernel, plain, (b_ms, by), err) in cases.items():
+        k_ms, g_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS)
+        p_ms = cuda_ms(plain, 2)
+        say(f"{tag} N1 {name} ({NTT_BATCH}, {1 << log_n}): eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph)")
+        if log_n == 14:
+            row = f"{name}_n16384"
+            timings[row], graphs[row], bounds[row], errs[row] = (k_ms, p_ms), g_ms, (b_ms, by), err
+    # the path: bench_ntt's chained loop at (256, 16384), 31-bit q, then the
+    # scaling metric's 28-bit polymul at (4, 16384)
+    a, b = (u32_to_torch(rng.integers(0, q31, size=(NTT_BATCH, 1 << 14), dtype=np.uint32), dev) for _ in range(2))
+    plan = t32.ntt32_plan(q31, 1 << 14)
+    add32 = lambda y, c: ((y.long() + c.long()) % q31).int()  # noqa: E731
+    for fn in counted32:
+        fn.launches = 0
+    x, y = a, b
+    for _ in range(NTT_CHAIN):
+        c = t32.negacyclic_mul32(x, y, plan)
+        x, y = c, add32(y, c)
+    t32.negacyclic_mul32(a28, b28, plan28)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counted32}
+    for name, want in (("negacyclic_mul32", NTT_CHAIN), ("ntt32", 2), ("intt32", 1)):
+        if counts[name] != want:
+            raise AssertionError(f"N1 path: {name} launched {counts[name]} times, expected {want}")
+        launches[f"{name}_n16384"] = counts[name]
+    pps = chain_pps(lambda x, y: t32.negacyclic_mul32(x, y, plan), add32, a, b, NTT_LOOP_REPS)
+    say(f"{tag} N1 path (bench_ntt's chain of {NTT_CHAIN} at ({NTT_BATCH}, 16384), then ({SCALING_ROWS}, 16384) at 28 bits): launches {counts}; u32 {pps:.1f} polymuls/s (CUDA events over {NTT_LOOP_REPS} chained calls; a call is {NTT_CHAIN} K-POLYMUL launches and {NTT_CHAIN} torch adds)")
+
+    # -- N2. the u64 engine at 2^14 through K-RNS-NTT --------------------------
+    q55 = next(two_adic_primes(55, 15))
+    p64 = t64.ntt_plan(q55, 1 << 14)
+    a, b = (u64_to_torch(rng.integers(0, q55, size=(NTT_BATCH, 1 << 14), dtype=np.uint64), dev) for _ in range(2))
+    counted64 = (rns.rns_ntt, rns.rns_intt, rns.rns_intt_mac, t64.ntt64, t64.intt64, t64.negacyclic_mul64)
+    for name, fn, plain, args, want in (
+        ("ntt64", t64.ntt64, t64.ntt64_ref, (a,), [1, 0, 0]),
+        ("intt64", t64.intt64, t64.intt64_ref, (a,), [0, 1, 0]),
+        ("negacyclic_mul64", t64.negacyclic_mul64, t64.negacyclic_mul64_ref, (a, b), [2, 0, 1]),
+    ):
+        before = [f.launches for f in counted64]
+        got = fn(*args, p64)
+        steps = [f.launches - b0 for f, b0 in zip(counted64, before)]
+        if steps != want + [0, 0, 0]:
+            raise AssertionError(f"N2: {name} launched (rns_ntt, rns_intt, rns_intt_mac, K-NTT64's) {steps}, expected {want + [0, 0, 0]}")
+        err = max_abs_err(got, plain(*args, p64).cpu())
+        if name == "ntt64":
+            kernel = lambda: t64.ntt64(a, p64)  # noqa: E731
+            k_ms, g_ms, p_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS), cuda_ms(lambda: t64.ntt64_ref(a, p64), 2)
+            b_ms, by = bound_ms(2 * a.numel() * 8, ntt64_ops(NTT_BATCH, 1 << 14), pipe_per_s)
+            timings["ntt64_n16384"], graphs["ntt64_n16384"], bounds["ntt64_n16384"], errs["ntt64_n16384"] = (k_ms, p_ms), g_ms, (b_ms, by), err
+            say(f"{tag} N2 ntt64 ({NTT_BATCH}, 16384) = K-RNS-NTT on one limb ({cluster_note('rns_ntt', 14, NTT_BATCH)}): eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph)")
+    say(f"N2 ntt64 / intt64 / negacyclic_mul64 == plain at ({NTT_BATCH}, 16384), q = {q55}, through K-RNS-NTT with one limb: ok")
+    for fn in counted64:
+        fn.launches = 0
+    x, y = a, b
+    for _ in range(NTT_CHAIN):
+        c = t64.negacyclic_mul64(x, y, p64)
+        x, y = c, add_mod(y, c, q55)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counted64}
+    if counts["rns_ntt"] != 2 * NTT_CHAIN or counts["rns_intt_mac"] != NTT_CHAIN:
+        raise AssertionError(f"N2 path: launches {counts}")
+    launches["ntt64_n16384"] = counts["rns_ntt"]
+    pps = chain_pps(lambda x, y: t64.negacyclic_mul64(x, y, p64), lambda y, c: add_mod(y, c, q55), a, b, NTT_LOOP_REPS)
+    say(f"{tag} N2 path (bench_ntt's u64 chain of {NTT_CHAIN} at ({NTT_BATCH}, 16384), 55-bit q): launches {counts}; u64 {pps:.1f} polymuls/s (CUDA events over {NTT_LOOP_REPS} chained calls)")
+    say(f"{tag} N1-N2 took {time.perf_counter() - t_n:.1f} s (host clock)")
+
+
+def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+    """S1, S2 (see the module's docstring): K-COEF-CROSS against its plain
+    version, and the sharded paths on D ranks sharing the card."""
+    import os
+    import tempfile
+
+    from learn_fhe_tpu_torch.parallel import coef as pc
+    from learn_fhe_tpu_torch.parallel import coef32 as pc32
+    from learn_fhe_tpu_torch.parallel import dryrun
+    from learn_fhe_tpu_torch.utils import kernels
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch, u64_to_torch
+
+    t_s = time.perf_counter()
+    report = kernels.ptxas_report(kernels.build_log())
+    for inst in ("coef_cross64_kernel<false>", "coef_cross64_kernel<true>", "coef_cross32_kernel<false>", "coef_cross32_kernel<true>"):
+        regs, st, ld, stack = report[inst]
+        say(f"  ptxas: {inst}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+
+    # -- S1. K-COEF-CROSS, forward and inverse, u64 and u32, D = 2, 4, 8 -------
+    rng = np.random.default_rng(19)
+    qs, _, _ = dryrun.coef_inputs(((), 13, 8, 55))
+    q28 = dryrun.coef32_inputs(((), 14, 28))[0]
+    for d in COEF_RANKS:
+        plan = pc.coef_ntt_plan(qs, COEF_SHAPE[-1], d)
+        x = u64_to_torch(np.stack([rng.integers(0, q, size=(COEF_SHAPE[0], COEF_SHAPE[-1] // d), dtype=np.uint64) for q in qs], axis=-2), dev)
+        v = x.roll(1, 0).contiguous()
+        plan32 = pc32.coef32_plan(q28, 1 << 14, d)
+        x32 = u32_to_torch(rng.integers(0, q28, size=(SCALING_ROWS, (1 << 14) // d), dtype=np.uint32), dev)
+        v32 = x32.roll(1, 0).contiguous()
+        for name, fn, plain, xx, vv, pl, per_value, item in (
+            ("coef_cross", pc.coef_cross, pc.coef_cross_ref, x, v, plan, (SHOUP64 + ADD_Q64, SHOUP64 + ADD_Q64), 8),
+            ("coef32_cross", pc32.coef32_cross, pc32.coef32_cross_ref, x32, v32, plan32, (SHOUP + SUB_MOD, SHOUP + SUB_MOD), 4),
+        ):
+            for inverse in (False, True):
+                rank = d - 1  # the upper half at every layer: the Shoup product on every value
+                before = fn.launches
+                for layer in range(pl.log_d):
+                    err = max_abs_err(fn(xx, vv, pl, layer, rank, inverse), plain(xx, vv, pl, layer, rank, inverse).cpu())
+                    errs[name] = max(errs.get(name, 0.0), err)
+                if fn.launches != before + pl.log_d:
+                    raise AssertionError(f"S1: {name} launched {fn.launches - before} times in {pl.log_d} calls")
+                # layer 0 on rank D/2, the upper half of its pairs (the Shoup product on every value)
+                kernel = lambda fn=fn, xx=xx, vv=vv, pl=pl, inverse=inverse: fn(xx, vv, pl, 0, pl.d // 2, inverse)  # noqa: E731
+                k_ms, g_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS)
+                p_ms = cuda_ms(lambda fn=plain, xx=xx, vv=vv, pl=pl, inverse=inverse: fn(xx, vv, pl, 0, pl.d // 2, inverse), 2)
+                b_ms, by = bound_ms(3 * xx.numel() * item, xx.numel() * per_value[inverse], pipe_per_s)
+                say(f"{tag} S1 {name} {'inverse' if inverse else 'forward'} D={d} {tuple(xx.shape)}: == plain at every layer of the upper rank; eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph)")
+                if d == 2 and not inverse:
+                    timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+
+    # -- S2. the sharded paths on D ranks sharing the card (gloo), and one rank on nccl
+    torch.cuda.empty_cache()
+    counted = ("coef_cross", "coef32_cross")
+    totals = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in COEF_RANKS:
+            out = os.path.join(tmp, f"d{d}.npz")
+            stream = dryrun.SIZES["card"].pbs_stream if d == COEF_RANKS[-1] else 0
+            secs = dryrun.run(d, "cuda", "card", dryrun.PHASES, out=out, backend="gloo", stream=stream)
+            got = np.load(out)
+            for name in counted:
+                totals[name] += int(got[f"launches_{name}"])
+            say(f"{tag} S2 dryrun D={d} over gloo: coef (16, 8, 8192) ntt / intt / mul, coef32 ({SCALING_ROWS}, 16384) at 28 bits, PBS batch {dryrun.SIZES['card'].pbs_batch}" + (f" and {stream} chunked" if stream else "") + f", FHEW NAND {dryrun.SIZES['card'].gate_batch}, merge of {d} parties == unsharded on the card; {secs:.1f} s wall (D ranks share one card; not a scaling number); K-COEF-CROSS launches {dict((k, int(got[f'launches_{k}'])) for k in counted)}")
+        secs = dryrun.run(1, "cuda", "card", ("coef", "merge"), out=os.path.join(tmp, "nccl.npz"), backend="nccl")
+        say(f"{tag} S2 one rank under nccl (init, merge_shares, an exchange-free coef_sharded_ntt / intt / mul at D=1) == unsharded: {secs:.1f} s wall (D ranks share one card; not a scaling number)")
+    for name in counted:
+        if totals[name] == 0:
+            raise AssertionError(f"S2: {name} was not launched on the sharded path")
+        launches[name] = totals[name]
+    say(f"{tag} S1-S2 took {time.perf_counter() - t_s:.1f} s (host clock)")
+
+
 def kernels_report() -> dict:
     from learn_fhe_tpu_torch.utils import kernels
 
@@ -2536,8 +2788,10 @@ def main() -> None:
     for name, (regs, st, ld, stack) in sorted(report.items()):
         if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, or no u64, RNS or BGV kernel")
+    past_2048 = {f"{k}_kernel<{log_n}>" for k in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32") for log_n in NTT_LOG_NS}
+    cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")}
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048 or no K-COEF-CROSS")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -2741,6 +2995,8 @@ def main() -> None:
         ("BGV G1", lambda: bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("BGV G2", lambda: bgv_g2(dev, tag, launches)),
         ("TFHE T1", lambda: tfhe_t1(dev, tag)),
+        ("NTT N1-N2", lambda: ntt_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
+        ("parallel S1-S2", lambda: coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
     ):
         t0 = time.perf_counter()
         run()
@@ -2781,6 +3037,15 @@ def main() -> None:
         ("rns_intt_mac_n16384", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193,280 and models/bgv/bgv.py:420-422 (rns_intt of the mul's tensor products at N=2^14; XLA fusions; no Pallas call)"),
         # BGV's t-corrected limb drop (G1's shapes; its launches are G2's path's)
         ("bgv_drop", "bgv.cu", "learn_fhe_tpu/models/bgv/bgv.py:176 (_drop_limb with its _DropPlan tables :154-173, XLA fusion; no Pallas call)"),
+        # the Pallas kernels' own ring (N1's (256, 16384); launches: N1's path)
+        ("ntt32_n16384", "ntt32.cu", "bench/pallas_ntt14_experiment.py:166 (call_fwd at its default (256, 16384))"),
+        ("intt32_n16384", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183 (call_polymul's inverse half at (256, 16384))"),
+        ("negacyclic_mul32_n16384", "ntt32.cu", "bench/pallas_ntt14_experiment.py:183 (call_polymul at (256, 16384))"),
+        # the u64 engine at 2^14 (N2): K-RNS-NTT's one-limb launch
+        ("ntt64_n16384", "rns64.cu", "learn_fhe_tpu/ops/ntt.py:135 (ntt at bench.py:364's N=2^14, XLA fusion; no Pallas call)"),
+        # the coefficient-sharded layers (S1's D=2 forward shapes; launches: S2's ranks)
+        ("coef_cross", "coef.cu", "learn_fhe_tpu/parallel/coef.py:157-167,180-190 (cross-shard layer bodies in shard_map, XLA fusions; no Pallas call)"),
+        ("coef32_cross", "coef.cu", "learn_fhe_tpu/parallel/coef32.py:148-158,171-181 (cross-shard layer bodies in shard_map, XLA fusions; no Pallas call)"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {

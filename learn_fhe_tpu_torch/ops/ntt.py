@@ -26,6 +26,15 @@ Each wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
 to the kernel, or the wrapper raises. Below q < 2^62 the kernels run their
 lazy instance (`lazy_butterflies`), above it the eager one, as the C side
 chooses; both return the canonical residues.
+
+Past N = 2048 (2^12 .. 2^16: `bench.py --metric ntt`'s ring N = 2^14 among
+them) `ntt64`, `intt64` and `negacyclic_mul64` run on K-RNS-NTT with one
+limb (`ops/rns.py`, whose one-prime plan holds this plan's tables): the
+transforms are one `rns_ntt` / `rns_intt` launch, counted there; the product
+is one `rns_ntt` launch for each operand and one `rns_intt_mac` of one term,
+whose final scale N^-1 2^64 undoes its REDC. Past 2^13 those instances are
+lazy only, so a prime of 2^62 or more raises there. `ntt64_mont` stays at
+N <= 2048.
 """
 
 from __future__ import annotations
@@ -171,7 +180,7 @@ def negacyclic_mul64_ref(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> tor
 
 
 def _check(name: str, x: torch.Tensor, plan: NttPlan) -> int:
-    if not 1 <= plan.log_n <= kernels.MAX_LOG_N:
+    if not 1 <= plan.log_n <= kernels.MAX_LOG_N:  # K-NTT64's rings; past them `_one_limb`'s
         raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << kernels.MAX_LOG_N}, got {plan.n}")
     kernels.require(name, x, torch.int64)
     if x.dim() == 0 or x.shape[-1] != plan.n:
@@ -213,10 +222,24 @@ def _transform(fn, entry: str, x: torch.Tensor, plan: NttPlan, *consts: int) -> 
     return y
 
 
+def _one_limb(plan: NttPlan):
+    """The one-prime RNS plan of K-RNS-NTT past K-NTT64's rings, or None
+    where K-NTT64 takes the plan."""
+    if plan.log_n <= kernels.MAX_LOG_N:
+        return None
+    from .rns import rns_plan
+
+    return rns_plan((plan.q,), plan.n)
+
+
 def ntt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Forward NTT of every row of x (int64 residues in [0, q))."""
     if x.is_cpu:
         return ntt64_ref(x, plan)
+    if (rp := _one_limb(plan)) is not None:
+        from .rns import rns_ntt
+
+        return rns_ntt(x.unsqueeze(-2), rp).squeeze(-2)
     return _transform(ntt64, "lft_ntt64_fwd", x, plan)
 
 
@@ -232,6 +255,10 @@ def intt64(x: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Inverse NTT of every row of x (int64 residues in [0, q))."""
     if x.is_cpu:
         return intt64_ref(x, plan)
+    if (rp := _one_limb(plan)) is not None:
+        from .rns import rns_intt
+
+        return rns_intt(x.unsqueeze(-2), rp).squeeze(-2)
     return _transform(intt64, "lft_ntt64_inv", x, plan)
 
 
@@ -244,6 +271,12 @@ def negacyclic_mul64(a: torch.Tensor, b: torch.Tensor, plan: NttPlan) -> torch.T
     """Row-wise negacyclic product mod q of two equal-shape residue tensors."""
     if a.is_cpu:
         return negacyclic_mul64_ref(a, b, plan)
+    if (rp := _one_limb(plan)) is not None:
+        from .rns import rns_intt_mac, rns_ntt
+
+        kernels.require("negacyclic_mul64", b, torch.int64, a.shape)
+        ea, eb = (rns_ntt(t.unsqueeze(-2), rp) for t in (a, b))
+        return rns_intt_mac([ea], [eb], rp).squeeze(-2)
     rows = _check("negacyclic_mul64", a, plan)
     kernels.require("negacyclic_mul64", b, torch.int64, a.shape)
     if plan.log_n == BULK_LOG_N and (a.data_ptr() % 16 or b.data_ptr() % 16):

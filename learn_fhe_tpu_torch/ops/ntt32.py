@@ -8,9 +8,11 @@ element with the JAX package.
 Kernels (`csrc/ntt32.cu`), each beside its plain radix-2 version:
 - `ntt32` / `intt32` replace the Pallas forward kernel
   `bench/pallas_ntt14_experiment.py:166` (`call_fwd`) and the inverse half
-  of its polymul kernel (:183): a block owns max(1, 2048 / n) rows and runs
-  the layers in passes of up to 3 on values held in registers (radix 8,
-  [3, 3, 3, 2] at n=2048), one barrier between passes.
+  of its polymul kernel (:183): up to n = 2048 a block owns max(1, 2048 /
+  n) rows, past it one row (n = 2^12 .. 2^14, the Pallas kernels' own
+  (256, 16384) among them, in dynamic shared memory), and runs the layers
+  in passes of up to 3 on values held in registers (radix 8, [3, 3, 3, 2]
+  at n=2048, [3, 3, 3, 3, 2] at 2^14), one barrier between passes.
 - `negacyclic_mul32` replaces the Pallas polymul kernel (:183, `call_polymul`):
   the forward passes of a and b, the pointwise product without a division
   (2^32 mod q folded into the high word, `Ntt32Plan.r32`) and the inverse
@@ -18,6 +20,10 @@ Kernels (`csrc/ntt32.cu`), each beside its plain radix-2 version:
   the torus CRT plans is; for a smaller prime (FHEW's 28-bit q) the wrapper
   runs two K-NTT launches, the pointwise product in torch and one `intt32`
   launch instead.
+These wrappers take 2 <= n <= 2^14 (`MAX_LOG_N`); the step kernel and
+K-FHEW-BR keep `kernels.MAX_LOG_N`. `pointwise_mul32` is the evaluation-basis
+product, plain torch on either device (an XLA element-wise op in the JAX
+package).
 
 Each wrapper runs the plain version only for CPU tensors. A CUDA tensor goes
 to the kernel, or the wrapper raises; there is no fallback.
@@ -37,6 +43,10 @@ from ..utils.interop import u32_to_torch
 from ..utils.primes import mod_inverse, two_adic_generator
 from .modular32 import Zq32Params, add_mod32, mul_mod32, shoup32, sub_mod32
 from .ntt import bit_reverse_indices
+
+# Largest ring of K-NTT, intt32 and K-POLYMUL: one 2^14 row of u32 is 64 KB
+# of shared memory (K-POLYMUL's two, 128 KB).
+MAX_LOG_N = 14
 
 
 @dataclass(frozen=True, eq=False)
@@ -150,10 +160,15 @@ def intt32_ref(x: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
     return mul_mod32(out, plan.n_inv, q).to(torch.int32)
 
 
+def pointwise_mul32(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
+    """Evaluation-basis pointwise product mod q of int32 residues
+    (`learn_fhe_tpu/ops/ntt32.py:704`)."""
+    return mul_mod32(a.long(), b.long(), plan.q).to(torch.int32)
+
+
 def negacyclic_mul32_ref(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:
     """Negacyclic product mod q: INTT(NTT(a) * NTT(b))."""
-    prod = mul_mod32(ntt32_ref(a, plan).long(), ntt32_ref(b, plan).long(), plan.q)
-    return intt32_ref(prod.to(torch.int32), plan)
+    return intt32_ref(pointwise_mul32(ntt32_ref(a, plan), ntt32_ref(b, plan), plan), plan)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +177,8 @@ def negacyclic_mul32_ref(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> t
 
 
 def _check(name: str, x: torch.Tensor, plan: Ntt32Plan) -> int:
-    if not 1 <= plan.log_n <= kernels.MAX_LOG_N:
-        raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << kernels.MAX_LOG_N}, got {plan.n}")
+    if not 1 <= plan.log_n <= MAX_LOG_N:
+        raise ValueError(f"{name}: the kernel takes 2 <= n <= {1 << MAX_LOG_N}, got {plan.n}")
     kernels.require(name, x, torch.int32)
     if x.dim() == 0 or x.shape[-1] != plan.n:
         raise ValueError(f"{name}: last axis must be n={plan.n}, got {tuple(x.shape)}")
@@ -217,8 +232,7 @@ def negacyclic_mul32(a: torch.Tensor, b: torch.Tensor, plan: Ntt32Plan) -> torch
     _check("negacyclic_mul32", b, plan)
     kernels.require("negacyclic_mul32", b, torch.int32, a.shape)
     if plan.q < 1 << 30:  # K-POLYMUL's product takes only 2^30 < q < 2^31
-        prod = mul_mod32(ntt32(a, plan).long(), ntt32(b, plan).long(), plan.q)
-        return intt32(prod.to(torch.int32), plan)
+        return intt32(pointwise_mul32(ntt32(a, plan), ntt32(b, plan), plan), plan)
     y = torch.empty_like(a)
     if rows:
         kernels.launch(

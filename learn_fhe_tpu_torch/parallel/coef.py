@@ -1,0 +1,264 @@
+"""Coefficient-axis (N) sharded negacyclic NTT over ranks
+(`learn_fhe_tpu/parallel/coef.py`), for the u64 / RNS engine.
+
+The coefficient axis is split contiguously over D ranks, and the full-size
+merged-twist transform is split in place:
+- layers 0 .. log2(D)-1 pair value j with j + N / 2^(l+1), always on the
+  partner rank r XOR D >> (l+1) at the same local offset, under the twiddle
+  psi_br[2^l + (r >> (log2(D) - l))], one scalar per rank and limb. Each
+  such layer is one exchange of the local block with the partner
+  (`distributed.exchange`: one `batch_isend_irecv`) and one launch of
+  K-COEF-CROSS (`coef_cross`, `csrc/coef.cu`);
+- layers log2(D) .. are local: each rank runs the tail of the transform on
+  its block with K-RNS-NTT on a per-rank plan (`local_plan`) whose table is
+  T[r][k] = psi_br[(D + r) msb(k) + k - msb(k)], the JAX package's
+  `local_psi[r]`.
+The inverse runs the local tail first, then the cross layers in reverse.
+Its local plan carries the full n^-1 as its scale: every step is exact mod
+q and the cross layers are linear, so scaling before them gives the JAX
+package's canonical values, which scales after them. The product
+(`coef_sharded_mul`) is the two forward transforms, then the pointwise
+product inside the local inverse tail (`rns_intt_mac` of one term, scaled
+by n^-1 2^64), then the cross layers. Every value equals the unsharded
+transform's (`ops/rns.py` `rns_ntt`, `rns_intt`, `rns_mul`).
+
+Every rank calls the entry points with its own shard (`shard_coef`) and
+gets its shard of the result; `mesh.gather(mesh, y, AXIS, -1)` puts it
+together. The plain version of K-COEF-CROSS is `coef_cross_ref`, the JAX
+package's layer body in torch; the wrapper runs it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from functools import lru_cache
+
+import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops.rns import RnsPlan, add_mod_v, mul_shoup_v, rns_intt, rns_intt_mac, rns_ntt, rns_plan, rns_tables, sub_mod_v
+from ..ops.modular import shoup_precompute
+from ..utils import kernels
+from ..utils.interop import u64_to_torch
+from .distributed import exchange
+from .mesh import axis_mesh, coord, shard
+
+AXIS = "coef"
+
+
+def coef_mesh(n_coef: int | None = None, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-D 'coef' mesh over every rank."""
+    return axis_mesh(AXIS, n_coef, device_type)
+
+
+def shard_coef(mesh: DeviceMesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous slice of x's trailing coefficient axis."""
+    return shard(mesh, x, AXIS, -1)
+
+
+@dataclass(frozen=True, eq=False)
+class CoefNttPlan:
+    """Host tables for a D-way coefficient-sharded (qs, n) NTT: the JAX
+    package's, value for value."""
+
+    qs: tuple[int, ...]
+    n: int
+    d: int  # ranks along the coef axis
+    log_d: int
+    # cross-shard layer twiddles, per (layer, rank, limb): (log_d, D, L, 1)
+    cross_tw: np.ndarray
+    cross_tw_shoup: np.ndarray
+    cross_tw_inv: np.ndarray
+    cross_tw_inv_shoup: np.ndarray
+    # per-rank local tables, plan-table layout: (D, L, n/D)
+    local_psi: np.ndarray
+    local_psi_shoup: np.ndarray
+    local_psi_inv: np.ndarray
+    local_psi_inv_shoup: np.ndarray
+    # the full ring's n^-1 per limb (L, 1), the local tails' scale
+    n_inv: np.ndarray
+    n_inv_shoup: np.ndarray
+
+
+def cross_table(table: np.ndarray, d: int) -> np.ndarray:
+    """out[l, r] = table[..., 2^l + (r >> (log2 d - l))]: (log_d, d, *lead)."""
+    log_d = d.bit_length() - 1
+    out = np.empty((log_d, d, *table.shape[:-1]), dtype=table.dtype)
+    for l in range(log_d):
+        for r in range(d):
+            out[l, r] = table[..., (1 << l) + (r >> (log_d - l))]
+    return out
+
+
+def local_table(table: np.ndarray, d: int) -> np.ndarray:
+    """T[r][..., k] = table[..., (d + r) msb(k) + (k - msb(k))], T[r][..., 0]
+    = table[..., 0] (unused): (d, *lead, n/d)."""
+    m = table.shape[-1] // d
+    out = np.empty((d, *table.shape[:-1], m), dtype=table.dtype)
+    out[..., 0] = table[..., 0]
+    for k in range(1, m):
+        msb = 1 << (k.bit_length() - 1)
+        out[..., k] = np.moveaxis(table[..., (d + np.arange(d)) * msb + (k - msb)], -1, 0)
+    return out
+
+
+@lru_cache(maxsize=None)
+def coef_ntt_plan(qs: tuple[int, ...], n: int, d: int) -> CoefNttPlan:
+    assert d & (d - 1) == 0 and d >= 1
+    assert n % d == 0 and n // d >= 2, (n, d)
+    base = rns_plan(qs, n)
+    cross = lambda t: cross_table(t, d)[..., None]  # noqa: E731
+    local = lambda t: local_table(t, d)  # noqa: E731
+    return CoefNttPlan(
+        qs=qs,
+        n=n,
+        d=d,
+        log_d=d.bit_length() - 1,
+        cross_tw=cross(base.psi_br),
+        cross_tw_shoup=cross(base.psi_br_shoup),
+        cross_tw_inv=cross(base.psi_inv_br),
+        cross_tw_inv_shoup=cross(base.psi_inv_br_shoup),
+        local_psi=local(base.psi_br),
+        local_psi_shoup=local(base.psi_br_shoup),
+        local_psi_inv=local(base.psi_inv_br),
+        local_psi_inv_shoup=local(base.psi_inv_br_shoup),
+        n_inv=base.n_inv,
+        n_inv_shoup=base.n_inv_shoup,
+    )
+
+
+@lru_cache(maxsize=None)
+def local_plan(plan: CoefNttPlan, rank: int) -> RnsPlan:
+    """K-RNS-NTT's plan for rank `rank`'s local tail: the ring n/D, the
+    rank's tables, and the full n's n^-1 (and n^-1 2^64 for `rns_intt_mac`)."""
+    n_inv_mac = np.array([(int(v) << 64) % q for v, q in zip(plan.n_inv[:, 0], plan.qs)], dtype=np.uint64)[:, None]
+    return replace(
+        rns_plan(plan.qs, plan.n // plan.d),
+        psi_br=plan.local_psi[rank],
+        psi_br_shoup=plan.local_psi_shoup[rank],
+        psi_inv_br=plan.local_psi_inv[rank],
+        psi_inv_br_shoup=plan.local_psi_inv_shoup[rank],
+        n_inv=plan.n_inv,
+        n_inv_shoup=plan.n_inv_shoup,
+        n_inv_mac=n_inv_mac,
+        n_inv_mac_shoup=np.array([int(shoup_precompute(int(v), q)) for v, q in zip(n_inv_mac[:, 0], plan.qs)], dtype=np.uint64)[:, None],
+    )
+
+
+# ---------------------------------------------------------------------------
+# K-COEF-CROSS: one cross-shard layer
+# ---------------------------------------------------------------------------
+
+
+def _upper(plan, layer: int, rank: int) -> bool:
+    """Whether rank `rank` keeps the upper value of layer `layer`'s pairs."""
+    return bool((rank >> (plan.log_d - layer - 1)) & 1)
+
+
+@lru_cache(maxsize=None)
+def _cross_tables(plan: CoefNttPlan, layer: int, rank: int, inverse: bool, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (L,) twiddles and Shoup duals of rank `rank` at `layer`, on `device`."""
+    t, ts = (plan.cross_tw_inv, plan.cross_tw_inv_shoup) if inverse else (plan.cross_tw, plan.cross_tw_shoup)
+    return u64_to_torch(np.ascontiguousarray(t[layer, rank, :, 0]), device), u64_to_torch(np.ascontiguousarray(ts[layer, rank, :, 0]), device)
+
+
+def coef_cross_ref(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, layer: int, rank: int, inverse: bool) -> torch.Tensor:
+    """The JAX package's layer body (`coef.py:157-167` forward, `:180-190`
+    inverse) on (..., L, n/D) int64 blocks."""
+    upper = _upper(plan, layer, rank)
+    t, ts = (v[:, None] for v in _cross_tables(plan, layer, rank, inverse, x.device))
+    q = rns_tables(rns_plan(plan.qs, plan.n), x.device).q
+    u, v = (recv, x) if upper else (x, recv)
+    if inverse:
+        return mul_shoup_v(sub_mod_v(u, v, q), t, ts, q) if upper else add_mod_v(u, v, q)
+    tv = mul_shoup_v(v, t, ts, q)
+    return sub_mod_v(u, tv, q) if upper else add_mod_v(u, tv, q)
+
+
+def coef_cross(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, layer: int, rank: int, inverse: bool = False) -> torch.Tensor:
+    """Cross-shard layer `layer` of rank `rank`: its block x and its
+    partner's block recv, (..., L, n/D) int64, in one K-COEF-CROSS launch."""
+    if x.is_cpu:
+        return coef_cross_ref(x, recv, plan, layer, rank, inverse)
+    m, limbs = plan.n // plan.d, len(plan.qs)
+    for t in (x, recv):
+        kernels.require("coef_cross", t, torch.int64, x.shape)
+        if t.data_ptr() % 16:
+            raise ValueError("coef_cross: the kernel moves 16-byte words; an operand is not 16-byte aligned")
+    if x.dim() < 2 or x.shape[-2:] != (limbs, m) or m % 2:
+        raise ValueError(f"coef_cross: expected (..., {limbs}, {m}) with an even row, got {tuple(x.shape)}")
+    y = torch.empty_like(x)
+    rows = x.numel() // m
+    if rows:
+        t, ts = _cross_tables(plan, layer, rank, inverse, x.device)
+        q = rns_tables(rns_plan(plan.qs, plan.n), x.device).q
+        kernels.launch(
+            "lft_coef_cross64", x.data_ptr(), recv.data_ptr(), y.data_ptr(), t.data_ptr(), ts.data_ptr(), q.data_ptr(),
+            rows, m // 2, limbs, int(_upper(plan, layer, rank)), int(inverse),
+        )  # fmt: skip
+        coef_cross.launches += 1
+    return y
+
+
+coef_cross.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The sharded transforms, per rank
+# ---------------------------------------------------------------------------
+
+
+def _cross_layers(x: torch.Tensor, plan, rank: int, group, inverse: bool, cross) -> torch.Tensor:
+    """The log2(D) cross-shard layers (in reverse for the inverse): per
+    layer one exchange with the partner rank and one `cross` launch."""
+    layers = range(plan.log_d - 1, -1, -1) if inverse else range(plan.log_d)
+    for layer in layers:
+        recv = exchange(x, rank ^ (plan.d >> (layer + 1)), group)
+        x = cross(x, recv, plan, layer, rank, inverse)
+    return x
+
+
+def coef_ntt_local(x: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
+    """Forward NTT of rank `rank`'s (..., L, n/D) block: the same positions
+    of the full bit-reversed-order NTT. `group` holds the D ranks in coef
+    order (None: the world)."""
+    x = _cross_layers(x, plan, rank, group, False, coef_cross)
+    return rns_ntt(x, local_plan(plan, rank))
+
+
+def coef_intt_local(x: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
+    """Inverse NTT of rank `rank`'s block: the local tail scaled by the full
+    n^-1, then the cross layers in reverse."""
+    x = rns_intt(x, local_plan(plan, rank))
+    return _cross_layers(x, plan, rank, group, True, coef_cross)
+
+
+def coef_mul_local(a: torch.Tensor, b: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
+    """Negacyclic product of rank `rank`'s blocks of a and b: both forward
+    transforms, the product inside the local inverse tail, the cross layers."""
+    ea, eb = coef_ntt_local(a, plan, rank, group), coef_ntt_local(b, plan, rank, group)
+    x = rns_intt_mac([ea], [eb], local_plan(plan, rank))
+    return _cross_layers(x, plan, rank, group, True, coef_cross)
+
+
+def _plan_of(mesh: DeviceMesh, x: torch.Tensor, qs: tuple[int, ...]) -> tuple[CoefNttPlan, int, object]:
+    rank, d = coord(mesh, AXIS)
+    return coef_ntt_plan(tuple(qs), x.shape[-1] * d, d), rank, mesh.get_group(AXIS)
+
+
+def coef_sharded_ntt(mesh: DeviceMesh, x: torch.Tensor, qs: tuple[int, ...]) -> torch.Tensor:
+    """This rank's shard of the NTT of the (..., L, N) tensor whose shard x is."""
+    plan, rank, group = _plan_of(mesh, x, qs)
+    return coef_ntt_local(x, plan, rank, group)
+
+
+def coef_sharded_intt(mesh: DeviceMesh, x: torch.Tensor, qs: tuple[int, ...]) -> torch.Tensor:
+    plan, rank, group = _plan_of(mesh, x, qs)
+    return coef_intt_local(x, plan, rank, group)
+
+
+def coef_sharded_mul(mesh: DeviceMesh, a: torch.Tensor, b: torch.Tensor, qs: tuple[int, ...]) -> torch.Tensor:
+    """This rank's shard of the negacyclic product; equal to `ops.rns.rns_mul`'s."""
+    plan, rank, group = _plan_of(mesh, a, qs)
+    return coef_mul_local(a, b, plan, rank, group)

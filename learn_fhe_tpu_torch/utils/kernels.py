@@ -5,7 +5,10 @@ per source, all started together, and linked into one shared library with a
 plain C interface, loaded with ctypes. The library is
 cached in `build/learn_fhe_tpu_torch/` beside the package, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
-loaded again. Nothing here is imported or built until a wrapper is handed a
+loaded again. Processes that start at once (the ranks of
+`parallel/dryrun.py`) build it once: the first takes an `fcntl` lock beside
+the library and builds, the others wait on the lock and load what it
+built (`build_once`). Nothing here is imported or built until a wrapper is handed a
 CUDA tensor.
 
 Every C entry point of a kernel takes tensors as raw device pointers and
@@ -18,6 +21,7 @@ called through `call`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -31,13 +35,15 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu")
+SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu", "coef.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )  # fmt: skip
 
-# Largest ring the kernels take: one N=2048 row of u32 is 8 KB of shared memory.
+# Largest ring of the step kernel, K-FHEW-BR and the u64 FHEW kernels (one
+# N=2048 row of u32 is 8 KB of shared memory); K-NTT, intt32 and K-POLYMUL
+# take up to 2^14 (`ops/ntt32.MAX_LOG_N`), K-RNS-NTT up to 2^16.
 MAX_LOG_N = 11
 MAX_PRIMES = 4
 
@@ -125,6 +131,11 @@ _SIGNATURES = {
     "lft_bgv_drop": (_P,) * 7 + (_I,) * 4 + (_LL, _U64, _U64, _P),
     # host function (no stream): cluster, log_n, rows_g, rows_k
     "lft_fhew_walk64_clusters": (_I,) * 4,
+    # x, v (the partner's block), y, per-limb t, its Shoup dual and q, rows,
+    # 16-byte words a row, limbs, upper, inverse, stream
+    "lft_coef_cross64": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # x, v, y, t, its Shoup dual, q, rows, words a row, upper, inverse, stream
+    "lft_coef_cross32": (_P,) * 3 + (_U,) * 3 + (_I,) * 4 + (_P,),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
     # half, window, ops, idxs, sched_len
     "lft_fhew_build_schedule": (_P, _LL, _LL, _P, _P, _LL, _I, _P, _P, _LL),
@@ -194,12 +205,24 @@ def load(so: Path, optional: frozenset[str] = frozenset()) -> ctypes.CDLL:
     return lib
 
 
+def build_once(csrc: Path, so: Path, sources: tuple[str, ...] = SOURCES) -> None:
+    """`build` unless `so` exists, under an exclusive `fcntl` lock on
+    `so.lock`: of processes that call it at once, one builds and the others
+    wait, then find the library built."""
+    if so.exists():
+        return
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.with_name(f"{so.name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            build(csrc, so, sources)
+
+
 @lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     so = _library_path()
-    if not so.exists():
-        build(CSRC, so)
+    build_once(CSRC, so)
     return load(so)
 
 
@@ -218,7 +241,7 @@ _KERNEL_NAME = re.compile(
     r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
     r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
-    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop)_kernel"
+    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32)_kernel"
     r"(I(?:L[ib]\d+E)+E)?"
 )
 

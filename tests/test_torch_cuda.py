@@ -181,9 +181,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tntt.ntt32(x.long(), plan)  # wrong dtype
     with pytest.raises(ValueError):
         tntt.ntt32(x.t(), plan)  # not contiguous / wrong length
-    big = tntt.ntt32_plan(_step_plan(4096).primes[0], 4096)
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    big = tntt.ntt32_plan(next(two_adic_primes(31, 16)), 1 << 15)  # past K-NTT's 2^14
     with pytest.raises(ValueError):
-        tntt.ntt32(torch.zeros((1, 4096), dtype=torch.int32, device=dev), big)
+        tntt.ntt32(torch.zeros((1, 1 << 15), dtype=torch.int32, device=dev), big)
     with pytest.raises(ValueError):  # not 16-byte aligned
         tntt.ntt32(torch.zeros(2 * 256 + 1, dtype=torch.int32, device=dev)[1:].view(2, 256), plan)
     small_q = tntt.ntt32_plan(7681, 256)  # below 2^30: two K-NTT launches, the product in torch, intt32
@@ -1701,3 +1703,160 @@ def test_parity_external_product_and_cmux_on_card_match_cpu(dev):
             _same(got.a, want.a)
             _same(got.b, want.b)
     assert tntt.ntt32.launches and tntt.intt32.launches and tcrt.garner_to_u64.launches
+
+
+# ---------------------------------------------------------------------------
+# Past N = 2048: K-NTT, intt32 and K-POLYMUL at 2^12 .. 2^14 (one row a
+# block), the u64 engine on K-RNS-NTT with one limb, and K-COEF-CROSS
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("log_n", [12, 13, 14])
+def test_ntt_kernels_past_2048_match_plain(dev, log_n):
+    """K-NTT, intt32 and K-POLYMUL at 1, 3 and 7 rows with edge values,
+    under a 31-bit prime (K-POLYMUL) and a 28-bit one (two K-NTT, the
+    product in torch, one intt32), each counter rising as the route says."""
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    for q, mul_steps in ((next(two_adic_primes(31, 15)), (0, 0, 1)), (next(two_adic_primes(28, 15)), (2, 1, 0))):
+        plan = tntt.ntt32_plan(q, n)
+        for rows in (1, 3, 7):
+            a = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+            b = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
+            a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, q - 1, q - 1, 0
+            a, b = u32_to_torch(a), u32_to_torch(b)
+            counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32)
+            before = [f.launches for f in counted]
+            _same(tntt.ntt32(a.to(dev), plan), tntt.ntt32_ref(a, plan))
+            _same(tntt.intt32(a.to(dev), plan), tntt.intt32_ref(a, plan))
+            assert [f.launches - b0 for f, b0 in zip(counted, before)] == [1, 1, 0]
+            before = [f.launches for f in counted]
+            _same(tntt.negacyclic_mul32(a.to(dev), b.to(dev), plan), tntt.negacyclic_mul32_ref(a, b, plan))
+            assert tuple(f.launches - b0 for f, b0 in zip(counted, before)) == mul_steps
+
+
+def test_ntt_kernels_past_2048_on_views(dev):
+    """At 2^14 a row view at a 16-byte aligned offset of a larger buffer
+    runs; a view off 16-byte alignment raises."""
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    n, q = 1 << 14, next(two_adic_primes(31, 15))
+    plan = tntt.ntt32_plan(q, n)
+    flat = u32_to_torch(np.random.default_rng(7).integers(0, q, size=3 * n + 4, dtype=np.uint32)).to(dev)
+    view = flat[4 : 4 + 3 * n].view(3, n)
+    assert view.data_ptr() % 16 == 0
+    _same(tntt.ntt32(view, plan), tntt.ntt32_ref(view.cpu(), plan))
+    _same(tntt.negacyclic_mul32(view, view.flip(0).contiguous(), plan), tntt.negacyclic_mul32_ref(view.cpu(), view.flip(0).cpu(), plan))
+    off = flat[1 : 1 + 3 * n].view(3, n)
+    for fn in (tntt.ntt32, tntt.intt32):
+        with pytest.raises(ValueError):
+            fn(off, plan)
+    with pytest.raises(ValueError):
+        tntt.negacyclic_mul32(off, off, plan)
+
+
+@pytest.mark.parametrize("log_n", [12, 13, 14, 16])
+def test_u64_transforms_past_2048_run_on_rns_ntt(dev, log_n):
+    """ntt64, intt64 and negacyclic_mul64 past 2048 on 1 and 3 rows: one
+    K-RNS-NTT launch a transform, two and one rns_intt_mac a product, no
+    K-NTT64 launch; past 2^13 a prime of 2^62 or more raises."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    n = 1 << log_n
+    q = next(two_adic_primes(55, log_n + 1))
+    plan = ntt64.ntt_plan(q, n)
+    rng = np.random.default_rng(log_n)
+    counted = (rns.rns_ntt, rns.rns_intt, rns.rns_intt_mac, ntt64.ntt64, ntt64.intt64, ntt64.negacyclic_mul64)
+    for rows in (1, 3):
+        a = u64_to_torch(rng.integers(0, q, size=(rows, n), dtype=np.uint64))
+        b = u64_to_torch(rng.integers(0, q, size=(rows, n), dtype=np.uint64))
+        for fn, plain, args, steps in (
+            (ntt64.ntt64, ntt64.ntt64_ref, (a,), [1, 0, 0]),
+            (ntt64.intt64, ntt64.intt64_ref, (a,), [0, 1, 0]),
+            (ntt64.negacyclic_mul64, ntt64.negacyclic_mul64_ref, (a, b), [2, 0, 1]),
+        ):
+            before = [f.launches for f in counted]
+            _same(fn(*(t.to(dev) for t in args), plan), plain(*args, plan))
+            assert [f.launches - b0 for f, b0 in zip(counted, before)] == steps + [0, 0, 0]
+    if log_n > 13:
+        big = ntt64.ntt_plan(next(two_adic_primes(63, log_n + 1)), n)
+        with pytest.raises(ValueError):
+            ntt64.ntt64(torch.zeros((1, n), dtype=torch.int64, device=dev), big)
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_coef_cross_matches_plain(dev, d):
+    """K-COEF-CROSS, u64 at (3, 4, 8192 / d) and u32 at (5, 16384 / d), at
+    every layer of every rank, forward and inverse, each call one launch;
+    an operand off 16-byte alignment raises."""
+    from learn_fhe_tpu_torch.parallel import coef as pc
+    from learn_fhe_tpu_torch.parallel import coef32 as pc32
+    from learn_fhe_tpu_torch.parallel.dryrun import coef32_inputs, coef_inputs
+
+    qs, x, v = coef_inputs(((3,), 13, 4, 55), seed=d)
+    m = x.shape[-1] // d
+    x, v = u64_to_torch(x[..., :m].copy()), u64_to_torch(v[..., :m].copy())
+    q, x32, v32 = coef32_inputs(((5,), 14, 28), seed=d)
+    x32, v32 = u32_to_torch(x32[..., : (1 << 14) // d].copy()), u32_to_torch(v32[..., : (1 << 14) // d].copy())
+    for fn, plain, plan, a, b in (
+        (pc.coef_cross, pc.coef_cross_ref, pc.coef_ntt_plan(qs, 8192, d), x, v),
+        (pc32.coef32_cross, pc32.coef32_cross_ref, pc32.coef32_plan(q, 1 << 14, d), x32, v32),
+    ):
+        for rank in range(d):
+            for layer in range(plan.log_d):
+                for inverse in (False, True):
+                    before = fn.launches
+                    _same(fn(a.to(dev), b.to(dev), plan, layer, rank, inverse), plain(a, b, plan, layer, rank, inverse))
+                    assert fn.launches == before + 1
+        flat = torch.zeros(a.numel() + 1, dtype=a.dtype, device=dev)
+        with pytest.raises(ValueError):
+            fn(flat[1:].view(a.shape), b.to(dev), plan, 0, 0)
+
+
+def test_coef_sharded_product_on_one_rank(dev, tmp_path):
+    """A world of one rank (gloo, in this process): the exchange-free D = 1
+    coefficient-sharded transforms and products equal the unsharded ones on
+    the card, and merge_shares of one party is the value mod q."""
+    import torch.distributed as dist
+
+    from learn_fhe_tpu_torch.ops import ntt32 as n32
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.parallel import coef, coef32, multiparty
+    from learn_fhe_tpu_torch.parallel.distributed import init_distributed
+    from learn_fhe_tpu_torch.parallel.dryrun import coef32_inputs, coef_inputs
+
+    assert init_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo")
+    try:
+        mesh = coef.coef_mesh()
+        qs, a, b = coef_inputs(((2,), 13, 4, 55))
+        a, b = u64_to_torch(a, dev), u64_to_torch(b, dev)
+        plan = rns.rns_plan(qs, 8192)
+        _same(coef.coef_sharded_ntt(mesh, a, qs), rns.rns_ntt(a, plan).cpu())
+        _same(coef.coef_sharded_intt(mesh, a, qs), rns.rns_intt(a, plan).cpu())
+        _same(coef.coef_sharded_mul(mesh, a, b, qs), rns.rns_mul(a, b, plan).cpu())
+        q, a32, b32 = coef32_inputs(((3,), 14, 28))
+        a32, b32 = u32_to_torch(a32, dev), u32_to_torch(b32, dev)
+        _same(coef32.coef32_sharded_mul(mesh, a32, b32, q), n32.negacyclic_mul32(a32, b32, n32.ntt32_plan(q, 1 << 14)).cpu())
+        shares = torch.arange(12, dtype=torch.int64, device=dev).view(1, 12) * 1000
+        _same(multiparty.merge_shares(multiparty.party_mesh(), shares, 7681), (shares[0] % 7681).cpu())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_on_the_card_over_gloo(dev):
+    """`python -m learn_fhe_tpu_torch.parallel.dryrun --ranks 2 --size small`
+    on the card: every phase equals its unsharded result."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run(
+        [sys.executable, "-m", "learn_fhe_tpu_torch.parallel.dryrun", "--ranks", "2", "--size", "small", "--backend", "gloo"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600,
+    )  # fmt: skip
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "dryrun OK: 2 ranks (cuda, small)" in out.stdout

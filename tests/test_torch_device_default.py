@@ -378,3 +378,43 @@ def test_bgv_key_gen_and_carry_over_default_to_the_card():
     for name, make in made.items():
         out = make()
         assert out.b.device.type == "cuda" and out.a.device.type == "cuda", name
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """The meshes and the dry run default to the CUDA device; the CPU tests
+    pass device_type="cpu" / device="cpu"."""
+    import inspect
+
+    from learn_fhe_tpu_torch.parallel import coef, distributed, dryrun, mesh, multiparty
+
+    for fn in (mesh.make_mesh, mesh.axis_mesh, coef.coef_mesh, multiparty.party_mesh, distributed.global_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda", fn.__name__
+    assert inspect.signature(dryrun.run).parameters["device"].default == "cuda"
+
+
+def test_dryrun_raises_without_cuda(no_cuda):
+    from learn_fhe_tpu_torch.parallel import dryrun
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        dryrun.run(2)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        dryrun.main(["--ranks", "2"])
+
+
+def test_large_ring_wrappers_on_cpu_when_asked():
+    """Past 2048 the u32 and u64 wrappers run their plain versions for CPU
+    tensors and count no launch."""
+    from learn_fhe_tpu_torch.ops import ntt as ntt64
+    from learn_fhe_tpu_torch.ops import ntt32, rns
+
+    q32 = next(two_adic_primes(31, 13))
+    p32 = ntt32.ntt32_plan(q32, 4096)
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, q32, size=(2, 4096)).astype(np.int32))
+    q64 = next(two_adic_primes(55, 13))
+    p64 = ntt64.ntt_plan(q64, 4096)
+    y = torch.from_numpy(np.random.default_rng(1).integers(0, q64, size=(2, 4096)).astype(np.int64))
+    counted = (ntt32.ntt32, ntt32.intt32, ntt32.negacyclic_mul32, rns.rns_ntt, rns.rns_intt, rns.rns_intt_mac)
+    before = [f.launches for f in counted]
+    assert torch.equal(ntt32.negacyclic_mul32(x, x, p32), ntt32.negacyclic_mul32_ref(x, x, p32))
+    assert torch.equal(ntt64.negacyclic_mul64(y, y, p64), ntt64.negacyclic_mul64_ref(y, y, p64))
+    assert [f.launches for f in counted] == before

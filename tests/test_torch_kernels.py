@@ -28,6 +28,8 @@ _NTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff16ntt64_fwd_kernelILb1ELi
 _INTT64 = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff16ntt64_inv_kernelILb1ELi11EEEvPKmPmN5lft646TablesEii"
 _MUL64_BULK = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff28negacyclic_mul64_bulk_kernelILb1EEEvPKmS2_PmN5lft646TablesEm"
 _EXT64 = "_ZN44_GLOBAL__N__15b4274e_11_fhew_u64_cu_b001eb1725external_product64_kernelILb1ELi11EEEvPKmS2_PmS3_PKiS2_S2_iiiN5lft646TablesENS6_6GadgetEiiPi"
+_CROSS64 = "_ZN39_GLOBAL__N__5b1e0c7a_7_coef_cu_c3d2e1f019coef_cross64_kernelILb1EEEvPK10ulonglong2S3_PS1_PKmS6_S6_iiii"
+_CROSS32 = "_ZN39_GLOBAL__N__5b1e0c7a_7_coef_cu_c3d2e1f019coef_cross32_kernelILb0EEEvPK5uint4S3_PS1_jjjiii"
 _WALK64 = (
     "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
     "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
@@ -62,6 +64,9 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_EXT64.replace("ILb1ELi11EE", "ILb0ELi0EE"), "external_product64_kernel<false,0>"),
         (_WALK64, "fhew_blind_rotate64_kernel<true,false>"),
         (_WALK64.replace("ILb1ELb0EE", "ILb1ELb1EE"), "fhew_blind_rotate64_kernel<true,true>"),
+        (_MUL.replace("ILi11EE", "ILi14EE"), "negacyclic_mul32_kernel<14>"),
+        (_CROSS64, "coef_cross64_kernel<true>"),
+        (_CROSS32, "coef_cross32_kernel<false>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):

@@ -57,7 +57,8 @@ def test_ntt32_intt32_polymul_match_jax(n):
 
 
 # ---------------------------------------------------------------------------
-# A model of the kernels' schedule (csrc/ntt32.cu): blocks of 2048 values,
+# A model of the kernels' schedule (csrc/ntt32.cu): blocks of 2048 values
+# up to n = 2048 and of one row past it,
 # passes of up to 3 layers on items of 2^W values, the swizzled buffer
 # between passes, the ragged last block's masked loads and stores, and
 # K-POLYMUL's product and first inverse pass in registers. Plain int64
@@ -65,7 +66,10 @@ def test_ntt32_intt32_polymul_match_jax(n):
 # product is the kernels' division-free one.
 # ---------------------------------------------------------------------------
 
-_BLOCK_VALUES = 2048  # a block's rows hold 8 values per thread of 256
+def _block_values(log_n: int) -> int:
+    """Values of a block's rows: 2048 (8 a thread of 256) up to n = 2048,
+    one row past it."""
+    return max(2048, 1 << log_n)
 
 
 def _pass_widths(log_n: int) -> list[int]:
@@ -81,7 +85,7 @@ def _pass_items(log_n: int, l0: int, w: int):
     """Item t of a block's pass: hi, and the (items, 2^w) indices of its
     values in the block's rows, base + (m << log_h)."""
     log_h = log_n - l0 - w
-    t = torch.arange(_BLOCK_VALUES >> w)
+    t = torch.arange(_block_values(log_n) >> w)
     hi = (t & ((1 << (log_n - w)) - 1)) >> log_h
     base = ((t >> (log_n - w)) << log_n) + (hi << (log_n - l0)) + (t & ((1 << log_h) - 1))
     return hi, base[:, None] + (torch.arange(1 << w) << log_h)
@@ -132,18 +136,18 @@ def _kernel_model(kind: str, plan, x: np.ndarray, b: np.ndarray | None = None) -
     """The kernels' schedule over all blocks at once: kind 'fwd' (K-NTT),
     'inv' (its inverse) or 'mul' (K-POLYMUL)."""
     n, log_n, q = plan.n, plan.log_n, plan.q
-    rows = x.shape[0]
-    blocks = -(-rows * n // _BLOCK_VALUES)
-    limit = torch.clamp(rows * n - torch.arange(blocks) * _BLOCK_VALUES, max=_BLOCK_VALUES)
+    rows, bv = x.shape[0], _block_values(log_n)
+    blocks = -(-rows * n // bv)
+    limit = torch.clamp(rows * n - torch.arange(blocks) * bv, max=bv)
 
     def rows_of(v):  # device memory: the blocks' values, zeros past the last row
-        flat = torch.zeros(blocks * _BLOCK_VALUES, dtype=torch.int64)
+        flat = torch.zeros(blocks * bv, dtype=torch.int64)
         flat[: rows * n] = torch.from_numpy(v.astype(np.int64)).reshape(-1)
-        return flat.reshape(blocks, _BLOCK_VALUES)
+        return flat.reshape(blocks, bv)
 
     ins = [rows_of(x)] + ([rows_of(b)] if kind == "mul" else [])
-    bufs = [torch.full((blocks, _BLOCK_VALUES), -1, dtype=torch.int64) for _ in ins]
-    out = torch.full((blocks, _BLOCK_VALUES), -1, dtype=torch.int64)
+    bufs = [torch.full((blocks, bv), -1, dtype=torch.int64) for _ in ins]
+    out = torch.full((blocks, bv), -1, dtype=torch.int64)
     tab = {f: torch.from_numpy(getattr(plan, f).astype(np.int64)) for f in ("psi_br", "psi_inv_br")}
     widths = _pass_widths(log_n)
     l0s = [3 * p for p in range(len(widths))]
@@ -196,7 +200,7 @@ def test_kernel_schedule_model_matches_jax(log_n):
     every n = 2..2048, with a ragged last block (rows per block + 1 rows)
     and inputs holding 0 and q - 1."""
     n = 1 << log_n
-    rows = (_BLOCK_VALUES >> log_n) + 1
+    rows = (_block_values(log_n) >> log_n) + 1
     rng = np.random.default_rng(log_n)
     for q in _step_primes(n):
         jp, tp = jntt.ntt32_plan(q, n), tntt.ntt32_plan(q, n)
