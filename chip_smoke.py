@@ -251,7 +251,10 @@ parallel layer (`learn_fhe_tpu_torch/parallel/`):
       31-bit prime, and the 28-bit route (two K-NTT, a torch product, one
       intt32) at `bench.py`'s scaling shape (4, 16384), `torch.equal`, each
       counter rising by one a call; time each eager and from a CUDA graph
-      against its bound, with the instances' registers and spills; the
+      against its bound (and the compare-and-select count's), with the
+      instances' registers and spills, and beside each time its threads,
+      shared memory and blocks an SM (`ops/ntt32.occupancy`; a block a
+      row, no cluster); the
       path: `bench.py::bench_ntt`'s chained loop (10 muls and 10 adds a
       call) at (256, 16384), then the 28-bit polymul, with the counters
       set to 0 just before and read just after; polymuls/s of the loop;
@@ -394,7 +397,9 @@ def fhew_walk_ops_shoup(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: 
 
 # K-FHEW-BR's own arithmetic, as its SASS has it: each conditional subtract
 # is the unsigned minimum min(s, s - q), which Hopper fuses into one
-# VIADDMNMX (counted on the ALU pipe, as a minimum is).
+# VIADDMNMX (counted on the ALU pipe, as a minimum is). It works for every
+# q < 2^31, so it is also the least count of K-NTT, intt32 and K-POLYMUL
+# (`ntt32_ops`), whose SASS still compares and selects.
 SHOUP_MIN = np.array([3, 1, 0])  # mul hi, mul, mul-sub; subtract-and-minimum
 ADD_MIN = np.array([0, 1, 1])  # add; subtract-and-minimum
 SUB_MIN = np.array([0, 1, 1])  # subtract; add-and-minimum
@@ -407,6 +412,22 @@ ZQ_FIELD = np.array([0, 3, 1])  # per digit: shift, mask, less the offset mod q
 
 def ntt_ops_min(rows: int, n: int) -> np.ndarray:
     return rows * (n // 2) * (n.bit_length() - 1) * BUTTERFLY_MIN
+
+
+def ntt32_ops(kind: str, rows: int, n: int, least: bool = True) -> np.ndarray:
+    """K-NTT's (`ntt32`), `intt32`'s or K-POLYMUL's (`negacyclic_mul32`)
+    instructions on (rows, n): log N butterflies a pair; the inverse's 1/N
+    scale; K-POLYMUL's three transforms and its product (counted as one
+    Shoup product more). least: each conditional subtract as one
+    min(s, s - q), the least the work needs (the bound); else as the
+    kernels compile it, a compare and a select (printed beside it)."""
+    ntt, shoup = (ntt_ops_min, SHOUP_MIN) if least else (ntt_ops, SHOUP)
+    values = rows * n
+    return {
+        "ntt32": ntt(rows, n),
+        "intt32": ntt(rows, n) + values * shoup,
+        "negacyclic_mul32": 3 * ntt(rows, n) + 2 * values * shoup,
+    }[kind]
 
 
 def fhew_walk_ops(ext_steps: int, auto_steps: int, n: int, d_g: int, d_k: int, chunk: int) -> np.ndarray:
@@ -2593,17 +2614,24 @@ def ntt_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) ->
         n = 1 << log_n
         plan = t32.ntt32_plan(q31, n)
         a, b = (u32_to_torch(rng.integers(0, q31, size=(NTT_BATCH, n), dtype=np.uint32), dev) for _ in range(2))
-        for name, fn, plain, args, ops, n_bytes in (
-            ("ntt32", t32.ntt32, t32.ntt32_ref, (a,), ntt_ops(NTT_BATCH, n), 2 * a.numel() * 4),
-            ("intt32", t32.intt32, t32.intt32_ref, (a,), ntt_ops(NTT_BATCH, n) + a.numel() * SHOUP, 2 * a.numel() * 4),
-            ("negacyclic_mul32", t32.negacyclic_mul32, t32.negacyclic_mul32_ref, (a, b), 3 * ntt_ops(NTT_BATCH, n) + 2 * a.numel() * SHOUP, 3 * a.numel() * 4),
+        for name, fn, plain, args in (
+            ("ntt32", t32.ntt32, t32.ntt32_ref, (a,)),
+            ("intt32", t32.intt32, t32.intt32_ref, (a,)),
+            ("negacyclic_mul32", t32.negacyclic_mul32, t32.negacyclic_mul32_ref, (a, b)),
         ):
+            n_bytes = (len(args) + 1) * a.numel() * 4
             before = fn.launches
             got = fn(*args, plan)
             if fn.launches != before + 1:
                 raise AssertionError(f"N1: {name} at N={n} launched {fn.launches - before} times in one call")
             err = max_abs_err(got, plain(*args, plan).cpu())
-            cases[name, log_n] = (lambda fn=fn, args=args, plan=plan: fn(*args, plan), lambda plain=plain, args=args, plan=plan: plain(*args, plan), bound_ms(n_bytes, ops, pipe_per_s), err)
+            cases[name, log_n] = (
+                lambda fn=fn, args=args, plan=plan: fn(*args, plan),
+                lambda plain=plain, args=args, plan=plan: plain(*args, plan),
+                bound_ms(n_bytes, ntt32_ops(name, NTT_BATCH, n), pipe_per_s),
+                bound_ms(n_bytes, ntt32_ops(name, NTT_BATCH, n, least=False), pipe_per_s)[0],
+                err,
+            )
         say(f"N1 ntt32 / intt32 / negacyclic_mul32 == plain at ({NTT_BATCH}, {n}), q = {q31}, each counter +1 a call: ok")
     plan28 = t32.ntt32_plan(q28, 1 << 14)
     a28, b28 = (u32_to_torch(rng.integers(0, q28, size=(SCALING_ROWS, 1 << 14), dtype=np.uint32), dev) for _ in range(2))
@@ -2614,10 +2642,13 @@ def ntt_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) ->
     if steps != [2, 1, 0]:
         raise AssertionError(f"N1: the 28-bit route launched (ntt32, intt32, negacyclic_mul32) {steps}, expected [2, 1, 0]")
     say(f"N1 the 28-bit route (q = {q28}) at ({SCALING_ROWS}, 16384) == plain: two K-NTT, one intt32 launch: ok (max |err| {err28})")
-    for (name, log_n), (kernel, plain, (b_ms, by), err) in cases.items():
+    say("N1 the instances past 2048 launch no cluster (cluster size 1): a 512-thread block a row")
+    for (name, log_n), (kernel, plain, (b_ms, by), cs_ms, err) in cases.items():
         k_ms, g_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS)
         p_ms = cuda_ms(plain, 2)
-        say(f"{tag} N1 {name} ({NTT_BATCH}, {1 << log_n}): eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph)")
+        occ = t32.occupancy(name, log_n)
+        where = f"{occ['threads']} threads, {occ['smem'] >> 10} KB shared, {occ['blocks_per_sm']} blocks an SM"
+        say(f"{tag} N1 {name} ({NTT_BATCH}, {1 << log_n}) ({where}): eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph); the compare-and-select count's bound {cs_ms * 1e3:.2f} us = {cs_ms / g_ms:.4f} of it")
         if log_n == 14:
             row = f"{name}_n16384"
             timings[row], graphs[row], bounds[row], errs[row] = (k_ms, p_ms), g_ms, (b_ms, by), err
@@ -2970,9 +3001,8 @@ def main() -> None:
         timings[name] = (cuda_ms(kernel, 50), cuda_ms(plain, 3))
         graphs[name] = graph_ms(kernel, 50)
     row_bytes = rows * n_big * 4
-    bounds["ntt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big), pipe_per_s)
-    bounds["intt32"] = bound_ms(2 * row_bytes, ntt_ops(rows, n_big) + rows * n_big * SHOUP, pipe_per_s)
-    bounds["negacyclic_mul32"] = bound_ms(3 * row_bytes, 3 * ntt_ops(rows, n_big) + 2 * rows * n_big * SHOUP, pipe_per_s)
+    for name in ("ntt32", "intt32", "negacyclic_mul32"):
+        bounds[name] = bound_ms((3 if name == "negacyclic_mul32" else 2) * row_bytes, ntt32_ops(name, rows, n_big), pipe_per_s)
     bounds["garner_to_u64"] = bound_ms(key_plan.k * row_bytes + rows * n_big * 8, rows * n_big * garner_ops(key_plan.k), pipe_per_s)
     for name, (k_ms, p_ms) in timings.items():
         b_ms, by = bounds[name]

@@ -16,12 +16,6 @@
 //   - up to N = 2048 a 256-thread block owns max(1, 2048 / N) rows (2048
 //     values, 8 per thread at every N); the grid is ceil(rows / rows per
 //     block), and the ragged last block masks its missing rows;
-//   - past 2048 (N = 2^12 .. 2^14, the Pallas kernels' own N = 2^14) a
-//     block owns one row, N / 8 threads of up to 1024 (8 or 16 values a
-//     thread), the row waiting between passes in dynamic shared memory (16
-//     to 64 KB per operand; K-POLYMUL's 128 KB at 2^14 opted in); the
-//     launch bounds keep every instance at 64 registers a thread, as at
-//     2048. 14 layers run as [3, 3, 3, 3, 2];
 //   - the layers run in passes of up to 3 on values held in registers
 //     (lft::fwd_radix / inv_radix, shared with the step kernel), [3, 3, 3, 2]
 //     at N=2048, with one barrier between passes and the values waiting in
@@ -41,10 +35,32 @@
 //   - one instance per ring size 2^LOG_N, so every pass's index arithmetic
 //     is constant; up to 2048, 8 or 16 KB of shared memory and at most 64
 //     registers a thread let 4 blocks share an SM.
-// On an H100 neither more resident blocks nor a persistent grid that brings
-// the next rows in with bulk copies ran faster (PERF.md): the SMs' issue of
-// the compiled integer instructions sets the time, and most of the ALU's
-// share is the compare and select of the conditional subtracts.
+// Past 2048 (N = 2^12 .. 2^14, the Pallas kernels' own (256, 2^14)) a block
+// owns one row (the row passes below). There one 1024-thread block an SM
+// (64 registers) stalled the SM at every barrier and ran 256 rows in two
+// waves, K-POLYMUL's two 64 KB operands left room for no second block and
+// spilled, and the address arithmetic of an item's swizzled slots and of
+// its twiddles' scalar loads took issue slots the butterflies needed
+// (PERF.md, section 6). So:
+//   - 512 threads a block (kRowThreads), 64 registers: two blocks an SM,
+//     256 rows in one wave; a thread takes its pass's items in turns (1, 2
+//     or 4 items of 8 values by ring; 8 of 2 or 4 in a narrow last pass),
+//     the passes as above ([3, 3, 3, 3, 2] at 2^14);
+//   - an item's buffer slots from one swizzle (lft::slot: value m's slot is
+//     swizzle(base) with a constant XORed or added in), and each layer's
+//     twiddles of an item in one 4-, 8- or 16-byte load
+//     (lft::pass_twiddles_wide);
+//   - K-POLYMUL keeps a and b in the buffer up to 2^13 (64 KB); from
+//     kScratchLogN one operand's 64 KB: a's forward passes write NTT(a) to
+//     y through the L2, b's last forward pass reads each item of it back
+//     (the same thread wrote it), multiplies, runs its inverse layers, and
+//     the inverse passes end in y; its turns run one or two at a time
+//     (mul_turns), which keeps ptxas at 64 registers without a spill.
+// At 2048 neither more resident blocks nor a persistent grid that brings
+// the next rows in with bulk copies ran faster on an H100 (PERF.md): the
+// SMs' issue of the compiled integer instructions sets the time, and most
+// of the ALU's share is the compare and select of the conditional
+// subtracts.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,6 +72,13 @@ namespace {
 
 constexpr int kMaxLogN = 14;
 constexpr int kRowsLogN = 11;  // up to 2^11 a block holds 2048 values; past it, one row
+constexpr int kRowThreads = 512;  // past 2^11: a row's block, two of them an SM
+constexpr int kScratchLogN = 14;  // from here K-POLYMUL's buffer holds one operand
+// (parking NTT(a) at 2^12 and 2^13 too ran 10-17% slower on an H100: PERF.md)
+constexpr int kNttTurns = 0;      // K-NTT / intt32 past 2^11: every turn of a pass unrolled
+// K-POLYMUL past 2^11: turns unrolled 2 at a time at 2^14, one at a time
+// below, where two let ptxas spill
+__host__ __device__ constexpr int mul_turns(int log_n) { return log_n >= kScratchLogN ? 2 : 1; }
 
 // Values of a block's rows per operand, its threads, and the blocks an SM
 // must hold at once (launch bounds: 64 registers a thread at every ring).
@@ -63,13 +86,18 @@ __host__ __device__ constexpr int block_values(int log_n) {
   return log_n > kRowsLogN ? 1 << log_n : 1 << kRowsLogN;
 }
 __host__ __device__ constexpr int block_threads(int log_n) {
-  return block_values(log_n) / 8 < 1024 ? block_values(log_n) / 8 : 1024;
+  return log_n > kRowsLogN ? kRowThreads : block_values(log_n) / 8;
 }
 __host__ __device__ constexpr int min_blocks(int log_n) { return 1024 / block_threads(log_n); }
+// Operands of K in a block's buffer: K-POLYMUL's a and b up to 2^13, one
+// from kScratchLogN (NTT(a) waits in y).
+__host__ __device__ constexpr int buffer_operands(int log_n, int k) {
+  return log_n >= kScratchLogN ? 1 : k;
+}
 // Dynamic shared memory of a block with K operands: none up to 2^11, where
 // the buffer is static.
 __host__ __device__ constexpr int dynamic_smem(int log_n, int k) {
-  return log_n > kRowsLogN ? k * 4 * block_values(log_n) : 0;
+  return log_n > kRowsLogN ? buffer_operands(log_n, k) * 4 * block_values(log_n) : 0;
 }
 
 // What a block works on: its shared buffer, the prime's tables and constants,
@@ -227,6 +255,204 @@ __device__ __forceinline__ void inverse_pass(const Rows& k, const uint32_t* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// Past 2^11: a block owns one row, kRowThreads threads, two blocks an SM.
+// ---------------------------------------------------------------------------
+
+// Pass P of a row: its layers, and the item of thread threadIdx.x's turn j,
+// i = threadIdx.x + j kRowThreads of the row's 2^(LOG_N - W): hi = i >>
+// kLogH, its values at + (m << kLogH) (Item's map on one row).
+template <int LOG_N, int P>
+struct RowItem {
+  static constexpr int kL0 = 3 * P, kW = lft::pass_width(LOG_N, P), kLogH = LOG_N - kL0 - kW;
+  static constexpr int kTurns = (1 << (LOG_N - kW)) / kRowThreads;
+  static constexpr bool kLast = P == lft::pass_count(LOG_N) - 1;
+  int hi, at;
+  __device__ __forceinline__ explicit RowItem(int j) {
+    const int i = static_cast<int>(threadIdx.x) + j * kRowThreads;
+    hi = i >> kLogH;
+    at = (hi << (LOG_N - kL0)) + (i & ((1 << kLogH) - 1));
+  }
+};
+
+// f(j) for each turn j < N of a row's pass: unrolled (kU = 0), or kU turns
+// at a time (ptxas holds K-POLYMUL's passes to 64 registers without spilling
+// only so).
+template <int N, int kU, class F>
+__device__ __forceinline__ void for_turns(F&& f) {
+  if constexpr (kU == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) f(j);
+  } else if constexpr (kU == 2) {
+#pragma unroll 2
+    for (int j = 0; j < N; ++j) f(j);
+  } else {
+    static_assert(kU == 1, "turns unrolled 0 (all), 1 or 2 at a time");
+#pragma unroll 1
+    for (int j = 0; j < N; ++j) f(j);
+  }
+}
+
+// An item's values from device memory: contiguous runs in 16- or 8-byte
+// loads, strided values one by one (neighbouring threads on neighbouring
+// words); kL2: through the L2 alone (values this thread stored there).
+template <int W, int LOG_H, bool kL2 = false>
+__device__ __forceinline__ void row_load(uint32_t (&x)[1 << W], const uint32_t* p) {
+  if constexpr (kL2) {
+    static_assert(LOG_H == 0 && W >= 2, "a run of 4 or more values");
+#pragma unroll
+    for (int c = 0; c < (1 << W); c += 4) {
+      const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p + c));
+      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
+    }
+  } else if constexpr (LOG_H == 0 && W >= 2) {
+    lft::load_global<1 << W>(x, p);
+  } else if constexpr (LOG_H == 0) {
+    lft::load_words<1 << W>(x, p);
+  } else {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) x[m] = __ldg(p + (m << LOG_H));
+  }
+}
+
+// An item's values to device memory, the same way; kL2: kept in the L2.
+template <int W, int LOG_H, bool kL2 = false>
+__device__ __forceinline__ void row_store(const uint32_t (&x)[1 << W], uint32_t* p) {
+  if constexpr (LOG_H == 0 && W >= 2) {
+#pragma unroll
+    for (int c = 0; c < (1 << W); c += 4) {
+      const uint4 v = make_uint4(x[c], x[c + 1], x[c + 2], x[c + 3]);
+      if constexpr (kL2) {
+        __stcg(reinterpret_cast<uint4*>(p + c), v);
+      } else {
+        *reinterpret_cast<uint4*>(p + c) = v;
+      }
+    }
+  } else {
+    static_assert(!kL2, "a run of 4 or more values");
+    if constexpr (LOG_H == 0 && W == 1) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(x[0], x[1]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < (1 << W); ++m) p[m << LOG_H] = x[m];
+    }
+  }
+}
+
+// inverse_layers with the twiddles in wide loads.
+template <int W, int L0>
+__device__ __forceinline__ void row_inverse_layers(const Rows& k, uint32_t (&x)[1 << W], int hi) {
+  uint32_t w[(1 << W) - 1], ws[(1 << W) - 1];
+  lft::pass_twiddles_wide<W>(w, ws, k.psi_inv, k.psi_inv_s, L0, hi);
+  lft::inv_radix<W>(x, w, ws, k.q);
+  if constexpr (L0 == 0) {
+#pragma unroll
+    for (int m = 0; m < (1 << W); ++m) x[m] = lft::mul_shoup(x[m], k.n_inv, k.n_inv_s, k.q);
+  }
+}
+
+// What a row's last forward pass does with its runs of 2^W outputs.
+enum class End {
+  kStore,    // writes them to out (K-NTT)
+  kScratch,  // writes them to out, kept in the L2 (K-POLYMUL's NTT(a) past kScratchLogN)
+  kMul,      // multiplies them by b's (K = 2: the buffer's second operand;
+             // K = 1: NTT(a), read back from out where kScratch put it), runs
+             // the inverse of its own layers on the product, and puts that
+             // in the buffer (in out if they end at layer 0)
+};
+
+// Forward pass P of a row, then the ones after it, on K operands (operand o
+// in buffer slice o): pass 0 reads in[o] (device memory), the others the
+// buffer; the last pass ends as E says. A turn takes one operand's item at a
+// time under the twiddles it loaded once for all K; kU: for_turns' unrolling.
+template <int LOG_N, int P, int K, End E, int kU>
+__device__ __forceinline__ void row_forward(const Rows& k, const uint32_t* const (&in)[K], uint32_t* __restrict__ out) {
+  using It = RowItem<LOG_N, P>;
+  constexpr int W = It::kW, R = 1 << W, kLogH = It::kLogH, kValues = 1 << LOG_N;
+  for_turns<It::kTurns, kU>([&](int j) {
+    const It it(j);
+    const int sw = lft::swizzle(it.at);  // its values' slots: lft::slot(sw, m)
+    uint32_t w[R - 1], ws[R - 1];
+    lft::pass_twiddles_wide<W>(w, ws, k.psi, k.psi_s, It::kL0, it.hi);
+    uint32_t x[R];
+    if constexpr (!It::kLast || E != End::kMul) {
+#pragma unroll
+      for (int o = 0; o < K; ++o) {
+        if constexpr (P == 0) {
+          row_load<W, kLogH>(x, in[o] + it.at);
+        } else {
+          lft::load_slots<W, kLogH>(x, k.buf + o * kValues, sw);
+        }
+        lft::fwd_radix<W>(x, w, ws, k.q);
+        if constexpr (!It::kLast) {
+          lft::store_slots<W, kLogH>(x, k.buf + o * kValues, sw);
+        } else {
+          row_store<W, 0, E == End::kScratch>(x, out + it.at);
+        }
+      }
+    } else {
+      uint32_t y[R];
+      if constexpr (P == 0) {
+        row_load<W, kLogH>(x, in[0] + it.at);
+      } else {
+        lft::load_slots<W, kLogH>(x, k.buf, sw);
+      }
+      lft::fwd_radix<W>(x, w, ws, k.q);
+      if constexpr (K == 2) {
+        if constexpr (P == 0) {
+          row_load<W, kLogH>(y, in[1] + it.at);
+        } else {
+          lft::load_slots<W, kLogH>(y, k.buf + kValues, sw);
+        }
+        lft::fwd_radix<W>(y, w, ws, k.q);
+      } else {
+        row_load<W, 0, true>(y, out + it.at);
+      }
+#pragma unroll
+      for (int m = 0; m < R; ++m) x[m] = lft::mul_fold(x[m], y[m], k.r32, k.r32_s, k.q);
+      row_inverse_layers<W, It::kL0>(k, x, it.hi);
+      if constexpr (It::kL0 == 0) {
+        row_store<W, 0>(x, out + it.at);
+      } else {
+        lft::store_slots<W, 0>(x, k.buf, sw);
+      }
+    }
+  });
+  if constexpr (!It::kLast) {
+    __syncthreads();
+    row_forward<LOG_N, P + 1, K, E, kU>(k, in, out);
+  }
+}
+
+// The inverse of a row's forward pass P, then of P-1 .. 0, on buffer slice
+// 0; kFromGlobal: P is the last forward pass, its runs read from `in`. Pass
+// 0 scales by 1/N and writes `out`.
+template <int LOG_N, int P, bool kFromGlobal, int kU>
+__device__ __forceinline__ void row_inverse(const Rows& k, const uint32_t* __restrict__ in, uint32_t* __restrict__ out) {
+  using It = RowItem<LOG_N, P>;
+  constexpr int W = It::kW, kLogH = It::kLogH;
+  for_turns<It::kTurns, kU>([&](int j) {
+    const It it(j);
+    const int sw = lft::swizzle(it.at);  // its values' slots: lft::slot(sw, m)
+    uint32_t x[1 << W];
+    if constexpr (kFromGlobal) {
+      row_load<W, kLogH>(x, in + it.at);
+    } else {
+      lft::load_slots<W, kLogH>(x, k.buf, sw);
+    }
+    row_inverse_layers<W, It::kL0>(k, x, it.hi);
+    if constexpr (P == 0) {
+      row_store<W, kLogH>(x, out + it.at);
+    } else {
+      lft::store_slots<W, kLogH>(x, k.buf, sw);
+    }
+  });
+  if constexpr (P > 0) {
+    __syncthreads();
+    row_inverse<LOG_N, P - 1, false, kU>(k, in, out);
+  }
+}
+
 // Values of the block's rows that exist, of `values` in all.
 template <int LOG_N>
 __device__ __forceinline__ int block_limit(long long values) {
@@ -257,7 +483,11 @@ __global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
   const Rows k{block_buffer<LOG_N, 1>(), psi, psi_s, nullptr, nullptr, q, 0, 0, 0, 0,
                block_limit<LOG_N>(values)};
   const uint32_t* const in[1] = {x + first};
-  forward_pass<LOG_N, 0, 1>(k, in, y + first);
+  if constexpr (LOG_N > kRowsLogN) {
+    row_forward<LOG_N, 0, 1, End::kStore, kNttTurns>(k, in, y + first);
+  } else {
+    forward_pass<LOG_N, 0, 1>(k, in, y + first);
+  }
 }
 
 template <int LOG_N>
@@ -268,7 +498,11 @@ __global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
   const size_t first = static_cast<size_t>(blockIdx.x) * block_values(LOG_N);
   const Rows k{block_buffer<LOG_N, 1>(), nullptr, nullptr, psi_inv, psi_inv_s, q, n_inv,
                n_inv_s, 0, 0, block_limit<LOG_N>(values)};
-  inverse_pass<LOG_N, lft::pass_count(LOG_N) - 1, true>(k, x + first, y + first);
+  if constexpr (LOG_N > kRowsLogN) {
+    row_inverse<LOG_N, lft::pass_count(LOG_N) - 1, true, kNttTurns>(k, x + first, y + first);
+  } else {
+    inverse_pass<LOG_N, lft::pass_count(LOG_N) - 1, true>(k, x + first, y + first);
+  }
 }
 
 // y = INTT(NTT(a) * NTT(b)) on the block's rows of a and b.
@@ -283,12 +517,27 @@ __global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
   const size_t first = static_cast<size_t>(blockIdx.x) * block_values(LOG_N);
   const Rows k{block_buffer<LOG_N, 2>(), psi, psi_s, psi_inv, psi_inv_s, q, n_inv, n_inv_s,
                r32, r32_s, block_limit<LOG_N>(values)};
-  const uint32_t* const in[2] = {a + first, b + first};
-  forward_pass<LOG_N, 0, 2>(k, in, y + first);
   constexpr int kLast = lft::pass_count(LOG_N) - 1;
-  if constexpr (kLast > 0) {
+  if constexpr (LOG_N >= kScratchLogN) {  // NTT(a) into y, then b's forward takes it back
+    const uint32_t* const in_a[1] = {a + first};
+    const uint32_t* const in_b[1] = {b + first};
+    row_forward<LOG_N, 0, 1, End::kScratch, mul_turns(LOG_N)>(k, in_a, y + first);
+    __syncthreads();  // b's first pass overwrites what a's last pass read
+    row_forward<LOG_N, 0, 1, End::kMul, mul_turns(LOG_N)>(k, in_b, y + first);
     __syncthreads();
-    inverse_pass<LOG_N, kLast - 1, false>(k, nullptr, y + first);
+    row_inverse<LOG_N, kLast - 1, false, mul_turns(LOG_N)>(k, nullptr, y + first);
+  } else if constexpr (LOG_N > kRowsLogN) {
+    const uint32_t* const in[2] = {a + first, b + first};
+    row_forward<LOG_N, 0, 2, End::kMul, mul_turns(LOG_N)>(k, in, y + first);
+    __syncthreads();
+    row_inverse<LOG_N, kLast - 1, false, mul_turns(LOG_N)>(k, nullptr, y + first);
+  } else {
+    const uint32_t* const in[2] = {a + first, b + first};
+    forward_pass<LOG_N, 0, 2>(k, in, y + first);
+    if constexpr (kLast > 0) {
+      __syncthreads();
+      inverse_pass<LOG_N, kLast - 1, false>(k, nullptr, y + first);
+    }
   }
 }
 
@@ -320,15 +569,21 @@ unsigned blocks(int rows, int log_n) {
   return static_cast<unsigned>((rows + per_block - 1) / per_block);
 }
 
+// Opts `kernel` in to smem bytes of dynamic shared memory where that passes
+// 48 KB; a CUDA error, or 0.
+template <class Kernel>
+int opt_in(Kernel kernel, int smem) {
+  return smem > 48 * 1024
+             ? static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+             : 0;
+}
+
 // Launches `kernel` for ring 2^log_n on `grid` blocks with K operands'
-// buffer, opting it in to dynamic shared memory past 48 KB.
+// buffer.
 template <int K, class Kernel, class... Args>
 int launch(Kernel kernel, unsigned grid, int log_n, void* stream, Args... args) {
   const int smem = dynamic_smem(log_n, K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (const int err = opt_in(kernel, smem)) return err;
   kernel<<<grid, block_threads(log_n), smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
@@ -372,6 +627,24 @@ int lft_negacyclic_mul32(const void* a, const void* b, void* y, const void* psi,
                    static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_s),
                    static_cast<const uint32_t*>(psi_inv), static_cast<const uint32_t*>(psi_inv_s),
                    static_cast<long long>(rows) << log_n, q, n_inv, n_inv_s, r32, r32_s);
+}
+
+// Host function: the instance of kind (0 K-NTT, 1 intt32, 2 K-POLYMUL) at
+// ring 2^log_n, into out[3]: threads a block, dynamic shared memory bytes
+// and blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); no
+// instance launches a cluster. A CUDA error, or 0.
+int lft_ntt32_occupancy(int kind, int log_n, int* out) {
+  if (kind < 0 || kind > 2 || log_n < 1 || log_n > kMaxLogN) return static_cast<int>(cudaErrorInvalidValue);
+  const int k = kind == 2 ? 2 : 1, smem = dynamic_smem(log_n, k);
+  const void* kernel = kind == 0   ? reinterpret_cast<const void*>(fwd_kernel(log_n, kLogNs))
+                       : kind == 1 ? reinterpret_cast<const void*>(inv_kernel(log_n, kLogNs))
+                                   : reinterpret_cast<const void*>(mul_kernel(log_n, kLogNs));
+  if (const int err = opt_in(kernel, smem)) return err;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block_threads(log_n), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = block_threads(log_n), out[1] = smem, out[2] = blocks;
+  return 0;
 }
 
 }  // extern "C"

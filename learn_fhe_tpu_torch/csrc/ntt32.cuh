@@ -61,6 +61,45 @@ __device__ __forceinline__ void pass_twiddles(uint32_t (&w)[(1 << W) - 1],
   }
 }
 
+// C contiguous words from device memory through the read-only cache, in one
+// load (src aligned to 4 C bytes).
+template <int C>
+__device__ __forceinline__ void load_words(uint32_t* dst, const uint32_t* __restrict__ src) {
+  if constexpr (C == 1) {
+    dst[0] = __ldg(src);
+  } else if constexpr (C == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+    dst[0] = v.x, dst[1] = v.y;
+  } else {
+    static_assert(C == 4, "one load takes 1, 2 or 4 words");
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  }
+}
+
+// pass_twiddles' values, in its order, from device memory in wide loads:
+// layer l0+t's 2^t twiddles of an item are contiguous at (1 << (l0+t)) +
+// (hi << t), a multiple of 2^t, so with the tables 16-byte aligned layer
+// l0+1's are one 8-byte load and layer l0+2's one 16-byte load (3 loads of
+// a table for a radix-8 item, not 7).
+template <int W>
+__device__ __forceinline__ void pass_twiddles_wide(uint32_t (&w)[(1 << W) - 1],
+                                                   uint32_t (&ws)[(1 << W) - 1],
+                                                   const uint32_t* __restrict__ tab,
+                                                   const uint32_t* __restrict__ tab_s, int l0, int hi) {
+  static_assert(W >= 1 && W <= 3, "a pass runs 1 to 3 layers");
+  load_words<1>(w, tab + (1 << l0) + hi);
+  load_words<1>(ws, tab_s + (1 << l0) + hi);
+  if constexpr (W > 1) {
+    load_words<2>(w + 1, tab + (2 << l0) + (hi << 1));
+    load_words<2>(ws + 1, tab_s + (2 << l0) + (hi << 1));
+  }
+  if constexpr (W > 2) {
+    load_words<4>(w + 3, tab + (4 << l0) + (hi << 2));
+    load_words<4>(ws + 3, tab_s + (4 << l0) + (hi << 2));
+  }
+}
+
 // Forward (Cooley-Tukey) layers of one pass, in place on x.
 template <int W>
 __device__ __forceinline__ void fwd_radix(uint32_t (&x)[1 << W], const uint32_t (&w)[(1 << W) - 1],
@@ -154,6 +193,51 @@ __device__ __forceinline__ void store_row(const uint32_t (&x)[1 << W], uint32_t*
   } else {
 #pragma unroll
     for (int m = 0; m < R; ++m) buf[swizzle(base + (m << LOG_H))] = x[m];
+  }
+}
+
+// The same pass values' slots from swizzle(base) alone. The pass's values
+// are base + (m << LOG_H) with base's bits LOG_H .. LOG_H+W-1 zero, and
+// swizzle is linear in XOR on disjoint bits, so value m's slot is
+// swizzle(base) ^ K_m, K_m = swizzle(m << LOG_H) a constant. The bits of K_m
+// that swizzle(base) cannot hold (base's zero field, outside bits 2-4) are
+// added, which a shared access takes as its immediate offset; the others
+// are XORed: at most one instruction a value, not a swizzle each.
+__host__ __device__ constexpr int slot_bits(int log_h, int w) {  // bits swizzle(base) may hold
+  return ((1 << log_h) - 1) | (7 << 2) | ~((1 << (log_h + w)) - 1);
+}
+template <int W, int LOG_H>
+__device__ __forceinline__ int slot(int s, int m) {
+  const int k = (m << LOG_H) ^ ((((m << LOG_H) >> 5) & 7) << 2);
+  return (s ^ (k & slot_bits(LOG_H, W))) + (k & ~slot_bits(LOG_H, W));
+}
+
+template <int W, int LOG_H>
+__device__ __forceinline__ void load_slots(uint32_t (&x)[1 << W], const uint32_t* buf, int s) {
+  constexpr int R = 1 << W;
+  if constexpr (R >= 4 && LOG_H == 0) {
+#pragma unroll
+    for (int c = 0; c < R; c += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(buf + slot<W, 0>(s, c));
+      x[c] = v.x, x[c + 1] = v.y, x[c + 2] = v.z, x[c + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = buf[slot<W, LOG_H>(s, m)];
+  }
+}
+
+template <int W, int LOG_H>
+__device__ __forceinline__ void store_slots(const uint32_t (&x)[1 << W], uint32_t* buf, int s) {
+  constexpr int R = 1 << W;
+  if constexpr (R >= 4 && LOG_H == 0) {
+#pragma unroll
+    for (int c = 0; c < R; c += 4) {
+      *reinterpret_cast<uint4*>(buf + slot<W, 0>(s, c)) = make_uint4(x[c], x[c + 1], x[c + 2], x[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < R; ++m) buf[slot<W, LOG_H>(s, m)] = x[m];
   }
 }
 

@@ -10,13 +10,19 @@ Kernels (`csrc/ntt32.cu`), each beside its plain radix-2 version:
   `bench/pallas_ntt14_experiment.py:166` (`call_fwd`) and the inverse half
   of its polymul kernel (:183): up to n = 2048 a block owns max(1, 2048 /
   n) rows, past it one row (n = 2^12 .. 2^14, the Pallas kernels' own
-  (256, 16384) among them, in dynamic shared memory), and runs the layers
-  in passes of up to 3 on values held in registers (radix 8, [3, 3, 3, 2]
-  at n=2048, [3, 3, 3, 3, 2] at 2^14), one barrier between passes.
+  (256, 16384) among them, in dynamic shared memory) on 512 threads, two
+  blocks an SM, and runs the layers in passes of up to 3 on values held in
+  registers (radix 8, [3, 3, 3, 2] at n=2048, [3, 3, 3, 3, 2] at 2^14),
+  one barrier between passes; past 2048 an item's shared slots come from
+  one swizzle and each layer's twiddles in one wide load.
 - `negacyclic_mul32` replaces the Pallas polymul kernel (:183, `call_polymul`):
   the forward passes of a and b, the pointwise product without a division
   (2^32 mod q folded into the high word, `Ntt32Plan.r32`) and the inverse
-  passes in one launch. It takes primes 2^30 < q < 2^31, as every prime of
+  passes in one launch; at n = 2^14 its block keeps one operand in shared
+  memory (64 KB, two blocks an SM), a's transform waiting in the output
+  row until b's last forward pass takes it back. `occupancy(kind, log_n)`
+  names each instance's threads, shared memory and blocks an SM. It takes
+  primes 2^30 < q < 2^31, as every prime of
   the torus CRT plans is; for a smaller prime (FHEW's 28-bit q) the wrapper
   runs two K-NTT launches, the pointwise product in torch and one `intt32`
   launch instead.
@@ -45,7 +51,7 @@ from .modular32 import Zq32Params, add_mod32, mul_mod32, shoup32, sub_mod32
 from .ntt import bit_reverse_indices
 
 # Largest ring of K-NTT, intt32 and K-POLYMUL: one 2^14 row of u32 is 64 KB
-# of shared memory (K-POLYMUL's two, 128 KB).
+# of shared memory (K-POLYMUL's too: NTT(a) waits in the output row).
 MAX_LOG_N = 14
 
 
@@ -193,6 +199,21 @@ def _table_pointers(plan: Ntt32Plan, device: int) -> tuple[int, int, int, int]:
     `plan_tables`' cache keeps alive: a wrapper call reads them here rather
     than from four tensors."""
     return tuple(t.data_ptr() for t in plan_tables(plan, torch.device("cuda", device)))
+
+
+OCCUPANCY_KINDS = ("ntt32", "intt32", "negacyclic_mul32")
+
+
+def occupancy(kind: str, log_n: int) -> dict[str, int]:
+    """The kernel instance that `kind` (OCCUPANCY_KINDS) launches at N =
+    2^log_n on the current CUDA device: threads a block, dynamic shared
+    memory bytes and blocks an SM (the CUDA occupancy calculator); no
+    instance launches a cluster. Host only: no launch."""
+    out = np.zeros(3, dtype=np.int32)
+    status = kernels.call("lft_ntt32_occupancy", OCCUPANCY_KINDS.index(kind), log_n, out.ctypes.data)
+    if status != 0:
+        raise RuntimeError(f"occupancy({kind}, {log_n}): CUDA error {status}")
+    return dict(zip(("threads", "smem", "blocks_per_sm"), (int(v) for v in out)))
 
 
 def ntt32(x: torch.Tensor, plan: Ntt32Plan) -> torch.Tensor:

@@ -11,6 +11,10 @@ CUDA graph; with `--rings-only`, K-RNS-NTT and `rns_intt_mac` at the
 batch-16 BGV `mul`'s shapes (N=2^14, `chip_smoke.py` G0) and the production
 bootstrap's (N=2^16, P1), the 2^13 ones beside them (C1), K-BGV-DROP at
 G1's shapes, and the BGV and CKKS `mul`s from a CUDA graph;
+with `--ntt32-only`, K-NTT, `intt32` and K-POLYMUL at (256, 2^12 .. 2^14)
+(`chip_smoke.py` N1) and (2048, 2048), the 28-bit route at (4, 16384) and
+K-STEP at batch 128, each row with its instance's blocks an SM,
+registers and spills and the compare-and-select count's bound;
 with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
@@ -36,7 +40,7 @@ Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only | --rings-only] [--json PATH]
+    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only | --rings-only | --ntt32-only] [--json PATH]
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ NEW_ENTRIES = {
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
     "bgv_drop": "lft_bgv_drop",
 }  # fmt: skip
-HOST_ENTRIES = ("lft_rns_cluster_occupancy",)  # host functions an older library lacks
+HOST_ENTRIES = ("lft_rns_cluster_occupancy", "lft_ntt32_occupancy")  # host functions an older library lacks
 
 
 def runs_on(lib, name: str) -> bool:
@@ -80,11 +84,10 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
     walks, K-FHEW-BR64 at a round of 2 gates and at 128, K-FHEW-BR and
     K-STEP."""
     from learn_fhe_tpu_torch.examples.multi_key_uint8 import example_params
-    from learn_fhe_tpu_torch.models import fhew, tfhe
+    from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew import gates, lwe
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
-    from learn_fhe_tpu_torch.models.tfhe import tggsw, tglwe, tlwe
     from learn_fhe_tpu_torch.parallel import batch as pbatch
     from learn_fhe_tpu_torch.utils.interop import u64_to_torch
 
@@ -125,7 +128,16 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
     facc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     out.append((f"fhew_blind_rotate batch {cs.FHEW_BATCH}", lambda: boot.blind_rotate_core_fused(fp, fkey, fe, fa, facc), None, "graph"))
 
-    # K-STEP at the TFHE reference fixture, batch 128, per step of the C loop
+    out.append(step_case(dev, rng))
+    return out
+
+
+def step_case(dev, rng) -> tuple[str, object, None, str]:
+    """K-STEP at the TFHE reference fixture, batch 128, per step of the C loop."""
+    from learn_fhe_tpu_torch.models import tfhe
+    from learn_fhe_tpu_torch.models.tfhe import tggsw, tglwe, tlwe
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
     cfg = cs.REFERENCE
     tp = tfhe.BootstrapParams(
         tfhe.TlweParams(log_p=cfg["log_p"], padding=1, n=cfg["n"], std_dev=cfg["tlwe_std"], log_b=4, d=5),
@@ -144,7 +156,81 @@ def cases(dev, pipe_per_s: float, walks: bool = True) -> list[tuple[str, object,
     def step():
         tggsw.blind_rotate_steps(tp.tggsw, tkey.brk, tacc, exps, tkey.mon_v, tkey.mon_d)
 
-    out.append((f"tfhe_step batch {cs.BATCH} (per step of {steps})", step, None, f"events/{steps}"))
+    return (f"tfhe_step batch {cs.BATCH} (per step of {steps})", step, None, f"events/{steps}")
+
+
+# K-NTT, intt32 and K-POLYMUL: (rows, log N) of chip_smoke.py N1 (256 rows
+# at 2^12 .. 2^14) and of key generation's 2048 instances; the 28-bit route
+# at bench.py's scaling shape.
+NTT32_SHAPES = ((cs.NTT_BATCH, 12), (cs.NTT_BATCH, 13), (cs.NTT_BATCH, 14), (2048, 11))
+NTT32_KINDS = {"ntt32": "ntt32_fwd", "intt32": "ntt32_inv", "negacyclic_mul32": "negacyclic_mul32"}
+
+
+def ntt32_row(name: str) -> tuple[str, int, int] | None:
+    """(wrapper, rows, log N) of an `ntt32_cases` label 'wrapper (rows, N)',
+    for what is printed beside its times; None for another case."""
+    kind, _, shape = name.partition(" (")
+    if kind not in NTT32_KINDS or not shape.endswith(")"):
+        return None
+    rows, n = (int(v) for v in shape[:-1].split(", "))
+    return kind, rows, n.bit_length() - 1
+
+
+def ntt32_bound(kind: str, rows: int, n: int, pipe_per_s: float, least: bool = True) -> tuple[float, str]:
+    """chip_smoke.py N1's bound of a K-NTT, intt32 or K-POLYMUL launch;
+    least False: by the compare-and-select count (`chip_smoke.ntt32_ops`)."""
+    n_bytes = (3 if kind == "negacyclic_mul32" else 2) * rows * n * 4
+    return cs.bound_ms(n_bytes, cs.ntt32_ops(kind, rows, n, least), pipe_per_s)
+
+
+def ntt32_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """K-NTT, intt32 and K-POLYMUL at NTT32_SHAPES under the Pallas
+    experiment's 31-bit prime, the 28-bit route (two K-NTT, the product in
+    torch, one intt32) at (4, 16384), each from a graph against its bound
+    (chip_smoke.py N1's), and K-STEP at batch 128."""
+    from learn_fhe_tpu_torch.ops import ntt32 as t32
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    q31, q28 = next(two_adic_primes(31, 15)), next(two_adic_primes(28, 15))
+    rng = np.random.default_rng(20)
+    out = []
+    for rows, log_n in NTT32_SHAPES:
+        n = 1 << log_n
+        plan = t32.ntt32_plan(q31, n)
+        a, b = (u32_to_torch(rng.integers(0, q31, size=(rows, n), dtype=np.uint32), dev) for _ in range(2))
+        for name, call in (
+            ("ntt32", lambda a=a, p=plan: t32.ntt32(a, p)),
+            ("intt32", lambda a=a, p=plan: t32.intt32(a, p)),
+            ("negacyclic_mul32", lambda a=a, b=b, p=plan: t32.negacyclic_mul32(a, b, p)),
+        ):
+            out.append((f"{name} ({rows}, {n})", call, ntt32_bound(name, rows, n, pipe_per_s), "graph"))
+    n, rows = 1 << 14, cs.SCALING_ROWS
+    plan = t32.ntt32_plan(q28, n)
+    a, b = (u32_to_torch(rng.integers(0, q28, size=(rows, n), dtype=np.uint32), dev) for _ in range(2))
+    ops = cs.ntt32_ops("negacyclic_mul32", rows, n)  # two forward, one inverse; the product counted as a Shoup one
+    out.append((f"negacyclic_mul32 28-bit route ({rows}, {n})", lambda: t32.negacyclic_mul32(a, b, plan), cs.bound_ms(9 * rows * n * 4, ops, pipe_per_s), "graph"))
+    out.append(step_case(dev, np.random.default_rng(11)))
+    return out
+
+
+def ntt32_residency(lib, log: str) -> dict[tuple[str, int], str]:
+    """Per (wrapper, log N) of NTT32_SHAPES: its instance's threads, shared
+    memory and blocks an SM (from a library that has `lft_ntt32_occupancy`;
+    no instance launches a cluster), registers and spills (from the
+    library's build log)."""
+    from learn_fhe_tpu_torch.ops.ntt32 import OCCUPANCY_KINDS
+
+    report, out = kernels.ptxas_report(log), {}
+    for _, log_n in NTT32_SHAPES:
+        for kind, instance in NTT32_KINDS.items():
+            regs, st, ld, _ = report.get(f"{instance}_kernel<{log_n}>", (0, 0, 0, 0))
+            occ = "blocks an SM -"
+            if hasattr(lib, "lft_ntt32_occupancy"):
+                got = np.zeros(3, dtype=np.int32)
+                if lib.lft_ntt32_occupancy(OCCUPANCY_KINDS.index(kind), log_n, got.ctypes.data) == 0:
+                    occ = f"{got[0]} threads, {got[1]} B shared, {got[2]} blocks an SM"
+            out[kind, log_n] = f"{occ}, {regs} registers, {st} / {ld} B spilled"
     return out
 
 
@@ -343,6 +429,7 @@ def main() -> None:
     only.add_argument("--u64-only", action="store_true", help="time K-NTT64, ntt64_mont, intt64, K-POLYMUL64 and K-EXTPROD64 alone")
     only.add_argument("--rns-only", action="store_true", help="time the RNS kernels and the CKKS mul alone")
     only.add_argument("--rings-only", action="store_true", help="time the instances past 2^13 (BGV's and the production ring's), the 2^13 ones, K-BGV-DROP and both muls alone")
+    only.add_argument("--ntt32-only", action="store_true", help="time K-NTT, intt32 and K-POLYMUL at (256, 2^12 .. 2^14) and (2048, 2048), the 28-bit route and K-STEP alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("u64_ab: no CUDA device")
@@ -351,7 +438,8 @@ def main() -> None:
     pipe_per_s = cs.SMS * cs.PIPE_LANES * sm_mhz * 1e6
     print(f"card: {card}; max SM clock {sm_mhz:.0f} MHz", flush=True)
     libs = {"this": kernels.library()}
-    if not args.u64_only:
+    residency = {"this": ntt32_residency(libs["this"], kernels.build_log())}
+    if not (args.u64_only or args.ntt32_only):
         print_rns_ptxas("this", kernels.build_log())
     for parent in args.parent:
         name = parent.resolve().name
@@ -361,15 +449,19 @@ def main() -> None:
         # an older checkout lacks the newer sources: build those it has
         kernels.build(csrc, so, tuple(s for s in kernels.SOURCES if (csrc / s).exists()))
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
-        if not args.u64_only:
-            print_rns_ptxas(name, (so.parent / "build.log").read_text())
+        log = (so.parent / "build.log").read_text()
+        if not (args.u64_only or args.ntt32_only):
+            print_rns_ptxas(name, log)
         lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY, *HOST_ENTRIES)))
+        residency[name] = ntt32_residency(lib, log)
         if not hasattr(lib, SHARED_ENTRY) and hasattr(lib, GATHER_ENTRY):
             setattr(lib, SHARED_ENTRY, getattr(lib, GATHER_ENTRY))
         libs[name] = lib
     dev = torch.device("cuda", torch.cuda.current_device())
     if args.rings_only:
         built = ring_cases(dev, pipe_per_s)
+    elif args.ntt32_only:
+        built = ntt32_cases(dev, pipe_per_s)
     else:
         built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
         if not args.u64_only:
@@ -394,6 +486,14 @@ def main() -> None:
             share = "; share " + "; ".join(f"{k} {row['bound_us'] / min(row[k]):.4f}" for k in ran)
             share = f"; bound {row['bound_us']:.3f} us by {bound[1]}{share}"
         print(f"[{card}] {name}: {times} us{share}", flush=True)
+        if (key := ntt32_row(name)) is not None:
+            kind, n_rows, log_n = key
+            cs_ms, _ = ntt32_bound(kind, n_rows, 1 << log_n, pipe_per_s, least=False)
+            row["bound_compare_select_us"] = cs_ms * 1e3
+            print(f"    the compare-and-select count's bound {cs_ms * 1e3:.3f} us; share " + "; ".join(f"{k} {cs_ms * 1e3 / min(row[k]):.4f}" for k in runs if None not in row[k]), flush=True)
+            row["residency"] = {k: residency[k][kind, log_n] for k in runs}
+            for k, v in row["residency"].items():
+                print(f"    {k}: {v}", flush=True)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "sm_mhz": sm_mhz, "rows": rows}, indent=1))

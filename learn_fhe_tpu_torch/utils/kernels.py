@@ -120,6 +120,8 @@ _SIGNATURES = {
     "lft_rns_automorphism": (_P,) * 6 + (_I,) * 3 + (_P,),
     # host function (no stream): kind, log_n, terms, rows, out (5 int32)
     "lft_rns_cluster_occupancy": (_I, _I, _I, _I, _P),
+    # host function (no stream): kind, log_n, out (3 int32)
+    "lft_ntt32_occupancy": (_I, _I, _P),
     # x, y, q, q_hat^-1, its dual, 1/q, p, q_hat mod p, its dual, u Q mod p,
     # add (or null), lq, lp, log_n, batch, x batch stride, stream
     "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),

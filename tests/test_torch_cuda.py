@@ -1707,22 +1707,24 @@ def test_parity_external_product_and_cmux_on_card_match_cpu(dev):
 
 # ---------------------------------------------------------------------------
 # Past N = 2048: K-NTT, intt32 and K-POLYMUL at 2^12 .. 2^14 (one row a
-# block), the u64 engine on K-RNS-NTT with one limb, and K-COEF-CROSS
+# 512-thread block, two an SM), the u64 engine on K-RNS-NTT with one limb,
+# and K-COEF-CROSS
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("log_n", [12, 13, 14])
 def test_ntt_kernels_past_2048_match_plain(dev, log_n):
-    """K-NTT, intt32 and K-POLYMUL at 1, 3 and 7 rows with edge values,
-    under a 31-bit prime (K-POLYMUL) and a 28-bit one (two K-NTT, the
-    product in torch, one intt32), each counter rising as the route says."""
+    """K-NTT, intt32 and K-POLYMUL at 1, 3, 7 and 256 rows (the Pallas
+    experiment's, N1's) with edge values, under a 31-bit prime (K-POLYMUL)
+    and a 28-bit one (two K-NTT, the product in torch, one intt32), each
+    counter rising as the route says."""
     from learn_fhe_tpu_torch.utils.primes import two_adic_primes
 
     n = 1 << log_n
     rng = np.random.default_rng(log_n)
     for q, mul_steps in ((next(two_adic_primes(31, 15)), (0, 0, 1)), (next(two_adic_primes(28, 15)), (2, 1, 0))):
         plan = tntt.ntt32_plan(q, n)
-        for rows in (1, 3, 7):
+        for rows in (1, 3, 7, 256):
             a = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
             b = rng.integers(0, q, size=(rows, n), dtype=np.uint32)
             a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, q - 1, q - 1, 0
@@ -1737,6 +1739,19 @@ def test_ntt_kernels_past_2048_match_plain(dev, log_n):
             assert tuple(f.launches - b0 for f, b0 in zip(counted, before)) == mul_steps
 
 
+@pytest.mark.parametrize("log_n", [12, 13, 14])
+def test_ntt_instances_past_2048_two_blocks_an_sm(dev, log_n):
+    """Past 2048 every instance is a 512-thread block a row, two an SM
+    (the occupancy calculator), on one buffer of a row per operand that
+    stays in shared memory: K-POLYMUL's a and b up to 2^13, one at 2^14
+    (NTT(a) parked in y)."""
+    n = 1 << log_n
+    for kind in tntt.OCCUPANCY_KINDS:
+        buffers = 2 if kind == "negacyclic_mul32" and log_n < 14 else 1
+        want = {"threads": 512, "smem": buffers * 4 * n, "blocks_per_sm": 2}
+        assert tntt.occupancy(kind, log_n) == want, kind
+
+
 def test_ntt_kernels_past_2048_on_views(dev):
     """At 2^14 a row view at a 16-byte aligned offset of a larger buffer
     runs; a view off 16-byte alignment raises."""
@@ -1748,6 +1763,7 @@ def test_ntt_kernels_past_2048_on_views(dev):
     view = flat[4 : 4 + 3 * n].view(3, n)
     assert view.data_ptr() % 16 == 0
     _same(tntt.ntt32(view, plan), tntt.ntt32_ref(view.cpu(), plan))
+    _same(tntt.intt32(view, plan), tntt.intt32_ref(view.cpu(), plan))
     _same(tntt.negacyclic_mul32(view, view.flip(0).contiguous(), plan), tntt.negacyclic_mul32_ref(view.cpu(), view.flip(0).cpu(), plan))
     off = flat[1 : 1 + 3 * n].view(3, n)
     for fn in (tntt.ntt32, tntt.intt32):

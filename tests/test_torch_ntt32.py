@@ -61,10 +61,20 @@ def test_ntt32_intt32_polymul_match_jax(n):
 # up to n = 2048 and of one row past it,
 # passes of up to 3 layers on items of 2^W values, the swizzled buffer
 # between passes, the ragged last block's masked loads and stores, and
-# K-POLYMUL's product and first inverse pass in registers. Plain int64
+# K-POLYMUL's product and first inverse pass in registers. Past 2048 a
+# block's ROW_THREADS threads take the items in turns (item t + j
+# ROW_THREADS at turn j), an item's buffer slots come from the swizzle of
+# its first value alone, every pass's twiddles come in wide loads, and from
+# n = 2^SCRATCH_LOG_N K-POLYMUL runs a's forward passes alone, parks NTT(a)
+# in the output row and takes it back in b's last forward pass. Plain int64
 # arithmetic mod q stands in for the Shoup butterflies (both are exact); the
 # product is the kernels' division-free one.
 # ---------------------------------------------------------------------------
+
+ROWS_LOG_N = 11  # up to here a block holds 2048 values; past it, one row
+ROW_THREADS = 512  # a row's block past ROWS_LOG_N
+SCRATCH_LOG_N = 14  # from here K-POLYMUL's buffer holds one operand
+
 
 def _block_values(log_n: int) -> int:
     """Values of a block's rows: 2048 (8 a thread of 256) up to n = 2048,
@@ -91,9 +101,43 @@ def _pass_items(log_n: int, l0: int, w: int):
     return hi, base[:, None] + (torch.arange(1 << w) << log_h)
 
 
+def _row_turns(log_n: int, l0: int, w: int):
+    """Past 2048 (`RowItem`): hi and at of the item that thread t takes at
+    turn j, each (turns, ROW_THREADS), item i = t + j ROW_THREADS of the
+    row's 2^(log_n - w)."""
+    log_h = log_n - l0 - w
+    turns = (1 << (log_n - w)) // ROW_THREADS
+    i = torch.arange(ROW_THREADS)[None, :] + torch.arange(turns)[:, None] * ROW_THREADS
+    hi = i >> log_h
+    return hi, (hi << (log_n - l0)) + (i & ((1 << log_h) - 1))
+
+
+def _row_slots(log_h: int, w: int, s: torch.Tensor) -> torch.Tensor:
+    """`lft::slot`: the (items, 2^w) buffer slots of an item's values from s
+    = swizzle(base) alone, slot m = s ^ K_m with K_m = swizzle(m << log_h),
+    its bits outside those s may hold added, the rest XORed."""
+    bits = ((1 << log_h) - 1) | (7 << 2) | ~((1 << (log_h + w)) - 1)
+    m = torch.arange(1 << w) << log_h
+    k = m ^ (((m >> 5) & 7) << 2)
+    return (s[:, None] ^ (k & bits)) + (k & ~bits)
+
+
 def _pass_twiddles(tab: torch.Tensor, l0: int, w: int, hi: torch.Tensor) -> torch.Tensor:
     """(items, 2^w - 1): twiddle (1 << (l0+t)) + (hi << t) + u, in the order t, u."""
     return tab[torch.stack([(1 << (l0 + t)) + (hi << t) + u for t in range(w) for u in range(1 << t)], -1)]
+
+
+def _pass_twiddles_wide(tab: torch.Tensor, l0: int, w: int, hi: torch.Tensor) -> torch.Tensor:
+    """`lft::pass_twiddles_wide`: layer l0+t's 2^t twiddles of each item as
+    one load of 2^t words at (1 << (l0+t)) + (hi << t), which must be a
+    multiple of 2^t (the load's alignment, the table 16-byte aligned); the
+    loads laid side by side in the order t = 0, 1, 2."""
+    loads = []
+    for t in range(w):
+        at = (1 << (l0 + t)) + (hi << t)
+        assert bool((at % (1 << t) == 0).all()), f"a {4 << t}-byte load off its alignment"
+        loads.append(tab[at[:, None] + torch.arange(1 << t)])
+    return torch.cat(loads, -1)
 
 
 def _fwd_radix(x: torch.Tensor, tw: torch.Tensor, q: int) -> None:
@@ -139,6 +183,8 @@ def _kernel_model(kind: str, plan, x: np.ndarray, b: np.ndarray | None = None) -
     rows, bv = x.shape[0], _block_values(log_n)
     blocks = -(-rows * n // bv)
     limit = torch.clamp(rows * n - torch.arange(blocks) * bv, max=bv)
+    row = log_n > ROWS_LOG_N
+    scratch = kind == "mul" and log_n >= SCRATCH_LOG_N
 
     def rows_of(v):  # device memory: the blocks' values, zeros past the last row
         flat = torch.zeros(blocks * bv, dtype=torch.int64)
@@ -146,49 +192,71 @@ def _kernel_model(kind: str, plan, x: np.ndarray, b: np.ndarray | None = None) -
         return flat.reshape(blocks, bv)
 
     ins = [rows_of(x)] + ([rows_of(b)] if kind == "mul" else [])
-    bufs = [torch.full((blocks, bv), -1, dtype=torch.int64) for _ in ins]
+    # the buffer's slices: K-POLYMUL's a and b, or one from SCRATCH_LOG_N
+    bufs = [torch.full((blocks, bv), -1, dtype=torch.int64) for _ in ins[: 1 if scratch else None]]
     out = torch.full((blocks, bv), -1, dtype=torch.int64)
     tab = {f: torch.from_numpy(getattr(plan, f).astype(np.int64)) for f in ("psi_br", "psi_inv_br")}
     widths = _pass_widths(log_n)
     l0s = [3 * p for p in range(len(widths))]
+    twiddles = _pass_twiddles_wide if row else _pass_twiddles
 
-    def load(src, idx, from_global):
+    def items(l0, w):
+        """hi, the (items, 2^w) value indices and their buffer slots; past
+        2048 by (turn, thread), the slots from swizzle(at) (`lft::slot`)."""
+        if not row:
+            hi, idx = _pass_items(log_n, l0, w)
+            return hi, idx, _swizzle(idx)
+        log_h = log_n - l0 - w
+        hi, at = (v.reshape(-1) for v in _row_turns(log_n, l0, w))
+        return hi, at[:, None] + (torch.arange(1 << w) << log_h), _row_slots(log_h, w, _swizzle(at))
+
+    def load(src, idx, slots, from_global):
         if from_global:  # masked: zeros past the rows that exist
             return src[:, idx] * (idx[None, :, :1] < limit[:, None, None])
-        return src[:, _swizzle(idx)]
+        return src[:, slots]
 
-    def store(v, dst, idx, to_global):
+    def store(v, dst, idx, slots, to_global):
         if to_global:  # masked: no store past the rows that exist
             keep = (idx[None, :, :1] < limit[:, None, None]).expand_as(v)
             dst[:, idx] = torch.where(keep, v, dst[:, idx])
         else:
-            dst[:, _swizzle(idx)] = v
+            dst[:, slots] = v
 
     def inverse_layers(v, l0, w, hi):
-        _inv_radix(v, _pass_twiddles(tab["psi_inv_br"], l0, w, hi), q)
+        _inv_radix(v, twiddles(tab["psi_inv_br"], l0, w, hi), q)
         return v * plan.n_inv % q if l0 == 0 else v
 
-    if kind in ("fwd", "mul"):
+    def forward(srcs, end):
+        """The forward passes of srcs (operand o in bufs[o]); the last pass
+        stores to out ('store'), or multiplies (by the second operand, or by
+        NTT(a) read back from out) and runs its inverse layers ('mul')."""
         for p, (l0, w) in enumerate(zip(l0s, widths)):
-            hi, idx = _pass_items(log_n, l0, w)
-            vs = [load(ins[o] if p == 0 else bufs[o], idx, p == 0) for o in range(len(ins))]
+            hi, idx, sl = items(l0, w)
+            vs = [load(src if p == 0 else bufs[o], idx, sl, p == 0) for o, src in enumerate(srcs)]
             for v in vs:
-                _fwd_radix(v, _pass_twiddles(tab["psi_br"], l0, w, hi), q)
+                _fwd_radix(v, twiddles(tab["psi_br"], l0, w, hi), q)
             if p < len(widths) - 1:
                 for v, buf in zip(vs, bufs):
-                    store(v, buf, idx, False)
-            elif kind == "fwd":
-                store(vs[0], out, idx, True)
+                    store(v, buf, idx, sl, False)
+            elif end == "store":
+                store(vs[0], out, idx, sl, True)
             else:  # the product and the inverse of the same layers, in registers
-                prod = _mul_fold(vs[0], vs[1], q, plan.r32, plan.r32_shoup)
-                store(inverse_layers(prod, l0, w, hi), out if l0 == 0 else bufs[0], idx, l0 == 0)
-        first_inverse = len(widths) - 2 if kind == "mul" else -1
-    else:
-        first_inverse = len(widths) - 1
+                other = vs[1] if len(vs) == 2 else load(out, idx, sl, True)
+                prod = _mul_fold(vs[0], other, q, plan.r32, plan.r32_shoup)
+                store(inverse_layers(prod, l0, w, hi), out if l0 == 0 else bufs[0], idx, sl, l0 == 0)
+
+    if kind == "fwd":
+        forward(ins, "store")
+    elif scratch:  # NTT(a) parked in the output row, taken back by b's last pass
+        forward(ins[:1], "store")
+        forward(ins[1:], "mul")
+    elif kind == "mul":
+        forward(ins, "mul")
+    first_inverse = {"fwd": -1, "mul": len(widths) - 2, "inv": len(widths) - 1}[kind]
     for p in range(first_inverse, -1, -1):
-        hi, idx = _pass_items(log_n, l0s[p], widths[p])
-        v = load(ins[0] if kind == "inv" and p == len(widths) - 1 else bufs[0], idx, kind == "inv" and p == len(widths) - 1)
-        store(inverse_layers(v, l0s[p], widths[p], hi), out if p == 0 else bufs[0], idx, p == 0)
+        hi, idx, sl = items(l0s[p], widths[p])
+        v = load(ins[0] if kind == "inv" and p == len(widths) - 1 else bufs[0], idx, sl, kind == "inv" and p == len(widths) - 1)
+        store(inverse_layers(v, l0s[p], widths[p], hi), out if p == 0 else bufs[0], idx, sl, p == 0)
     got = out.reshape(-1)[: rows * n].reshape(rows, n)
     assert (got >= 0).all(), "a value of the rows was never written"
     return got.numpy().astype(np.uint32)

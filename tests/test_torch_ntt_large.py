@@ -5,10 +5,13 @@ with one limb there.
 
 The port's functions run their plain versions here (CPU tensors); the
 kernels' pass schedule at these rings is modelled on the CPU
-(`test_torch_ntt32._kernel_model`, one row a block), and the kernels
+(`test_torch_ntt32._kernel_model`, one row a 512-thread block), and the kernels
 themselves are held against the plain versions on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` N1, N2).
 """
+
+import functools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,7 +28,17 @@ from learn_fhe_tpu_torch.ops import rns as trns  # noqa: E402
 from learn_fhe_tpu_torch.utils.interop import torch_to_u32, torch_to_u64, u32_to_torch, u64_to_torch  # noqa: E402
 from learn_fhe_tpu_torch.utils.primes import two_adic_primes  # noqa: E402
 
-from .test_torch_ntt32 import _kernel_model  # noqa: E402
+from .test_torch_ntt32 import (  # noqa: E402
+    ROW_THREADS,
+    SCRATCH_LOG_N,
+    _kernel_model,
+    _pass_twiddles,
+    _pass_twiddles_wide,
+    _pass_widths,
+    _row_slots,
+    _row_turns,
+    _swizzle,
+)
 
 LOG_NS = (12, 13, 14)
 Q31 = next(two_adic_primes(31, 15))  # 2^30 < q < 2^31: K-POLYMUL's product
@@ -53,21 +66,88 @@ def test_ntt32_past_2048_matches_jax(log_n, q):
     np.testing.assert_array_equal(torch_to_u32(tntt.pointwise_mul32(ta, tb, tp)), prod)
 
 
-@pytest.mark.parametrize("log_n", LOG_NS)
-def test_kernel_schedule_model_past_2048(log_n):
-    """The kernels' schedule at one row a block (N / 8 threads of up to
-    1024, the row in dynamic shared memory): 2 rows, edge values, the
-    K-POLYMUL product, against the JAX package."""
+@functools.cache
+def _schedule_rows(log_n: int):
+    """8 rows under Q31 with edge values in rows 0, 2 and 6 (the last of 1,
+    3 and 7 rows), and the JAX package's K-NTT, intt32 and K-POLYMUL results
+    on them, two rows a call (the shape this file's other tests compile)."""
     n = 1 << log_n
-    jp, tp = jntt.ntt32_plan(Q31, n), tntt.ntt32_plan(Q31, n)
-    rng = np.random.default_rng(100 + log_n)
-    a = rng.integers(0, Q31, size=(2, n), dtype=np.uint32)
-    b = rng.integers(0, Q31, size=(2, n), dtype=np.uint32)
-    a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, Q31 - 1, Q31 - 1, 0
-    np.testing.assert_array_equal(_kernel_model("fwd", tp, a), np.asarray(jntt.ntt32(jnp.asarray(a), jp)))
-    np.testing.assert_array_equal(_kernel_model("inv", tp, a), np.asarray(jntt.intt32(jnp.asarray(a), jp)))
-    want = np.asarray(jntt.negacyclic_mul32(jnp.asarray(a), jnp.asarray(b), jp))
-    np.testing.assert_array_equal(_kernel_model("mul", tp, a, b), want)
+    jp = jntt.ntt32_plan(Q31, n)
+    rng = np.random.default_rng(400 + log_n)
+    a = rng.integers(0, Q31, size=(8, n), dtype=np.uint32)
+    b = rng.integers(0, Q31, size=(8, n), dtype=np.uint32)
+    for r in (0, 2, 6):
+        a[r, 0], a[r, -1], b[r, 0], b[r, -1] = 0, Q31 - 1, Q31 - 1, 0
+
+    def jax_rows(f, *xs):
+        return np.concatenate([np.asarray(f(*(jnp.asarray(x[i : i + 2]) for x in xs), jp)) for i in range(0, 8, 2)])
+
+    return a, b, {"fwd": jax_rows(jntt.ntt32, a), "inv": jax_rows(jntt.intt32, a), "mul": jax_rows(jntt.negacyclic_mul32, a, b)}
+
+
+@pytest.mark.parametrize(
+    "log_n, rows",
+    [pytest.param(log_n, 2, id=str(log_n)) for log_n in LOG_NS]
+    + [pytest.param(log_n, rows, id=f"{log_n}-{rows}rows") for log_n in LOG_NS for rows in (1, 3, 7)],
+)
+def test_kernel_schedule_model_past_2048(log_n, rows):
+    """The kernels' schedule at one row a block (512 threads taking the
+    items in turns, wide twiddle loads, the row in dynamic shared memory,
+    K-POLYMUL's NTT(a) parked in the output row from 2^SCRATCH_LOG_N):
+    edge values, the K-POLYMUL product, against the JAX package, on 2 rows
+    of their own and on 1, 3 and 7 rows of `_schedule_rows`."""
+    n = 1 << log_n
+    tp = tntt.ntt32_plan(Q31, n)
+    if rows == 2:
+        jp = jntt.ntt32_plan(Q31, n)
+        rng = np.random.default_rng(100 + log_n)
+        a = rng.integers(0, Q31, size=(2, n), dtype=np.uint32)
+        b = rng.integers(0, Q31, size=(2, n), dtype=np.uint32)
+        a[0, 0], a[-1, -1], b[0, -1], b[-1, 0] = 0, Q31 - 1, Q31 - 1, 0
+        want = {
+            "fwd": np.asarray(jntt.ntt32(jnp.asarray(a), jp)),
+            "inv": np.asarray(jntt.intt32(jnp.asarray(a), jp)),
+            "mul": np.asarray(jntt.negacyclic_mul32(jnp.asarray(a), jnp.asarray(b), jp)),
+        }
+    else:
+        a, b, want = _schedule_rows(log_n)
+    for kind, ref in want.items():
+        got = _kernel_model(kind, tp, a[:rows], b[:rows] if kind == "mul" else None)
+        np.testing.assert_array_equal(got, ref[:rows], err_msg=f"{kind} on {rows} rows")
+
+
+@pytest.mark.parametrize("log_n", LOG_NS)
+def test_row_index_maps_take_every_value_once(log_n):
+    """Past 2048, at every pass, the items that ROW_THREADS threads take in
+    turns reach every value of the row exactly once, and so do their swizzled
+    buffer slots, which `lft::slot` makes from the swizzle of an item's
+    first value alone; the model's constants are the kernel's."""
+    src = (Path(__file__).resolve().parents[1] / "learn_fhe_tpu_torch" / "csrc" / "ntt32.cu").read_text()
+    assert f"constexpr int kRowThreads = {ROW_THREADS};" in src
+    assert f"constexpr int kScratchLogN = {SCRATCH_LOG_N};" in src
+    n = 1 << log_n
+    for p, w in enumerate(_pass_widths(log_n)):
+        hi, at = _row_turns(log_n, 3 * p, w)
+        assert at.shape == ((n >> w) // ROW_THREADS, ROW_THREADS)
+        values = (at[..., None] + (torch.arange(1 << w) << (log_n - 3 * p - w))).reshape(-1)
+        assert torch.equal(values.sort().values, torch.arange(n)), f"pass {p}"
+        assert torch.equal(_swizzle(values).sort().values, torch.arange(n)), f"pass {p} (swizzled)"
+        slots = _row_slots(log_n - 3 * p - w, w, _swizzle(at.reshape(-1)))
+        assert torch.equal(slots.reshape(-1), _swizzle(values)), f"pass {p} (slots from swizzle(at))"
+        assert int(hi.max()) == (1 << (3 * p)) - 1
+
+
+@pytest.mark.parametrize("log_n", LOG_NS)
+def test_wide_twiddle_loads_match_pass_twiddles(log_n):
+    """`pass_twiddles_wide`'s loads (one of 1, 2 and 4 words a layer, each
+    on its own alignment) give `pass_twiddles`' values in its order, for
+    every item of every pass, from both tables of each direction."""
+    tp = tntt.ntt32_plan(Q31, 1 << log_n)
+    for f in ("psi_br", "psi_br_shoup", "psi_inv_br", "psi_inv_br_shoup"):
+        tab = torch.from_numpy(getattr(tp, f).astype(np.int64))
+        for p, w in enumerate(_pass_widths(log_n)):
+            hi = _row_turns(log_n, 3 * p, w)[0].reshape(-1)
+            assert torch.equal(_pass_twiddles_wide(tab, 3 * p, w, hi), _pass_twiddles(tab, 3 * p, w, hi)), f"{f} pass {p}"
 
 
 @pytest.mark.parametrize("log_n", LOG_NS)
