@@ -270,12 +270,22 @@ parallel layer (`learn_fhe_tpu_torch/parallel/`):
       coefficient-sharded u64 ntt / intt / mul at (16, 8, 8192), the u32
       ones at (4, 16384) with a 28-bit prime, the batch-sharded PBS at the
       reference fixture (batch 128; D = 8 also 4096 ciphertexts in chunks
-      of 128), a FHEW NAND batch of 128, `merge_shares` of D parties), each
-      result gathered and equal to the unsharded card result; then one
-      rank under nccl (init, the merge, an exchange-free D = 1 product).
+      of 128), a FHEW NAND batch of 128, `merge_shares` of D parties, and
+      on a (D / 2, 2) ('batch', 'limb') mesh the limb-sharded key switch
+      of `parallel/limb.py`: C3's CKKS `mul` (N = 2^13, 8 + 8 primes,
+      batch 16) with its limbs over 'limb', G2's BGV `mul` likewise, a
+      rotation by 1 at C3's ring with the limbs over 'limb' and the
+      coefficients over 'batch', and `production_config(16)`'s `mul` of a
+      ciphertext by itself with its 15 key-switch digits over 'limb'),
+      each result gathered, equal to the unsharded card result and
+      decrypting right; then one rank under nccl (init, the merge, an
+      exchange-free D = 1 product, the limb-sharded CKKS `mul` through
+      nccl's all_to_all). For each sharded key-switch operation, each
+      rank's seconds, collectives (calls and bytes sent) and kernel
+      launches are printed, and each rank must launch its path's kernels.
       The wall times are printed as what they are: D ranks share one card,
       not a scaling number. The ranks' launches are summed; K-COEF-CROSS
-      must launch.
+      must launch, on the rotation's path too.
 
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
@@ -285,7 +295,8 @@ rows, G2's path's launches of the kernel); the `bgv_drop` row times G1's
 first shape and carries G2's path's launches; the `*_n16384` rows of
 `ntt32.cu` time N1's (256, 16384) and carry N1's path's launches, the
 `ntt64_n16384` row N2's, and the `coef_cross` / `coef32_cross` rows S1's
-D = 2 forward shapes with S2's ranks' launches. The phases'
+D = 2 forward shapes with S2's ranks' launches (`coef_cross`'s those of
+the sharded transforms and of the rotations' key switches). The phases'
 seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
@@ -2765,7 +2776,8 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     # -- S2. the sharded paths on D ranks sharing the card (gloo), and one rank on nccl
     torch.cuda.empty_cache()
     counted = ("coef_cross", "coef32_cross")
-    totals = Counter()
+    kernel_names = list(dryrun.counted_kernels())
+    totals, ks2d_cross = Counter(), 0
     with tempfile.TemporaryDirectory() as tmp:
         for d in COEF_RANKS:
             out = os.path.join(tmp, f"d{d}.npz")
@@ -2774,14 +2786,58 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
             got = np.load(out)
             for name in counted:
                 totals[name] += int(got[f"launches_{name}"])
-            say(f"{tag} S2 dryrun D={d} over gloo: coef (16, 8, 8192) ntt / intt / mul, coef32 ({SCALING_ROWS}, 16384) at 28 bits, PBS batch {dryrun.SIZES['card'].pbs_batch}" + (f" and {stream} chunked" if stream else "") + f", FHEW NAND {dryrun.SIZES['card'].gate_batch}, merge of {d} parties == unsharded on the card; {secs:.1f} s wall (D ranks share one card; not a scaling number); K-COEF-CROSS launches {dict((k, int(got[f'launches_{k}'])) for k in counted)}")
-        secs = dryrun.run(1, "cuda", "card", ("coef", "merge"), out=os.path.join(tmp, "nccl.npz"), backend="nccl")
-        say(f"{tag} S2 one rank under nccl (init, merge_shares, an exchange-free coef_sharded_ntt / intt / mul at D=1) == unsharded: {secs:.1f} s wall (D ranks share one card; not a scaling number)")
+            say(f"{tag} S2 dryrun D={d} over gloo: coef (16, 8, 8192) ntt / intt / mul, coef32 ({SCALING_ROWS}, 16384) at 28 bits, PBS batch {dryrun.SIZES['card'].pbs_batch}" + (f" and {stream} chunked" if stream else "") + f", FHEW NAND {dryrun.SIZES['card'].gate_batch}, merge of {d} parties, {', '.join(dryrun.LIMB_PHASES)} == unsharded on the card; {secs:.1f} s wall (D ranks share one card; not a scaling number); K-COEF-CROSS launches {dict((k, int(got[f'launches_{k}'])) for k in counted)}")
+            ks2d_cross += s2_limb_report(tag, d, dryrun.default_limb_ranks(d), got, kernel_names)
+        out = os.path.join(tmp, "nccl.npz")
+        secs = dryrun.run(1, "cuda", "card", ("coef", "merge", "ckks_limb"), out=out, backend="nccl")
+        s2_limb_report(tag, 1, 1, np.load(out), kernel_names)
+        say(f"{tag} S2 one rank under nccl (init, merge_shares, an exchange-free coef_sharded_ntt / intt / mul at D=1, the limb-sharded CKKS mul at n_limb = 1 through nccl's all_to_all) == unsharded: {secs:.1f} s wall")
     for name in counted:
         if totals[name] == 0:
             raise AssertionError(f"S2: {name} was not launched on the sharded path")
         launches[name] = totals[name]
+    if ks2d_cross == 0:
+        raise AssertionError("S2: coef_cross was not launched on the limb x coefficient rotation's path")
+    say(f"{tag} S2 coef_cross launches on all ranks {totals['coef_cross']} (the kernels line's row); {ks2d_cross} of them in the ks2d rotations' measured calls, each after an unmeasured warm-up call that launches as many")
     say(f"{tag} S1-S2 took {time.perf_counter() - t_s:.1f} s (host clock)")
+
+
+# the kernels each rank must launch in one sharded operation of S2 (a rank
+# with no key-switch digit launches no hoist: dnum's ranks all hold some at
+# production_config(16)'s 15 digits over 2)
+S2_KERNELS = {
+    "ckks_limb": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish"),
+    "bgv_limb": ("rns_ntt", "rns_intt_mac", "base_convert", "drop_limbs_t"),
+    "ks2d": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish", "automorphism_rns", "coef_cross"),
+    "dnum": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish"),
+}
+
+
+def s2_limb_report(tag, d: int, n_limb: int, got, kernel_names) -> int:
+    """Print each sharded key-switch operation of a dry run (rank 0's --out):
+    every rank's seconds, collectives with the bytes each sent, and kernel
+    launches; fail where a rank did not launch a kernel of its path.
+    Returns the K-COEF-CROSS launches of the measured ks2d call on all ranks."""
+    from learn_fhe_tpu_torch.parallel import dryrun
+
+    cross = 0
+    for phase in dryrun.LIMB_PHASES:
+        if f"op_{phase}_calls" not in got:
+            continue
+        calls, sent, lau, secs = (got[f"op_{phase}_{k}"] for k in ("calls", "bytes", "launches", "seconds"))
+        colls = [c for i, c in enumerate(dryrun.COLLECTIVES) if calls[:, i].any()]
+        per_op = {c: sorted({int(v) for v in calls[:, dryrun.COLLECTIVES.index(c)]}) for c in colls}
+        say(f"{tag} S2 D={d} (n_limb {n_limb}) {phase}: {int(calls[0].sum())} collectives per operation on rank 0 {per_op} (every rank's counts); seconds of the sharded call by rank {[round(float(v), 4) for v in secs]}")
+        for r in range(len(calls)):
+            moved = ", ".join(f"{c} {int(calls[r, dryrun.COLLECTIVES.index(c)])} x, {int(sent[r, dryrun.COLLECTIVES.index(c)])} bytes sent" for c in colls)
+            by_kernel = {k: int(v) for k, v in zip(kernel_names, lau[r]) if v}
+            say(f"  S2 D={d} {phase} rank {r}: {moved}; launches {by_kernel}")
+            missing = [k for k in S2_KERNELS[phase] if not lau[r, kernel_names.index(k)] and not (k == "coef_cross" and d // n_limb == 1)]
+            if missing:
+                raise AssertionError(f"S2: D={d} {phase}: rank {r} launched no {missing}")
+        if phase == "ks2d":
+            cross += int(lau[:, kernel_names.index("coef_cross")].sum())
+    return cross
 
 
 def kernels_report() -> dict:

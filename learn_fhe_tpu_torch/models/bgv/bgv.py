@@ -386,17 +386,27 @@ def mod_switch(params: BgvParams, ct: BgvCiphertext) -> BgvCiphertext:
     return BgvCiphertext(b, a, ct.qs[:-1], f)
 
 
-def _ks_sums(params: BgvParams, ksk: BgvKeySwitchingKey, d2: torch.Tensor, qs: tuple) -> torch.Tensor:
-    """d2 (..., L, N) over qs extended to qs + ps (K-BASECONV), transformed
-    (K-RNS-NTT) and dotted with both key components inside their inverse
-    transform (one `rns_intt_mac` launch): (2, ..., L + P, N), b and a
-    before the division by P."""
-    qps = qs + params.ps
-    plan = params.plan(qps)
+def _ks_extend(params: BgvParams, d2: torch.Tensor, qs: tuple) -> torch.Tensor:
+    """d2 (..., L, N) over qs extended to qs + ps (K-BASECONV), in the
+    coefficient basis: (..., L + P, N). Per coefficient, so the same call
+    serves a block of columns holding every limb."""
     d2 = d2.contiguous()
-    ext = rns_ntt(torch.cat([d2, extend_bases(d2, qs, params.ps)], dim=-2), plan)
-    kb, ka = ksk.rows(qps)
-    return rns_intt_mac([ext], [kb], plan, [ka])
+    return torch.cat([d2, extend_bases(d2, qs, params.ps)], dim=-2)
+
+
+def _ks_macs(ext: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """ext (..., Lqp', N) transformed (K-RNS-NTT) and dotted with both key
+    components' rows (Lqp', N) inside their inverse transform (one
+    `rns_intt_mac` launch), over `plan`'s primes (the QP basis, or a rank's
+    rows of it): (2, ..., Lqp', N), b and a before the division by P."""
+    return rns_intt_mac([rns_ntt(ext, plan)], [kb], plan, [ka])
+
+
+def _ks_sums(params: BgvParams, ksk: BgvKeySwitchingKey, d2: torch.Tensor, qs: tuple) -> torch.Tensor:
+    """d2 (..., L, N) over qs extended to qs + ps, transformed and dotted
+    with both key components: (2, ..., L + P, N), before the division by P."""
+    qps = qs + params.ps
+    return _ks_macs(_ks_extend(params, d2, qs), *ksk.rows(qps), params.plan(qps))
 
 
 def key_switch(params: BgvParams, ksk: BgvKeySwitchingKey, ct: BgvCiphertext) -> BgvCiphertext:
@@ -407,23 +417,44 @@ def key_switch(params: BgvParams, ksk: BgvKeySwitchingKey, ct: BgvCiphertext) ->
     return BgvCiphertext(b, a, ct.qs, ct.factor)
 
 
-def mul(params: BgvParams, rlk: BgvKeySwitchingKey, ct0: BgvCiphertext, ct1: BgvCiphertext) -> BgvCiphertext:
-    """Tensor + relinearize + mod-switch; output factor f0 f1 q_last^-1."""
-    assert ct0.qs == ct1.qs, "mod_switch operands to a common level first"
-    qs = ct0.qs
-    b0, a0, b1, a1 = ct0.b, ct0.a, ct1.b, ct1.a
-    if not b0.shape == a0.shape == b1.shape == a1.shape:
-        b0, a0, b1, a1 = (x.contiguous() for x in torch.broadcast_tensors(b0, a0, b1, a1))
-    plan = params.plan(qs)
+def _tensor(b0, a0, b1, a1, plan: RnsPlan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor product's d0, d1, d2 over `plan`'s primes (the level, or a
+    rank's limbs of it), the four operands of one shape."""
     eb0, ea0 = rns_ntt(b0, plan), rns_ntt(a0, plan)
     eb1, ea1 = rns_ntt(b1, plan), rns_ntt(a1, plan)
     d0 = rns_intt_mac([eb0], [eb1], plan)
     d1 = rns_intt_mac([eb0, ea0], [ea1, eb1], plan)
     d2 = rns_intt_mac([ea0], [ea1], plan)
-    ba = _ks_sums(params, rlk, d2, qs)
-    b, a = _drop(ba[0], ba[1], qs + params.ps, params.t, len(params.ps), (d0, d1), then=1)
-    f = (ct0.factor * ct1.factor * mod_inverse(qs[-1] % params.t, params.t)) % params.t
-    return BgvCiphertext(b, a, qs[:-1], f)
+    return d0, d1, d2
+
+
+def _operands(ct0: BgvCiphertext, ct1: BgvCiphertext) -> tuple[torch.Tensor, ...]:
+    """b0, a0, b1, a1 at one shape (their leading axes broadcast)."""
+    b0, a0, b1, a1 = ct0.b, ct0.a, ct1.b, ct1.a
+    if not b0.shape == a0.shape == b1.shape == a1.shape:
+        b0, a0, b1, a1 = (x.contiguous() for x in torch.broadcast_tensors(b0, a0, b1, a1))
+    return b0, a0, b1, a1
+
+
+def _mul_finish(params: BgvParams, ba: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor, qs: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The end of `mul` from the key switch's sums (2, ..., L + P, N) over
+    qs + ps and the tensor's d0, d1: the division by P, the adds, and the
+    mod-switch drop, in one K-BGV-DROP launch. Per coefficient, so the same
+    call serves a block of columns."""
+    return _drop(ba[0], ba[1], qs + params.ps, params.t, len(params.ps), (d0, d1), then=1)
+
+
+def _mul_factor(params: BgvParams, ct0: BgvCiphertext, ct1: BgvCiphertext) -> int:
+    return (ct0.factor * ct1.factor * mod_inverse(ct0.qs[-1] % params.t, params.t)) % params.t
+
+
+def mul(params: BgvParams, rlk: BgvKeySwitchingKey, ct0: BgvCiphertext, ct1: BgvCiphertext) -> BgvCiphertext:
+    """Tensor + relinearize + mod-switch; output factor f0 f1 q_last^-1."""
+    assert ct0.qs == ct1.qs, "mod_switch operands to a common level first"
+    qs = ct0.qs
+    d0, d1, d2 = _tensor(*_operands(ct0, ct1), params.plan(qs))
+    b, a = _mul_finish(params, _ks_sums(params, rlk, d2, qs), d0, d1, qs)
+    return BgvCiphertext(b, a, qs[:-1], _mul_factor(params, ct0, ct1))
 
 
 def _pt_at(params: BgvParams, m: np.ndarray, ct: BgvCiphertext) -> torch.Tensor:

@@ -449,23 +449,44 @@ def add_constant(params: CkksParams, m, ct: CkksCiphertext) -> CkksCiphertext:
     return CkksCiphertext(rns_add(ct.b, pt, params.plan(ct.qs)), ct.a, ct.qs)
 
 
-def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
-    """Tensor + relinearize + rescale (`ckks.rs:255-267`): the four operands
-    transformed once, the tensor's products summed in the evaluation basis
-    inside their three inverse transforms (d1's two products in one launch),
-    then the key switch of d2 and the rescale."""
-    ct0, ct1, qs = _align(ct0, ct1)
-    if ct0.b.shape != ct1.b.shape:
-        b0, a0, b1, a1 = (t.contiguous() for t in torch.broadcast_tensors(ct0.b, ct0.a, ct1.b, ct1.a))
-        ct0, ct1 = CkksCiphertext(b0, a0, qs), CkksCiphertext(b1, a1, qs)
-    plan = params.plan(qs)
+def _tensor(ct0: CkksCiphertext, ct1: CkksCiphertext, plan: RnsPlan) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tensor product's d0, d1, d2 of two ciphertexts of one shape over
+    `plan`'s primes (the level, or a rank's limbs of it): the four operands
+    transformed once, the products summed in the evaluation basis inside
+    their three inverse transforms (d1's two products in one launch)."""
     ea0, eb0 = rns_ntt(ct0.a, plan), rns_ntt(ct0.b, plan)
     ea1, eb1 = rns_ntt(ct1.a, plan), rns_ntt(ct1.b, plan)
     d0 = rns_intt_mac([eb0], [eb1], plan)
     d1 = rns_intt_mac([eb0, ea0], [ea1, eb1], plan)
     d2 = rns_intt_mac([ea0], [ea1], plan)
-    relin = _ks_finish(params, rlk, _ks_hoist(params, d2, qs), qs)  # (2, ..., L, N): b and a
+    return d0, d1, d2
+
+
+def _broadcast(ct0: CkksCiphertext, ct1: CkksCiphertext, qs: tuple) -> tuple[CkksCiphertext, CkksCiphertext]:
+    """Both ciphertexts at one shape (their leading axes broadcast), contiguous."""
+    if ct0.b.shape == ct1.b.shape:
+        return ct0, ct1
+    b0, a0, b1, a1 = (t.contiguous() for t in torch.broadcast_tensors(ct0.b, ct0.a, ct1.b, ct1.a))
+    return CkksCiphertext(b0, a0, qs), CkksCiphertext(b1, a1, qs)
+
+
+def _mul_finish(params: CkksParams, ba: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor, qs: tuple) -> CkksCiphertext:
+    """The end of `mul` from the key switch's sums (2, ..., L + P, N) over
+    qs + ps, before the division by P, and the tensor's d0 and d1 over qs:
+    the rescale by P, the adds, the rescale by the last q. Every step is
+    per coefficient, so the same call serves a block of columns."""
+    relin = rescale_k(ba, qs + params.ps, len(params.ps))
+    plan = params.plan(qs)
     return rescale_ct(CkksCiphertext(rns_add(d0, relin[0], plan), rns_add(d1, relin[1], plan), qs))
+
+
+def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
+    """Tensor + relinearize + rescale (`ckks.rs:255-267`): the tensor's d0,
+    d1, d2 (`_tensor`), the key switch of d2 and the rescale."""
+    ct0, ct1, qs = _align(ct0, ct1)
+    ct0, ct1 = _broadcast(ct0, ct1, qs)
+    d0, d1, d2 = _tensor(ct0, ct1, params.plan(qs))
+    return _mul_finish(params, _ks_sums(params, rlk, _ks_hoist(params, d2, qs), qs), d0, d1, qs)
 
 
 def _automorphism_rns(x, t: int, qs: tuple):
@@ -510,20 +531,28 @@ def hoisted_rotations(params: CkksParams, rtks: tuple, ct: CkksCiphertext, js: t
     return tuple(outs)
 
 
-def _ks_hoist(params: CkksParams, a: torch.Tensor, qs: tuple) -> torch.Tensor:
-    """Digit-decompose a over the active level and base-extend every digit
-    to the full qs + ps basis, transformed: (..., D_active, Lqp, N)."""
+def _ks_extend(params: CkksParams, a: torch.Tensor, qs: tuple, digits: tuple[int, int] | None = None) -> torch.Tensor:
+    """Digit-decompose a (..., L, N) over the active level and base-extend
+    each digit of the range `digits` (start, stop; default every active
+    digit) to the full qs + ps basis, in the coefficient basis:
+    (..., D', Lqp, N). Every step is per coefficient, so the same call
+    serves a block of columns holding every limb."""
     qps = qs + params.ps
+    slices = params.digit_slices(len(qs))
     outs = []
-    for s, e in params.digit_slices(len(qs)):
+    for s, e in slices if digits is None else slices[digits[0] : digits[1]]:
         src = qs[s:e]
         rest = tuple(q for q in qps if q not in src)
         x = a[..., s:e, :]
         ext = torch.cat([x, extend_bases(x, src, rest)], dim=-2)
         have = src + rest
         outs.append(_select(ext, [have.index(q) for q in qps], -2))
-    ext = outs[0].unsqueeze(-3) if len(outs) == 1 else torch.stack(outs, dim=-3)
-    return rns_ntt(ext, params.plan(qps))
+    return outs[0].unsqueeze(-3) if len(outs) == 1 else torch.stack(outs, dim=-3)
+
+
+def _ks_hoist(params: CkksParams, a: torch.Tensor, qs: tuple, digits: tuple[int, int] | None = None) -> torch.Tensor:
+    """`_ks_extend`, transformed: (..., D', Lqp, N) in the evaluation basis."""
+    return rns_ntt(_ks_extend(params, a, qs, digits), params.plan(qs + params.ps))
 
 
 def _ksk_digits(params: CkksParams, arr: torch.Tensor, n_active: int, idx: list[int]) -> torch.Tensor:
@@ -550,20 +579,35 @@ def _ks_dot(ksk_sel: torch.Tensor, ae: torch.Tensor, plan: RnsPlan, perm=None, k
     return rns_mac(_digits(ae), [ksk_sel[d] for d in range(D)], plan, zs, None if perm is None else [perm] * D)
 
 
-def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None) -> torch.Tensor:
-    """The digit contraction of ae (..., D, Lqp, N), read through perm where
-    given (`_eval_perm`), against both ksk components inside their inverse
-    transforms (one launch), and the rescale by P: (2, ..., L, N), the
-    switched b (without the source's b) and a."""
-    qps = qs + params.ps
-    plan = params.plan(qps)
-    idx = [params.qps.index(q) for q in qps]
-    ksk_b = _ksk_digits(params, ksk.b, len(qs), idx)
-    ksk_a = _ksk_digits(params, ksk.a, len(qs), idx)
+def _ks_macs(ae: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor, plan: RnsPlan, perm=None) -> torch.Tensor:
+    """The digit contraction of ae (..., D, Lqp', N), read through perm where
+    given (`_eval_perm`), against both key components' rows (D, Lqp', N)
+    inside their inverse transforms (one `rns_intt_mac` launch) over
+    `plan`'s primes (the QP basis, or a rank's rows of it): (2, ..., Lqp',
+    N), b and a before the division by P."""
     D = ae.shape[-3]
     perms = None if perm is None else [perm] * D
-    ba = rns_intt_mac(_digits(ae), [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)], perms)
-    return rescale_k(ba, qps, len(params.ps))
+    return rns_intt_mac(_digits(ae), [ksk_b[d] for d in range(D)], plan, [ksk_a[d] for d in range(D)], perms)
+
+
+def ksk_rows(params: CkksParams, ksk: CkksKeySwitchingKey, qs: tuple, rows: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """b and a of ksk at the active digits of level qs and the primes
+    `rows` (a sub-basis of qs + ps, in its order): (D_active, len(rows), N)
+    each, fresh tensors where a selection is made."""
+    idx = [params.qps.index(q) for q in rows]
+    return _ksk_digits(params, ksk.b, len(qs), idx), _ksk_digits(params, ksk.a, len(qs), idx)
+
+
+def _ks_sums(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None) -> torch.Tensor:
+    """`_ks_macs` of ae against the level's rows of ksk: (2, ..., L + P, N)."""
+    qps = qs + params.ps
+    return _ks_macs(ae, *ksk_rows(params, ksk, qs, qps), params.plan(qps), perm)
+
+
+def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None) -> torch.Tensor:
+    """`_ks_sums`, then the rescale by P: (2, ..., L, N), the switched b
+    (without the source's b) and a."""
+    return rescale_k(_ks_sums(params, ksk, ae, qs, perm), qs + params.ps, len(params.ps))
 
 
 def key_switch(params: CkksParams, ksk: CkksKeySwitchingKey, ct: CkksCiphertext) -> CkksCiphertext:

@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 
 from ...ops.ntt import bit_reverse_indices
-from ...utils.dd import DDC, cis_table_dd
+from ...utils.dd import DDC, cis_dd_at
 from ...utils.matrix import mat_inv
 
 
@@ -32,11 +32,11 @@ def _pow5(n: int) -> tuple[int, ...]:
 @lru_cache(maxsize=None)
 def w_dd(n: int, conj: bool = False) -> DDC:
     """Twiddles cis(pi * (+-5^j mod 4n) / (2n)) for j in 0..n/2
-    (`sfft.rs:39-72`)."""
-    table = cis_table_dd(2 * n, 4 * n)  # cis(pi*k/(2n)) for k in 0..4n
+    (`sfft.rs:39-72`): the JAX package's entries of cis_table_dd(2n, 4n),
+    made only where they are read (an eighth of the table)."""
     pow5 = _pow5(n)
     idx = [((-p) % (4 * n)) if conj else (p % (4 * n)) for p in pow5[: n // 2]]
-    return table[np.array(idx)]
+    return cis_dd_at(2 * n, idx)
 
 
 @lru_cache(maxsize=None)

@@ -234,12 +234,20 @@ def coef_intt_local(x: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -
     return _cross_layers(x, plan, rank, group, True, coef_cross)
 
 
+def coef_intt_mac_local(xs, ys, plan: CoefNttPlan, rank: int, group=None, zs=None) -> torch.Tensor:
+    """The inverse NTT of `rns_mac(xs, ys, ..., zs)` for rank `rank`'s blocks
+    of evaluation-basis operands: the sums inside the local inverse tail
+    (`rns_intt_mac`), then the cross layers in reverse (both sums in one
+    exchange a layer where zs is given: (2, ..., L, n/D))."""
+    x = rns_intt_mac(xs, ys, local_plan(plan, rank), zs)
+    return _cross_layers(x, plan, rank, group, True, coef_cross)
+
+
 def coef_mul_local(a: torch.Tensor, b: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
     """Negacyclic product of rank `rank`'s blocks of a and b: both forward
     transforms, the product inside the local inverse tail, the cross layers."""
     ea, eb = coef_ntt_local(a, plan, rank, group), coef_ntt_local(b, plan, rank, group)
-    x = rns_intt_mac([ea], [eb], local_plan(plan, rank))
-    return _cross_layers(x, plan, rank, group, True, coef_cross)
+    return coef_intt_mac_local([ea], [eb], plan, rank, group)
 
 
 def _plan_of(mesh: DeviceMesh, x: torch.Tensor, qs: tuple[int, ...]) -> tuple[CoefNttPlan, int, object]:

@@ -10,9 +10,14 @@ The backend is explicit and never changes on its own after a failure:
 - `gloo` on the CPU, or where ranks share a card. gloo's send and receive
   take no CUDA tensor, so every exchange here of a CUDA tensor over gloo
   stages through pinned host memory (`exchange`, `all_reduce_sum`,
-  `all_gather`).
+  `all_gather`, `all_to_all`).
 The caller names it, or `init_distributed` picks it by that rule and prints
 its choice.
+
+Each collective here counts its calls and the bytes this rank sends to
+other ranks, by name (`CALLS`, `BYTES`; `counts()` reads both), as the
+kernel wrappers count their launches: the sharded paths' tests and dry run
+read how many collectives an operation issued.
 
 A collective that loses its peer either fails (gloo: "Connection closed by
 peer") or blocks. `collective_watchdog` turns both into one diagnosable end:
@@ -24,8 +29,10 @@ from __future__ import annotations
 import os
 import sys
 import threading
+from collections import Counter
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -93,6 +100,20 @@ def global_mesh(n_batch: int | None = None, n_limb: int = 1, device_type: str = 
 # ---------------------------------------------------------------------------
 
 
+CALLS: Counter = Counter()  # collective name -> calls on this rank
+BYTES: Counter = Counter()  # collective name -> bytes this rank sent to other ranks
+
+
+def _counted(name: str, n_bytes: int) -> None:
+    CALLS[name] += 1
+    BYTES[name] += n_bytes
+
+
+def counts() -> tuple[dict[str, int], dict[str, int]]:
+    """(calls, bytes sent) of each collective on this rank so far."""
+    return dict(CALLS), dict(BYTES)
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
@@ -125,6 +146,7 @@ def exchange(x: torch.Tensor, peer: int, group=None) -> torch.Tensor:
             req.wait()
 
     _run(f"exchange with rank {peer}", run)
+    _counted("exchange", send.numel() * send.element_size())
     return recv.to(x.device, non_blocking=True) if staged else recv
 
 
@@ -134,6 +156,7 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     staged = _staged(x, group)
     buf = _to_host(x) if staged else x.clone()
     _run("all_reduce", lambda: dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group))
+    _counted("all_reduce", buf.numel() * buf.element_size())
     return buf.to(x.device, non_blocking=True) if staged else buf
 
 
@@ -143,8 +166,65 @@ def all_gather(x: torch.Tensor, group=None, axis: int = 0) -> torch.Tensor:
     src = _to_host(x) if staged else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     _run("all_gather", lambda: dist.all_gather(parts, src, group=group))
+    _counted("all_gather", src.numel() * src.element_size() * (len(parts) - 1))
     out = torch.cat(parts, dim=axis)
     return out.to(x.device, non_blocking=True) if staged else out
+
+
+def _sizes(length: int, sizes, world: int, what: str) -> list[int]:
+    if sizes is None:
+        if length % world:
+            raise ValueError(f"all_to_all: {what} of {length} does not split evenly over {world} ranks")
+        return [length // world] * world
+    sizes = [int(v) for v in sizes]
+    if len(sizes) != world or (what == "split axis" and sum(sizes) != length):
+        raise ValueError(f"all_to_all: {what} sizes {sizes} for {world} ranks and a length of {length}")
+    return sizes
+
+
+def all_to_all(x, group=None, split_axis: int = -1, cat_axis: int = -2, split_sizes=None, cat_sizes=None):
+    """One all-to-all over `group`. x is cut along `split_axis` into one
+    piece a rank (`split_sizes`, default equal), piece j goes to rank j,
+    and the pieces received are concatenated in rank order along
+    `cat_axis` (`cat_sizes`: each sender's length there; default x's own).
+    x may be a list of tensors of one dtype and device, all sent in the one
+    exchange (`split_sizes` / `cat_sizes` then a list with an entry, or
+    None, per tensor); a list is returned for a list. Every rank's pieces
+    of all the tensors go as one flat buffer (`all_to_all_single` with
+    explicit sizes, so uneven limb splits need no padding)."""
+    many = isinstance(x, (list, tuple))
+    xs = list(x) if many else [x]
+    n = len(xs)
+    splits = list(split_sizes) if many and split_sizes is not None else [split_sizes] * n
+    cats = list(cat_sizes) if many and cat_sizes is not None else [cat_sizes] * n
+    world, me = dist.get_world_size(group), dist.get_rank(group)
+    sa = [split_axis % t.dim() for t in xs]
+    ca = [cat_axis % t.dim() for t in xs]
+    splits = [_sizes(t.shape[a], s, world, "split axis") for t, a, s in zip(xs, sa, splits)]
+    cats = [[t.shape[a]] * world if c is None else _sizes(t.shape[a], c, world, "cat axis") for t, a, c in zip(xs, ca, cats)]
+    offs = [np.concatenate([[0], np.cumsum(s)]).tolist() for s in splits]
+    pieces = [[t.narrow(a, offs[k][j], splits[k][j]).reshape(-1) for k, (t, a) in enumerate(zip(xs, sa))] for j in range(world)]
+    send_sizes = [sum(p.numel() for p in ps) for ps in pieces]
+    send = torch.cat([p for ps in pieces for p in ps])
+
+    def shape(k: int, i: int) -> list[int]:  # the piece of tensor k from rank i
+        s = list(xs[k].shape)
+        s[sa[k]], s[ca[k]] = splits[k][me], cats[k][i]
+        return s
+
+    recv_shapes = [[shape(k, i) for k in range(n)] for i in range(world)]
+    recv_sizes = [sum(int(np.prod(s)) for s in ss) for ss in recv_shapes]
+    staged = _staged(send, group)
+    src = _to_host(send) if staged else send
+    buf = torch.empty(sum(recv_sizes), dtype=src.dtype, device=src.device, pin_memory=staged)
+    _run("all_to_all", lambda: dist.all_to_all_single(buf, src, recv_sizes, send_sizes, group=group))
+    _counted("all_to_all", (send.numel() - send_sizes[me]) * send.element_size())
+    if staged:
+        buf = buf.to(send.device, non_blocking=True)
+    flat = iter(buf.split([int(np.prod(s)) for ss in recv_shapes for s in ss]))
+    parts = [[next(flat).view(s) for s in ss] for ss in recv_shapes]
+    out = [torch.cat([parts[i][k] for i in range(world)], dim=ca[k]) for k in range(n)]
+    return out if many else out[0]
 
 
 # ---------------------------------------------------------------------------

@@ -18,15 +18,31 @@ each rank has a card of its own). Each rank runs, at the size of `--size`
   chunk split the same way;
 - `gate`: a FHEW NAND batch of 128 at the reference fixture, split over
   'batch' (`fhew_gate_batch`);
-- `merge`: `merge_shares` of D parties' shares, one a rank.
-Every rank makes the keys, messages and operands from the same seeds. Every
-sharded result is gathered; rank 0 holds it against the unsharded result
-of the same device, bit for bit, and checks the decryptions. Any failure
-on any rank makes the command exit non-zero. With `--out FILE` rank 0
-writes the inputs' seeds' results (gathered) to FILE (numpy .npz), which
-the CPU tests hold against the JAX package. The limb-sharded CKKS and BGV
-`mul`, the 2-D key switch and the dnum digit sharding of the JAX dry run
-are not here: they need collectives inside the key switch.
+- `merge`: `merge_shares` of D parties' shares, one a rank;
+- `ckks_limb`: the CKKS `mul` with its limbs over 'limb' and its batch over
+  'batch' of a (D / n_limb, n_limb) mesh (`parallel/limb.py`,
+  `limb_sharded_mul`) at `chip_smoke.py` C3's size, N = 2^13, 8 + 8 primes
+  of 55 bits, batch 16;
+- `bgv_limb`: the BGV `mul` likewise (`limb_sharded_bgv_mul`) at G2's
+  `BgvParams(log_n=14, t=65537, log_qi=45, big_l=4)`, batch 16;
+- `ks2d`: a rotation by 1 with the limbs over 'limb' and the coefficients
+  over 'batch' (`sharded_rotate_2d`) at C3's ring, batch 16;
+- `dnum`: the `mul` of one ciphertext by itself at `production_config(16)`
+  (N = 2^16, 15 key-switch digits) with the digits over 'limb'
+  (`digit_sharded_mul`).
+`--limb-ranks` is n_limb (default 2 where D is even, else 1, as the JAX dry
+run's mesh). Every rank makes the keys, messages and operands from the same
+seeds. Every sharded result is gathered; rank 0 holds it against the
+unsharded result of the same device, bit for bit, and checks the
+decryptions (the product of the messages, the rotated message, the product
+mod t). Any failure on any rank makes the command exit non-zero. With `--out
+FILE` rank 0 writes the inputs' seeds' results (gathered) to FILE (numpy
+.npz), which the CPU tests hold against the JAX package, with each rank's
+collectives (calls and bytes sent, by kind), kernel launches and seconds of
+the four sharded operations (`op_<phase>_*`). `small` runs the JAX tests'
+shapes: N = 32, `CkksParams(log_n=5, log_qi=45, big_l=8)`,
+`BgvParams(log_n=5, big_l=4)`, `ProductionConfig(log_n=5, user_levels=2,
+chunk_r=5)`.
 
 Ranks that share one card run over gloo (nccl refuses two ranks on one
 device), so their wall times are not a scaling number.
@@ -47,10 +63,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-PHASES = ("coef", "coef32", "pbs", "gate", "merge")
+PHASES = ("coef", "coef32", "pbs", "gate", "merge", "ckks_limb", "bgv_limb", "ks2d", "dnum")
+LIMB_PHASES = PHASES[5:]
+COLLECTIVES = ("all_to_all", "all_gather", "exchange", "all_reduce")
 
 
-def _counted():
+def counted_kernels():
     """The launch counters of the kernels the phases run, by name."""
     from ..models.fhew import bootstrapping as fhew_boot
     from ..models.tfhe import tggsw
@@ -59,7 +77,8 @@ def _counted():
 
     fns = (
         coef.coef_cross, coef32.coef32_cross, ntt32.ntt32, ntt32.intt32, ntt32.negacyclic_mul32, rns.rns_ntt, rns.rns_intt,
-        rns.rns_intt_mac, tggsw.blind_rotate_steps, fhew_boot.blind_rotate_core_fused,
+        rns.rns_intt_mac, tggsw.blind_rotate_steps, fhew_boot.blind_rotate_core_fused, rns.base_convert, rns.rescale_finish,
+        rns.automorphism_rns, rns.drop_limbs_t,
     )  # fmt: skip
     return {f.__name__: f for f in fns}
 
@@ -75,6 +94,11 @@ class Size:
     gate_batch: int
     merge_cols: int
     merge_q: int
+    ckks: dict  # CkksParams of ckks_limb and ks2d
+    ckks_batch: int  # ciphertexts a batch (0: one, unbatched)
+    bgv: dict  # BgvParams of bgv_limb
+    bgv_batch: int
+    dnum: dict  # ProductionConfig of dnum
 
 
 SIZES = {
@@ -88,6 +112,11 @@ SIZES = {
         gate_batch=128,
         merge_cols=4096,
         merge_q=(1 << 55) - 55,
+        ckks=dict(log_n=13, log_qi=55, big_l=8),  # `bench.py:657-700`, chip_smoke.py C3
+        ckks_batch=16,
+        bgv=dict(log_n=14, t=65537, log_qi=45, big_l=4),  # chip_smoke.py G2
+        bgv_batch=16,
+        dnum=dict(log_n=16),  # production_config(16)
     ),
     # the shapes of tests/test_parallel.py's coefficient-sharded tests
     "small": Size(
@@ -100,6 +129,12 @@ SIZES = {
         gate_batch=16,
         merge_cols=64,
         merge_q=12289,
+        # `__graft_entry__.py:134-165,272-298,315-335,337-358`: the JAX dry run's
+        ckks=dict(log_n=5, log_qi=45, big_l=8),
+        ckks_batch=0,
+        bgv=dict(log_n=5, t=65537, log_qi=45, big_l=4),
+        bgv_batch=0,
+        dnum=dict(log_n=5, user_levels=2, chunk_r=5),
     ),
 }
 
@@ -164,15 +199,106 @@ def merge_inputs(size: Size, parties: int, seed: int = 3) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, size.merge_q, size=(parties, size.merge_cols), dtype=np.uint64)
 
 
+SEEDS = dict(ckks_limb=30, bgv_limb=31, ks2d=32, dnum=33)
+
+
+def _ckks_messages(params, rng, batch: int, amp: float):
+    """One ciphertext's messages: (l,) complex, or (batch, l)."""
+    draw = lambda: (rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l)) * amp  # noqa: E731
+    return draw() if not batch else np.stack([draw() for _ in range(batch)])
+
+
+def ckks_inputs(params, batch: int, seed: int, dev, n_cts: int, key: str, amp: float = 0.5):
+    """(sk, key, messages, ciphertexts) from one seed, drawn as the JAX
+    dry run draws them: sk, the key (`key`: "rlk", or "rtk" by 1), then
+    for each ciphertext its messages and its encryptions (a batch: row by
+    row, each row's messages then its encryption)."""
+    from ..models.ckks import ckks as C
+
+    rng = np.random.default_rng(seed)
+    sk = C.sk_gen(params, rng)
+    k = C.rlk_gen(params, sk, rng, dev) if key == "rlk" else C.rtk_gen(params, sk, 1, rng, dev)
+    ms, cts = [], []
+    for _ in range(n_cts):
+        rows = []
+        for i in range(max(batch, 1)):
+            m = _ckks_messages(params, rng, 0, amp)
+            rows.append((m, C.sk_encrypt(params, sk, C.encode(params, m, device=dev), params.qs, rng)))
+        ms.append(rows[0][0] if not batch else np.stack([m for m, _ in rows]))
+        pick = lambda f: getattr(rows[0][1], f) if not batch else torch.stack([getattr(c, f) for _, c in rows])  # noqa: E731
+        cts.append(C.CkksCiphertext(pick("b"), pick("a"), params.qs))
+    return sk, k, ms, cts
+
+
+def bgv_inputs(params, batch: int, seed: int, dev):
+    """(sk, rlk, messages, ciphertexts) of two ciphertexts from one seed:
+    sk, rlk, then each ciphertext's slots (a batch: row by row) and
+    encryption."""
+    from ..models.bgv import bgv as G
+
+    rng = np.random.default_rng(seed)
+    sk = G.sk_gen(params, rng)
+    rlk = G.rlk_gen(params, sk, rng, dev)
+    ms, cts = [], []
+    for _ in range(2):
+        rows = []
+        for _ in range(max(batch, 1)):
+            m = rng.integers(0, params.t, size=params.n, dtype=np.int64)
+            rows.append((m, G.sk_encrypt(params, sk, G.encode(params, m, dev), params.qs, rng)))
+        ms.append(rows[0][0] if not batch else np.stack([m for m, _ in rows]))
+        pick = lambda f: getattr(rows[0][1], f) if not batch else torch.stack([getattr(c, f) for _, c in rows])  # noqa: E731
+        cts.append(G.BgvCiphertext(pick("b"), pick("a"), params.qs))
+    return sk, rlk, ms, cts
+
+
+def dnum_config(size: Size):
+    from ..models.ckks.production import ProductionConfig, production_config
+
+    return production_config(**size.dnum) if size.dnum.get("log_n", 16) >= 16 else ProductionConfig(**size.dnum)
+
+
 class _Rank:
     """One rank's run: its meshes, results and the checks rank 0 makes."""
 
-    def __init__(self, rank: int, world: int, device: str, size: Size):
+    def __init__(self, rank: int, world: int, device: str, size: Size, limb_ranks: int):
         self.rank, self.world, self.size = rank, world, size
         self.dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
         self.device_type = device
+        self.limb_ranks = limb_ranks
         self.results: dict[str, np.ndarray] = {}
         self.seconds: dict[str, float] = {}
+        self.ops: dict[str, tuple] = {}  # phase -> (calls, bytes by COLLECTIVES; launches by kernel; seconds)
+        self._mesh = None
+
+    def limb_mesh(self):
+        """The (D / n_limb, n_limb) ('batch', 'limb') mesh, made once."""
+        from .mesh import make_mesh
+
+        if self._mesh is None:
+            self._mesh = make_mesh(self.world // self.limb_ranks, self.limb_ranks, self.device_type)
+        return self._mesh
+
+    def measured(self, phase: str, op):
+        """op() twice, the second with this rank's collectives, kernel
+        launches and seconds in it (the first makes the plans and tables)."""
+        from . import distributed
+
+        op()
+        counted = counted_kernels()
+        c0, b0 = distributed.counts()
+        l0 = {k: f.launches for k, f in counted.items()}
+        if self.device_type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = op()
+        if self.device_type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c1, b1 = distributed.counts()
+        calls = [c1.get(k, 0) - c0.get(k, 0) for k in COLLECTIVES]
+        sent = [b1.get(k, 0) - b0.get(k, 0) for k in COLLECTIVES]
+        self.ops[phase] = (calls, sent, [f.launches - l0[k] for k, f in counted.items()], secs)
+        return out
 
     def check(self, what: str, got: torch.Tensor, want: torch.Tensor) -> None:
         if not torch.equal(got.cpu(), want.cpu()):
@@ -312,17 +438,117 @@ class _Rank:
             self.results["merge"] = torch_to_u64(merged.cpu())
 
 
+    def _limb_shard(self, mesh, x: torch.Tensor, batched: bool) -> torch.Tensor:
+        from .mesh import shard_batch, shard_limbs
+
+        return shard_limbs(mesh, shard_batch(mesh, x) if batched else x)
+
+    def _limb_gather(self, mesh, x: torch.Tensor, n_limbs: int, batched: bool) -> torch.Tensor:
+        from .mesh import gather, gather_limbs
+
+        x = gather_limbs(mesh, x, n_limbs)
+        return gather(mesh, x, "batch", 0) if batched else x
+
+    def _ckks_check(self, what: str, params, sk, out, want, ms) -> None:
+        """out == want bit for bit (rank 0), and out decrypts to ms within 1e-5."""
+        from ..models.ckks import ckks as C
+        from ..utils.interop import torch_to_u64
+
+        self.check(f"{what} (b)", out.b, want.b)
+        self.check(f"{what} (a)", out.a, want.a)
+        pt = C.decrypt(params, sk, out)
+        rows = pt.reshape(-1, *pt.shape[-2:])
+        got = np.stack([C.decode(params, r, out.qs) for r in rows]).reshape(np.shape(ms))
+        err = float(np.max(np.abs(got - ms)))
+        if not err < 1e-5:
+            raise AssertionError(f"dryrun: {what} (D={self.world}) decrypts {err:.3g} away from the messages")
+        self.results[f"{what}_b"], self.results[f"{what}_a"] = torch_to_u64(out.b.cpu()), torch_to_u64(out.a.cpu())
+        self.results[f"{what}_err"] = np.array(err)
+
+    def ckks_limb(self) -> None:
+        from ..models.ckks import ckks as C
+        from .limb import limb_ksk, limb_sharded_mul
+
+        params = C.CkksParams(**self.size.ckks)
+        B = self.size.ckks_batch
+        sk, rlk, (m0, m1), (ct0, ct1) = ckks_inputs(params, B, SEEDS["ckks_limb"], self.dev, 2, "rlk")
+        mesh = self.limb_mesh()
+        s0, s1 = (C.CkksCiphertext(self._limb_shard(mesh, c.b, B > 0), self._limb_shard(mesh, c.a, B > 0), c.qs) for c in (ct0, ct1))
+        key = limb_ksk(mesh, params, rlk, params.qs)
+        out = self.measured("ckks_limb", lambda: limb_sharded_mul(mesh, params, key, s0, s1))
+        got = C.CkksCiphertext(*(self._limb_gather(mesh, x, len(out.qs), B > 0) for x in (out.b, out.a)), out.qs)
+        if self.rank == 0:
+            self._ckks_check("ckks_limb", params, sk, got, C.mul(params, rlk, ct0, ct1), m0 * m1)
+
+    def ks2d(self) -> None:
+        from ..models.ckks import ckks as C
+        from .limb import limb_ksk, sharded_rotate_2d
+        from .mesh import coord, gather, gather_limbs, shard_limbs
+
+        params = C.CkksParams(**self.size.ckks)
+        sk, rtk, (m,), (ct,) = ckks_inputs(params, self.size.ckks_batch, SEEDS["ks2d"], self.dev, 1, "rtk")
+        mesh = self.limb_mesh()
+        rb, nb = coord(mesh, "batch")
+        blk = ct.b.shape[-1] // nb
+        cut = lambda x: shard_limbs(mesh, x)[..., rb * blk : (rb + 1) * blk].contiguous()  # noqa: E731
+        sct = C.CkksCiphertext(cut(ct.b), cut(ct.a), ct.qs)
+        key = limb_ksk(mesh, params, rtk.ksk, params.qs, coef=True)
+        out = self.measured("ks2d", lambda: sharded_rotate_2d(mesh, params, key, rtk.j, sct))
+        got = C.CkksCiphertext(*(gather(mesh, gather_limbs(mesh, x, len(out.qs)), "batch", -1) for x in (out.b, out.a)), out.qs)
+        if self.rank == 0:
+            self._ckks_check("ks2d", params, sk, got, C.rotate(params, rtk, ct), np.roll(m, -1, axis=-1))
+
+    def dnum(self) -> None:
+        from ..models.ckks import ckks as C
+        from .limb import digit_ksk, digit_sharded_mul
+
+        params = dnum_config(self.size).params
+        sk, rlk, (m,), (ct,) = ckks_inputs(params, 0, SEEDS["dnum"], self.dev, 1, "rlk", amp=0.3)
+        mesh = self.limb_mesh()
+        key = digit_ksk(mesh, params, rlk, params.qs)
+        out = self.measured("dnum", lambda: digit_sharded_mul(mesh, params, key, ct, ct))
+        if self.rank == 0:
+            self._ckks_check("dnum", params, sk, out, C.mul(params, rlk, ct, ct), m * m)
+
+    def bgv_limb(self) -> None:
+        from ..models.bgv import bgv as G
+        from ..utils.interop import torch_to_u64
+        from .limb import limb_ksk, limb_sharded_bgv_mul
+
+        params = G.BgvParams(**self.size.bgv)
+        B = self.size.bgv_batch
+        sk, rlk, (m0, m1), (ct0, ct1) = bgv_inputs(params, B, SEEDS["bgv_limb"], self.dev)
+        mesh = self.limb_mesh()
+        s0, s1 = (G.BgvCiphertext(self._limb_shard(mesh, c.b, B > 0), self._limb_shard(mesh, c.a, B > 0), c.qs) for c in (ct0, ct1))
+        key = limb_ksk(mesh, params, rlk, params.qs)
+        out = self.measured("bgv_limb", lambda: limb_sharded_bgv_mul(mesh, params, key, s0, s1))
+        got = G.BgvCiphertext(*(self._limb_gather(mesh, x, len(out.qs), B > 0) for x in (out.b, out.a)), out.qs, out.factor)
+        if self.rank == 0:
+            want = G.mul(params, rlk, ct0, ct1)
+            self.check("bgv_limb (b)", got.b, want.b)
+            self.check("bgv_limb (a)", got.a, want.a)
+            if got.factor != want.factor:
+                raise AssertionError(f"dryrun: bgv_limb's factor {got.factor} is not the unsharded {want.factor}")
+            if not np.array_equal(G.decrypt(params, sk, got), (m0 * m1) % params.t):
+                raise AssertionError(f"dryrun: the limb-sharded BGV mul (D={self.world}) decrypts wrong")
+            self.results["bgv_limb_b"], self.results["bgv_limb_a"] = torch_to_u64(got.b.cpu()), torch_to_u64(got.a.cpu())
+
+
 def rank_main(
     rank: int, world: int, init_method: str, device: str, size: str, phases: tuple, out: str | None, backend: str | None,
-    stream: int | None = None,
+    stream: int | None = None, limb_ranks: int | None = None,
 ) -> None:  # fmt: skip
     """One rank: join the group, run the phases under the watchdog, and (rank
     0) write the results, with every rank's kernel launches summed
-    (`launches_<kernel>`; the counters start at 0 in a new process).
-    `stream` replaces the size's chunked PBS count."""
+    (`launches_<kernel>`; the counters start at 0 in a new process) and,
+    for each of the sharded key-switch operations that ran, every rank's
+    collectives, launches and seconds in it (`op_<phase>_calls` /
+    `_bytes`: (ranks, COLLECTIVES); `op_<phase>_launches`: (ranks,
+    kernels), `op_<phase>_seconds`: (ranks,)). `stream` replaces the size's
+    chunked PBS count."""
     from dataclasses import replace
 
-    from .distributed import all_reduce_sum, collective_watchdog, init_distributed
+    from .distributed import all_gather, all_reduce_sum, collective_watchdog, init_distributed
 
     if device == "cpu":
         torch.set_num_threads(1)
@@ -330,8 +556,8 @@ def rank_main(
         torch.cuda.set_device(rank % torch.cuda.device_count())
     init_distributed(init_method, world, rank, backend)
     sz = SIZES[size] if stream is None else replace(SIZES[size], pbs_stream=stream)
-    r = _Rank(rank, world, device, sz)
-    counted = _counted()
+    r = _Rank(rank, world, device, sz, default_limb_ranks(world) if limb_ranks is None else limb_ranks)
+    counted = counted_kernels()
     with collective_watchdog(900, f"dryrun rank {rank}"):
         for phase in phases:
             t0 = time.perf_counter()
@@ -340,14 +566,32 @@ def rank_main(
                 torch.cuda.synchronize()
             r.seconds[phase] = time.perf_counter() - t0
         total = all_reduce_sum(torch.tensor([f.launches for f in counted.values()], dtype=torch.int64, device=r.dev))
+        ops = {}
+        for phase in (p for p in phases if p in r.ops):
+            calls, sent, launched, secs = r.ops[phase]
+            row = torch.tensor([*calls, *sent, *launched, round(secs * 1e6)], dtype=torch.int64, device=r.dev)
+            ops[phase] = all_gather(row[None], None, 0).cpu().numpy()
     for name, v in zip(counted, total.tolist()):
         r.results[f"launches_{name}"] = np.array(v)
+    k = len(COLLECTIVES)
+    for phase, m in ops.items():
+        r.results[f"op_{phase}_calls"], r.results[f"op_{phase}_bytes"] = m[:, :k], m[:, k : 2 * k]
+        r.results[f"op_{phase}_launches"], r.results[f"op_{phase}_seconds"] = m[:, 2 * k : -1], m[:, -1] / 1e6
     if rank == 0:
         if out:
             np.savez(out, **r.results)
-        print(f"dryrun: rank 0 of {world}: " + ", ".join(f"{k} {v:.2f} s" for k, v in r.seconds.items()), flush=True)
+        print(f"dryrun: rank 0 of {world} (n_limb {r.limb_ranks}): " + ", ".join(f"{k} {v:.2f} s" for k, v in r.seconds.items()), flush=True)
         print("dryrun: launches on all ranks: " + ", ".join(f"{k} {int(v)}" for k, v in zip(counted, total.tolist())), flush=True)
+        for phase, m in ops.items():
+            calls = ", ".join(f"{c} {int(m[0, i])} ({int(m[0, k + i])} bytes)" for i, c in enumerate(COLLECTIVES) if m[:, i].any())
+            print(f"dryrun: {phase} on rank 0: {calls}; {m[0, -1] / 1e6:.4f} s", flush=True)
     dist.destroy_process_group()
+
+
+def default_limb_ranks(world: int) -> int:
+    """n_limb of the limb phases' mesh: 2 where the world is even, else 1
+    (`__graft_entry__.py:111`)."""
+    return 2 if world % 2 == 0 else 1
 
 
 def fault_main(rank: int, world: int, init_method: str) -> None:
@@ -376,11 +620,14 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 def run(
     ranks: int, device: str = "cuda", size: str = "card", phases=PHASES, out: str | None = None, backend: str | None = None,
     stream: int | None = None, store: str | None = None, timeout: float = 1200, fault: bool = False,
+    limb_ranks: int | None = None,
 ) -> float:  # fmt: skip
     """Start `ranks` rank processes (`python -m` this module, one a rank)
     and wait for them; raise if one fails or they outlast `timeout`. The
     ranks meet at a FileStore under `store` (default: a new temporary
-    directory). Returns the wall seconds. `fault`: run `fault_main`."""
+    directory). Returns the wall seconds. `fault`: run `fault_main`;
+    `limb_ranks`: n_limb of the limb phases' mesh (default
+    `default_limb_ranks`)."""
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("dryrun: no CUDA device (pass --device cpu to run on the CPU)")
     if backend is None:
@@ -391,7 +638,7 @@ def run(
         common = [
             "--ranks", str(ranks), "--device", device, "--size", size, "--phases", ",".join(phases), "--backend", backend,
             "--init", init, *(["--out", out] if out else []), *(["--stream", str(stream)] if stream is not None else []),
-            *(["--fault"] if fault else []),
+            *(["--fault"] if fault else []), *(["--limb-ranks", str(limb_ranks)] if limb_ranks is not None else []),
         ]  # fmt: skip
         procs = [subprocess.Popen([sys.executable, "-m", _MODULE, "--rank", str(r), *common], cwd=_ROOT) for r in range(ranks)]
         deadline = time.monotonic() + timeout
@@ -422,6 +669,7 @@ def main(argv=None) -> None:
     ap.add_argument("--store", default=None, help="directory for the ranks' FileStore (default: a temporary one)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--fault", action="store_true", help="fault injection: the peers of rank 0 die after one all_reduce (gloo)")
+    ap.add_argument("--limb-ranks", type=int, default=None, help="n_limb of the limb phases' (D / n_limb, n_limb) mesh (default 2 where D is even, else 1)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)  # set by `run` for a rank process
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -429,12 +677,14 @@ def main(argv=None) -> None:
     phases = tuple(p for p in args.phases.split(",") if p)
     if not set(phases) <= set(PHASES):
         raise SystemExit(f"dryrun: phases are {PHASES}")
+    if args.limb_ranks is not None and (args.limb_ranks < 1 or args.ranks % args.limb_ranks):
+        raise SystemExit(f"dryrun: --limb-ranks {args.limb_ranks} does not divide {args.ranks} ranks")
     if args.rank is not None:
         try:
             if args.fault:
                 fault_main(args.rank, args.ranks, args.init)
             else:
-                rank_main(args.rank, args.ranks, args.init, args.device, size, phases, args.out, args.backend, args.stream)
+                rank_main(args.rank, args.ranks, args.init, args.device, size, phases, args.out, args.backend, args.stream, args.limb_ranks)
         except BaseException:
             import traceback
 
@@ -442,7 +692,7 @@ def main(argv=None) -> None:
             sys.stdout.flush()
             os._exit(1)
         return
-    secs = run(args.ranks, args.device, size, phases, args.out, args.backend, args.stream, args.store, fault=args.fault)
+    secs = run(args.ranks, args.device, size, phases, args.out, args.backend, args.stream, args.store, fault=args.fault, limb_ranks=args.limb_ranks)
     print(f"dryrun OK: {args.ranks} ranks ({args.device}, {size}): {', '.join(phases)} equal the unsharded results; {secs:.1f} s wall", flush=True)
 
 

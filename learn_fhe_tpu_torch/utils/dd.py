@@ -271,11 +271,18 @@ def dd_scalar_from_int(v: int) -> tuple[float, float]:
 @lru_cache(maxsize=None)
 def cis_table_dd(denom: int, count: int) -> "DDC":
     """cis(pi * j / denom) for j in 0..count, exact to dd, via mpmath."""
+    return cis_dd_at(denom, range(count))
+
+
+def cis_dd_at(denom: int, js) -> "DDC":
+    """cis(pi * j / denom) for each j of js, exact to dd, via mpmath: the
+    entries of `cis_table_dd(denom, ...)` at js, value for value (each costs
+    a 140-bit cosine and sine)."""
     import mpmath
 
     with mpmath.workprec(140):
         res, ims = [], []
-        for j in range(count):
+        for j in js:
             x = mpmath.pi * j / denom
             c, s = mpmath.cos(x), mpmath.sin(x)
             res.append(c)

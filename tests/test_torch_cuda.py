@@ -1876,3 +1876,37 @@ def test_dryrun_on_the_card_over_gloo(dev):
     )  # fmt: skip
     assert out.returncode == 0, out.stdout + out.stderr
     assert "dryrun OK: 2 ranks (cuda, small)" in out.stdout
+
+
+def test_limb_sharded_key_switch_on_the_card_on_a_2x2_mesh(dev, tmp_path):
+    """The dry run's limb phases at the small size on 4 gloo ranks sharing
+    the card, a ('batch', 'limb') mesh of 2 x 2: the limb-sharded CKKS and
+    BGV `mul`, the limb x coefficient rotation (K-COEF-CROSS on the
+    coefficient axis) and the digit-sharded dnum `mul` equal their
+    unsharded card results and decrypt; each issues its design's
+    collectives, and each rank launches the kernels of its path."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from learn_fhe_tpu_torch.parallel import dryrun
+
+    phases = ",".join(dryrun.LIMB_PHASES)
+    out = subprocess.run(
+        [sys.executable, "-m", "learn_fhe_tpu_torch.parallel.dryrun", "--ranks", "4", "--size", "small", "--backend", "gloo",
+         "--phases", phases, "--out", str(tmp_path / "out.npz")],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=600,
+    )  # fmt: skip
+    assert out.returncode == 0, out.stdout + out.stderr
+    got = np.load(tmp_path / "out.npz")
+    kernels = list(dryrun.counted_kernels())
+    design = {"ckks_limb": [4, 0, 0, 0], "bgv_limb": [4, 0, 0, 0], "ks2d": [4, 1, 2, 0], "dnum": [0, 1, 0, 0]}
+    for phase, calls in design.items():
+        assert got[f"op_{phase}_calls"].tolist() == [calls] * 4, phase
+        launched = got[f"op_{phase}_launches"]
+        for name in ("rns_ntt", "rns_intt_mac", "base_convert"):
+            assert (launched[:, kernels.index(name)] > 0).all(), (phase, name)
+    assert (got["op_ks2d_launches"][:, kernels.index("coef_cross")] == 2).all()
+    assert (got["op_bgv_limb_launches"][:, kernels.index("drop_limbs_t")] == 1).all()

@@ -10,7 +10,12 @@ package's coefficient-sharded transforms on conftest.py's 8-device CPU
 mesh, its batch-sharded PBS and gate, and its share merge, element for
 element. The sharded inverse scales by n^-1 before its cross layers, the
 JAX package after them: `test_coef_sharded_matches_jax` is what shows the
-values agree.
+values agree. The limb-sharded CKKS and BGV `mul`, the limb x coefficient
+rotation and the dnum ladder's digit-sharded `mul` (`parallel/limb.py`)
+are held against the JAX package's `C.mul`, `G.mul` and `C.rotate` on the
+same seeds: limb-sharded on the 8-device mesh where the world is one limb
+group of 8, else unsharded (`tests/test_parallel.py` holds the JAX
+package's two equal); each JAX call is made once.
 """
 
 import os
@@ -41,16 +46,22 @@ SMALL = dryrun.SIZES["small"]
 _ENV_DROP = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "XLA_FLAGS", "JAX_PLATFORMS")
 
 
-def _world_cmd(tmp: Path, ranks: int, phases: tuple[str, ...]) -> list[str]:
+def _world_cmd(tmp: Path, ranks: int, phases: tuple[str, ...], limb_ranks: int) -> list[str]:
     """A world of `ranks` gloo ranks on the CPU, rank 0's results to tmp/out.npz."""
     return [
         sys.executable, "-m", "learn_fhe_tpu_torch.parallel.dryrun", "--ranks", str(ranks), "--device", "cpu", "--size", "small",
-        "--phases", ",".join(phases), "--store", str(tmp), "--out", str(tmp / "out.npz"),
+        "--phases", ",".join(phases), "--limb-ranks", str(limb_ranks), "--store", str(tmp), "--out", str(tmp / "out.npz"),
     ]  # fmt: skip
 
 
-# D = 2, 4 and 8; the PBS and gate batches in the world of 4
-WORLDS = {2: ("coef", "coef32", "merge"), 4: dryrun.PHASES, 8: ("coef", "coef32", "merge")}
+# D = 2, 4 and 8: (phases, n_limb). The PBS and gate batches and the limb x
+# coefficient rotation in the world of 4 (a 2 x 2 mesh); the world of 8 is
+# one limb group of 8: one q limb and one p limb a rank
+WORLDS = {
+    2: (("coef", "coef32", "merge", "ckks_limb", "bgv_limb", "dnum"), 2),
+    4: (dryrun.PHASES, 2),
+    8: (("coef", "coef32", "merge", "ckks_limb"), 8),
+}
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +70,8 @@ def worlds(tmp_path_factory):
     env = {k: v for k, v in os.environ.items() if k not in _ENV_DROP}
     tmps = {d: tmp_path_factory.mktemp(f"world{d}") for d in WORLDS}
     procs = {
-        d: subprocess.Popen(_world_cmd(tmps[d], d, phases), cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for d, phases in WORLDS.items()
+        d: subprocess.Popen(_world_cmd(tmps[d], d, *w), cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for d, w in WORLDS.items()
     }
     outs = {d: p.communicate(timeout=600)[0] for d, p in procs.items()}
     for d, p in procs.items():
@@ -175,6 +186,151 @@ def test_sharded_gate_decrypts_as_jax(worlds):
     jax_bits = np.asarray(gates.decode_bool(params, lwe.decrypt(params.lwe_z, z, out))).astype(np.int64)
     np.testing.assert_array_equal(jax_bits, 1 - (m0 & m1))
     np.testing.assert_array_equal(worlds[4]["gate_bits"], jax_bits)
+
+
+# ---------------------------------------------------------------------------
+# The limb-sharded key switch (`parallel/limb.py`) against the JAX package
+# ---------------------------------------------------------------------------
+
+LIMB_CASES = [(d, p) for d, (phases, _) in WORLDS.items() for p in phases if p in dryrun.LIMB_PHASES]
+
+
+def _jax_ckks(params, seed, n_cts, key, amp=0.5):
+    """The JAX package's sk, key, messages and ciphertexts drawn as
+    `dryrun.ckks_inputs` draws the port's (unbatched)."""
+    from learn_fhe_tpu.models.ckks import ckks as JC
+
+    rng = np.random.default_rng(seed)
+    sk = JC.sk_gen(params, rng)
+    k = JC.rlk_gen(params, sk, rng) if key == "rlk" else JC.rtk_gen(params, sk, 1, rng)
+    ms, cts = [], []
+    for _ in range(n_cts):
+        m = (rng.standard_normal(params.l) + 1j * rng.standard_normal(params.l)) * amp
+        ms.append(m)
+        cts.append(JC.sk_encrypt(params, sk, JC.encode(params, m), params.qs, rng))
+    return sk, k, ms, cts
+
+
+@pytest.fixture(scope="module")
+def jax_limb():
+    """Each limb phase's JAX result, made at its first use: (params, sk,
+    result, what it decrypts to); `ckks_limb_8` limb-sharded over the
+    8-device mesh."""
+    from learn_fhe_tpu.models.bgv import bgv as JG
+    from learn_fhe_tpu.models.ckks import ckks as JC
+    from learn_fhe_tpu.models.ckks.production import ProductionConfig
+    from learn_fhe_tpu.parallel.mesh import make_mesh
+
+    def ckks_mul(sharded=False):
+        params = JC.CkksParams(**SMALL.ckks)
+        sk, rlk, (m0, m1), (ct0, ct1) = _jax_ckks(params, dryrun.SEEDS["ckks_limb"], 2, "rlk")
+        if sharded:
+            mesh = make_mesh(n_batch=1, n_limb=8)
+            put = lambda x: jax.device_put(x, NamedSharding(mesh, P("limb", None)))  # noqa: E731
+            ct0, ct1 = (JC.CkksCiphertext(put(c.b), put(c.a), c.qs) for c in (ct0, ct1))
+            rlk = JC.CkksKeySwitchingKey(put(rlk.b), put(rlk.a), rlk.qs)
+        return params, sk, JC.mul(params, rlk, ct0, ct1), m0 * m1
+
+    def ks2d():
+        params = JC.CkksParams(**SMALL.ckks)
+        sk, rtk, (m,), (ct,) = _jax_ckks(params, dryrun.SEEDS["ks2d"], 1, "rtk")
+        return params, sk, JC.rotate(params, rtk, ct), np.roll(m, -1)
+
+    def dnum():
+        params = ProductionConfig(**SMALL.dnum).params
+        sk, rlk, (m,), (ct,) = _jax_ckks(params, dryrun.SEEDS["dnum"], 1, "rlk", amp=0.3)
+        return params, sk, JC.mul(params, rlk, ct, ct), m * m
+
+    def bgv_mul():
+        params = JG.BgvParams(**SMALL.bgv)
+        rng = np.random.default_rng(dryrun.SEEDS["bgv_limb"])
+        sk = JG.sk_gen(params, rng)
+        rlk = JG.rlk_gen(params, sk, rng)
+        ms, cts = [], []
+        for _ in range(2):
+            ms.append(rng.integers(0, params.t, size=params.n, dtype=np.int64))
+            cts.append(JG.sk_encrypt(params, sk, JG.encode(params, ms[-1]), params.qs, rng))
+        return params, sk, JG.mul(params, rlk, *cts), (ms[0] * ms[1]) % params.t
+
+    makers = {"ckks_limb": ckks_mul, "ckks_limb_8": lambda: ckks_mul(sharded=True), "bgv_limb": bgv_mul, "ks2d": ks2d, "dnum": dnum}
+    made = {}
+
+    def get(name):
+        if name not in made:
+            made[name] = makers[name]()
+        return made[name]
+
+    return get
+
+
+@pytest.mark.parametrize("d,phase", LIMB_CASES)
+def test_limb_sharded_ops_match_jax(worlds, jax_limb, d, phase):
+    """The port's sharded CKKS `mul` (8 + 8 limbs), BGV `mul` (4 + 4), limb x
+    coefficient rotation and digit-sharded dnum `mul` on D gloo ranks ==
+    the JAX package's on the same seeds, bit for bit; and the result
+    decrypts: CKKS within 1e-5 of the messages' product (the rotated
+    message), BGV to the product mod t exactly."""
+    from learn_fhe_tpu.models.bgv import bgv as JG
+    from learn_fhe_tpu.models.ckks import ckks as JC
+
+    params, sk, want, message = jax_limb(f"{phase}_8" if (d, phase) == (8, "ckks_limb") else phase)
+    got = worlds[d]
+    np.testing.assert_array_equal(got[f"{phase}_b"], np.asarray(want.b), err_msg=f"{phase} b")
+    np.testing.assert_array_equal(got[f"{phase}_a"], np.asarray(want.a), err_msg=f"{phase} a")
+    ct = type(want)(jnp.asarray(got[f"{phase}_b"]), jnp.asarray(got[f"{phase}_a"]), *[getattr(want, f) for f in ("qs", "factor") if hasattr(want, f)])
+    if phase == "bgv_limb":
+        np.testing.assert_array_equal(np.asarray(JG.decrypt(params, sk, ct)) % params.t, message)
+    else:
+        err = np.max(np.abs(JC.decode(params, JC.decrypt(params, sk, ct), ct.qs) - message))
+        assert err < 1e-5, err
+
+
+# the collectives one sharded operation issues on every rank, by the design
+# (`parallel/limb.py`): the mul's four all-to-alls; the rotation's all_gather,
+# four all-to-alls and log2(n_batch) exchanges each way; one all_gather of
+# the digits' partial sums
+DESIGN = {
+    "ckks_limb": {"all_to_all": 4},
+    "bgv_limb": {"all_to_all": 4},
+    "ks2d": {"all_to_all": 4, "all_gather": 1, "exchange": 2},
+    "dnum": {"all_gather": 1},
+}
+
+
+@pytest.mark.parametrize("d,phase", LIMB_CASES)
+def test_sharded_ops_issue_the_designs_collectives(worlds, d, phase):
+    """Counted by `distributed.CALLS` on every rank around the one sharded
+    call: a limb-sharded `mul` issues at most 4 collectives (the JAX
+    package's GSPMD 26-36), each operation exactly its design's."""
+    calls = worlds[d][f"op_{phase}_calls"]  # (ranks, dryrun.COLLECTIVES)
+    assert calls.shape == (d, len(dryrun.COLLECTIVES))
+    want = [DESIGN[phase].get(c, 0) for c in dryrun.COLLECTIVES]
+    for rank in range(d):
+        assert calls[rank].tolist() == want, (rank, dict(zip(dryrun.COLLECTIVES, calls[rank].tolist())))
+        if phase in ("ckks_limb", "bgv_limb"):
+            assert calls[rank].sum() <= 4
+    sent = worlds[d][f"op_{phase}_bytes"]  # bytes sent to other ranks, by kind
+    assert ((sent > 0) == (calls > 0)).all(), sent
+
+
+@pytest.mark.parametrize("n_limbs,n_ranks", [(8, 2), (15, 2), (7, 2), (21, 8), (8, 8), (7, 8), (2, 4)])
+def test_limb_bounds_cut_as_array_split(n_limbs, n_ranks):
+    from learn_fhe_tpu_torch.parallel.mesh import limb_bounds, limb_sizes
+
+    cuts = np.array_split(np.arange(n_limbs), n_ranks)
+    assert [list(range(s, e)) for s, e in limb_bounds(n_limbs, n_ranks)] == [c.tolist() for c in cuts]
+    assert limb_sizes(n_limbs, n_ranks) == [len(c) for c in cuts]
+
+
+def test_a_rank_without_a_q_limb_raises():
+    """BGV's 4 q limbs over 8 'limb' ranks: the port raises (JAX's GSPMD pads)."""
+    from learn_fhe_tpu_torch.models.bgv import bgv as TG
+    from learn_fhe_tpu_torch.parallel.limb import qp_rows
+
+    params = TG.BgvParams(**SMALL.bgv)
+    with pytest.raises(ValueError, match="would leave a rank none"):
+        qp_rows(params, params.qs, 0, 8)
+    assert qp_rows(params, params.qs, 3, 4) == ((params.qs[3],), (params.ps[3],))
 
 
 # ---------------------------------------------------------------------------

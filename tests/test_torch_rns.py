@@ -225,6 +225,18 @@ def test_dd_twiddles_equal_jax_mpmath(denom, count):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
+@pytest.mark.parametrize("n,conj", [(2, False), (64, True), (1024, False), (1024, True)])
+def test_sfft_twiddles_equal_jax(n, conj):
+    """The sfft's twiddles, made only at the entries it reads, equal the JAX
+    package's, taken from its whole cis_table_dd(2n, 4n)."""
+    from learn_fhe_tpu.models.ckks.sfft import w_dd as jax_w
+    from learn_fhe_tpu_torch.models.ckks.sfft import w_dd
+
+    want, got = jax_w(n, conj), w_dd(n, conj)
+    for f in ("re_h", "re_l", "im_h", "im_l"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
 @pytest.mark.parametrize("denom,count", [(4, 8), (128, 256)])
 def test_f256_twiddles_equal_jax_mpmath(denom, count):
     from learn_fhe_tpu.utils.f256 import cis_table_fp as jax_table
