@@ -264,7 +264,14 @@ parallel layer (`learn_fhe_tpu_torch/parallel/`):
   S1. K-COEF-CROSS (`parallel/coef.py::coef_cross`, `coef32.py::
       coef32_cross`), forward and inverse, u64 at (16, 8, 8192 / D) and
       u32 at (4, 16384 / D), D = 2, 4, 8, at every cross layer against its
-      plain version, timed eager and from a graph against its bound;
+      plain version, timed eager and from a graph against its bound, beside
+      the launch floor (an empty kernel from a graph); the fused forward
+      tails (`coef_ntt_tail`, `coef32_ntt_tail`: the last cross layer in
+      the local K-RNS-NTT's / K-NTT's first pass) at the same shapes, every
+      rank of D against its plain version, timed eager, from a graph and
+      plain against their bound, beside the parent's route (K-COEF-CROSS
+      then the local transform, two launches) and the local transform
+      alone from a graph;
   S2. `python -m learn_fhe_tpu_torch.parallel.dryrun`'s ranks with D = 2, 4
       and 8 ranks on the one card over gloo (`parallel/dryrun.py`: the
       coefficient-sharded u64 ntt / intt / mul at (16, 8, 8192), the u32
@@ -284,8 +291,11 @@ parallel layer (`learn_fhe_tpu_torch/parallel/`):
       rank's seconds, collectives (calls and bytes sent) and kernel
       launches are printed, and each rank must launch its path's kernels.
       The wall times are printed as what they are: D ranks share one card,
-      not a scaling number. The ranks' launches are summed; K-COEF-CROSS
-      must launch, on the rotation's path too.
+      not a scaling number. The ranks' launches are summed and checked
+      against the design's count: K-COEF-CROSS log2 D - 1 a forward, log2 D
+      an inverse, 3 log2 D - 2 a product a rank, and the fused tails once a
+      forward (the rotation's key switch too); each product's exchange
+      calls (rank 0: 2 log2 D, a and b in one exchange a layer).
 
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
@@ -296,8 +306,11 @@ first shape and carries G2's path's launches; the `*_n16384` rows of
 `ntt32.cu` time N1's (256, 16384) and carry N1's path's launches, the
 `ntt64_n16384` row N2's, and the `coef_cross` / `coef32_cross` rows S1's
 D = 2 forward shapes with S2's ranks' launches (`coef_cross`'s those of
-the sharded transforms and of the rotations' key switches). The phases'
-seconds are printed before it.
+the sharded transforms and of the rotations' key switches), the
+`coef_ntt_tail` / `coef32_ntt_tail` rows S1's D = 2 fused launches (the
+upper rank) with S2's, and `base_convert_n65536` P1's 2 -> 30 (a digit's
+hoist) with P2's launches of K-BASECONV. The phases' seconds are printed
+before it.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -1989,6 +2002,7 @@ def production_cases(params, rng, dev):
 
 # the kernels line's rows of the production ring: (row, P1's case)
 PROD_ROWS = {
+    "base_convert_n65536": ("base_convert", "2->30"),
     "rns_ntt_n65536": ("rns_ntt", (15, 32, 1 << 16)),
     "rns_intt_n65536": ("rns_intt", (2, 30, 1 << 16)),
     "rns_intt_mac_n65536": ("rns_intt_mac", "key switch, 15 digits"),
@@ -2576,6 +2590,27 @@ NTT_LOOP_REPS = 8  # chained calls a polymuls/s figure times (`bench.py:367`)
 SCALING_ROWS = 4  # `bench.py`'s scaling metric: the u32 coef-sharded polymul at (4, 16384), 28-bit q
 COEF_SHAPE = (16, 8, 1 << 13)  # S1 / S2: the CKKS `mul`'s ring, batch 16, 8 primes of 55 bits
 COEF_RANKS = (2, 4, 8)
+# the fused forward tails' instances: K-RNS-NTT's (lazy) at the local rings
+# S1 and S2 take (2^13 and 2^11-2^12 on clusters, below 2048 a block a
+# row), K-NTT's at 2^11-2^13
+TAIL_INSTANCES = (
+    "rns_ntt_cross_kernel<true,13>", "rns_ntt_cross_kernel<true,0>", "rns_ntt_cross_rows_kernel<true,0>",
+    "ntt32_fwd_cross_kernel<11>", "ntt32_fwd_cross_kernel<12>", "ntt32_fwd_cross_kernel<13>",
+)  # fmt: skip
+
+
+def tail_design(d: int, n_limb: int) -> Counter:
+    """K-COEF-CROSS's and the fused tails' launches on all ranks of S2's
+    world of d: the coef and coef32 phases (a forward: log2 D - 1 layers
+    and a fused tail; an inverse: log2 D; a product: 3 log2 D - 2 and two
+    tails, the 28-bit u32 product through the tails too) and ks2d's
+    warm-up and measured rotation on the 'batch' axis of n_b = d / n_limb
+    ranks (a forward, then an inverse)."""
+    log_d, log_b = d.bit_length() - 1, (d // n_limb).bit_length() - 1
+    per = Counter(coef_cross=5 * log_d - 3, coef32_cross=5 * log_d - 3, coef_ntt_tail=3, coef32_ntt_tail=3)
+    if log_b:
+        per.update(coef_cross=2 * (2 * log_b - 1), coef_ntt_tail=2)
+    return Counter({k: d * v for k, v in per.items()})
 
 
 def chain_pps(mul, add, a, b, reps: int) -> float:
@@ -2729,6 +2764,8 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     import os
     import tempfile
 
+    from learn_fhe_tpu_torch.ops import ntt32 as t32
+    from learn_fhe_tpu_torch.ops import rns
     from learn_fhe_tpu_torch.parallel import coef as pc
     from learn_fhe_tpu_torch.parallel import coef32 as pc32
     from learn_fhe_tpu_torch.parallel import dryrun
@@ -2737,9 +2774,11 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
 
     t_s = time.perf_counter()
     report = kernels.ptxas_report(kernels.build_log())
-    for inst in ("coef_cross64_kernel<false>", "coef_cross64_kernel<true>", "coef_cross32_kernel<false>", "coef_cross32_kernel<true>"):
+    for inst in ("coef_cross64_kernel<false>", "coef_cross64_kernel<true>", "coef_cross32_kernel<false>", "coef_cross32_kernel<true>", *TAIL_INSTANCES):
         regs, st, ld, stack = report[inst]
         say(f"  ptxas: {inst}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
+    floor_ms = graph_ms(lambda: kernels.launch("lft_empty", 1), NTT_REPS)
+    say(f"{tag} S1 launch floor: an empty kernel (one block of 32 threads) from a CUDA graph {floor_ms * 1e3:.3f} us")
 
     # -- S1. K-COEF-CROSS, forward and inverse, u64 and u32, D = 2, 4, 8 -------
     rng = np.random.default_rng(19)
@@ -2769,15 +2808,38 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
                 k_ms, g_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS)
                 p_ms = cuda_ms(lambda fn=plain, xx=xx, vv=vv, pl=pl, inverse=inverse: fn(xx, vv, pl, 0, pl.d // 2, inverse), 2)
                 b_ms, by = bound_ms(3 * xx.numel() * item, xx.numel() * per_value[inverse], pipe_per_s)
-                say(f"{tag} S1 {name} {'inverse' if inverse else 'forward'} D={d} {tuple(xx.shape)}: == plain at every layer of the upper rank; eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph)")
+                say(f"{tag} S1 {name} {'inverse' if inverse else 'forward'} D={d} {tuple(xx.shape)}: == plain at every layer of the upper rank; eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph); launch floor {floor_ms * 1e3:.2f} us")
                 if d == 2 and not inverse:
                     timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
+        # the fused forward tails: the last cross layer in the local transform's first pass
+        rows64, rows32 = x.numel() // x.shape[-1], x32.numel() // x32.shape[-1]
+        for name, fn, plain, xx, vv, pl, item, ops, local, cross, tail in (
+            ("coef_ntt_tail", pc.coef_ntt_tail, pc.coef_ntt_tail_ref, x, v, plan, 8,
+             x.numel() * (SHOUP64 + ADD_Q64) + ntt64_ops(rows64, x.shape[-1]), pc.local_plan, pc.coef_cross, rns.rns_ntt),
+            ("coef32_ntt_tail", pc32.coef32_ntt_tail, pc32.coef32_ntt_tail_ref, x32, v32, plan32, 4,
+             x32.numel() * (SHOUP_MIN + ADD_MIN) + ntt32_ops("ntt32", rows32, x32.shape[-1]), pc32.local_plan32, pc32.coef32_cross, t32.ntt32),
+        ):  # fmt: skip
+            before = fn.launches
+            for rank in range(d):
+                errs[name] = max(errs.get(name, 0.0), max_abs_err(fn(xx, vv, pl, rank), plain(xx, vv, pl, rank).cpu()))
+            if fn.launches != before + d:
+                raise AssertionError(f"S1: {name} launched {fn.launches - before} times in {d} calls")
+            rank, lp = d - 1, local(pl, d - 1)  # the upper half of the last layer's pairs
+            kernel = lambda fn=fn, xx=xx, vv=vv, pl=pl, rank=rank: fn(xx, vv, pl, rank)  # noqa: E731
+            k_ms, g_ms = cuda_ms(kernel, NTT_REPS), graph_ms(kernel, NTT_REPS)
+            p_ms = cuda_ms(lambda plain=plain, xx=xx, vv=vv, pl=pl, rank=rank: plain(xx, vv, pl, rank), 2)
+            pair_ms = graph_ms(lambda cross=cross, tail=tail, xx=xx, vv=vv, pl=pl, rank=rank, lp=lp: tail(cross(xx, vv, pl, pl.log_d - 1, rank), lp), NTT_REPS)
+            alone_ms = graph_ms(lambda tail=tail, xx=xx, lp=lp: tail(xx, lp), NTT_REPS)
+            b_ms, by = bound_ms(3 * xx.numel() * item, ops, pipe_per_s)
+            say(f"{tag} S1 {name} D={d} {tuple(xx.shape)}: == plain on every rank, one launch a call; rank {rank}: eager {k_ms * 1e3:.2f} us, graph {g_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} = {b_ms / g_ms:.4f} of bound (graph); the parent's route (K-COEF-CROSS, then the local transform) {pair_ms * 1e3:.2f} us, the local transform alone {alone_ms * 1e3:.2f} us (graph); launch floor {floor_ms * 1e3:.2f} us")
+            if d == 2:
+                timings[name], graphs[name], bounds[name] = (k_ms, p_ms), g_ms, (b_ms, by)
 
     # -- S2. the sharded paths on D ranks sharing the card (gloo), and one rank on nccl
     torch.cuda.empty_cache()
-    counted = ("coef_cross", "coef32_cross")
+    counted = ("coef_cross", "coef32_cross", "coef_ntt_tail", "coef32_ntt_tail")
     kernel_names = list(dryrun.counted_kernels())
-    totals, ks2d_cross = Counter(), 0
+    totals, design, ks2d_cross = Counter(), Counter(), 0
     with tempfile.TemporaryDirectory() as tmp:
         for d in COEF_RANKS:
             out = os.path.join(tmp, f"d{d}.npz")
@@ -2786,6 +2848,12 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
             got = np.load(out)
             for name in counted:
                 totals[name] += int(got[f"launches_{name}"])
+            design += tail_design(d, dryrun.default_limb_ranks(d))
+            log_d = d.bit_length() - 1
+            moved = {k: got[k].tolist() for k in ("coef0_exchanges", "coef32_0_exchanges")}
+            say(f"{tag} S2 D={d} rank 0's exchange calls in the coefficient-sharded ntt, intt, mul: u64 {moved['coef0_exchanges']}, u32 {moved['coef32_0_exchanges']} (the product's a and b in one exchange a layer)")
+            if any(v != [log_d, log_d, 2 * log_d] for v in moved.values()):
+                raise AssertionError(f"S2: D={d}: exchange calls {moved}, expected [{log_d}, {log_d}, {2 * log_d}]")
             say(f"{tag} S2 dryrun D={d} over gloo: coef (16, 8, 8192) ntt / intt / mul, coef32 ({SCALING_ROWS}, 16384) at 28 bits, PBS batch {dryrun.SIZES['card'].pbs_batch}" + (f" and {stream} chunked" if stream else "") + f", FHEW NAND {dryrun.SIZES['card'].gate_batch}, merge of {d} parties, {', '.join(dryrun.LIMB_PHASES)} == unsharded on the card; {secs:.1f} s wall (D ranks share one card; not a scaling number); K-COEF-CROSS launches {dict((k, int(got[f'launches_{k}'])) for k in counted)}")
             ks2d_cross += s2_limb_report(tag, d, dryrun.default_limb_ranks(d), got, kernel_names)
         out = os.path.join(tmp, "nccl.npz")
@@ -2796,6 +2864,9 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
         if totals[name] == 0:
             raise AssertionError(f"S2: {name} was not launched on the sharded path")
         launches[name] = totals[name]
+    say(f"{tag} S2 launches on all ranks of the worlds of {', '.join(map(str, COEF_RANKS))}: {dict(totals)}; the design's {dict(design)}")
+    if totals != design:
+        raise AssertionError(f"S2: K-COEF-CROSS and the fused tails launched {dict(totals)}, the design {dict(design)}")
     if ks2d_cross == 0:
         raise AssertionError("S2: coef_cross was not launched on the limb x coefficient rotation's path")
     say(f"{tag} S2 coef_cross launches on all ranks {totals['coef_cross']} (the kernels line's row); {ks2d_cross} of them in the ks2d rotations' measured calls, each after an unmeasured warm-up call that launches as many")
@@ -2804,13 +2875,16 @@ def coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
 
 # the kernels each rank must launch in one sharded operation of S2 (a rank
 # with no key-switch digit launches no hoist: dnum's ranks all hold some at
-# production_config(16)'s 15 digits over 2)
+# production_config(16)'s 15 digits over 2); ks2d's forward transform runs
+# K-COEF-CROSS and the fused tail where its 'batch' axis has more than one
+# rank, else K-RNS-NTT (KS2D_UNSHARDED)
 S2_KERNELS = {
     "ckks_limb": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish"),
     "bgv_limb": ("rns_ntt", "rns_intt_mac", "base_convert", "drop_limbs_t"),
-    "ks2d": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish", "automorphism_rns", "coef_cross"),
+    "ks2d": ("rns_intt_mac", "base_convert", "rescale_finish", "automorphism_rns", "coef_cross", "coef_ntt_tail"),
     "dnum": ("rns_ntt", "rns_intt_mac", "base_convert", "rescale_finish"),
 }
+KS2D_UNSHARDED = {"coef_cross": "rns_ntt", "coef_ntt_tail": "rns_ntt"}
 
 
 def s2_limb_report(tag, d: int, n_limb: int, got, kernel_names) -> int:
@@ -2832,7 +2906,8 @@ def s2_limb_report(tag, d: int, n_limb: int, got, kernel_names) -> int:
             moved = ", ".join(f"{c} {int(calls[r, dryrun.COLLECTIVES.index(c)])} x, {int(sent[r, dryrun.COLLECTIVES.index(c)])} bytes sent" for c in colls)
             by_kernel = {k: int(v) for k, v in zip(kernel_names, lau[r]) if v}
             say(f"  S2 D={d} {phase} rank {r}: {moved}; launches {by_kernel}")
-            missing = [k for k in S2_KERNELS[phase] if not lau[r, kernel_names.index(k)] and not (k == "coef_cross" and d // n_limb == 1)]
+            need = [KS2D_UNSHARDED.get(k, k) for k in S2_KERNELS[phase]] if phase == "ks2d" and d // n_limb == 1 else S2_KERNELS[phase]
+            missing = [k for k in dict.fromkeys(need) if not lau[r, kernel_names.index(k)]]
             if missing:
                 raise AssertionError(f"S2: D={d} {phase}: rank {r} launched no {missing}")
         if phase == "ks2d":
@@ -2876,9 +2951,9 @@ def main() -> None:
         if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
     past_2048 = {f"{k}_kernel<{log_n}>" for k in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32") for log_n in NTT_LOG_NS}
-    cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")}
+    cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")} | set(TAIL_INSTANCES)
     if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048 or no K-COEF-CROSS")
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048, no K-COEF-CROSS or no fused forward tail")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -3132,6 +3207,11 @@ def main() -> None:
         # the coefficient-sharded layers (S1's D=2 forward shapes; launches: S2's ranks)
         ("coef_cross", "coef.cu", "learn_fhe_tpu/parallel/coef.py:157-167,180-190 (cross-shard layer bodies in shard_map, XLA fusions; no Pallas call)"),
         ("coef32_cross", "coef.cu", "learn_fhe_tpu/parallel/coef32.py:148-158,171-181 (cross-shard layer bodies in shard_map, XLA fusions; no Pallas call)"),
+        # the forward's last cross layer inside the local transform's first pass (S1's D=2 upper rank; launches: S2's ranks)
+        ("coef_ntt_tail", "rns64.cu", "learn_fhe_tpu/parallel/coef.py:153-167 (the last cross-shard layer body) and :166-168 (the local tail, fwd_stages of ops/rns.py:123); XLA fusions, no Pallas call"),
+        ("coef32_ntt_tail", "ntt32.cu", "learn_fhe_tpu/parallel/coef32.py:148-158 (the last cross-shard layer body) and :157-159 (the local tail, _fwd_local_stages at :104); XLA fusions, no Pallas call"),
+        # K-BASECONV at the production ring (P1's 2 -> 30; launches: P2's)
+        ("base_convert_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases at N=2^16, a digit's hoist; XLA fusion; no Pallas call)"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {

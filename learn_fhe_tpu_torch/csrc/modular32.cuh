@@ -24,6 +24,14 @@ __device__ __forceinline__ uint32_t mul_shoup(uint32_t a, uint32_t w, uint32_t w
   return r >= q ? r - q : r;
 }
 
+// The coefficient-sharded transform's forward cross-shard layer on one pair
+// (parallel/coef32.py): x this rank's value, v its partner's, t the layer's
+// twiddle with its Shoup dual, all below q; upper ? v - t x : x + t v.
+__device__ __forceinline__ uint32_t cross_fwd(uint32_t x, uint32_t v, uint32_t t, uint32_t ts, uint32_t q,
+                                              bool upper) {
+  return upper ? sub_mod(v, mul_shoup(x, t, ts, q), q) : add_mod(x, mul_shoup(v, t, ts, q), q);
+}
+
 // Variable x variable product, with no division: a*b = hi * 2^32 + lo, and
 // 2^32 = r32 (mod q), so a*b = hi * r32 + lo (mod q), hi < 2^30. Takes r32 =
 // 2^32 mod q with its Shoup dual; exact for 2^30 < q < 2^31, where lo < 2^32

@@ -71,6 +71,7 @@
 namespace {
 
 constexpr int kMaxLogN = 14;
+constexpr int kMaxCrossLogN = 13;  // the fused forward's rings (a sharded transform's local block)
 constexpr int kRowsLogN = 11;  // up to 2^11 a block holds 2048 values; past it, one row
 constexpr int kRowThreads = 512;  // past 2^11: a row's block, two of them an SM
 constexpr int kScratchLogN = 14;  // from here K-POLYMUL's buffer holds one operand
@@ -110,6 +111,11 @@ struct Rows {
   const uint32_t* __restrict__ psi_inv_s;
   uint32_t q, n_inv, n_inv_s, r32, r32_s;
   int limit;  // block_values, or fewer in the ragged last block
+  // the fused forward's cross-shard layer (kCross below): the partner's
+  // block from the block's first value, the layer's twiddle, its Shoup dual
+  const uint32_t* __restrict__ cv = nullptr;
+  uint32_t ct = 0, cts = 0;
+  int upper = 0;
 };
 
 // Item t of a block's pass over layers L0 .. L0+W-1: its rows hold
@@ -173,16 +179,19 @@ __device__ __forceinline__ void inverse_layers(const Rows& k, uint32_t (&x)[1 <<
 
 // Forward pass P, then the ones after it, on the block's K operands (K-NTT:
 // the row; K-POLYMUL: a and b, operand o in buffer slice o). Pass 0 reads
-// `in` (device memory, at the block's first value), the others the buffer.
+// `in` (device memory, at the block's first value), the others the buffer;
+// with kCross (K = 1) pass 0 takes lft::cross_fwd of in's values and of the
+// partner's block's (k.cv) at the same places.
 // The last pass (log_h = 0) holds runs of 2^W outputs: with K = 1 it writes
 // them to `out`; with K = 2 it multiplies a's by b's and runs the inverse of
 // its own layers on the product, which then goes to `out` if that was layer
 // 0 and to the buffer otherwise.
-template <int LOG_N, int P, int K>
+template <int LOG_N, int P, int K, bool kCross = false>
 __device__ __forceinline__ void forward_pass(const Rows& k, const uint32_t* const (&in)[K],
                                              uint32_t* __restrict__ out) {
   constexpr int L0 = 3 * P, W = lft::pass_width(LOG_N, P), R = 1 << W;
   constexpr bool kLast = P == lft::pass_count(LOG_N) - 1;
+  static_assert(!kCross || K == 1, "the cross-shard layer feeds K-NTT");
   using It = Item<LOG_N, L0, W>;
 #pragma unroll
   for (int i = 0; i < It::kPerThread; ++i) {
@@ -192,6 +201,12 @@ __device__ __forceinline__ void forward_pass(const Rows& k, const uint32_t* cons
     for (int o = 0; o < K; ++o) {
       if constexpr (P == 0) {
         load_item<W, It::kLogH>(x[o], in[o], it.at, k.limit);
+        if constexpr (kCross) {
+          uint32_t v[R];
+          load_item<W, It::kLogH>(v, k.cv, it.at, k.limit);
+#pragma unroll
+          for (int m = 0; m < R; ++m) x[o][m] = lft::cross_fwd(x[o][m], v[m], k.ct, k.cts, k.q, k.upper);
+        }
       } else {
         lft::load_row<W, It::kLogH>(x[o], k.buf + o * It::kValues, it.at);
       }
@@ -220,7 +235,7 @@ __device__ __forceinline__ void forward_pass(const Rows& k, const uint32_t* cons
   }
   if constexpr (!kLast) {
     __syncthreads();
-    forward_pass<LOG_N, P + 1, K>(k, in, out);
+    forward_pass<LOG_N, P + 1, K, kCross>(k, in, out);
   }
 }
 
@@ -365,8 +380,10 @@ enum class End {
 // in buffer slice o): pass 0 reads in[o] (device memory), the others the
 // buffer; the last pass ends as E says. A turn takes one operand's item at a
 // time under the twiddles it loaded once for all K; kU: for_turns' unrolling.
-template <int LOG_N, int P, int K, End E, int kU>
+// kCross: as forward_pass's.
+template <int LOG_N, int P, int K, End E, int kU, bool kCross = false>
 __device__ __forceinline__ void row_forward(const Rows& k, const uint32_t* const (&in)[K], uint32_t* __restrict__ out) {
+  static_assert(!kCross || (K == 1 && E == End::kStore), "the cross-shard layer feeds K-NTT");
   using It = RowItem<LOG_N, P>;
   constexpr int W = It::kW, R = 1 << W, kLogH = It::kLogH, kValues = 1 << LOG_N;
   for_turns<It::kTurns, kU>([&](int j) {
@@ -380,6 +397,12 @@ __device__ __forceinline__ void row_forward(const Rows& k, const uint32_t* const
       for (int o = 0; o < K; ++o) {
         if constexpr (P == 0) {
           row_load<W, kLogH>(x, in[o] + it.at);
+          if constexpr (kCross) {
+            uint32_t v[R];
+            row_load<W, kLogH>(v, k.cv + it.at);
+#pragma unroll
+            for (int m = 0; m < R; ++m) x[m] = lft::cross_fwd(x[m], v[m], k.ct, k.cts, k.q, k.upper);
+          }
         } else {
           lft::load_slots<W, kLogH>(x, k.buf + o * kValues, sw);
         }
@@ -420,7 +443,7 @@ __device__ __forceinline__ void row_forward(const Rows& k, const uint32_t* const
   });
   if constexpr (!It::kLast) {
     __syncthreads();
-    row_forward<LOG_N, P + 1, K, E, kU>(k, in, out);
+    row_forward<LOG_N, P + 1, K, E, kU, kCross>(k, in, out);
   }
 }
 
@@ -490,6 +513,26 @@ __global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
   }
 }
 
+// The fused forward of a coefficient-sharded transform (parallel/coef32.py,
+// coef32_ntt_tail): the last cross-shard layer in the first pass's loads,
+// then K-NTT's passes; rings up to kMaxCrossLogN.
+template <int LOG_N>
+__global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
+    ntt32_fwd_cross_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ v,
+                           uint32_t* __restrict__ y, const uint32_t* __restrict__ psi,
+                           const uint32_t* __restrict__ psi_s, long long values, uint32_t q, uint32_t t,
+                           uint32_t ts, int upper) {
+  const size_t first = static_cast<size_t>(blockIdx.x) * block_values(LOG_N);
+  const Rows k{block_buffer<LOG_N, 1>(), psi, psi_s, nullptr, nullptr, q, 0, 0, 0, 0,
+               block_limit<LOG_N>(values), v + first, t, ts, upper};
+  const uint32_t* const in[1] = {x + first};
+  if constexpr (LOG_N > kRowsLogN) {
+    row_forward<LOG_N, 0, 1, End::kStore, kNttTurns, true>(k, in, y + first);
+  } else {
+    forward_pass<LOG_N, 0, 1, true>(k, in, y + first);
+  }
+}
+
 template <int LOG_N>
 __global__ void __launch_bounds__(block_threads(LOG_N), min_blocks(LOG_N))
     ntt32_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
@@ -549,6 +592,12 @@ auto fwd_kernel(int log_n, std::integer_sequence<int, L...>) {
 }
 
 template <int... L>
+auto cross_kernel(int log_n, std::integer_sequence<int, L...>) {
+  static const decltype(&ntt32_fwd_cross_kernel<1>) table[] = {ntt32_fwd_cross_kernel<L + 1>...};
+  return table[log_n - 1];
+}
+
+template <int... L>
 auto inv_kernel(int log_n, std::integer_sequence<int, L...>) {
   static const decltype(&ntt32_inv_kernel<1>) table[] = {ntt32_inv_kernel<L + 1>...};
   return table[log_n - 1];
@@ -603,6 +652,19 @@ int lft_ntt32_fwd(const void* x, void* y, const void* psi, const void* psi_s, in
   return launch<1>(fwd_kernel(log_n, kLogNs), grid, log_n, stream, static_cast<const uint32_t*>(x),
                    static_cast<uint32_t*>(y), static_cast<const uint32_t*>(psi),
                    static_cast<const uint32_t*>(psi_s), static_cast<long long>(rows) << log_n, q);
+}
+
+// lft_ntt32_fwd's arguments with v (the partner's block, x's layout) after x
+// and, after q, the layer's twiddle t, its Shoup dual ts and upper: the
+// forward transform of each row's lft::cross_fwd values, 2 <= N <= 2^13.
+int lft_ntt32_fwd_cross(const void* x, const void* v, void* y, const void* psi, const void* psi_s, int rows,
+                        int log_n, unsigned int q, unsigned int t, unsigned int ts, int upper, void* stream) {
+  const unsigned grid = log_n <= kMaxCrossLogN ? blocks(rows, log_n) : 0;
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<1>(cross_kernel(log_n, std::make_integer_sequence<int, kMaxCrossLogN>{}), grid, log_n, stream,
+                   static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(v), static_cast<uint32_t*>(y),
+                   static_cast<const uint32_t*>(psi), static_cast<const uint32_t*>(psi_s),
+                   static_cast<long long>(rows) << log_n, q, t, ts, upper);
 }
 
 int lft_ntt32_inv(const void* x, void* y, const void* psi_inv, const void* psi_inv_s, int rows,

@@ -468,19 +468,33 @@ __device__ __forceinline__ uint64_t* row_buf() {
   }
 }
 
+// The last forward cross-shard layer of a coefficient-sharded transform
+// (parallel/coef.py), run in the first pass's loads: each value of a row is
+// lft64::cross_fwd of x's value and of the partner's block v's at its place
+// (v in x's layout), under the row's limb's twiddle t[limb] and its Shoup
+// dual ts[limb] (limb = row mod L, as limb_tables takes it).
+struct Cross64 {
+  const uint64_t* __restrict__ v;
+  const uint64_t* __restrict__ t;
+  const uint64_t* __restrict__ ts;
+  int upper;
+};
+
 // One row on a cluster of Sh::kC blocks (grid: rows x kC; N >= 2048).
 // kLogN: 13 to 16 (every shape a constant) or 0 (log_n as given, 2^11 or
-// 2^12); Sh: its RowShape.
-template <bool kInv, bool kLazy, int kLogN, class Sh = RowShape<kLogN>>
+// 2^12); Sh: its RowShape. kCross: the forward's first pass takes its
+// values through cr (Cross64) from x and cr.v.
+template <bool kInv, bool kLazy, int kLogN, class Sh = RowShape<kLogN>, bool kCross = false>
 __device__ __forceinline__ void ntt_row(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Stacked& st,
-                                        int limbs, int log_n_arg) {
+                                        int limbs, int log_n_arg, Cross64 cr = {}) {
   uint64_t* buf = row_buf<Sh>();
   cg::cluster_group cluster = cg::this_cluster();
   const int log_n = kLogN ? kLogN : log_n_arg;
   const int log_s = log_n - kSplit;
   const int rank = static_cast<int>(cluster.block_rank());
   const long long row = blockIdx.x / Sh::kC;
-  const lft64::Tables t = limb_tables(st, static_cast<int>(row % limbs), log_n);
+  const int limb = static_cast<int>(row % limbs);
+  const lft64::Tables t = limb_tables(st, limb, log_n);
   const int sub0 = rank * Sh::kPer;
   const size_t base = static_cast<size_t>(row) << log_n;
   const size_t mine = base + (static_cast<size_t>(sub0) << log_s);
@@ -499,11 +513,20 @@ __device__ __forceinline__ void ntt_row(const uint64_t* __restrict__ x, uint64_t
     cluster_arrive_relaxed();
     bool started = false;
     item_twiddles<kSplit>(w, ws, t.psi, t.psi_s, 0, 0);
+    uint64_t ct = 0, cts = 0;
+    if constexpr (kCross) ct = __ldg(cr.t + limb), cts = __ldg(cr.ts + limb);
     for (int k = threadIdx.x; k < share; k += Sh::kThreads) {
       const int i = first + k;
       uint64_t v[kSubs];
 #pragma unroll
       for (int m = 0; m < kSubs; ++m) v[m] = __ldg(x + base + i + (m << log_s));
+      if constexpr (kCross) {
+        uint64_t p[kSubs];
+#pragma unroll
+        for (int m = 0; m < kSubs; ++m) p[m] = __ldg(cr.v + base + i + (m << log_s));
+#pragma unroll
+        for (int m = 0; m < kSubs; ++m) v[m] = lft64::cross_fwd(v[m], p[m], ct, cts, t.q, cr.upper);
+      }
       lft64::fwd_radix<kSplit, kLazy>(v, w, ws, t.q);
       if (!started) {
         cluster_wait();
@@ -554,6 +577,45 @@ __global__ void __launch_bounds__(kRowThreads)
   } else {
     lft64::rows::forward<kRowThreads, kLazy, kLogN, false>(x, y, t, row, 1, 1, log_n, 0, 0, buf);
   }
+}
+
+// The fused forward of a coefficient-sharded transform (parallel/coef.py,
+// coef_ntt_tail): the last cross-shard layer in the first pass's loads, then
+// the local transform, as rns_ntt_kernel (cluster instances, kLogN 13 or 0:
+// 2^11, 2^12) and rns_ntt_rows_kernel (below 2048) run it.
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kNttThreads)
+    rns_ntt_cross_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, Cross64 cr, int limbs,
+                         int log_n_arg) {
+  ntt_row<false, kLazy, kLogN, RowShape<kLogN>, true>(x, y, st, limbs, log_n_arg, cr);
+}
+
+// The rows' first pass reads x and the partner's block v (DeviceRows each)
+// and hands it each value's cross_fwd.
+struct CrossRows {
+  lft64::rows::DeviceRows x, v;
+  uint64_t t, ts, q;
+  int upper;
+  template <int V>
+  __device__ __forceinline__ void load(int row, int col, int log_h, uint64_t (&out)[V]) const {
+    uint64_t p[V];
+    x.load(row, col, log_h, out);
+    v.load(row, col, log_h, p);
+#pragma unroll
+    for (int m = 0; m < V; ++m) out[m] = lft64::cross_fwd(out[m], p[m], t, ts, q, upper);
+  }
+};
+
+template <bool kLazy, int kLogN>
+__global__ void __launch_bounds__(kRowThreads)
+    rns_ntt_cross_rows_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Stacked st, Cross64 cr,
+                              int limbs, int log_n) {
+  __shared__ __align__(16) uint64_t buf[kLogN == 1 || kLogN == 2 ? 1 : kRowValues];
+  const long long row = blockIdx.x;
+  const int limb = static_cast<int>(row % limbs), ln = kLogN ? kLogN : log_n;
+  const lft64::Tables t = limb_tables(st, limb, log_n);
+  CrossRows src{{x, row, 1, ln}, {cr.v, row, 1, ln}, __ldg(cr.t + limb), __ldg(cr.ts + limb), t.q, cr.upper};
+  lft64::rows::forward_from<kRowThreads, kLazy, kLogN, false>(src, y, t, row, 1, 1, log_n, 0, 0, buf);
 }
 
 // A launch of `rows` clusters of Sh's shape (attr: the cluster attribute
@@ -648,6 +710,26 @@ int launch_ntt(const void* x, void* y, const Stacked& s, int rows, int limbs, in
     return launch_ntt_rows<kInv, kLazy, 16>(px, py, s, rows, limbs, log_n, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fused forward's instance at ring 2^log_n <= 2^13 on `rows` rows.
+template <bool kLazy>
+int launch_ntt_cross(const void* x, void* y, const Stacked& s, const Cross64& cr, int rows, int limbs, int log_n,
+                     cudaStream_t stream) {
+  const auto* px = static_cast<const uint64_t*>(x);
+  auto* py = static_cast<uint64_t*>(y);
+  if (log_n < kSplitLogN) {
+    const auto kernel = log_n == 1   ? rns_ntt_cross_rows_kernel<kLazy, 1>
+                        : log_n == 2 ? rns_ntt_cross_rows_kernel<kLazy, 2>
+                                     : rns_ntt_cross_rows_kernel<kLazy, 0>;
+    kernel<<<static_cast<unsigned>(rows), kRowThreads, 0, stream>>>(px, py, s, cr, limbs, log_n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (log_n == kFixedLogN) {
+    return launch_clusters<RowShape<kFixedLogN>>(rns_ntt_cross_kernel<kLazy, kFixedLogN>, rows, stream, 0, px, py, s, cr,
+                                                 limbs, log_n);
+  }
+  return launch_clusters<RowShape<0>>(rns_ntt_cross_kernel<kLazy, 0>, rows, stream, 0, px, py, s, cr, limbs, log_n);
 }
 
 // ---------------------------------------------------------------------------
@@ -1538,6 +1620,23 @@ int lft_rns_ntt_inv(const void* x, void* y, const void* psi, const void* psi_s, 
   const auto st = static_cast<cudaStream_t>(stream);
   return lazy ? launch_ntt<true, true>(x, y, s, rows, limbs, log_n, st)
               : launch_ntt<true, false>(x, y, s, rows, limbs, log_n, st);
+}
+
+// lft_rns_ntt_fwd's arguments with v (the partner's block, x's layout) after
+// x, and after the tables the layer's per-limb twiddle t, its Shoup dual ts
+// (limbs,) and upper: the forward transform of each row's lft64::cross_fwd
+// values, 2 <= N <= 2^13.
+int lft_rns_ntt_cross(const void* x, const void* v, void* y, const void* psi, const void* psi_s, const void* psi_inv,
+                      const void* psi_inv_s, const void* q, const void* neg_q_inv, const void* n_inv,
+                      const void* n_inv_s, const void* t, const void* ts, int rows, int limbs, int log_n, int lazy,
+                      int upper, void* stream) {
+  if (rows < 1 || limbs < 1 || log_n < 1 || log_n > kFixedLogN) return static_cast<int>(cudaErrorInvalidValue);
+  const Stacked s{cp<uint64_t>(psi), cp<uint64_t>(psi_s), cp<uint64_t>(psi_inv), cp<uint64_t>(psi_inv_s),
+                  cp<uint64_t>(q), cp<uint64_t>(neg_q_inv), cp<uint64_t>(n_inv), cp<uint64_t>(n_inv_s)};
+  const Cross64 cr{cp<uint64_t>(v), cp<uint64_t>(t), cp<uint64_t>(ts), upper};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return lazy ? launch_ntt_cross<true>(x, y, s, cr, rows, limbs, log_n, st)
+              : launch_ntt_cross<false>(x, y, s, cr, rows, limbs, log_n, st);
 }
 
 // xs, ys, zs: host arrays of `terms` device pointers (zs null: one sum),

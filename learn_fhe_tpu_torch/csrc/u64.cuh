@@ -58,6 +58,15 @@ __device__ __forceinline__ uint64_t shoup_q(uint64_t a, uint64_t w, uint64_t ws,
 // s mod q for s < 4q (q < 2^62).
 __device__ __forceinline__ uint64_t reduce4(uint64_t s, uint64_t q) { return csub(csub(s, 2 * q), q); }
 
+// The coefficient-sharded transform's forward cross-shard layer on one pair
+// (parallel/coef.py): x this rank's value, v its partner's, t the layer's
+// twiddle with its Shoup dual, all below q; upper ? v - t x : x + t v,
+// canonical.
+__device__ __forceinline__ uint64_t cross_fwd(uint64_t x, uint64_t v, uint64_t t, uint64_t ts, uint64_t q,
+                                              bool upper) {
+  return upper ? sub_q(v, shoup_q(x, t, ts, q), q) : add_q(x, shoup_q(v, t, ts, q), q);
+}
+
 // The prime with its REDC constant -q^-1 mod 2^64.
 struct Mod {
   uint64_t q, neg_q_inv;

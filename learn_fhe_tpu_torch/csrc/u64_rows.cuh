@@ -227,14 +227,15 @@ struct ForwardRows {
 };
 
 // kLogN as polymul's: 11 (N = 2048, every offset a constant), 1 or 2 (N = 2
-// or 4: no head pass), or 0 (any N >= 8, log_n as given).
-template <int kThreads, bool kLazy, int kLogN, bool kMont>
-__device__ __forceinline__ void forward(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Tables& t,
-                                        long long first, int per, int have, int log_n_arg, uint64_t r1,
-                                        uint64_t r1_s, uint64_t* buf) {
+// or 4: no head pass), or 0 (any N >= 8, log_n as given). src gives the
+// first pass its items: a DeviceRows of x (`forward`), or what builds them
+// (rns64.cu's cross-shard layer).
+template <int kThreads, bool kLazy, int kLogN, bool kMont, class Src>
+__device__ __forceinline__ void forward_from(Src& src, uint64_t* __restrict__ y, const Tables& t, long long first,
+                                             int per, int have, int log_n_arg, uint64_t r1, uint64_t r1_s,
+                                             uint64_t* buf) {
   constexpr int W = kLogN ? last_width(kLogN) : 2;
   const int log_n = kLogN ? kLogN : log_n_arg, threads = kThreads;
-  DeviceRows src{x, first, have, log_n};
   ForwardRows<kLazy, kMont> dst{y, first, have, log_n, t.q, r1, r1_s};
   if constexpr (kLogN == 1 || kLogN == 2) {
     pass<W, false, kLazy>(threads, per, log_n, 0, t, src, dst);
@@ -252,6 +253,14 @@ __device__ __forceinline__ void forward(const uint64_t* __restrict__ x, uint64_t
     }
     pass<W, false, kLazy>(threads, per, log_n, head_layers(log_n), t, sm, dst);
   }
+}
+
+template <int kThreads, bool kLazy, int kLogN, bool kMont>
+__device__ __forceinline__ void forward(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, const Tables& t,
+                                        long long first, int per, int have, int log_n_arg, uint64_t r1,
+                                        uint64_t r1_s, uint64_t* buf) {
+  DeviceRows src{x, first, have, kLogN ? kLogN : log_n_arg};
+  forward_from<kThreads, kLazy, kLogN, kMont>(src, y, t, first, per, have, log_n_arg, r1, r1_s, buf);
 }
 
 // src gives the first pass its items (row, col, log_h 0): a DeviceRows of x,

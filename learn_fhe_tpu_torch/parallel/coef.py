@@ -7,25 +7,38 @@ merged-twist transform is split in place:
   partner rank r XOR D >> (l+1) at the same local offset, under the twiddle
   psi_br[2^l + (r >> (log2(D) - l))], one scalar per rank and limb. Each
   such layer is one exchange of the local block with the partner
-  (`distributed.exchange`: one `batch_isend_irecv`) and one launch of
-  K-COEF-CROSS (`coef_cross`, `csrc/coef.cu`);
+  (`distributed.exchange`: one `batch_isend_irecv`) and, but for the
+  forward's last, one launch of K-COEF-CROSS (`coef_cross`,
+  `csrc/coef.cu`);
 - layers log2(D) .. are local: each rank runs the tail of the transform on
   its block with K-RNS-NTT on a per-rank plan (`local_plan`) whose table is
   T[r][k] = psi_br[(D + r) msb(k) + k - msb(k)], the JAX package's
   `local_psi[r]`.
-The inverse runs the local tail first, then the cross layers in reverse.
+The forward's last cross layer runs inside the local tail's first pass,
+which reads every value of the block anyway: it reads the partner's block
+too and makes each value's pair in registers (`coef_ntt_tail`, K-RNS-NTT's
+fused instances `lft_rns_ntt_cross`), one launch and one write and read
+of the block fewer than the layer's own launch. That covers local rings up
+to 2^13 (`TAIL_LOG_N`); past it the layer keeps its own launch before
+K-RNS-NTT. The inverse runs the local tail first, then the cross layers
+in reverse: each layer combines the partner's tail output, which the
+exchange brings only after the tail, so every inverse layer keeps its
+K-COEF-CROSS launch.
 Its local plan carries the full n^-1 as its scale: every step is exact mod
 q and the cross layers are linear, so scaling before them gives the JAX
 package's canonical values, which scales after them. The product
 (`coef_sharded_mul`) is the two forward transforms, then the pointwise
 product inside the local inverse tail (`rns_intt_mac` of one term, scaled
-by n^-1 2^64), then the cross layers. Every value equals the unsharded
+by n^-1 2^64), then the cross layers; a and b go in one exchange a
+forward layer. Every value equals the unsharded
 transform's (`ops/rns.py` `rns_ntt`, `rns_intt`, `rns_mul`).
 
 Every rank calls the entry points with its own shard (`shard_coef`) and
 gets its shard of the result; `mesh.gather(mesh, y, AXIS, -1)` puts it
 together. The plain version of K-COEF-CROSS is `coef_cross_ref`, the JAX
-package's layer body in torch; the wrapper runs it only for CPU tensors.
+package's layer body in torch, and that of the fused launch
+`coef_ntt_tail_ref` (`coef_cross_ref`, then the plain K-RNS-NTT); the
+wrappers run them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -37,7 +50,9 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..ops.rns import RnsPlan, add_mod_v, mul_shoup_v, rns_intt, rns_intt_mac, rns_ntt, rns_plan, rns_tables, sub_mod_v
+from ..ops.rns import (
+    RnsPlan, _ntt_ptrs, add_mod_v, mul_shoup_v, rns_intt, rns_intt_mac, rns_ntt, rns_ntt_ref, rns_plan, rns_tables, sub_mod_v,
+)  # fmt: skip
 from ..ops.modular import shoup_precompute
 from ..utils import kernels
 from ..utils.interop import u64_to_torch
@@ -45,6 +60,7 @@ from .distributed import exchange
 from .mesh import axis_mesh, coord, shard
 
 AXIS = "coef"
+TAIL_LOG_N = 13  # the fused forward tails' largest local ring (K-RNS-NTT's and K-NTT's instances up to 2^13)
 
 
 def coef_mesh(n_coef: int | None = None, device_type: str = "cuda") -> DeviceMesh:
@@ -176,20 +192,27 @@ def coef_cross_ref(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, layer
     return sub_mod_v(u, tv, q) if upper else add_mod_v(u, tv, q)
 
 
+def _check_blocks(name: str, x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan) -> int:
+    """Rows of the equal, contiguous, 16-byte aligned (..., L, n/D) int64
+    CUDA blocks x and recv (a row of an even length)."""
+    m, limbs = plan.n // plan.d, len(plan.qs)
+    for t in (x, recv):
+        kernels.require(name, t, torch.int64, x.shape)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel moves 16-byte words; an operand is not 16-byte aligned")
+    if x.dim() < 2 or x.shape[-2:] != (limbs, m) or m % 2:
+        raise ValueError(f"{name}: expected (..., {limbs}, {m}) with an even row, got {tuple(x.shape)}")
+    return x.numel() // m
+
+
 def coef_cross(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, layer: int, rank: int, inverse: bool = False) -> torch.Tensor:
     """Cross-shard layer `layer` of rank `rank`: its block x and its
     partner's block recv, (..., L, n/D) int64, in one K-COEF-CROSS launch."""
     if x.is_cpu:
         return coef_cross_ref(x, recv, plan, layer, rank, inverse)
-    m, limbs = plan.n // plan.d, len(plan.qs)
-    for t in (x, recv):
-        kernels.require("coef_cross", t, torch.int64, x.shape)
-        if t.data_ptr() % 16:
-            raise ValueError("coef_cross: the kernel moves 16-byte words; an operand is not 16-byte aligned")
-    if x.dim() < 2 or x.shape[-2:] != (limbs, m) or m % 2:
-        raise ValueError(f"coef_cross: expected (..., {limbs}, {m}) with an even row, got {tuple(x.shape)}")
+    rows, limbs = _check_blocks("coef_cross", x, recv, plan), len(plan.qs)
+    m = plan.n // plan.d
     y = torch.empty_like(x)
-    rows = x.numel() // m
     if rows:
         t, ts = _cross_tables(plan, layer, rank, inverse, x.device)
         q = rns_tables(rns_plan(plan.qs, plan.n), x.device).q
@@ -205,33 +228,92 @@ coef_cross.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The forward's last cross-shard layer inside the local tail's first pass
+# ---------------------------------------------------------------------------
+
+
+def coef_ntt_tail_ref(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, rank: int) -> torch.Tensor:
+    """The forward's last cross-shard layer (`coef_cross_ref` of layer
+    log2(D) - 1), then the plain local tail on rank `rank`'s plan."""
+    return rns_ntt_ref(coef_cross_ref(x, recv, plan, plan.log_d - 1, rank, False), local_plan(plan, rank))
+
+
+def coef_ntt_tail(x: torch.Tensor, recv: torch.Tensor, plan: CoefNttPlan, rank: int) -> torch.Tensor:
+    """The forward's last cross-shard layer and the local tail of rank
+    `rank`'s block x with its partner's block recv at that layer, (..., L,
+    n/D) int64, local ring n/D <= 2^TAIL_LOG_N: one launch of K-RNS-NTT's
+    fused instance, which makes each value's pair as its first pass loads
+    x and recv."""
+    if x.is_cpu:
+        return coef_ntt_tail_ref(x, recv, plan, rank)
+    lp, layer = local_plan(plan, rank), plan.log_d - 1
+    if plan.log_d < 1 or lp.log_n > TAIL_LOG_N:
+        raise ValueError(f"coef_ntt_tail: the fused instances take D >= 2 and n/D <= {1 << TAIL_LOG_N}, got D = {plan.d}, n/D = {lp.n}")
+    rows = _check_blocks("coef_ntt_tail", x, recv, plan)
+    y = torch.empty_like(x)
+    if rows:
+        t, ts = _cross_tables(plan, layer, rank, False, x.device)
+        kernels.launch(
+            "lft_rns_ntt_cross", x.data_ptr(), recv.data_ptr(), y.data_ptr(), *_ntt_ptrs(rns_tables(lp, x.device)),
+            t.data_ptr(), ts.data_ptr(), rows, len(plan.qs), lp.log_n, int(max(plan.qs) < 1 << 62),
+            int(_upper(plan, layer, rank)),
+        )  # fmt: skip
+        coef_ntt_tail.launches += 1
+    return y
+
+
+coef_ntt_tail.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The sharded transforms, per rank
 # ---------------------------------------------------------------------------
 
 
-def _cross_layers(x: torch.Tensor, plan, rank: int, group, inverse: bool, cross) -> torch.Tensor:
-    """The log2(D) cross-shard layers (in reverse for the inverse): per
-    layer one exchange with the partner rank and one `cross` launch."""
-    layers = range(plan.log_d - 1, -1, -1) if inverse else range(plan.log_d)
+def _partner(plan, layer: int, rank: int) -> int:
+    return rank ^ (plan.d >> (layer + 1))
+
+
+def _cross_layers(xs: list, plan, rank: int, group, layers, inverse: bool, cross) -> list:
+    """Cross-shard layers `layers` (in that order) of the blocks xs: per
+    layer one exchange of all of them with the partner rank and one
+    `cross` launch each."""
     for layer in layers:
-        recv = exchange(x, rank ^ (plan.d >> (layer + 1)), group)
-        x = cross(x, recv, plan, layer, rank, inverse)
-    return x
+        recv = exchange(xs, _partner(plan, layer, rank), group)
+        xs = [cross(x, v, plan, layer, rank, inverse) for x, v in zip(xs, recv)]
+    return xs
+
+
+def _forward(xs: list, plan, rank: int, group, cross, fused, transform, lp) -> list:
+    """The forward transforms of the blocks xs on rank `rank`'s local plan
+    lp, all blocks in each layer's one exchange: the cross layers
+    (`cross`), then the local transform. Up to n/D = 2^TAIL_LOG_N the last
+    layer runs inside it (`fused`, one launch); past it, and where D = 1,
+    every layer and the transform (`transform`) launch apart."""
+    folded = plan.log_d >= 1 and lp.log_n <= TAIL_LOG_N
+    xs = _cross_layers(xs, plan, rank, group, range(plan.log_d - folded), False, cross)
+    if not folded:
+        return [transform(x, lp) for x in xs]
+    recv = exchange(xs, _partner(plan, plan.log_d - 1, rank), group)
+    return [fused(x, v, plan, rank) for x, v in zip(xs, recv)]
+
+
+def _inverse_layers(x: torch.Tensor, plan, rank: int, group, cross) -> torch.Tensor:
+    """The inverse's cross layers, last to first, on one block."""
+    return _cross_layers([x], plan, rank, group, range(plan.log_d - 1, -1, -1), True, cross)[0]
 
 
 def coef_ntt_local(x: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
     """Forward NTT of rank `rank`'s (..., L, n/D) block: the same positions
     of the full bit-reversed-order NTT. `group` holds the D ranks in coef
     order (None: the world)."""
-    x = _cross_layers(x, plan, rank, group, False, coef_cross)
-    return rns_ntt(x, local_plan(plan, rank))
+    return _forward([x], plan, rank, group, coef_cross, coef_ntt_tail, rns_ntt, local_plan(plan, rank))[0]
 
 
 def coef_intt_local(x: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
     """Inverse NTT of rank `rank`'s block: the local tail scaled by the full
     n^-1, then the cross layers in reverse."""
-    x = rns_intt(x, local_plan(plan, rank))
-    return _cross_layers(x, plan, rank, group, True, coef_cross)
+    return _inverse_layers(rns_intt(x, local_plan(plan, rank)), plan, rank, group, coef_cross)
 
 
 def coef_intt_mac_local(xs, ys, plan: CoefNttPlan, rank: int, group=None, zs=None) -> torch.Tensor:
@@ -239,14 +321,14 @@ def coef_intt_mac_local(xs, ys, plan: CoefNttPlan, rank: int, group=None, zs=Non
     of evaluation-basis operands: the sums inside the local inverse tail
     (`rns_intt_mac`), then the cross layers in reverse (both sums in one
     exchange a layer where zs is given: (2, ..., L, n/D))."""
-    x = rns_intt_mac(xs, ys, local_plan(plan, rank), zs)
-    return _cross_layers(x, plan, rank, group, True, coef_cross)
+    return _inverse_layers(rns_intt_mac(xs, ys, local_plan(plan, rank), zs), plan, rank, group, coef_cross)
 
 
 def coef_mul_local(a: torch.Tensor, b: torch.Tensor, plan: CoefNttPlan, rank: int, group=None) -> torch.Tensor:
     """Negacyclic product of rank `rank`'s blocks of a and b: both forward
-    transforms, the product inside the local inverse tail, the cross layers."""
-    ea, eb = coef_ntt_local(a, plan, rank, group), coef_ntt_local(b, plan, rank, group)
+    transforms (a and b in one exchange a layer), the product inside the
+    local inverse tail, the cross layers."""
+    ea, eb = _forward([a, b], plan, rank, group, coef_cross, coef_ntt_tail, rns_ntt, local_plan(plan, rank))
     return coef_intt_mac_local([ea], [eb], plan, rank, group)
 
 

@@ -132,22 +132,32 @@ def _run(what: str, fn):
         raise PeerLostError(f"{what}: {e}") from e
 
 
-def exchange(x: torch.Tensor, peer: int, group=None) -> torch.Tensor:
+def exchange(x, peer: int, group=None):
     """Send x to rank `peer` of `group` and receive its block of x's shape
-    and dtype: one `batch_isend_irecv`."""
-    staged = _staged(x, group)
-    send = _to_host(x) if staged else x.contiguous()
-    recv = torch.empty_like(send)
+    and dtype: one `batch_isend_irecv`. x may be a list of tensors, all
+    sent, and the peer's of the same shapes received, in that one call
+    (counted as one, with all their bytes); a list is returned for a list
+    (`all_to_all`'s list form)."""
+    many = isinstance(x, (list, tuple))
+    xs = list(x) if many else [x]
+    staged = _staged(xs[0], group)
+    sends = [_to_host(t) if staged else t.contiguous() for t in xs]
+    recvs = [torch.empty_like(t) for t in sends]
     peer_global = dist.get_global_rank(group, peer) if group is not None else peer
-    ops = [dist.P2POp(dist.isend, send, peer_global, group), dist.P2POp(dist.irecv, recv, peer_global, group)]
+    ops = [
+        op
+        for k, (send, recv) in enumerate(zip(sends, recvs))
+        for op in (dist.P2POp(dist.isend, send, peer_global, group, tag=k), dist.P2POp(dist.irecv, recv, peer_global, group, tag=k))
+    ]
 
     def run():
         for req in dist.batch_isend_irecv(ops):
             req.wait()
 
     _run(f"exchange with rank {peer}", run)
-    _counted("exchange", send.numel() * send.element_size())
-    return recv.to(x.device, non_blocking=True) if staged else recv
+    _counted("exchange", sum(t.numel() * t.element_size() for t in sends))
+    out = [r.to(t.device, non_blocking=True) if staged else r for r, t in zip(recvs, xs)]
+    return out if many else out[0]
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -39,8 +39,9 @@ mod t). Any failure on any rank makes the command exit non-zero. With `--out
 FILE` rank 0 writes the inputs' seeds' results (gathered) to FILE (numpy
 .npz), which the CPU tests hold against the JAX package, with each rank's
 collectives (calls and bytes sent, by kind), kernel launches and seconds of
-the four sharded operations (`op_<phase>_*`). `small` runs the JAX tests'
-shapes: N = 32, `CkksParams(log_n=5, log_qi=45, big_l=8)`,
+the four sharded operations (`op_<phase>_*`), and rank 0's exchange calls
+in each coefficient-sharded ntt, intt and mul (`coef<i>_exchanges`,
+`coef32_<i>_exchanges`). `small` runs the JAX tests' shapes: N = 32, `CkksParams(log_n=5, log_qi=45, big_l=8)`,
 `BgvParams(log_n=5, big_l=4)`, `ProductionConfig(log_n=5, user_levels=2,
 chunk_r=5)`.
 
@@ -76,7 +77,7 @@ def counted_kernels():
     from . import coef, coef32
 
     fns = (
-        coef.coef_cross, coef32.coef32_cross, ntt32.ntt32, ntt32.intt32, ntt32.negacyclic_mul32, rns.rns_ntt, rns.rns_intt,
+        coef.coef_cross, coef32.coef32_cross, coef.coef_ntt_tail, coef32.coef32_ntt_tail, ntt32.ntt32, ntt32.intt32, ntt32.negacyclic_mul32, rns.rns_ntt, rns.rns_intt,
         rns.rns_intt_mac, tggsw.blind_rotate_steps, fhew_boot.blind_rotate_core_fused, rns.base_convert, rns.rescale_finish,
         rns.automorphism_rns, rns.drop_limbs_t,
     )  # fmt: skip
@@ -304,6 +305,20 @@ class _Rank:
         if not torch.equal(got.cpu(), want.cpu()):
             raise AssertionError(f"dryrun: {what} (D={self.world}) differs from the unsharded result")
 
+    def _exchanged(self, key: str, ops: dict) -> dict:
+        """Each op() of `ops` with this rank's exchange calls in it, which
+        rank 0 keeps as `key` (in the order of `ops`)."""
+        from . import distributed
+
+        out, calls = {}, []
+        for name, op in ops.items():
+            before = distributed.CALLS["exchange"]
+            out[name] = op()
+            calls.append(distributed.CALLS["exchange"] - before)
+        if self.rank == 0:
+            self.results[key] = np.array(calls)
+        return out
+
     def coef(self) -> None:
         from ..ops.rns import rns_intt, rns_mul, rns_ntt, rns_plan
         from ..utils.interop import torch_to_u64, u64_to_torch
@@ -315,11 +330,11 @@ class _Rank:
             qs, a_np, b_np = coef_inputs(case, seed=10 + i)
             a, b = u64_to_torch(a_np, self.dev), u64_to_torch(b_np, self.dev)
             sa, sb = shard_coef(mesh, a), shard_coef(mesh, b)
-            got = {
-                "ntt": coef_sharded_ntt(mesh, sa, qs),
-                "intt": coef_sharded_intt(mesh, sa, qs),
-                "mul": coef_sharded_mul(mesh, sa, sb, qs),
-            }
+            got = self._exchanged(f"coef{i}_exchanges", {
+                "ntt": lambda: coef_sharded_ntt(mesh, sa, qs),
+                "intt": lambda: coef_sharded_intt(mesh, sa, qs),
+                "mul": lambda: coef_sharded_mul(mesh, sa, sb, qs),
+            })  # fmt: skip
             got = {k: gather(mesh, v, "coef", -1) for k, v in got.items()}
             if self.rank == 0:
                 plan = rns_plan(qs, a.shape[-1])
@@ -340,11 +355,11 @@ class _Rank:
             q, a_np, b_np = coef32_inputs(case, seed=20 + i)
             a, b = u32_to_torch(a_np, self.dev), u32_to_torch(b_np, self.dev)
             sa, sb = shard_coef(mesh, a), shard_coef(mesh, b)
-            got = {
-                "ntt": coef32_sharded_ntt(mesh, sa, q),
-                "intt": coef32_sharded_intt(mesh, sa, q),
-                "mul": coef32_sharded_mul(mesh, sa, sb, q),
-            }
+            got = self._exchanged(f"coef32_{i}_exchanges", {
+                "ntt": lambda: coef32_sharded_ntt(mesh, sa, q),
+                "intt": lambda: coef32_sharded_intt(mesh, sa, q),
+                "mul": lambda: coef32_sharded_mul(mesh, sa, sb, q),
+            })  # fmt: skip
             got = {k: gather(mesh, v, "coef", -1) for k, v in got.items()}
             if self.rank == 0:
                 plan = ntt32_plan(q, a.shape[-1])

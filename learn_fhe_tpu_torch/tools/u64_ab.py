@@ -15,6 +15,11 @@ with `--ntt32-only`, K-NTT, `intt32` and K-POLYMUL at (256, 2^12 .. 2^14)
 (`chip_smoke.py` N1) and (2048, 2048), the 28-bit route at (4, 16384) and
 K-STEP at batch 128, each row with its instance's blocks an SM,
 registers and spills and the compare-and-select count's bound;
+with `--coef-only`, the coefficient-sharded forward's last cross-shard
+layer and local tail at `chip_smoke.py` S1's shapes, as two launches
+(K-COEF-CROSS, then K-RNS-NTT / K-NTT), the tail alone and the fused
+launch, for the lower and the upper rank, beside the launch floor (an
+empty kernel from a graph);
 with `--parent DIR`, the
 same for the kernel library built from another checkout's sources
 (`DIR/learn_fhe_tpu_torch/csrc`), in turns (parent, this, this, parent;
@@ -40,7 +45,7 @@ Bounds are `chip_smoke.py`'s cost model at the card's maximum SM clock.
 
 Run from the repository root on a machine with one CUDA device:
 
-    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only | --rings-only | --ntt32-only] [--json PATH]
+    python3 learn_fhe_tpu_torch/tools/u64_ab.py [--parent DIR ...] [--u64-only | --rns-only | --rings-only | --ntt32-only | --coef-only] [--json PATH]
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ SHARED_ENTRY, GATHER_ENTRY = "lft_rns_intt_mac_gather_shared", "lft_rns_intt_mac
 NEW_ENTRIES = {
     "ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac", "rns_mac_gather": "lft_rns_mac_gather",
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
-    "bgv_drop": "lft_bgv_drop",
+    "bgv_drop": "lft_bgv_drop", "coef_ntt_tail": "lft_rns_ntt_cross", "coef32_ntt_tail": "lft_ntt32_fwd_cross",
+    "launch_floor": "lft_empty",
 }  # fmt: skip
 HOST_ENTRIES = ("lft_rns_cluster_occupancy", "lft_ntt32_occupancy")  # host functions an older library lacks
 
@@ -357,6 +363,56 @@ def ring_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, s
     return out
 
 
+def coef_cases(dev, pipe_per_s: float) -> list[tuple[str, object, tuple[float, str] | None, str]]:
+    """The sharded forward transform's last cross-shard layer and local
+    tail at chip_smoke.py S1's shapes (u64 at COEF_SHAPE (16, 8, 8192) and
+    u32 at (4, 16384) under the 28-bit prime, the local blocks n / D for D =
+    2, 4, 8), for the lower rank (0) and the upper one (D - 1): K-COEF-CROSS
+    of layer log2 D - 1 then the local K-RNS-NTT / K-NTT (two launches, the
+    parent's route), the local transform alone, and where the wrappers have
+    it the fused launch (`coef_ntt_tail` / `coef32_ntt_tail`); and the empty
+    kernel (the launch floor). Each from a graph; the pair and the fused
+    launch against one bound (x, the partner's block and y moved once, or
+    the layer's and the tail's operations)."""
+    from learn_fhe_tpu_torch.ops import ntt32 as t32
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.parallel import coef as pc
+    from learn_fhe_tpu_torch.parallel import coef32 as pc32
+    from learn_fhe_tpu_torch.parallel import dryrun
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch, u64_to_torch
+
+    rng = np.random.default_rng(22)
+    qs = dryrun.coef_inputs(((), 13, 8, 55))[0]
+    q28 = dryrun.coef32_inputs(((), 14, 28))[0]
+    rows, n = cs.COEF_SHAPE[0] * cs.COEF_SHAPE[1], cs.COEF_SHAPE[-1]
+    out = [("launch_floor (1 block)", lambda: kernels.launch("lft_empty", 1), None, "graph")]
+    for d in cs.COEF_RANKS:
+        m, m32 = n // d, (1 << 14) // d
+        plan, plan32 = pc.coef_ntt_plan(qs, n, d), pc32.coef32_plan(q28, 1 << 14, d)
+        x, v = (u64_to_torch(np.stack([rng.integers(0, q, size=(cs.COEF_SHAPE[0], m), dtype=np.uint64) for q in qs], axis=-2), dev) for _ in range(2))
+        x32, v32 = (u32_to_torch(rng.integers(0, q28, size=(cs.SCALING_ROWS, m32), dtype=np.uint32), dev) for _ in range(2))
+        pair64 = cs.bound_ms(3 * x.numel() * 8, x.numel() * (cs.SHOUP64 + cs.ADD_Q64) + cs.ntt64_ops(rows, m), pipe_per_s)
+        tail64 = cs.bound_ms(2 * x.numel() * 8, cs.ntt64_ops(rows, m), pipe_per_s)
+        ntt32_ops = cs.ntt32_ops("ntt32", cs.SCALING_ROWS, m32)
+        pair32 = cs.bound_ms(3 * x32.numel() * 4, x32.numel() * (cs.SHOUP_MIN + cs.ADD_MIN) + ntt32_ops, pipe_per_s)
+        tail32 = cs.bound_ms(2 * x32.numel() * 4, ntt32_ops, pipe_per_s)
+        for rank in (0, d - 1):
+            lp, lp32 = pc.local_plan(plan, rank), pc32.local_plan32(plan32, rank)
+            side = "upper" if rank & 1 else "lower"
+            shape, shape32 = f"D={d} rank {rank} ({side}) {tuple(x.shape)}", f"D={d} rank {rank} ({side}) {tuple(x32.shape)}"
+            out += [
+                (f"coef_cross+rns_ntt {shape}", lambda x=x, v=v, p=plan, r=rank, lp=lp: rns.rns_ntt(pc.coef_cross(x, v, p, p.log_d - 1, r), lp), pair64, "graph"),
+                (f"rns_ntt local {shape}", lambda x=x, lp=lp: rns.rns_ntt(x, lp), tail64, "graph"),
+                (f"coef32_cross+ntt32 {shape32}", lambda x=x32, v=v32, p=plan32, r=rank, lp=lp32: t32.ntt32(pc32.coef32_cross(x, v, p, p.log_d - 1, r), lp), pair32, "graph"),
+                (f"ntt32 local {shape32}", lambda x=x32, lp=lp32: t32.ntt32(x, lp), tail32, "graph"),
+            ]  # fmt: skip
+            if hasattr(pc, "coef_ntt_tail"):
+                out.append((f"coef_ntt_tail {shape}", lambda x=x, v=v, p=plan, r=rank: pc.coef_ntt_tail(x, v, p, r), pair64, "graph"))
+            if hasattr(pc32, "coef32_ntt_tail"):
+                out.append((f"coef32_ntt_tail {shape32}", lambda x=x32, v=v32, p=plan32, r=rank: pc32.coef32_ntt_tail(x, v, p, r), pair32, "graph"))
+    return out
+
+
 def _mac_then_intt(xs, ys, plan, zs=None):
     """`rns_intt_mac` as two launches: the sums by `rns_mac`, then their
     inverse transform by `rns_intt`."""
@@ -430,6 +486,7 @@ def main() -> None:
     only.add_argument("--rns-only", action="store_true", help="time the RNS kernels and the CKKS mul alone")
     only.add_argument("--rings-only", action="store_true", help="time the instances past 2^13 (BGV's and the production ring's), the 2^13 ones, K-BGV-DROP and both muls alone")
     only.add_argument("--ntt32-only", action="store_true", help="time K-NTT, intt32 and K-POLYMUL at (256, 2^12 .. 2^14) and (2048, 2048), the 28-bit route and K-STEP alone")
+    only.add_argument("--coef-only", action="store_true", help="time the sharded forward's last cross-shard layer and local tail (K-COEF-CROSS then K-RNS-NTT / K-NTT, the tail alone, the fused launch) at S1's shapes, and the launch floor, alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("u64_ab: no CUDA device")
@@ -439,7 +496,8 @@ def main() -> None:
     print(f"card: {card}; max SM clock {sm_mhz:.0f} MHz", flush=True)
     libs = {"this": kernels.library()}
     residency = {"this": ntt32_residency(libs["this"], kernels.build_log())}
-    if not (args.u64_only or args.ntt32_only):
+    narrow = args.u64_only or args.ntt32_only or args.coef_only
+    if not narrow:
         print_rns_ptxas("this", kernels.build_log())
     for parent in args.parent:
         name = parent.resolve().name
@@ -450,7 +508,7 @@ def main() -> None:
         kernels.build(csrc, so, tuple(s for s in kernels.SOURCES if (csrc / s).exists()))
         print(f"{name} library built in {time.perf_counter() - t0:.1f} s", flush=True)
         log = (so.parent / "build.log").read_text()
-        if not (args.u64_only or args.ntt32_only):
+        if not narrow:
             print_rns_ptxas(name, log)
         lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY, *HOST_ENTRIES)))
         residency[name] = ntt32_residency(lib, log)
@@ -462,6 +520,8 @@ def main() -> None:
         built = ring_cases(dev, pipe_per_s)
     elif args.ntt32_only:
         built = ntt32_cases(dev, pipe_per_s)
+    elif args.coef_only:
+        built = coef_cases(dev, pipe_per_s)
     else:
         built = [] if args.rns_only else cases(dev, pipe_per_s, walks=not args.u64_only)
         if not args.u64_only:

@@ -138,6 +138,14 @@ _SIGNATURES = {
     "lft_coef_cross64": (_P,) * 6 + (_I,) * 5 + (_P,),
     # x, v, y, t, its Shoup dual, q, rows, words a row, upper, inverse, stream
     "lft_coef_cross32": (_P,) * 3 + (_U,) * 3 + (_I,) * 4 + (_P,),
+    # x, v (the partner's block), y, lft_rns_ntt_fwd's eight tables, the
+    # layer's per-limb t and its Shoup dual, rows, limbs, log_n, lazy,
+    # upper, stream
+    "lft_rns_ntt_cross": (_P,) * 13 + (_I,) * 5 + (_P,),
+    # x, v, y, psi, psi_shoup, rows, log_n, q, t, its Shoup dual, upper, stream
+    "lft_ntt32_fwd_cross": (_P,) * 5 + (_I, _I) + (_U,) * 3 + (_I, _P),
+    # blocks, stream: a kernel that does nothing (the launch floor)
+    "lft_empty": (_I, _P),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
     # half, window, ops, idxs, sched_len
     "lft_fhew_build_schedule": (_P, _LL, _LL, _P, _P, _LL, _I, _P, _P, _LL),
@@ -240,8 +248,8 @@ def build_log() -> str:
 # source's path, and a template instance adds its arguments after it
 # (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
 _KERNEL_NAME = re.compile(
-    r"(ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
-    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
+    r"(ntt32_fwd_cross|ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
+    r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_cross_rows|rns_ntt_cross|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
     r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
     r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32)_kernel"
     r"(I(?:L[ib]\d+E)+E)?"

@@ -1833,6 +1833,114 @@ def test_coef_cross_matches_plain(dev, d):
             fn(flat[1:].view(a.shape), b.to(dev), plan, 0, 0)
 
 
+@pytest.mark.parametrize("log_m", [9, 10, 11, 12, 13])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_coef_ntt_tail_matches_plain(dev, d, log_m):
+    """The fused forward tails (the last cross layer in the local
+    transform's first pass) at local ring 2^log_m, every rank of D: u64 at
+    (3, L, 2^log_m) under two 55-bit primes (the lazy instances) and under a
+    55- and a 63-bit one (the eager), u32 at (5, 2^log_m) (a ragged last
+    block below 2^12) under a 28- and a 31-bit prime; each call one launch;
+    an operand off 16-byte alignment raises."""
+    from itertools import islice
+
+    from learn_fhe_tpu_torch.parallel import coef as pc
+    from learn_fhe_tpu_torch.parallel import coef32 as pc32
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    n, m = (1 << log_m) * d, 1 << log_m
+    rng = np.random.default_rng(d * 100 + log_m)
+    lazy = tuple(islice(two_adic_primes(55, n.bit_length()), 2))
+    cases = []
+    for qs in (lazy, (lazy[0], next(two_adic_primes(63, n.bit_length())))):
+        x, v = (u64_to_torch(np.stack([rng.integers(0, q, size=(3, m), dtype=np.uint64) for q in qs], axis=-2)) for _ in range(2))
+        cases.append((pc.coef_ntt_tail, pc.coef_ntt_tail_ref, pc.coef_ntt_plan(qs, n, d), x, v))
+    for bits in (28, 31):
+        q = next(two_adic_primes(bits, n.bit_length()))
+        x, v = (u32_to_torch(rng.integers(0, q, size=(5, m), dtype=np.uint32)) for _ in range(2))
+        cases.append((pc32.coef32_ntt_tail, pc32.coef32_ntt_tail_ref, pc32.coef32_plan(q, n, d), x, v))
+    for fn, plain, plan, x, v in cases:
+        for rank in range(d):
+            before = fn.launches
+            _same(fn(x.to(dev), v.to(dev), plan, rank), plain(x, v, plan, rank))
+            assert fn.launches == before + 1
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+        with pytest.raises(ValueError):
+            fn(flat[1:].view(x.shape), v.to(dev), plan, 0)
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_coef_sharded_routes_on_thread_ranks(dev, monkeypatch, d):
+    """The sharded u64 and 28-bit u32 forward and product on D ranks that are
+    threads of this process (a stub exchange hands each its partner's
+    blocks), on the card: each gathered result == the unsharded card
+    result; a forward launches log2(D) - 1 K-COEF-CROSS and 1 fused tail a
+    rank, a product 3 log2(D) - 2 and 2, and no K-RNS-NTT / K-NTT of its
+    own; the product's exchanges carry a and b together (2 log2(D) a rank)."""
+    import threading
+
+    from learn_fhe_tpu_torch.ops import ntt32 as n32
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.parallel import coef, coef32
+    from learn_fhe_tpu_torch.parallel.dryrun import coef32_inputs, coef_inputs
+    from learn_fhe_tpu_torch.utils import kernels
+
+    kernels.library()
+    barrier, posted, calls, local = threading.Barrier(d), {}, [0] * d, threading.local()
+
+    def exchange(x, peer, group=None):
+        k = calls[local.rank]
+        calls[local.rank] += 1
+        posted[local.rank, k] = x
+        torch.cuda.synchronize()
+        barrier.wait()
+        return posted[peer, k]
+
+    monkeypatch.setattr(coef, "exchange", exchange)
+
+    def on_ranks(fn):
+        out, errors = [None] * d, []
+
+        def body(r):
+            local.rank = r
+            try:
+                out[r] = fn(r)
+                torch.cuda.synchronize()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(d)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return torch.cat(out, dim=-1)
+
+    log_d = d.bit_length() - 1
+    qs, a, b = coef_inputs(((2,), 13, 4, 55))
+    a, b = u64_to_torch(a, dev), u64_to_torch(b, dev)
+    q, a32, b32 = coef32_inputs(((3,), 14, 28))
+    a32, b32 = u32_to_torch(a32, dev), u32_to_torch(b32, dev)
+    plan, plan32 = coef.coef_ntt_plan(qs, 8192, d), coef32.coef32_plan(q, 1 << 14, d)
+    sa, sb, sa32, sb32 = (list(t.chunk(d, dim=-1)) for t in (a, b, a32, b32))
+    sa, sb, sa32, sb32 = ([t.contiguous() for t in ts] for ts in (sa, sb, sa32, sb32))
+    full, full32 = rns.rns_plan(qs, 8192), n32.ntt32_plan(q, 1 << 14)
+    counted = (coef.coef_cross, coef.coef_ntt_tail, rns.rns_ntt, coef32.coef32_cross, coef32.coef32_ntt_tail, n32.ntt32)
+    for fn, want, per_rank in (
+        (lambda r: coef.coef_ntt_local(sa[r], plan, r), rns.rns_ntt(a, full), (log_d - 1, 1, 0, 0, 0, 0)),
+        (lambda r: coef.coef_mul_local(sa[r], sb[r], plan, r), rns.rns_mul(a, b, full), (3 * log_d - 2, 2, 0, 0, 0, 0)),
+        (lambda r: coef32.coef32_ntt_local(sa32[r], plan32, r), n32.ntt32(a32, full32), (0, 0, 0, log_d - 1, 1, 0)),
+        (lambda r: coef32.coef32_mul_local(sa32[r], sb32[r], plan32, r), n32.negacyclic_mul32(a32, b32, full32), (0, 0, 0, 3 * log_d - 2, 2, 0)),
+    ):
+        before, calls[:] = [f.launches for f in counted], [0] * d
+        _same(on_ranks(fn), want.cpu())
+        assert [f.launches - b0 for f, b0 in zip(counted, before)] == [d * k for k in per_rank]
+        assert calls == [2 * log_d if per_rank[1] + per_rank[4] == 2 else log_d] * d
+
+
 def test_coef_sharded_product_on_one_rank(dev, tmp_path):
     """A world of one rank (gloo, in this process): the exchange-free D = 1
     coefficient-sharded transforms and products equal the unsharded ones on
@@ -1906,7 +2014,11 @@ def test_limb_sharded_key_switch_on_the_card_on_a_2x2_mesh(dev, tmp_path):
     for phase, calls in design.items():
         assert got[f"op_{phase}_calls"].tolist() == [calls] * 4, phase
         launched = got[f"op_{phase}_launches"]
-        for name in ("rns_ntt", "rns_intt_mac", "base_convert"):
+        # the rotation's coefficient-sharded forward runs its local transform inside the fused tail
+        forward = "coef_ntt_tail" if phase == "ks2d" else "rns_ntt"
+        for name in (forward, "rns_intt_mac", "base_convert"):
             assert (launched[:, kernels.index(name)] > 0).all(), (phase, name)
-    assert (got["op_ks2d_launches"][:, kernels.index("coef_cross")] == 2).all()
+    # the forward's cross layer runs inside the fused tail, the inverse's keeps its launch
+    assert (got["op_ks2d_launches"][:, kernels.index("coef_cross")] == 1).all()
+    assert (got["op_ks2d_launches"][:, kernels.index("coef_ntt_tail")] == 1).all()
     assert (got["op_bgv_limb_launches"][:, kernels.index("drop_limbs_t")] == 1).all()
