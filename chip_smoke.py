@@ -297,6 +297,37 @@ parallel layer (`learn_fhe_tpu_torch/parallel/`):
       forward (the rotation's key switch too); each product's exchange
       calls (rank 0: 2 log2 D, a and b in one exchange a layer).
 
+Then the exact ring products for moduli without an NTT
+(`learn_fhe_tpu_torch/ops/ring_mul.py`) at the Pallas kernels' own ring
+N = 2^14, and the utilities (`learn_fhe_tpu_torch/utils/`) on the card's
+paths:
+
+  R1. K-STEP's registers and spills (ptxas) against its build with the
+      4-prime constants' layout, and
+      K-GARNER's instances in the build (one per prime count, 1..5, their
+      registers printed with the build's); K-GARNER at k = 1..5
+      against its plain version at (16, 16384) (k = 1 at (1, 16384)),
+      `torch.equal`; the path, with the launch counters set to 0 just
+      before and read just after: `negacyclic_mul_pow2` at (16, 16384) for
+      log_q = 64 (5 primes: 5 K-POLYMUL and one K-GARNER at k = 5) and 32
+      (3 primes), and `negacyclic_mul_i64` of a ternary secret squared at
+      (1, 16384) (1 prime), each also times the monomial X^k, which must
+      give the negacyclic shift with sign; the first 2 rows of each
+      product == the port's CPU path; K-GARNER at k = 5 timed eager (50
+      calls) and from a CUDA graph of 20 against its bytes bound, and the
+      log_q = 64 product whole;
+  U1. the F-phases' key (the 28-bit FHEW fixture) through
+      `serialization.save` and `load` back onto the card: every field equal,
+      and a NAND batch of 128 under the loaded key == the batch under the
+      original; `noise.tfhe_pbs_io_profile` on the TFHE reference fixture's
+      key (a PBS batch of 128) and `noise.fhew_gate_chain_profile` at depth
+      3 (128 lanes) on the FHEW key, their worst-lane bits printed (every
+      budget > 0, the gates' spread < 6 bits, as
+      `tests/test_parallel.py::test_noise_profilers_pin_growth` asserts);
+      `profiling.trace` around 10 log_q = 64 products of R1, whose
+      `summarize` must list K-POLYMUL's and K-GARNER's kernels with counts
+      no larger than their launches (a smaller count is printed as short).
+
 The kernels line's rows carry each kernel's launches on P2's warm
 bootstrap (`p2_launches`), and four rows time the production ring's
 instances (`*_n65536`: P1's shapes, P2's launches), two BGV's ring's
@@ -309,8 +340,9 @@ D = 2 forward shapes with S2's ranks' launches (`coef_cross`'s those of
 the sharded transforms and of the rotations' key switches), the
 `coef_ntt_tail` / `coef32_ntt_tail` rows S1's D = 2 fused launches (the
 upper rank) with S2's, and `base_convert_n65536` P1's 2 -> 30 (a digit's
-hoist) with P2's launches of K-BASECONV. The phases' seconds are printed
-before it.
+hoist) with P2's launches of K-BASECONV; `garner_k5_n16384` times R1's
+K-GARNER at k = 5 and carries R1's path's launches at k = 5. The phases'
+seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -790,9 +822,10 @@ def fhew_reference_params():
     )
 
 
-def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
+def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
     """F1-F4 (see the module's docstring); adds K-FHEW-BR's entries to the
-    kernels line's dicts, and K-NTT's and intt32's errors at FHEW's primes."""
+    kernels line's dicts, and K-NTT's and intt32's errors at FHEW's primes.
+    Returns the fixture's (params, secret, key on the card), which U1 reuses."""
     from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew import gates, lwe
@@ -985,6 +1018,7 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches) -> None:
     say(f"F4 K-FHEW-BR error word after the timing, the split and the sweep: {word}")
     if word:
         raise AssertionError(f"K-FHEW-BR flagged a schedule index outside the key (error word {word})")
+    return params, z, key
 
 
 MK_PARTIES = 2
@@ -2915,6 +2949,186 @@ def s2_limb_report(tag, d: int, n_limb: int, got, kernel_names) -> int:
     return cross
 
 
+RING_SHAPE = (16, 1 << 14)  # R1: 16 rows of the Pallas kernels' own ring
+RING_CPU_ROWS = 2  # rows of each R1 product also run on the CPU's plain path
+RING_SHIFT = 12345  # the monomial X^k of R1's exact check
+GARNER_K5 = "garner_k5_n16384"
+# tfhe_step_kernel<11> as built while the constants' layout held 4 primes:
+# registers, spill stores, spill loads, stack frame
+STEP_PTXAS = (64, 8, 8, 64)
+TRACE_CALLS = 10  # U1: R1's log_q = 64 products in the traced window
+
+
+def nega_shift(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x(X) * X^k mod (X^n + 1), wrapping: the roll, the wrapped part negated."""
+    y = torch.roll(x, k, -1)
+    y[..., :k] = -y[..., :k]
+    return y
+
+
+def ring_mul_r1(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+    """R1 (see the module's docstring): K-GARNER at 1-5 primes, and the
+    exact ring products at N = 2^14 on K-POLYMUL and K-GARNER."""
+    from learn_fhe_tpu_torch.ops import ntt32 as tntt
+    from learn_fhe_tpu_torch.ops import ring_mul
+    from learn_fhe_tpu_torch.ops import torus_crt as tcrt
+    from learn_fhe_tpu_torch.utils import kernels
+    from learn_fhe_tpu_torch.utils.interop import u32_to_torch, u64_to_torch
+
+    rows, n = RING_SHAPE
+    report = kernels.ptxas_report(kernels.build_log())
+    step = report["tfhe_step_kernel<11>"]
+    say(f"{tag} R1 ptxas: tfhe_step_kernel<11>: {step[0]} registers, {step[1]} bytes spill stores, {step[2]} bytes spill loads, {step[3]} bytes stack frame; with the 4-prime layout {STEP_PTXAS}")
+    if step != STEP_PTXAS:
+        raise AssertionError(f"R1: K-STEP's registers, spills or stack changed: {step}, with the 4-prime layout {STEP_PTXAS}")
+    missing = [k for k in range(1, kernels.GARNER_MAX_PRIMES + 1) if f"garner_kernel<{k}>" not in report]
+    if missing:
+        raise AssertionError(f"R1: build.log shows no K-GARNER instance for {missing} primes")
+
+    # K-GARNER at k = 1..5 against its plain version
+    rng = np.random.default_rng(23)
+    res = {}
+    for k in range(1, kernels.GARNER_MAX_PRIMES + 1):
+        plan = tcrt.torus_crt_plan(n, 31 * k - 3)
+        if plan.k != k:
+            raise AssertionError(f"R1: torus_crt_plan({n}, {31 * k - 3}) has {plan.k} primes, expected {k}")
+        x = u32_to_torch(np.stack([rng.integers(0, q, size=(rows if k > 1 else 1, n), dtype=np.uint32) for q in plan.primes]))
+        before = tcrt.garner_to_u64.by_primes[k]
+        errs[GARNER_K5] = max(errs.get(GARNER_K5, 0.0), max_abs_err(tcrt.garner_to_u64(x.to(dev), plan), tcrt.garner_to_u64_ref(x, plan)))
+        if tcrt.garner_to_u64.by_primes[k] != before + 1:
+            raise AssertionError(f"R1: garner_to_u64 at k = {k} did not count one launch at k = {k}")
+        res[k] = (plan, x.to(dev))
+    say(f"R1 garner_to_u64 == plain at k = 1..5 primes on ({rows}, {n}) (k = 1 on (1, {n})): ok")
+
+    # the path: three products and their monomial checks
+    a64 = u64_to_torch(rng.integers(0, 1 << 64, size=RING_SHAPE, dtype=np.uint64), dev)
+    b64 = u64_to_torch(rng.integers(0, 1 << 64, size=RING_SHAPE, dtype=np.uint64), dev)
+    a32 = u64_to_torch(rng.integers(0, 1 << 32, size=RING_SHAPE, dtype=np.uint64), dev)
+    b32 = u64_to_torch(rng.integers(0, 1 << 32, size=RING_SHAPE, dtype=np.uint64), dev)
+    sk = torch.from_numpy(rng.integers(-1, 2, size=(1, n))).to(dev)
+    mono = torch.zeros((1, n), dtype=torch.int64, device=dev)
+    mono[0, RING_SHIFT] = 1
+    cases = (  # label, product, a, b, primes, the monomial product's value
+        ("pow2 log_q=64", lambda x, y: ring_mul.negacyclic_mul_pow2(x, y, 64), a64, b64, 5, lambda x: nega_shift(x, RING_SHIFT)),
+        ("pow2 log_q=32", lambda x, y: ring_mul.negacyclic_mul_pow2(x, y, 32), a32, b32, 3, lambda x: nega_shift(x, RING_SHIFT) & 0xFFFFFFFF),
+        ("i64 sk^2", lambda x, y: ring_mul.negacyclic_mul_i64(x, y, 1, 1), sk, sk, 1, lambda x: nega_shift(x, RING_SHIFT)),
+    )
+    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, tcrt.garner_to_u64)
+    for fn in counted:
+        fn.launches = 0
+    tcrt.garner_to_u64.by_primes.clear()
+    outs = []
+    for label, mul, a, b, _, shifted in cases:
+        outs.append((mul(a, b), mul(a, mono), shifted(a)))
+    torch.cuda.synchronize()
+    path = {fn.__name__: fn.launches for fn in counted}
+    by_primes = dict(tcrt.garner_to_u64.by_primes)
+    say(f"{tag} R1 the path's launches (the three products and their monomial checks): {path}; K-GARNER by primes {by_primes}")
+    want_polymul = 2 * sum(c[4] for c in cases)
+    if path["negacyclic_mul32"] != want_polymul or path["ntt32"] or path["intt32"]:
+        raise AssertionError(f"R1: expected {want_polymul} K-POLYMUL launches (its fused route) and no K-NTT or intt32, got {path}")
+    if by_primes != {c[4]: 2 for c in cases}:
+        raise AssertionError(f"R1: K-GARNER launched {by_primes} by primes, expected 2 at each of 5, 3, 1")
+    launches[GARNER_K5] = by_primes[5]
+    for (label, mul, a, b, k, _), (out, out_m, want_m) in zip(cases, outs):
+        if out.shape != a.shape or not torch.equal(out_m, want_m):
+            raise AssertionError(f"R1 {label}: shape {tuple(out.shape)}, or the product by X^{RING_SHIFT} is not the negacyclic shift with sign")
+        r = min(RING_CPU_ROWS, a.shape[0])
+        t0 = time.perf_counter()
+        if not torch.equal(mul(a[:r].cpu(), b[:r].cpu()), out[:r].cpu()):
+            raise AssertionError(f"R1 {label}: the card differs from the port's CPU path")
+        say(f"R1 {label} at {tuple(a.shape)}, {k} CRT prime(s): the product by X^{RING_SHIFT} == the negacyclic shift with sign; the first {r} row(s) == the port's CPU path ({time.perf_counter() - t0:.1f} s on the CPU): ok")
+
+    # K-GARNER at k = 5 timed, and the log_q = 64 product whole
+    plan5, x5 = res[5]
+    kernel = lambda: tcrt.garner_to_u64(x5, plan5)  # noqa: E731
+    k_ms, g_ms = cuda_ms(kernel, 50), graph_ms(kernel, 20)
+    p_ms = cuda_ms(lambda: tcrt.garner_to_u64_ref(x5, plan5), 3)
+    count = rows * n
+    b_ms, by = bound_ms(count * (5 * 4 + 8), count * garner_ops(5), pipe_per_s)
+    timings[GARNER_K5], graphs[GARNER_K5], bounds[GARNER_K5] = (k_ms, p_ms), g_ms, (b_ms, by)
+    say(f"{tag} R1 K-GARNER at k = 5 on ({rows}, {n}): eager {k_ms * 1e3:.2f} us (50 wrapper calls), graph {g_ms * 1e3:.2f} us (20 launches), plain on CUDA tensors {p_ms * 1e3:.2f} us; bound {b_ms * 1e3:.2f} us by {by} (5 x 4 B in, 8 B out a coefficient) = {b_ms / k_ms:.4f} of bound eager, {b_ms / g_ms:.4f} from the graph")
+    mul_ms = cuda_ms(lambda: ring_mul.negacyclic_mul_pow2(a64, b64, 64), 10)
+    say(f"{tag} R1 negacyclic_mul_pow2 log_q=64 at {RING_SHAPE}: {mul_ms * 1e3:.2f} us a call (CUDA events, 10 calls: the embeddings mod 5 primes in torch, 5 K-POLYMUL, 1 K-GARNER)")
+
+
+def utils_u1(dev, tag, tfhe_ctx, fhew_ctx) -> None:
+    """U1 (see the module's docstring): the checkpoint, the noise meters and
+    the trace summary on the card's paths."""
+    import os
+    import tempfile
+
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.ops import ntt32 as tntt
+    from learn_fhe_tpu_torch.ops import ring_mul
+    from learn_fhe_tpu_torch.ops import torus_crt as tcrt
+    from learn_fhe_tpu_torch.parallel.batch import fhew_gate_batch
+    from learn_fhe_tpu_torch.utils import noise, profiling, serialization
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    params, z, key = fhew_ctx
+    with tempfile.TemporaryDirectory() as tmp:
+        # the checkpoint: save, load back onto the card, a NAND batch under each key
+        path = os.path.join(tmp, "fhew_key.npz")
+        t0 = time.perf_counter()
+        serialization.save(path, key=key)
+        t1 = time.perf_counter()
+        loaded = serialization.load(path, reconstruct={"BootstrapKey": boot.BootstrapKey}, device=dev)["key"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not isinstance(loaded, boot.BootstrapKey):
+            raise AssertionError(f"U1: load rebuilt a {type(loaded).__name__}, not a BootstrapKey")
+        for f in boot.BootstrapKey._fields:
+            x, y = getattr(key, f), getattr(loaded, f)
+            if (x is None) != (y is None) or (x is not None and (y.device != dev or y.dtype != x.dtype or not torch.equal(x, y))):
+                raise AssertionError(f"U1: the loaded key's {f} differs from the saved one")
+        rng = np.random.default_rng(7)
+        m0 = torch.from_numpy(rng.integers(0, 2, size=BATCH)).to(dev)
+        m1 = torch.from_numpy(rng.integers(0, 2, size=BATCH)).to(dev)
+        c0 = lwe.sk_encrypt(params.lwe_z, z, gates.encode_bool(params, m0), rng)
+        c1 = lwe.sk_encrypt(params.lwe_z, z, gates.encode_bool(params, m1), rng)
+        want, got = fhew_gate_batch(params, key, "nand", c0, c1), fhew_gate_batch(params, loaded, "nand", c0, c1)
+        if not (torch.equal(want.a, got.a) and torch.equal(want.b, got.b)):
+            raise AssertionError("U1: the NAND batch under the loaded key differs from the batch under the original")
+        n_ok = int((gates.decode_bool(params, lwe.decrypt(params.lwe_z, z, got)) == ~(m0.bool() & m1.bool())).sum())
+        if n_ok != BATCH:
+            raise AssertionError(f"U1: {n_ok}/{BATCH} NAND gates under the loaded key decrypt right")
+        say(f"{tag} U1 checkpoint: the FHEW fixture's key saved ({os.path.getsize(path) / 1e6:.2f} MB, {t1 - t0:.2f} s) and loaded onto the card ({t2 - t1:.2f} s), every field equal; a NAND batch of {BATCH} under it == the batch under the original, {n_ok}/{BATCH} decrypt right")
+
+        # the noise meters on the two bootstraps
+        tparams, tz, tkey = tfhe_ctx
+        tlog = noise.tfhe_pbs_io_profile(tparams, tkey, tz, np.random.default_rng(8), lanes=BATCH)
+        flog = noise.fhew_gate_chain_profile(params, key, z, depth=3, rng=np.random.default_rng(9), lanes=BATCH)
+        say(f"U1 noise, TFHE reference fixture, {BATCH} lanes (worst lane):\n{tlog.summary()}")
+        say(f"U1 noise, FHEW 28-bit fixture, a NAND chain of depth 3, {BATCH} lanes (worst lane):\n{flog.summary()}")
+        gate_bits = flog.bits()[1:]
+        if min(tlog.bits() + flog.bits()) <= 0 or max(gate_bits) - min(gate_bits) >= 6:
+            raise AssertionError("U1: a noise budget is not positive, or the gates' budgets spread by 6 bits or more")
+
+        # the trace summary of R1's log_q = 64 product (CUPTI has lost the
+        # records of a short window's first launches on this machine, so
+        # the window holds several calls)
+        rng = np.random.default_rng(10)
+        a, b = (u64_to_torch(rng.integers(0, 1 << 64, size=RING_SHAPE, dtype=np.uint64), dev) for _ in range(2))
+        for fn in (tntt.negacyclic_mul32, tcrt.garner_to_u64):
+            fn.launches = 0
+        trace_dir = os.path.join(tmp, "trace")
+        with profiling.trace(trace_dir):
+            for _ in range(TRACE_CALLS):
+                ring_mul.negacyclic_mul_pow2(a, b, 64)
+        stats = profiling.summarize(trace_dir)
+        for st in stats[:5]:
+            say(f"  U1 summarize: {str(st)[:120]}")
+        for kernel, fn in (("negacyclic_mul32_kernel", tntt.negacyclic_mul32), ("garner_kernel", tcrt.garner_to_u64)):
+            count = sum(st.count for st in stats if kernel in st.kind)
+            ms = sum(st.total_ms for st in stats if kernel in st.kind)
+            if count == 0 or count > fn.launches:
+                raise AssertionError(f"U1: summarize lists {count} {kernel} records for {fn.launches} launches")
+            short = f" (short: the profiler recorded {count} of {fn.launches}; the total is not scaled up)" if count < fn.launches else ""
+            say(f"{tag} U1 summarize of {TRACE_CALLS} pow2 log_q=64 products at {RING_SHAPE}: {kernel} x{count} of {fn.launches} launches, {ms * 1e3:.2f} us in all{short}")
+
+
 def kernels_report() -> dict:
     from learn_fhe_tpu_torch.utils import kernels
 
@@ -2948,7 +3162,7 @@ def main() -> None:
     say(f"{tag} kernel build + load: {time.perf_counter() - t0:.1f} s")
     report = kernels.ptxas_report(kernels.build_log())
     for name, (regs, st, ld, stack) in sorted(report.items()):
-        if name.endswith("<11>") or "<" not in name or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
+        if name.endswith("<11>") or "<" not in name or name.startswith("garner") or name == FHEW_INSTANCE or "64" in name or "rns" in name or "automorphism" in name or "bgv" in name:  # N=2048, Garner, FHEW's N=512, the u64, RNS and BGV kernels
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
     past_2048 = {f"{k}_kernel<{log_n}>" for k in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32") for log_n in NTT_LOG_NS}
     cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")} | set(TAIL_INSTANCES)
@@ -3143,8 +3357,9 @@ def main() -> None:
             say(f"  {name}: the kernel's {k_ms * 1e3:.2f} us is per wrapper call (CUDA events over 50 eager calls, host time included); the same 50 launches replayed from a CUDA graph take {g_ms * 1e3:.2f} us each = {b_ms / g_ms:.4f} of bound")
 
     phase_s = {"build, TFHE": time.perf_counter() - t_main}
+    kept = {}  # the FHEW fixture's key, from F2 to U1
     for phase, run in (
-        ("FHEW F1-F4", lambda: fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches)),
+        ("FHEW F1-F4", lambda: kept.update(fhew=fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches))),
         ("multi-key M1-M4", lambda: multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
         ("CKKS C1-C4", lambda: ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
         ("bootstrap B1", lambda: bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
@@ -3158,6 +3373,8 @@ def main() -> None:
         ("TFHE T1", lambda: tfhe_t1(dev, tag)),
         ("NTT N1-N2", lambda: ntt_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
         ("parallel S1-S2", lambda: coef_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
+        ("ring_mul R1", lambda: ring_mul_r1(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
+        ("utils U1", lambda: utils_u1(dev, tag, (params, z, key), kept["fhew"])),
     ):
         t0 = time.perf_counter()
         run()
@@ -3212,6 +3429,8 @@ def main() -> None:
         ("coef32_ntt_tail", "ntt32.cu", "learn_fhe_tpu/parallel/coef32.py:148-158 (the last cross-shard layer body) and :157-159 (the local tail, _fwd_local_stages at :104); XLA fusions, no Pallas call"),
         # K-BASECONV at the production ring (P1's 2 -> 30; launches: P2's)
         ("base_convert_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases at N=2^16, a digit's hoist; XLA fusion; no Pallas call)"),
+        # K-GARNER at 5 primes (R1's (16, 16384); launches: R1's path at k = 5)
+        (GARNER_K5, "torus_crt.cu", "learn_fhe_tpu/ops/torus_crt.py:210 (garner_to_u64, XLA fusion; no Pallas call) at learn_fhe_tpu/ops/ring_mul.py:41's 5 primes"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {

@@ -8,12 +8,14 @@ are bounded by 2^(bound_bits-1) < Q/2, Q the product of the plan's primes.
 Kernel (`csrc/torus_crt.cu`, device code in `csrc/torus_crt.cuh`):
 `garner_to_u64` is the Garner mixed-radix walk, the recombination by prefix
 products mod 2^64 and the centered lift, one thread per coefficient with
-native u64 arithmetic in place of the JAX package's u32 limb planes. The
-same device function is the tail of the blind-rotation step kernel.
+native u64 arithmetic in place of the JAX package's u32 limb planes, one
+instance per prime count up to 5. The same device function is the tail of
+the blind-rotation step kernel, which takes at most 4 primes.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from functools import cached_property, lru_cache
 
@@ -25,7 +27,7 @@ from ..utils.primes import mod_inverse, two_adic_generator, two_adic_primes
 from .gadget import as_i64
 from .modular32 import i64_to_mod32, mul_mod32, shoup32, small_u32_to_mod32, sub_mod32
 from .ntt import bit_reverse_indices
-from .ntt32 import Ntt32Plan, PlanTables, negacyclic_mul32, ntt32, ntt32_plan, stack_tables
+from .ntt32 import Ntt32Plan, PlanTables, negacyclic_mul32, ntt32, ntt32_plan, pointwise_mul32, stack_tables
 
 _PRIME_BITS = 31
 _MAX_LOG_N = 14
@@ -55,22 +57,25 @@ class TorusCrtPlan:
     @cached_property
     def kernel_consts(self) -> np.ndarray:
         """The plan's constants in the u64 layout `load_crt_consts` reads
-        (`csrc/torus_crt.cuh`); slots of absent primes stay 0."""
-        m = kernels.MAX_PRIMES
-        if self.k > m:
-            raise ValueError(f"the kernels take at most {m} primes, this plan has {self.k}")
-        c = np.zeros(22 + 2 * m * m, dtype=np.uint64)
+        (`csrc/torus_crt.cuh`), w = `kernels.GARNER_MAX_PRIMES` slots a
+        field: k; q, n_inv, its Shoup dual, the digits of (Q-1)/2 and the
+        prefix products at 1 + t w + i; Q mod 2^64 at 1 + 5 w; the Garner
+        inverses and their duals at 2 + 5 w (+ w^2) + w i + j. Slots of
+        absent primes stay 0."""
+        w = kernels.GARNER_MAX_PRIMES
+        if self.k > w:
+            raise ValueError(f"the kernels take at most {w} primes, this plan has {self.k}")
+        c = np.zeros(2 + 5 * w + 2 * w * w, dtype=np.uint64)
         c[0] = self.k
+        inv_at = 2 + 5 * w
         for i, (q, p) in enumerate(zip(self.primes, self.plans)):
-            c[1 + i] = q
-            c[5 + i] = p.n_inv
-            c[9 + i] = p.n_inv_shoup
-            c[13 + i] = self.half_digits[i]
-            c[17 + i] = self.q_prefix_mod_2_64[i]
+            fields = (q, p.n_inv, p.n_inv_shoup, self.half_digits[i], self.q_prefix_mod_2_64[i])
+            for t, v in enumerate(fields):
+                c[1 + t * w + i] = v
             for j, (inv, inv_s) in enumerate(self.garner_inv[i]):
-                c[22 + m * i + j] = inv
-                c[22 + m * m + m * i + j] = inv_s
-        c[21] = self.q_mod_2_64
+                c[inv_at + w * i + j] = inv
+                c[inv_at + w * w + w * i + j] = inv_s
+        c[1 + 5 * w] = self.q_mod_2_64
         return c
 
 
@@ -173,6 +178,13 @@ def small_to_eval(x: torch.Tensor, plan: TorusCrtPlan, bound_bits: int = 31) -> 
     )
 
 
+def eval_mul(a: torch.Tensor, b: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
+    """Evaluation-basis pointwise products per prime of stacked residues
+    (K, ..., n) int32 -> (K, ..., n) int32; the JAX package's `eval_mul`
+    takes and returns one array per prime."""
+    return torch.stack([pointwise_mul32(x, y, p) for x, y, p in zip(a, b, plan.plans)])
+
+
 def garner_to_u64_ref(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
     """Plain Garner reconstruction: coefficient residues (K, ...) int32 ->
     wrapping u64 (as int64) with the centered lift (subtract Q when the value
@@ -196,7 +208,9 @@ def garner_to_u64_ref(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
 
 
 def garner_to_u64(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
-    """Garner reconstruction of coefficient residues (K, ...) int32 -> int64."""
+    """Garner reconstruction of coefficient residues (K, ...) int32 -> int64,
+    K <= 5; on the card one K-GARNER launch (`.launches`, and by K in
+    `.by_primes`)."""
     if coeffs.is_cpu:
         return garner_to_u64_ref(coeffs, plan)
     consts = plan.kernel_consts
@@ -207,10 +221,12 @@ def garner_to_u64(coeffs: torch.Tensor, plan: TorusCrtPlan) -> torch.Tensor:
     if out.numel():
         kernels.launch("lft_garner_to_u64", coeffs.data_ptr(), out.data_ptr(), out.numel(), consts.ctypes.data)
         garner_to_u64.launches += 1
+        garner_to_u64.by_primes[plan.k] += 1
     return out
 
 
 garner_to_u64.launches = 0
+garner_to_u64.by_primes = Counter()
 
 
 def negacyclic_mul_t64_crt(

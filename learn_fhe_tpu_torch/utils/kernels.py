@@ -45,7 +45,10 @@ NVCC_FLAGS = (
 # N=2048 row of u32 is 8 KB of shared memory); K-NTT, intt32 and K-POLYMUL
 # take up to 2^14 (`ops/ntt32.MAX_LOG_N`), K-RNS-NTT up to 2^16.
 MAX_LOG_N = 11
+# The step kernel takes at most 4 CRT primes (a cluster block per prime);
+# K-GARNER up to 5, the width of the constants' layout (`csrc/torus_crt.cuh`).
 MAX_PRIMES = 4
+GARNER_MAX_PRIMES = 5
 
 _P, _I, _LL, _U, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong
 _SIGNATURES = {

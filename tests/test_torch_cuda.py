@@ -2022,3 +2022,79 @@ def test_limb_sharded_key_switch_on_the_card_on_a_2x2_mesh(dev, tmp_path):
     assert (got["op_ks2d_launches"][:, kernels.index("coef_cross")] == 1).all()
     assert (got["op_ks2d_launches"][:, kernels.index("coef_ntt_tail")] == 1).all()
     assert (got["op_bgv_limb_launches"][:, kernels.index("drop_limbs_t")] == 1).all()
+
+
+# -- the exact ring products (ops/ring_mul.py), K-GARNER at 1-5 primes, the checkpoint --
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_garner_kernel_at_every_prime_count(dev, k):
+    """K-GARNER's instance for k primes against its plain version at
+    (3, 16384), with the centered lift's edge values, one launch counted at
+    k; a 6-prime plan raises."""
+    import math
+
+    plan = tcrt.torus_crt_plan(1 << 14, 31 * k - 3)
+    assert plan.k == k
+    rng = np.random.default_rng(k)
+    res = np.stack([rng.integers(0, q, size=(3, 1 << 14), dtype=np.uint32) for q in plan.primes])
+    q_prod = math.prod(plan.primes)
+    for j, v in enumerate([0, 1, (q_prod - 1) // 2, (q_prod + 1) // 2, q_prod - 1]):
+        res[:, 0, j] = [v % q for q in plan.primes]
+    res = u32_to_torch(res)
+    before = tcrt.garner_to_u64.by_primes[k]
+    _same(tcrt.garner_to_u64(res.to(dev), plan), tcrt.garner_to_u64_ref(res, plan))
+    assert tcrt.garner_to_u64.by_primes[k] == before + 1
+    with pytest.raises(ValueError, match="at most 5 primes"):
+        tcrt.garner_to_u64(torch.zeros((6, 4), dtype=torch.int32, device=dev), tcrt.torus_crt_plan(4, 31 * 6 - 3))
+
+
+@pytest.mark.parametrize("n", [1, 2, 2048, 1 << 14])
+def test_ring_mul_on_card_matches_cpu(dev, n):
+    """negacyclic_mul_pow2 at log_q = 64 (5 primes) and 32 (3) on 2 rows, and
+    the i64 square of a ternary secret (1 prime), on the card == the CPU
+    path; past n = 1, one K-POLYMUL a prime and one K-GARNER a product (at
+    n = 1 a wrapping multiply, no kernel)."""
+    from learn_fhe_tpu_torch.ops import ring_mul
+
+    rng = np.random.default_rng(n)
+    a64, b64 = (u64_to_torch(rng.integers(0, 1 << 64, size=(2, n), dtype=np.uint64)) for _ in range(2))
+    a32, b32 = (u64_to_torch(rng.integers(0, 1 << 32, size=(2, n), dtype=np.uint64)) for _ in range(2))
+    sk = torch.from_numpy(rng.integers(-1, 2, size=(1, n)))
+    cases = (
+        (lambda x, y: ring_mul.negacyclic_mul_pow2(x, y, 64), a64, b64, 5),
+        (lambda x, y: ring_mul.negacyclic_mul_pow2(x, y, 32), a32, b32, 3),
+        (lambda x, y: ring_mul.negacyclic_mul_i64(x, y, 1, 1), sk, sk, 1),
+    )
+    for mul, a, b, k in cases:
+        polymul, garner = tntt.negacyclic_mul32.launches, tcrt.garner_to_u64.launches
+        _same(mul(a.to(dev), b.to(dev)), mul(a, b))
+        launched = (tntt.negacyclic_mul32.launches - polymul, tcrt.garner_to_u64.launches - garner)
+        assert launched == ((k, 1) if n > 1 else (0, 0))
+
+
+def test_serialization_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A FHEW key made on the card, saved and loaded back onto the card: every
+    field equal with its dtype, and a NAND batch under it == the batch under
+    the original."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.parallel.batch import fhew_gate_batch
+    from learn_fhe_tpu_torch.utils import serialization
+
+    params, _ = _fhew_env(7)
+    rng = np.random.default_rng(3)
+    z = fhew.rlwe.sk_gen(params.rlwe, rng)
+    key = fhew.key_gen(params, z, rng, dev)
+    path = str(tmp_path / "key.npz")
+    serialization.save(path, key=key)
+    loaded = serialization.load(path, reconstruct={"BootstrapKey": fhew.BootstrapKey}, device=dev)["key"]
+    for f in fhew.BootstrapKey._fields:
+        x, y = getattr(key, f), getattr(loaded, f)
+        assert (x is None and y is None) or (y.device == x.device and y.dtype == x.dtype and torch.equal(x, y)), f
+    m0, m1 = (torch.from_numpy(rng.integers(0, 2, size=32)).to(dev) for _ in range(2))
+    c0, c1 = (lwe.sk_encrypt(params.lwe_z, z, gates.encode_bool(params, m), rng) for m in (m0, m1))
+    want, got = fhew_gate_batch(params, key, "nand", c0, c1), fhew_gate_batch(params, loaded, "nand", c0, c1)
+    torch.cuda.synchronize()
+    assert torch.equal(want.a, got.a) and torch.equal(want.b, got.b)
+    assert torch.equal(gates.decode_bool(params, lwe.decrypt(params.lwe_z, z, got)), ~(m0.bool() & m1.bool()))

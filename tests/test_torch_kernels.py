@@ -15,6 +15,9 @@ _MUL = "_ZN40_GLOBAL__N__4f310aae_8_ntt32_cu_bc68ad5223negacyclic_mul32_kernelIL
 _FWD = "_ZN40_GLOBAL__N__7d0c2e15_8_ntt32_cu_52a1f9c316ntt32_fwd_kernelILi3EEEvPKjPjS2_S2_xj"
 _INV = "_ZN40_GLOBAL__N__4f310aae_8_ntt32_cu_bc68ad5216ntt32_inv_kernelILi11EEEvPKjPjS2_S2_xjjj"
 _GARNER = "_ZN45_GLOBAL__N__cf0e079d_12_torus_crt_cu_de5b7d2913garner_kernelEPKjPmxN3lft9CrtConstsE"
+# K-GARNER's instance per prime count since its 5-prime widening, and K-STEP's
+# 4-prime constants as a template instance
+_GARNER_K = "_ZN45_GLOBAL__N__cf0e079d_12_torus_crt_cu_de5b7d2913garner_kernelILi5EEEvPKjPmxN3lft11CrtConstsOfILi5EEE"
 _STEP = (
     "_ZN45_GLOBAL__N__cdbaa05f_12_tfhe_step_cu_d9a3cecf16tfhe_step_kernelILi11EEEvPlS1_PKlPKjS5_S5_S5_S5_S5_"
     "S5_S5_S5_S5_iiN3lft9CrtConstsE"
@@ -53,7 +56,9 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_FWD, "ntt32_fwd_kernel<3>"),
         (_INV, "ntt32_inv_kernel<11>"),
         (_GARNER, "garner_kernel"),
+        (_GARNER_K, "garner_kernel<5>"),
         (_STEP, "tfhe_step_kernel<11>"),
+        (_STEP.replace("N3lft9CrtConstsE", "N3lft11CrtConstsOfILi4EEE"), "tfhe_step_kernel<11>"),
         (_FHEW, "fhew_blind_rotate_kernel<9>"),
         (_FHEW_11, "fhew_blind_rotate_kernel<11>"),
         (_NTT64, "ntt64_fwd_kernel<true,11,true>"),
