@@ -15,16 +15,20 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
      too, with `torch.equal`;
   4. the main path: key generation from seed 0, 128 encryptions,
      `tfhe_pbs_batch` with the identity LUT (its 1024 steps launched from
-     one C call, `tggsw.blind_rotate_steps`), decryption of all 128; the
-     kernels' launch counters are set to 0 just before this run and read
-     just after it;
+     one C call, `tggsw.blind_rotate_steps`; the sample extract and the key
+     switch one launch of K6, `tlwe.extract_key_switch`), decryption of all
+     128; the kernels' launch counters are set to 0 just before this run and
+     read just after it (K6 once a PBS chunk, `torch._int_mm` never);
   5. hold the step kernel against its plain version at batch 128 with the
-     real key (one step, and 4 steps through the C loop), and the first 4
-     bootstraps against the whole plain path on the CPU (bit-identical
-     ciphertexts);
-  6. time the PBS, the host enqueue of a batch, the blind rotation, the key
-     switch, the device's idle share (profiler), and each kernel against its
-     plain version and its bound with CUDA events: K-STEP over the C loop,
+     real key (one step, and 4 steps through the C loop), K6 against its
+     plain version and the parent's int8 route (the limb split and 8 x
+     `torch._int_mm`, inlined here as a yardstick) on the blind rotation's
+     accumulator, and the first 4 bootstraps against the whole plain path
+     on the CPU (bit-identical ciphertexts);
+  6. time the PBS, the host enqueue of a batch, the blind rotation, K6
+     (eager and from a CUDA graph, against its bound, its plain version and
+     the parent's route), the device's idle share (profiler), and each
+     kernel against its plain version and its bound with CUDA events: K-STEP over the C loop,
      the key generation kernels over 50 eager wrapper calls, as key
      generation calls them (`ms`), and over the same 50 launches replayed
      from a CUDA graph, which leaves the wrapper's host time out
@@ -38,10 +42,15 @@ B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
       ragged (19, 512), and the test prime 268432897 at N=128;
   F2. the FHEW main path: key generation from seed 0 on the card, 128 NAND
       gates through `fhew_gate_batch` on random bits (the launch counters
-      set to 0 just before and read just after: K-FHEW-BR must launch once),
+      set to 0 just before and read just after: K-FHEW-BR and K-FHEW-PRE
+      must launch once each),
       all 128 decrypted against the truth table; then one `gate_batch` of
-      all 7 gates (majority with 3 inputs), decrypted;
-  F3. K-FHEW-BR's whole walk at batch 128 with the real key against
+      all 7 gates (majority with 3 inputs; one K-FHEW-PRE launch), decrypted;
+  F3. K-FHEW-PRE (`bootstrapping.preamble`) at batch 128 against its plain
+      version and the parent's eager preamble (a float64 key switch,
+      inlined here as a yardstick), with the NAND LUT and with a LUT a
+      ciphertext, timed eager and from a CUDA graph against its bound;
+      K-FHEW-BR's whole walk at batch 128 with the real key against
       `blind_rotate_core_fused_ref` on the card, on the real schedule and on
       two made from it (each row's external products alone, its
       automorphisms alone), the first 4 gate outputs against the whole plain
@@ -90,7 +99,10 @@ parties):
       and the rounds by gates per round and by the cluster size they
       took), and a NAND batch of 128 at the full set, which must decrypt
       to the truth table; K-FHEW-BR64 counts its launches in clusters
-      (C > 1) and alone (C = 1) apart, and each must be launched. Then:
+      (C > 1) and alone (C = 1) apart, and each must be launched, and
+      K-FHEW-PRE must launch once a gate batch. Then: K-FHEW-PRE at the
+      NAND batch of 128 and at a round of 2 gates with a LUT each against
+      its plain version and the parent's eager preamble, timed;
       gates/s (median and spread of 5 calls), K-FHEW-BR64's time at batch
       1, 2, 8, 36 and 128 of its schedule with the cluster size each took;
       the clustered instance at batch 2 (a round of two gates) and the
@@ -341,8 +353,14 @@ the sharded transforms and of the rotations' key switches), the
 `coef_ntt_tail` / `coef32_ntt_tail` rows S1's D = 2 fused launches (the
 upper rank) with S2's, and `base_convert_n65536` P1's 2 -> 30 (a digit's
 hoist) with P2's launches of K-BASECONV; `garner_k5_n16384` times R1's
-K-GARNER at k = 5 and carries R1's path's launches at k = 5. The phases'
-seconds are printed before it.
+K-GARNER at k = 5 and carries R1's path's launches at k = 5;
+`tfhe_key_switch` times K6 at phase 5's batch 128 with the main path's
+launches, `fhew_preamble` K-FHEW-PRE at F3's NAND batch of 128 with F2's
+launch, and `fhew_preamble64` at M4's NAND batch of 128 of the full set
+with M4's launches (one a gate batch). Every row has a `yardstick_ms`: the
+route the kernel replaced, timed on the same inputs (the parent's
+`torch._int_mm` route, the parent's eager preamble), null where there is
+none. The phases' seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -619,6 +637,113 @@ def spread_ms(fn, calls: int) -> tuple[float, float, float]:
     return float(np.median(times)), min(times), max(times)
 
 
+# K6 (the TFHE key switch) runs on the int8 tensor cores: 1,979 T int8
+# operations/s dense on an H100 SXM (data sheet).
+INT8_OPS_PER_S = 1.979e15
+
+
+def key_switch_work(batch: int, d: int, n_from: int, n_to: int) -> tuple[float, float]:
+    """K6's bytes (the key with its b column, the accumulator's masks and
+    its b[0] read once, the output written once) and its int8 operations
+    (8 limb products, a multiply and an add a term)."""
+    k = d * n_from
+    n_bytes = k * (n_to + 1) * 8 + batch * n_from * 8 + batch * 8 + batch * (n_to + 1) * 8
+    return n_bytes, 2.0 * 8 * batch * k * (n_to + 1)
+
+
+def tensor_bound_ms(n_bytes: float, int8_ops: float) -> tuple[float, str]:
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, int8_ops / INT8_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def parent_key_switch(params, ksk, acc):
+    """The route K6 replaced, which the port no longer runs (a yardstick):
+    the extract, the digits, the key re-concatenated and split into its 8
+    limb planes on every call, both operands zero-padded for
+    `torch._int_mm`, 8 int8 products and the wrapping recombination."""
+    from learn_fhe_tpu_torch.models.tfhe import tlwe
+    from learn_fhe_tpu_torch.ops.gadget import decompose_t64
+
+    ext = tlwe._sample_extract(acc.a, acc.b)
+    limbs = decompose_t64(ext.a, params.gadget).movedim(0, -2)
+    d, n_from, n_to = ksk.a.shape
+    k = d * n_from
+    x = limbs.reshape(-1, k).to(torch.int8)
+    key = torch.cat([ksk.a.reshape(k, n_to), ksk.b.reshape(k, 1)], dim=1)
+    m, n = x.shape[0], key.shape[1]
+    mp, kp, np_ = max(-(-m // 8) * 8, 32), -(-k // 8) * 8, -(-n // 8) * 8
+    xp = torch.zeros((mp, kp), dtype=torch.int8, device=x.device)
+    xp[:m, :k] = x
+    t, out = key, None
+    for j in range(8):
+        limb = ((t + 128) & 255) - 128
+        t = (t - limb) >> 8
+        wp = torch.zeros((kp, np_), dtype=torch.int8, device=x.device)
+        wp[:k, :n] = limb.to(torch.int8)
+        term = torch._int_mm(xp, wp)[:m, :n].long() * (1 << (8 * j))
+        out = term if out is None else out + term
+    return tlwe.TlweCiphertext(out[:, :n_to], out[:, n_to] + ext.b)
+
+
+def preamble_work(params, batch: int, f_rows: int) -> tuple[float, np.ndarray]:
+    """K-FHEW-PRE's bytes (the ciphertexts, the key switching key and the
+    LUTs read once, the mask and f' written once) and its least integer
+    instructions: one multiply-add (IMAD) a product of the key switch."""
+    n, n_lwe, d = params.n, params.lwe_s.n, params.lwe_s.gadget.d
+    k = d * n
+    n_bytes = batch * (n + 1) * 8 + k * (n_lwe + 1) * 8 + f_rows * n * 8 + batch * n_lwe * 8
+    n_bytes += batch * n * (4 if params.rgsw.use_u32 else 8)
+    return n_bytes, np.array([batch * k * (n_lwe + 1), 0, 0])
+
+
+def parent_preamble(params, key, f, ct):
+    """The eager preamble K-FHEW-PRE replaced, which the port no longer runs
+    (a yardstick): the mod switches and `prepare_acc` as the plain version
+    has them, the LWE key switch as the float64 product the port used
+    before (exact while k (q_ks - 1)^2 < 2^53, as at both FHEW sets here)."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew import lwe
+    from learn_fhe_tpu_torch.ops.gadget import decompose_zq
+    from learn_fhe_tpu_torch.ops.modular import add_mod
+
+    lp = params.lwe_s
+    d, n_from, n_to = key.ksk_a.shape
+    k = d * n_from
+    assert k * (lp.q - 1) ** 2 < 1 << 53
+    ct = lwe.ct_mod_switch(ct, params.big_q, params.big_q_ks)
+    flat = decompose_zq(ct.a, lp.gadget).movedim(0, -2).reshape(-1, k).double()
+    w = torch.cat([key.ksk_a.reshape(k, n_to), key.ksk_b.reshape(k, 1)], dim=1).double()
+    out = torch.matmul(flat, w).long() % lp.q
+    ct = lwe.ct_mod_switch_odd(lwe.LweCiphertext(out[:, :n_to], add_mod(out[:, n_to], ct.b, lp.q)), params.big_q_ks, params.q)
+    return ct.a, boot.prepare_acc(params, f, ct.b).b
+
+
+def preamble_report(tag, label, params, key, f, ct, pipe_per_s) -> tuple[float, float, float, float, tuple[float, str]]:
+    """K-FHEW-PRE on (f, ct) against its plain version (on the card) and the
+    parent's eager preamble: `torch.equal` to both, then eager, graph,
+    plain and yardstick ms and the bound, printed."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+
+    got = boot.preamble(params, key, f, ct)
+    want = boot.preamble_ref(params, key, f, ct)
+    err = max(max_abs_err(got[0], want[0].cpu()), max_abs_err(got[1], want[1].cpu()))
+    old = parent_preamble(params, key, f, ct)
+    if not (torch.equal(old[0], got[0]) and torch.equal(old[1], got[1])):
+        raise AssertionError(f"{label}: the parent's eager preamble differs from K-FHEW-PRE")
+    launches = boot.preamble.launches
+    e_ms = cuda_ms(lambda: boot.preamble(params, key, f, ct), 50)
+    g_ms = graph_ms(lambda: boot.preamble(params, key, f, ct), 50)
+    boot.preamble.launches = launches  # the timing's launches are not the path's
+    p_ms = cuda_ms(lambda: boot.preamble_ref(params, key, f, ct), 3)
+    y_ms = cuda_ms(lambda: parent_preamble(params, key, f, ct), 10)
+    B = ct.b.shape[0]
+    n_bytes, ops = preamble_work(params, B, 1 if f.dim() == 1 else B)
+    bound = bound_ms(n_bytes, ops, pipe_per_s)
+    say(f"{label} K-FHEW-PRE == preamble_ref and == the parent's eager preamble at batch {B} (N={params.n}, n={params.lwe_s.n}, d={params.lwe_s.gadget.d}, q_ks=2^{params.big_q_ks.bit_length() - 1}): ok")
+    say(f"{tag} {label} K-FHEW-PRE at batch {B}: {e_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch from a CUDA graph of 50; bound {bound[0] * 1e3:.2f} us by {bound[1]} ({ops[0] / 1e6:.1f} M multiply-adds; bytes {n_bytes / 1e6:.2f} MB) = {bound[0] / g_ms:.4f} of bound (graph); plain version on CUDA tensors {p_ms * 1e3:.1f} us; the parent's eager preamble {y_ms * 1e3:.1f} us")
+    return err, e_ms, g_ms, p_ms, y_ms, bound
+
+
 # The u64 engine's operations as 32-bit instructions (FMA pipe only, ALU
 # pipe only, either), counted from the SASS (cuobjdump -sass) of chains of
 # each operation from csrc/u64.cuh built with the library's flags for
@@ -822,7 +947,7 @@ def fhew_reference_params():
     )
 
 
-def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
+def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks):
     """F1-F4 (see the module's docstring); adds K-FHEW-BR's entries to the
     kernels line's dicts, and K-NTT's and intt32's errors at FHEW's primes.
     Returns the fixture's (params, secret, key on the card), which U1 reuses."""
@@ -861,7 +986,7 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
     m1 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
     c0 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m0), rng)
     c1 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m1), rng)
-    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused)
+    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused, boot.preamble)
     boot.walk_error(dev).zero_()
     for fn in counted:
         fn.launches = 0
@@ -873,8 +998,9 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
     say(f"{tag} F2 FHEW keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync; launches {keygen_launches}); first NAND batch of {B} {first_s * 1e3:.1f} ms; launches {fhew_launches}")
     if out.a.shape != (B, params.n) or out.b.shape != (B,):
         raise AssertionError(f"gate output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
-    if fhew_launches["blind_rotate_core_fused"] != 1:
-        raise AssertionError(f"K-FHEW-BR launched {fhew_launches['blind_rotate_core_fused']} times in one fhew_gate_batch, expected 1")
+    if fhew_launches["blind_rotate_core_fused"] != 1 or fhew_launches["preamble"] != 1:
+        raise AssertionError(f"K-FHEW-BR launched {fhew_launches['blind_rotate_core_fused']} times and K-FHEW-PRE {fhew_launches['preamble']} in one fhew_gate_batch, expected 1 each")
+    launches["fhew_preamble"] = fhew_launches["preamble"]
     if keygen_launches["ntt32"] == 0 or keygen_launches["intt32"] == 0:
         raise AssertionError("FHEW key generation did not launch K-NTT and intt32")
     launches["fhew_blind_rotate"] = fhew_launches["blind_rotate_core_fused"]
@@ -891,7 +1017,10 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
         truth = {"and": x & y, "nand": 1 - (x & y), "or": x | y, "nor": 1 - (x | y), "xor": x ^ y, "xnor": 1 - (x ^ y)}
         specs.append((name, *cts) if name == "majority" else (name, *cts[:2]))
         want_bits.append(int(x + y + c >= 2) if name == "majority" else int(truth[name]))
+    pre0 = boot.preamble.launches
     mixed = gates.gate_batch(params, key, specs)
+    if boot.preamble.launches - pre0 != 1:
+        raise AssertionError(f"K-FHEW-PRE launched {boot.preamble.launches - pre0} times in one gate_batch, expected 1")
     got_bits = [int(gates.decode_bool(params, lwe.decrypt(lz, z, ct))) for ct in mixed]
     say(f"F2 gate_batch of {names}: decrypts {got_bits}, truth {want_bits}")
     if got_bits != want_bits:
@@ -901,6 +1030,13 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches):
     lin = gates._lin2(params, "nand", c0, c1)
     f = gates.lut_poly(params, gates.GATE_TABLES["nand"], dev)
     ct_a, f_prime = pbatch._fhew_preamble(params, key, f, lin)
+    pre = preamble_report(tag, "F3", params, key, f, lin, pipe_per_s)
+    errs["fhew_preamble"], timings["fhew_preamble"] = pre[0], (pre[1], pre[3])
+    graphs["fhew_preamble"], yardsticks["fhew_preamble"], bounds["fhew_preamble"] = pre[2], pre[4], pre[5]
+    per_ct = f.expand(B, -1).contiguous()  # one LUT a ciphertext, as gate_batch's mixed rounds give
+    got_pc, want_pc = boot.preamble(params, key, per_ct, lin), boot.preamble_ref(params, key, per_ct, lin)
+    errs["fhew_preamble"] = max(errs["fhew_preamble"], max_abs_err(got_pc[0], want_pc[0].cpu()), max_abs_err(got_pc[1], want_pc[1].cpu()))
+    say(f"F3 K-FHEW-PRE == preamble_ref with a LUT a ciphertext at batch {B}: ok")
     e_idx, a_idx = boot.schedule(params, ct_a)
     mask = ct_a.cpu().numpy()
     py_e, py_a = boot.fuse_schedule(*boot.build_schedule(params, mask))
@@ -1038,7 +1174,7 @@ POLYMUL_ROWS, NTT_ROWS, INTT_ROWS = (1, 5, 8, 6000), (5, 600, 6000), (6000,)
 ROUND_BATCH = 2  # the u8 expression's commonest round: a majority and a xor (`uint8.py`)
 
 
-def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks) -> None:
     """M1-M4 (see the module's docstring); adds the u64 kernels' entries to
     the kernels line's dicts."""
     shape_ms = {}  # (kernel, rows or products): (CUDA-graph ms, bound ms)
@@ -1177,7 +1313,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
 
     # -- M4. the main path -----------------------------------------------------------
-    counted = (tntt.ntt64, tntt.ntt64_mont, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64)
+    counted = (tntt.ntt64, tntt.ntt64_mont, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64, boot.preamble)
     by_shape = {
         "ntt64": tntt.ntt64.by_rows, "ntt64_mont": tntt.ntt64_mont.by_rows, "intt64": tntt.intt64.by_rows,
         "negacyclic_mul64": tntt.negacyclic_mul64.by_rows, "external_product64": rgsw.external_product64.by_count,
@@ -1245,6 +1381,9 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     if n_ok != B:
         raise AssertionError("full-set NAND outputs failed decryption")
     mk_launches = {fn.__name__: fn.launches for fn in counted}
+    if mk_launches["preamble"] != mk_launches["blind_rotate_core_fused64"]:
+        raise AssertionError(f"K-FHEW-PRE launched {mk_launches['preamble']} times for {mk_launches['blind_rotate_core_fused64']} gate batches on the multi-key path, expected one a batch")
+    mk_launches["fhew_preamble64"] = mk_launches.pop("preamble")
     walk_all, walk_clustered = mk_launches.pop("blind_rotate_core_fused64"), boot.blind_rotate_core_fused64.cluster_launches
     mk_launches["fhew_blind_rotate64"], mk_launches["fhew_blind_rotate64_cluster"] = walk_all - walk_clustered, walk_clustered
     say(f"{tag} M4 launches on the main path (the u8 expression, its decryption, one NAND batch of {B}): {mk_launches}")
@@ -1259,7 +1398,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
             else:
                 parts.append(f"{cnt} x {rows} rows: not timed")
         say(f"{tag} M4 {name} launches by shape, with launches x (time - bound) from M1/M2's CUDA-graph times: {'; '.join(parts) or 'none'}; in all {lost.get(name, 0.0) * 1e3:.1f} us")
-    for name in ("ntt64_mont", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster"):
+    for name in ("ntt64_mont", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster", "fhew_preamble64"):
         if mk_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the multi-key main path")
     if mk_launches["ntt64"]:
@@ -1277,6 +1416,13 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     lin = gates._lin2(params, "nand", c0, c1)
     f = gates.lut_poly(params, gates.GATE_TABLES["nand"], dev)
     ct_a2n, f_prime = pbatch._fhew_preamble(params, key, f, lin)
+    pre = preamble_report(tag, "M4 full set", params, key, f, lin, pipe_per_s)
+    errs["fhew_preamble64"], timings["fhew_preamble64"] = pre[0], (pre[1], pre[3])
+    graphs["fhew_preamble64"], yardsticks["fhew_preamble64"], bounds["fhew_preamble64"] = pre[2], pre[4], pre[5]
+    # a round of the u8 expression: two gates, a LUT each
+    rnd = lwe.LweCiphertext(lin.a[:ROUND_BATCH].contiguous(), lin.b[:ROUND_BATCH].contiguous())
+    luts = torch.stack([f, gates.lut_poly(params, gates.GATE_TABLES["xor"], dev)])
+    preamble_report(tag, f"M4 full set, a round of {ROUND_BATCH} gates with a LUT each,", params, key, luts, rnd, pipe_per_s)
     e_idx, a_idx = boot.schedule(params, ct_a2n)
     acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), 3)
@@ -3166,8 +3312,8 @@ def main() -> None:
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
     past_2048 = {f"{k}_kernel<{log_n}>" for k in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32") for log_n in NTT_LOG_NS}
     cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")} | set(TAIL_INSTANCES)
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048, no K-COEF-CROSS or no fused forward tail")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross, "tfhe_key_switch_kernel", "fhew_preamble_kernel"} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048, no K-COEF-CROSS, no fused forward tail, no K6 or no K-FHEW-PRE")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -3213,25 +3359,32 @@ def main() -> None:
     # -- 4. the main path ------------------------------------------------------
     counted = (
         tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, tcrt.garner_to_u64, tggsw.cmux_rotate, tggsw.blind_rotate_steps,
+        tlwe.extract_key_switch, tlwe.key_switch,
     )  # fmt: skip
     rng = np.random.default_rng(0)
     for fn in counted:
         fn.launches = 0
-    t0 = time.perf_counter()
-    z = tlwe.sk_gen(params.tlwe, rng)
-    key = tfhe.key_gen(params, z, rng, dev)
-    torch.cuda.synchronize()
-    keygen_s = time.perf_counter() - t0
-    tab = u64_to_torch(tfhe.lut_table(params.tlwe.log_p, n_big, lambda v: v), dev)
-    ms = torch.from_numpy(rng.integers(0, params.tlwe.p, size=BATCH)).to(dev)
-    cts = tlwe.sk_encrypt(params.tlwe, z, tlwe.encode(params.tlwe, ms), rng)
-    t0 = time.perf_counter()
-    out = tfhe_pbs_batch(params, key, tab, cts)
-    torch.cuda.synchronize()
-    first_pbs_s = time.perf_counter() - t0
+    tlwe.key_switch.u64_calls = 0
+    int_mm, int_mm_calls = torch._int_mm, []  # the port must not call it: K6 replaced it
+    torch._int_mm = lambda *a, **k: int_mm_calls.append(1) or int_mm(*a, **k)
+    try:
+        t0 = time.perf_counter()
+        z = tlwe.sk_gen(params.tlwe, rng)
+        key = tfhe.key_gen(params, z, rng, dev)
+        torch.cuda.synchronize()
+        keygen_s = time.perf_counter() - t0
+        tab = u64_to_torch(tfhe.lut_table(params.tlwe.log_p, n_big, lambda v: v), dev)
+        ms = torch.from_numpy(rng.integers(0, params.tlwe.p, size=BATCH)).to(dev)
+        cts = tlwe.sk_encrypt(params.tlwe, z, tlwe.encode(params.tlwe, ms), rng)
+        t0 = time.perf_counter()
+        out = tfhe_pbs_batch(params, key, tab, cts)
+        torch.cuda.synchronize()
+        first_pbs_s = time.perf_counter() - t0
+    finally:
+        torch._int_mm = int_mm
     got = tlwe.decode(params.tlwe, tlwe.decrypt(params.tlwe, z, out))
     launches = {fn.__name__: fn.launches for fn in counted}
-    say(f"{tag} keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync); first PBS batch of {BATCH} {first_pbs_s:.2f} s; launches {launches}")
+    say(f"{tag} keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync); first PBS batch of {BATCH} {first_pbs_s:.2f} s; launches {launches}; torch._int_mm calls {len(int_mm_calls)}; the key switch's u64 route {tlwe.key_switch.u64_calls}")
     if out.a.shape != (BATCH, params.tlwe.n) or out.b.shape != (BATCH,):
         raise AssertionError(f"PBS output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
     n_ok = int((got == ms).sum())
@@ -3245,6 +3398,9 @@ def main() -> None:
     for name in ("ntt32", "negacyclic_mul32", "garner_to_u64"):
         if launches[name] == 0:
             raise AssertionError(f"{name} kernel was not launched on the main path")
+    if launches["extract_key_switch"] != chunks or launches["key_switch"] or tlwe.key_switch.u64_calls or int_mm_calls:
+        raise AssertionError(f"K6 launched {launches['extract_key_switch']} times for {chunks} PBS chunk(s) (key_switch alone {launches['key_switch']}, u64 route {tlwe.key_switch.u64_calls}, torch._int_mm {len(int_mm_calls)}): expected one launch a chunk and nothing else")
+    launches["tfhe_key_switch"] = launches["extract_key_switch"]
 
     # -- 5. step kernel vs plain at batch 128, and the first 4 PBS vs the CPU --
     a2n, b2n = tfhe.mod_switch_2n(cts, n_big)
@@ -3271,6 +3427,15 @@ def main() -> None:
     )
     errs["tfhe_step"] = max(errs["tfhe_step"], max_abs_err(got_l.a, want.a), max_abs_err(got_l.b, want.b))
     say(f"blind_rotate_steps == the plain loop over {LOOP_CHECK} steps at batch {BATCH}, real key: ok")
+    # K6 on the blind rotation's accumulator at batch 128 with the real key
+    acc_k6 = tfhe.blind_rotate(params, key, tglwe.encode(params.tglwe, tab), a2n, b2n)
+    got_k6 = tlwe.extract_key_switch(params.tlwe, key.ksk, acc_k6)
+    want_k6 = tlwe.extract_key_switch_ref(params.tlwe, key.ksk, acc_k6)
+    errs["tfhe_key_switch"] = max(max_abs_err(got_k6.a, want_k6.a.cpu()), max_abs_err(got_k6.b, want_k6.b.cpu()))
+    old_k6 = parent_key_switch(params.tlwe, key.ksk, acc_k6)
+    if not (torch.equal(old_k6.a, got_k6.a) and torch.equal(old_k6.b, got_k6.b)):
+        raise AssertionError("K6 differs from the parent's int8 route")
+    say(f"K6 (extract_key_switch) == extract_key_switch_ref and == the parent's int8 route at batch {BATCH}, the reference fixture's key (d={params.tlwe.d}, n_from={n_big}, n_to={params.tlwe.n}): ok")
 
     t0 = time.perf_counter()
     key_cpu = tfhe.BootstrapKey(
@@ -3298,9 +3463,17 @@ def main() -> None:
     say(f"{tag} PBS batch {BATCH}: host enqueue {host_s * 1e3:.3f} ms per batch (C loop of {params.tlwe.n} steps), wall with sync {wall_s * 1e3:.3f} ms")
     v_enc = tglwe.encode(params.tglwe, tab)
     br_ms = cuda_ms(lambda: tfhe.blind_rotate(params, key, v_enc, a2n, b2n), reps)
-    ext = tglwe.sample_extract(params.tglwe, tfhe.blind_rotate(params, key, v_enc, a2n, b2n), 0)
-    ks_ms = cuda_ms(lambda: tlwe.key_switch(params.tlwe, key.ksk, ext), 10)
-    say(f"{tag} PBS batch {BATCH}: blind rotation {br_ms:.3f} ms, key switch {ks_ms:.3f} ms (CUDA events)")
+    acc_br = tfhe.blind_rotate(params, key, v_enc, a2n, b2n)
+
+    def k6_call():
+        tlwe.extract_key_switch(params.tlwe, key.ksk, acc_br)
+
+    k6_launches = tlwe.extract_key_switch.launches
+    ks_ms, ks_graph = cuda_ms(k6_call, 50), graph_ms(k6_call, 50)
+    tlwe.extract_key_switch.launches = k6_launches  # the timing's launches are not the path's
+    ks_plain = cuda_ms(lambda: tlwe.extract_key_switch_ref(params.tlwe, key.ksk, acc_br), 3)
+    ks_parent = cuda_ms(lambda: parent_key_switch(params.tlwe, key.ksk, acc_br), 10)
+    say(f"{tag} PBS batch {BATCH}: blind rotation {br_ms:.3f} ms, sample extract + key switch (K6) {ks_ms:.3f} ms per wrapper call (CUDA events); the parent's eager extract + limb split + 8 x torch._int_mm route {ks_parent:.3f} ms")
     idle, kernel_ms, top = device_kernel_ms(lambda: tfhe_pbs_batch(params, key, tab, cts))
     if kernel_ms:
         say(f"{tag} PBS batch {BATCH}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms, which counts a step kernel's wait for its predecessor")
@@ -3341,10 +3514,17 @@ def main() -> None:
         "negacyclic_mul32": (lambda: tntt.negacyclic_mul32(ad, bd, k0), lambda: tntt.negacyclic_mul32_ref(ad, bd, k0)),
         "garner_to_u64": (lambda: tcrt.garner_to_u64(ag, key_plan), lambda: tcrt.garner_to_u64_ref(ag, key_plan)),
     }
-    graphs = {}
+    graphs, yardsticks = {}, {}
     for name, (kernel, plain) in keygen_kernels.items():
         timings[name] = (cuda_ms(kernel, 50), cuda_ms(plain, 3))
         graphs[name] = graph_ms(kernel, 50)
+    ks_bytes, ks_ops = key_switch_work(BATCH, params.tlwe.d, n_big, params.tlwe.n)
+    bounds["tfhe_key_switch"] = tensor_bound_ms(ks_bytes, ks_ops)
+    timings["tfhe_key_switch"], graphs["tfhe_key_switch"], yardsticks["tfhe_key_switch"] = (ks_ms, ks_plain), ks_graph, ks_parent
+    regs, st, ld, _ = kernels.ptxas_report(kernels.build_log()).get("tfhe_key_switch_kernel", (0, 0, 0, 0))
+    b_ms, by = bounds["tfhe_key_switch"]
+    say(f"{tag} K6 (sample extract + key switch) at batch {BATCH}: {ks_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {ks_graph * 1e3:.2f} us per launch from a CUDA graph of 50; bound {b_ms * 1e3:.2f} us by {by} (bytes {ks_bytes / 1e6:.1f} MB; {ks_ops / 1e9:.1f} G int8 operations) = {b_ms / ks_graph:.4f} of bound (graph); plain version on CUDA tensors {ks_plain * 1e3:.1f} us; the parent's route {ks_parent * 1e3:.1f} us; {regs} registers, {st} / {ld} bytes spilled")
+    say(f"{tag} PBS batch {BATCH} split: blind rotation {br_ms:.3f} ms + K6 {ks_ms:.3f} ms = {br_ms + ks_ms:.3f} ms of {pbs_ms:.3f} ms")
     row_bytes = rows * n_big * 4
     for name in ("ntt32", "intt32", "negacyclic_mul32"):
         bounds[name] = bound_ms((3 if name == "negacyclic_mul32" else 2) * row_bytes, ntt32_ops(name, rows, n_big), pipe_per_s)
@@ -3359,8 +3539,8 @@ def main() -> None:
     phase_s = {"build, TFHE": time.perf_counter() - t_main}
     kept = {}  # the FHEW fixture's key, from F2 to U1
     for phase, run in (
-        ("FHEW F1-F4", lambda: kept.update(fhew=fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches))),
-        ("multi-key M1-M4", lambda: multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
+        ("FHEW F1-F4", lambda: kept.update(fhew=fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks))),
+        ("multi-key M1-M4", lambda: multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks)),
         ("CKKS C1-C4", lambda: ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
         ("bootstrap B1", lambda: bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("bootstrap B2", lambda: bootstrap_b2(dev, tag)),
@@ -3431,6 +3611,11 @@ def main() -> None:
         ("base_convert_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:356 (extend_bases at N=2^16, a digit's hoist; XLA fusion; no Pallas call)"),
         # K-GARNER at 5 primes (R1's (16, 16384); launches: R1's path at k = 5)
         (GARNER_K5, "torus_crt.cu", "learn_fhe_tpu/ops/torus_crt.py:210 (garner_to_u64, XLA fusion; no Pallas call) at learn_fhe_tpu/ops/ring_mul.py:41's 5 primes"),
+        # the PBS's sample extract and key switch (phase 5's batch 128; launches: the main path's)
+        ("tfhe_key_switch", "tfhe_keyswitch.cu", "learn_fhe_tpu/models/tfhe/tlwe.py:89 (key_switch) and :113 (_mxu_wrapping_dot), with learn_fhe_tpu/models/tfhe/tglwe.py:93 (sample_extract); XLA fusions, no Pallas call"),
+        # the FHEW gate preamble at the 28-bit fixture (F3's NAND batch of 128; launches: F2's path) and at the multi-key full set (M4's NAND batch of 128; launches: M4's path)
+        ("fhew_preamble", "fhew_preamble.cu", "learn_fhe_tpu/parallel/batch.py:115 (_fhew_preamble, one jitted XLA fusion; no Pallas call)"),
+        ("fhew_preamble64", "fhew_preamble.cu", "learn_fhe_tpu/parallel/batch.py:115 (_fhew_preamble on the u64 engine, one jitted XLA fusion; no Pallas call)"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {
@@ -3461,6 +3646,7 @@ def main() -> None:
                         "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1],
                         "library_ms": None,  # no PyTorch call computes any of these
+                        "yardstick_ms": yardsticks.get(name),  # the route a kernel replaced, which the port no longer runs
                     }
                     for name, file, replaces in table
                 ]

@@ -590,6 +590,56 @@ def prepare_acc(params: BootstrapParams, f: torch.Tensor, b2n: torch.Tensor) -> 
     return RlweCiphertext(torch.zeros_like(f_prime), f_prime)
 
 
+def preamble(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: LweCiphertext):
+    """The gate bootstrap's preamble of a batch of mod-Q LWE ciphertexts
+    (a (B, N), b (B,) int64): mod switch Q -> q_ks, the LWE key switch,
+    the odd mod switch to 2N, and the rotated LUT of `prepare_acc` for f,
+    one LUT (N,) or one per ciphertext (B, N). Returns the Z_2N mask (B, n)
+    int64, from which the host builds the schedule, and the prepared
+    accumulators' b (B, N), int32 on the u32 engine and int64 on the u64.
+    On a CUDA tensor one launch of K-FHEW-PRE (`csrc/fhew_preamble.cu`,
+    counter `.launches`), which takes a power-of-two q_ks <= 2^32 and
+    raises on any other; on a CPU tensor the plain version."""
+    if ct.a.is_cpu:
+        return preamble_ref(params, key, f, ct)
+    name, gadget = "preamble", params.lwe_s.gadget
+    q_ks, n, n_lwe = params.big_q_ks, params.n, params.lwe_s.n
+    if q_ks & (q_ks - 1) or q_ks > 1 << 32:
+        raise ValueError(f"{name}: the kernel takes a power-of-two q_ks <= 2^32, got {q_ks}")
+    B = ct.b.shape[0]
+    kernels.require(f"{name} ct.a", ct.a, torch.int64, (B, n))
+    kernels.require(f"{name} ct.b", ct.b, torch.int64, (B,))
+    kernels.require(f"{name} key.ksk_a", key.ksk_a, torch.int64, (gadget.d, n, n_lwe))
+    kernels.require(f"{name} key.ksk_b", key.ksk_b, torch.int64, (gadget.d, n))
+    kernels.require(f"{name} f", f, torch.int64)
+    if f.shape not in ((n,), (B, n)):
+        raise ValueError(f"{name}: expected f of shape ({n},) or ({B}, {n}), got {tuple(f.shape)}")
+    mask = ct.a.new_empty((B, n_lwe))
+    f_prime = torch.empty((B, n), dtype=torch.int32 if params.rgsw.use_u32 else torch.int64, device=ct.a.device)
+    if B:
+        two_n = params.q
+        kernels.launch(
+            "lft_fhew_preamble", ct.a.data_ptr(), ct.b.data_ptr(), key.ksk_a.data_ptr(), key.ksk_b.data_ptr(),
+            f.data_ptr(), 1 if f.dim() == 1 else B, mask.data_ptr(), f_prime.data_ptr(), f_prime.dtype == torch.int64,
+            B, n, n_lwe, gadget.d, gadget.log_b, gadget.rounding_bits, q_ks.bit_length() - 1, params.big_q,
+            float(params.big_q), float(q_ks), AUTO_G % two_n, pow(-AUTO_G % two_n, -1, two_n),
+        )  # fmt: skip
+        preamble.launches += 1
+    return mask, f_prime
+
+
+preamble.launches = 0
+
+
+def preamble_ref(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: LweCiphertext):
+    """Plain version of `preamble` (either device): the JAX package's
+    `_fhew_preamble` step by step, the key switch in integer sums."""
+    ct = lwe.ct_mod_switch(ct, params.big_q, params.big_q_ks)
+    ct = lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
+    ct = lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)
+    return ct.a, prepare_acc(params, f, ct.b).b
+
+
 def blind_rotate(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: LweCiphertext) -> RlweCiphertext:
     """The blind rotation of Z_2N ciphertexts ct (a (..., n), b (...,)):
     the prepared accumulator, the schedule, the walk. Returns int64 values."""
@@ -601,11 +651,16 @@ def blind_rotate(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct
 
 
 def bootstrap(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: LweCiphertext) -> LweCiphertext:
-    """Figure 2 of 2022/198 (`bootstrapping.rs:148-155`), for any batch shape."""
-    ct = lwe.ct_mod_switch(ct, params.big_q, params.big_q_ks)
-    ct = lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
-    ct = lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)
-    return rlwe.sample_extract(params.rlwe, blind_rotate(params, key, f, ct), 0)
+    """Figure 2 of 2022/198 (`bootstrapping.rs:148-155`), for any batch
+    shape: the preamble (K-FHEW-PRE on the card), the schedule, the walk and
+    sample_extract(0)."""
+    batch = ct.b.shape
+    flat = LweCiphertext(ct.a.reshape(-1, params.n), ct.b.reshape(-1))
+    mask, f_prime = preamble(params, key, f, flat)
+    e_idx, a_idx = schedule(params, mask)
+    out = blind_rotate_core_fused(params, key, e_idx, a_idx, RlweCiphertext(torch.zeros_like(f_prime), f_prime))
+    ext = rlwe.sample_extract(params.rlwe, out, 0)
+    return LweCiphertext(ext.a.long().reshape(*batch, params.n), ext.b.long().reshape(batch))
 
 
 # -- multi-key / threshold (`bootstrapping.rs:233-321`) ---------------------------

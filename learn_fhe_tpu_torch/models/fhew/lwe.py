@@ -116,20 +116,19 @@ def ksk_gen(
 
 
 def key_switch(params: LweParams, ksk: LweKeySwitchingKey, ct: LweCiphertext) -> LweCiphertext:
-    """Decompose ct.a and dot against the key rows (`lwe.rs:151-160`).
-
-    The (..., d * n_from) x (d * n_from, n_to) product is a float64 matmul:
-    CUDA has no int64 one. Digits and key are below q, so every partial sum
-    is an integer below d * n_from * q^2, which the check keeps under 2^53:
-    the product is exact in any summation order."""
+    """Decompose ct.a and dot against the key rows (`lwe.rs:151-160`), in
+    integer sums as `modular_dot` makes them (a power-of-two q wraps, an odd
+    q reduces each product), on either device. The key's b rides along as
+    column n_to; the rows go through in groups that keep the (rows, K, n_to
+    + 1) products near 2^26 values."""
     d, n_from, n_to = ksk.a.shape
     k = d * n_from
-    if k * (params.q - 1) ** 2 >= 1 << 53:
-        raise ValueError(f"key_switch: {k} terms below q={params.q} may round in float64")
     limbs = decompose_zq(ct.a, params.gadget).movedim(0, -2)  # (..., d, n_from)
-    flat = limbs.reshape(*limbs.shape[:-2], k).double()
-    key = torch.cat([ksk.a.reshape(k, n_to), ksk.b.reshape(k, 1)], dim=1).double()
-    out = torch.matmul(flat, key).long() % params.q
+    flat = limbs.reshape(-1, k)
+    key = torch.cat([ksk.a.reshape(k, n_to), ksk.b.reshape(k, 1)], dim=1)
+    step = max(1, (1 << 26) // (k * (n_to + 1)))
+    out = torch.cat([modular_dot(flat[s : s + step], key, params.q) for s in range(0, max(1, flat.shape[0]), step)])
+    out = out.reshape(*limbs.shape[:-2], n_to + 1)
     return LweCiphertext(out[..., :n_to], add_mod(out[..., n_to], ct.b, params.q))
 
 

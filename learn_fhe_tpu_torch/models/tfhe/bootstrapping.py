@@ -154,8 +154,7 @@ def bootstrap(
     v_enc = tglwe.encode(params.tglwe, v)
     a2n, b2n = mod_switch_2n(ct, params.big_n)
     acc = blind_rotate(params, key, v_enc, a2n, b2n, parity)
-    ext = tglwe.sample_extract(params.tglwe, acc, 0)
-    return tlwe.key_switch(params.tlwe, key.ksk, ext)
+    return tlwe.extract_key_switch(params.tlwe, key.ksk, acc)
 
 
 class TfheBootstrap(nn.Module):

@@ -9,10 +9,9 @@ import torch
 from ..models import tfhe
 from ..models.fhew import bootstrapping as fhew_boot
 from ..models.fhew import gates as fhew_gates
-from ..models.fhew import lwe as fhew_lwe
 from ..models.fhew import rlwe as fhew_rlwe
 from ..models.fhew.bootstrapping import BootstrapKey as FhewKey, BootstrapParams as FhewParams
-from ..models.fhew.lwe import LweCiphertext as FhewLwe, LweKeySwitchingKey
+from ..models.fhew.lwe import LweCiphertext as FhewLwe
 from ..models.tfhe import tglwe, tlwe
 from ..models.tfhe.bootstrapping import BootstrapKey as TfheKey, BootstrapParams as TfheParams
 from ..models.tfhe.tlwe import TlweCiphertext
@@ -27,10 +26,10 @@ def tfhe_pbs_batch_device(
     a2n: torch.Tensor,  # (B, n) exponents
     b2n: torch.Tensor,  # (B,)
 ) -> TlweCiphertext:
-    """Batched CMux-chain blind rotation, sample extract and key switch."""
+    """Batched CMux-chain blind rotation, then the sample extract and the key
+    switch as one launch of K6 (`tlwe.extract_key_switch`)."""
     acc = tfhe.blind_rotate(params, key, v_encoded, a2n, b2n)
-    ext = tglwe.sample_extract(params.tglwe, acc, 0)
-    return tlwe.key_switch(params.tlwe, key.ksk, ext)
+    return tlwe.extract_key_switch(params.tlwe, key.ksk, acc)
 
 
 # Batches stream through chunks of this size. The JAX package tuned it on a
@@ -90,16 +89,12 @@ def fhew_blind_rotate_batch_device(
 @torch.no_grad()
 def _fhew_preamble(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe):
     """Mod switch -> LWE key switch -> odd mod switch -> per-ciphertext
-    rotated LUT. Returns the Z_2N mask (B, n), from which the host builds the
-    schedule, and the prepared accumulators' b (B, N), int32 on the u32
-    engine and int64 on the u64. f is one LUT (N,) for the batch or one per
-    ciphertext (B, N). The LWE key switch is a float64 product, whose
-    exactness `lwe.key_switch` checks (at the full multi-key set it holds by
-    a margin of 2^34 - 2^13 below 2^53)."""
-    ct = fhew_lwe.ct_mod_switch(cts, params.big_q, params.big_q_ks)
-    ct = fhew_lwe.key_switch(params.lwe_s, LweKeySwitchingKey(key.ksk_a, key.ksk_b), ct)
-    ct = fhew_lwe.ct_mod_switch_odd(ct, params.big_q_ks, params.q)
-    return ct.a, fhew_boot.prepare_acc(params, f, ct.b).b
+    rotated LUT, one launch of K-FHEW-PRE on the card
+    (`fhew_boot.preamble`). Returns the Z_2N mask (B, n), from which the
+    host builds the schedule, and the prepared accumulators' b (B, N), int32
+    on the u32 engine and int64 on the u64. f is one LUT (N,) for the batch
+    or one per ciphertext (B, N)."""
+    return fhew_boot.preamble(params, key, f, cts)
 
 
 def fhew_bootstrap_batch(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe) -> FhewLwe:

@@ -74,7 +74,7 @@ NEW_ENTRIES = {
     "ntt64_mont": "lft_ntt64_fwd_mont", "rns_intt_mac": "lft_rns_intt_mac", "rns_mac_gather": "lft_rns_mac_gather",
     "rns_intt_mac_gather": "lft_rns_intt_mac_gather", "automorphism_rns": "lft_rns_automorphism",
     "bgv_drop": "lft_bgv_drop", "coef_ntt_tail": "lft_rns_ntt_cross", "coef32_ntt_tail": "lft_ntt32_fwd_cross",
-    "launch_floor": "lft_empty",
+    "launch_floor": "lft_empty", "tfhe_key_switch": "lft_tfhe_key_switch", "fhew_preamble": "lft_fhew_preamble",
 }  # fmt: skip
 HOST_ENTRIES = ("lft_rns_cluster_occupancy", "lft_ntt32_occupancy")  # host functions an older library lacks
 

@@ -35,7 +35,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
-SOURCES = ("ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu", "coef.cu")
+SOURCES = (
+    "ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu",
+    "coef.cu", "tfhe_keyswitch.cu", "fhew_preamble.cu",
+)  # fmt: skip
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +54,7 @@ MAX_PRIMES = 4
 GARNER_MAX_PRIMES = 5
 
 _P, _I, _LL, _U, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong
+_D = ctypes.c_double
 _SIGNATURES = {
     # x, y, psi, psi_shoup, rows, log_n, q, stream
     "lft_ntt32_fwd": (_P, _P, _P, _P, _I, _I, _U, _P),
@@ -147,6 +151,14 @@ _SIGNATURES = {
     "lft_rns_ntt_cross": (_P,) * 13 + (_I,) * 5 + (_P,),
     # x, v, y, psi, psi_shoup, rows, log_n, q, t, its Shoup dual, upper, stream
     "lft_ntt32_fwd_cross": (_P,) * 5 + (_I, _I) + (_U,) * 3 + (_I, _P),
+    # a (batch, n_from) or the accumulator's (batch, k, N), b to add, its row
+    # stride, ksk_a, ksk_b, out_a, out_b, batch, n_from, n_to, N (0: no
+    # extract), log_b, d, rounding_bits, stream
+    "lft_tfhe_key_switch": (_P, _P, _I) + (_P,) * 4 + (_I,) * 7 + (_P,),
+    # a, b, ksk_a, ksk_b, f, f_rows, mask_out, f_out, wide, batch, N, n, d,
+    # log_b, rounding_bits, log2 q_ks, Q, (double) Q, (double) q_ks, g,
+    # (-g)^-1 mod 2N, stream
+    "lft_fhew_preamble": (_P,) * 5 + (_I, _P, _P) + (_I,) * 8 + (_U64, _D, _D, _I, _I, _P),
     # blocks, stream: a kernel that does nothing (the launch floor)
     "lft_empty": (_I, _P),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
@@ -254,7 +266,7 @@ _KERNEL_NAME = re.compile(
     r"(ntt32_fwd_cross|ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_cross_rows|rns_ntt_cross|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
     r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
-    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32)_kernel"
+    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32|tfhe_key_switch|fhew_preamble)_kernel"
     r"(I(?:L[ib]\d+E)+E)?"
 )
 

@@ -207,6 +207,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 def test_key_switch_int8_matmul_matches_cpu(dev):
+    """`tlwe.key_switch` on the card is K6 without the extract (the int8
+    tensor-core route that replaced `torch._int_mm`): bit-identical to the
+    CPU's plain limb products."""
     rng = np.random.default_rng(7)
     params = tfhe.TlweParams(log_p=4, padding=1, n=40, std_dev=1e-8, log_b=4, d=5)
     ksk = tlwe.TlweKeySwitchingKey(
@@ -218,11 +221,135 @@ def test_key_switch_int8_matmul_matches_cpu(dev):
         u64_to_torch(rng.integers(0, 1 << 64, size=(3,), dtype=np.uint64)),
     )
     want = tlwe.key_switch(params, ksk, ct)
+    before = tlwe.key_switch.launches
     got = tlwe.key_switch(
         params, tlwe.TlweKeySwitchingKey(*(x.to(dev) for x in ksk)), tlwe.TlweCiphertext(*(x.to(dev) for x in ct))
     )
     _same(got.a, want.a)
     _same(got.b, want.b)
+    assert tlwe.key_switch.launches == before + 1
+
+
+def _k6_case(rng, batch, k, n_big, n_to, log_b, d):
+    params = tfhe.TlweParams(log_p=4, padding=1, n=n_to, std_dev=1e-8, log_b=log_b, d=d)
+    ksk = tlwe.TlweKeySwitchingKey(
+        u64_to_torch(rng.integers(0, 1 << 64, size=(d, k * n_big, n_to), dtype=np.uint64)),
+        u64_to_torch(rng.integers(0, 1 << 64, size=(d, k * n_big), dtype=np.uint64)),
+    )
+    acc = TglweCiphertext(
+        u64_to_torch(rng.integers(0, 1 << 64, size=(*batch, k, n_big), dtype=np.uint64)),
+        u64_to_torch(rng.integers(0, 1 << 64, size=(*batch, n_big), dtype=np.uint64)),
+    )
+    return params, ksk, acc
+
+
+# (batch, k, N, n_to, log_b, d): the reference fixture's key at batch 1, 5
+# and 128 (one launch of 33 x 4 blocks), a second row group (130), two ring
+# components, 2D batches, other gadgets (the u64 digit path at log_b * d >
+# 31), a column tile cut by n_to
+@pytest.mark.parametrize(
+    "batch,k,n_big,n_to,log_b,d",
+    [
+        ((1,), 1, 2048, 1024, 4, 5), ((5,), 1, 2048, 1024, 4, 5), ((128,), 1, 2048, 1024, 4, 5),
+        ((130,), 2, 128, 40, 4, 5), ((3, 4), 1, 256, 64, 7, 3), ((3,), 1, 512, 100, 3, 11), ((2,), 1, 64, 7, 1, 64),
+    ],
+)  # fmt: skip
+def test_k6_matches_plain(dev, batch, k, n_big, n_to, log_b, d):
+    """K6 (`tlwe.extract_key_switch`: the sample extract and the key switch,
+    one launch) == its plain version on the CPU, and `tlwe.key_switch` on
+    the extracted ciphertext == its plain version."""
+    params, ksk, acc = _k6_case(np.random.default_rng(n_big + d), batch, k, n_big, n_to, log_b, d)
+    want = tlwe.extract_key_switch_ref(params, ksk, acc)
+    before = tlwe.extract_key_switch.launches
+    kd = tlwe.TlweKeySwitchingKey(ksk.a.to(dev), ksk.b.to(dev))
+    got = tlwe.extract_key_switch(params, kd, TglweCiphertext(acc.a.to(dev), acc.b.to(dev)))
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    assert tlwe.extract_key_switch.launches == before + 1
+    ext = tlwe._sample_extract(acc.a, acc.b)
+    want = tlwe.key_switch_ref(params, ksk, ext)
+    got = tlwe.key_switch(params, kd, tlwe.TlweCiphertext(ext.a.to(dev), ext.b.to(dev)))
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+
+
+def test_k6_leaves_log_b_8_to_the_u64_product(dev):
+    """At log_b = 8 the digits do not fit int8: the u64 product on the card,
+    counted by `key_switch.u64_calls`, as the JAX package chooses it."""
+    params, ksk, acc = _k6_case(np.random.default_rng(8), (3,), 1, 128, 16, 8, 3)
+    want = tlwe.extract_key_switch_ref(params, ksk, acc)
+    launches, calls = tlwe.extract_key_switch.launches, tlwe.key_switch.u64_calls
+    got = tlwe.extract_key_switch(
+        params, tlwe.TlweKeySwitchingKey(ksk.a.to(dev), ksk.b.to(dev)), TglweCiphertext(acc.a.to(dev), acc.b.to(dev))
+    )
+    _same(got.a, want.a)
+    _same(got.b, want.b)
+    assert tlwe.extract_key_switch.launches == launches and tlwe.key_switch.u64_calls == calls + 1
+
+
+def _preamble_params(engine):
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    if engine == "u32":  # the 28-bit reference fixture's shapes
+        q, log_n, lwe_p = next(two_adic_primes(28, 10)), 9, fhew.LweParams(q=1 << 16, p=4, n=100, log_b=4, d=4)
+    else:  # the multi-key full set's
+        q, log_n, lwe_p = next(two_adic_primes(55, 12)), 11, fhew.LweParams(q=1 << 20, p=4, n=600, log_b=5, d=4)
+    rlwe_p = fhew.RlweParams(q=q, p=4, log_n=log_n, log_b=7, d=4)
+    return fhew.BootstrapParams(fhew.RgswParams(rlwe_p, log_b=7, d=4), lwe_p, w=10)
+
+
+@pytest.mark.parametrize("engine", ["u32", "u64"])
+@pytest.mark.parametrize("batch", [1, 2, 33, 128])
+@pytest.mark.parametrize("per_ct_lut", [False, True])
+def test_preamble_kernel_matches_plain(dev, engine, batch, per_ct_lut):
+    """K-FHEW-PRE (`bootstrapping.preamble`) == `preamble_ref` on the CPU:
+    the Z_2N mask and f' (int32 on the u32 engine, int64 on the u64), with
+    0 and Q - 1 in the inputs."""
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.lwe import LweCiphertext
+
+    params = _preamble_params(engine)
+    rng = np.random.default_rng(batch + 2 * per_ct_lut)
+    n, n_lwe, q, q_ks = params.n, params.lwe_s.n, params.big_q, params.big_q_ks
+    key = boot.BootstrapKey(
+        u64_to_torch(rng.integers(0, q_ks, size=(4, n, n_lwe), dtype=np.uint64)),
+        u64_to_torch(rng.integers(0, q_ks, size=(4, n), dtype=np.uint64)),
+        *([None] * 6),
+    )
+    a = rng.integers(0, q, size=(batch, n), dtype=np.uint64)
+    b = rng.integers(0, q, size=(batch,), dtype=np.uint64)
+    a[0, :2], b[0] = [0, q - 1], q - 1
+    f = rng.integers(0, q, size=(batch, n) if per_ct_lut else (n,), dtype=np.uint64)
+    f[..., :2] = 0
+    ct, f = LweCiphertext(u64_to_torch(a), u64_to_torch(b)), u64_to_torch(f)
+    want = boot.preamble_ref(params, key, f, ct)
+    before = boot.preamble.launches
+    got = boot.preamble(
+        params, boot.BootstrapKey(key.ksk_a.to(dev), key.ksk_b.to(dev), *([None] * 6)), f.to(dev),
+        LweCiphertext(ct.a.to(dev), ct.b.to(dev)),
+    )  # fmt: skip
+    _same(got[0], want[0])
+    _same(got[1], want[1])
+    assert boot.preamble.launches == before + 1
+
+
+def test_preamble_kernel_raises_on_a_q_ks_it_does_not_take(dev):
+    """K-FHEW-PRE sums in uint32 masked to q_ks: any q_ks but a power of two
+    <= 2^32 raises on the card (the plain version computes there)."""
+    from learn_fhe_tpu_torch.models import fhew
+    from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
+    from learn_fhe_tpu_torch.models.fhew.lwe import LweCiphertext
+
+    base = _preamble_params("u32")
+    params = fhew.BootstrapParams(base.rgsw, fhew.LweParams(q=(1 << 16) + 1, p=4, n=8, log_b=4, d=4), w=10)
+    key = boot.BootstrapKey(
+        torch.zeros((4, base.n, 8), dtype=torch.int64, device=dev), torch.zeros((4, base.n), dtype=torch.int64, device=dev),
+        *([None] * 6),
+    )  # fmt: skip
+    ct = LweCiphertext(torch.zeros((2, base.n), dtype=torch.int64, device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        boot.preamble(params, key, torch.zeros(base.n, dtype=torch.int64, device=dev), ct)
 
 
 def test_pbs_batch_on_card_matches_cpu(dev):

@@ -33,6 +33,10 @@ _MUL64_BULK = "_ZN40_GLOBAL__N__ef756456_8_ntt64_cu_8d3d39ff28negacyclic_mul64_b
 _EXT64 = "_ZN44_GLOBAL__N__15b4274e_11_fhew_u64_cu_b001eb1725external_product64_kernelILb1ELi11EEEvPKmS2_PmS3_PKiS2_S2_iiiN5lft646TablesENS6_6GadgetEiiPi"
 _CROSS64 = "_ZN39_GLOBAL__N__5b1e0c7a_7_coef_cu_c3d2e1f019coef_cross64_kernelILb1EEEvPK10ulonglong2S3_PS1_PKmS6_S6_iiii"
 _CROSS32 = "_ZN39_GLOBAL__N__5b1e0c7a_7_coef_cu_c3d2e1f019coef_cross32_kernelILb0EEEvPK5uint4S3_PS1_jjjiii"
+# K6 and K-FHEW-PRE: no template arguments, each in a source whose name
+# holds most of the kernel's
+_K6 = "_ZN50_GLOBAL__N__6d1e2f3a_17_tfhe_keyswitch_cu_a1b2c3d422tfhe_key_switch_kernelEPKmS1_iS1_S1_PyS2_NS_5ShapeE"
+_PRE = "_ZN49_GLOBAL__N__7e2f3a4b_16_fhew_preamble_cu_b2c3d4e520fhew_preamble_kernelEPKmS1_S1_S1_S1_PxPvNS_3PreE"
 _WALK64 = (
     "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
     "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
@@ -72,6 +76,8 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_MUL.replace("ILi11EE", "ILi14EE"), "negacyclic_mul32_kernel<14>"),
         (_CROSS64, "coef_cross64_kernel<true>"),
         (_CROSS32, "coef_cross32_kernel<false>"),
+        (_K6, "tfhe_key_switch_kernel"),
+        (_PRE, "fhew_preamble_kernel"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
