@@ -14,20 +14,28 @@ n=1024, B=2^4, d=5; TGGSW N=2048, k=1, B=2^23, d=1) at batch 128, through
      key generation gives them, and the first three on a ragged last block
      too, with `torch.equal`;
   4. the main path: key generation from seed 0, 128 encryptions,
-     `tfhe_pbs_batch` with the identity LUT (its 1024 steps launched from
+     `tfhe_pbs_batch` with the identity LUT (the LUT's encode, the mod
+     switch, the transposed exponents and the rotated accumulator one launch
+     of K-TFHE-PRE, `tfhe.blind_rotate_front`; its 1024 steps launched from
      one C call, `tggsw.blind_rotate_steps`; the sample extract and the key
      switch one launch of K6, `tlwe.extract_key_switch`), decryption of all
      128; the kernels' launch counters are set to 0 just before this run and
-     read just after it (K6 once a PBS chunk, `torch._int_mm` never);
+     read just after it (K-TFHE-PRE and K6 once a PBS chunk,
+     `torch._int_mm` never);
   5. hold the step kernel against its plain version at batch 128 with the
      real key (one step, and 4 steps through the C loop), K6 against its
      plain version and the parent's int8 route (the limb split and 8 x
      `torch._int_mm`, inlined here as a yardstick) on the blind rotation's
-     accumulator, and the first 4 bootstraps against the whole plain path
-     on the CPU (bit-identical ciphertexts);
+     accumulator, K-TFHE-PRE from exponents against its plain version and
+     the eager accumulator, and the first 4 bootstraps against the whole
+     plain path on the CPU (bit-identical ciphertexts);
   6. time the PBS, the host enqueue of a batch, the blind rotation, K6
      (eager and from a CUDA graph, against its bound, its plain version and
-     the parent's route), the device's idle share (profiler), and each
+     the parent's route), K-TFHE-PRE on the 128 ciphertexts (held against
+     its plain version and the parent's eager route, then timed the same
+     way, beside the launch floor), the device's idle share and every
+     device activity of one PBS batch (profiler: K-TFHE-PRE, K-STEP x 1024
+     and K6 with its zeroing, and nothing else, or it fails), and each
      kernel against its plain version and its bound with CUDA events: K-STEP over the C loop,
      the key generation kernels over 50 eager wrapper calls, as key
      generation calls them (`ms`), and over the same 50 launches replayed
@@ -42,10 +50,11 @@ B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
       ragged (19, 512), and the test prime 268432897 at N=128;
   F2. the FHEW main path: key generation from seed 0 on the card, 128 NAND
       gates through `fhew_gate_batch` on random bits (the launch counters
-      set to 0 just before and read just after: K-FHEW-BR and K-FHEW-PRE
-      must launch once each),
+      set to 0 just before and read just after: K-FHEW-BR, K-FHEW-PRE and
+      K-EXTRACT must launch once each),
       all 128 decrypted against the truth table; then one `gate_batch` of
-      all 7 gates (majority with 3 inputs; one K-FHEW-PRE launch), decrypted;
+      all 7 gates (majority with 3 inputs; one K-FHEW-PRE and one K-EXTRACT
+      launch), decrypted;
   F3. K-FHEW-PRE (`bootstrapping.preamble`) at batch 128 against its plain
       version and the parent's eager preamble (a float64 key switch,
       inlined here as a yardstick), with the NAND LUT and with a LUT a
@@ -53,12 +62,17 @@ B=2^7, d=4; LWE n=100, q_ks=2^16, B=2^4, d=4; window 10), batch 128:
       K-FHEW-BR's whole walk at batch 128 with the real key against
       `blind_rotate_core_fused_ref` on the card, on the real schedule and on
       two made from it (each row's external products alone, its
-      automorphisms alone), the first 4 gate outputs against the whole plain
+      automorphisms alone), K-EXTRACT on the real walk's output with the
+      gate's + Q/8 and with 0 against its plain version and the parent's
+      eager extract and `add_mod` (timed eager and from a CUDA graph against
+      its bound and the launch floor), the first 4 gate outputs against the whole plain
       path on the CPU, and the C schedule against the Python one on the same
       mask, all bit for bit; the kernel's error word must read 0;
   F4. NAND gates/s at batch 128 and 1024 over whole `fhew_gate_batch`
-      calls (median and spread of 5), the preamble, host schedule and walk
-      times, the device's idle share; K-FHEW-BR's device time (profiler)
+      calls (median and spread of 5), the preamble, host schedule, walk and
+      extract times, the device's idle share, the gate batch's device
+      activities in order (after K-FHEW-BR only K-EXTRACT, or it fails);
+      K-FHEW-BR's device time (profiler)
       beside its wrapper call's, on the ext-only and auto-only schedules and
       at batch 1, 132, 264 and 1024; the bytes of key rows a launch copies;
       K-FHEW-BR against its plain version and its bound, with its registers
@@ -99,15 +113,18 @@ parties):
       and the rounds by gates per round and by the cluster size they
       took), and a NAND batch of 128 at the full set, which must decrypt
       to the truth table; K-FHEW-BR64 counts its launches in clusters
-      (C > 1) and alone (C = 1) apart, and each must be launched, and
-      K-FHEW-PRE must launch once a gate batch. Then: K-FHEW-PRE at the
+      (C > 1) and alone (C = 1) apart, and each must be launched,
+      K-FHEW-PRE must launch once a gate batch and K-EXTRACT once a gate
+      batch and once a u8 encryption. Then: K-FHEW-PRE at the
       NAND batch of 128 and at a round of 2 gates with a LUT each against
       its plain version and the parent's eager preamble, timed;
       gates/s (median and spread of 5 calls), K-FHEW-BR64's time at batch
       1, 2, 8, 36 and 128 of its schedule with the cluster size each took;
       the clustered instance at batch 2 (a round of two gates) and the
       single-block one at 128, each against its bound and its plain
-      version; the walk's device time at 128 and the device's idle share;
+      version, and K-EXTRACT on each one's output against its plain version
+      and the parent's eager route, timed (the round's preamble, walk and
+      extract printed as its split); the walk's device time at 128 and the device's idle share;
       the path's conversions into the evaluation basis whole
       (`rlwe._to_eval_mont` at 5 rows, `rgsw.to_eval` at a merge chunk and
       at the final 6000 rows), eager and from a CUDA graph.
@@ -357,10 +374,13 @@ K-GARNER at k = 5 and carries R1's path's launches at k = 5;
 `tfhe_key_switch` times K6 at phase 5's batch 128 with the main path's
 launches, `fhew_preamble` K-FHEW-PRE at F3's NAND batch of 128 with F2's
 launch, and `fhew_preamble64` at M4's NAND batch of 128 of the full set
-with M4's launches (one a gate batch). Every row has a `yardstick_ms`: the
-route the kernel replaced, timed on the same inputs (the parent's
-`torch._int_mm` route, the parent's eager preamble), null where there is
-none. The phases' seconds are printed before it.
+with M4's launches (one a gate batch); `tfhe_front` times K-TFHE-PRE at
+phase 6's batch 128 with the main path's launches, `fhew_extract`
+K-EXTRACT at F3's NAND batch of 128 with F2's launch and `fhew_extract64`
+at M4's NAND batch of 128 with M4's launches. Every row has a
+`yardstick_ms`: the route the kernel replaced, timed on the same inputs
+(the parent's `torch._int_mm` route, the parent's eager preamble, front
+and extract), null where there is none. The phases' seconds are printed before it.
 
 Every number is printed beside the card's name and power limit. Each
 kernel's bound is the larger of its bytes over the card's memory rate and
@@ -375,6 +395,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -389,6 +410,9 @@ REFERENCE = dict(
 )
 BATCH = 128
 CPU_CHECK = 4  # bootstraps also run on the CPU's plain path and compared
+# K-TFHE-PRE from the ciphertexts and from exponents; K-EXTRACT on the u32
+# engine's int32 accumulator and the u64's int64
+K7_INSTANCES = ("tfhe_front_kernel<true>", "tfhe_front_kernel<false>", "rlwe_extract_kernel<int>", "rlwe_extract_kernel<long long>")
 LOOP_CHECK = 4  # steps of the C loop held against the plain loop at batch 128
 
 # The bounds. H100 SXM: 3.35 TB/s of device memory (data sheet); 132 SMs at
@@ -574,13 +598,13 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernel_ms(fn) -> tuple[float, float, list[tuple[str, float, int]]]:
+def device_kernel_ms(fn, top: int | None = 5) -> tuple[float, float, list[tuple[str, float, int]]]:
     """For one call of fn (torch.profiler): the device's idle share over the
     span from its first kernel's start to its last kernel's end (1 minus
     the union of the kernels' intervals over that span; a kernel launched
     early by programmatic dependent launch counts as busy from its start),
-    the kernels' summed time, and the five largest by name with their
-    launch counts."""
+    the kernels' summed time, and the `top` largest by name (all for None)
+    with their launch counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -608,7 +632,7 @@ def device_kernel_ms(fn) -> tuple[float, float, list[tuple[str, float, int]]]:
             busy += end - reach
             reach = end
     idle = 1 - busy / (reach - spans[0][0]) if spans else float("nan")
-    return idle, sum(t for _, t, _ in rows), rows[:5]
+    return idle, sum(t for _, t, _ in rows), rows[:top]
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -741,6 +765,130 @@ def preamble_report(tag, label, params, key, f, ct, pipe_per_s) -> tuple[float, 
     bound = bound_ms(n_bytes, ops, pipe_per_s)
     say(f"{label} K-FHEW-PRE == preamble_ref and == the parent's eager preamble at batch {B} (N={params.n}, n={params.lwe_s.n}, d={params.lwe_s.gadget.d}, q_ks=2^{params.big_q_ks.bit_length() - 1}): ok")
     say(f"{tag} {label} K-FHEW-PRE at batch {B}: {e_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch from a CUDA graph of 50; bound {bound[0] * 1e3:.2f} us by {bound[1]} ({ops[0] / 1e6:.1f} M multiply-adds; bytes {n_bytes / 1e6:.2f} MB) = {bound[0] / g_ms:.4f} of bound (graph); plain version on CUDA tensors {p_ms * 1e3:.1f} us; the parent's eager preamble {y_ms * 1e3:.1f} us")
+    return err, e_ms, g_ms, p_ms, y_ms, bound
+
+
+def launch_floor_ms() -> float:
+    """The launch floor: an empty kernel (one block of 32 threads), per
+    launch from a CUDA graph of 50."""
+    from learn_fhe_tpu_torch.utils import kernels
+
+    return graph_ms(lambda: kernels.launch("lft_empty", 1), 50)
+
+
+def device_activity(fn) -> list[str]:
+    """The names of the device activities (kernels, copies, sets) of one
+    call of fn, in the order they started (torch.profiler); empty if the
+    profiler recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)]
+
+
+def activity_name(name: str) -> str:
+    """A kernel's name without its namespace and arguments, or a copy's."""
+    m = re.search(r"(\w+_kernel(?:<[^>]*>)?)", name)
+    return m[1] if m else name[:48]
+
+
+def front_bytes(batch: int, n: int, big_n: int, k: int) -> float:
+    """K-TFHE-PRE's bytes: a, b and the LUT read once; exps (n, B) and the
+    accumulator's a (B, k, N) and b (B, N) written once."""
+    return (batch * n + batch + big_n) * 8 + (n * batch + batch * (k + 1) * big_n) * 8
+
+
+def parent_front(params, v, cts):
+    """The eager route K-TFHE-PRE replaced, which the port no longer runs (a
+    yardstick): the LUT's encode, the whole batch's mod switch, the zero
+    accumulator, its rotation by -b (a gather and a where per component)
+    and the exponents' transposed copy."""
+    from learn_fhe_tpu_torch.models import tfhe
+    from learn_fhe_tpu_torch.models.tfhe import tglwe
+
+    v_enc = tglwe.encode(params.tglwe, v)
+    a2n, b2n = tfhe.mod_switch_2n(cts, params.big_n)
+    k, n_big, B = params.tglwe.k, params.big_n, b2n.shape[0]
+    acc0 = tglwe.TglweCiphertext(torch.zeros((B, k, n_big), dtype=torch.int64, device=b2n.device), v_enc.expand(B, n_big))
+    return a2n.t().contiguous(), tglwe.rotate(acc0, (-b2n) % (2 * n_big))
+
+
+def front_report(tag, params, v, cts, floor_ms) -> tuple[float, float, float, float, float, tuple[float, str]]:
+    """K-TFHE-PRE on the PBS chunk's ciphertexts (the LUT encoded in the
+    launch) against its plain version (on the card) and the parent's eager
+    route: `torch.equal` to both, then eager, graph, plain and yardstick ms
+    and the bound, printed beside the launch floor."""
+    from learn_fhe_tpu_torch.models import tfhe
+
+    cts = type(cts)(cts.a.contiguous(), cts.b.contiguous())
+    call = lambda: tfhe.blind_rotate_front(params, v, cts.a, cts.b, False, encode=True)  # noqa: E731
+    exps, acc = call()
+    want_exps, want_acc = tfhe.bootstrapping.blind_rotate_front_ref(params, v, cts.a, cts.b, False, True)
+    err = max(max_abs_err(exps, want_exps.cpu()), max_abs_err(acc.a, want_acc.a.cpu()), max_abs_err(acc.b, want_acc.b.cpu()))
+    old_exps, old_acc = parent_front(params, v, cts)
+    if not (torch.equal(old_exps, exps) and torch.equal(old_acc.a, acc.a) and torch.equal(old_acc.b, acc.b)):
+        raise AssertionError("K-TFHE-PRE differs from the parent's eager route")
+    launches = tfhe.blind_rotate_front.launches
+    e_ms, g_ms = cuda_ms(call, 50), graph_ms(call, 50)
+    tfhe.blind_rotate_front.launches = launches  # the timing's launches are not the path's
+    p_ms = cuda_ms(lambda: tfhe.bootstrapping.blind_rotate_front_ref(params, v, cts.a, cts.b, False, True), 10)
+    y_ms = cuda_ms(lambda: parent_front(params, v, cts), 10)
+    B, n = cts.a.shape
+    n_bytes = front_bytes(B, n, params.big_n, params.tglwe.k)
+    bound = (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    say(f"K-TFHE-PRE (blind_rotate_front) == blind_rotate_front_ref and == the parent's eager route at batch {B} (n={n}, N={params.big_n}, the LUT encoded in the launch): ok")
+    say(f"{tag} K-TFHE-PRE at batch {B}: {e_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch from a CUDA graph of 50; bound {bound[0] * 1e3:.2f} us by bytes ({n_bytes / 1e6:.2f} MB) = {bound[0] / g_ms:.4f} of bound (graph); launch floor {floor_ms * 1e3:.2f} us; plain version on CUDA tensors {p_ms * 1e3:.1f} us; the parent's eager route {y_ms * 1e3:.1f} us")
+    return err, e_ms, g_ms, p_ms, y_ms, bound
+
+
+def extract_bytes(batch: int, n: int, wide: bool) -> float:
+    """K-EXTRACT's bytes: the accumulator's a and the b coefficient read
+    once (int32 on the u32 engine, int64 on the u64), the LWE ciphertext
+    written once (int64)."""
+    return batch * (n + 1) * (8 if wide else 4) + batch * (n + 1) * 8
+
+
+def parent_extract(params, acc, b_add):
+    """The eager route K-EXTRACT replaced, which the port no longer runs (a
+    yardstick): `sample_extract_a`'s flip, neg_mod and cat on the walk's
+    dtype, the two `.long()` and the gate's `add_mod`."""
+    from learn_fhe_tpu_torch.ops.modular import add_mod
+    from learn_fhe_tpu_torch.ops.poly import sample_extract_a
+
+    a, b = sample_extract_a(acc.a, 0, params.big_q).long(), acc.b[..., 0].long()
+    return a, add_mod(b, b_add, params.big_q) if b_add else b
+
+
+def extract_report(tag, label, params, acc, floor_ms) -> tuple[float, float, float, float, float, tuple[float, str]]:
+    """K-EXTRACT on a walk's output acc with the gate's + Q/8 (and, checked
+    only, with 0) against its plain version (on the card) and the parent's
+    eager route: `torch.equal` to both, then eager, graph, plain and
+    yardstick ms and the bound, printed beside the launch floor."""
+    from learn_fhe_tpu_torch.models.fhew import rlwe
+
+    err = 0.0
+    for b_add in (0, params.big_q_by_8):
+        got = rlwe.sample_extract(params.rlwe, acc, 0, b_add=b_add)
+        want = rlwe.sample_extract_ref(params.rlwe, acc, 0, b_add)
+        err = max(err, max_abs_err(got.a, want.a.cpu()), max_abs_err(got.b, want.b.cpu()))
+        old = parent_extract(params, acc, b_add)
+        if not (torch.equal(old[0], got.a) and torch.equal(old[1], got.b)):
+            raise AssertionError(f"{label}: K-EXTRACT differs from the parent's eager route")
+    call = lambda: rlwe.sample_extract(params.rlwe, acc, 0, b_add=params.big_q_by_8)  # noqa: E731
+    launches = rlwe.sample_extract.launches
+    e_ms, g_ms = cuda_ms(call, 50), graph_ms(call, 50)
+    rlwe.sample_extract.launches = launches  # the timing's launches are not the path's
+    p_ms = cuda_ms(lambda: rlwe.sample_extract_ref(params.rlwe, acc, 0, params.big_q_by_8), 10)
+    y_ms = cuda_ms(lambda: parent_extract(params, acc, params.big_q_by_8), 10)
+    B, n = acc.b.shape
+    n_bytes = extract_bytes(B, n, acc.a.dtype == torch.int64)
+    bound = (n_bytes / HBM_BYTES_PER_S * 1e3, "bytes")
+    say(f"{label} K-EXTRACT == sample_extract_ref and == the parent's eager route at batch {B} (N={n}, {acc.a.dtype} in; b_add 0 and Q/8): ok")
+    say(f"{tag} {label} K-EXTRACT at batch {B}: {e_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {g_ms * 1e3:.2f} us per launch from a CUDA graph of 50; bound {bound[0] * 1e3:.3f} us by bytes ({n_bytes / 1e6:.3f} MB) = {bound[0] / g_ms:.4f} of bound (graph); launch floor {floor_ms * 1e3:.2f} us; plain version on CUDA tensors {p_ms * 1e3:.1f} us; the parent's eager route {y_ms * 1e3:.1f} us")
     return err, e_ms, g_ms, p_ms, y_ms, bound
 
 
@@ -953,7 +1101,7 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
     Returns the fixture's (params, secret, key on the card), which U1 reuses."""
     from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
-    from learn_fhe_tpu_torch.models.fhew import gates, lwe
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe, rlwe
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
     from learn_fhe_tpu_torch.ops import ntt32 as tntt
     from learn_fhe_tpu_torch.parallel import batch as pbatch
@@ -986,7 +1134,7 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
     m1 = torch.from_numpy(rng.integers(0, 2, size=B)).to(dev)
     c0 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m0), rng)
     c1 = lwe.sk_encrypt(lz, z, gates.encode_bool(params, m1), rng)
-    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused, boot.preamble)
+    counted = (tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, boot.blind_rotate_core_fused, boot.preamble, rlwe.sample_extract)
     boot.walk_error(dev).zero_()
     for fn in counted:
         fn.launches = 0
@@ -998,9 +1146,9 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
     say(f"{tag} F2 FHEW keygen {keygen_s * 1e3:.1f} ms (host clock, to a sync; launches {keygen_launches}); first NAND batch of {B} {first_s * 1e3:.1f} ms; launches {fhew_launches}")
     if out.a.shape != (B, params.n) or out.b.shape != (B,):
         raise AssertionError(f"gate output shapes {tuple(out.a.shape)}, {tuple(out.b.shape)}")
-    if fhew_launches["blind_rotate_core_fused"] != 1 or fhew_launches["preamble"] != 1:
-        raise AssertionError(f"K-FHEW-BR launched {fhew_launches['blind_rotate_core_fused']} times and K-FHEW-PRE {fhew_launches['preamble']} in one fhew_gate_batch, expected 1 each")
-    launches["fhew_preamble"] = fhew_launches["preamble"]
+    if fhew_launches["blind_rotate_core_fused"] != 1 or fhew_launches["preamble"] != 1 or fhew_launches["sample_extract"] != 1:
+        raise AssertionError(f"K-FHEW-BR launched {fhew_launches['blind_rotate_core_fused']} times, K-FHEW-PRE {fhew_launches['preamble']} and K-EXTRACT {fhew_launches['sample_extract']} in one fhew_gate_batch, expected 1 each")
+    launches["fhew_preamble"], launches["fhew_extract"] = fhew_launches["preamble"], fhew_launches["sample_extract"]
     if keygen_launches["ntt32"] == 0 or keygen_launches["intt32"] == 0:
         raise AssertionError("FHEW key generation did not launch K-NTT and intt32")
     launches["fhew_blind_rotate"] = fhew_launches["blind_rotate_core_fused"]
@@ -1017,10 +1165,10 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
         truth = {"and": x & y, "nand": 1 - (x & y), "or": x | y, "nor": 1 - (x | y), "xor": x ^ y, "xnor": 1 - (x ^ y)}
         specs.append((name, *cts) if name == "majority" else (name, *cts[:2]))
         want_bits.append(int(x + y + c >= 2) if name == "majority" else int(truth[name]))
-    pre0 = boot.preamble.launches
+    pre0, ext0 = boot.preamble.launches, rlwe.sample_extract.launches
     mixed = gates.gate_batch(params, key, specs)
-    if boot.preamble.launches - pre0 != 1:
-        raise AssertionError(f"K-FHEW-PRE launched {boot.preamble.launches - pre0} times in one gate_batch, expected 1")
+    if boot.preamble.launches - pre0 != 1 or rlwe.sample_extract.launches - ext0 != 1:
+        raise AssertionError(f"K-FHEW-PRE launched {boot.preamble.launches - pre0} times and K-EXTRACT {rlwe.sample_extract.launches - ext0} in one gate_batch, expected 1 each")
     got_bits = [int(gates.decode_bool(params, lwe.decrypt(lz, z, ct))) for ct in mixed]
     say(f"F2 gate_batch of {names}: decrypts {got_bits}, truth {want_bits}")
     if got_bits != want_bits:
@@ -1059,6 +1207,11 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
         plain = boot.blind_rotate_core_fused_ref(params, key, se, sa, acc)
         errs["fhew_blind_rotate"] = max(errs["fhew_blind_rotate"], max_abs_err(walk.a, plain.a.cpu()), max_abs_err(walk.b, plain.b.cpu()))
         say(f"F3 K-FHEW-BR == blind_rotate_core_fused_ref at batch {B}, N={params.n}, real key, {name} schedule: ok")
+        if name == "real":
+            walked = walk
+    floor_ms = launch_floor_ms()
+    ex = extract_report(tag, "F3", params, walked, floor_ms)
+    errs["fhew_extract"], timings["fhew_extract"], graphs["fhew_extract"], yardsticks["fhew_extract"], bounds["fhew_extract"] = ex[0], (ex[1], ex[3]), ex[2], ex[4], ex[5]
     t0 = time.perf_counter()
     key_cpu = boot.BootstrapKey(*(t.cpu() for t in key))
     k = FHEW_CPU_CHECK
@@ -1093,7 +1246,18 @@ def fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, y
         pre.append(t1 - t0)
         sch.append(time.perf_counter() - t1)
     walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), reps)
-    say(f"{tag} F4 NAND batch {B}: preamble {np.median(pre) * 1e3:.3f} ms, host schedule (C, with the mask's copy to the host and the indices' copy back) {np.median(sch) * 1e3:.3f} ms (host clock to a sync, median of {reps}); walk {walk_ms:.3f} ms (CUDA events)")
+    split = np.median(pre) * 1e3 + np.median(sch) * 1e3 + walk_ms + ex[1]
+    say(f"{tag} F4 NAND batch {B}: preamble {np.median(pre) * 1e3:.3f} ms, host schedule (C, with the mask's copy to the host and the indices' copy back) {np.median(sch) * 1e3:.3f} ms (host clock to a sync, median of {reps}); walk {walk_ms:.3f} ms (CUDA events); extract with the + Q/8 (K-EXTRACT) {ex[1]:.4f} ms per wrapper call (F3); their sum {split:.3f} ms of the call's {gate_ms[0]:.3f} ms leaves {gate_ms[0] - split:.3f} ms (the linear combination, the accumulator's zeroing, the Python between)")
+    activity = device_activity(gate_call)
+    if activity:
+        walks = [i for i, name in enumerate(activity) if "fhew_blind_rotate_kernel" in name]
+        tail = activity[walks[-1] + 1 :] if walks else activity
+        say(f"{tag} F4 NAND batch {B}: the device's activities in order: {', '.join(activity_name(name) for name in activity)}")
+        if len(walks) != 1 or len(tail) != 1 or "rlwe_extract_kernel" not in tail[0]:
+            raise AssertionError(f"F4: after K-FHEW-BR the gate batch's device should run K-EXTRACT alone, it ran {tail}")
+        say(f"{tag} F4 NAND batch {B}: after K-FHEW-BR the device ran K-EXTRACT alone: ok")
+    else:
+        say(f"{tag} F4 the gate batch's device activity: not measured (the profiler recorded none)")
     # where the walk's time goes: the phases apart, and the batch size
     walk_dev = walk_device_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), WALK_REPS)
     say(f"{tag} F4 K-FHEW-BR at batch {B}: device {walk_dev:.4f} ms per launch (profiler, {WALK_REPS} launches), wrapper call {walk_ms:.4f} ms (CUDA events, {reps} calls)")
@@ -1181,7 +1345,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     from learn_fhe_tpu_torch.examples.multi_key_uint8 import example_params, wrapping_expression
     from learn_fhe_tpu_torch.models import fhew
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
-    from learn_fhe_tpu_torch.models.fhew import gates, lwe, rgsw
+    from learn_fhe_tpu_torch.models.fhew import gates, lwe, rgsw, rlwe
     from learn_fhe_tpu_torch.models.fhew.rlwe import RlweCiphertext
     from learn_fhe_tpu_torch.ops import ntt as tntt
     from learn_fhe_tpu_torch.parallel import batch as pbatch
@@ -1313,7 +1477,10 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
         raise AssertionError(f"K-FHEW-BR64 flagged a schedule index outside the key (error word {word})")
 
     # -- M4. the main path -----------------------------------------------------------
-    counted = (tntt.ntt64, tntt.ntt64_mont, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64, boot.preamble)
+    counted = (
+        tntt.ntt64, tntt.ntt64_mont, tntt.intt64, tntt.negacyclic_mul64, rgsw.external_product64, boot.blind_rotate_core_fused64,
+        boot.preamble, rlwe.sample_extract,
+    )  # fmt: skip
     by_shape = {
         "ntt64": tntt.ntt64.by_rows, "ntt64_mont": tntt.ntt64_mont.by_rows, "intt64": tntt.intt64.by_rows,
         "negacyclic_mul64": tntt.negacyclic_mul64.by_rows, "external_product64": rgsw.external_product64.by_count,
@@ -1384,6 +1551,9 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     if mk_launches["preamble"] != mk_launches["blind_rotate_core_fused64"]:
         raise AssertionError(f"K-FHEW-PRE launched {mk_launches['preamble']} times for {mk_launches['blind_rotate_core_fused64']} gate batches on the multi-key path, expected one a batch")
     mk_launches["fhew_preamble64"] = mk_launches.pop("preamble")
+    if mk_launches["sample_extract"] != mk_launches["fhew_preamble64"] + 2:
+        raise AssertionError(f"K-EXTRACT launched {mk_launches['sample_extract']} times on the multi-key path, expected one a gate batch ({mk_launches['fhew_preamble64']}) and one a u8 encryption (2)")
+    mk_launches["fhew_extract64"] = mk_launches.pop("sample_extract")
     walk_all, walk_clustered = mk_launches.pop("blind_rotate_core_fused64"), boot.blind_rotate_core_fused64.cluster_launches
     mk_launches["fhew_blind_rotate64"], mk_launches["fhew_blind_rotate64_cluster"] = walk_all - walk_clustered, walk_clustered
     say(f"{tag} M4 launches on the main path (the u8 expression, its decryption, one NAND batch of {B}): {mk_launches}")
@@ -1398,7 +1568,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
             else:
                 parts.append(f"{cnt} x {rows} rows: not timed")
         say(f"{tag} M4 {name} launches by shape, with launches x (time - bound) from M1/M2's CUDA-graph times: {'; '.join(parts) or 'none'}; in all {lost.get(name, 0.0) * 1e3:.1f} us")
-    for name in ("ntt64_mont", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster", "fhew_preamble64"):
+    for name in ("ntt64_mont", "negacyclic_mul64", "external_product64", "fhew_blind_rotate64", "fhew_blind_rotate64_cluster", "fhew_preamble64", "fhew_extract64"):
         if mk_launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the multi-key main path")
     if mk_launches["ntt64"]:
@@ -1422,7 +1592,7 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     # a round of the u8 expression: two gates, a LUT each
     rnd = lwe.LweCiphertext(lin.a[:ROUND_BATCH].contiguous(), lin.b[:ROUND_BATCH].contiguous())
     luts = torch.stack([f, gates.lut_poly(params, gates.GATE_TABLES["xor"], dev)])
-    preamble_report(tag, f"M4 full set, a round of {ROUND_BATCH} gates with a LUT each,", params, key, luts, rnd, pipe_per_s)
+    round_pre = preamble_report(tag, f"M4 full set, a round of {ROUND_BATCH} gates with a LUT each,", params, key, luts, rnd, pipe_per_s)
     e_idx, a_idx = boot.schedule(params, ct_a2n)
     acc = RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     walk_ms = cuda_ms(lambda: boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc), 3)
@@ -1463,6 +1633,9 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     timings["fhew_blind_rotate64_cluster"], bounds["fhew_blind_rotate64_cluster"] = (r_ms, r_plain), (r_bound, r_by)
     regs_c, st_c, ld_c, _ = kernels_report().get("fhew_blind_rotate64_kernel<true,true>", (0, 0, 0, 0))
     say(f"M4 K-FHEW-BR64 == blind_rotate_core_fused_ref at batch {ROUND_BATCH} of the full set with the merged key (cluster {r_cluster}): ok")
+    floor_ms = launch_floor_ms()
+    round_ex = extract_report(tag, f"M4 full set, a round of {ROUND_BATCH} gates,", params, got, floor_ms)
+    say(f"{tag} M4 a round of {ROUND_BATCH} gates at the full set, split: K-FHEW-PRE {round_pre[1]:.4f} ms + K-FHEW-BR64 {r_ms:.3f} ms + K-EXTRACT {round_ex[1]:.4f} ms per wrapper call (CUDA events; the host schedule and the linear combination not counted)")
     say(f"{tag} M4 K-FHEW-BR64 clustered at batch {ROUND_BATCH}, C = {r_cluster} ({r_ext} external products, {r_auto} automorphisms): {r_ms:.3f} ms per wrapper call (CUDA events, 3 calls); bound {r_bound:.4f} ms by {r_by} (instructions {r_ops[0] / 1e9:.3f} G FMA, {r_ops[1] / 1e9:.3f} G ALU, {r_ops[2] / 1e9:.3f} G either; bytes {r_bytes / 1e6:.1f} MB) = {r_bound / r_ms:.4f} of bound; plain version on CUDA tensors {r_plain / 1e3:.1f} s (host clock, to a sync); {regs_c} registers, {st_c} / {ld_c} bytes spilled")
     idle, kernel_ms, top = device_kernel_ms(gate_call)
     walk_rows = [(t_k, cnt) for name, t_k, cnt in top if "fhew_blind_rotate64" in name]
@@ -1484,6 +1657,8 @@ def multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graph
     got = boot.blind_rotate_core_fused(params, key, e_idx, a_idx, acc)
     errs["fhew_blind_rotate64"] = max(errs["fhew_blind_rotate64"], max_abs_err(got.a, want.a), max_abs_err(got.b, want.b))
     say(f"M4 K-FHEW-BR64 == blind_rotate_core_fused_ref at batch {B} of the full set with the merged key: ok")
+    ex = extract_report(tag, "M4 full set", params, got, floor_ms)
+    errs["fhew_extract64"], timings["fhew_extract64"], graphs["fhew_extract64"], yardsticks["fhew_extract64"], bounds["fhew_extract64"] = ex[0], (ex[1], ex[3]), ex[2], ex[4], ex[5]
     timings["fhew_blind_rotate64"], bounds["fhew_blind_rotate64"] = (walk_ms, plain_ms), (b_ms, by)
     regs, st, ld, _ = kernels_report().get("fhew_blind_rotate64_kernel<true,false>", (0, 0, 0, 0))
     e_ms, e_by = bound_ms(walk_bytes, eager_ops, pipe_per_s)
@@ -3312,8 +3487,8 @@ def main() -> None:
             say(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads, {stack} bytes stack frame")
     past_2048 = {f"{k}_kernel<{log_n}>" for k in ("ntt32_fwd", "ntt32_inv", "negacyclic_mul32") for log_n in NTT_LOG_NS}
     cross = {f"coef_cross{w}_kernel<{inv}>" for w in (32, 64) for inv in ("false", "true")} | set(TAIL_INSTANCES)
-    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross, "tfhe_key_switch_kernel", "fhew_preamble_kernel"} <= report.keys():
-        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048, no K-COEF-CROSS, no fused forward tail, no K6 or no K-FHEW-PRE")
+    if not {"ntt32_fwd_kernel<11>", "negacyclic_mul32_kernel<11>", FHEW_INSTANCE, *MK_INSTANCES, *CKKS_INSTANCES, *BOOT_INSTANCES, *BGV_INSTANCES, *BGV_RNS_INSTANCES, *past_2048, *cross, "tfhe_key_switch_kernel", "fhew_preamble_kernel", *K7_INSTANCES} <= report.keys():
+        raise AssertionError("build.log shows no N=2048 instance of K-NTT or K-POLYMUL, no N=512 instance of K-FHEW-BR, no u64, RNS or BGV kernel, no K-NTT instance past 2048, no K-COEF-CROSS, no fused forward tail, no K6, no K-FHEW-PRE, or not every instance of K-TFHE-PRE and K-EXTRACT")
 
     # -- 3. NTT, inverse NTT, polymul, Garner vs plain, at keygen's shapes -----
     cfg = REFERENCE
@@ -3359,7 +3534,7 @@ def main() -> None:
     # -- 4. the main path ------------------------------------------------------
     counted = (
         tntt.ntt32, tntt.intt32, tntt.negacyclic_mul32, tcrt.garner_to_u64, tggsw.cmux_rotate, tggsw.blind_rotate_steps,
-        tlwe.extract_key_switch, tlwe.key_switch,
+        tlwe.extract_key_switch, tlwe.key_switch, tfhe.blind_rotate_front,
     )  # fmt: skip
     rng = np.random.default_rng(0)
     for fn in counted:
@@ -3401,6 +3576,9 @@ def main() -> None:
     if launches["extract_key_switch"] != chunks or launches["key_switch"] or tlwe.key_switch.u64_calls or int_mm_calls:
         raise AssertionError(f"K6 launched {launches['extract_key_switch']} times for {chunks} PBS chunk(s) (key_switch alone {launches['key_switch']}, u64 route {tlwe.key_switch.u64_calls}, torch._int_mm {len(int_mm_calls)}): expected one launch a chunk and nothing else")
     launches["tfhe_key_switch"] = launches["extract_key_switch"]
+    if launches["blind_rotate_front"] != chunks:
+        raise AssertionError(f"K-TFHE-PRE launched {launches['blind_rotate_front']} times for {chunks} PBS chunk(s), expected one a chunk")
+    launches["tfhe_front"] = launches["blind_rotate_front"]
 
     # -- 5. step kernel vs plain at batch 128, and the first 4 PBS vs the CPU --
     a2n, b2n = tfhe.mod_switch_2n(cts, n_big)
@@ -3436,6 +3614,15 @@ def main() -> None:
     if not (torch.equal(old_k6.a, got_k6.a) and torch.equal(old_k6.b, got_k6.b)):
         raise AssertionError("K6 differs from the parent's int8 route")
     say(f"K6 (extract_key_switch) == extract_key_switch_ref and == the parent's int8 route at batch {BATCH}, the reference fixture's key (d={params.tlwe.d}, n_from={n_big}, n_to={params.tlwe.n}): ok")
+    # K-TFHE-PRE from exponents (tfhe_pbs_batch_device's route) at batch 128;
+    # from the ciphertexts, with the LUT's encode, in phase 6's front_report
+    v_enc0 = tglwe.encode(params.tglwe, tab)
+    got_f = tfhe.blind_rotate_front(params, v_enc0, a2n, b2n, True)
+    want_f = tfhe.bootstrapping.blind_rotate_front_ref(params, v_enc0, a2n, b2n, True)
+    errs["tfhe_front"] = max(max_abs_err(got_f[0], want_f[0].cpu()), max_abs_err(got_f[1].a, want_f[1].a.cpu()), max_abs_err(got_f[1].b, want_f[1].b.cpu()))
+    if not (torch.equal(got_f[0], exps_all) and torch.equal(got_f[1].a, acc.a) and torch.equal(got_f[1].b, acc.b)):
+        raise AssertionError("K-TFHE-PRE from exponents differs from the eager exponents and accumulator of phase 5")
+    say(f"K-TFHE-PRE from exponents (switched) == blind_rotate_front_ref and == the eager accumulator at batch {BATCH}: ok")
 
     t0 = time.perf_counter()
     key_cpu = tfhe.BootstrapKey(
@@ -3474,13 +3661,21 @@ def main() -> None:
     ks_plain = cuda_ms(lambda: tlwe.extract_key_switch_ref(params.tlwe, key.ksk, acc_br), 3)
     ks_parent = cuda_ms(lambda: parent_key_switch(params.tlwe, key.ksk, acc_br), 10)
     say(f"{tag} PBS batch {BATCH}: blind rotation {br_ms:.3f} ms, sample extract + key switch (K6) {ks_ms:.3f} ms per wrapper call (CUDA events); the parent's eager extract + limb split + 8 x torch._int_mm route {ks_parent:.3f} ms")
-    idle, kernel_ms, top = device_kernel_ms(lambda: tfhe_pbs_batch(params, key, tab, cts))
+    idle, kernel_ms, top = device_kernel_ms(lambda: tfhe_pbs_batch(params, key, tab, cts), top=None)
     if kernel_ms:
-        say(f"{tag} PBS batch {BATCH}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms, which counts a step kernel's wait for its predecessor")
+        say(f"{tag} PBS batch {BATCH}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms, which counts a step kernel's wait for its predecessor; every device activity:")
         for name, t, count in top:
             say(f"  {t:10.3f} ms  {count:6d} x  {name[:100]}")
+        counts = Counter()
+        for name, _, count in top:
+            kind = next((k for k in ("tfhe_front_kernel", "tfhe_step_kernel", "tfhe_key_switch_kernel", "Memset") if k in name), name)
+            counts[kind] += count
+        want = {"tfhe_front_kernel": chunks, "tfhe_step_kernel": params.tlwe.n * chunks, "tfhe_key_switch_kernel": chunks}
+        if any(counts[k] != v for k, v in want.items()) or set(counts) - {*want, "Memset"}:
+            raise AssertionError(f"the PBS batch's device activity is not K-TFHE-PRE, K-STEP and K6 (with K6's zeroing) alone: {dict(counts)}")
+        say(f"{tag} PBS batch {BATCH}: the device ran K-TFHE-PRE x {counts['tfhe_front_kernel']}, K-STEP x {counts['tfhe_step_kernel']}, K6 x {counts['tfhe_key_switch_kernel']} and {counts['Memset']} memsets (K6's zeroing of its output), nothing else: ok")
     else:
-        say(f"{tag} device kernel time and idle share: not measured (the profiler recorded no device activity)")
+        say(f"{tag} device kernel time, idle share and the PBS's device activity: not measured (the profiler recorded no device activity)")
 
     scratch = tglwe.TglweCiphertext(acc.a.clone(), acc.b.clone())
     timings = {}
@@ -3521,10 +3716,14 @@ def main() -> None:
     ks_bytes, ks_ops = key_switch_work(BATCH, params.tlwe.d, n_big, params.tlwe.n)
     bounds["tfhe_key_switch"] = tensor_bound_ms(ks_bytes, ks_ops)
     timings["tfhe_key_switch"], graphs["tfhe_key_switch"], yardsticks["tfhe_key_switch"] = (ks_ms, ks_plain), ks_graph, ks_parent
+    floor_ms = launch_floor_ms()
+    fr = front_report(tag, params, tab, cts, floor_ms)
+    errs["tfhe_front"] = max(errs["tfhe_front"], fr[0])
+    timings["tfhe_front"], graphs["tfhe_front"], yardsticks["tfhe_front"], bounds["tfhe_front"] = (fr[1], fr[3]), fr[2], fr[4], fr[5]
     regs, st, ld, _ = kernels.ptxas_report(kernels.build_log()).get("tfhe_key_switch_kernel", (0, 0, 0, 0))
     b_ms, by = bounds["tfhe_key_switch"]
     say(f"{tag} K6 (sample extract + key switch) at batch {BATCH}: {ks_ms * 1e3:.2f} us per wrapper call (CUDA events over 50 eager calls), {ks_graph * 1e3:.2f} us per launch from a CUDA graph of 50; bound {b_ms * 1e3:.2f} us by {by} (bytes {ks_bytes / 1e6:.1f} MB; {ks_ops / 1e9:.1f} G int8 operations) = {b_ms / ks_graph:.4f} of bound (graph); plain version on CUDA tensors {ks_plain * 1e3:.1f} us; the parent's route {ks_parent * 1e3:.1f} us; {regs} registers, {st} / {ld} bytes spilled")
-    say(f"{tag} PBS batch {BATCH} split: blind rotation {br_ms:.3f} ms + K6 {ks_ms:.3f} ms = {br_ms + ks_ms:.3f} ms of {pbs_ms:.3f} ms")
+    say(f"{tag} PBS batch {BATCH} split: blind rotation {br_ms:.3f} ms + K6 {ks_ms:.3f} ms = {br_ms + ks_ms:.3f} ms of {pbs_ms:.3f} ms; of the blind rotation, K-TFHE-PRE {fr[1]:.4f} ms per wrapper call ({fr[2]:.4f} ms from a graph) and K-STEP {st_ms * n_steps:.3f} ms ({n_steps} x {st_ms * 1e3:.2f} us)")
     row_bytes = rows * n_big * 4
     for name in ("ntt32", "intt32", "negacyclic_mul32"):
         bounds[name] = bound_ms((3 if name == "negacyclic_mul32" else 2) * row_bytes, ntt32_ops(name, rows, n_big), pipe_per_s)
@@ -3616,6 +3815,10 @@ def main() -> None:
         # the FHEW gate preamble at the 28-bit fixture (F3's NAND batch of 128; launches: F2's path) and at the multi-key full set (M4's NAND batch of 128; launches: M4's path)
         ("fhew_preamble", "fhew_preamble.cu", "learn_fhe_tpu/parallel/batch.py:115 (_fhew_preamble, one jitted XLA fusion; no Pallas call)"),
         ("fhew_preamble64", "fhew_preamble.cu", "learn_fhe_tpu/parallel/batch.py:115 (_fhew_preamble on the u64 engine, one jitted XLA fusion; no Pallas call)"),
+        # K7: the PBS chunk's front (phases 5-6's batch 128; launches: the main path's), the gate's extract with its + Q/8 at the 28-bit fixture (F3's NAND batch of 128; launches: F2's path) and at the multi-key full set (M4's NAND batch of 128; launches: M4's path)
+        ("tfhe_front", "tfhe_front.cu", "learn_fhe_tpu/parallel/batch.py:64 -> learn_fhe_tpu/models/tfhe/bootstrapping.py:90 (mod_switch_2n) and :121-141 (the zero accumulator and jax.vmap(tglwe.rotate) by -b in the jitted blind_rotate at :100); XLA fusions, no Pallas call"),
+        ("fhew_extract", "rlwe_extract.cu", "learn_fhe_tpu/parallel/batch.py:105-111 (rlwe.sample_extract, learn_fhe_tpu/models/fhew/rlwe.py:257 and ops/poly.py:93, in the jitted fhew_blind_rotate_batch_device at :87) and :162 (the gate's + Q/8, add_mod); XLA fusions, no Pallas call"),
+        ("fhew_extract64", "rlwe_extract.cu", "learn_fhe_tpu/parallel/batch.py:105-111 (rlwe.sample_extract on the u64 engine, learn_fhe_tpu/models/fhew/rlwe.py:257 and ops/poly.py:93) and :162, learn_fhe_tpu/models/fhew/gates.py:66,179 (the gate's + Q/8, add_mod); XLA fusions, no Pallas call"),
     ]
     # each row's launches on P2's warm production bootstrap
     p2 = {

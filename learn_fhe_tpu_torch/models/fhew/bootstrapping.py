@@ -653,14 +653,14 @@ def blind_rotate(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct
 def bootstrap(params: BootstrapParams, key: BootstrapKey, f: torch.Tensor, ct: LweCiphertext) -> LweCiphertext:
     """Figure 2 of 2022/198 (`bootstrapping.rs:148-155`), for any batch
     shape: the preamble (K-FHEW-PRE on the card), the schedule, the walk and
-    sample_extract(0)."""
+    sample_extract(0) (K-EXTRACT on the card)."""
     batch = ct.b.shape
     flat = LweCiphertext(ct.a.reshape(-1, params.n), ct.b.reshape(-1))
     mask, f_prime = preamble(params, key, f, flat)
     e_idx, a_idx = schedule(params, mask)
     out = blind_rotate_core_fused(params, key, e_idx, a_idx, RlweCiphertext(torch.zeros_like(f_prime), f_prime))
     ext = rlwe.sample_extract(params.rlwe, out, 0)
-    return LweCiphertext(ext.a.long().reshape(*batch, params.n), ext.b.long().reshape(batch))
+    return LweCiphertext(ext.a.reshape(*batch, params.n), ext.b.reshape(batch))
 
 
 # -- multi-key / threshold (`bootstrapping.rs:233-321`) ---------------------------

@@ -12,7 +12,7 @@ import torch
 
 from ...ops.modular import add_mod, neg_mod
 from . import lwe
-from .bootstrapping import BootstrapKey, BootstrapParams, bootstrap
+from .bootstrapping import BootstrapKey, BootstrapParams
 from .lwe import LweCiphertext
 
 # Table 1 in 2020/086 (`fhew.rs:59-67`)
@@ -38,11 +38,23 @@ def decode_bool(params: BootstrapParams, pt: torch.Tensor) -> torch.Tensor:
     return lwe.decode(params.lwe_z, pt) == 1
 
 
+_LUTS: dict[tuple, torch.Tensor] = {}
+
+
 def lut_poly(params: BootstrapParams, table, device=None) -> torch.Tensor:
     """Negacyclic LUT: each table entry repeated 2N/8 times, mapped to -+Q/8
-    (`fhew.rs:31-36`): (N,) int64."""
-    mapped = np.where(np.asarray(table) == 0, params.big_q - params.big_q_by_8, params.big_q_by_8)
-    return torch.from_numpy(np.repeat(mapped.astype(np.int64), params.q_by_8)).to(device)
+    (`fhew.rs:31-36`): (N,) int64. One tensor per (Q, N, table, device),
+    made on first use and returned again after, so no gate call copies a LUT
+    from the host; callers read it and never write it in place."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (params.big_q, params.n, tuple(int(t) for t in table), device)
+    lut = _LUTS.get(key)
+    if lut is None:
+        mapped = np.where(np.asarray(table) == 0, params.big_q - params.big_q_by_8, params.big_q_by_8)
+        lut = _LUTS[key] = torch.from_numpy(np.repeat(mapped.astype(np.int64), params.q_by_8)).to(device)
+    return lut
 
 
 def not_(params: BootstrapParams, ct: LweCiphertext) -> LweCiphertext:
@@ -52,9 +64,14 @@ def not_(params: BootstrapParams, ct: LweCiphertext) -> LweCiphertext:
 
 
 def op(params: BootstrapParams, key: BootstrapKey, table, ct: LweCiphertext) -> LweCiphertext:
-    """One LUT bootstrap of ct by a 4-entry table, landing on {0, Q/4}."""
-    out = bootstrap(params, key, lut_poly(params, table, ct.a.device), ct)
-    return LweCiphertext(out.a, add_mod(out.b, params.big_q_by_8, params.big_q))
+    """One LUT bootstrap of ct (any batch shape) by a 4-entry table, landing
+    on {0, Q/4}: the + Q/8 is added by the extract's launch."""
+    from ...parallel.batch import fhew_bootstrap_batch
+
+    batch = ct.b.shape
+    flat = LweCiphertext(ct.a.reshape(-1, params.n), ct.b.reshape(-1))
+    out = fhew_bootstrap_batch(params, key, lut_poly(params, table, ct.a.device), flat, b_add=params.big_q_by_8)
+    return LweCiphertext(out.a.reshape(*batch, params.n), out.b.reshape(batch))
 
 
 def _lin2(params: BootstrapParams, name: str, ct0: LweCiphertext, ct1: LweCiphertext) -> LweCiphertext:
@@ -109,7 +126,7 @@ def gate_batch(params: BootstrapParams, key: BootstrapKey, specs: list[tuple]) -
 
     lanes = tuple(specs[0][1].b.shape)
     device = specs[0][1].a.device
-    lins, luts = [], []
+    lins = []
     for spec in specs:
         name, cts = spec[0], spec[1:]
         if name == "majority":
@@ -118,13 +135,17 @@ def gate_batch(params: BootstrapParams, key: BootstrapKey, specs: list[tuple]) -
         else:
             lin = _lin2(params, name, cts[0], cts[1])
         lins.append(lin)
-        luts.append(lut_poly(params, GATE_TABLES[name], device))
     n_lwe = lins[0].a.shape[-1]
     flat = LweCiphertext(
         torch.stack([c.a for c in lins]).reshape(-1, n_lwe), torch.stack([c.b for c in lins]).reshape(-1)
     )
-    lut = torch.stack(luts).repeat_interleave(int(np.prod(lanes, dtype=np.int64)), dim=0)  # (G*V, N)
-    out = fhew_bootstrap_batch(params, key, lut, flat)
-    b = add_mod(out.b, params.big_q_by_8, params.big_q).reshape(len(specs), *lanes)
+    names = [spec[0] for spec in specs]
+    if len(set(names)) == 1:  # one gate: K-FHEW-PRE reads the one (N,) LUT for every ciphertext
+        lut = lut_poly(params, GATE_TABLES[names[0]], device)
+    else:
+        luts = torch.stack([lut_poly(params, GATE_TABLES[name], device) for name in names])
+        lut = luts.repeat_interleave(int(np.prod(lanes, dtype=np.int64)), dim=0)  # (G*V, N)
+    out = fhew_bootstrap_batch(params, key, lut, flat, b_add=params.big_q_by_8)
+    b = out.b.reshape(len(specs), *lanes)
     a = out.a.reshape(len(specs), *lanes, n_lwe)
     return [LweCiphertext(a[i], b[i]) for i in range(len(specs))]

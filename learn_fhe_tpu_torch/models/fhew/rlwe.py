@@ -27,6 +27,7 @@ from ...ops.modular32 import add_mod32, mul_shoup32, shoup32_dual, sum_mod32
 from ...ops.ntt import negacyclic_mul64, ntt64_mont
 from ...ops.ntt32 import intt32, negacyclic_mul32, ntt32
 from ...ops.poly import automorphism_i64, automorphism_zq, sample_extract_a
+from ...utils import kernels
 from ...utils.distributions import dg, uniform_zq, zo
 from ...utils.interop import resolve_device, u64_to_torch
 from .lwe import LweCiphertext
@@ -218,10 +219,44 @@ def automorphism(params: RlweParams, ak: RlweAutoKey, ct: RlweCiphertext) -> Rlw
     return key_switch(params, ak.ksk, ct_auto)
 
 
-def sample_extract(params: RlweParams, ct: RlweCiphertext, i: int) -> LweCiphertext:
-    """Coefficient i as an N-dimensional LWE ciphertext (`rlwe.rs:193-202`)."""
+def sample_extract(params: RlweParams, ct: RlweCiphertext, i: int, b_add: int = 0) -> LweCiphertext:
+    """Coefficient i as an N-dimensional LWE ciphertext (`rlwe.rs:193-202`),
+    int64, of ct (a, b (..., N): int32 residues or int64), with b_add (a
+    keyword the JAX package lacks, 0 <= b_add < q) added to b mod q.
+
+    On a CUDA tensor one launch of K-EXTRACT (`csrc/rlwe_extract.cu`,
+    counter `.launches`); on a CPU tensor the plain version."""
     assert 0 <= i < params.n
-    return LweCiphertext(sample_extract_a(ct.a, i, params.q), ct.b[..., i])
+    if not 0 <= b_add < params.q:
+        raise ValueError(f"sample_extract: b_add must lie in [0, q), got {b_add}")
+    if ct.a.is_cpu:
+        return sample_extract_ref(params, ct, i, b_add)
+    name, n = "sample_extract", params.n
+    batch = ct.b.shape[:-1]
+    a, b = ct.a.reshape(-1, n), ct.b.reshape(-1, n)
+    if a.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: expected int32 or int64, got {a.dtype}")
+    B = a.shape[0]
+    kernels.require(f"{name} ct.a", a, a.dtype, (B, n))
+    kernels.require(f"{name} ct.b", b, a.dtype, (B, n))
+    out = LweCiphertext(a.new_empty((B, n), dtype=torch.int64), a.new_empty((B,), dtype=torch.int64))
+    if B:
+        kernels.launch(
+            "lft_rlwe_extract", a.data_ptr(), b.data_ptr(), out.a.data_ptr(), out.b.data_ptr(), a.dtype == torch.int64,
+            B, n.bit_length() - 1, i, params.q, b_add,
+        )  # fmt: skip
+        sample_extract.launches += 1
+    return LweCiphertext(out.a.reshape(*batch, n), out.b.reshape(batch))
+
+
+sample_extract.launches = 0
+
+
+def sample_extract_ref(params: RlweParams, ct: RlweCiphertext, i: int, b_add: int = 0) -> LweCiphertext:
+    """Plain version of `sample_extract` (either device): `sample_extract_a`
+    and b[i], int64, with `add_mod` of b_add where it is not 0."""
+    b = ct.b[..., i].long()
+    return LweCiphertext(sample_extract_a(ct.a.long(), i, params.q), add_mod(b, b_add, params.q) if b_add else b)
 
 
 # -- threshold / multi-party API (`rlwe.rs:219-324`) -------------------------

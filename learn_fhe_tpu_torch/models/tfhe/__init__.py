@@ -8,6 +8,7 @@ from .bootstrapping import (
     BootstrapParams,
     TfheBootstrap,
     blind_rotate,
+    blind_rotate_front,
     bootstrap,
     key_gen,
     lut_table,
@@ -24,6 +25,7 @@ __all__ = [
     "TgswParams",
     "TlweParams",
     "blind_rotate",
+    "blind_rotate_front",
     "bootstrap",
     "key_gen",
     "lut_table",

@@ -25,6 +25,7 @@ from torch import nn
 
 from ...ops.gadget import shr_u64
 from ...ops.torus_crt import monomial_eval_table, required_bound_bits
+from ...utils import kernels
 from ...utils.interop import resolve_device, u32_to_torch, u64_to_torch
 from . import tggsw, tglwe, tlwe
 from .params import TggswParams, TglweParams, TlweParams
@@ -86,26 +87,102 @@ def key_gen(
 
 def mod_switch_2n(ct: TlweCiphertext, big_n: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Round (a, b) into Z_2N exponents (`bootstrapping.rs:99-104`); the
-    rounding can give 2N itself."""
+    rounding can give 2N itself. No path of the port calls this on the
+    card: the PBS rounds inside K-TFHE-PRE (`blind_rotate_front`), and only
+    the plain version and the tools that hold exponents call it."""
     bits = 64 - (2 * big_n).bit_length() + 1
     half = (1 << bits) >> 1
     return shr_u64(ct.a + half, bits), shr_u64(ct.b + half, bits)
 
 
+def blind_rotate_front(
+    params: BootstrapParams,
+    v_encoded: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    switched: bool,
+    encode: bool = False,
+) -> tuple[torch.Tensor, TglweCiphertext]:
+    """The front of the blind rotation of a batch: from a (B, n) and b (B,)
+    int64, the torus ciphertext's u64 words (switched=False, rounded as
+    `mod_switch_2n` rounds them) or Z_2N exponents already switched
+    (switched=True), the step kernel's inputs: exps (n, B) int64, row i
+    holding step i's exponents (2N kept unreduced), and the accumulator
+    acc.a (B, k, N) zeros, acc.b (B, N) = v_encoded * X^((-b2n) mod 2N).
+    encode=True: v_encoded (N,) int64 holds the LUT's values mod p, and the
+    front encodes them as it reads them (`tglwe.encode`).
+
+    On a CUDA tensor one launch of K-TFHE-PRE (`csrc/tfhe_front.cu`,
+    counter `.launches`); on a CPU tensor the plain version."""
+    if b.is_cpu:
+        return blind_rotate_front_ref(params, v_encoded, a, b, switched, encode)
+    name, k, n_big = "blind_rotate_front", params.tglwe.k, params.big_n
+    B, n = a.shape
+    kernels.require(f"{name} a", a, torch.int64, (B, n))
+    kernels.require(f"{name} b", b, torch.int64, (B,))
+    kernels.require(f"{name} v_encoded", v_encoded, torch.int64, (n_big,))
+    exps = a.new_empty((n, B))
+    acc = TglweCiphertext(a.new_empty((B, k, n_big)), a.new_empty((B, n_big)))
+    if B:
+        bits = 64 - (2 * n_big).bit_length() + 1
+        kernels.launch(
+            "lft_tfhe_front", a.data_ptr(), b.data_ptr(), v_encoded.data_ptr(), exps.data_ptr(), acc.a.data_ptr(),
+            acc.b.data_ptr(), B, n, n_big.bit_length() - 1, k, bits, 0 if switched else 1,
+            params.tglwe.log_delta if encode else 0,
+        )  # fmt: skip
+        blind_rotate_front.launches += 1
+    return exps, acc
+
+
+blind_rotate_front.launches = 0
+
+
+def blind_rotate_front_ref(
+    params: BootstrapParams,
+    v_encoded: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    switched: bool,
+    encode: bool = False,
+) -> tuple[torch.Tensor, TglweCiphertext]:
+    """Plain version of `blind_rotate_front` (either device): the LUT's
+    encode, the mod switch, the zero accumulator rotated by (-b2n) mod 2N,
+    the exponents transposed."""
+    if encode:
+        v_encoded = tglwe.encode(params.tglwe, v_encoded)
+    if not switched:
+        a, b = mod_switch_2n(TlweCiphertext(a, b), params.big_n)
+    k, n_big = params.tglwe.k, params.big_n
+    B = b.shape[0]
+    acc0 = TglweCiphertext(torch.zeros((B, k, n_big), dtype=torch.int64, device=b.device), v_encoded.expand(B, n_big))
+    return a.t().contiguous(), tglwe.rotate(acc0, (-b) % (2 * n_big))
+
+
 def _blind_rotate_parity(
-    params: BootstrapParams, key: BootstrapKey, v_encoded: torch.Tensor, a2n: torch.Tensor, b2n: torch.Tensor
+    params: BootstrapParams, key: BootstrapKey, exps: torch.Tensor, acc: TglweCiphertext
 ) -> TglweCiphertext:
     """The reference's CMux order for one ciphertext (`tggsw.rs:113-120`,
-    `bootstrapping.rs:88-95`): acc = cmux(brk_i, acc, acc X^{a_i})."""
-    k, n_big = params.tglwe.k, params.big_n
-    n2 = 2 * n_big
-    acc0 = TglweCiphertext(torch.zeros((k, n_big), dtype=torch.int64, device=b2n.device), v_encoded)
-    acc = tglwe.rotate(acc0, (-b2n) % n2)
+    `bootstrapping.rs:88-95`) from the front's exps (n, 1) and acc:
+    acc = cmux(brk_i, acc, acc X^{a_i})."""
+    n2 = 2 * params.big_n
+    acc = TglweCiphertext(acc.a[0], acc.b[0])
     brk = key.brk
-    for i in range(a2n.shape[-1]):
+    for i in range(exps.shape[0]):
         key_i = TggswEval(brk.av[i], brk.ad[i], brk.bv[i], brk.bd[i])
-        acc = tggsw.cmux(params.tggsw, key_i, acc, tglwe.rotate(acc, a2n[i] % n2))
-    return acc
+        acc = tggsw.cmux(params.tggsw, key_i, acc, tglwe.rotate(acc, exps[i, 0] % n2))
+    return TglweCiphertext(acc.a[None], acc.b[None])
+
+
+def _rotate(
+    params: BootstrapParams, key: BootstrapKey, exps: torch.Tensor, acc: TglweCiphertext, batch: tuple, parity: bool
+) -> TglweCiphertext:
+    """The steps after the front, reshaped to the batch shape."""
+    if parity:
+        acc = _blind_rotate_parity(params, key, exps, acc)
+    else:
+        tggsw.blind_rotate_steps(params.tggsw, key.brk, acc, exps, key.mon_v, key.mon_d)
+    k, n_big = params.tglwe.k, params.big_n
+    return TglweCiphertext(acc.a.reshape(*batch, k, n_big), acc.b.reshape(*batch, n_big))
 
 
 def blind_rotate(
@@ -116,7 +193,9 @@ def blind_rotate(
     b2n: torch.Tensor,  # (...,)
     parity: bool = False,
 ) -> TglweCiphertext:
-    """CMux chain (`bootstrapping.rs:84-96`) over a batch of ciphertexts.
+    """CMux chain (`bootstrapping.rs:84-96`) over a batch of ciphertexts
+    given as exponents: the front (`blind_rotate_front`, K-TFHE-PRE on the
+    card), then the steps.
 
     The JAX package runs the n steps as a `lax.scan` whose carry is a new
     accumulator each step. Here `tggsw.blind_rotate_steps` launches the n
@@ -126,34 +205,29 @@ def blind_rotate(
     parity=True runs the reference's exact CMux order (see the module's
     docstring) on one ciphertext (a2n (n,), b2n a scalar); a batch raises,
     as the JAX package asserts."""
-    if parity:
-        if b2n.dim():
-            raise ValueError("the parity blind rotation is unbatched by design: pass one ciphertext")
-        return _blind_rotate_parity(params, key, v_encoded, a2n, b2n)
-    k, n_big = params.tglwe.k, params.big_n
+    if parity and b2n.dim():
+        raise ValueError("the parity blind rotation is unbatched by design: pass one ciphertext")
     batch = b2n.shape
-    a2n = a2n.reshape(-1, a2n.shape[-1])
-    b2n = b2n.reshape(-1)
-    B = b2n.shape[0]
-    acc0 = TglweCiphertext(
-        torch.zeros((B, k, n_big), dtype=torch.int64, device=b2n.device),
-        v_encoded.expand(B, n_big),
-    )
-    acc = tglwe.rotate(acc0, (-b2n) % (2 * n_big))  # fresh contiguous storage
-    exps = a2n.t().contiguous()  # (n, B): row i holds step i's exponents
-    tggsw.blind_rotate_steps(params.tggsw, key.brk, acc, exps, key.mon_v, key.mon_d)
-    return TglweCiphertext(acc.a.reshape(*batch, k, n_big), acc.b.reshape(*batch, n_big))
+    a2n = a2n.reshape(-1, a2n.shape[-1]).contiguous()
+    exps, acc = blind_rotate_front(params, v_encoded, a2n, b2n.reshape(-1).contiguous(), switched=True)
+    return _rotate(params, key, exps, acc, batch, parity)
 
 
 def bootstrap(
     params: BootstrapParams, key: BootstrapKey, v: torch.Tensor, ct: TlweCiphertext, parity: bool = False
 ) -> TlweCiphertext:
     """Programmable bootstrap: LUT v (N values mod p) -> fresh ciphertext of
-    v[round(phase)] (`bootstrapping.rs:78-82`). parity=True: the reference's
-    exact CMux order, one ciphertext (see `blind_rotate`)."""
-    v_enc = tglwe.encode(params.tglwe, v)
-    a2n, b2n = mod_switch_2n(ct, params.big_n)
-    acc = blind_rotate(params, key, v_enc, a2n, b2n, parity)
+    v[round(phase)] (`bootstrapping.rs:78-82`): the LUT's encode and the
+    mod switch inside the front (K-TFHE-PRE on the card), the steps, the
+    extract and the key
+    switch (K6). parity=True: the reference's exact CMux order, one
+    ciphertext (see `blind_rotate`)."""
+    if parity and ct.b.dim():
+        raise ValueError("the parity blind rotation is unbatched by design: pass one ciphertext")
+    batch = ct.b.shape
+    a = ct.a.reshape(-1, ct.a.shape[-1]).contiguous()
+    exps, acc = blind_rotate_front(params, v.long(), a, ct.b.reshape(-1).contiguous(), switched=False, encode=True)
+    acc = _rotate(params, key, exps, acc, batch, parity)
     return tlwe.extract_key_switch(params.tlwe, key.ksk, acc)
 
 

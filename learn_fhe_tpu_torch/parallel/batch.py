@@ -12,10 +12,9 @@ from ..models.fhew import gates as fhew_gates
 from ..models.fhew import rlwe as fhew_rlwe
 from ..models.fhew.bootstrapping import BootstrapKey as FhewKey, BootstrapParams as FhewParams
 from ..models.fhew.lwe import LweCiphertext as FhewLwe
-from ..models.tfhe import tglwe, tlwe
+from ..models.tfhe import tggsw, tlwe
 from ..models.tfhe.bootstrapping import BootstrapKey as TfheKey, BootstrapParams as TfheParams
 from ..models.tfhe.tlwe import TlweCiphertext
-from ..ops.modular import add_mod
 
 
 @torch.no_grad()
@@ -26,9 +25,23 @@ def tfhe_pbs_batch_device(
     a2n: torch.Tensor,  # (B, n) exponents
     b2n: torch.Tensor,  # (B,)
 ) -> TlweCiphertext:
-    """Batched CMux-chain blind rotation, then the sample extract and the key
-    switch as one launch of K6 (`tlwe.extract_key_switch`)."""
+    """Batched CMux-chain blind rotation of ciphertexts given as exponents
+    (the JAX package's signature; K-TFHE-PRE reads them unswitched), then
+    the sample extract and the key switch as one launch of K6
+    (`tlwe.extract_key_switch`)."""
     acc = tfhe.blind_rotate(params, key, v_encoded, a2n, b2n)
+    return tlwe.extract_key_switch(params.tlwe, key.ksk, acc)
+
+
+@torch.no_grad()
+def _tfhe_pbs_chunk(params: TfheParams, key: TfheKey, v: torch.Tensor, cts: TlweCiphertext) -> TlweCiphertext:
+    """One PBS chunk of torus ciphertexts (a (B, n), b (B,)) under the LUT
+    v (N,) int64, not yet encoded: on the card K-TFHE-PRE (the LUT's
+    encode, the mod switch, the transposed exponents and the rotated
+    accumulator, one launch), the n steps of K-STEP from one C call, and K6."""
+    a, b = cts.a.contiguous(), cts.b.contiguous()
+    exps, acc = tfhe.blind_rotate_front(params, v, a, b, switched=False, encode=True)
+    tggsw.blind_rotate_steps(params.tggsw, key.brk, acc, exps, key.mon_v, key.mon_d)
     return tlwe.extract_key_switch(params.tlwe, key.ksk, acc)
 
 
@@ -43,19 +56,20 @@ def tfhe_pbs_batch(
     params: TfheParams, key: TfheKey, v: torch.Tensor, cts: TlweCiphertext
 ) -> TlweCiphertext:
     """Full batched PBS: cts carries a leading batch axis of any size;
-    batches beyond PBS_CHUNK stream through equal chunks (padding the tail)."""
-    v_enc = tglwe.encode(params.tglwe, v)
-    a2n, b2n = tfhe.mod_switch_2n(cts, params.big_n)
-    B = a2n.shape[0]
+    batches beyond PBS_CHUNK stream through equal chunks (padding the tail),
+    each one `_tfhe_pbs_chunk`."""
+    v = v.long()
+    B = cts.b.shape[0]
     if B <= PBS_CHUNK:
-        return tfhe_pbs_batch_device(params, key, v_enc, a2n, b2n)
+        return _tfhe_pbs_chunk(params, key, v, cts)
+    a, b = cts.a, cts.b
     pad = (-B) % PBS_CHUNK
     if pad:
-        a2n = torch.cat([a2n, a2n[:pad]], dim=0)
-        b2n = torch.cat([b2n, b2n[:pad]], dim=0)
+        a = torch.cat([a, a[:pad]], dim=0)
+        b = torch.cat([b, b[:pad]], dim=0)
     outs = [
-        tfhe_pbs_batch_device(params, key, v_enc, a2n[s : s + PBS_CHUNK], b2n[s : s + PBS_CHUNK])
-        for s in range(0, a2n.shape[0], PBS_CHUNK)
+        _tfhe_pbs_chunk(params, key, v, TlweCiphertext(a[s : s + PBS_CHUNK], b[s : s + PBS_CHUNK]))
+        for s in range(0, a.shape[0], PBS_CHUNK)
     ]
     a = torch.cat([o.a for o in outs], dim=0)[:B]
     b = torch.cat([o.b for o in outs], dim=0)[:B]
@@ -74,16 +88,21 @@ def fhew_blind_rotate_batch_device(
     auto_idx: torch.Tensor,  # (B, L) int32 fused schedule: auto key index or -1
 ) -> FhewLwe:
     """The fused LMKCDEY walk of the whole batch (one launch of K-FHEW-BR, or
-    of K-FHEW-BR64 on the u64 engine, on the card), then sample_extract(0):
-    (B, N) int64 LWE ciphertexts. The
+    of K-FHEW-BR64 on the u64 engine, on the card), then sample_extract(0)
+    (one launch of K-EXTRACT): (B, N) int64 LWE ciphertexts. The
     schedule is trusted: `fhew_boot.schedule` checks its indices on the
     host; one built otherwise is the caller's to check, or to verify by
     `fhew_boot.walk_error` after a sync (the walk reads back nothing)."""
+    return _walk_extract(params, key, f_prime, ext_idx, auto_idx)
+
+
+def _walk_extract(params: FhewParams, key: FhewKey, f_prime, ext_idx, auto_idx, b_add: int = 0) -> FhewLwe:
+    """The walk, then the extract of coefficient 0 with b_add added to b mod
+    Q in the same launch."""
     acc = fhew_boot.blind_rotate_core_fused(
         params, key, ext_idx, auto_idx, fhew_rlwe.RlweCiphertext(torch.zeros_like(f_prime), f_prime)
     )
-    ext = fhew_rlwe.sample_extract(params.rlwe, acc, 0)
-    return FhewLwe(ext.a.long(), ext.b.long())
+    return fhew_rlwe.sample_extract(params.rlwe, acc, 0, b_add=b_add)
 
 
 @torch.no_grad()
@@ -97,18 +116,20 @@ def _fhew_preamble(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewL
     return fhew_boot.preamble(params, key, f, cts)
 
 
-def fhew_bootstrap_batch(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe) -> FhewLwe:
+def fhew_bootstrap_batch(params: FhewParams, key: FhewKey, f: torch.Tensor, cts: FhewLwe, b_add: int = 0) -> FhewLwe:
     """Batched Figure-2 pipeline (`fhew/bootstrapping.rs:148-155`): the
     preamble on the device, the schedule from the public mask on the host
-    (C on the card), the walk and the extraction on the device."""
+    (C on the card), the walk and the extraction on the device. b_add (a
+    gate's Q/8; 0 in the JAX package's signature) is added to the output's
+    b mod Q by the extract's launch."""
     ct_a, f_prime = _fhew_preamble(params, key, f, cts)
     ext_idx, auto_idx = fhew_boot.schedule(params, ct_a)
-    return fhew_blind_rotate_batch_device(params, key, f_prime, ext_idx, auto_idx)
+    return _walk_extract(params, key, f_prime, ext_idx, auto_idx, b_add)
 
 
 def fhew_gate_batch(params: FhewParams, key: FhewKey, name: str, ct0s: FhewLwe, ct1s: FhewLwe) -> FhewLwe:
-    """Batched 2-input gate: linear combination + one batched LUT bootstrap."""
+    """Batched 2-input gate: linear combination + one batched LUT bootstrap,
+    its + Q/8 added by the extract."""
     lin = fhew_gates._lin2(params, name, ct0s, ct1s)
     f = fhew_gates.lut_poly(params, fhew_gates.GATE_TABLES[name], lin.a.device)
-    out = fhew_bootstrap_batch(params, key, f, lin)
-    return FhewLwe(out.a, add_mod(out.b, params.big_q_by_8, params.big_q))
+    return fhew_bootstrap_batch(params, key, f, lin, b_add=params.big_q_by_8)

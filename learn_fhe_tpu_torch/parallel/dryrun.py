@@ -370,9 +370,9 @@ class _Rank:
 
     def pbs(self) -> None:
         from ..models import tfhe
-        from ..models.tfhe import tglwe, tlwe
+        from ..models.tfhe import tlwe
         from ..utils.interop import u64_to_torch
-        from .batch import PBS_CHUNK, tfhe_pbs_batch_device
+        from .batch import PBS_CHUNK, _tfhe_pbs_chunk
         from .mesh import gather, make_mesh, replicate, shard_batch
 
         params = tfhe_params(self.size.tfhe)
@@ -380,14 +380,14 @@ class _Rank:
         z = tlwe.sk_gen(params.tlwe, rng)
         key = tfhe.key_gen(params, z, rng, self.dev)
         mesh = make_mesh(n_batch=self.world, n_limb=1, device_type=self.device_type)
-        v_enc = replicate(mesh, tglwe.encode(params.tglwe, u64_to_torch(tfhe.lut_table(params.tlwe.log_p, params.big_n, lambda v: v), self.dev)))
+        lut = replicate(mesh, u64_to_torch(tfhe.lut_table(params.tlwe.log_p, params.big_n, lambda v: v), self.dev))
 
         def run(ms: np.ndarray, seed: int):
             cts = tlwe.sk_encrypt(params.tlwe, z, tlwe.encode(params.tlwe, torch.from_numpy(ms).to(self.dev)), np.random.default_rng(seed))
-            a2n, b2n = tfhe.mod_switch_2n(cts, params.big_n)
+            chunks = [tlwe.TlweCiphertext(cts.a[s : s + PBS_CHUNK], cts.b[s : s + PBS_CHUNK]) for s in range(0, len(ms), PBS_CHUNK)]
             parts = [
-                tfhe_pbs_batch_device(params, key, v_enc, shard_batch(mesh, a2n[s : s + PBS_CHUNK]), shard_batch(mesh, b2n[s : s + PBS_CHUNK]))
-                for s in range(0, len(ms), PBS_CHUNK)
+                _tfhe_pbs_chunk(params, key, lut, tlwe.TlweCiphertext(shard_batch(mesh, c.a), shard_batch(mesh, c.b)))
+                for c in chunks
             ]
             out = tlwe.TlweCiphertext(*(gather(mesh, torch.cat([getattr(p, f) for p in parts]), "batch", 0) for f in ("a", "b")))
             if self.rank == 0:
@@ -396,7 +396,7 @@ class _Rank:
                 a_full, b_full = torch.empty_like(out.a), torch.empty_like(out.b)
                 a_full[torch.from_numpy(order)], b_full[torch.from_numpy(order)] = out.a, out.b
                 out = tlwe.TlweCiphertext(a_full, b_full)
-                want = [tfhe_pbs_batch_device(params, key, v_enc, a2n[s : s + PBS_CHUNK], b2n[s : s + PBS_CHUNK]) for s in range(0, len(ms), PBS_CHUNK)]
+                want = [_tfhe_pbs_chunk(params, key, lut, c) for c in chunks]
                 self.check(f"PBS of {len(ms)} (a)", out.a, torch.cat([w.a for w in want]))
                 self.check(f"PBS of {len(ms)} (b)", out.b, torch.cat([w.b for w in want]))
                 got = tlwe.decode(params.tlwe, tlwe.decrypt(params.tlwe, z, out)).cpu().numpy()

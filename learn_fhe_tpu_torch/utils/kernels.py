@@ -37,7 +37,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "learn_fhe_tpu_torch"
 SOURCES = (
     "ntt32.cu", "torus_crt.cu", "tfhe_step.cu", "fhew_blind_rotate.cu", "ntt64.cu", "fhew_u64.cu", "rns64.cu", "bgv.cu",
-    "coef.cu", "tfhe_keyswitch.cu", "fhew_preamble.cu",
+    "coef.cu", "tfhe_keyswitch.cu", "fhew_preamble.cu", "tfhe_front.cu", "rlwe_extract.cu",
 )  # fmt: skip
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -159,6 +159,11 @@ _SIGNATURES = {
     # log_b, rounding_bits, log2 q_ks, Q, (double) Q, (double) q_ks, g,
     # (-g)^-1 mod 2N, stream
     "lft_fhew_preamble": (_P,) * 5 + (_I, _P, _P) + (_I,) * 8 + (_U64, _D, _D, _I, _I, _P),
+    # a, b (torus words or exponents), v, exps, acc_a, acc_b, batch, n, log_n,
+    # k, bits (64 - log2 2N), switch, v's shift (the LUT's encode), stream
+    "lft_tfhe_front": (_P,) * 6 + (_I,) * 7 + (_P,),
+    # a, b, out_a, out_b, wide (int64 in), batch, log_n, i, Q, b_add, stream
+    "lft_rlwe_extract": (_P,) * 4 + (_I,) * 4 + (_U64, _U64, _P),
     # blocks, stream: a kernel that does nothing (the launch floor)
     "lft_empty": (_I, _P),
     # host functions (no stream): a, batch, n_lwe, minus_map, plus_map,
@@ -261,22 +266,25 @@ def build_log() -> str:
 # The kernels of the library by the name in their source; a mangled name
 # holds it after an anonymous-namespace prefix whose hash depends on the
 # source's path, and a template instance adds its arguments after it
-# (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE).
+# (ILi<LOG_N>E, ILb<lazy>ELb<clustered>EE, ILb<lazy>ELi<LOG_N>ELb<mont>EE),
+# or of its type (IiE: int, IxE: long long).
 _KERNEL_NAME = re.compile(
     r"(ntt32_fwd_cross|ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_cross_rows|rns_ntt_cross|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
     r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
-    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32|tfhe_key_switch|fhew_preamble)_kernel"
-    r"(I(?:L[ib]\d+E)+E)?"
+    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32|tfhe_key_switch|fhew_preamble|tfhe_front|rlwe_extract)_kernel"
+    r"(I(?:L[ib]\d+E|[ix])+E)?"
 )
 
 
 def _template_args(mangled: str | None) -> str:
-    """`<11>` for I Li11E E, `<true,false>` for I Lb1E Lb0E E, '' for none."""
+    """`<11>` for I Li11E E, `<true,false>` for I Lb1E Lb0E E, `<int>` for
+    I i E, `<long long>` for I x E, '' for none."""
     if not mangled:
         return ""
-    args = re.findall(r"L([ib])(\d+)E", mangled)
-    return "<" + ",".join(v if t == "i" else ("true" if v == "1" else "false") for t, v in args) + ">"
+    types = {"i": "int", "x": "long long"}
+    args = re.findall(r"L([ib])(\d+)E|([ix])", mangled[1:-1])
+    return "<" + ",".join(types[ty] if ty else v if t == "i" else ("true" if v == "1" else "false") for t, v, ty in args) + ">"
 
 
 def ptxas_report(log: str) -> dict[str, tuple[int, int, int, int]]:

@@ -352,6 +352,140 @@ def test_preamble_kernel_raises_on_a_q_ks_it_does_not_take(dev):
         boot.preamble(params, key, torch.zeros(base.n, dtype=torch.int64, device=dev), ct)
 
 
+# -- K7: K-TFHE-PRE (the PBS chunk's front) and K-EXTRACT (the gate's extract) --
+
+
+def _front_case(rng, batch, n, big_n, k, switched):
+    """Port params and CPU (a, b, v): exponents in [0, 2N] with b's edges 0,
+    N, 2N - 1 and 2N, or torus words with words near 2^64 - 1."""
+    params = tfhe.BootstrapParams(
+        tfhe.TlweParams(log_p=2, padding=1, n=n, std_dev=1e-8, log_b=4, d=5),
+        tfhe.TggswParams(tfhe.TglweParams(log_p=2, padding=1, big_n=big_n, k=k, std_dev=1e-15), log_b=23, d=1),
+    )
+    two_n = 2 * big_n
+    if switched:
+        a = rng.integers(0, two_n + 1, size=(batch, n), dtype=np.uint64)
+        b = rng.integers(0, two_n + 1, size=(batch,), dtype=np.uint64)
+        edges = [0, big_n, two_n - 1, two_n]
+    else:
+        a = rng.integers(0, 1 << 64, size=(batch, n), dtype=np.uint64)
+        b = rng.integers(0, 1 << 64, size=(batch,), dtype=np.uint64)
+        half = 1 << (64 - two_n.bit_length())
+        edges = [2**64 - 1, 2**64 - half, half - 1, 0]
+    a.reshape(-1)[: min(4, a.size)] = edges[: min(4, a.size)]
+    b[: min(4, batch)] = edges[: min(4, batch)]
+    v = rng.integers(0, 1 << 64, size=(big_n,), dtype=np.uint64)
+    v[0], v[-1] = 0, 2**64 - 1
+    return params, u64_to_torch(a), u64_to_torch(b), u64_to_torch(v)
+
+
+# (B, n, N, k): the reference fixture's chunk of 128 and one ciphertext of
+# it, ragged tiles of (B, n) at the test rings, two ring components
+@pytest.mark.parametrize("switched,encode", [(False, True), (False, False), (True, False)])
+@pytest.mark.parametrize(
+    "batch,n,big_n,k", [(128, 1024, 2048, 1), (1, 1024, 2048, 1), (5, 40, 64, 1), (33, 7, 16, 2), (130, 33, 256, 1)]
+)
+def test_front_kernel_matches_plain(dev, switched, encode, batch, n, big_n, k):
+    """K-TFHE-PRE (`tfhe.blind_rotate_front`) == `blind_rotate_front_ref` on
+    the CPU: the exponents (n, B) and the rotated accumulator, from torus
+    words with the LUT's encode (the PBS's route) or without, and from
+    exponents."""
+    params, a, b, v = _front_case(np.random.default_rng(batch + n + k), batch, n, big_n, k, switched)
+    if encode:
+        v %= params.tglwe.p
+    want_exps, want_acc = tfhe.bootstrapping.blind_rotate_front_ref(params, v, a, b, switched, encode)
+    before = tfhe.blind_rotate_front.launches
+    exps, acc = tfhe.blind_rotate_front(params, v.to(dev), a.to(dev), b.to(dev), switched, encode)
+    _same(exps, want_exps)
+    _same(acc.a, want_acc.a)
+    _same(acc.b, want_acc.b)
+    assert tfhe.blind_rotate_front.launches == before + 1
+
+
+def test_front_kernel_raises_on_operands_it_does_not_take(dev):
+    """A CUDA tensor reaches the kernel or raises: int32 words, a LUT of the
+    wrong length."""
+    params, a, b, v = _front_case(np.random.default_rng(0), 4, 16, 64, 1, False)
+    a, b, v = a.to(dev), b.to(dev), v.to(dev)
+    with pytest.raises(ValueError):
+        tfhe.blind_rotate_front(params, v, a.int(), b, False)
+    with pytest.raises(ValueError):
+        tfhe.blind_rotate_front(params, v[:32].contiguous(), a, b, False)
+
+
+def _extract_case(rng, engine, batch, log_n):
+    from learn_fhe_tpu_torch.models.fhew.params import RlweParams
+    from learn_fhe_tpu_torch.utils.primes import two_adic_primes
+
+    bits = 28 if engine == "u32" else 55
+    params = RlweParams(q=next(two_adic_primes(bits, log_n + 1)), p=4, log_n=log_n, log_b=7, d=4)
+    q, n = params.q, params.n
+    a = rng.integers(0, q, size=(batch, n), dtype=np.uint64)
+    b = rng.integers(0, q, size=(batch, n), dtype=np.uint64)
+    a[0, :2], a[-1, -2:], b[:, :2], b[:, -2:] = [0, q - 1], [q - 1, 0], [0, q - 1], [q - 1, 0]
+    dtype = torch.int32 if engine == "u32" else torch.int64
+    return params, torch.from_numpy(a.astype(np.int64)).to(dtype), torch.from_numpy(b.astype(np.int64)).to(dtype)
+
+
+# (B, log N): the 28-bit fixture's NAND batch (N = 512), the full set's
+# (N = 2048), a u8 round of 2 gates, ragged batches at small rings
+@pytest.mark.parametrize("engine", ["u32", "u64"])
+@pytest.mark.parametrize("batch,log_n", [(128, 9), (128, 11), (2, 11), (1, 4), (5, 7), (130, 1)])
+def test_extract_kernel_matches_plain(dev, engine, batch, log_n):
+    """K-EXTRACT (`rlwe.sample_extract`) == `sample_extract_ref` on the CPU at
+    coefficients 0, N - 1 and one between, with b_add 0 and round(Q/8), on
+    int32 (u32 engine) and int64 (u64) accumulators; int64 out."""
+    from learn_fhe_tpu_torch.models.fhew import rlwe
+
+    params, a, b = _extract_case(np.random.default_rng(batch + log_n), engine, batch, log_n)
+    ct = rlwe.RlweCiphertext(a.to(dev), b.to(dev))
+    for i in sorted({0, params.n - 1, params.n // 2 - 1}):
+        for b_add in (0, round(params.q / 8.0)):
+            want = rlwe.sample_extract_ref(params, rlwe.RlweCiphertext(a, b), i, b_add)
+            before = rlwe.sample_extract.launches
+            got = rlwe.sample_extract(params, ct, i, b_add=b_add)
+            _same(got.a, want.a)
+            _same(got.b, want.b)
+            assert rlwe.sample_extract.launches == before + 1
+
+
+def test_extract_kernel_raises_on_operands_it_does_not_take(dev):
+    """A CUDA tensor reaches the kernel or raises: a float accumulator, a
+    b_add outside [0, Q)."""
+    from learn_fhe_tpu_torch.models.fhew import rlwe
+
+    params, a, b = _extract_case(np.random.default_rng(1), "u64", 2, 4)
+    with pytest.raises(ValueError):
+        rlwe.sample_extract(params, rlwe.RlweCiphertext(a.double().to(dev), b.double().to(dev)), 0)
+    with pytest.raises(ValueError):
+        rlwe.sample_extract(params, rlwe.RlweCiphertext(a.to(dev), b.to(dev)), 0, b_add=params.q)
+
+
+def test_front_and_extract_make_no_host_sync(dev):
+    """Both wrappers under torch.cuda.set_sync_debug_mode("error"): nothing
+    is read back to the host."""
+    from learn_fhe_tpu_torch.models.fhew import rlwe
+
+    params, a, b, v = _front_case(np.random.default_rng(2), 8, 64, 256, 1, False)
+    rparams, ra, rb = _extract_case(np.random.default_rng(2), "u32", 8, 9)
+    args = (params, v.to(dev), a.to(dev), b.to(dev), False)
+    ct = rlwe.RlweCiphertext(ra.to(dev), rb.to(dev))
+    tfhe.blind_rotate_front(*args)  # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exps, acc = tfhe.blind_rotate_front(*args)
+        ext = rlwe.sample_extract(rparams, ct, 0, b_add=round(rparams.q / 8.0))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want_exps, want_acc = tfhe.bootstrapping.blind_rotate_front_ref(params, v, a, b, False)
+    _same(exps, want_exps)
+    _same(acc.b, want_acc.b)
+    want = rlwe.sample_extract_ref(rparams, rlwe.RlweCiphertext(ra, rb), 0, round(rparams.q / 8.0))
+    _same(ext.a, want.a)
+    _same(ext.b, want.b)
+
+
 def test_pbs_batch_on_card_matches_cpu(dev):
     """The whole slice at N=256, n=64, batch 8: keys made on the card and on
     the CPU from one seed, and the PBS outputs, are bit-identical."""

@@ -369,6 +369,25 @@ def test_mixed_gate_batch_matches_jax(env):
     assert int(_decrypt_bits(params, z, got_not)) == 0
 
 
+def test_gate_luts_are_cached_and_never_written(env):
+    """`gates.lut_poly` makes one tensor per (Q, N, table, device) and hands
+    the same one out again, so no gate call copies a LUT from the host; a
+    gate batch of one gate (its one (N,) LUT read for every ciphertext) and
+    one of mixed gates leave every cached LUT as it was."""
+    jparams, params, z, _, key = env
+    nand = gates.lut_poly(params, gates.GATE_TABLES["nand"])
+    assert gates.lut_poly(params, gates.GATE_TABLES["nand"], "cpu") is nand
+    assert nand.shape == (params.n,) and not torch.equal(gates.lut_poly(params, gates.GATE_TABLES["and"]), nand)
+    before = {name: gates.lut_poly(params, t).clone() for name, t in gates.GATE_TABLES.items()}
+    rng = np.random.default_rng(12)
+    cts = [_encrypt(jparams, z, [0, 1, 1, 0], rng)[1] for _ in range(3)]
+    same = gates.gate_batch(params, key, [("nand", cts[0], cts[1]), ("nand", cts[1], cts[2])])
+    mixed = gates.gate_batch(params, key, [("xor", cts[0], cts[1]), ("majority", *cts)])
+    for name, t in gates.GATE_TABLES.items():
+        assert torch.equal(gates.lut_poly(params, t), before[name]), name
+    assert list(_decrypt_bits(params, z, same[0])) == [1, 0, 0, 1] and list(_decrypt_bits(params, z, mixed[0])) == [0, 0, 0, 0]
+
+
 def test_bootstrap_matches_the_batch_pipeline(env):
     """`bootstrap` on a batch and on one ciphertext gives what
     `fhew_bootstrap_batch` (held against the JAX package above) gives."""

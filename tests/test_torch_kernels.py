@@ -37,6 +37,9 @@ _CROSS32 = "_ZN39_GLOBAL__N__5b1e0c7a_7_coef_cu_c3d2e1f019coef_cross32_kernelILb
 # holds most of the kernel's
 _K6 = "_ZN50_GLOBAL__N__6d1e2f3a_17_tfhe_keyswitch_cu_a1b2c3d422tfhe_key_switch_kernelEPKmS1_iS1_S1_PyS2_NS_5ShapeE"
 _PRE = "_ZN49_GLOBAL__N__7e2f3a4b_16_fhew_preamble_cu_b2c3d4e520fhew_preamble_kernelEPKmS1_S1_S1_S1_PxPvNS_3PreE"
+# K-TFHE-PRE's instance by its bool, K-EXTRACT's by its element type
+_FRONT = "_ZN46_GLOBAL__N__8a1b2c3d_13_tfhe_front_cu_c4d5e6f717tfhe_front_kernelILb1EEEvPKmS2_S2_PxS3_S3_NS_5FrontE"
+_EXTRACT = "_ZN48_GLOBAL__N__9b2c3d4e_15_rlwe_extract_cu_d5e6f7a819rlwe_extract_kernelIiEEvPKT_S3_PxS4_iiiyy"
 _WALK64 = (
     "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
     "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
@@ -78,6 +81,10 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_CROSS32, "coef_cross32_kernel<false>"),
         (_K6, "tfhe_key_switch_kernel"),
         (_PRE, "fhew_preamble_kernel"),
+        (_FRONT, "tfhe_front_kernel<true>"),
+        (_FRONT.replace("ILb1EE", "ILb0EE"), "tfhe_front_kernel<false>"),
+        (_EXTRACT, "rlwe_extract_kernel<int>"),
+        (_EXTRACT.replace("IiEE", "IxEE"), "rlwe_extract_kernel<long long>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
