@@ -145,7 +145,13 @@ bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
       graph against its bound, the transforms and K-BASECONV also from a
       graph whose launches take their inputs from more copies than the
       50 MB L2 holds (cold L2), and print each instance's registers,
-      spills and stack frame;
+      spills and stack frame; then the ring's last eager stages as ported
+      (`ring_stage_cases`): K-RNS-ADD on b and a of (16, 8, 8192) in one
+      launch, K-RESCALE by P on (2, 16, 16, 8192) with d0 and d1 added, and
+      K-BASECONV 8 -> 8 writing the hoist's QP rows with x's own limbs,
+      each against its plain version and timed eager, from a graph and
+      from a cold-L2 graph (the bound's time) against its bound beside the
+      eager route it replaced (the yardstick);
   C2. the Rust reference transcript (`tests/vectors/rust_dump/ckks_*`, N=512,
       L=8) on the card: mul + relinearize + rescale, rotate and conjugate
       must equal the reference's ciphertexts bit for bit;
@@ -157,9 +163,15 @@ bits, one key-switch digit) at batch 16 (`bench/ckks_profile.py`):
       row count); the 16 products must decode within the budget
       `tests/test_ckks_large.py` holds at log_n=13, and the first ciphertext
       of the batch must equal the port's CPU path's after mul, rotate and
-      conjugate; then muls/s at batch 16 and 1 (median and spread of 5
-      calls), the host enqueue time against the wall time, and the device's
-      idle share (profiler);
+      conjugate; the mul's rescale by P must carry d0 and d1 (one K-RESCALE
+      launch with an add) and its hoist be one K-BASECONV launch into QP
+      rows, with no K-RNS-ADD; then muls/s at batch 16 and 1 (median and
+      spread of 5 calls), the host enqueue time against the wall time, a
+      CUDA graph's time, 20 muls' device activities by kind and name
+      (profiler) and the PyTorch operators one mul dispatches other than
+      views and allocations (`dispatched_work`), which must show hand-written
+      kernels only (no PyTorch kernel, copy or set), and the device's idle
+      share;
   C4. `learn_fhe_tpu_torch/examples/ckks_logistic.py` at its default ring
       on the card: the classifications must agree.
 
@@ -184,7 +196,10 @@ batch 2 from seed 17, messages x 1e-4):
       each over 20 eager calls and from a CUDA graph of 20 against its
       bound (the gathered sums at 23 and 5 limbs beside `rns_intt` at the
       same rows, and at 23 with distinct x), and print the bootstrap's
-      instances' registers, spills and stack;
+      instances' registers, spills and stack; then `ring_stage_cases` at
+      the bootstrap's shapes (K-RNS-ADD on (2, 23, 8192) pairs, K-RESCALE
+      by P on (2, 2, 46, 8192) with both adds, K-BASECONV 23 -> 23 into the
+      hoist's rows and 1 -> 22 into mod_raise's);
   B2. the bootstrap at N=16, L=16 (r=3, default EvalModParams, batch 2,
       seed 17) on the card == the port's CPU path, bit for bit;
   B3. the path: key generation on the card, timed (it must launch the
@@ -192,13 +207,18 @@ batch 2 from seed 17, messages x 1e-4):
       launch counters set to 0 just before and read just after, printed by
       shape, the gathered `rns_intt_mac` apart by (rows, terms) (it, its
       shared-x instance, K-AUTOMORPH, K-BASECONV at lq = 1, K-RNS-NTT,
-      K-RESCALE and the key switches' `rns_intt_mac` must launch); at
+      K-RESCALE and the key switches' `rns_intt_mac` must launch; every call
+      of `rns_add`, `rns_sub` and `rns_neg` must launch K-RNS-ADD once, and
+      K-RESCALE must take adds and K-BASECONV write into rows); at
       least 2 levels left and more than 16 relative bits for
       each decrypted ciphertext (`tests/test_ckks_bootstrap.py::
       test_full_bootstrap_n8192`); then 3 warm bootstraps (median and
       spread of seconds per ciphertext, bootstraps/s), the host enqueue
       against the wall, a warm bootstrap from a CUDA graph (device only),
-      the device's idle share and top kernels (profiler).
+      one warm bootstrap's device activities by kind and name (the PyTorch
+      kernels, copies and sets left on the path listed apart; "not
+      measured" above them where the records sum to less than 0.9 of the
+      graph's time), the device's idle share and top kernels (profiler).
 
 Then the certified production bootstrap, `production_config(16)` (N=2^16,
 L=30 q-primes on the ladder 55 | 52 x 4 | 52 x 3 | 56 x 19 | 52 x 3, two
@@ -242,7 +262,9 @@ big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
       broadcast over the batch (256 rows); time each over 20 eager calls and
       from a CUDA graph of 20 against its bound, with each launch's blocks,
       their shape and residency (the CUDA occupancy calculator) and the
-      2^14 instances' registers and spills;
+      2^14 instances' registers and spills; then `ring_stage_cases` at
+      the mul's shapes (K-RNS-ADD on b and a of (16, 4, 16384), K-BASECONV
+      4 -> 4 into the key switch's rows with d2's own limbs);
   G1. hold K-BGV-DROP (`ops/rns.py::drop_limbs_t`) against its plain
       version at N=2^14 on b and a of a batch of 16 in one launch: the key
       switch's division by P (8 limbs, k=4), a mul's whole drop (k=4, the
@@ -261,9 +283,11 @@ big_l=4)` (N=2^14, 4 q-primes + 4 p-primes of 45 bits, 165.5 bits by
       every ciphertext must decrypt exactly to the numpy oracle mod t; one
       batch-16 mul's launches by shape; its first ciphertext == the port's
       CPU path; muls/s at batch 16 and 1 (median and spread of 5 calls),
-      the host enqueue against the wall, a CUDA graph's device time and the
-      device's idle share (profiler over 20 muls; "not measured" where its
-      records sum to less than 0.9 of the graph's kernel time).
+      the host enqueue against the wall, a CUDA graph's device time, the
+      device activities of 20 muls by kind and name and the operators one
+      mul dispatches, which must show hand-written kernels only, as C3's,
+      and the device's idle share (profiler over 20 muls; "not measured"
+      where its records sum to less than 0.9 of the graph's kernel time).
 
 Then the TFHE reference-order PBS (T1): `bootstrap(..., parity=True)` at the
 reference fixture, unbatched, on 4 messages through the identity LUT (each
@@ -395,6 +419,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -794,6 +819,112 @@ def activity_name(name: str) -> str:
     """A kernel's name without its namespace and arguments, or a copy's."""
     m = re.search(r"(\w+_kernel(?:<[^>]*>)?)", name)
     return m[1] if m else name[:48]
+
+
+ACTIVITY_KINDS = ("hand-written", "aten", "copy/set")
+
+
+def activity_kind(name: str) -> str:
+    """'hand-written' for a kernel of the port's csrc/ (each lives in an
+    anonymous namespace at the top level), 'copy/set' for a copy or a
+    memset, else 'aten' (PyTorch's kernels, in at:: and its namespaces)."""
+    low = name.lower()
+    if low.startswith(("memcpy", "memset")):
+        return "copy/set"
+    if re.sub(r"^void ", "", name).startswith("(anonymous namespace)::"):
+        return "hand-written"
+    return "aten"
+
+
+def aten_label(name: str) -> str:
+    """A PyTorch kernel's name cut to its kernel template and the functor or
+    operation it runs (e.g. `elementwise_kernel:CompareFunctor<long>`)."""
+    outer = re.match(r"(?:void )?(?:at::native::)?(?:\(anonymous namespace\)::)?(\w+)", name)
+    inner = None
+    for pattern in (r"(\w+Functor\w*(?:<\w+>)?)", r"(\w+_kernel_impl)\b", r"(direct_copy_kernel_cuda|compare_scalar_kernel|_cuda_scatter_gather_internal_kernel)"):
+        inner = inner or re.search(pattern, name)
+    head = outer[1] if outer else name[:40]
+    return f"{head}:{inner[1]}" if inner and inner[1] != head else head
+
+
+def device_listing(fn) -> tuple[dict[str, Counter], dict[str, float], float]:
+    """One call of fn's device activities (torch.profiler), grouped by kind
+    (ACTIVITY_KINDS) and by name (`activity_name`; `aten_label` for
+    PyTorch's): the launch counts, the summed microseconds by name, and the
+    summed milliseconds of all of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {kind: Counter() for kind in ACTIVITY_KINDS}
+    us = Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = activity_kind(e.name)
+            short = aten_label(e.name) if kind == "aten" else activity_name(e.name)
+            counts[kind][short] += 1
+            us[short] += e.time_range.end - e.time_range.start
+    return counts, dict(us), sum(us.values()) / 1e3
+
+
+def listing_lines(tag: str, what: str, listing, graph_ms_: float) -> list[str]:
+    """`device_listing`'s result as lines: each kind's activities by name
+    with counts and microseconds, headed "not measured" where the records
+    sum to less than 0.9 of the kernel time a CUDA graph of the same call
+    showed (the profiler drops records of long windows): then only what it
+    kept is listed."""
+    counts, us, total_ms = listing
+    if total_ms < 0.9 * graph_ms_:
+        lines = [f"{tag} {what}: the device's activities: not measured (the profiler's records sum to {total_ms:.3f} ms against {graph_ms_:.3f} ms from a CUDA graph); the records it kept, by kind and name: launches x, us"]
+    else:
+        lines = [f"{tag} {what}: the device's activities ({total_ms:.3f} ms of records; {graph_ms_:.3f} ms from a CUDA graph), by kind and name: launches x, us"]
+    for kind in ACTIVITY_KINDS:
+        body = ", ".join(f"{name} {c} x {us[name]:.1f}" for name, c in sorted(counts[kind].items(), key=lambda kv: -us[kv[0]]))
+        lines.append(f"  {kind} ({sum(counts[kind].values())} launches): {body or 'none'}")
+    return lines
+
+
+ALLOCATIONS = ("aten.empty.memory_format", "aten.empty_like.default", "aten.empty_strided.default")
+
+
+def dispatched_work(fn) -> Counter:
+    """The PyTorch operators one call of fn dispatches that can run on the
+    device (TorchDispatchMode): every one but the views and the
+    allocations, by name. The host's record of what the profiler may drop."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = Counter()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and str(func) not in ALLOCATIONS:
+                seen[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    torch.cuda.synchronize()
+    with Record():
+        fn()
+    torch.cuda.synchronize()
+    return seen
+
+
+def require_hand_written(tag, phase, what, fn, graph_ms_, reps: int = 20) -> None:
+    """Print `reps` calls of fn's device activities (`listing_lines`; a short
+    window has lost its records, PERF.md) and the PyTorch operators one call
+    dispatches (`dispatched_work`); fail if either holds any of PyTorch's
+    kernels, copies or sets."""
+    listing = device_listing(lambda: [fn() for _ in range(reps)])
+    for line in listing_lines(tag, f"{phase} {reps} x {what}", listing, reps * graph_ms_):
+        say(line)
+    ops = dispatched_work(fn)
+    say(f"{tag} {phase} {what}: PyTorch operators dispatched other than views and allocations: {dict(ops) or 'none'}")
+    others = {kind: dict(listing[0][kind]) for kind in ("aten", "copy/set") if listing[0][kind]}
+    if others or ops:
+        raise AssertionError(f"{phase}: {what} ran other than hand-written kernels on the card: {others}, {dict(ops)}")
+    say(f"{tag} {phase} {what}: the device ran hand-written kernels only: ok")
 
 
 def front_bytes(batch: int, n: int, big_n: int, k: int) -> float:
@@ -1680,6 +1811,7 @@ CKKS_MUL_BITS = 32 - 1.5 * (13 - 10)
 CKKS_INSTANCES = (
     "rns_ntt_kernel<false,true,13>", "rns_ntt_kernel<true,true,13>", "rns_intt_mac_kernel<true,13,1>",
     "rns_intt_mac_kernel<true,13,2>", "rns_mac_kernel<4>", "base_convert_kernel<8>", "rescale_kernel",
+    "rns_add_kernel<0>", "rns_add_kernel<1>", "rns_add_kernel<2>",
 )  # fmt: skip
 L2_BYTES = 50e6  # the H100's L2 cache
 
@@ -1719,6 +1851,123 @@ def rescale_ops(values: int, k1: bool) -> np.ndarray:
     """K-RESCALE on `values` outputs: add P/2, subtract, one Shoup product;
     with k = 1 also the dropped limb's add and a Barrett (a Shoup's cost)."""
     return values * (2 * ADD_Q64 + SHOUP64 + ((ADD_Q64 + SHOUP64) if k1 else 0))
+
+
+RING_ROWS = ("rns_add", "rescale_add", "base_convert_rows")  # K-RNS-ADD, K-RESCALE with its add, K-BASECONV into QP rows
+
+
+def ring_stage_cases(params, qs: tuple, lead: tuple, rng, dev, rescale: bool = True, mod_raise: bool = False) -> dict:
+    """The launches of the ring's last eager stages, ported as K-RNS-ADD,
+    K-RESCALE's add and K-BASECONV's row layout, at a path's shapes: a
+    ciphertext's b and a added in one launch at (*lead, L, N) over qs; the
+    rescale by P of the key switch's (2, *lead, L + P, N) with d0 and d1
+    added (rescale); the hoist's digit (dnum 1) into its QP rows, L -> L +
+    P; with mod_raise, (2, *lead, 1, N) -> params.qs's rows. Returns {(row,
+    shape): (kernel call, plain call, the eager route it replaced (the
+    yardstick), the tensors each call takes (the output last where the call
+    writes into one), bytes, instructions, its wrapper, the wrapper's
+    counter of such launches)}; each call takes the tensors as arguments,
+    so that a timing can cycle copies of them past the L2."""
+    from learn_fhe_tpu_torch.ops import rns
+    from learn_fhe_tpu_torch.utils.interop import u64_to_torch
+
+    ps, n = params.ps, params.n
+    L, P = len(qs), len(ps)
+    qps = qs + ps
+
+    def residues(basis, lead_):
+        x = np.stack([rng.integers(0, q, size=(*lead_, n), dtype=np.uint64) for q in basis], axis=-2)
+        x.reshape(-1)[:2] = [0, basis[0] - 1]
+        return u64_to_torch(x).to(dev)
+
+    plan_q = params.plan(qs)
+    q = rns.rns_tables(plan_q, dev).q
+    values = math.prod(lead) * L * n
+    b0, a0, b1, a1 = (residues(qs, lead) for _ in range(4))
+    plain_add = lambda b0, a0, b1, a1: (rns.add_mod_v(b0, b1, q), rns.add_mod_v(a0, a1, q))  # noqa: E731
+    cases = {
+        ("rns_add", (2, *lead, L, n)): (
+            lambda b0, a0, b1, a1: rns.rns_add((b0, a0), (b1, a1), plan_q),
+            plain_add, plain_add,  # the plain version is also the route it replaced
+            (b0, a0, b1, a1), 2 * 3 * values * 8, 2 * values * ADD_Q64, rns.rns_add, "launches"),
+    }
+    if rescale:
+        ba = torch.stack([residues(qps, lead), residues(qps, lead)])
+        rp = rns.rescale_plan(qps, P)
+        conv = rns.base_convert(ba[..., L:, :], rp.drop, rp.keep, add=rp.p_half[L:])
+        cases["rescale_add", (2, *lead, L + P, n)] = (
+            lambda ba, conv, b0, a0: rns.rescale_finish(ba, conv, rp, (b0, a0)),
+            lambda ba, conv, b0, a0: rns.rescale_finish_ref(ba, conv, rp, (b0, a0)),
+            lambda ba, conv, b0, a0: tuple(rns.add_mod_v(v, w, q) for v, w in zip(rns.rescale_finish(ba, conv, rp), (b0, a0))),
+            (ba, conv, b0, a0), 4 * 2 * values * 8, rescale_ops(2 * values, False) + 2 * values * ADD_Q64, rns.rescale_finish, "add_launches")  # fmt: skip
+    rest, own = tuple(range(L, L + P)), tuple(range(L))
+    out = torch.empty((*lead, L + P, n), dtype=torch.int64, device=dev)
+    cases["base_convert_rows", (*lead, L, n)] = (
+        lambda x, out: rns.base_convert(x, qs, ps, out=out, rows=rest, own=own),
+        lambda x, out: torch.cat([x, rns.base_convert_ref(x, qs, ps)], dim=-2),
+        lambda x, out: torch.cat([x, rns.base_convert(x, qs, ps)], dim=-2).unsqueeze(-3),
+        (b0, out), (2 * L + P) * values // L * 8, base_convert_ops(values // L, qs, P, False), rns.base_convert, "rows_launches")  # fmt: skip
+    if mod_raise:
+        target = params.qs
+        low = torch.stack([residues(target[:1], lead), residues(target[:1], lead)])
+        raised = torch.empty((2, *lead, len(target), n), dtype=torch.int64, device=dev)
+        up = tuple(range(1, len(target)))
+        cases["base_convert_rows", (2, *lead, 1, n)] = (
+            lambda x, out: rns.base_convert(x, target[:1], target[1:], out=out, rows=up, own=(0,)),
+            lambda x, out: torch.cat([x, rns.base_convert_ref(x, target[:1], target[1:])], dim=-2),
+            lambda x, out: torch.cat([x, rns.base_convert(x, target[:1], target[1:])], dim=-2),
+            (low, raised), 2 * math.prod(lead) * (1 + len(target)) * n * 8,
+            base_convert_ops(2 * math.prod(lead) * n, target[:1], len(target) - 1, False), rns.base_convert, "rows_launches")  # fmt: skip
+    return cases
+
+
+def zero_ring_counts() -> None:
+    """Set this slice's counters to 0: K-RNS-ADD's wrappers' calls and
+    launches, K-RESCALE's launches with an add, K-BASECONV's into rows."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    for fn in rns.ELEMENTWISE:
+        fn.calls, fn.launches, fn.by_rows = 0, 0, Counter()
+    rns.rescale_finish.add_launches = rns.base_convert.rows_launches = 0
+
+
+def ring_counts() -> dict[str, int]:
+    """This slice's counters (`zero_ring_counts`) as the kernels line's rows
+    name them, with the calls of rns_add, rns_sub and rns_neg."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    return {
+        "rns_add": sum(fn.launches for fn in rns.ELEMENTWISE), "rns_add_calls": sum(fn.calls for fn in rns.ELEMENTWISE),
+        "rescale_add": rns.rescale_finish.add_launches, "base_convert_rows": rns.base_convert.rows_launches,
+    }  # fmt: skip
+
+
+def ring_stage_report(tag, phase, cases, reps, pipe_per_s, errs, timings, bounds, graphs, yardsticks) -> None:
+    """Hold each of `ring_stage_cases` against its plain version (each wrapper
+    launching its kernel once a call, counted as such a launch) and time it
+    eager, from a CUDA graph, and from a graph over copies of its tensors
+    cycled past the L2 (`cold_graph_ms`: each launch reads its operands from
+    device memory, so the bytes bound is a bound), against its bound,
+    beside the eager route it replaced; the first phase to time a row gives
+    the kernels line its numbers (`graph_ms` the cold graph's)."""
+    for (name, shape), (kernel, plain, _, xs, _, _, fn, counter) in cases.items():
+        before, kind = fn.launches, getattr(fn, counter)
+        got = kernel(*xs)
+        if fn.launches != before + 1 or getattr(fn, counter) != kind + 1:
+            raise AssertionError(f"{phase} {name} {shape}: the wrapper did not launch its kernel once")
+        want = plain(*xs)
+        for g, w in zip(got, want) if isinstance(got, tuple) else ((got, want),):
+            errs[name] = max(errs.get(name, 0.0), max_abs_err(g, w.cpu()))
+    say(f"{phase} K-RNS-ADD (b and a in one launch), K-RESCALE with its add and K-BASECONV into QP rows at {sorted({str(s) for _, s in cases})} == plain, each wrapper launching its kernel once a call: ok")
+    for (name, shape), (kernel, plain, parent, xs, n_bytes, ops, _, _) in cases.items():
+        call, parent_call = (lambda: kernel(*xs)), (lambda: parent(*xs))
+        k_ms, w_ms, p_ms, y_ms = cuda_ms(call, reps), graph_ms(call, reps), cuda_ms(lambda: plain(*xs), 3), cuda_ms(parent_call, reps)
+        g_ms, copies = cold_graph_ms(kernel, xs, reps)
+        y_graph = graph_ms(parent_call, reps)
+        b_ms, by = bound_ms(n_bytes, ops, pipe_per_s)
+        if name not in timings:
+            timings[name], graphs[name], bounds[name], yardsticks[name] = (k_ms, p_ms), g_ms, (b_ms, by), y_ms
+        say(f"{tag} {phase} {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({reps} wrapper calls), {w_ms * 1e3:.2f} us from a CUDA graph (operands warm in the L2), {g_ms * 1e3:.2f} us cold-L2 (graph over {copies} copies of the operands); the eager route it replaced {y_ms * 1e3:.2f} us eager, {y_graph * 1e3:.2f} us from a graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.2f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound cold-L2")
 
 
 def rns_cases(params, batch: int, rng, dev):
@@ -1788,18 +2037,20 @@ def rns_cases(params, batch: int, rng, dev):
     }  # fmt: skip
 
 
-def cold_graph_ms(call, x: torch.Tensor, reps: int) -> tuple[float, int]:
-    """graph_ms of call on copies of x taken in turn, more of them than the
-    L2 holds, so that each launch reads its input from device memory; and
-    the number of copies."""
+def cold_graph_ms(call, x, reps: int) -> tuple[float, int]:
+    """graph_ms of call on copies of x (a tensor, or a tuple of the tensors
+    call takes as arguments) taken in turn, more of them than the L2 holds,
+    so that each launch reads its operands from device memory; and the
+    number of copies."""
     import itertools
 
-    k = int(L2_BYTES // (x.numel() * x.element_size())) + 2
-    copies = itertools.cycle([x.clone() for _ in range(k)])
-    return graph_ms(lambda: call(next(copies)), reps), k
+    xs = x if isinstance(x, tuple) else (x,)
+    k = int(L2_BYTES // sum(t.numel() * t.element_size() for t in xs)) + 2
+    copies = itertools.cycle([tuple(t.clone() for t in xs) for _ in range(k)])
+    return graph_ms(lambda: call(*next(copies)), reps), k
 
 
-def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -> None:
+def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks) -> None:
     """C1-C4 (see the module's docstring); adds the RNS kernels' entries to
     the kernels line's dicts."""
     from learn_fhe_tpu_torch.examples.ckks_logistic import run as logistic
@@ -1845,6 +2096,7 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
         if name == "base_convert":
             old_ms, old_by = bound_ms(n_bytes, base_convert_ops_shoup(B * n, L, P, False), pipe_per_s)
             say(f"{tag} C1 {name} {shape}: the first version's bound (Shoup products added one at a time) {old_ms * 1e3:.2f} us by {old_by} = {old_ms / g_ms:.4f} of it from the graph")
+    ring_stage_report(tag, "C1", ring_stage_cases(params, qs, (B,), rng, dev), CKKS_REPS, pipe_per_s, errs, timings, bounds, graphs, yardsticks)
     say(f"{tag} C1 took {time.perf_counter() - t0:.1f} s (host clock)")
 
     # -- C2: the Rust reference transcript on the card ---------------------------
@@ -1873,11 +2125,17 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     alone = {"rns_intt": rns.rns_intt, "rns_mac": rns.rns_mac}
     for fn in (*counted.values(), *alone.values()):
         fn.launches, fn.by_rows = 0, Counter()
+    zero_ring_counts()
     out = C.mul(params, rlk, ct0, ct1)
     torch.cuda.synchronize()
     by_rows = {name: dict(fn.by_rows) for name, fn in counted.items()}
     for name, fn in (*counted.items(), *alone.items()):
         launches[name] = fn.launches
+    ring = ring_counts()
+    launches["rescale_add"], launches["base_convert_rows"] = ring["rescale_add"], ring["base_convert_rows"]
+    say(f"C3 the mul's rescale by P with d0 and d1 added (K-RESCALE with its add) {ring['rescale_add']}, its hoist into QP rows (K-BASECONV) {ring['base_convert_rows']}, K-RNS-ADD {ring['rns_add']}")
+    if ring["rescale_add"] != 1 or ring["base_convert_rows"] != 1 or ring["rns_add"]:
+        raise AssertionError("C3: the mul's adds must ride its rescale by P (one launch) and its hoist one K-BASECONV launch into QP rows, with no K-RNS-ADD")
     say(f"{tag} C3 keys (rlk, a rotation key, cjk) on the card {keygen_s:.2f} s; {2 * B} messages encoded and sk_encrypted {enc_s:.2f} s (host clock, to a sync)")
     say(f"C3 launches of one batch-{B} mul, by rows (K-BASECONV: (input rows, input limbs, output limbs); rns_intt_mac: (output rows, terms)): {by_rows}; rns_intt alone {launches['rns_intt']}, rns_mac alone {launches['rns_mac']}")
     for name in counted:
@@ -1923,6 +2181,7 @@ def ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs) -
     say(f"{tag} C3 mul at batch {B}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
     g_ms = graph_ms(lambda: C.mul(params, rlk, ct0, ct1), 3)
     say(f"{tag} C3 mul at batch {B} from a CUDA graph: {g_ms:.3f} ms per call (device only) = {B / g_ms * 1e3:.1f} muls/s; the device's idle share in an eager call, 1 - graph / eager median = {1 - g_ms / mul_ms[B]:.4f}")
+    require_hand_written(tag, "C3", f"one batch-{B} mul", lambda: C.mul(params, rlk, ct0, ct1), g_ms)
     idle, kernel_ms, top = device_kernel_ms(lambda: C.mul(params, rlk, ct0, ct1))
     if kernel_ms:
         say(f"{tag} C3 mul at batch {B}: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
@@ -2052,7 +2311,7 @@ def bootstrap_cases(params, batch: int, rng, dev):
     return cases, dict(sig=sig, js=js, x46=x46, kb=kb, ka=ka, be=be, bes=bes, pts=pts, ba=ba, low=low, ba46=ba46)
 
 
-def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
+def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs, yardsticks) -> None:
     """B1 (see the module's docstring); adds the gathered MAC's and
     K-AUTOMORPH's entries to the kernels line's dicts."""
     from learn_fhe_tpu_torch.models.ckks import ckks as C
@@ -2128,6 +2387,8 @@ def bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
             rows = (B, L, n) if isinstance(shape, str) else shape
             t_ms = graphed["rns_intt", rows]
             say(f"{tag} B1 rns_intt_mac_gather {shape}: {g_ms * 1e3:.2f} us from a CUDA graph, rns_intt at the same rows {t_ms * 1e3:.2f} us: the sums cost {(g_ms - t_ms) * 1e3:.2f} us")
+    ring = ring_stage_cases(params, qs, (B,), np.random.default_rng(43), dev, mod_raise=True)
+    ring_stage_report(tag, "B1", ring, BOOT_REPS, pipe_per_s, errs, timings, bounds, graphs, yardsticks)
     say(f"{tag} B1 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -2190,6 +2451,7 @@ def bootstrap_b3(dev, tag, launches) -> None:
         for fn in (rns.rns_mac, rns.rns_intt_mac):
             fn.gather_launches, fn.gather_by_rows = 0, Counter()
         rns.rns_intt_mac.shared_launches = 0
+        zero_ring_counts()
 
     zero()
     t0 = time.perf_counter()
@@ -2212,6 +2474,13 @@ def bootstrap_b3(dev, tag, launches) -> None:
         launches[f"boot_{name}"] = fn.launches
     launches["rns_mac_gather"], launches["rns_intt_mac_gather"] = rns.rns_mac.gather_launches, rns.rns_intt_mac.gather_launches
     launches["automorphism_rns"] = rns.automorphism_rns.launches
+    ring = ring_counts()
+    launches["rns_add"] = ring["rns_add"]
+    say(f"B3 K-RNS-ADD: {ring['rns_add']} launches for {ring['rns_add_calls']} calls of rns_add, rns_sub and rns_neg (" + ", ".join(f"{fn.__name__} {fn.calls} calls, {fn.launches} launches" for fn in rns.ELEMENTWISE) + f"); K-RESCALE with its add {ring['rescale_add']}; K-BASECONV into rows {ring['base_convert_rows']}")
+    if not ring["rns_add_calls"] or ring["rns_add"] != ring["rns_add_calls"]:
+        raise AssertionError("B3: every call of rns_add, rns_sub and rns_neg on the bootstrap must launch K-RNS-ADD once")
+    if not ring["rescale_add"] or not ring["base_convert_rows"]:
+        raise AssertionError("B3: the bootstrap's key switches must add inside K-RESCALE and hoist into QP rows")
     say(f"B3 launches of one warm bootstrap of the batch of {B}: " + ", ".join(f"{name} {fn.launches}" for name, fn in fns.items()) + f"; the gathered instances: rns_mac {rns.rns_mac.gather_launches}, rns_intt_mac {rns.rns_intt_mac.gather_launches}")
     for name, fn in fns.items():
         say(f"  B3 {name} by rows: {dict(sorted(fn.by_rows.items(), key=str))}")
@@ -2253,6 +2522,8 @@ def bootstrap_b3(dev, tag, launches) -> None:
     say(f"{tag} B3 warm bootstrap: host enqueue {host_s:.4f} s, wall with sync {wall_s:.4f} s")
     g_ms = graph_ms(run, 1)
     say(f"{tag} B3 warm bootstrap from a CUDA graph: {g_ms:.3f} ms per batch of {B} (device only) = {g_ms / B:.3f} ms per ciphertext; the device's idle share in an eager call, 1 - graph / eager median = {1 - g_ms / (med * 1e3):.4f}")
+    for line in listing_lines(tag, f"B3 one warm bootstrap of the batch of {B}", device_listing(run), g_ms):
+        say(line)  # the PyTorch kernels, copies and sets left on the path, by name (ROADMAP queue 2)
     idle, kernel_ms, top = device_kernel_ms(run)
     if kernel_ms:
         say(f"{tag} B3 warm bootstrap: device idle share {idle:.4f} (profiler, union of kernel intervals); summed kernel time {kernel_ms:.3f} ms")
@@ -2458,6 +2729,7 @@ def production_p2(dev, tag, launches) -> None:
         for fn in (rns.rns_mac, rns.rns_intt_mac):
             fn.gather_launches, fn.gather_by_rows = 0, Counter()
         rns.rns_intt_mac.shared_launches = 0
+        zero_ring_counts()
 
     # -- keys, in the probe's order, with the host draws, the copies to the
     # card and the device work timed apart
@@ -2519,6 +2791,8 @@ def production_p2(dev, tag, launches) -> None:
     for name, fn in fns.items():
         launches[f"p2_{name}"] = fn.launches
     launches["p2_rns_mac_gather"], launches["p2_rns_intt_mac_gather"] = rns.rns_mac.gather_launches, rns.rns_intt_mac.gather_launches
+    for name, count in ring_counts().items():
+        launches[f"p2_{name}"] = count
     say(f"{tag} P2 warm bootstrap: {sum(warm.values()):.3f} s; by stage " + ", ".join(f"{k} {v:.3f} s" for k, v in warm.items()) + " (host clock to a sync)")
     say("P2 launches of one warm bootstrap: " + ", ".join(f"{name} {fn.launches}" for name, fn in fns.items()) + f"; the gathered instances: rns_mac {rns.rns_mac.gather_launches}, rns_intt_mac {rns.rns_intt_mac.gather_launches} (shared-x {rns.rns_intt_mac.shared_launches})")
     for name, fn in fns.items():
@@ -2669,7 +2943,7 @@ def cluster_note(kind: str, log_n: int, rows: int, terms: int = 0) -> str:
             f"{o['blocks_per_sm']} an SM, {o['clusters']} clusters at once: {blocks / resident:.2f} of the card's resident blocks")
 
 
-def bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
+def bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs, yardsticks) -> None:
     """G0 (see the module's docstring): K-RNS-NTT and rns_intt_mac at the
     batch-16 BGV mul's shapes (N=2^14) against their plain versions and their
     bounds; adds the kernels line's rows of BGV's ring (BGV_ROWS)."""
@@ -2703,6 +2977,8 @@ def bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs) -> None:
         terms = {"K=1": 1, "K=2": 2, "key switch": 1}.get(shape, 0)
         rows = {"K=1": qs_rows, "K=2": qs_rows, "key switch": 2 * qps_rows}.get(shape) or shape[0] * shape[1]
         say(f"{tag} G0 {name} {shape}: kernel {k_ms * 1e3:.2f} us eager ({BGV_REPS} wrapper calls), {g_ms * 1e3:.2f} us from a CUDA graph; plain {p_ms * 1e3:.1f} us; bound {b_ms * 1e3:.2f} us by {by} ({n_bytes / 1e6:.1f} MB; {ops[0] / 1e6:.1f} M FMA, {ops[1] / 1e6:.1f} M ALU, {ops[2] / 1e6:.1f} M either) = {b_ms / g_ms:.4f} of bound from the graph; {cluster_note(name, 14, rows, terms)}")
+    ring = ring_stage_cases(params, params.qs, (BGV_BATCH,), np.random.default_rng(14), dev, rescale=False)
+    ring_stage_report(tag, "G0", ring, BGV_REPS, pipe_per_s, errs, timings, bounds, graphs, yardsticks)
     say(f"{tag} G0 took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -2866,6 +3142,7 @@ def bgv_g2(dev, tag, launches) -> None:
     say(f"{tag} G2 mul at batch {B}: host enqueue {host_s * 1e3:.3f} ms, wall with sync {wall_s * 1e3:.3f} ms")
     g_ms = graph_ms(lambda: G.mul(params, rlk, cts[0], cts[1]), 3)
     say(f"{tag} G2 mul at batch {B} from a CUDA graph: {g_ms:.3f} ms per call (device only) = {B / g_ms * 1e3:.1f} muls/s; 1 - graph / eager median = {1 - g_ms / mul_ms[B]:.4f}")
+    require_hand_written(tag, "G2", f"one batch-{B} mul", lambda: G.mul(params, rlk, cts[0], cts[1]), g_ms)
     # the profiler's idle share holds only where its records add up to the
     # kernel time the graph shows (it has lost records of short windows)
     idle, kernel_ms, top = device_kernel_ms(lambda: [G.mul(params, rlk, cts[0], cts[1]) for _ in range(BGV_PROFILED_MULS)])
@@ -3740,13 +4017,13 @@ def main() -> None:
     for phase, run in (
         ("FHEW F1-F4", lambda: kept.update(fhew=fhew_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks))),
         ("multi-key M1-M4", lambda: multikey_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks)),
-        ("CKKS C1-C4", lambda: ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs)),
-        ("bootstrap B1", lambda: bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
+        ("CKKS C1-C4", lambda: ckks_phases(dev, tag, pipe_per_s, errs, timings, bounds, launches, graphs, yardsticks)),
+        ("bootstrap B1", lambda: bootstrap_b1(dev, tag, pipe_per_s, errs, timings, bounds, graphs, yardsticks)),
         ("bootstrap B2", lambda: bootstrap_b2(dev, tag)),
         ("bootstrap B3", lambda: bootstrap_b3(dev, tag, launches)),
         ("production P1", lambda: production_p1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("production P2", lambda: production_p2(dev, tag, launches)),
-        ("BGV G0", lambda: bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
+        ("BGV G0", lambda: bgv_g0(dev, tag, pipe_per_s, errs, timings, bounds, graphs, yardsticks)),
         ("BGV G1", lambda: bgv_g1(dev, tag, pipe_per_s, errs, timings, bounds, graphs)),
         ("BGV G2", lambda: bgv_g2(dev, tag, launches)),
         ("TFHE T1", lambda: tfhe_t1(dev, tag)),
@@ -3784,6 +4061,10 @@ def main() -> None:
         ("rns_mac_gather", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:142-146 (_ks_dot of ae[..., perm] inside _bsgs_apply's jit, XLA fusion; no Pallas call)"),
         ("rns_intt_mac_gather", "rns64.cu", "learn_fhe_tpu/models/ckks/bootstrapping.py:147,152-169 and models/ckks/ckks.py:666-672 (rns_intt of products with be[..., perm] / ae[..., perm] under one jit; XLA fusions; no Pallas call)"),
         ("automorphism_rns", "rns64.cu", "learn_fhe_tpu/models/ckks/ckks.py:605-611 (_automorphism_rns, XLA fusion; no Pallas call)"),
+        # the ring's last eager stages (C1's shapes; launches: B3's warm bootstrap for K-RNS-ADD, C3's mul for the other two)
+        ("rns_add", "rns64.cu", "learn_fhe_tpu/ops/rns.py:268-278 (rns_add / rns_sub / rns_neg, XLA element-wise ops; no Pallas call)"),
+        ("rescale_add", "rns64.cu", "learn_fhe_tpu/models/ckks/ckks.py:600,675,741 (rns_add after rescale_k, XLA fusions; no Pallas call)"),
+        ("base_convert_rows", "rns64.cu", "learn_fhe_tpu/models/ckks/ckks.py:692 (_ks_hoist's concatenate, permute and stack), models/bgv/bgv.py:495, models/ckks/evalmod.py:453-459 (mod_raise); XLA ops, no Pallas call"),
         # the production ring's instances (P1's shapes; their launches are P2's)
         ("rns_ntt_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:123 (fwd_stages via rns_ntt at N=2^16, XLA fusion; no Pallas call)"),
         ("rns_intt_n65536", "rns64.cu", "learn_fhe_tpu/ops/rns.py:193 (inv_stages via rns_intt at N=2^16, XLA fusion; no Pallas call)"),
@@ -3828,6 +4109,7 @@ def main() -> None:
         "base_convert": launches["p2_base_convert"], "rescale": launches["p2_rescale_finish"],
         "rns_mac_gather": launches["p2_rns_mac_gather"], "rns_intt_mac_gather": launches["p2_rns_intt_mac_gather"],
         "automorphism_rns": launches["p2_automorphism_rns"],
+        **{name: launches[f"p2_{name}"] for name in RING_ROWS},
     }  # fmt: skip
     for row, (name, _) in PROD_ROWS.items():
         p2[row] = launches[row] = p2[name]

@@ -9,15 +9,21 @@
 //                  _ks_dot (models/ckks/ckks.py:588-597,706-716); inside
 //                  K-RNS-NTT's inverse (rns_intt_mac) <- rns_intt of them
 //                  under one jit (rns.py:193,280,287; ckks.py:592-597,738-739)
-//   K-BASECONV  <- extend_bases / switch_bases (rns.py:356-422)
+//   K-BASECONV  <- extend_bases / switch_bases (rns.py:356-422); writing
+//                  into a caller's rows, with x's own limbs copied beside
+//                  them <- the concatenate, permute and stack of the key
+//                  switch's hoist (models/ckks/ckks.py:692 _ks_hoist,
+//                  models/bgv/bgv.py:495, models/ckks/evalmod.py mod_raise)
 //   K-RESCALE   <- rescale_k's add of P/2, subtraction and division by P
-//                  (rns.py:426-464)
+//                  (rns.py:426-464), with the rns_add after it where one
+//                  follows (models/ckks/ckks.py:600,675,741)
+//   K-RNS-ADD   <- rns_add / rns_sub / rns_neg (rns.py:268-278)
 //   K-RNS-MAC's gathered instances <- the evaluation-slot permutation of
 //                  the hoisted mask and of b before their products
 //                  (models/ckks/bootstrapping.py:142-147, ckks.py:666)
 //   K-AUTOMORPH <- _automorphism_rns (models/ckks/ckks.py:605-611)
-// On CKKS's mul + relinearize + rescale they are every launch but the
-// element-wise adds; on its rotations and bootstrap, with the last two.
+// On CKKS's mul + relinearize + rescale they are every launch; on its
+// rotations and bootstrap, with the last two.
 //
 // What bounds them on an H100: a transform moves 2 x 8 B per value and does
 // log N u64 Shoup butterflies per pair (some twenty 32-bit instructions
@@ -103,8 +109,18 @@
 //   time and summed Shoup products one modular add at a time (PERF.md).
 //   The modular sum is exact, so it equals both of the JAX package's
 //   branches (a raw u64 sum and a Barrett, or the log-depth fold past
-//   2^64).
-// - K-RESCALE: one thread per output value.
+//   2^64). Given a row table, each output limb goes to its row of the
+//   caller's tensor and the thread stores each x limb it has read into its
+//   own row too: the key switch's digits land in QP order in one
+//   (..., D, Lqp, N) tensor with no copy after (only the store addresses
+//   differ; the sums are as before).
+// - K-RESCALE: one thread per output value; an add after the division (the
+//   key switch's b, the mul's d0 and d1) is one more read and add mod q in
+//   the same thread, not a launch of its own.
+// - K-RNS-ADD: bytes-bound (three u64 moves a value for one add and one
+//   compare): a thread per 16-byte word of a, b and y, the two parts of a
+//   ciphertext in one launch (the grid's y), an (L, N) operand read at its
+//   row mod L where it repeats over the other's leading axes.
 // - K-RNS-MAC's gathered instances (rns_mac / rns_intt_mac with perms):
 //   mac_item with a term's x read at the columns of its permutation table
 //   (the table in 16-byte words, x in 8-byte loads from its row), a null
@@ -1337,7 +1353,8 @@ __device__ __forceinline__ uint64_t conv_sum(const V& v, const uint64_t* w, int 
 template <int kLq>
 __global__ void __launch_bounds__(kThreads)
     base_convert_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, Conv c, int lq_arg, int lp, int log_n,
-                        long long batch, long long x_stride) {
+                        long long batch, long long x_stride, long long y_stride, const int* __restrict__ rows,
+                        int copy) {
   extern __shared__ __align__(16) uint64_t sh[];
   const int lq = kLq ? kLq : lq_arg;
   uint64_t* s_q = sh;
@@ -1384,12 +1401,14 @@ __global__ void __launch_bounds__(kThreads)
     const long long b = i >> log_n;
     const int col = static_cast<int>(i & (n - 1));
     const uint64_t* xb = x + b * x_stride + col;
+    uint64_t* yb = y + b * y_stride + col;
     uint64_t v[kLq ? kLq : 1];
     double u = 0.0;
 #pragma unroll
     for (int k = 0; k < lq; ++k) {
       const uint64_t q = s_q[k];
       uint64_t xv = __ldg(xb + (static_cast<size_t>(k) << log_n));
+      if (copy) yb[static_cast<size_t>(__ldg(rows + k)) << log_n] = xv;  // x's own limb into its row
       if (has_add) xv = add_q(xv, s_add[k], q);
       const uint64_t vk = shoup_q(xv, s_qhi[k], s_qhi_s[k], q);
       if constexpr (kLq != 0) {
@@ -1400,7 +1419,6 @@ __global__ void __launch_bounds__(kThreads)
       u = __fma_rn(__ull2double_rn(vk), s_frac[k], u);
     }
     const uint64_t* uq = s_uq + static_cast<int>(rint(u)) * lp;
-    uint64_t* yb = y + ((b * lp) << log_n) + col;
 #pragma unroll 2  // two outputs' sums in flight: 3% at 8 -> 8 (PERF.md)
     for (int j = 0; j < lp; ++j) {
       const lft64::Mod m{s_p[j], s_nqi[j]};
@@ -1410,7 +1428,8 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         s = conv_sum<0>([&](int k) { return s_v[k * kThreads + threadIdx.x]; }, s_w + j * lq, lq, chunk, m);
       }
-      yb[static_cast<size_t>(j) << log_n] = sub_q(s, uq[j], m.q);
+      const int row = rows != nullptr ? __ldg(rows + lq + j) : j;
+      yb[static_cast<size_t>(row) << log_n] = sub_q(s, uq[j], m.q);
     }
   }
 }
@@ -1429,10 +1448,14 @@ struct Rescale {
 
 // y (B, keep, N) = (x + P/2 - r) P^-1 mod q, x (B, limbs, N); r = conv (B,
 // keep, N), or (conv null, k = 1) the dropped limb x[b, limbs-1] + P/2 mod
-// q_d, reduced mod q by Barrett where bm != 0.
+// q_d, reduced mod q by Barrett where bm != 0; then + add mod q where an
+// add is given: add0 (half, keep, N) for b < half, add1 for the others
+// (CKKS's b and a: x's leading axis of 2), either null for none.
 __global__ void __launch_bounds__(kThreads)
     rescale_kernel(const uint64_t* __restrict__ x, const uint64_t* __restrict__ conv, uint64_t* __restrict__ y,
-                   Rescale c, int limbs, int keep, int log_n, long long count, uint64_t q_d, uint64_t ph_d) {
+                   Rescale c, int limbs, int keep, int log_n, long long count, uint64_t q_d, uint64_t ph_d,
+                   const uint64_t* __restrict__ add0, const uint64_t* __restrict__ add1, long long half) {
+  const long long part_values = (half * keep) << log_n;
   const int n = 1 << log_n;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -1450,7 +1473,10 @@ __global__ void __launch_bounds__(kThreads)
       const uint64_t m = __ldg(c.bm + l);
       if (m != 0) r = csub(csub(r - __umul64hi(r, m) * q, q), q);
     }
-    y[i] = shoup_q(sub_q(xv, r, q), __ldg(c.p_inv + l), __ldg(c.p_inv_s + l), q);
+    uint64_t v = shoup_q(sub_q(xv, r, q), __ldg(c.p_inv + l), __ldg(c.p_inv_s + l), q);
+    const uint64_t* add = b < half ? add0 : add1;
+    if (add != nullptr) v = add_q(v, add[b < half ? i : i - part_values], q);
+    y[i] = v;
   }
 }
 
@@ -1510,6 +1536,63 @@ __global__ void __launch_bounds__(kThreads)
         reinterpret_cast<ulonglong2*>(y + base + col)[h] = make_ulonglong2(v[2 * h], v[2 * h + 1]);
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K-RNS-ADD
+// ---------------------------------------------------------------------------
+
+enum AddOp { kAdd = 0, kSub = 1, kNeg = 2 };
+
+// One or two parts (a ciphertext's b and a), part blockIdx.y, each with its
+// own layout: y's rows, and the rows of a and of b that repeat over them.
+struct AddParts {
+  const uint64_t* a[kMaxParts];
+  const uint64_t* b[kMaxParts];  // null for kNeg
+  uint64_t* y[kMaxParts];
+  int rows[kMaxParts];
+  int a_rows[kMaxParts];
+  int b_rows[kMaxParts];
+};
+
+// y = a + b, a - b or -a mod q of each value of a part's (rows, N)
+// residues, row r under limb r mod limbs, each as the JAX package's
+// element-wise ops compute it (the unsigned minimum of the two candidates;
+// q - a where a != 0); a's row r is its row r mod a_rows, b's r mod b_rows
+// (a_rows, b_rows: rows, or limbs for an (L, N) operand broadcast over the
+// other's leading axes). A thread takes 16-byte words, two values, of a, b
+// and y.
+template <int kOp>
+__global__ void __launch_bounds__(kThreads)
+    rns_add_kernel(AddParts p, const uint64_t* __restrict__ q_arr, int limbs, int log_n) {
+  // the part's fields by a select, not an index: a runtime index into the
+  // parameter arrays copies the struct to the stack (72 bytes a thread)
+  const bool second = blockIdx.y != 0;
+  const int log_w = log_n - 1;  // words a row
+  const long long words = static_cast<long long>(second ? p.rows[1] : p.rows[0]) << log_w;
+  const int a_rows = second ? p.a_rows[1] : p.a_rows[0], b_rows = second ? p.b_rows[1] : p.b_rows[0];
+  const auto* __restrict__ a = reinterpret_cast<const ulonglong2*>(second ? p.a[1] : p.a[0]);
+  const auto* __restrict__ b = reinterpret_cast<const ulonglong2*>(second ? p.b[1] : p.b[0]);
+  auto* __restrict__ y = reinterpret_cast<ulonglong2*>(second ? p.y[1] : p.y[0]);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int row = static_cast<int>(i >> log_w);
+    const long long col = i & ((1ll << log_w) - 1);
+    const uint64_t q = __ldg(q_arr + row % limbs);
+    const ulonglong2 u = __ldg(a + ((static_cast<long long>(row % a_rows) << log_w) | col));
+    ulonglong2 v;
+    if constexpr (kOp == kNeg) {
+      v = make_ulonglong2(u.x != 0 ? q - u.x : 0, u.y != 0 ? q - u.y : 0);
+    } else {
+      const ulonglong2 w = __ldg(b + ((static_cast<long long>(row % b_rows) << log_w) | col));
+      if constexpr (kOp == kAdd) {
+        v = make_ulonglong2(add_q(u.x, w.x, q), add_q(u.y, w.y, q));
+      } else {
+        v = make_ulonglong2(sub_q(u.x, w.x, q), sub_q(u.y, w.y, q));
+      }
+    }
+    y[i] = v;
   }
 }
 
@@ -1777,12 +1860,16 @@ int lft_rns_automorphism(const void* x0, const void* x1, void* y0, void* y1, con
 }
 
 // x: `batch` blocks of (lq, 2^log_n) residues over the qs, block b at x +
-// b x_stride (values), rows contiguous; y: (batch, lp, 2^log_n) over the ps;
-// the tables of Conv, each a device array; add: (lq,) or null.
-int lft_base_convert(const void* x, void* y, const void* q, const void* qhi, const void* qhi_s, const void* frac,
-                     const void* p, const void* w, const void* ws, const void* uq, const void* add, int lq, int lp,
-                     int log_n, long long batch, long long x_stride, void* stream) {
-  if (lq < 1 || lq > kMaxLimbs || lp < 1 || log_n < 0 || log_n > 30 || batch < 1)
+// b x_stride (values), rows contiguous; the tables of Conv, each a device
+// array; add: (lq,) or null. Block b of y at y + b y_stride (values): with
+// rows null, (lp, 2^log_n) over the ps; else output limb j in its row
+// rows[lq + j] and, with copy, x's limb k (before add) also into row
+// rows[k], in the same launch. rows: (lq + lp) int32 on the device.
+int lft_base_convert_rows(const void* x, void* y, const void* q, const void* qhi, const void* qhi_s,
+                          const void* frac, const void* p, const void* w, const void* ws, const void* uq,
+                          const void* add, const void* rows, int copy, int lq, int lp, int log_n, long long batch,
+                          long long x_stride, long long y_stride, void* stream) {
+  if (lq < 1 || lq > kMaxLimbs || lp < 1 || log_n < 0 || log_n > 30 || batch < 1 || (copy && rows == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = lq == 8   ? base_convert_kernel<8>
                       : lq == 2 ? base_convert_kernel<2>
@@ -1798,24 +1885,58 @@ int lft_base_convert(const void* x, void* y, const void* q, const void* qhi, con
   const Conv c{cp<uint64_t>(q), cp<uint64_t>(qhi), cp<uint64_t>(qhi_s), cp<double>(frac), cp<uint64_t>(p),
                cp<uint64_t>(w), cp<uint64_t>(ws), cp<uint64_t>(uq), cp<uint64_t>(add)};
   kernel<<<grid_for(batch << log_n), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), c, lq, lp, log_n, batch, x_stride);
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y), c, lq, lp, log_n, batch, x_stride, y_stride,
+      static_cast<const int*>(rows), copy);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x: (batch, limbs, 2^log_n); conv: (batch, keep, 2^log_n) or null (one
 // dropped limb, prime q_d, ph_d = (q_d >> 1)); y: (batch, keep, 2^log_n);
 // the kept limbs' (keep,) q, P/2 mod q, P^-1 mod q and its dual, Barrett m.
-int lft_rescale(const void* x, const void* conv, void* y, const void* q, const void* p_half, const void* p_inv,
-                const void* p_inv_s, const void* bm, int limbs, int keep, int log_n, long long batch,
-                unsigned long long q_d, unsigned long long ph_d, void* stream) {
-  if (keep < 1 || limbs <= keep || log_n < 0 || log_n > 30 || batch < 1)
+// Then + add mod q: add0 (half, keep, 2^log_n) onto the first `half` blocks
+// of y, add1 (batch - half, keep, 2^log_n) onto the others; either may be
+// null (no add there).
+int lft_rescale_add(const void* x, const void* conv, void* y, const void* q, const void* p_half, const void* p_inv,
+                    const void* p_inv_s, const void* bm, const void* add0, const void* add1, int limbs, int keep,
+                    int log_n, long long batch, long long half, unsigned long long q_d, unsigned long long ph_d,
+                    void* stream) {
+  if (keep < 1 || limbs <= keep || log_n < 0 || log_n > 30 || batch < 1 || half < 0 || half > batch)
     return static_cast<int>(cudaErrorInvalidValue);
   const Rescale c{cp<uint64_t>(q), cp<uint64_t>(p_half), cp<uint64_t>(p_inv), cp<uint64_t>(p_inv_s),
                   cp<uint64_t>(bm)};
   const long long count = (batch * keep) << log_n;
   rescale_kernel<<<grid_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<const uint64_t*>(conv), static_cast<uint64_t*>(y), c, limbs,
-      keep, log_n, count, q_d, ph_d);
+      keep, log_n, count, q_d, ph_d, cp<uint64_t>(add0), cp<uint64_t>(add1), half);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K-RNS-ADD on one or two parts (a1, y1 null: one): op 0 y = a + b, 1 a - b,
+// 2 -a (b null), mod the row's prime; each a, b and y 16-byte aligned. Part
+// k: y (rows_k, 2^log_n), row r under limb r mod limbs; a's row r its row r
+// mod a_rows_k, b's r mod b_rows_k (each rows_k or limbs); q: (limbs,).
+int lft_rns_add(const void* a0, const void* b0, void* y0, const void* a1, const void* b1, void* y1, const void* q,
+                int op, int limbs, int log_n, int rows0, int a_rows0, int b_rows0, int rows1, int a_rows1,
+                int b_rows1, void* stream) {
+  const bool two = a1 != nullptr;
+  const bool need_b = op != kNeg;
+  const auto rows_ok = [&](int rows, int r) { return r >= 1 && (r == rows || r == limbs) && rows % r == 0; };
+  const auto part_ok = [&](const void* b, int rows, int a_rows, int b_rows) {
+    return rows >= 1 && rows_ok(rows, a_rows) && (!need_b || (b != nullptr && rows_ok(rows, b_rows)));
+  };
+  if (limbs < 1 || log_n < 1 || log_n > 30 || op < kAdd || op > kNeg || two != (y1 != nullptr) ||
+      !part_ok(b0, rows0, a_rows0, b_rows0) || (two && !part_ok(b1, rows1, a_rows1, b_rows1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AddParts p{{cp<uint64_t>(a0), cp<uint64_t>(a1)},
+                   {cp<uint64_t>(b0), cp<uint64_t>(b1)},
+                   {static_cast<uint64_t*>(y0), static_cast<uint64_t*>(y1)},
+                   {rows0, two ? rows1 : 0},
+                   {a_rows0, two ? a_rows1 : 1},
+                   {need_b ? b_rows0 : 1, two && need_b ? b_rows1 : 1}};
+  const auto kernel = op == kAdd ? rns_add_kernel<kAdd> : op == kSub ? rns_add_kernel<kSub> : rns_add_kernel<kNeg>;
+  const int rows = two && rows1 > rows0 ? rows1 : rows0;
+  const dim3 grid(grid_for(static_cast<long long>(rows) << (log_n - 1)), two ? 2 : 1, 1);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, cp<uint64_t>(q), limbs, log_n);
   return static_cast<int>(cudaGetLastError());
 }
 

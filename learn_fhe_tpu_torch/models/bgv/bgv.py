@@ -47,8 +47,8 @@ from ...ops.rns import (
     RnsPlan,
     _col,
     automorphism_rns,
+    base_convert,
     drop_limbs_t,
-    extend_bases,
     mul_shoup_v,
     rns_add,
     rns_from_i64,
@@ -350,15 +350,16 @@ def _align(ct0: BgvCiphertext, ct1: BgvCiphertext) -> tuple:
 
 
 def add(ct0: BgvCiphertext, ct1: BgvCiphertext) -> BgvCiphertext:
+    """b and a added in one K-RNS-ADD launch."""
     qs = _align(ct0, ct1)
-    plan = rns_plan(qs, ct0.b.shape[-1])
-    return BgvCiphertext(rns_add(ct0.b, ct1.b, plan), rns_add(ct0.a, ct1.a, plan), qs, ct0.factor)
+    b, a = rns_add((ct0.b, ct0.a), (ct1.b, ct1.a), rns_plan(qs, ct0.b.shape[-1]))
+    return BgvCiphertext(b, a, qs, ct0.factor)
 
 
 def sub(ct0: BgvCiphertext, ct1: BgvCiphertext) -> BgvCiphertext:
     qs = _align(ct0, ct1)
-    plan = rns_plan(qs, ct0.b.shape[-1])
-    return BgvCiphertext(rns_sub(ct0.b, ct1.b, plan), rns_sub(ct0.a, ct1.a, plan), qs, ct0.factor)
+    b, a = rns_sub((ct0.b, ct0.a), (ct1.b, ct1.a), rns_plan(qs, ct0.b.shape[-1]))
+    return BgvCiphertext(b, a, qs, ct0.factor)
 
 
 def _drop(b: torch.Tensor, a: torch.Tensor, qs: tuple, t: int, k: int, add=(None, None), then: int = 0):
@@ -387,11 +388,13 @@ def mod_switch(params: BgvParams, ct: BgvCiphertext) -> BgvCiphertext:
 
 
 def _ks_extend(params: BgvParams, d2: torch.Tensor, qs: tuple) -> torch.Tensor:
-    """d2 (..., L, N) over qs extended to qs + ps (K-BASECONV), in the
-    coefficient basis: (..., L + P, N). Per coefficient, so the same call
-    serves a block of columns holding every limb."""
-    d2 = d2.contiguous()
-    return torch.cat([d2, extend_bases(d2, qs, params.ps)], dim=-2)
+    """d2 (..., L, N) over qs extended to qs + ps, in the coefficient basis:
+    (..., L + P, N), d2's limbs and their extension written by one
+    K-BASECONV launch (the JAX package's concatenate). Per coefficient, so
+    the same call serves a block of columns holding every limb."""
+    L, P = len(qs), len(params.ps)
+    out = torch.empty((*d2.shape[:-2], L + P, d2.shape[-1]), dtype=d2.dtype, device=d2.device)
+    return base_convert(d2.contiguous(), qs, params.ps, out=out, rows=tuple(range(L, L + P)), own=tuple(range(L)))
 
 
 def _ks_macs(ext: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor, plan: RnsPlan) -> torch.Tensor:

@@ -21,7 +21,7 @@ from functools import cached_property, lru_cache
 import numpy as np
 import torch
 
-from ...ops.rns import rescale_k, rns_add, rns_intt_mac, rns_ntt, rns_plan
+from ...ops.rns import rescale_k, rns_intt_mac, rns_ntt, rns_plan
 from ...utils.dd import DDC
 from ...utils.interop import resolve_device
 from ...utils.matrix import bsgs_plan, mat_product
@@ -151,11 +151,9 @@ def _bsgs_apply(
         if 0 in ijs:
             a_q = rns_intt_mac([ae_q], [pt_group[ijs.index(0)][:L]], plan_q)
         babies = [(W[j], pt) for j, pt in zip(ijs, pt_group) if j != 0]
-        if babies:  # the P-carrying sums of b and a, one launch, rescaled by P
+        if babies:  # the P-carrying sums of b and a, one launch, rescaled by P with the q-basis sums added in its launch
             kba = rns_intt_mac([w for w, _ in babies], [pt for _, pt in babies], plan_qp)
-            kba = rescale_k(kba, qps, len(ps))
-            b_i = rns_add(b_i, kba[0], plan_q)
-            a_i = kba[1] if a_q is None else rns_add(kba[1], a_q, plan_q)
+            b_i, a_i = rescale_k(kba, qps, len(ps), add=(b_i, a_q))
         else:
             a_i = torch.zeros_like(b_i) if a_q is None else a_q
         part = C.rescale_ct(CkksCiphertext(b_i, a_i, qs))

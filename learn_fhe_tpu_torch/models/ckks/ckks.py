@@ -30,7 +30,7 @@ from ...ops.poly import automorphism_i64
 from ...ops.rns import (
     RnsPlan,
     automorphism_rns,
-    extend_bases,
+    base_convert,
     mul_shoup_v,
     rescale_k,
     rns_add,
@@ -215,15 +215,16 @@ def _align(ct0: CkksCiphertext, ct1: CkksCiphertext):
 
 
 def add(ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
+    """b and a added in one K-RNS-ADD launch."""
     ct0, ct1, qs = _align(ct0, ct1)
-    plan = rns_plan(qs, ct0.b.shape[-1])
-    return CkksCiphertext(rns_add(ct0.b, ct1.b, plan), rns_add(ct0.a, ct1.a, plan), qs)
+    b, a = rns_add((ct0.b, ct0.a), (ct1.b, ct1.a), rns_plan(qs, ct0.b.shape[-1]))
+    return CkksCiphertext(b, a, qs)
 
 
 def sub(ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
     ct0, ct1, qs = _align(ct0, ct1)
-    plan = rns_plan(qs, ct0.b.shape[-1])
-    return CkksCiphertext(rns_sub(ct0.b, ct1.b, plan), rns_sub(ct0.a, ct1.a, plan), qs)
+    b, a = rns_sub((ct0.b, ct0.a), (ct1.b, ct1.a), rns_plan(qs, ct0.b.shape[-1]))
+    return CkksCiphertext(b, a, qs)
 
 
 # -- keygen -------------------------------------------------------------------
@@ -473,11 +474,11 @@ def _broadcast(ct0: CkksCiphertext, ct1: CkksCiphertext, qs: tuple) -> tuple[Ckk
 def _mul_finish(params: CkksParams, ba: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor, qs: tuple) -> CkksCiphertext:
     """The end of `mul` from the key switch's sums (2, ..., L + P, N) over
     qs + ps, before the division by P, and the tensor's d0 and d1 over qs:
-    the rescale by P, the adds, the rescale by the last q. Every step is
-    per coefficient, so the same call serves a block of columns."""
-    relin = rescale_k(ba, qs + params.ps, len(params.ps))
-    plan = params.plan(qs)
-    return rescale_ct(CkksCiphertext(rns_add(d0, relin[0], plan), rns_add(d1, relin[1], plan), qs))
+    the rescale by P with d0 and d1 added in its launch, the rescale by the
+    last q. Every step is per coefficient, so the same call serves a block
+    of columns."""
+    b, a = rescale_k(ba, qs + params.ps, len(params.ps), add=(d0, d1))
+    return rescale_ct(CkksCiphertext(b, a, qs))
 
 
 def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: CkksCiphertext) -> CkksCiphertext:
@@ -490,7 +491,11 @@ def mul(params: CkksParams, rlk: CkksKeySwitchingKey, ct0: CkksCiphertext, ct1: 
 
 
 def _automorphism_rns(x, t: int, qs: tuple):
-    """X -> X^t of x (..., L, N), or of a pair (b, a) in one launch (K-AUTOMORPH)."""
+    """X -> X^t of x (..., L, N), or of a pair (b, a) in one launch
+    (K-AUTOMORPH); a pair whose parts differ in shape (a batched b beside
+    an unbatched a) takes one launch a part."""
+    if isinstance(x, tuple) and x[0].shape != x[1].shape:
+        return tuple(automorphism_rns(v, t, qs) for v in x)
     return automorphism_rns(x, t, qs)
 
 
@@ -519,15 +524,14 @@ def hoisted_rotations(params: CkksParams, rtks: tuple, ct: CkksCiphertext, js: t
     transformed mask, read through its permutation (K-RNS-MAC's gathered
     instance: no permuted copy), with its eval-resident key."""
     qs = ct.qs
-    plan_q = params.plan(qs)
     ae = _ks_hoist(params, ct.a, qs)  # (..., D, Lqp, N)
     n = ct.a.shape[-1]
     outs = []
     for rtk, j in zip(rtks, js):
         assert rtk.j == j % params.l
         t = params.pow5(j)
-        ba = _ks_finish(params, rtk.ksk, ae, qs, _eval_perm(n, t, ae.device))
-        outs.append(CkksCiphertext(rns_add(ba[0], _automorphism_rns(ct.b, t, qs), plan_q), ba[1], qs))
+        b, a = _ks_finish(params, rtk.ksk, ae, qs, _eval_perm(n, t, ae.device), add=(_automorphism_rns(ct.b, t, qs), None))
+        outs.append(CkksCiphertext(b, a, qs))
     return tuple(outs)
 
 
@@ -535,19 +539,20 @@ def _ks_extend(params: CkksParams, a: torch.Tensor, qs: tuple, digits: tuple[int
     """Digit-decompose a (..., L, N) over the active level and base-extend
     each digit of the range `digits` (start, stop; default every active
     digit) to the full qs + ps basis, in the coefficient basis:
-    (..., D', Lqp, N). Every step is per coefficient, so the same call
-    serves a block of columns holding every limb."""
+    (..., D', Lqp, N), each digit's limbs and their extension in QP order.
+    One K-BASECONV launch a digit writes both into the digit's rows of one
+    tensor (the JAX package's concatenate, permute and stack). Every step
+    is per coefficient, so the same call serves a block of columns holding
+    every limb."""
     qps = qs + params.ps
     slices = params.digit_slices(len(qs))
-    outs = []
-    for s, e in slices if digits is None else slices[digits[0] : digits[1]]:
+    chosen = slices if digits is None else slices[digits[0] : digits[1]]
+    out = torch.empty((*a.shape[:-2], len(chosen), len(qps), a.shape[-1]), dtype=a.dtype, device=a.device)
+    for d, (s, e) in enumerate(chosen):
         src = qs[s:e]
         rest = tuple(q for q in qps if q not in src)
-        x = a[..., s:e, :]
-        ext = torch.cat([x, extend_bases(x, src, rest)], dim=-2)
-        have = src + rest
-        outs.append(_select(ext, [have.index(q) for q in qps], -2))
-    return outs[0].unsqueeze(-3) if len(outs) == 1 else torch.stack(outs, dim=-3)
+        base_convert(a[..., s:e, :], src, rest, out=out[..., d, :, :], rows=tuple(qps.index(q) for q in rest), own=tuple(range(s, e)))
+    return out
 
 
 def _ks_hoist(params: CkksParams, a: torch.Tensor, qs: tuple, digits: tuple[int, int] | None = None) -> torch.Tensor:
@@ -604,14 +609,16 @@ def _ks_sums(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs:
     return _ks_macs(ae, *ksk_rows(params, ksk, qs, qps), params.plan(qps), perm)
 
 
-def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None) -> torch.Tensor:
-    """`_ks_sums`, then the rescale by P: (2, ..., L, N), the switched b
-    (without the source's b) and a."""
-    return rescale_k(_ks_sums(params, ksk, ae, qs, perm), qs + params.ps, len(params.ps))
+def _ks_finish(params: CkksParams, ksk: CkksKeySwitchingKey, ae: torch.Tensor, qs: tuple, perm=None, add=None):
+    """`_ks_sums`, then the rescale by P: the switched b and a, (2, ..., L,
+    N), or with `add` (a pair, either entry None: the source's b) the pair
+    of parts, each add in the rescale's launch where it has the part's
+    shape (`rescale_finish`)."""
+    return rescale_k(_ks_sums(params, ksk, ae, qs, perm), qs + params.ps, len(params.ps), add)
 
 
 def key_switch(params: CkksParams, ksk: CkksKeySwitchingKey, ct: CkksCiphertext) -> CkksCiphertext:
     """Digit-decompose a, extend each digit to QP, dot with the per-digit
     ksk, rescale P away (`ckks.rs:284-293`; Han-Ki digits with params.dnum)."""
-    ba = _ks_finish(params, ksk, _ks_hoist(params, ct.a, ct.qs), ct.qs)
-    return CkksCiphertext(rns_add(ba[0], ct.b, params.plan(ct.qs)), ba[1], ct.qs)
+    b, a = _ks_finish(params, ksk, _ks_hoist(params, ct.a, ct.qs), ct.qs, add=(ct.b, None))
+    return CkksCiphertext(b, a, ct.qs)

@@ -29,7 +29,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from ...ops.rns import extend_bases, rescale_k, rns_add, rns_intt_mac, rns_ntt
+from ...ops.rns import base_convert, rescale_k, rns_add, rns_intt_mac, rns_ntt
 from . import ckks as C
 from .bootstrapping import BootstrapKey, _pt_eval, coeff_to_slot, slot_to_coeff
 from .ckks import CkksCiphertext, CkksKeySwitchingKey, CkksParams
@@ -405,17 +405,18 @@ def mod_raise(params: CkksParams, ct: CkksCiphertext) -> CkksCiphertext:
     """Exact embed of a bottom-level ciphertext into the full q-basis: from
     one source limb the approximate base extension (`rns.rs:331-345`) is
     exact, so the phase becomes c_centered + q0*I with small integer I. b
-    and a are extended in one K-BASECONV launch (lq = 1)."""
+    and a are extended in one K-BASECONV launch (lq = 1), which writes the
+    extension and q0's own limb into their rows in params.qs order (q0 need
+    not be qs[0] in general)."""
     assert len(ct.qs) == 1, "mod_raise expects an exhausted (single-limb) ct"
     q0 = ct.qs[0]
     target = params.qs
     rest = tuple(q for q in target if q != q0)
     ba = torch.stack([ct.b, ct.a])
-    ba_full = torch.cat([ba, extend_bases(ba, (q0,), rest)], dim=-2)
-    # reorder limbs into params.qs order (q0 need not be qs[0] in general)
-    have = (q0,) + rest
-    ba_full = C._select(ba_full, [have.index(q) for q in target], -2)
-    return CkksCiphertext(ba_full[0], ba_full[1], target)
+    out = torch.empty((*ba.shape[:-2], len(target), ba.shape[-1]), dtype=ba.dtype, device=ba.device)
+    own = (target.index(q0),) if q0 in target else None
+    base_convert(ba, (q0,), rest, out=out, rows=tuple(target.index(q) for q in rest), own=own)
+    return CkksCiphertext(out[0], out[1], target)
 
 
 def bootstrap(

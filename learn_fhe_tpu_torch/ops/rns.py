@@ -18,9 +18,13 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
   the JAX package's CKKS `mul` and `key_switch` under one jit), which is
   every use the port makes of them;
 - K-BASECONV, `base_convert`: the approximate base extension qs -> ps
-  (`extend_bases` :356, `switch_bases` :422);
+  (`extend_bases` :356, `switch_bases` :422), into a caller's rows with x's
+  own limbs beside them where asked (the key switch's hoist in QP order,
+  `models/ckks/ckks.py:692`);
 - K-RESCALE, `rescale_finish`: the rounding division by the dropped primes
-  that ends `rescale_k` (:426);
+  that ends `rescale_k` (:426), with the add after it where one follows;
+- K-RNS-ADD, `rns_add` / `rns_sub` / `rns_neg` (:268-278): limb-wise, a
+  ciphertext's b and a in one launch;
 - the gathered instances of K-RNS-MAC (`rns_mac` / `rns_intt_mac` with
   `perms`): a term's x read at the columns of an evaluation-slot
   permutation (CKKS's hoisted rotations, `models/ckks/bootstrapping.py:143,
@@ -35,9 +39,8 @@ Kernels (`csrc/rns64.cu`), each beside its plain PyTorch version (`*_ref`):
 K-RNS-NTT and every `rns_intt_mac` instance take 2 <= N <= 2^16, past
 2^13 on primes below 2^62 only (`_check_ring`: the production bootstrap's
 ring). Each wrapper runs the plain version only for CPU tensors; a CUDA
-tensor goes to the kernel, or the wrapper raises. Add, subtract, negate and
-`rns_from_i64` stay plain torch on either device, as they are XLA
-element-wise ops in the JAX package.
+tensor goes to the kernel, or the wrapper raises. `rns_from_i64` stays
+plain torch on either device.
 
 The overflow count of the base extension, u = round(sum_i v_i / q_i), is
 summed in f64 as XLA's CPU backend sums the JAX package's expression
@@ -48,6 +51,7 @@ Melquiond's round-to-odd emulation), the kernel uses `__fma_rn`.
 
 from __future__ import annotations
 
+import math
 from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
@@ -533,16 +537,105 @@ def automorphism_rns(x, t: int, qs: tuple):
     return ys if pair else ys[0]
 
 
+# ---------------------------------------------------------------------------
+# K-RNS-ADD: limb-wise add, subtract and negate
+# ---------------------------------------------------------------------------
+
+ADD, SUB, NEG = 0, 1, 2  # K-RNS-ADD's ops (`lft_rns_add`)
+
+
+def _add_layout(name: str, a: torch.Tensor, b: torch.Tensor | None, limbs: int) -> tuple[tuple, int, int, int]:
+    """(output shape, its rows, a's rows, b's rows) of K-RNS-ADD's operands:
+    each (..., limbs, n) for one power of two n (the ring, or a block of its
+    columns), its leading axes the output's (leading ones aside: the same
+    rows in memory) or none but ones (an (L, n) operand, e.g. a plaintext,
+    repeated over the other's leading axes: its rows are then the limbs).
+    Raises ValueError on any other shape, on either device."""
+    ops = (a,) if b is None else (a, b)
+    n = a.shape[-1] if a.dim() else 0
+    for t in ops:
+        if t.dim() < 2 or tuple(t.shape[-2:]) != (limbs, n) or n < 1 or n & (n - 1):
+            raise ValueError(f"{name}: expected (..., {limbs}, n) with n a power of two, the same for both, got {[tuple(t.shape) for t in ops]}")
+    try:
+        shape = tuple(torch.broadcast_shapes(*(t.shape for t in ops)))
+    except RuntimeError as err:
+        raise ValueError(f"{name}: the operands do not broadcast: {[tuple(t.shape) for t in ops]}") from err
+    rows = math.prod(shape[:-1])
+    counts = []
+    for t in ops:
+        if math.prod(t.shape[:-1]) == rows:
+            counts.append(rows)
+        elif math.prod(t.shape[:-2]) == 1:
+            counts.append(limbs)
+        else:
+            raise ValueError(f"{name}: an operand's leading axes must be the other's, or absent (an (L, N) operand), got {[tuple(t.shape) for t in ops]}")
+    return shape, rows, counts[0], counts[-1]
+
+
+def _elementwise(fn, op: int, a, b, plan: RnsPlan):
+    """K-RNS-ADD: `op` (ADD, SUB, NEG) of a and b (None for NEG) mod each
+    row's prime, a and b tensors or pairs of them (a ciphertext's b and a:
+    one launch, each part with its own layout, so a batched b beside an
+    unbatched a is one launch too); `_add_layout` gives the shapes taken,
+    and a strided operand is copied first. On the CPU the plain versions
+    (`add_mod_v`, `sub_mod_v`, `neg_mod_v`) after the same checks; on the
+    card the kernel, or the wrapper raises."""
+    name = fn.__name__
+    pair = isinstance(a, (tuple, list))
+    xs = tuple(a) if pair else (a,)
+    ys = (None,) * len(xs) if op == NEG else tuple(b) if pair else (b,)
+    if not 1 <= len(xs) <= 2 or len(ys) != len(xs):
+        raise ValueError(f"{name}: takes one tensor or a pair (and as many second operands), got {len(xs)} and {len(ys)}")
+    for t in (*xs, *ys):
+        if t is not None and t.dtype != torch.int64:
+            raise ValueError(f"{name}: the operands must be int64 tensors, got {t.dtype}")
+    xs, ys = (tuple(None if t is None else t.contiguous() for t in ts) for ts in (xs, ys))
+    limbs = len(plan.qs)
+    layouts = [_add_layout(name, x, y, limbs) for x, y in zip(xs, ys)]
+    n = layouts[0][0][-1]
+    if any(lay[0][-1] != n for lay in layouts):
+        raise ValueError(f"{name}: the parts of a pair must share one ring, got {[lay[0] for lay in layouts]}")
+    fn.calls += 1
+    dev = xs[0].device
+    if xs[0].is_cpu:
+        q = rns_tables(plan, dev).q
+        out = tuple(neg_mod_v(x, q) if op == NEG else (add_mod_v if op == ADD else sub_mod_v)(x, y, q) for x, y in zip(xs, ys))
+        return out if pair else out[0]
+    if n < 2:
+        raise ValueError(f"{name}: the kernel moves 16-byte words of two values, got n = {n}")
+    for t in (*xs, *ys):
+        if t is not None:
+            kernels.require(name, t, torch.int64)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the kernel reads and writes 16-byte words; an operand is not 16-byte aligned")
+    out = tuple(torch.empty(lay[0], dtype=torch.int64, device=dev) for lay in layouts)
+    live = [i for i, lay in enumerate(layouts) if lay[1]]  # the parts with rows
+    if live:
+        ptr = lambda ts, k: ts[live[k]].data_ptr() if k < len(live) and ts[live[k]] is not None else 0  # noqa: E731
+        rows = [layouts[i][1:] for i in live] + [(0, 0, 0)] * (2 - len(live))
+        kernels.launch(
+            "lft_rns_add", ptr(xs, 0), ptr(ys, 0), ptr(out, 0), ptr(xs, 1), ptr(ys, 1), ptr(out, 1),
+            rns_tables(plan, dev).q.data_ptr(), op, limbs, n.bit_length() - 1, *rows[0], *rows[1],
+        )  # fmt: skip
+        fn.launches += 1
+        fn.by_rows[sum(layouts[i][1] for i in live)] += 1
+    return out if pair else out[0]
+
+
 def rns_add(a, b, plan: RnsPlan):
-    return add_mod_v(a, b, rns_tables(plan, a.device).q)
+    """(a + b) mod q_limb (`rns.py:268`), a and b tensors or pairs (see
+    `_elementwise`)."""
+    return _elementwise(rns_add, ADD, a, b, plan)
 
 
 def rns_sub(a, b, plan: RnsPlan):
-    return sub_mod_v(a, b, rns_tables(plan, a.device).q)
+    """(a - b) mod q_limb (`rns.py:272`)."""
+    return _elementwise(rns_sub, SUB, a, b, plan)
 
 
 def rns_neg(a, plan: RnsPlan):
-    return neg_mod_v(a, rns_tables(plan, a.device).q)
+    """-a mod q_limb (`rns.py:276`)."""
+    return _elementwise(rns_neg, NEG, a, None, plan)
 
 
 def rns_mul_eval(a, b, plan: RnsPlan):
@@ -730,31 +823,85 @@ def _batch_layout(name: str, x: torch.Tensor, limbs: int, n: int) -> tuple[int, 
     return batch, (x.stride(-3) if x.dim() > 2 else limbs * n)
 
 
-def base_convert(x: torch.Tensor, qs: tuple[int, ...], ps: tuple[int, ...], add=None) -> torch.Tensor:
+def _check_out_rows(x: torch.Tensor, lq: int, lp: int, out: torch.Tensor, rows, own) -> None:
+    """Raise ValueError unless out (x's leading axes, R rows of x's N) takes
+    lp output rows `rows` and, where given, x's lq limbs at rows `own`, all
+    distinct and below R."""
+    if rows is None or len(rows) != lp or (own is not None and len(own) != lq):
+        raise ValueError(f"base_convert: out takes one row for each of the {lp} output limbs (and, with own, each of the {lq} input limbs)")
+    if out.dim() != x.dim() or tuple(out.shape[:-2]) != tuple(x.shape[:-2]) or out.shape[-1] != x.shape[-1] or out.dtype != torch.int64:
+        raise ValueError(f"base_convert: out must be int64 of x's leading axes and N, got {tuple(out.shape)} for x {tuple(x.shape)}")
+    every = (*rows, *(own or ()))
+    if len(set(every)) != len(every) or not all(0 <= r < out.shape[-2] for r in every):
+        raise ValueError(f"base_convert: the rows must be distinct and below {out.shape[-2]}, got {every}")
+
+
+@lru_cache(maxsize=None)
+def _rows_table(rows: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """K-BASECONV's row table (int32) on a device, made once."""
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def base_convert(x: torch.Tensor, qs: tuple[int, ...], ps: tuple[int, ...], add=None, out=None, rows=None, own=None) -> torch.Tensor:
     """Approximate base extension (`rns.rs:331-345`) of x (..., Lq, N) over qs
     into (..., Lp, N) over ps: v_i = x_i q_hat_i^-1 mod q_i; u = round(sum
     v_i / q_i) in f64; out_j = sum_i (q_hat_i mod p_j) v_i - (u Q mod p_j).
     `add` (a per-input-limb constant, or None) is added to x mod q_i first.
-    x may be a view whose rows are contiguous (a slice of the limb axis)."""
+    x may be a view whose rows are contiguous (a slice of the limb axis).
+    With out (a (..., R, N) tensor of x's leading axes whose rows are
+    contiguous and whose leading axes merge: a digit's slice of the key
+    switch's (..., D, Lqp, N)), output limb j goes into out's row rows[j]
+    and, with own, x's limb k (before add) into row own[k], in the same
+    launch; returns out."""
+    if out is not None:
+        _check_out_rows(x, len(qs), len(ps), out, rows, own)
     if x.is_cpu:
-        return base_convert_ref(x, qs, ps, add)
+        y = base_convert_ref(x, qs, ps, add)
+        if out is None:
+            return y
+        out[..., list(rows), :] = y
+        if own is not None:
+            out[..., list(own), :] = x
+        return out
     n = x.shape[-1]
     if len(qs) > MAX_LIMBS:
         raise ValueError(f"base_convert: the kernel takes at most {MAX_LIMBS} input limbs, got {len(qs)}")
     batch, stride = _batch_layout("base_convert", x, len(qs), n)
-    most = _conv_out_limbs(len(qs))
-    if len(ps) > most:  # the tables of all ps outgrow a block's shared memory: a launch per slice of them
-        return torch.cat([base_convert(x, qs, ps[j : j + most], add) for j in range(0, len(ps), most)], dim=-2)
-    y = torch.empty((*x.shape[:-2], len(ps), n), dtype=torch.int64, device=x.device)
-    if batch:
-        t = base_extend_tables(base_extend_plan(qs, ps), x.device)
-        add_t = None if add is None else _add_tensor(tuple(int(a) for a in add), x.device)
+    if out is None:
+        out = torch.empty((*x.shape[:-2], len(ps), n), dtype=torch.int64, device=x.device)
+    if not batch:
+        return out
+    _, y_stride = _batch_layout("base_convert", out, out.shape[-2], n)
+    add_t = None if add is None else _add_tensor(tuple(int(a) for a in add), x.device)
+    for j, m, table, copy in _conv_launches(len(qs), len(ps), rows, own):
+        t = base_extend_tables(base_extend_plan(qs, ps[j : j + m]), x.device)
         kernels.launch(
-            "lft_base_convert", x.data_ptr(), y.data_ptr(), *(v.data_ptr() for v in t), 0 if add_t is None else add_t.data_ptr(),
-            len(qs), len(ps), n.bit_length() - 1, batch, stride,
+            "lft_base_convert_rows", x.data_ptr(), out.data_ptr(), *(v.data_ptr() for v in t),
+            0 if add_t is None else add_t.data_ptr(), 0 if table is None else _rows_table(table, x.device).data_ptr(),
+            int(copy), len(qs), m, n.bit_length() - 1, batch, stride, y_stride,
         )  # fmt: skip
-        _count(base_convert, (batch * len(qs), len(qs), len(ps)))
-    return y
+        _count(base_convert, (batch * len(qs), len(qs), m))
+        base_convert.rows_launches += table is not None
+    return out
+
+
+def _conv_launches(lq: int, lp: int, rows, own) -> list[tuple[int, int, tuple | None, bool]]:
+    """K-BASECONV's launches of lq -> lp limbs, one per slice of
+    `_conv_out_limbs(lq)` output limbs (the tables of all of them outgrow a
+    block's shared memory): (first output limb, output limbs, row table or
+    None, copy) each. The table (`lft_base_convert_rows`) holds x's limbs'
+    rows (0s where the launch copies none: only the first copies them),
+    then the slice's outputs' rows; None (rows j of a fresh (..., lp, N))
+    for a lone launch without `rows`."""
+    most = _conv_out_limbs(lq)
+    if rows is None and lp > most:  # the slices' outputs into one fresh tensor
+        rows = tuple(range(lp))
+    launches = []
+    for j in range(0, lp, most):
+        m, copy = min(most, lp - j), own is not None and j == 0
+        table = None if rows is None else (*(own if copy else (0,) * lq), *rows[j : j + m])
+        launches.append((j, m, None if table is None else tuple(int(r) for r in table), copy))
+    return launches
 
 
 def _conv_out_limbs(lq: int) -> int:
@@ -844,10 +991,44 @@ def rescale_tables(rp: RescalePlan, device: torch.device) -> RescaleTables:
     return RescaleTables(u(rp.keep), u(rp.p_half[:lk]), u(rp.p_inv), u(rp.p_inv_shoup), u(rp.barrett_m))
 
 
-def rescale_finish_ref(x: torch.Tensor, conv: torch.Tensor | None, rp: RescalePlan) -> torch.Tensor:
+def _rescale_adds(add, out_shape: tuple) -> tuple[tuple, tuple]:
+    """rescale's `add` (see `rescale_finish`) as (fused, later), each () for
+    None, one entry for one tensor, or two for the pair an output of leading
+    axis 2 takes: fused holds the adds the launch takes (None, or a
+    contiguous int64 tensor of the output part's shape), later those of
+    another shape (None where fused holds it), which K-RNS-ADD adds after
+    the launch, broadcast as the JAX package's `rns_add` does (a batched b
+    on the switch of an unbatched a). Raises ValueError on a pair for
+    another output or a non-int64 add, on either device."""
+    if add is None:
+        return (), ()
+    if isinstance(add, (tuple, list)):
+        if len(add) != 2 or len(out_shape) < 3 or out_shape[0] != 2:
+            raise ValueError(f"rescale: a pair of adds takes an output of leading axis 2, got {tuple(out_shape)}")
+        parts, shape = tuple(add), tuple(out_shape[1:])
+    else:
+        parts, shape = (add,), tuple(out_shape)
+    for a in parts:
+        if a is not None and a.dtype != torch.int64:
+            raise ValueError(f"rescale: an add must be an int64 tensor, got {a.dtype}")
+    fits = [a is not None and tuple(a.shape) == shape for a in parts]
+    return tuple(a.contiguous() if f else None for a, f in zip(parts, fits)), tuple(None if f else a for a, f in zip(parts, fits))
+
+
+def _rescale_result(y: torch.Tensor, add, later: tuple, keep: tuple):
+    """rescale's output y with the adds `later` (see `_rescale_adds`) added by
+    K-RNS-ADD: for a pair of adds the pair of parts, else one tensor."""
+    plan = rns_plan(keep, y.shape[-1])
+    if isinstance(add, (tuple, list)):
+        return tuple(v if a is None else rns_add(v, a, plan) for v, a in zip(y, later))
+    return y if not later or later[0] is None else rns_add(y, later[0], plan)
+
+
+def rescale_finish_ref(x: torch.Tensor, conv: torch.Tensor | None, rp: RescalePlan, add=None):
     """From x (..., L, N) and, for k > 1, the base conversion of its last k
     limbs (+ P/2) into the kept primes: (x + P/2 - r) P^-1 mod q per kept
-    limb, r the dropped limb (k = 1, reduced where drop[0] >= q) or conv."""
+    limb, r the dropped limb (k = 1, reduced where drop[0] >= q) or conv;
+    then + add mod q (`rescale_finish`'s add and result)."""
     dev, lk = x.device, len(rp.keep)
     keep_q = _col(rp.keep, dev)
     head = add_mod_v(x[..., :lk, :], _col(rp.p_half[:lk], dev), keep_q)
@@ -856,37 +1037,59 @@ def rescale_finish_ref(x: torch.Tensor, conv: torch.Tensor | None, rp: RescalePl
         rp_v = add_mod_v(x[..., lk, :], rp.p_half[lk], d)  # (..., N) values < drop[0]
         conv = torch.stack([barrett_all(rp_v, q) if d >= q else rp_v for q in rp.keep], dim=-2)
     head = sub_mod_v(head, conv, keep_q)
-    return mul_shoup_v(head, u64_to_torch(rp.p_inv[:, None], dev), u64_to_torch(rp.p_inv_shoup[:, None], dev), keep_q)
+    y = mul_shoup_v(head, u64_to_torch(rp.p_inv[:, None], dev), u64_to_torch(rp.p_inv_shoup[:, None], dev), keep_q)
+    fused, later = _rescale_adds(add, tuple(y.shape))
+    if len(fused) == 2:
+        y = torch.stack([v if a is None else add_mod_v(v, a, keep_q) for v, a in zip(y, fused)])
+    elif fused and fused[0] is not None:
+        y = add_mod_v(y, fused[0], keep_q)
+    return _rescale_result(y, add, later, rp.keep)
 
 
-def rescale_finish(x: torch.Tensor, conv: torch.Tensor | None, rp: RescalePlan) -> torch.Tensor:
-    """K-RESCALE: the last step of `rescale_k`, on x (..., L, N)."""
+def rescale_finish(x: torch.Tensor, conv: torch.Tensor | None, rp: RescalePlan, add=None):
+    """K-RESCALE: the last step of `rescale_k`, on x (..., L, N), then + add
+    mod q in the same launch: add is None, a tensor, or for an x whose
+    leading axis is 2 (CKKS's b and a) a pair, either entry None
+    (`drop_limbs_t` takes its adds the same way); a pair gives the pair of
+    parts. An add of the output's (part's) shape goes into the launch; one
+    that broadcasts beyond it is added after it by K-RNS-ADD, as the JAX
+    package's `rns_add` broadcasts."""
     if x.is_cpu:
-        return rescale_finish_ref(x, conv, rp)
+        return rescale_finish_ref(x, conv, rp, add)
     n, lk = x.shape[-1], len(rp.keep)
     rows = _check_rows("rescale_finish", x, len(rp.qs), n)
     out_shape = (*x.shape[:-2], lk, n)
     if conv is not None:
         kernels.require("rescale_finish", conv, torch.int64, out_shape)
+    fused, later = _rescale_adds(add, out_shape)
+    for a in fused:
+        if a is not None:
+            kernels.require("rescale_finish", a, torch.int64)
     y = torch.empty(out_shape, dtype=torch.int64, device=x.device)
     if rows:
         t = rescale_tables(rp, x.device)
-        d = rp.drop[0]
+        d, batch = rp.drop[0], rows // len(rp.qs)
+        ptr = lambda i: fused[i].data_ptr() if i < len(fused) and fused[i] is not None else 0  # noqa: E731
         kernels.launch(
-            "lft_rescale", x.data_ptr(), 0 if conv is None else conv.data_ptr(), y.data_ptr(), *(v.data_ptr() for v in t),
-            len(rp.qs), lk, n.bit_length() - 1, rows // len(rp.qs), d, rp.p_half[lk],
+            "lft_rescale_add", x.data_ptr(), 0 if conv is None else conv.data_ptr(), y.data_ptr(), *(v.data_ptr() for v in t),
+            ptr(0), ptr(1), len(rp.qs), lk, n.bit_length() - 1, batch, batch // 2 if len(fused) == 2 else batch, d,
+            rp.p_half[lk],
         )  # fmt: skip
         _count(rescale_finish, rows)
-    return y
+        rescale_finish.add_launches += any(a is not None for a in fused)
+    return _rescale_result(y, add, later, rp.keep)
 
 
-def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int) -> torch.Tensor:
+def rescale_k(x: torch.Tensor, qs: tuple[int, ...], k: int, add=None):
     """Divide-and-round by the product of the last k primes (`rns.rs:103-118`):
-    x (..., L, N) over qs -> (..., L-k, N) over qs[:-k]."""
+    x (..., L, N) over qs -> (..., L-k, N) over qs[:-k]; then + add mod q
+    (`rescale_finish`: in the same launch where add has the output's shape;
+    a pair of adds gives the pair of parts), the JAX package's `rns_add`
+    after its `rescale_k`."""
     rp = rescale_plan(qs, k)
     lk = len(rp.keep)
     conv = None if k == 1 else base_convert(x[..., lk:, :], rp.drop, rp.keep, add=rp.p_half[lk:])
-    return rescale_finish(x, conv, rp)
+    return rescale_finish(x, conv, rp, add)
 
 
 # ---------------------------------------------------------------------------
@@ -1004,13 +1207,20 @@ def drop_limbs_t(x, qs: tuple[int, ...], t: int, k: int, add=None, then: int = 0
     return ys if pair else ys[0]
 
 
+ELEMENTWISE = (rns_add, rns_sub, rns_neg)  # K-RNS-ADD's wrappers
+
 # launches, and launches by row count (K-BASECONV: (input rows, input
-# limbs, output limbs); rns_intt_mac: (output rows, terms); K-AUTOMORPH:
-# rows of all its parts; K-BGV-DROP: (rows of all its parts, limbs, drops));
+# limbs, output limbs); rns_intt_mac: (output rows, terms); K-AUTOMORPH and
+# K-RNS-ADD: rows of all its parts; K-BGV-DROP: (rows of all its parts,
+# limbs, drops));
 # of the MAC's, those of its gathered instances and theirs by row count; of
 # rns_intt_mac's, those of its shared-x ones
-for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns, drop_limbs_t):
+for _fn in (rns_ntt, rns_intt, rns_mac, rns_intt_mac, base_convert, rescale_finish, automorphism_rns, drop_limbs_t, *ELEMENTWISE):
     _fn.launches, _fn.by_rows = 0, Counter()
+for _fn in ELEMENTWISE:  # K-RNS-ADD's wrappers also count their calls, on either device
+    _fn.calls = 0
+base_convert.rows_launches = 0  # K-BASECONV's launches into a caller's rows
+rescale_finish.add_launches = 0  # K-RESCALE's launches with an add
 for _fn in (rns_mac, rns_intt_mac):
     _fn.gather_launches, _fn.gather_by_rows = 0, Counter()
 rns_intt_mac.shared_launches = 0

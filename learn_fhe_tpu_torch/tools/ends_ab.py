@@ -32,32 +32,24 @@ the summary goes to `--json` (default `build/ends_ab.json`).
 
 from __future__ import annotations
 
-import argparse
 import importlib.util
-import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[2]
+# the shared turn runner, by its path (see `turns.py`)
+_spec = importlib.util.spec_from_file_location("turns", Path(__file__).with_name("turns.py"))
+turns = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(turns)
 BATCH = 128
-
-
-def _chip_smoke():
-    """This checkout's chip_smoke.py, whichever package is on sys.path."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
 
 
 def turn(root: Path, calls: int) -> dict:
     """One checkout's times (see the module's docstring)."""
     sys.path.insert(0, str(root))
-    cs = _chip_smoke()
+    cs = turns.chip_smoke()
     from learn_fhe_tpu_torch.models import fhew, tfhe
     from learn_fhe_tpu_torch.models.fhew import bootstrapping as boot
     from learn_fhe_tpu_torch.models.fhew import gates, lwe, rlwe
@@ -108,45 +100,19 @@ def turn(root: Path, calls: int) -> dict:
     return out
 
 
+def report(r: dict) -> None:
+    """One turn's line."""
+    print(
+        f"{r['card']} | {r['root']}: PBS batch {BATCH} {r['pbs_ms'][0]:.3f} ms ({r['pbs_ms'][1]:.3f}-{r['pbs_ms'][2]:.3f}); "
+        f"NAND batch {BATCH} {r['nand_ms'][0]:.3f} ms ({r['nand_ms'][1]:.3f}-{r['nand_ms'][2]:.3f}); "
+        f"front eager {r['front_eager_ms'] * 1e3:.1f} us, K-TFHE-PRE {r.get('front_kernel_ms', float('nan')) * 1e3:.1f} us; "
+        f"extract + Q/8 eager {r['extract_eager_ms'] * 1e3:.1f} us, K-EXTRACT {r.get('extract_kernel_ms', float('nan')) * 1e3:.1f} us",
+        flush=True,
+    )
+
+
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", action="append", default=[], help="another checkout's root (repeatable)")
-    ap.add_argument("--parent-only", action="store_true", help="time the parents alone")
-    ap.add_argument("--calls", type=int, default=7, help="whole calls a spread takes")
-    ap.add_argument("--json", default=str(ROOT / "build" / "ends_ab.json"))
-    ap.add_argument("--turn", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.turn:
-        if not torch.cuda.is_available():
-            raise SystemExit("ends_ab: no CUDA device")
-        print(json.dumps(turn(Path(args.turn).resolve(), args.calls)), flush=True)
-        return
-    if not torch.cuda.is_available():
-        raise SystemExit("ends_ab: no CUDA device")
-    parents = [Path(p).resolve() for p in args.parent]
-    if args.parent_only:
-        order = parents
-    else:
-        order = [x for p in parents for x in (p, ROOT, ROOT, p)] or [ROOT]
-    rows = []
-    for root in order:
-        run = subprocess.run(
-            [sys.executable, __file__, "--turn", str(root), "--calls", str(args.calls)],
-            capture_output=True, text=True, cwd=ROOT,
-        )  # fmt: skip
-        if run.returncode:
-            raise SystemExit(f"ends_ab: the turn of {root} failed ({run.returncode}):\n{run.stderr[-4000:]}")
-        rows.append(json.loads(run.stdout.strip().splitlines()[-1]))
-        r = rows[-1]
-        print(
-            f"{r['card']} | {r['root']}: PBS batch {BATCH} {r['pbs_ms'][0]:.3f} ms ({r['pbs_ms'][1]:.3f}-{r['pbs_ms'][2]:.3f}); "
-            f"NAND batch {BATCH} {r['nand_ms'][0]:.3f} ms ({r['nand_ms'][1]:.3f}-{r['nand_ms'][2]:.3f}); "
-            f"front eager {r['front_eager_ms'] * 1e3:.1f} us, K-TFHE-PRE {r.get('front_kernel_ms', float('nan')) * 1e3:.1f} us; "
-            f"extract + Q/8 eager {r['extract_eager_ms'] * 1e3:.1f} us, K-EXTRACT {r.get('extract_kernel_ms', float('nan')) * 1e3:.1f} us",
-            flush=True,
-        )
-    Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.json).write_text(json.dumps(rows, indent=1))
+    turns.main(__file__, __doc__, turn, report, "whole calls a spread takes")
 
 
 if __name__ == "__main__":

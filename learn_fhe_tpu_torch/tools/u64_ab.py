@@ -51,6 +51,7 @@ Run from the repository root on a machine with one CUDA device:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 import time
@@ -77,6 +78,44 @@ NEW_ENTRIES = {
     "launch_floor": "lft_empty", "tfhe_key_switch": "lft_tfhe_key_switch", "fhew_preamble": "lft_fhew_preamble",
 }  # fmt: skip
 HOST_ENTRIES = ("lft_rns_cluster_occupancy", "lft_ntt32_occupancy")  # host functions an older library lacks
+RING_ENTRIES = ("lft_rns_add", "lft_base_convert_rows", "lft_rescale_add")  # entries an older library lacks (`adapt_ring_entries`)
+
+
+_P, _I, _LL, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
+# the entries an older library has in their place, with their argument types
+OLD_RING_SIGNATURES = {
+    "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),
+    "lft_rescale": (_P,) * 8 + (_I,) * 3 + (_LL, _U64, _U64, _P),
+}
+
+
+def adapt_ring_entries(lib) -> None:
+    """Let an older library take this checkout's K-BASECONV and K-RESCALE
+    wrappers, which call `lft_base_convert_rows` and `lft_rescale_add`: on
+    the calls without a row table or an add (every case here) its
+    `lft_base_convert` and `lft_rescale` take the same launch; any other
+    call returns cudaErrorInvalidValue (1). The arguments are unpacked by
+    name, so a change to either signature fails here, not in a launch. No
+    case here calls K-RNS-ADD."""
+    for name, argtypes in OLD_RING_SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, ctypes.c_int
+    if not hasattr(lib, "lft_base_convert_rows"):
+
+        def base_convert_rows(x, y, q, qhi, qhi_s, frac, p, w, ws, uq, add, rows, copy, lq, lp, log_n, batch, x_stride, y_stride, stream):
+            if rows or copy or y_stride != lp << log_n:
+                return 1
+            return lib.lft_base_convert(x, y, q, qhi, qhi_s, frac, p, w, ws, uq, add, lq, lp, log_n, batch, x_stride, stream)
+
+        lib.lft_base_convert_rows = base_convert_rows
+    if not hasattr(lib, "lft_rescale_add"):
+
+        def rescale_add(x, conv, y, q, p_half, p_inv, p_inv_s, bm, add0, add1, limbs, keep, log_n, batch, half, q_d, ph_d, stream):
+            if add0 or add1:
+                return 1
+            return lib.lft_rescale(x, conv, y, q, p_half, p_inv, p_inv_s, bm, limbs, keep, log_n, batch, q_d, ph_d, stream)
+
+        lib.lft_rescale_add = rescale_add
 
 
 def runs_on(lib, name: str) -> bool:
@@ -510,10 +549,11 @@ def main() -> None:
         log = (so.parent / "build.log").read_text()
         if not narrow:
             print_rns_ptxas(name, log)
-        lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY, *HOST_ENTRIES)))
+        lib = kernels.load(so, optional=frozenset((*NEW_ENTRIES.values(), SHARED_ENTRY, *HOST_ENTRIES, *RING_ENTRIES)))
         residency[name] = ntt32_residency(lib, log)
         if not hasattr(lib, SHARED_ENTRY) and hasattr(lib, GATHER_ENTRY):
             setattr(lib, SHARED_ENTRY, getattr(lib, GATHER_ENTRY))
+        adapt_ring_entries(lib)
         libs[name] = lib
     dev = torch.device("cuda", torch.cuda.current_device())
     if args.rings_only:

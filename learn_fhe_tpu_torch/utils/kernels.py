@@ -130,11 +130,18 @@ _SIGNATURES = {
     # host function (no stream): kind, log_n, out (3 int32)
     "lft_ntt32_occupancy": (_I, _I, _P),
     # x, y, q, q_hat^-1, its dual, 1/q, p, q_hat mod p, its dual, u Q mod p,
-    # add (or null), lq, lp, log_n, batch, x batch stride, stream
-    "lft_base_convert": (_P,) * 11 + (_I,) * 3 + (_LL, _LL, _P),
+    # add (or null), the rows table (or null; lq + lp int32: x's limbs'
+    # rows, then the outputs'), copy, lq, lp, log_n, batch, x and y batch
+    # strides, stream
+    "lft_base_convert_rows": (_P,) * 12 + (_I,) * 4 + (_LL,) * 3 + (_P,),
     # x, conv (or null), y, kept q, P/2 mod q, P^-1 mod q, its dual, Barrett
-    # m, limbs, keep, log_n, batch, dropped q_d, (q_d >> 1), stream
-    "lft_rescale": (_P,) * 8 + (_I,) * 3 + (_LL, _U64, _U64, _P),
+    # m, add0, add1 (either null), limbs, keep, log_n, batch, the blocks
+    # add0 takes, dropped q_d, (q_d >> 1), stream
+    "lft_rescale_add": (_P,) * 10 + (_I,) * 3 + (_LL, _LL, _U64, _U64, _P),
+    # K-RNS-ADD: a0, b0 (null for neg), y0, a1, b1, y1 (the second part, or
+    # null), per-limb q, op (0 add, 1 sub, 2 neg), limbs, log_n, then per
+    # part y's rows, a's rows, b's rows, stream
+    "lft_rns_add": (_P,) * 7 + (_I,) * 9 + (_P,),
     # x0, x1 (or null), add0, add1 (or null), y0, y1 (or null), the drop
     # table, limbs, k, then, log_n, rows, t, floor(2^64 / t), stream
     "lft_bgv_drop": (_P,) * 7 + (_I,) * 4 + (_LL, _U64, _U64, _P),
@@ -272,7 +279,7 @@ _KERNEL_NAME = re.compile(
     r"(ntt32_fwd_cross|ntt32_fwd|ntt32_inv|negacyclic_mul32|garner|tfhe_step|fhew_blind_rotate|ntt64_fwd|ntt64_inv"
     r"|negacyclic_mul64_bulk|negacyclic_mul64|external_product64|fhew_blind_rotate64|rns_ntt_cross_rows|rns_ntt_cross|rns_ntt_rows|rns_ntt_wide|rns_ntt|rns_intt_mac_rows"
     r"|rns_intt_mac_wide|rns_intt_mac_resident|rns_intt_mac|rns_mac|rns_intt_mac_gather_rows|rns_intt_mac_gather|rns_intt_mac_shared"
-    r"|rns_mac_gather|automorphism|base_convert|rescale|bgv_drop|coef_cross64|coef_cross32|tfhe_key_switch|fhew_preamble|tfhe_front|rlwe_extract)_kernel"
+    r"|rns_mac_gather|automorphism|base_convert|rescale|rns_add|bgv_drop|coef_cross64|coef_cross32|tfhe_key_switch|fhew_preamble|tfhe_front|rlwe_extract)_kernel"
     r"(I(?:L[ib]\d+E|[ix])+E)?"
 )
 

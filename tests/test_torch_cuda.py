@@ -2359,3 +2359,264 @@ def test_serialization_checkpoint_round_trip_on_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert torch.equal(want.a, got.a) and torch.equal(want.b, got.b)
     assert torch.equal(gates.decode_bool(params, lwe.decrypt(params.lwe_z, z, got)), ~(m0.bool() & m1.bool()))
+
+
+# -- K-RNS-ADD, K-RESCALE's add, K-BASECONV's rows ------------------------------
+
+
+def _parent_elementwise(op, a, b, q):
+    """The eager route K-RNS-ADD replaced: the plain torch ops on the card."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    return rns.neg_mod_v(a, q) if op == "neg" else (rns.add_mod_v if op == "add" else rns.sub_mod_v)(a, b, q)
+
+
+@pytest.mark.parametrize("n", [2, 4, 1 << 13])
+@pytest.mark.parametrize("bits", [55, 63])
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+@pytest.mark.parametrize("layout", ["same", "b repeated", "a repeated", "pair"])
+def test_rns_add_kernel_matches_plain(dev, n, bits, op, layout):
+    """K-RNS-ADD at its paths' layouts: one shape, an (L, N) operand repeated
+    over a batch on either side, and a pair (b and a) in one launch; inputs
+    holding 0, q - 1 and equal values; == its plain version on the CPU and ==
+    the eager route it replaced on the card."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs = _rns_primes(5, 13, bits)
+    rng = np.random.default_rng(n + bits + len(op) * 10 + len(layout))
+    plan = rns.rns_plan(qs, n)
+    fn = {"add": rns.rns_add, "sub": rns.rns_sub, "neg": rns.rns_neg}[op]
+    lead_a = () if layout == "a repeated" else (16,)
+    lead_b = () if layout == "b repeated" else (16,)
+    parts = 2 if layout == "pair" else 1
+    a = [_rns_residues(rng, qs, lead_a, n) for _ in range(parts)]
+    b = [_rns_residues(rng, qs, lead_b, n) for _ in range(parts)]
+    for x in a:
+        x[..., 0] = 0
+        x[..., -1] = torch.tensor(qs, dtype=torch.int64) - 1
+    if lead_a == lead_b:
+        b[0][..., 1] = a[0][..., 1]
+    args = lambda xs, ys: ((tuple(xs),) if op == "neg" else (tuple(xs), tuple(ys))) if parts == 2 else ((xs[0],) if op == "neg" else (xs[0], ys[0]))  # noqa: E731
+    launches = fn.launches
+    got = fn(*args([x.to(dev) for x in a], [y.to(dev) for y in b]), plan)
+    assert fn.launches == launches + 1
+    want = fn(*args(a, b), plan)
+    q = rns.rns_tables(plan, dev).q
+    for i, (g, w) in enumerate(zip(got if parts == 2 else (got,), want if parts == 2 else (want,))):
+        _same(g, w)
+        _same(g, _parent_elementwise(op, a[i].to(dev), b[i].to(dev), q).cpu())
+
+
+def test_rns_add_refuses_what_the_kernel_does_not_take(dev):
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs = _rns_primes(4)
+    n = 1 << 10
+    plan = rns.rns_plan(qs, n)
+    x = torch.zeros((2, 4, n), dtype=torch.int64, device=dev)
+    flat = torch.zeros(2 * 4 * n + 1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # off 16-byte alignment
+        rns.rns_add(flat[1:].view(2, 4, n), x, plan)
+    with pytest.raises(ValueError):  # leading axes neither the other's nor absent
+        rns.rns_add(x, torch.zeros((3, 4, n), dtype=torch.int64, device=dev), plan)
+    with pytest.raises(ValueError):  # other limbs
+        rns.rns_neg(x[:, :3].contiguous(), plan)
+    with pytest.raises(ValueError):  # the parts of a pair on two rings
+        half = torch.zeros((4, n // 2), dtype=torch.int64, device=dev)
+        rns.rns_add((x, half), (x, half), plan)
+    with pytest.raises(ValueError):  # not int64
+        rns.rns_add(x, x.int(), plan)
+    with pytest.raises(ValueError):  # one value a row: no 16-byte word
+        one = rns.rns_plan(qs, 1)
+        rns.rns_add(torch.zeros((2, 4, 1), dtype=torch.int64, device=dev), torch.zeros((2, 4, 1), dtype=torch.int64, device=dev), one)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("adds", ["tensor", "pair", "pair, first None", "pair, second None"])
+def test_rescale_add_kernel_matches_plain(dev, k, adds):
+    """K-RESCALE with the add after it, at the CKKS mul's shapes (the key
+    switch's (2, 16, L + P, N) by P with d0 and d1, or with b alone; a
+    (16, L + 1, N) rescale with a tensor): == its plain version, and == the
+    route it replaced (the rescale, then the eager adds on the card)."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs, n = _rns_primes(16), 1 << 13
+    rng = np.random.default_rng(k * 10 + len(adds))
+    keep = qs[:-k]
+    lead = (16,) if adds == "tensor" else (2, 16)
+    x = _rns_residues(rng, qs, lead, n)
+    if adds == "tensor":
+        add = _rns_residues(rng, keep, (16,), n)
+        dev_add = add.to(dev)
+    else:
+        add = [_rns_residues(rng, keep, (16,), n) for _ in range(2)]
+        if adds.endswith("first None"):
+            add[0] = None
+        if adds.endswith("second None"):
+            add[1] = None
+        add, dev_add = tuple(add), tuple(None if a is None else a.to(dev) for a in add)
+    launches = rns.rescale_finish.launches
+    got = rns.rescale_k(x.to(dev), qs, k, add=dev_add)
+    assert rns.rescale_finish.launches == launches + 1
+    want = rns.rescale_k(x, qs, k, add=add)
+    if adds != "tensor":  # a pair of adds gives the pair of parts
+        got, want = torch.stack(got), torch.stack(want)
+    _same(got, want)
+    plain = rns.rescale_k(x.to(dev), qs, k)
+    q = rns.rns_tables(rns.rns_plan(keep, n), dev).q
+    if adds == "tensor":
+        parent = rns.add_mod_v(plain, dev_add, q)
+    else:
+        parent = torch.stack([v if a is None else rns.add_mod_v(v, a, q) for v, a in zip(plain, dev_add)])
+    _same(got, parent.cpu())
+
+
+@pytest.mark.parametrize("dnum", [1, 2, 3])
+def test_base_convert_rows_kernel_matches_plain(dev, dnum):
+    """K-BASECONV writing into QP rows with x's own limbs copied by the same
+    launch: the key switch's hoist `_ks_extend` at a level below the top
+    (a digit's limbs between the others), the limb-sharded ladder's digit
+    range, `mod_raise` and BGV's extension; == the CPU path and == the route
+    they replaced (concatenate, select, stack on the card)."""
+    from learn_fhe_tpu_torch.models import bgv as G
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.models.ckks import evalmod as E
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = C.CkksParams(log_n=13, log_qi=55, big_l=8, dnum=dnum)
+    qs, qps = params.qs[:7], params.qs[:7] + params.ps
+    a = _rns_residues(np.random.default_rng(dnum), qs, (16,), params.n)
+    launches = rns.base_convert.launches
+    got = C._ks_extend(params, a.to(dev), qs)
+    slices = params.digit_slices(len(qs))
+    assert rns.base_convert.launches == launches + len(slices)
+    _same(got, C._ks_extend(params, a, qs))
+    outs = []
+    for s, e in slices:
+        src = qs[s:e]
+        rest = tuple(q for q in qps if q not in src)
+        x = a.to(dev)[..., s:e, :]
+        ext = torch.cat([x, rns.extend_bases(x, src, rest)], dim=-2)
+        have = src + rest
+        outs.append(ext.index_select(-2, torch.tensor([have.index(q) for q in qps], device=dev)))
+    _same(got, torch.stack(outs, dim=-3).cpu())
+    if len(slices) > 1:
+        _same(C._ks_extend(params, a.to(dev), qs, (1, len(slices))), got[..., 1:, :, :].cpu())
+    low = C.CkksCiphertext(*(_rns_residues(np.random.default_rng(dnum + i), params.qs[:1], (2,), params.n).to(dev) for i in (5, 6)), params.qs[:1])
+    raised = E.mod_raise(params, low)
+    cpu_low = C.CkksCiphertext(low.b.cpu(), low.a.cpu(), low.qs)
+    want = E.mod_raise(params, cpu_low)
+    _same(raised.b, want.b)
+    _same(raised.a, want.a)
+    bp = G.BgvParams(log_n=14, t=65537, log_qi=45, big_l=4)
+    d2 = _rns_residues(np.random.default_rng(dnum + 9), bp.qs, (16,), bp.n)
+    ext = G.bgv._ks_extend(bp, d2.to(dev), bp.qs)
+    _same(ext, G.bgv._ks_extend(bp, d2, bp.qs))
+    _same(ext, torch.cat([d2.to(dev), rns.extend_bases(d2.to(dev), bp.qs, bp.ps)], dim=-2).cpu())
+
+
+def test_base_convert_rows_past_its_shared_memory(dev):
+    """64 input limbs into more output primes than one launch's tables hold:
+    each slice's launch writes its rows of one output (reversed here), and
+    only the first copies x's limbs."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    primes = _rns_primes(64 + rns._conv_out_limbs(64) + 7)
+    qs, ps = primes[:64], primes[64:]
+    x = _rns_residues(np.random.default_rng(165), qs, (2,), 1 << 10)
+    rows, own = tuple(range(len(qs), len(primes)))[::-1], tuple(range(len(qs)))
+    out = torch.zeros((2, len(primes), 1 << 10), dtype=torch.int64, device=dev)
+    launches = rns.base_convert.launches
+    rns.base_convert(x.to(dev), qs, ps, out=out, rows=rows, own=own)
+    assert rns.base_convert.launches - launches == -(-len(ps) // rns._conv_out_limbs(64))
+    want = torch.zeros((2, len(primes), 1 << 10), dtype=torch.int64)
+    rns.base_convert(x, qs, ps, out=want, rows=rows, own=own)
+    _same(out, want)
+
+
+def test_rns_add_pair_of_two_layouts_and_strided(dev):
+    """K-RNS-ADD on a pair whose parts differ in shape (a batched b beside an
+    unbatched a): one launch, == the CPU path; a strided operand is taken as
+    its contiguous copy."""
+    from learn_fhe_tpu_torch.ops import rns
+
+    qs, n = _rns_primes(4), 1 << 10
+    plan = rns.rns_plan(qs, n)
+    rng = np.random.default_rng(77)
+    b0, a0, b1, a1 = _rns_residues(rng, qs, (16,), n), _rns_residues(rng, qs, (), n), _rns_residues(rng, qs, (), n), _rns_residues(rng, qs, (), n)
+    for fn in (rns.rns_add, rns.rns_sub):
+        launches = fn.launches
+        got = fn((b0.to(dev), a0.to(dev)), (b1.to(dev), a1.to(dev)), plan)
+        assert fn.launches == launches + 1
+        want = fn((b0, a0), (b1, a1), plan)
+        assert tuple(got[0].shape) == (16, 4, n) and tuple(got[1].shape) == (4, n)
+        _same(got[0], want[0])
+        _same(got[1], want[1])
+    strided = b0.to(dev).transpose(-1, -2).contiguous().transpose(-1, -2)
+    _same(rns.rns_neg(strided, plan), rns.rns_neg(b0, plan))
+
+
+def test_ckks_ops_on_a_ciphertext_of_two_shapes(dev):
+    """CKKS add, key switch, rotation and hoisted rotations on a ciphertext
+    with a batched b and an unbatched a: == the CPU path (the b add past
+    the rescale's launch, broadcast by K-RNS-ADD)."""
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+
+    params = C.CkksParams(log_n=10, log_qi=55, big_l=4)
+    rng = np.random.default_rng(13)
+    sk = C.sk_gen(params, rng)
+    rlk = C.rlk_gen(params, sk, rng, "cpu")
+    rtks = tuple(C.rtk_gen(params, sk, j, rng, "cpu") for j in (1, 3))
+    on_dev = lambda k: C.CkksKeySwitchingKey(k.b.to(dev), k.a.to(dev), k.qs)  # noqa: E731
+    ct = C.CkksCiphertext(_rns_residues(rng, params.qs, (3,), params.n), _rns_residues(rng, params.qs, (), params.n), params.qs)
+    ct1 = C.CkksCiphertext(_rns_residues(rng, params.qs, (), params.n), _rns_residues(rng, params.qs, (), params.n), params.qs)
+    on = lambda c: C.CkksCiphertext(c.b.to(dev), c.a.to(dev), c.qs)  # noqa: E731
+    drtks = tuple(C.CkksRotKey(on_dev(k.ksk), k.j) for k in rtks)
+    pairs = [
+        (C.add(on(ct), on(ct1)), C.add(ct, ct1)),
+        (C.key_switch(params, on_dev(rlk), on(ct)), C.key_switch(params, rlk, ct)),
+        (C.rotate(params, drtks[0], on(ct)), C.rotate(params, rtks[0], ct)),
+        *zip(C.hoisted_rotations(params, drtks, on(ct), (1, 3)), C.hoisted_rotations(params, rtks, ct, (1, 3))),
+    ]
+    for got, want in pairs:
+        _same(got.b, want.b)
+        _same(got.a, want.a)
+
+
+def test_ring_ops_launch_their_kernels_once(dev):
+    """CKKS and BGV add and sub: one K-RNS-ADD launch for b and a; the CKKS
+    key switch: its b add inside K-RESCALE (no K-RNS-ADD launch); each ==
+    the CPU path."""
+    from learn_fhe_tpu_torch.models import bgv as G
+    from learn_fhe_tpu_torch.models.ckks import ckks as C
+    from learn_fhe_tpu_torch.ops import rns
+
+    params = C.CkksParams(log_n=10, log_qi=55, big_l=4)
+    rng = np.random.default_rng(12)
+    cts = [C.CkksCiphertext(_rns_residues(rng, params.qs, (3,), params.n), _rns_residues(rng, params.qs, (3,), params.n), params.qs) for _ in range(2)]
+    on = lambda ct: C.CkksCiphertext(ct.b.to(dev), ct.a.to(dev), ct.qs)  # noqa: E731
+    for fn, wrapper in ((C.add, rns.rns_add), (C.sub, rns.rns_sub)):
+        launches = wrapper.launches
+        got = fn(on(cts[0]), on(cts[1]))
+        assert wrapper.launches == launches + 1
+        want = fn(*cts)
+        _same(got.b, want.b)
+        _same(got.a, want.a)
+    rlk = C.rlk_gen(params, C.sk_gen(params, rng), rng, dev)
+    cpu_rlk = C.CkksKeySwitchingKey(rlk.b.cpu(), rlk.a.cpu(), rlk.qs)
+    adds = rns.rns_add.launches
+    got = C.key_switch(params, rlk, on(cts[0]))
+    assert rns.rns_add.launches == adds
+    want = C.key_switch(params, cpu_rlk, cts[0])
+    _same(got.b, want.b)
+    _same(got.a, want.a)
+    bp = G.BgvParams(log_n=10, t=65537, log_qi=45, big_l=3)
+    g = [G.BgvCiphertext(_rns_residues(rng, bp.qs, (3,), bp.n), _rns_residues(rng, bp.qs, (3,), bp.n), bp.qs) for _ in range(2)]
+    gon = lambda ct: G.BgvCiphertext(ct.b.to(dev), ct.a.to(dev), ct.qs)  # noqa: E731
+    for fn, wrapper in ((G.add, rns.rns_add), (G.sub, rns.rns_sub)):
+        launches = wrapper.launches
+        got = fn(gon(g[0]), gon(g[1]))
+        assert wrapper.launches == launches + 1
+        want = fn(*g)
+        _same(got.b, want.b)
+        _same(got.a, want.a)

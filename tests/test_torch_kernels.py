@@ -40,6 +40,7 @@ _PRE = "_ZN49_GLOBAL__N__7e2f3a4b_16_fhew_preamble_cu_b2c3d4e520fhew_preamble_ke
 # K-TFHE-PRE's instance by its bool, K-EXTRACT's by its element type
 _FRONT = "_ZN46_GLOBAL__N__8a1b2c3d_13_tfhe_front_cu_c4d5e6f717tfhe_front_kernelILb1EEEvPKmS2_S2_PxS3_S3_NS_5FrontE"
 _EXTRACT = "_ZN48_GLOBAL__N__9b2c3d4e_15_rlwe_extract_cu_d5e6f7a819rlwe_extract_kernelIiEEvPKT_S3_PxS4_iiiyy"
+_RNS_ADD = "_ZN40_GLOBAL__N__1c2d3e4f_8_rns64_cu_e6f7a8b914rns_add_kernelILi1EEEvNS_8AddPartsEPKmiiiii"
 _WALK64 = (
     "_ZN44_GLOBAL__N__0f9cfd78_11_fhew_u64_cu_b001eb1726fhew_blind_rotate64_kernelILb1ELb0EEEvPKmS2_PmS3_PKiS5_iS2_"
     "S2_iS2_S2_S5_PKhiN5lft646TablesENS6_6GadgetES8_iiPi"
@@ -85,6 +86,7 @@ def _entry(mangled: str, regs: int, spill: int) -> str:
         (_FRONT.replace("ILb1EE", "ILb0EE"), "tfhe_front_kernel<false>"),
         (_EXTRACT, "rlwe_extract_kernel<int>"),
         (_EXTRACT.replace("IiEE", "IxEE"), "rlwe_extract_kernel<long long>"),
+        (_RNS_ADD, "rns_add_kernel<1>"),
     ],
 )
 def test_ptxas_report_names_each_kernel(mangled, name):
